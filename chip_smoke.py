@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``ddti_tpu_torch``) on one NVIDIA card.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one or more lines each; any failure ends the run with a traceback
+and a non-zero exit:
+
+1. device  — needs CUDA; prints the card's name and power limit (nvidia-smi)
+             and turns TF32 off, so float32 means float32.
+2. build   — compiles the CUDA sources under ddti_tpu_torch/csrc with nvcc.
+3. kernels — every kernel of the serving path against its plain PyTorch
+             version on the card, at the path's shapes, with timings.
+4. slice   — the serving daemon (ddti_tpu_torch.cli.serve) with the
+             TransUNet of configs/config.yaml (base_filters 64, depth 4,
+             512x512 -> 1024 bottleneck tokens), random weights from a seed,
+             bf16, batch 16. A few dozen PNG frames are POSTed concurrently
+             to /predict; the flash kernel's launch count must rise by 4
+             (one per encoder layer) for every batch. In bf16, the kernel
+             path's masks must agree with a plain-attention run of the same
+             frames as closely as the kernel's own plain version does (the
+             bf16 noise floor): tightly when batched alike in-process,
+             loosely for the masks the daemon served (its batches form by
+             arrival). In float32 both paths' masks must agree on >= 99.9%
+             of pixels and their logits to 1e-3.
+5. profile — device time per bf16 batch of 16 on the kernel path and on the
+             plain path (CUDA events), and a torch.profiler breakdown of the
+             kernel path by device kernel with the device's busy share.
+6. result  — a JSON line of the kernels, then the device line.
+"""
+
+import concurrent.futures
+import http.client
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+SEED = 0
+SLICE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
+             image_size=512)
+N_LAYERS = 4          # TransUNet's fixed encoder depth
+BATCH = 16
+N_FRAMES = 64
+# bf16 masks of the kernel path may disagree with the plain path's on at
+# most this share of pixels more than the kernel's own plain version does:
+# KERNEL_MARGIN when all three are batched alike in-process, SERVED_MARGIN
+# for the masks the daemon served, whose batches form by arrival
+KERNEL_MARGIN = 5e-5
+SERVED_MARGIN = 5e-4
+# kernel vs plain: bf16 differs by the rounding of the probability tile,
+# float32 by summation order only
+O_LIMIT = {"bfloat16": 2e-2, "float32": 1e-4}
+LSE_LIMIT = 1e-3
+# (B, H, S, D, dtype): the slice's shape in both dtypes, the S = 4096
+# bottleneck of config.yaml's TransUNet at depth 3, and full-width heads
+KERNEL_SHAPES = [(16, 8, 1024, 32, "bfloat16"), (16, 8, 1024, 32, "float32"),
+                 (2, 8, 4096, 32, "bfloat16"), (2, 2, 1024, 128, "float32")]
+F32_LOGIT_LIMIT = 1e-3
+# float32 masks of the kernel path and the plain path: at least this share
+# of pixels agree (bf16 masks are held to the noise floor above instead)
+F32_MASK_AGREE = 0.999
+PROFILE_BATCHES = 5
+PROFILE_TOP = 8
+
+
+def phase(name, msg):
+    print(f"[{name}] {msg}", flush=True)
+
+
+def median_ms(fn, runs=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_kernels():
+    import torch
+
+    from ddti_tpu_torch.ops import attention as A
+
+    rows = []
+    for b, h, s, d, dt in KERNEL_SHAPES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device="cuda")
+                   .to(dtype) for _ in range(3))
+        o, lse = A.flash_forward_cuda(q, k, v)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        finite = bool(torch.isfinite(o.float()).all()
+                      and torch.isfinite(lse).all())
+        ms = median_ms(lambda: A.flash_forward_cuda(q, k, v))
+        plain_ms = median_ms(lambda: A.flash_forward_reference(q, k, v))
+        phase("kernels", f"flash_fwd {(b, h, s, d)} {dt}: max|do| {err_o:.3e} "
+              f"(limit {O_LIMIT[dt]:g}) max|dlse2| {err_lse:.3e} (limit "
+              f"{LSE_LIMIT:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        assert finite, "non-finite kernel output"
+        assert err_o <= O_LIMIT[dt] and err_lse <= LSE_LIMIT, \
+            "kernel disagrees with its plain version"
+        rows.append(dict(shape=[b, h, s, d], dtype=dt, max_abs_err=err_o,
+                         max_abs_err_lse2=err_lse, ms=ms, plain_ms=plain_ms))
+    return rows
+
+
+def random_state(model, seed):
+    """Seeded random weights: He-scaled conv/linear weights, BatchNorm and
+    LayerNorm affines near identity, BN statistics near (0, 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, t in model.state_dict().items():
+        def normal(std):
+            return torch.randn(t.shape, generator=g) * std
+        if name.endswith("running_var"):
+            sd[name] = torch.rand(t.shape, generator=g) + 0.5
+        elif name.endswith("pos_emb"):
+            sd[name] = normal(1.0)
+        elif t.dim() == 1:
+            sd[name] = normal(0.1) + (1.0 if name.endswith("weight") else 0.)
+        else:
+            fan_in = t.shape[0] if name.startswith("upconvs") else t[0].numel()
+            sd[name] = normal((2.0 / fan_in) ** 0.5)
+    return sd
+
+
+def make_frames(n, size, seed):
+    """Ultrasound-like test frames: speckle over a dark field with one
+    brighter ellipse each, as uint8 (size, size)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    frames = []
+    for _ in range(n):
+        cy, cx, ry, rx = rng.uniform([0.3, 0.3, 0.08, 0.08],
+                                     [0.7, 0.7, 0.25, 0.25])
+        inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        img = 60 + 90 * inside + rng.normal(0, 25, (size, size))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def post(port, body, path="/predict?format=raw"):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=body)
+    resp = conn.getresponse()
+    data = resp.read()
+    dt = time.perf_counter() - t0
+    conn.close()
+    return resp.status, dict(resp.getheaders()), data, dt
+
+
+def get_json(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    assert resp.status == 200, (path, resp.status, body)
+    return body
+
+
+def run_batches(model, x, dtype):
+    """uint8 (N, S, S, 1) frames -> (N, S, S) masks, BATCH at a time."""
+    import torch
+
+    from ddti_tpu_torch.train.export import make_serve_fn
+
+    serve = make_serve_fn(model, compute_dtype=dtype)
+    out = torch.cat([serve(x[i:i + BATCH]) for i in range(0, len(x), BATCH)])
+    return out[..., 0].cpu().numpy()
+
+
+def run_slice(tmp):
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddti_tpu_torch.cli import serve
+    from ddti_tpu_torch.models import blocks, create_model
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+
+    model = create_model("TransUNet", **SLICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    ckpt = os.path.join(tmp, "transunet_bf64_d4_512.pth")
+    torch.save(random_state(model, SEED), ckpt)
+    phase("slice", f"TransUNet {SLICE}: {n_params} parameters, random "
+          f"weights (seed {SEED}) -> {os.path.basename(ckpt)}")
+
+    args = serve.get_parser().parse_args(
+        ["--checkpoint", ckpt, "--model_type", "TransUNet",
+         "--base_filters", str(SLICE["base_filters"]),
+         "--depth", str(SLICE["depth"]),
+         "--image_size", str(SLICE["image_size"]),
+         "--batch_size", str(BATCH), "--bf16", "--device", "cuda",
+         "--port", "0"])
+    t0 = time.perf_counter()
+    server = serve.create_server(args)
+    phase("slice", f"server up in {time.perf_counter() - t0:.2f} s "
+          f"(load + warm-up batch) on port {server.server_address[1]}")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        health = get_json(port, "/healthz")
+        phase("slice", f"/healthz {json.dumps(health)}")
+        frames = make_frames(N_FRAMES, SLICE["image_size"], SEED)
+        bodies = []
+        for f in frames:
+            buf = io.BytesIO()
+            Image.fromarray(f, "L").save(buf, "PNG")
+            bodies.append(buf.getvalue())
+
+        A.flash_forward_cuda.launches = 0
+        batches0 = server.batcher.n_batches
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(N_FRAMES) as pool:
+            answers = list(pool.map(lambda b: post(port, b), bodies))
+        wall = time.perf_counter() - t0
+        launches = A.flash_forward_cuda.launches
+        n_batches = server.batcher.n_batches - batches0
+
+        lat = sorted(a[3] * 1e3 for a in answers)
+        q = {p: lat[min(len(lat) - 1, int(len(lat) * p / 100))]
+             for p in (50, 90, 99)}
+        phase("slice", f"{N_FRAMES} concurrent POST /predict: {n_batches} "
+              f"batches, {launches} flash_fwd launches, wall {wall:.3f} s, "
+              f"{N_FRAMES / wall:.2f} img/s, client latency p50 {q[50]:.1f} "
+              f"p90 {q[90]:.1f} p99 {q[99]:.1f} ms")
+        stats = get_json(port, "/stats")
+        phase("slice", f"/stats {json.dumps(stats)}")
+
+        # a JPEG of another size comes back as a PNG mask of that size
+        buf = io.BytesIO()
+        Image.fromarray(frames[0], "L").resize((600, 480)).save(buf, "JPEG")
+        status, headers, data, _ = post(port, buf.getvalue(), "/predict")
+        odd = np.asarray(Image.open(io.BytesIO(data)))
+        phase("slice", f"600x480 JPEG -> HTTP {status} "
+              f"{headers.get('Content-Type')} mask {odd.shape}")
+        assert status == 200 and odd.shape == (480, 600)
+        assert set(np.unique(odd)) <= {0, 255}
+    finally:
+        server.shutdown()
+        server.close()
+        thread.join(timeout=30)
+
+    masks = []
+    for status, headers, data, _ in answers:
+        assert status == 200, (status, data[:200])
+        h, w = int(headers["X-Height"]), int(headers["X-Width"])
+        assert (h, w) == frames[0].shape
+        masks.append(np.frombuffer(data, np.uint8).reshape(h, w) // 255)
+    masks = np.stack(masks)
+    assert set(np.unique(masks)) <= {0, 1}
+    assert n_batches < N_FRAMES, "requests did not coalesce"
+    assert launches == N_LAYERS * n_batches, \
+        f"{launches} kernel launches for {n_batches} batches"
+    assert stats["images"] >= N_FRAMES and stats["errors"] == 0
+
+    # the same frames through the plain attention path, explicitly chosen
+    plain = load_checkpoint_into(
+        ckpt, "TransUNet",
+        create_model("TransUNet", use_flash_attention=False, **SLICE))
+    x = torch.from_numpy(np.stack(frames)[..., None]).cuda()
+    A.flash_forward_cuda.launches = 0
+    ref = run_batches(plain.cuda(), x, torch.bfloat16)
+    assert A.flash_forward_cuda.launches == 0, "the plain path launched"
+    flash = load_checkpoint_into(ckpt, "TransUNet",
+                                 create_model("TransUNet", **SLICE)).cuda()
+    kern = run_batches(flash, x, torch.bfloat16)
+    # bf16 noise floor: the flash path with the kernel swapped for its own
+    # plain version. Two correct bf16 attentions already differ by about a
+    # bf16 ulp, which the bf16 decoder turns into flips of the pixels whose
+    # logit lies that close to the threshold.
+    launched = A.flash_forward_cuda.launches
+    blocks.flash_attention = lambda q, k, v: A.flash_forward_reference(
+        q, k, v)[0]
+    try:
+        twin = run_batches(flash, x, torch.bfloat16)
+    finally:
+        blocks.flash_attention = A.flash_attention
+    assert A.flash_forward_cuda.launches == launched
+    floor = float((ref == twin).mean())
+    agree = float((ref == kern).mean())
+    served = float((ref == masks).mean())
+    phase("slice", f"bf16 masks vs plain path: kernel's plain twin (noise "
+          f"floor) {floor:.6%}; kernel path batched alike {agree:.6%} "
+          f"(limit floor - {KERNEL_MARGIN:g}); served by the daemon "
+          f"{served:.6%} (limit floor - {SERVED_MARGIN:g}); served vs "
+          f"batched alike {float((kern == masks).mean()):.6%}; foreground "
+          f"{masks.mean():.3f}")
+
+    # float32 masks of both paths on every frame: only attention differs,
+    # by summation order
+    agree32 = float((run_batches(flash, x, torch.float32)
+                     == run_batches(plain, x, torch.float32)).mean())
+    phase("slice", f"float32 masks: kernel path vs plain path agree on "
+          f"{agree32:.6%} of pixels (limit {F32_MASK_AGREE:.1%})")
+    # and their logits on two frames
+    xf = x[:2].permute(0, 3, 1, 2).float() / 255.0
+    with torch.inference_mode():
+        lf, lp = flash(xf), plain(xf)
+    torch.cuda.synchronize()
+    dlogit = (lf - lp).abs().max().item()
+    near = (lp.abs() < 1e-2).float().mean().item()
+    phase("slice", f"float32 logits kernel vs plain path: max|d| "
+          f"{dlogit:.3e} (limit {F32_LOGIT_LIMIT:g}), shape "
+          f"{tuple(lf.shape)}, share of |logit| < 1e-2: {near:.5f}")
+    size = SLICE["image_size"]
+    assert lf.shape == (2, 1, size, size) and torch.isfinite(lf).all()
+    assert dlogit <= F32_LOGIT_LIMIT
+    assert agree32 >= F32_MASK_AGREE, \
+        "float32 masks of the kernel path and the plain path disagree"
+    assert agree >= floor - KERNEL_MARGIN, \
+        "the kernel path disagrees with the plain path beyond bf16 noise"
+    assert served >= floor - SERVED_MARGIN, \
+        "the served masks disagree with the plain path beyond bf16 noise"
+    assert 0.0 < masks.mean() < 1.0, "degenerate masks"
+    return launches, ckpt
+
+
+def profile_slice(ckpt):
+    """Device time of one bf16 batch through ``make_serve_fn`` on both
+    attention paths, and where the kernel path's device time goes."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.export import make_serve_fn
+
+    x = torch.from_numpy(np.stack(make_frames(
+        BATCH, SLICE["image_size"], SEED + 1))[..., None]).cuda()
+    serve = {}
+    for path, flash in (("kernel", None), ("plain", False)):
+        model = create_model("TransUNet", use_flash_attention=flash, **SLICE)
+        serve[path] = make_serve_fn(
+            load_checkpoint_into(ckpt, "TransUNet", model).cuda(),
+            compute_dtype=torch.bfloat16)
+    order = ("plain", "kernel", "kernel", "plain")
+    ms = [median_ms(lambda: serve[path](x)) for path in order]
+    phase("profile", f"device time per bf16 batch of {BATCH} at "
+          f"{SLICE['image_size']}^2 (CUDA events, median of 20), order "
+          f"{', '.join(order)}: {', '.join(f'{t:.3f}' for t in ms)} ms")
+
+    torch.cuda.synchronize()
+    launches0 = A.flash_forward_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_BATCHES):
+            serve["kernel"](x)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    phase("profile", f"torch.profiler, {PROFILE_BATCHES} kernel-path "
+          f"batches: window {window_us / 1e3:.3f} ms, device kernels "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / window_us:.1%} busy), "
+          f"{A.flash_forward_cuda.launches - launches0} flash_fwd launches")
+    if not kernels:
+        phase("profile", "no device time recorded: breakdown not measured")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[
+            :PROFILE_TOP]:
+        phase("profile", f"{e.self_device_time_total / busy_us:6.1%} "
+              f"{e.count:4d} x {e.self_device_time_total / e.count / 1e3:.4f}"
+              f" ms  {e.key[:90]}")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)  # as nvidia-smi prints it: name, power limit
+    phase("device", f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from ddti_tpu_torch.ops import _build
+
+    path, secs = _build.build()
+    _build.load_library()
+    phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}: "
+          f"{f'{secs:.2f} s' if secs else 'already built'} -> "
+          f"{os.path.relpath(path)}")
+
+    rows = check_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, ckpt = run_slice(tmp)
+        profile_slice(ckpt)
+
+    main_row = rows[0]
+    print(json.dumps({"kernels": [{
+        "name": "flash_fwd",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "ddti_tpu/ops/attention.py:347",
+        "also_replaces": "ddti_tpu/ops/attention.py:104",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "shapes": rows,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,432 @@
+"""Online HTTP model server, ported from ``ddti_tpu/cli/serve.py``: the
+live-checkpoint path on one CUDA device (or, when asked for, the CPU).
+
+Concurrent requests coalesce into fixed ``(batch, size, size, 1)`` batches,
+padded when sparse, so throughput approaches the offline rate while a lone
+request waits at most ``--max_wait_ms`` for batch-mates.
+
+Endpoints:
+  GET  /healthz   liveness + model info (JSON)
+  GET  /stats     request/image/batch counters, throughput, latency (JSON)
+  POST /predict   body = raw image bytes (JPEG/PNG/BMP, any size, decoded
+                  with PIL); response = PNG mask at the ORIGINAL resolution.
+                  ``?format=raw`` returns raw uint8 bytes (X-Width /
+                  X-Height / X-Channels headers) and skips the PNG encoder.
+
+Usage:
+  python -m ddti_tpu_torch.cli.serve --checkpoint <.pth|.npz> \
+      --model_type TransUNet --base_filters 64 --depth 4 --image_size 512 \
+      --batch_size 16 --bf16 [--device cuda]
+
+Not ported yet (ROADMAP.md): serving bundles, /reload, --watch, /metrics,
+overlays, native JPEG decode, --tta, --fold_bn.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import io
+import json
+import queue
+import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+
+class QueueFull(Exception):
+    """Raised by ``Batcher.submit`` when the pending queue is at
+    ``max_queue`` — the HTTP layer maps it to 503 + Retry-After."""
+
+
+class Batcher:
+    """Micro-batching executor: requests enqueue single frames; a worker
+    thread coalesces up to ``batch_n`` of them (waiting at most
+    ``max_wait_ms`` after the first arrival), zero-pads the tail, and runs
+    one fixed-shape device program for the whole group.
+
+    ``max_queue`` bounds the pending-frame queue (backpressure): beyond it
+    ``submit`` raises :class:`QueueFull` instead of letting latency — and
+    one blocked handler thread per request — grow without bound."""
+
+    def __init__(self, predict, batch_n: int, max_wait_ms: float = 5.0,
+                 max_queue: int | None = None):
+        self.predict = predict
+        self.batch_n = int(batch_n)
+        self.max_wait = max_wait_ms / 1000.0
+        self.max_queue = int(max_queue) if max_queue else 8 * self.batch_n
+        self._q: queue.Queue = queue.Queue()
+        self._stop = False
+        self.lock = threading.Lock()
+        self.n_batches = 0
+        self.n_images = 0
+        self.n_rejected = 0
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ddti-batcher")
+        self._thread.start()
+
+    def submit(self, arr):
+        """``arr``: (size, size, 1) uint8 frame. Blocks until its mask is
+        computed; returns the (size, size, 1) uint8 {0,1} mask. Raises
+        :class:`QueueFull` when ``max_queue`` frames are already waiting."""
+        if self._q.qsize() >= self.max_queue:
+            with self.lock:
+                self.n_rejected += 1
+            raise QueueFull(
+                f"{self._q.qsize()} frames pending (max_queue="
+                f"{self.max_queue})")
+        ev = threading.Event()
+        slot: dict = {}
+        self._q.put((arr, ev, slot))
+        ev.wait()
+        if "error" in slot:
+            raise slot["error"]
+        return slot["mask"]
+
+    def close(self):
+        self._stop = True
+        self._q.put(None)
+        self._thread.join(timeout=10)
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                if self._stop:
+                    return
+                continue
+            items = [item]
+            deadline = time.perf_counter() + self.max_wait
+            while len(items) < self.batch_n:
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=left)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    if self._stop:
+                        break
+                    continue
+                items.append(nxt)
+            try:
+                self._flush(items)
+            except BaseException as e:  # the worker must NEVER die —
+                # every submit() waits on an Event with no timeout, so an
+                # escaped exception here would hang all clients forever
+                err = (e if isinstance(e, Exception)
+                       else RuntimeError(repr(e)))
+                for _, ev, slot in items:
+                    if not ev.is_set():
+                        slot["error"] = err
+                        ev.set()
+            if self._stop and self._q.empty():
+                return
+
+    def _flush(self, items):
+        import numpy as np
+
+        x = np.stack([a for a, _, _ in items])
+        if len(items) < self.batch_n:
+            pad = np.zeros((self.batch_n - len(items),) + x.shape[1:],
+                           x.dtype)
+            x = np.concatenate([x, pad])
+        try:
+            masks = np.asarray(self.predict(x))[:len(items)]
+        except Exception as e:  # surface device errors to every waiter
+            for _, ev, slot in items:
+                slot["error"] = e
+                ev.set()
+            return
+        with self.lock:
+            self.n_batches += 1
+            self.n_images += len(items)
+        for m, (_, ev, slot) in zip(masks, items):
+            slot["mask"] = m
+            ev.set()
+
+
+def resolve_device(name: str):
+    """``--device`` -> ``torch.device``. A CUDA device that is not there
+    raises: the server never falls back to the CPU on its own."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"--device {name}: CUDA is not available. Pass --device cpu "
+                f"to serve on the CPU deliberately")
+        # float32 serving means float32: no TF32 in convolutions or matmuls
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif device.type != "cpu":
+        raise ValueError(f"--device {name}: expected cuda[:N] or cpu")
+    return device
+
+
+def load_predictor(args):
+    """Build the live model from ``--checkpoint`` on ``--device``.
+
+    Returns ``(predict, batch_n, size, info)`` where ``predict`` maps a
+    uint8 ``(batch_n, size, size, 1)`` numpy array to uint8 {0,1} masks of
+    the same shape."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.export import make_serve_fn
+
+    device = resolve_device(args.device)
+    kwargs = dict(in_channels=1, out_channels=1,
+                  base_filters=args.base_filters, depth=args.depth)
+    if args.model_type == "TransUNet":
+        kwargs["image_size"] = args.image_size
+    model = create_model(args.model_type, **kwargs)
+    load_checkpoint_into(args.checkpoint, args.model_type, model)
+    serve = make_serve_fn(model.to(device), threshold=args.threshold,
+                          compute_dtype=(torch.bfloat16 if args.bf16
+                                         else torch.float32))
+
+    def predict(x):
+        out = serve(torch.from_numpy(np.ascontiguousarray(x)).to(device))
+        return out.cpu().numpy()
+
+    info = {"model": args.model_type, "base_filters": args.base_filters,
+            "depth": args.depth, "device": str(device)}
+    return predict, args.batch_size, args.image_size, info
+
+
+def _quantiles(latencies) -> list:
+    """(50, p50), (90, p90), (99, p99) over the recent-latency ring
+    (empty list when no requests yet)."""
+    if not latencies:
+        return []
+    s = sorted(latencies)
+    return [(q, s[min(len(s) - 1, int(len(s) * q / 100))])
+            for q in (50, 90, 99)]
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = "ddti-tpu-torch-serve/1.0"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *a):  # route access logs through our logger
+        if self.server.verbose:  # type: ignore[attr-defined]
+            sys.stderr.write("%s - %s\n" % (self.address_string(),
+                                            fmt % a))
+
+    def _json(self, code: int, obj) -> None:
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        srv = self.server
+        path = urlparse(self.path).path
+        if path == "/healthz":
+            self._json(200, {"status": "ok", "batch": srv.batcher.batch_n,
+                             "size": srv.size, **srv.info})
+        elif path == "/stats":
+            with srv.stats_lock, srv.batcher.lock:
+                n = srv.n_requests
+                up = time.perf_counter() - srv.t_start
+                self._json(200, {
+                    "requests": n,
+                    "errors": srv.n_errors,
+                    "images": srv.batcher.n_images,
+                    "batches": srv.batcher.n_batches,
+                    "mean_batch_fill": round(
+                        srv.batcher.n_images
+                        / max(srv.batcher.n_batches, 1), 3),
+                    "uptime_s": round(up, 3),
+                    "images_per_sec": round(
+                        srv.batcher.n_images / max(up, 1e-9), 3),
+                    "mean_latency_ms": round(
+                        1e3 * srv.total_latency / max(n, 1), 3),
+                    **{f"latency_p{q}_ms": round(1e3 * v, 3)
+                       for q, v in _quantiles(srv.recent_latency)},
+                    "rejected": srv.batcher.n_rejected,
+                    "queue_depth": srv.batcher._q.qsize(),
+                })
+        else:
+            self._json(404, {"error": f"unknown path {path}"})
+
+    def do_POST(self):
+        import numpy as np
+        from PIL import Image
+
+        srv = self.server
+        parsed = urlparse(self.path)
+        if parsed.path != "/predict":
+            self._json(404, {"error": f"unknown path {parsed.path}"})
+            return
+        t0 = time.perf_counter()
+        query = parse_qs(parsed.query)
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            data = self.rfile.read(length)
+            img = Image.open(io.BytesIO(data)).convert("L")
+            orig_size = img.size
+            arr = np.asarray(img.resize((srv.size, srv.size),
+                                        Image.BILINEAR), np.uint8)[..., None]
+        except Exception as e:
+            with srv.stats_lock:
+                srv.n_errors += 1
+            self._json(400, {"error": f"could not decode image: {e}"})
+            return
+        try:
+            mask = srv.batcher.submit(arr)
+        except QueueFull as e:
+            self.send_response(503)
+            body = json.dumps({"error": f"overloaded: {e}"}).encode()
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Retry-After", "1")
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        except Exception as e:
+            with srv.stats_lock:
+                srv.n_errors += 1
+            self._json(500, {"error": f"prediction failed: {e}"})
+            return
+        m = Image.fromarray((mask[..., 0] * 255).astype(np.uint8))
+        m = m.resize(orig_size, Image.NEAREST)
+        if query.get("format", ["png"])[0] == "raw":
+            arr = np.asarray(m)
+            body = arr.tobytes()
+            ctype = "application/octet-stream"
+            dims = {"X-Width": str(arr.shape[1]),
+                    "X-Height": str(arr.shape[0]), "X-Channels": "1"}
+        else:
+            buf = io.BytesIO()
+            m.save(buf, "PNG")
+            body = buf.getvalue()
+            ctype = "image/png"
+            dims = {}
+        with srv.stats_lock:
+            srv.n_requests += 1
+            dt = time.perf_counter() - t0
+            srv.total_latency += dt
+            srv.recent_latency.append(dt)
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in dims.items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+
+class PredictionServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer + the model batcher and serving counters."""
+
+    daemon_threads = True
+    # listen backlog: socketserver's default of 5 drops the connects of a
+    # burst of concurrent clients, which then retry after a second
+    request_queue_size = 128
+
+    def __init__(self, addr, batcher: Batcher, size: int, info: dict,
+                 verbose: bool = False):
+        self.batcher = batcher
+        self.size = size
+        self.info = info
+        self.verbose = verbose
+        self.stats_lock = threading.Lock()
+        self.n_requests = 0
+        self.n_errors = 0
+        self.total_latency = 0.0
+        # ring of the last 1024 request latencies for quantiles
+        self.recent_latency = collections.deque(maxlen=1024)
+        self.t_start = time.perf_counter()
+        super().__init__(addr, _Handler)
+
+    def close(self):
+        self.batcher.close()
+        self.server_close()
+
+
+def create_server(args) -> PredictionServer:
+    """Load the predictor, warm it up (one padded batch, so the first
+    request does not pay the kernel build and cuDNN's first-call set-up),
+    and bind the HTTP server. ``--port 0`` binds an ephemeral port
+    (``server.server_address[1]`` reveals it)."""
+    import numpy as np
+
+    predict, batch_n, size, info = load_predictor(args)
+    if not args.no_warmup:
+        predict(np.zeros((batch_n, size, size, 1), np.uint8))
+    batcher = Batcher(predict, batch_n, max_wait_ms=args.max_wait_ms,
+                      max_queue=args.max_queue)
+    return PredictionServer((args.host, args.port), batcher, size, info,
+                            verbose=args.verbose)
+
+
+def get_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="HTTP nodule-segmentation server (PyTorch/CUDA)")
+    ap.add_argument("--checkpoint", required=True,
+                    help=".pth state_dict (reference format) or .npz "
+                         "weight export of the JAX package")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--max_wait_ms", type=float, default=5.0,
+                    help="micro-batching window: how long to hold a "
+                         "request open for batch-mates before running a "
+                         "padded batch")
+    ap.add_argument("--model_type", default="TransUNet")
+    ap.add_argument("--base_filters", type=int, default=64)
+    ap.add_argument("--depth", type=int, default=4)
+    ap.add_argument("--image_size", type=int, default=512)
+    ap.add_argument("--batch_size", type=int, default=16,
+                    help="fixed batch shape of every device run")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 autocast compute (params stay float32)")
+    ap.add_argument("--threshold", type=float, default=0.5,
+                    help="binarization threshold")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda[:N] (default; raises if CUDA is absent) or "
+                         "cpu")
+    ap.add_argument("--max_queue", type=int, default=0,
+                    help="backpressure bound on pending frames (0 = "
+                         "8x batch); beyond it /predict returns 503 + "
+                         "Retry-After instead of queueing unboundedly")
+    ap.add_argument("--no_warmup", action="store_true")
+    ap.add_argument("--verbose", action="store_true",
+                    help="per-request access log")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = get_parser().parse_args(argv)
+    server = create_server(args)
+    host, port = server.server_address[:2]
+    print(f"serving on http://{host}:{port}  "
+          f"(batch={server.batcher.batch_n} size={server.size} "
+          f"{server.info})", flush=True)
+
+    import signal
+
+    def _term(signum, frame):  # SIGTERM (k8s/systemd stop) drains too
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _term)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("shutting down")
+    finally:
+        server.close()  # batcher drains pending frames before exiting
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,156 @@
+"""Shared building blocks, ported from ``ddti_tpu/models/blocks.py``.
+
+PyTorch idiom: NCHW ``nn.Module``s; bf16 compute comes from
+``torch.autocast`` while parameters and BatchNorm statistics stay float32.
+Submodule names follow the torch reference's attribute layout, so the
+``state_dict`` keys are exactly those of
+``ddti_tpu.train.torch_interop.export_state_dict``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddti_tpu_torch.ops.attention import attention_reference, flash_attention
+
+# torch BatchNorm2d defaults (the JAX package's flax momentum 0.9 is the
+# retention factor of the same update)
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm with torch's defaults and without the ``num_batches_tracked``
+    buffer, which the JAX package's export does not carry (it only feeds
+    momentum=None averaging, unused here). Reference ``.pth`` files that do
+    carry it load all the same: the entry is dropped on load."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, self.training,
+                            BN_MOMENTUM, BN_EPS)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class ConvBNAct(nn.Sequential):
+    """(3x3 conv without bias -> BatchNorm -> ReLU) twice; indices 0, 1, 3, 4
+    hold the weights, as in the reference's ``nn.Sequential``."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__(
+            nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
+            BatchNorm2d(features), nn.ReLU(inplace=True),
+            nn.Conv2d(features, features, 3, padding=1, bias=False),
+            BatchNorm2d(features), nn.ReLU(inplace=True))
+
+
+def max_pool_2x2(x):
+    return F.max_pool2d(x, 2, 2)
+
+
+def up_conv(in_channels: int, features: int) -> nn.ConvTranspose2d:
+    """2x2 stride-2 transposed conv (torch's own layout; the checkpoint
+    loaders flip flax kernels into it)."""
+    return nn.ConvTranspose2d(in_channels, features, 2, stride=2)
+
+
+def resize_bilinear(x, h: int, w: int):
+    """Bilinear resize on NCHW, align_corners=False (the decoders only ever
+    upsample, where this equals jax.image's 'linear')."""
+    return F.interpolate(x, size=(h, w), mode="bilinear",
+                         align_corners=False)
+
+
+def match_spatial(x, skip):
+    """Resize ``x`` to ``skip``'s spatial size if they differ."""
+    if x.shape[-2:] != skip.shape[-2:]:
+        x = resize_bilinear(x, skip.shape[-2], skip.shape[-1])
+    return x
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention with torch MHA's parameter names (packed
+    ``in_proj_weight``/``in_proj_bias`` and ``out_proj``), whose attention
+    goes through ``flash_attention`` or the plain path."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float,
+                 use_flash_attention: bool | None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.use_flash_attention = use_flash_attention
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
+                                                       embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x):
+        b, s, e = x.shape
+        h = self.num_heads
+        hd = e // h
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        # q | k | v, then (b, s, h, hd) -> (b, h, s, hd)
+        q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+                   for t in qkv.chunk(3, dim=-1))
+        use_flash = self.use_flash_attention
+        if use_flash is None:
+            # the JAX gate (blocks.py:291) as it is: flash never drops
+            # attention probabilities, so a training step with dropout stays
+            # on the plain path
+            use_flash = (s >= 1024 and s % 256 == 0 and hd % 8 == 0
+                         and (not self.training or self.dropout == 0.0))
+        if use_flash:
+            y = flash_attention(q, k, v)
+        elif self.training and self.dropout:
+            raise NotImplementedError(
+                "attention-probability dropout in training is not ported "
+                "yet (ROADMAP.md, training slice); serve in eval mode")
+        else:
+            y = attention_reference(q, k, v)
+        y = y.transpose(1, 2).reshape(b, s, e)
+        return self.out_proj(y)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN encoder layer with torch ``nn.TransformerEncoderLayer``'s
+    parameter names: x = norm1(x + drop(attn(x))); x = norm2(x +
+    drop(linear2(drop(relu(linear1(x)))))).
+
+    ``attend_batch_axis`` reproduces the reference quirk of attending over
+    the batch axis (see the JAX counterpart)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.1,
+                 attend_batch_axis: bool = False,
+                 use_flash_attention: bool | None = None):
+        super().__init__()
+        self.attend_batch_axis = attend_batch_axis
+        self.self_attn = SelfAttention(embed_dim, num_heads, dropout,
+                                       use_flash_attention)
+        self.linear1 = nn.Linear(embed_dim, 4 * embed_dim)
+        self.linear2 = nn.Linear(4 * embed_dim, embed_dim)
+        self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        if self.attend_batch_axis:
+            x = x.transpose(0, 1)
+        x = self.norm1(x + self.dropout(self.self_attn(x)))
+        y = self.linear2(self.dropout(F.relu(self.linear1(x))))
+        x = self.norm2(x + self.dropout(y))
+        if self.attend_batch_axis:
+            x = x.transpose(0, 1)
+        return x

@@ -1,0 +1,89 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here needs an NVIDIA card (marker ``cuda``) and skips without
+one. The file imports no JAX, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from ddti_tpu_torch.ops import attention as A
+
+pytestmark = pytest.mark.cuda
+
+# bf16 outputs differ from the plain version by bf16 rounding of the
+# probability tile (running vs final max); f32 only by summation order
+O_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_TOL = 1e-3
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(shape, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(device, dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 8, 1024, 32),   # TransUNet bottleneck at 512^2, depth 4
+    (1, 3, 100, 32),    # ragged last query and key tiles
+    (2, 2, 333, 64),
+    (1, 2, 1000, 128),
+    (1, 1, 1, 32),      # a single token
+    (2, 4, 65, 32),     # one key past a tile edge
+    (2, 4, 200, 8),     # head widths below their padded kernel width
+    (1, 8, 1024, 16),
+    (2, 3, 300, 24),
+    (1, 2, 257, 48),
+    (1, 2, 130, 256),   # the widest head
+])
+def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = _qkv(shape, dtype, cuda)
+    before = A.flash_forward_cuda.launches
+    o, lse = A.flash_forward_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert A.flash_forward_cuda.launches == before + 1
+    o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert lse.shape == shape[:3] and lse.dtype == torch.float32
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= O_TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _qkv((1, 2, 64, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_forward_cuda(q.transpose(2, 3).contiguous().transpose(2, 3),
+                             k, v)
+    for d in (12, 264):
+        with pytest.raises(ValueError, match="head dim"):
+            A.flash_forward_cuda(*_qkv((1, 2, 64, d), torch.float32, cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        A.flash_forward_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        A.flash_forward_cuda(q, k.cpu(), v)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        A.flash_forward_cuda(shifted, k, v)
+
+
+def test_flash_attention_dispatches_to_kernel(cuda):
+    q, k, v = _qkv((2, 8, 256, 32), torch.bfloat16, cuda)
+    before = A.flash_forward_cuda.launches
+    with torch.inference_mode():
+        o = A.flash_attention(q, k, v)
+    assert A.flash_forward_cuda.launches == before + 1
+    ref = A.attention_reference(q, k, v)
+    assert (o.float() - ref.float()).abs().max().item() <= 2e-2
