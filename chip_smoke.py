@@ -8,27 +8,46 @@ Run from the repository root, with no arguments:
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
 
-1. device  — needs CUDA; prints the card's name and power limit (nvidia-smi)
-             and turns TF32 off, so float32 means float32.
-2. build   — compiles the CUDA sources under ddti_tpu_torch/csrc with nvcc.
-3. kernels — every kernel of the serving path against its plain PyTorch
-             version on the card, at the path's shapes, with timings.
-4. slice   — the serving daemon (ddti_tpu_torch.cli.serve) with the
-             TransUNet of configs/config.yaml (base_filters 64, depth 4,
-             512x512 -> 1024 bottleneck tokens), random weights from a seed,
-             bf16, batch 16. A few dozen PNG frames are POSTed concurrently
-             to /predict; the flash kernel's launch count must rise by 4
-             (one per encoder layer) for every batch. In bf16, the kernel
-             path's masks must agree with a plain-attention run of the same
-             frames as closely as the kernel's own plain version does (the
-             bf16 noise floor): tightly when batched alike in-process,
-             loosely for the masks the daemon served (its batches form by
-             arrival). In float32 both paths' masks must agree on >= 99.9%
-             of pixels and their logits to 1e-3.
-5. profile — device time per bf16 batch of 16 on the kernel path and on the
-             plain path (CUDA events), and a torch.profiler breakdown of the
-             kernel path by device kernel with the device's busy share.
-6. result  — a JSON line of the kernels, then the device line.
+1. device   — needs CUDA; prints the card's name and power limit
+              (nvidia-smi) and turns TF32 off, so float32 means float32.
+2. build    — compiles the CUDA sources under ddti_tpu_torch/csrc with nvcc
+              (one process per source, all at once) into build/.
+3. kernels  — every kernel against its plain PyTorch version on the card,
+              with timings: flash attention at the serving path's shapes;
+              the EDT (csrc/edt.cu) bit for bit against its plain version
+              and against scipy at the training path's shapes, ragged ones
+              and edge frames.
+4. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
+              TransUNet of configs/config.yaml (base_filters 64, depth 4,
+              512x512 -> 1024 bottleneck tokens), random weights from a seed,
+              bf16, batch 16. A few dozen PNG frames are POSTed concurrently
+              to /predict; the flash kernel's launch count must rise by 4
+              (one per encoder layer) for every batch. In bf16, the kernel
+              path's masks must agree with a plain-attention run of the same
+              frames as closely as the kernel's own plain version does (the
+              bf16 noise floor): tightly when batched alike in-process,
+              loosely for the masks the daemon served (its batches form by
+              arrival). In float32 both paths' masks must agree on >= 99.9%
+              of pixels and their logits to 1e-3.
+5. profile  — device time per bf16 serving batch of 16 on the kernel path
+              and on the plain path (CUDA events), and a torch.profiler
+              breakdown of the kernel path with the device's busy share.
+6. train    — the training CLI (python -m ddti_tpu_torch.cli.main --mode
+              both --synthetic) with the flagship ResUNet (base_filters 64,
+              depth 5) at 512^2, batch 16, bf16, 2 epochs, in a subprocess:
+              exit 0, the parameter count, the JAX CLI's run tree, finite
+              loss terms with a nonzero boundary term, val IoU and test
+              metrics with HD95/ASSD, a best .pth that loads strictly and an
+              .npz in the JAX package's key layout, and exactly the expected
+              number of EDT kernel launches.
+7. step     — one float32 train step from one state and batch with the
+              kernel EDT and with the plain EDT: bit-equal boundary terms and
+              updated parameters equal to 1e-6.
+8. tprofile — device time per bf16 train step at 512^2 / batch 16 and at
+              256^2 / batch 128 (CUDA events), with a torch.profiler top-8,
+              the busy share and the EDT kernels' share.
+9. result   — the total wall time, a JSON line of the kernels, then the
+              device line.
 """
 
 import concurrent.futures
@@ -44,6 +63,7 @@ import threading
 import time
 
 SEED = 0
+DEVICE = "cuda"  # the training phases' device
 SLICE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
              image_size=512)
 N_LAYERS = 4          # TransUNet's fixed encoder depth
@@ -69,6 +89,20 @@ F32_LOGIT_LIMIT = 1e-3
 F32_MASK_AGREE = 0.999
 PROFILE_BATCHES = 5
 PROFILE_TOP = 8
+# the EDT at the training path's shape (N, H, W), bs128 at 256^2 (bench.py's
+# headline leg), ragged widths and a single row; timed at the first two
+EDT_SHAPES = [(16, 512, 512), (128, 256, 256), (8, 100, 100), (4, 200, 333),
+              (3, 1, 333)]
+EDT_TIMED = 2
+# the training slice: the CLI's flagship ResUNet at its defaults
+TRAIN = dict(model_type="ResUNet", base_filters=64, depth=5, image_size=512,
+             batch_size=16, epochs=2)
+SYNTHETIC = (64, 16, 16)  # the CLI's --synthetic train/val/test frames
+TRAIN_TIMEOUT_S = 600
+STEP_PARAM_RTOL = 1e-6
+# (image size, batch): the CLI default and bench.py's headline leg
+TRAIN_PROFILES = [(512, 16), (256, 128)]
+TRAIN_PROFILE_STEPS = 3
 
 
 def phase(name, msg):
@@ -395,9 +429,324 @@ def profile_slice(ckpt):
               f" ms  {e.key[:90]}")
 
 
+def edt_masks(n, h, w, seed):
+    """EDT inputs (nonzero = foreground): 1 - the synthetic nodule masks
+    (the boundary loss's input), or random discs and salt where the frame
+    is not square, with the edge frames first: all zeros, all ones (no
+    zero: the cap h + w), a single zero, a single nonzero pixel."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.data.synthetic import generate_ddti_like
+
+    if h == w and h >= 64:
+        _, masks = generate_ddti_like(n, (h, w), seed)
+        m = (masks[..., 0] == 0).astype(np.uint8)
+    else:
+        rng = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:h, 0:w]
+        m = (rng.random((n, h, w)) < 0.01).astype(np.uint8)
+        for i in range(n):
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            r = rng.uniform(1, max(h, w) / 3)
+            m[i] |= ((yy - cy) ** 2 + (xx - cx) ** 2 < r * r)
+    edge = [np.zeros((h, w), np.uint8), np.ones((h, w), np.uint8),
+            np.ones((h, w), np.uint8), np.zeros((h, w), np.uint8)]
+    edge[2][h // 2, w // 3] = 0
+    edge[3][h // 3, w // 2] = 1
+    k = min(len(edge), n)
+    m[:k] = np.stack(edge[:k])
+    return torch.from_numpy(m)
+
+
+def check_edt():
+    """csrc/edt.cu against its plain version (bit for bit, every frame) and
+    scipy (every frame with a zero), with kernel and plain timings."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from ddti_tpu_torch.ops import edt as E
+
+    rows = []
+    for i, (n, h, w) in enumerate(EDT_SHAPES):
+        m = edt_masks(n, h, w, SEED + i).to(DEVICE)
+        got = E.edt_cuda(m)
+        torch.cuda.synchronize()
+        want = E.edt_reference(m)
+        equal = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        host, ref_in = got.cpu().numpy(), m.cpu().numpy()
+        scipy_frames = scipy_equal = 0
+        for j in range(n):
+            if not (ref_in[j] == 0).any():  # scipy has no answer there
+                assert (host[j] == h + w).all(), "the cap h + w"
+                continue
+            scipy_frames += 1
+            scipy_equal += np.array_equal(
+                host[j], ndimage.distance_transform_edt(ref_in[j]).astype(
+                    np.float32))
+        row = dict(shape=[n, h, w], max_abs_err=err, bit_equal=equal,
+                   scipy_frames=scipy_frames, scipy_equal=scipy_equal)
+        if i < EDT_TIMED:
+            row["ms"] = median_ms(lambda: E.edt_cuda(m))
+            row["plain_ms"] = median_ms(lambda: E.edt_reference(m))
+        phase("kernels", f"edt_minplus {(n, h, w)} uint8: bit-equal to plain "
+              f"{equal} (max|d| {err:.3e}), bit-equal to scipy on "
+              f"{scipy_equal}/{scipy_frames} frames with a zero"
+              + (f", kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
+                 f"ms" if "ms" in row else ""))
+        assert equal, "the EDT kernel disagrees with its plain version"
+        assert scipy_equal == scipy_frames, \
+            "the EDT kernel disagrees with scipy"
+        rows.append(row)
+    return rows
+
+
+def _parse_terms(log_text):
+    """Every logged epoch line: (phase, epoch, avg loss, bce, dice, focal,
+    boundary, iou)."""
+    import re
+
+    pat = re.compile(
+        r"(Train|Validate) Epoch: (\d+), Avg Loss: (\S+)\n.*BCE Loss: (\S+), "
+        r"Dice Loss: (\S+), Focal Loss: (\S+), Boundary Loss: (\S+)\n"
+        r".*IoU: (\S+)\n")
+    return [(g[0], int(g[1]), *map(float, g[2:]))
+            for g in pat.findall(log_text)]
+
+
+def jax_resunet_keys(depth):
+    """The key set ddti_tpu.train.checkpoint.save_params_npz writes for a
+    ResUNet of this depth, written out from the flax module tree (encoders,
+    bottleneck and decoders are ResidualBlocks)."""
+    keys = set()
+    blocks = ([f"encoders_{i}" for i in range(depth)] + ["bottleneck"]
+              + [f"decoders_{i}" for i in range(depth)])
+    for b in blocks:
+        for conv in ("conv1", "conv2", "skip"):
+            keys.add(f"params/{b}/{conv}/kernel")
+        for bn in ("bn1", "bn2"):
+            keys |= {f"params/{b}/{bn}/scale", f"params/{b}/{bn}/bias",
+                     f"batch_stats/{b}/{bn}/mean", f"batch_stats/{b}/{bn}/var"}
+    for i in range(depth):
+        keys |= {f"params/upconvs_{i}/kernel", f"params/upconvs_{i}/bias"}
+    return keys | {"params/final_conv/kernel", "params/final_conv/bias"}
+
+
+def run_training(tmp):
+    """The training CLI end to end in its own process; returns the EDT
+    kernel's launch count in that run."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.state import count_params
+
+    base = os.path.join(tmp, "runs")
+    cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.main", "--mode", "both",
+           "--synthetic", "--use_amp_autocast", "true", "--base_dir", base]
+    for k, v in TRAIN.items():
+        cmd += [f"--{k}", str(v)]
+    phase("train", " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=TRAIN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = res.stdout
+    phase("train", f"exit {res.returncode} in {wall:.1f} s")
+    if res.returncode != 0:
+        print(out[-4000:], res.stderr[-8000:], sep="\n", file=sys.stderr)
+    assert res.returncode == 0, "the training CLI failed"
+    params = [l for l in out.splitlines() if l.startswith("[PARAMS]")]
+    kernels = [l for l in out.splitlines() if l.startswith("[KERNELS]")]
+    phase("train", f"{params[0]} {kernels[0]}")
+    model = create_model("ResUNet", base_filters=TRAIN["base_filters"],
+                         depth=TRAIN["depth"])
+    assert params[0] == f"[PARAMS] ResUNet,{count_params(model)}"
+    launches = dict(kv.split("=") for kv in kernels[0].split()[1:])
+    launches = {k: int(v) for k, v in launches.items()}
+
+    (run,) = os.listdir(base)
+    run = os.path.join(base, run)
+    for sub in ("models", "log/train_log.log", "result", "config.yaml"):
+        assert os.path.exists(os.path.join(run, sub)), sub
+    with open(os.path.join(run, "log", "train_log.log")) as f:
+        log = f.read()
+    terms = _parse_terms(log)
+    for t in terms:
+        phase("train", f"{t[0]} epoch {t[1]}: loss {t[2]:.4f} bce {t[3]:.4f} "
+              f"dice {t[4]:.4f} focal {t[5]:.4f} boundary {t[6]:.4f} "
+              f"IoU {t[7]:.4f}")
+    assert len(terms) == 2 * TRAIN["epochs"], "an epoch line is missing"
+    assert all(math.isfinite(x) for t in terms for x in t[2:7])
+    assert all(t[6] > 0 for t in terms), "the boundary term is zero"
+    assert all(math.isfinite(t[7]) for t in terms if t[0] == "Validate")
+    with open(os.path.join(run, "result", "test_metrics.json")) as f:
+        test = json.load(f)
+    phase("train", "test: " + ", ".join(
+        f"{k} {test[k]:.4f}" for k in ("iou", "f1", "hd95_mean",
+                                       "assd_mean", "total_images")))
+    for k in ("iou", "f1", "hd95_mean", "assd_mean"):
+        assert math.isfinite(test[k]), k
+    assert test["total_images"] == SYNTHETIC[2]
+
+    best = os.path.join(run, "models", "ResUNet_best")
+    load_checkpoint_into(best + ".pth", "ResUNet", model)  # strict
+    with np.load(best + ".npz") as z:
+        keys = set(z.files)
+    assert keys == jax_resunet_keys(TRAIN["depth"]), \
+        sorted(keys ^ jax_resunet_keys(TRAIN["depth"]))[:8]
+    twin = load_checkpoint_into(best + ".npz", "ResUNet", create_model(
+        "ResUNet", base_filters=TRAIN["base_filters"], depth=TRAIN["depth"]))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, twin.state_dict()[k]), k
+    phase("train", f"best .pth loads strictly; .npz holds the JAX layout's "
+          f"{len(keys)} keys and the same tensors")
+
+    bs = TRAIN["batch_size"]
+    steps, val, test_b = (-(-n // bs) for n in SYNTHETIC)
+    expected = TRAIN["epochs"] * (steps + val) + test_b
+    phase("train", f"edt_minplus launches {launches['edt_minplus']}, "
+          f"expected {TRAIN['epochs']} epochs x ({steps} train + {val} val "
+          f"steps) + {test_b} test batches = {expected}")
+    assert launches["edt_minplus"] == expected
+    return launches["edt_minplus"]
+
+
+def _train_setup(size, batch, amp, seed=SEED):
+    """A full-width ResUNet on the card, its train state and step, one
+    synthetic batch and its draws."""
+    import torch
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.data.augment import AugmentConfig, sample_draws
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.train.steps import make_train_step
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    cfg = Config(image_size=size, store_size=size, batch_size=batch,
+                 use_amp_autocast=amp)
+    model = init_like_flax(create_model(
+        "ResUNet", base_filters=TRAIN["base_filters"],
+        depth=TRAIN["depth"]), seed).to(DEVICE)
+    src = synthetic_source(batch, (size, size), seed, device=DEVICE)
+    images, masks = src.gather(list(range(batch)))
+    aug = AugmentConfig(out_size=(size, size))
+    draws = sample_draws(torch.Generator().manual_seed(seed), batch,
+                         aug).to(DEVICE)
+    state = TrainState(model, cfg.lr, 4, cfg.weight_decay)
+    return model, state, make_train_step(cfg, aug), (images, masks, draws)
+
+
+def step_kernel_vs_plain():
+    """One float32 step from one state and batch through the kernel EDT and
+    through the plain EDT (the boundary loss's EDT swapped explicitly);
+    deterministic cuDNN so that only the EDT route differs."""
+    import torch
+
+    from ddti_tpu_torch.losses import losses
+    from ddti_tpu_torch.ops import edt as E
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, _, step, (images, masks, draws) = _train_setup(512, 16, False)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    try:
+        for route in ("kernel", "plain"):
+            from ddti_tpu_torch.train.state import TrainState
+
+            model.load_state_dict(sd0)
+            state = TrainState(model, 1e-5, 4)
+            launched = E.edt_cuda.launches
+            if route == "plain":
+                losses.edt_batch = E.edt_reference
+            m = step(state, images, masks, draws, None)
+            torch.cuda.synchronize()
+            assert (E.edt_cuda.launches - launched) == (route == "kernel")
+            out[route] = (m.boundary.clone(), {
+                k: v.clone() for k, v in model.state_dict().items()})
+    finally:
+        losses.edt_batch = E.edt_batch
+        torch.backends.cudnn.deterministic = False
+    (bk, pk), (bp, pp) = out["kernel"], out["plain"]
+    rel = max(((pk[k] - pp[k]).abs().max()
+               / pp[k].abs().max().clamp(min=1e-30)).item() for k in pk)
+    moved = sum(not torch.equal(pk[k], sd0[k]) for k in pk)
+    phase("step", f"float32 ResUNet 512^2 batch 16: boundary kernel "
+          f"{bk.item():.9g} plain {bp.item():.9g} (bit-equal "
+          f"{torch.equal(bk, bp)}); updated tensors {moved}/{len(pk)}, max "
+          f"relative difference {rel:.3e} (limit {STEP_PARAM_RTOL:g})")
+    assert torch.equal(bk, bp), "kernel and plain boundary terms differ"
+    assert rel <= STEP_PARAM_RTOL and moved == len(pk)
+
+
+def profile_training():
+    """Device time per bf16 train step (CUDA events) and where it goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddti_tpu_torch.ops import edt as E
+
+    rows = []
+    for size, batch in TRAIN_PROFILES:
+        _, state, step, (images, masks, draws) = _train_setup(
+            size, batch, True)
+
+        def one():
+            step(state, images, masks, draws, None)
+
+        ms = median_ms(one, runs=10, warmup=3)
+        torch.cuda.synchronize()
+        launches0 = E.edt_cuda.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILE_STEPS):
+                one()
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        edt_us = sum(e.self_device_time_total for e in kernels
+                     if "edt_" in e.key)
+        phase("tprofile", f"bf16 train step {size}^2 batch {batch}: "
+              f"{ms:.3f} ms device time (CUDA events, median of 10), "
+              f"{batch / ms * 1e3:.1f} img/s; torch.profiler over "
+              f"{TRAIN_PROFILE_STEPS} steps: window {window_us / 1e3:.3f} ms, "
+              f"device kernels {busy_us / 1e3:.3f} ms "
+              f"({busy_us / max(window_us, 1):.1%} busy), EDT kernels "
+              f"{edt_us / 1e3:.3f} ms ({edt_us / max(busy_us, 1):.2%} of "
+              f"device time), {E.edt_cuda.launches - launches0} EDT launches")
+        if not kernels:
+            phase("tprofile", "no device time recorded: breakdown not "
+                  "measured")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[
+                :PROFILE_TOP]:
+            phase("tprofile", f"{e.self_device_time_total / busy_us:6.1%} "
+                  f"{e.count:4d} x "
+                  f"{e.self_device_time_total / e.count / 1e3:.4f} ms  "
+                  f"{e.key[:90]}")
+        rows.append(dict(size=size, batch=batch, ms=ms,
+                         busy=busy_us / max(window_us, 1),
+                         edt_share=edt_us / max(busy_us, 1)))
+        del state, step, images, masks
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "needs an NVIDIA card", file=sys.stderr)
@@ -416,15 +765,20 @@ def main():
 
     path, secs = _build.build()
     _build.load_library()
-    phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}: "
-          f"{f'{secs:.2f} s' if secs else 'already built'} -> "
+    phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}, one process per "
+          f"source: {f'{secs:.2f} s' if secs else 'already built'} -> "
           f"{os.path.relpath(path)}")
 
     rows = check_kernels()
+    edt_rows = check_edt()
     with tempfile.TemporaryDirectory() as tmp:
         launches, ckpt = run_slice(tmp)
         profile_slice(ckpt)
+        edt_launches = run_training(tmp)
+    step_kernel_vs_plain()
+    train_rows = profile_training()
 
+    phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row = rows[0]
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
@@ -437,6 +791,17 @@ def main():
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "shapes": rows,
+    }, {
+        "name": "edt_minplus",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/edt.cu",
+        "replaces": "ddti_tpu/ops/edt.py:81",
+        "launches": edt_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in edt_rows),
+        "ms": edt_rows[0]["ms"],
+        "plain_ms": edt_rows[0]["plain_ms"],
+        "shapes": edt_rows,
+        "train_steps": train_rows,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

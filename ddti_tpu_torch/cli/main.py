@@ -1,0 +1,191 @@
+"""Training CLI of the port, ported from ``ddti_tpu/cli/main.py``:
+
+    python -m ddti_tpu_torch.cli.main --mode both --synthetic \\
+        --model_type ResUNet --base_filters 64 --depth 5 --image_size 512 \\
+        --batch_size 16 --use_amp_autocast true --epochs 2
+
+The flags of the training slice keep the JAX package's names and
+defaults; ``--device`` (default ``cuda``, which raises where CUDA is
+absent; ``cpu`` for small runs) is the port's own. A flag of the JAX CLI
+that is not ported yet is absent, so argparse rejects it; the
+``--aug_exact_warp`` warp raises with a pointer to ROADMAP.md.
+
+Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded to a
+device-resident uint8 store at ``--store_size``, or with ``--synthetic``
+(or when the directories are absent) 64/16/16 generated DDTI-like frames.
+``--checkpoint_path`` warm-starts the weights from a ``.pth`` or a
+``save_params_npz`` ``.npz``. ``[PARAMS] <model>,<count>`` is printed for
+shell capture, as the JAX CLI does, and at the end ``[KERNELS]`` with the
+launch count of each hand-written kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+
+def _str2bool(v: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("true", "1", "yes", "y", "t"):
+        return True
+    if v.lower() in ("false", "0", "no", "n", "f"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    # dataset
+    p.add_argument("--dataset_path", default="data/dataset", type=str)
+    p.add_argument("--dataset", default="DDTI", type=str)
+    p.add_argument("--checkpoint_path", default="", type=str,
+                   help="weights-only warm start from a .pth or .npz")
+    p.add_argument("--config_path", default=None, type=str)
+    # augmentation
+    p.add_argument("--use_mixup", action="store_true")
+    p.add_argument("--mixup_alpha", type=float, default=0.2)
+    p.add_argument("--mixup_prob", type=float, default=0.3)
+    p.add_argument("--aug_fast_warp", action="store_true", default=True,
+                   help="Paeth three-shear flip+rotate (the default)")
+    p.add_argument("--aug_exact_warp", dest="aug_fast_warp",
+                   action="store_false",
+                   help="exact PIL-map flip+rotate: not ported yet, raises")
+    # model
+    p.add_argument("--model_type", default="ResUNet", type=str)
+    p.add_argument("--base_filters", default=64, type=int)
+    p.add_argument("--depth", default=5, type=int)
+    p.add_argument("--in_channels", default=1, type=int)
+    p.add_argument("--out_channels", default=1, type=int)
+    # loss
+    p.add_argument("--bce_ratio", type=float, default=1)
+    p.add_argument("--dice_ratio", type=float, default=0)
+    p.add_argument("--focal_ratio", type=float, default=1)
+    p.add_argument("--boundary_ratio", type=float, default=0)
+    # training
+    p.add_argument("--epochs", type=int, default=10000)
+    p.add_argument("--batch_size", default=16, type=int)
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--weight_decay", type=float, default=1e-2)
+    p.add_argument("--log_every", default=20, type=int,
+                   help="in-epoch progress interval in steps; 0 disables")
+    p.add_argument("--early_stop_patience", default=50, type=int)
+    p.add_argument("--use_amp_autocast", type=_str2bool, default=False,
+                   help="bf16 autocast for the model's forward and backward")
+    p.add_argument("--surface_metrics", default=True, type=_str2bool,
+                   help="per-image HD95/ASSD surface distances in test()")
+    p.add_argument("--mode", default="test", choices=["train", "test", "both"])
+    p.add_argument("--image_size", default=512, type=int)
+    p.add_argument("--store_size", default=512, type=int)
+    p.add_argument("--seed", default=42, type=int)
+    p.add_argument("--synthetic", action="store_true",
+                   help="run on generated DDTI-like data (no dataset needed)")
+    p.add_argument("--base_dir", default="experiments", type=str)
+    p.add_argument("--device", default="cuda",
+                   help="cuda[:N] (raises without CUDA) or cpu")
+    return p
+
+
+def build_config(args: argparse.Namespace):
+    from ddti_tpu_torch.core.config import Config
+
+    fields = {f.name for f in dataclasses.fields(Config)}
+    cfg = Config(**{k: v for k, v in vars(args).items() if k in fields})
+    cfg.model_kwargs = dict(
+        in_channels=args.in_channels, out_channels=args.out_channels,
+        base_filters=args.base_filters, depth=args.depth)
+    if args.config_path:
+        cfg.apply_model_yaml(args.config_path)
+    return cfg
+
+
+def load_sources(cfg, device, synthetic: bool):
+    """(train, val, test) device-resident stores: the dataset on disk, or
+    64/16/16 synthetic frames (seeds seed, seed + 10000, seed + 20000) when
+    asked for or when the split directories are absent."""
+    from ddti_tpu_torch.data.dataset import (
+        DeviceDataSource,
+        MedicalDataset,
+        decode_to_store,
+    )
+    from ddti_tpu_torch.data.synthetic import generate_ddti_like
+
+    size = (cfg.store_size, cfg.store_size)
+    root = cfg.dataset_path
+    on_disk = all(os.path.isdir(os.path.join(root, s))
+                  for s in ("train", "val", "test"))
+    if synthetic or not on_disk:
+        return tuple(
+            DeviceDataSource(*generate_ddti_like(n, size, cfg.seed + s),
+                             device=device)
+            for n, s in ((64, 0), (16, 10_000), (16, 20_000)))
+    sources = []
+    for split in ("train", "val", "test"):
+        ds = MedicalDataset(os.path.join(root, split),
+                            os.path.join(root, f"{split}_mask"))
+        sources.append(DeviceDataSource(*decode_to_store(ds, size),
+                                        device=device, names=ds.img_names))
+    return tuple(sources)
+
+
+def main(argv=None) -> int:
+    args = get_parser().parse_args(argv)
+    if not args.aug_fast_warp:
+        raise NotImplementedError(
+            "--aug_exact_warp (the exact PIL-map warp, fused_flip_rotate) "
+            "is not ported yet: ROADMAP.md Queue 1 item 12")
+
+    from ddti_tpu_torch.cli.serve import resolve_device
+    from ddti_tpu_torch.core.logging import create_logger
+    from ddti_tpu_torch.core.prng import set_seed
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import attention, edt
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.engine import Trainer
+    from ddti_tpu_torch.train.state import count_params
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    device = resolve_device(args.device)
+    cfg = build_config(args)
+    set_seed(cfg.seed)
+    cfg.make_dirs()
+    logger = create_logger(os.path.join(cfg.log_dir, "train_log.log"))
+
+    model_kwargs = dict(cfg.model_kwargs)
+    if cfg.model_type == "TransUNet":
+        model_kwargs.setdefault("image_size", cfg.image_size)
+    model = init_like_flax(create_model(cfg.model_type, **model_kwargs),
+                           cfg.seed)
+    if cfg.checkpoint_path:
+        if not os.path.exists(cfg.checkpoint_path):
+            raise FileNotFoundError(
+                f"--checkpoint_path {cfg.checkpoint_path!r} does not exist")
+        load_checkpoint_into(cfg.checkpoint_path, cfg.model_type, model)
+        logger.info(f"Warm-started weights from {cfg.checkpoint_path}")
+    model.to(device)
+
+    sources = load_sources(cfg, device, args.synthetic)
+    trainer = Trainer(cfg, sources, logger, model)
+
+    n_params = count_params(model)
+    logger.info(f"Model: {cfg.model_type} | Trainable params: "
+                f"{n_params / 1e6:.2f}M ({n_params:,}) | device {device}")
+    print(f"[PARAMS] {cfg.model_type},{n_params}")  # shell-capture hook
+
+    if args.mode in ("train", "both"):
+        trainer.train()
+    if args.mode in ("test", "both"):
+        trainer.test()
+    # the hand-written kernels this run launched (0 on the CPU, where the
+    # plain versions run): the shell-capture proof of the kernel path
+    print(f"[KERNELS] edt_minplus={edt.edt_cuda.launches} "
+          f"flash_fwd={attention.flash_forward_cuda.launches}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

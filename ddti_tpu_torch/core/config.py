@@ -1,0 +1,117 @@
+"""Experiment configuration, ported from ``ddti_tpu/core/config.py``: the
+fields the training slice reads, with the JAX package's names and
+defaults, the YAML model dispatch (``--config_path``) and the run
+directories.
+
+Run-directory layout, as in the JAX package and the reference:
+``<base_dir>/<ModelType>_<YYYYmmdd_HHMMSS>/{models,log,result}`` with an
+Asia/Shanghai timestamp and a ``config.yaml`` snapshot of the resolved
+config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from datetime import datetime, timezone
+from typing import Optional
+
+try:
+    from zoneinfo import ZoneInfo
+    _SHANGHAI = ZoneInfo("Asia/Shanghai")
+except Exception:  # pragma: no cover - no tz database
+    _SHANGHAI = timezone.utc
+
+
+@dataclasses.dataclass
+class Config:
+    """The training slice's knobs (field names follow the reference flags;
+    ``device`` is the port's own)."""
+
+    # dataset
+    dataset_path: str = "data/dataset"
+    dataset: str = "DDTI"
+    checkpoint_path: str = ""
+    config_path: Optional[str] = None
+
+    # augmentation (the default chain; the unported branches raise)
+    use_mixup: bool = False
+    mixup_alpha: float = 0.2
+    mixup_prob: float = 0.3
+    aug_fast_warp: bool = True
+
+    # model
+    model_type: str = "ResUNet"
+    model_kwargs: dict = dataclasses.field(default_factory=dict)
+
+    # loss weights
+    bce_ratio: float = 1.0
+    dice_ratio: float = 0.0
+    focal_ratio: float = 1.0
+    boundary_ratio: float = 0.0
+    compute_unused_losses: bool = True  # the reference computes all four
+
+    # training
+    epochs: int = 10000
+    batch_size: int = 16
+    lr: float = 1e-5
+    weight_decay: float = 1e-2  # torch AdamW's default, which the
+    # reference applies whatever its (unused) flag says
+    log_every: int = 20
+    early_stop_patience: int = 50
+    surface_metrics: bool = True  # per-image HD95/ASSD in Trainer.test()
+
+    # precision / data / device
+    use_amp_autocast: bool = False  # bf16 autocast
+    image_size: int = 512
+    store_size: int = 512
+    seed: int = 42
+    device: str = "cuda"
+
+    # run dirs (filled by make_dirs)
+    base_dir: str = "experiments"
+    cfg_dir: str = ""
+    model_dir: str = ""
+    log_dir: str = ""
+    result_dir: str = ""
+
+    def make_dirs(self) -> None:
+        os.makedirs(self.base_dir, exist_ok=True)
+        ts = datetime.now(timezone.utc).astimezone(_SHANGHAI)
+        self.cfg_dir = os.path.join(
+            self.base_dir, f"{self.model_type}_{ts.strftime('%Y%m%d_%H%M%S')}")
+        self.model_dir = os.path.join(self.cfg_dir, "models")
+        self.log_dir = os.path.join(self.cfg_dir, "log")
+        self.result_dir = os.path.join(self.cfg_dir, "result")
+        for d in (self.cfg_dir, self.model_dir, self.log_dir,
+                  self.result_dir):
+            os.makedirs(d, exist_ok=True)
+        self.save_snapshot()
+
+    def save_snapshot(self) -> None:
+        import yaml
+
+        with open(os.path.join(self.cfg_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(dataclasses.asdict(self), f, sort_keys=False)
+
+    def apply_model_yaml(self, path: Optional[str] = None) -> None:
+        """Load a ``{model: {model_type, kwargs}}`` YAML (one sweep entry)
+        and dispatch the model from it."""
+        import yaml
+
+        path = path or self.config_path
+        if not path:
+            return
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"config file not found: {path}")
+        with open(path) as f:
+            doc = yaml.safe_load(f)
+        if not isinstance(doc, dict):
+            raise ValueError(
+                f"{path} is not a single-run config (got "
+                f"{type(doc).__name__}); split the sweep matrix first: "
+                f"python -m ddti_tpu.cli.split_config <matrix.yaml> <dir>")
+        model = doc.get("model", {})
+        if "model_type" in model:
+            self.model_type = model["model_type"]
+        self.model_kwargs = dict(model.get("kwargs", {}))

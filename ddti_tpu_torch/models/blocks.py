@@ -22,10 +22,18 @@ BN_EPS = 1e-5
 
 
 class BatchNorm2d(nn.Module):
-    """BatchNorm with torch's defaults and without the ``num_batches_tracked``
-    buffer, which the JAX package's export does not carry (it only feeds
-    momentum=None averaging, unused here). Reference ``.pth`` files that do
-    carry it load all the same: the entry is dropped on load."""
+    """BatchNorm with the JAX package's numerics and without the
+    ``num_batches_tracked`` buffer, which the JAX package's export does not
+    carry (it only feeds momentum=None averaging, unused here). Reference
+    ``.pth`` files that do carry it load all the same: the entry is dropped
+    on load.
+
+    Train mode normalises with the batch's statistics (two-pass variance,
+    flax's ``use_fast_variance=False``) and updates the running statistics
+    as flax ``nn.BatchNorm`` does: ``new = 0.9 old + 0.1 batch`` with the
+    **biased** batch variance. torch's own train-mode update would store
+    the unbiased n/(n-1) variance instead. The statistics are reduced in
+    float32 whatever the autocast dtype of ``x``."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -35,9 +43,18 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, self.training,
-                            BN_MOMENTUM, BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(
+                mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(
+                var, alpha=BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            BN_EPS)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
@@ -54,6 +71,24 @@ class ConvBNAct(nn.Sequential):
             BatchNorm2d(features), nn.ReLU(inplace=True),
             nn.Conv2d(features, features, 3, padding=1, bias=False),
             BatchNorm2d(features), nn.ReLU(inplace=True))
+
+
+class ResidualBlock(nn.Module):
+    """(3x3 conv -> BN -> ReLU -> 3x3 conv -> BN) + 1x1-conv shortcut, ReLU
+    after the add; the reference's ``conv`` Sequential (indices 0, 1, 3, 4
+    hold the weights) and ``skip`` names."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.conv = nn.Sequential(
+            nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
+            BatchNorm2d(features), nn.ReLU(inplace=True),
+            nn.Conv2d(features, features, 3, padding=1, bias=False),
+            BatchNorm2d(features))
+        self.skip = nn.Conv2d(in_channels, features, 1, bias=False)
+
+    def forward(self, x):
+        return F.relu(self.conv(x) + self.skip(x))
 
 
 def max_pool_2x2(x):

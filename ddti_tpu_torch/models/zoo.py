@@ -1,4 +1,5 @@
-"""The model zoo, ported from ``ddti_tpu/models/zoo.py``: so far TransUNet.
+"""The model zoo, ported from ``ddti_tpu/models/zoo.py``: so far ResUNet
+(the flagship, trained by ``cli/main.py``) and TransUNet (served).
 
 Models map NCHW ``(N, in_channels, H, W)`` inputs to ``(N, out_channels, H,
 W)`` logits (the JAX package is NHWC; ``train/export.py`` keeps NHWC at the
@@ -12,6 +13,7 @@ from torch import nn
 
 from .blocks import (
     ConvBNAct,
+    ResidualBlock,
     TransformerEncoderLayer,
     match_spatial,
     max_pool_2x2,
@@ -33,6 +35,39 @@ class _EncoderDecoderBase(nn.Module):
     @property
     def channels(self) -> list[int]:
         return [self.base_filters * (2 ** i) for i in range(self.depth)]
+
+
+class ResUNet(_EncoderDecoderBase):
+    """UNet topology with residual blocks everywhere: encoders, a bottleneck
+    of twice the deepest width, transposed-conv upsampling, [skip, x]
+    concatenation, a 1x1 head."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 base_filters: int = 64, depth: int = 5):
+        super().__init__(in_channels, out_channels, base_filters, depth)
+        ch = self.channels
+        self.encoders = nn.ModuleList(
+            ResidualBlock(cin, c) for cin, c in zip([in_channels] + ch[:-1],
+                                                    ch))
+        self.bottleneck = ResidualBlock(ch[-1], 2 * ch[-1])
+        rev = ch[::-1]
+        self.upconvs = nn.ModuleList(
+            up_conv(cin, c) for cin, c in zip([2 * ch[-1]] + rev[:-1], rev))
+        self.decoders = nn.ModuleList(ResidualBlock(2 * c, c) for c in rev)
+        self.final_conv = nn.Conv2d(ch[0], out_channels, 1)
+
+    def forward(self, x):
+        skips = []
+        for enc in self.encoders:
+            x = enc(x)
+            skips.append(x)
+            x = max_pool_2x2(x)
+        x = self.bottleneck(x)
+        for up, dec, skip in zip(self.upconvs, self.decoders,
+                                 reversed(skips)):
+            x = match_spatial(up(x), skip)
+            x = dec(torch.cat([skip, x], dim=1))
+        return self.final_conv(x)
 
 
 class TransEncoder(nn.Module):
@@ -104,7 +139,7 @@ class TransUNet(_EncoderDecoderBase):
         return self.final_conv(x)
 
 
-MODEL_REGISTRY = {"TransUNet": TransUNet}
+MODEL_REGISTRY = {"ResUNet": ResUNet, "TransUNet": TransUNet}
 
 
 def create_model(model_type: str, **kwargs) -> nn.Module:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``*.cu`` file under ``ddti_tpu_torch/csrc/`` is compiled by ``nvcc``
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Every ``*.cu`` file under ``ddti_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` process, all of them at once, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``build/ddti_tpu_torch/`` at the repository root under
 a name that carries a hash of the sources and flags, so an edited source is
 rebuilt at its next use and an unchanged one is loaded as it is. Nothing
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddti_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -55,16 +56,37 @@ def build() -> tuple[Path, float]:
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    steps = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+    if all(rc == 0 for _, _, rc in steps):
+        res = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, res.stdout + res.stderr, res.returncode))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, log, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out, time.perf_counter() - t0
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# every kernel's C entry point: argument types; each returns a cudaError_t
+KERNELS = {
+    "ddti_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ddti_edt": [_P, _P, _LL, _I, _I, _P],
+}
 
 
 @functools.cache
@@ -72,7 +94,21 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, declare the C signatures."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ddti_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.ddti_flash_fwd.restype = i
+    for name, argtypes in KERNELS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    lib.ddti_error_string.argtypes = [_I]
+    lib.ddti_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the kernel entry point ``ddti_<name>`` and raise, naming the
+    kernel, when it returns a CUDA error (a refused launch never runs, and
+    a later synchronize would not report it)."""
+    lib = load_library()
+    err = getattr(lib, f"ddti_{name}")(*args)
+    if err:
+        msg = lib.ddti_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err} ({msg})")

@@ -77,17 +77,14 @@ def flash_forward_cuda(q, k, v):
         raise ValueError("q, k, v must be 16-byte aligned")
     if not 0 < b * h <= 65535 or s == 0:
         raise ValueError(f"B*H = {b * h} must lie in [1, 65535] and S > 0")
-    from ._build import load_library
+    from ._build import launch
 
-    lib = load_library()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.ddti_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             o.data_ptr(), lse.data_ptr(), b * h, s, d,
-                             _KERNEL_DTYPES[q.dtype], q.device.index, stream)
-    if err:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
+    launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           o.data_ptr(), lse.data_ptr(), b * h, s, d,
+           _KERNEL_DTYPES[q.dtype], q.device.index, stream)
     flash_forward_cuda.launches += 1
     return o, lse
 

@@ -1,10 +1,12 @@
-"""Checkpoint loading for serving, ported from
-``ddti_tpu/train/checkpoint.py:load_checkpoint_into``.
+"""Weight checkpoints, ported from ``ddti_tpu/train/checkpoint.py``
+(``load_checkpoint_into``, ``save_params_npz``).
 
-Two formats load: a torch ``.pth`` state_dict (the reference's own files and
-``ddti_tpu.train.torch_interop.save_pth`` exports) and a flat ``.npz`` from
-``ddti_tpu.train.checkpoint.save_params_npz``. Orbax checkpoint directories
-are a JAX format and are refused (ROADMAP.md lists a counterpart).
+Two formats load and save: a torch ``.pth`` state_dict (the reference's
+own files and ``ddti_tpu.train.torch_interop.save_pth`` exports) and a flat
+``.npz`` in the layout of ``ddti_tpu.train.checkpoint.save_params_npz``
+(flax key paths and layouts), so either package reads the other's
+weights. Orbax checkpoint directories are a JAX format and are refused
+(ROADMAP.md lists a counterpart).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .torch_interop import state_dict_from_flax
+from .torch_interop import flat_flax_from_state_dict, state_dict_from_flax
 
 _BF16_MARKER = "::bf16"
 
@@ -54,3 +56,15 @@ def load_checkpoint_into(path: str, model_type: str,
                          f"(expected .pth or .npz)")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def save_weights(base: str, model_type: str, model: nn.Module) -> None:
+    """Write ``base + ".npz"`` (``save_params_npz`` layout) and
+    ``base + ".pth"`` (the reference's ``state_dict``), each through a
+    temporary file so a reader never sees a torn one."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    tmp = base + ".tmp.npz"
+    np.savez(tmp, **flat_flax_from_state_dict(model_type, sd))
+    os.replace(tmp, base + ".npz")
+    torch.save(sd, base + ".tmp.pth")
+    os.replace(base + ".tmp.pth", base + ".pth")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one. The file imports no JAX, so it also runs where JAX is absent:
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ddti_tpu_torch.ops import attention as A
+from ddti_tpu_torch.ops import edt as E
 
 pytestmark = pytest.mark.cuda
 
@@ -77,6 +78,49 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         A.flash_forward_cuda(shifted, k, v)
+
+
+def _edt_masks(n, h, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    m = torch.rand((n, h, w), generator=g) < 0.02
+    yy = torch.arange(h).view(1, h, 1)
+    xx = torch.arange(w).view(1, 1, w)
+    for i in range(n):
+        cy, cx, r = (torch.rand(3, generator=g) * torch.tensor(
+            [h, w, max(h, w) / 3.0])).tolist()
+        m[i] |= (yy[0] - cy) ** 2 + (xx[0] - cx) ** 2 < r * r
+    return m
+
+
+@pytest.mark.parametrize("shape", [(16, 512, 512), (3, 100, 100),
+                                   (2, 333, 333), (4, 64, 100),
+                                   (3, 17, 333), (2, 1, 2048), (2, 2048, 1),
+                                   (1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bool, torch.float32])
+def test_edt_kernel_bit_equal_to_plain(cuda, shape, dtype):
+    m = _edt_masks(*shape, seed=shape[1] + shape[2])
+    m[0] = True      # no zero at all: the cap h + w
+    if shape[0] > 2:
+        m[1] = False  # no foreground: all zeros
+    m = m.to(dtype)
+    before = E.edt_cuda.launches
+    got = E.edt_cuda(m.to(cuda))
+    torch.cuda.synchronize()
+    assert E.edt_cuda.launches == before + 1
+    want = E.edt_reference(m.to(cuda)).cpu()
+    assert got.dtype == torch.float32 and got.shape == m.shape
+    assert torch.equal(got.cpu(), want)
+    assert (want[0] == shape[1] + shape[2]).all()
+
+
+def test_edt_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="H = 4096"):
+        E.edt_cuda(torch.zeros((1, 4096, 8), dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError, match=r"\(N, H, W\)"):
+        E.edt_cuda(torch.zeros((8, 8), dtype=torch.uint8, device=cuda))
+    before = E.edt_cuda.launches
+    assert E.edt_batch(torch.zeros((0, 8, 8), device=cuda)).shape == (0, 8, 8)
+    assert E.edt_cuda.launches == before
 
 
 def test_flash_attention_dispatches_to_kernel(cuda):

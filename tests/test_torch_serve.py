@@ -162,11 +162,16 @@ def test_device_cuda_without_cuda_raises(pth):
 
 
 def test_port_imports_no_jax():
-    """At run time: importing the serving entry point loads neither JAX
-    nor the JAX package. In the source: no module of the port (nor
+    """At run time: importing every module of the port (the serving and
+    training entry points among them) loads neither JAX nor the JAX
+    package. In the source: no module of the port (nor
     chip_smoke.py) names them in an import, lazy ones included."""
-    code = ("import sys, ddti_tpu_torch.cli.serve, ddti_tpu_torch.models, "
-            "ddti_tpu_torch.train.checkpoint, ddti_tpu_torch.ops._build; "
+    modules = sorted(
+        ".".join(f.relative_to(ROOT).with_suffix("").parts)
+        for f in (ROOT / "ddti_tpu_torch").rglob("*.py")
+        if f.name != "__init__.py")
+    assert "ddti_tpu_torch.cli.main" in modules
+    code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ddti_tpu')); "
             "assert not bad, bad")
