@@ -13,10 +13,14 @@ and a non-zero exit:
 2. build    — compiles the CUDA sources under ddti_tpu_torch/csrc with nvcc
               (one process per source, all at once) into build/.
 3. kernels  — every kernel against its plain PyTorch version on the card,
-              with timings: flash attention at the serving path's shapes;
-              the EDT (csrc/edt.cu) bit for bit against its plain version
-              and against scipy at the training path's shapes, ragged ones
-              and edge frames.
+              with timings: flash attention forward at the serving path's
+              shapes; the flash backward kernels (csrc/flash_bwd.cu: dK/dV
+              with the delta pre-pass, and dQ) at the same shapes and a
+              ragged S, dq/dk/dv against their limits, each kernel's device
+              time from torch.profiler beside the plain backward's; the EDT
+              (csrc/edt.cu) bit for bit against its plain version and
+              against scipy at the training path's shapes, ragged ones and
+              edge frames.
 4. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
               TransUNet of configs/config.yaml (base_filters 64, depth 4,
               512x512 -> 1024 bottleneck tokens), random weights from a seed,
@@ -40,13 +44,28 @@ and a non-zero exit:
               metrics with HD95/ASSD, a best .pth that loads strictly and an
               .npz in the JAX package's key layout, and exactly the expected
               number of EDT kernel launches.
-7. step     — one float32 train step from one state and batch with the
+7. ttrain   — the same CLI training the serving slice's TransUNet
+              (base_filters 64, depth 4, 512^2 -> 1024 tokens) from a model
+              YAML with dropout_rate 0.0, batch 16, bf16, 2 epochs: the same
+              checks, and exactly the expected launches of the flash forward,
+              both backward kernels and the EDT.
+8. step     — one float32 train step from one state and batch with the
               kernel EDT and with the plain EDT: bit-equal boundary terms and
               updated parameters equal to 1e-6.
-8. tprofile — device time per bf16 train step at 512^2 / batch 16 and at
-              256^2 / batch 128 (CUDA events), with a torch.profiler top-8,
-              the busy share and the EDT kernels' share.
-9. result   — the total wall time, a JSON line of the kernels, then the
+9. tstep    — one float32 TransUNet train step from one state and batch
+              through the flash kernels and through their plain versions
+              (swapped in explicitly): loss terms to 1e-6, gradients and
+              updated parameters within the stated normwise limits; then a
+              bf16 step at the default dropout 0.1, which the gate sends to
+              the plain attention: no flash launch, finite terms.
+10. tprofile — device time per bf16 train step (CUDA events): ResUNet at
+              512^2 / batch 16 and 256^2 / batch 128, with the EDT kernels'
+              share; the TransUNet at 512^2 / batch 16 (S = 1024) on the
+              kernel path and the plain path, and the S = 4096 TransUNet
+              (base_filters 32, depth 3) at the largest batch <= 16 whose
+              plain path fits; torch.profiler top-8, busy share and the
+              flash kernels' share.
+11. result  — the total wall time, a JSON line of the kernels, then the
               device line.
 """
 
@@ -103,6 +122,32 @@ STEP_PARAM_RTOL = 1e-6
 # (image size, batch): the CLI default and bench.py's headline leg
 TRAIN_PROFILES = [(512, 16), (256, 128)]
 TRAIN_PROFILE_STEPS = 3
+# backward kernels vs plain, max |difference| over max |value| of each of
+# dq, dk, dv: float32 by summation order, bf16 also by P and dS landing an
+# ulp apart where the two sides' float32 values straddle a bf16 boundary
+G_LIMIT = {"bfloat16": 2e-2, "float32": 1e-4}
+# the forward's shapes and a ragged S
+BWD_SHAPES = KERNEL_SHAPES + [(2, 8, 1000, 32, "bfloat16")]
+BWD_PROFILE_CALLS = 5
+# the TransUNet training slice: the serving slice's model from a model YAML
+# (configs/config.yaml:337-343) with dropout_rate 0.0, trained by the CLI
+TSLICE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
+              dropout_rate=0.0)
+TSLICE_PARAMS = 19511873
+TTRAIN = dict(image_size=512, batch_size=16, epochs=2)
+# float32 step, flash kernels vs their plain versions: loss terms (relative)
+# and gradients and updated parameters (normwise over all of them). The
+# attention gradients' float32 summation-order differences (~3e-7 relative)
+# reach 2.5e-5 normwise over all gradients, and the first AdamW step turns
+# the gradients that lie within that noise of zero into sign flips of up to
+# 2 lr: 1.2e-6 normwise on the parameters (H100); held to 4x and 8x that
+TSTEP_TERM_RTOL = 1e-6
+TSTEP_GRAD_RTOL = 1e-4
+TSTEP_PARAM_RTOL = 1e-5
+# the S = 4096 TransUNet of configs/config.yaml:303-308 (512^2, depth 3)
+TLONG = dict(in_channels=1, out_channels=1, base_filters=32, depth=3,
+             dropout_rate=0.0)
+TLONG_BATCHES = (16, 8, 4, 2, 1)
 
 
 def phase(name, msg):
@@ -154,6 +199,65 @@ def check_kernels():
             "kernel disagrees with its plain version"
         rows.append(dict(shape=[b, h, s, d], dtype=dt, max_abs_err=err_o,
                          max_abs_err_lse2=err_lse, ms=ms, plain_ms=plain_ms))
+    return rows
+
+
+def check_bwd_kernels():
+    """csrc/flash_bwd.cu against flash_backward_reference on the forward
+    kernel's o and lse2: dq, dk, dv against G_LIMIT; the whole backward's
+    time (CUDA events) beside the plain one's, and each kernel's device
+    time from torch.profiler (the delta pre-pass counted with dK/dV)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddti_tpu_torch.ops import attention as A
+
+    rows = []
+    for b, h, s, d, dt in BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, do = (torch.randn((b, h, s, d), generator=g, device="cuda")
+                       .to(dtype) for _ in range(4))
+        o, lse = A.flash_forward_cuda(q, k, v)
+        args = (q, k, v, o, lse, do)
+        got = A.flash_backward_cuda(*args)
+        torch.cuda.synchronize()
+        want = A.flash_backward_reference(*args)
+        abs_err, rel_err = {}, {}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a.float()).all(), f"non-finite {name}"
+            abs_err[name] = (a.float() - w.float()).abs().max().item()
+            rel_err[name] = abs_err[name] / max(
+                w.float().abs().max().item(), 1e-30)
+        del got, want
+        ms = median_ms(lambda: A.flash_backward_cuda(*args))
+        plain_ms = median_ms(lambda: A.flash_backward_reference(*args))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(BWD_PROFILE_CALLS):
+                A.flash_backward_cuda(*args)
+            torch.cuda.synchronize()
+        split = {"dkdv": 0.0, "dq": 0.0}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "flash_bwd_dq" in e.key:
+                split["dq"] += e.self_device_time_total
+            elif "flash_bwd_dkdv" in e.key or "flash_bwd_delta" in e.key:
+                split["dkdv"] += e.self_device_time_total
+        assert split["dkdv"] > 0 and split["dq"] > 0, \
+            "torch.profiler recorded no backward kernel"
+        split = {k: us / BWD_PROFILE_CALLS / 1e3 for k, us in split.items()}
+        phase("kernels", f"flash_bwd {(b, h, s, d)} {dt}: max|d|/max|g| "
+              + " ".join(f"{n} {e:.3e}" for n, e in rel_err.items())
+              + f" (limit {G_LIMIT[dt]:g}); kernels {ms:.4f} ms (profiler: "
+              f"delta + dK/dV {split['dkdv']:.4f}, dQ {split['dq']:.4f}) "
+              f"plain {plain_ms:.4f} ms")
+        assert max(rel_err.values()) <= G_LIMIT[dt], \
+            "a backward kernel disagrees with its plain version"
+        rows.append(dict(shape=[b, h, s, d], dtype=dt, abs_err=abs_err,
+                         rel_err=rel_err, ms=ms, ms_dkdv=split["dkdv"],
+                         ms_dq=split["dq"], plain_ms=plain_ms))
     return rows
 
 
@@ -534,9 +638,38 @@ def jax_resunet_keys(depth):
     return keys | {"params/final_conv/kernel", "params/final_conv/bias"}
 
 
-def run_training(tmp):
-    """The training CLI end to end in its own process; returns the EDT
-    kernel's launch count in that run."""
+def jax_transunet_keys(depth, layers):
+    """The key set ddti_tpu.train.checkpoint.save_params_npz writes for a
+    TransUNet of this depth and encoder layer count, written out from the
+    flax module tree (encoders and decoders are ConvBNAct blocks)."""
+    keys = {"params/patchify/kernel", "params/pos_emb",
+            "params/trans_proj/kernel", "params/trans_proj/bias",
+            "params/final_conv/kernel", "params/final_conv/bias"}
+    for b in ([f"encoders_{i}" for i in range(depth)]
+              + [f"decoders_{i}" for i in range(depth)]):
+        keys |= {f"params/{b}/conv1/kernel", f"params/{b}/conv2/kernel"}
+        for bn in ("bn1", "bn2"):
+            keys |= {f"params/{b}/{bn}/scale", f"params/{b}/{bn}/bias",
+                     f"batch_stats/{b}/{bn}/mean", f"batch_stats/{b}/{bn}/var"}
+    for i in range(depth):
+        keys |= {f"params/upconvs_{i}/kernel", f"params/upconvs_{i}/bias"}
+    for i in range(layers):
+        for dense in ("qkv", "out_proj", "fc1", "fc2"):
+            keys |= {f"params/trans_layers_{i}/{dense}/kernel",
+                     f"params/trans_layers_{i}/{dense}/bias"}
+        for ln in ("ln1", "ln2"):
+            keys |= {f"params/trans_layers_{i}/{ln}/scale",
+                     f"params/trans_layers_{i}/{ln}/bias"}
+    return keys
+
+
+def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
+    """The training CLI (--mode both --synthetic, 2 epochs, bf16) end to end
+    in its own process: exit 0, the parameter count of ``model_kw``, the
+    run tree, finite loss terms with a nonzero boundary term, val IoU and
+    test metrics with HD95/ASSD, a best .pth that loads strictly and an .npz
+    with the key set ``keys`` and the same tensors. Returns the launch count
+    of each kernel in that run."""
     import math
 
     import numpy as np
@@ -546,27 +679,25 @@ def run_training(tmp):
     from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
     from ddti_tpu_torch.train.state import count_params
 
-    base = os.path.join(tmp, "runs")
+    base = os.path.join(tmp, f"runs_{name}")
     cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.main", "--mode", "both",
-           "--synthetic", "--use_amp_autocast", "true", "--base_dir", base]
-    for k, v in TRAIN.items():
-        cmd += [f"--{k}", str(v)]
-    phase("train", " ".join(cmd[1:]))
+           "--synthetic", "--use_amp_autocast", "true", "--base_dir", base,
+           "--model_type", model_type, f"--epochs={epochs}", *flags]
+    phase(name, " ".join(cmd[1:]))
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True,
                          timeout=TRAIN_TIMEOUT_S)
     wall = time.perf_counter() - t0
     out = res.stdout
-    phase("train", f"exit {res.returncode} in {wall:.1f} s")
+    phase(name, f"exit {res.returncode} in {wall:.1f} s")
     if res.returncode != 0:
         print(out[-4000:], res.stderr[-8000:], sep="\n", file=sys.stderr)
     assert res.returncode == 0, "the training CLI failed"
     params = [l for l in out.splitlines() if l.startswith("[PARAMS]")]
     kernels = [l for l in out.splitlines() if l.startswith("[KERNELS]")]
-    phase("train", f"{params[0]} {kernels[0]}")
-    model = create_model("ResUNet", base_filters=TRAIN["base_filters"],
-                         depth=TRAIN["depth"])
-    assert params[0] == f"[PARAMS] ResUNet,{count_params(model)}"
+    phase(name, f"{params[0]} {kernels[0]}")
+    model = create_model(model_type, **model_kw)
+    assert params[0] == f"[PARAMS] {model_type},{count_params(model)}"
     launches = dict(kv.split("=") for kv in kernels[0].split()[1:])
     launches = {k: int(v) for k, v in launches.items()}
 
@@ -578,37 +709,50 @@ def run_training(tmp):
         log = f.read()
     terms = _parse_terms(log)
     for t in terms:
-        phase("train", f"{t[0]} epoch {t[1]}: loss {t[2]:.4f} bce {t[3]:.4f} "
+        phase(name, f"{t[0]} epoch {t[1]}: loss {t[2]:.4f} bce {t[3]:.4f} "
               f"dice {t[4]:.4f} focal {t[5]:.4f} boundary {t[6]:.4f} "
               f"IoU {t[7]:.4f}")
-    assert len(terms) == 2 * TRAIN["epochs"], "an epoch line is missing"
+    assert len(terms) == 2 * epochs, "an epoch line is missing"
     assert all(math.isfinite(x) for t in terms for x in t[2:7])
     assert all(t[6] > 0 for t in terms), "the boundary term is zero"
     assert all(math.isfinite(t[7]) for t in terms if t[0] == "Validate")
     with open(os.path.join(run, "result", "test_metrics.json")) as f:
         test = json.load(f)
-    phase("train", "test: " + ", ".join(
+    phase(name, "test: " + ", ".join(
         f"{k} {test[k]:.4f}" for k in ("iou", "f1", "hd95_mean",
                                        "assd_mean", "total_images")))
     for k in ("iou", "f1", "hd95_mean", "assd_mean"):
         assert math.isfinite(test[k]), k
     assert test["total_images"] == SYNTHETIC[2]
 
-    best = os.path.join(run, "models", "ResUNet_best")
-    load_checkpoint_into(best + ".pth", "ResUNet", model)  # strict
+    best = os.path.join(run, "models", f"{model_type}_best")
+    load_checkpoint_into(best + ".pth", model_type, model)  # strict
     with np.load(best + ".npz") as z:
-        keys = set(z.files)
-    assert keys == jax_resunet_keys(TRAIN["depth"]), \
-        sorted(keys ^ jax_resunet_keys(TRAIN["depth"]))[:8]
-    twin = load_checkpoint_into(best + ".npz", "ResUNet", create_model(
-        "ResUNet", base_filters=TRAIN["base_filters"], depth=TRAIN["depth"]))
+        got = set(z.files)
+    assert got == keys, sorted(got ^ keys)[:8]
+    twin = load_checkpoint_into(best + ".npz", model_type,
+                                create_model(model_type, **model_kw))
     for k, v in model.state_dict().items():
         assert torch.equal(v, twin.state_dict()[k]), k
-    phase("train", f"best .pth loads strictly; .npz holds the JAX layout's "
+    phase(name, f"best .pth loads strictly; .npz holds the JAX layout's "
           f"{len(keys)} keys and the same tensors")
+    return launches
 
-    bs = TRAIN["batch_size"]
-    steps, val, test_b = (-(-n // bs) for n in SYNTHETIC)
+
+def _cli_batches(batch):
+    """(train steps per epoch, val batches, test batches) of the CLI's
+    synthetic splits."""
+    return tuple(-(-n // batch) for n in SYNTHETIC)
+
+
+def run_training(tmp):
+    """The ResUNet training CLI; returns the EDT kernel's launch count."""
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    flags = [f"--{k}={v}" for k, v in TRAIN.items()
+             if k not in ("model_type", "epochs")]
+    launches = run_cli(tmp, "train", "ResUNet", model_kw, flags,
+                       TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
+    steps, val, test_b = _cli_batches(TRAIN["batch_size"])
     expected = TRAIN["epochs"] * (steps + val) + test_b
     phase("train", f"edt_minplus launches {launches['edt_minplus']}, "
           f"expected {TRAIN['epochs']} epochs x ({steps} train + {val} val "
@@ -617,9 +761,48 @@ def run_training(tmp):
     return launches["edt_minplus"]
 
 
-def _train_setup(size, batch, amp, seed=SEED):
-    """A full-width ResUNet on the card, its train state and step, one
-    synthetic batch and its draws."""
+def run_transunet_training(tmp):
+    """The TransUNet training CLI from a model YAML with dropout_rate 0.0;
+    returns the launch counts, each checked against its expected value."""
+    import yaml
+
+    cfg = os.path.join(tmp, "transunet_bf64_d4_dropout0.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"model": {"model_type": "TransUNet",
+                                  "kwargs": TSLICE}}, f)
+    flags = ["--config_path", cfg, "--device", DEVICE,
+             *(f"--{k}={v}" for k, v in TTRAIN.items() if k != "epochs")]
+    model_kw = dict(TSLICE, image_size=TTRAIN["image_size"])
+    launches = run_cli(tmp, "ttrain", "TransUNet", model_kw, flags,
+                       TTRAIN["epochs"],
+                       jax_transunet_keys(TSLICE["depth"], N_LAYERS))
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.state import count_params
+
+    assert count_params(create_model("TransUNet", **model_kw)) \
+        == TSLICE_PARAMS, "not the serving slice's TransUNet"
+    steps, val, test_b = _cli_batches(TTRAIN["batch_size"])
+    epochs = TTRAIN["epochs"]
+    expected = {
+        "flash_fwd": N_LAYERS * (epochs * (steps + val) + test_b),
+        "flash_bwd_dkdv": N_LAYERS * epochs * steps,
+        "flash_bwd_dq": N_LAYERS * epochs * steps,
+        "edt_minplus": epochs * (steps + val) + test_b,
+    }
+    phase("ttrain", "launches " + ", ".join(
+        f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
+        + f": {N_LAYERS} layers, {epochs} epochs x ({steps} train + {val} "
+        f"val steps) + {test_b} test batches; the backward in train steps "
+        f"only")
+    assert {k: launches[k] for k in expected} == expected
+    return launches
+
+
+def _train_setup(size, batch, amp, seed=SEED, model_type="ResUNet",
+                 model_kw=None):
+    """A full-width model on the card (the flagship ResUNet unless
+    ``model_type`` / ``model_kw`` say otherwise), its train state and step,
+    one synthetic batch and its draws."""
     import torch
 
     from ddti_tpu_torch.core.config import Config
@@ -630,11 +813,13 @@ def _train_setup(size, batch, amp, seed=SEED):
     from ddti_tpu_torch.train.steps import make_train_step
     from ddti_tpu_torch.utils.weight_init import init_like_flax
 
+    if model_kw is None:
+        model_kw = dict(base_filters=TRAIN["base_filters"],
+                        depth=TRAIN["depth"])
     cfg = Config(image_size=size, store_size=size, batch_size=batch,
                  use_amp_autocast=amp)
-    model = init_like_flax(create_model(
-        "ResUNet", base_filters=TRAIN["base_filters"],
-        depth=TRAIN["depth"]), seed).to(DEVICE)
+    model = init_like_flax(create_model(model_type, **model_kw),
+                           seed).to(DEVICE)
     src = synthetic_source(batch, (size, size), seed, device=DEVICE)
     images, masks = src.gather(list(range(batch)))
     aug = AugmentConfig(out_size=(size, size))
@@ -687,59 +872,223 @@ def step_kernel_vs_plain():
     assert rel <= STEP_PARAM_RTOL and moved == len(pk)
 
 
-def profile_training():
-    """Device time per bf16 train step (CUDA events) and where it goes."""
+def _plain_flash():
+    """flash_attention with its kernels swapped for their plain versions
+    (flash_forward_reference, flash_backward_reference) on any device."""
+    import torch
+
+    from ddti_tpu_torch.ops import attention as A
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = A.flash_forward_reference(q, k, v)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return A.flash_backward_reference(q, k, v, o, lse,
+                                              do.contiguous().to(o.dtype))
+
+    return PlainFlash.apply
+
+
+def _flash_counts():
+    from ddti_tpu_torch.ops import attention as A
+
+    bwd = A.flash_backward_cuda
+    return [A.flash_forward_cuda.launches, bwd.launches_dkdv, bwd.launches_dq]
+
+
+def _normwise(a, b):
+    """||a - b|| / ||b|| over every tensor of two same-keyed dicts."""
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+    den = sum(float((b[k].double() ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def tstep_kernel_vs_plain():
+    """One float32 TransUNet step from one state and batch through the
+    flash kernels and through their plain versions (swapped explicitly);
+    deterministic cuDNN so that only the attention route differs. Then one
+    bf16 step at the default dropout 0.1, where the gate takes the plain
+    attention."""
+    import math
+
+    import torch
+
+    from ddti_tpu_torch.models import blocks
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.train.state import TrainState
+
+    size, batch = TTRAIN["image_size"], TTRAIN["batch_size"]
+    kw = dict(TSLICE, image_size=size)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model, _, step, (images, masks, draws) = _train_setup(
+        size, batch, False, model_type="TransUNet", model_kw=kw)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    try:
+        # the kernel route twice: its own run-to-run floor
+        for route in ("kernel", "kernel again", "plain"):
+            model.load_state_dict(sd0)
+            state = TrainState(model, 1e-5, 4)
+            before = _flash_counts()
+            if route == "plain":
+                blocks.flash_attention = _plain_flash()
+            m = step(state, images, masks, draws, None)
+            torch.cuda.synchronize()
+            moved = [a - b for a, b in zip(_flash_counts(), before)]
+            assert moved == [N_LAYERS * (route != "plain")] * 3, moved
+            out[route] = (
+                torch.stack([m.loss, m.bce, m.dice, m.focal,
+                             m.boundary]).double(),
+                {k: p.grad.clone() for k, p in model.named_parameters()},
+                {k: v.clone() for k, v in model.state_dict().items()})
+    finally:
+        blocks.flash_attention = A.flash_attention
+        torch.backends.cudnn.deterministic = False
+    (tk, gk, pk), (tp, gp, pp) = out["kernel"], out["plain"]
+    _, g2, p2 = out.pop("kernel again")
+    term_rel = float(((tk - tp).abs() / tp.abs().clamp(min=1e-30)).max())
+    grad_rel, param_rel = _normwise(gk, gp), _normwise(pk, pp)
+    worst = max(gk, key=lambda k: _normwise({k: gk[k]}, {k: gp[k]}))
+    phase("tstep", f"kernel route run twice: gradients normwise "
+          f"{_normwise(gk, g2):.3e}, parameters {_normwise(pk, p2):.3e}; "
+          f"kernels vs plain, the gradient furthest apart: {worst} "
+          f"{_normwise({worst: gk[worst]}, {worst: gp[worst]}):.3e}")
+    step_gap = max(float((pk[k] - pp[k]).abs().max()) for k in gk) / 1e-5
+    n_moved = sum(not torch.equal(pk[k], sd0[k]) for k in pk)
+    phase("tstep", f"float32 TransUNet {size}^2 batch {batch}, kernels vs "
+          f"plain: loss terms kernel {tk.tolist()} plain {tp.tolist()}, max "
+          f"relative difference {term_rel:.3e} (limit "
+          f"{TSTEP_TERM_RTOL:g}); gradients normwise {grad_rel:.3e} (limit "
+          f"{TSTEP_GRAD_RTOL:g}); updated tensors {n_moved}/{len(pk)}, "
+          f"normwise {param_rel:.3e} (limit {TSTEP_PARAM_RTOL:g}), largest "
+          f"parameter gap {step_gap:.3f} lr")
+    assert term_rel <= TSTEP_TERM_RTOL, "kernel and plain loss terms differ"
+    assert grad_rel <= TSTEP_GRAD_RTOL, "kernel and plain gradients differ"
+    assert param_rel <= TSTEP_PARAM_RTOL and step_gap <= 2.001
+    assert n_moved == len(pk)
+    del model, step, images, masks, out, gk, gp, pk, pp, g2, p2, sd0
+    torch.cuda.empty_cache()
+
+    kw = {k: v for k, v in kw.items() if k != "dropout_rate"}  # 0.1
+    _, state, step, (images, masks, draws) = _train_setup(
+        size, batch, True, model_type="TransUNet", model_kw=kw)
+    before = _flash_counts()
+    m = step(state, images, masks, draws, None)
+    torch.cuda.synchronize()
+    terms = [float(t) for t in (m.loss, m.bce, m.dice, m.focal, m.boundary)]
+    phase("tstep", f"bf16 TransUNet step at the default dropout 0.1: flash "
+          f"launches {[a - b for a, b in zip(_flash_counts(), before)]} "
+          f"(the gate takes the plain attention with probability dropout), "
+          f"terms {terms}")
+    assert _flash_counts() == before, "a flash kernel ran with dropout"
+    assert all(math.isfinite(t) for t in terms) and terms[4] > 0
+    del state, step, images, masks
+    torch.cuda.empty_cache()
+
+
+def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None):
+    """Device time per bf16 train step (CUDA events) and a torch.profiler
+    window over TRAIN_PROFILE_STEPS steps: busy share, the EDT's and the
+    flash kernels' share, the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ddti_tpu_torch.ops import edt as E
 
-    rows = []
-    for size, batch in TRAIN_PROFILES:
-        _, state, step, (images, masks, draws) = _train_setup(
-            size, batch, True)
+    _, state, step, (images, masks, draws) = _train_setup(
+        size, batch, True, model_type=model_type, model_kw=model_kw)
 
-        def one():
-            step(state, images, masks, draws, None)
+    def one():
+        step(state, images, masks, draws, None)
 
-        ms = median_ms(one, runs=10, warmup=3)
+    ms = median_ms(one, runs=10, warmup=3)
+    torch.cuda.synchronize()
+    before = [E.edt_cuda.launches, *_flash_counts()]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            one()
         torch.cuda.synchronize()
-        launches0 = E.edt_cuda.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(TRAIN_PROFILE_STEPS):
-                one()
-            torch.cuda.synchronize()
-            window_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        edt_us = sum(e.self_device_time_total for e in kernels
-                     if "edt_" in e.key)
-        phase("tprofile", f"bf16 train step {size}^2 batch {batch}: "
-              f"{ms:.3f} ms device time (CUDA events, median of 10), "
-              f"{batch / ms * 1e3:.1f} img/s; torch.profiler over "
-              f"{TRAIN_PROFILE_STEPS} steps: window {window_us / 1e3:.3f} ms, "
-              f"device kernels {busy_us / 1e3:.3f} ms "
-              f"({busy_us / max(window_us, 1):.1%} busy), EDT kernels "
-              f"{edt_us / 1e3:.3f} ms ({edt_us / max(busy_us, 1):.2%} of "
-              f"device time), {E.edt_cuda.launches - launches0} EDT launches")
-        if not kernels:
-            phase("tprofile", "no device time recorded: breakdown not "
-                  "measured")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[
-                :PROFILE_TOP]:
-            phase("tprofile", f"{e.self_device_time_total / busy_us:6.1%} "
-                  f"{e.count:4d} x "
-                  f"{e.self_device_time_total / e.count / 1e3:.4f} ms  "
-                  f"{e.key[:90]}")
-        rows.append(dict(size=size, batch=batch, ms=ms,
-                         busy=busy_us / max(window_us, 1),
-                         edt_share=edt_us / max(busy_us, 1)))
-        del state, step, images, masks
+        window_us = (time.perf_counter() - t0) * 1e6
+    launched = [a - b for a, b in zip([E.edt_cuda.launches,
+                                       *_flash_counts()], before)]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    edt_us = sum(e.self_device_time_total for e in kernels
+                 if "edt_" in e.key)
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key)
+    phase("tprofile", f"{label}: bf16 train step {size}^2 batch {batch}: "
+          f"{ms:.3f} ms device time (CUDA events, median of 10), "
+          f"{batch / ms * 1e3:.1f} img/s; torch.profiler over "
+          f"{TRAIN_PROFILE_STEPS} steps: window {window_us / 1e3:.3f} ms, "
+          f"device kernels {busy_us / 1e3:.3f} ms "
+          f"({busy_us / max(window_us, 1):.1%} busy), EDT kernels "
+          f"{edt_us / 1e3:.3f} ms ({edt_us / max(busy_us, 1):.2%} of "
+          f"device time), flash kernels {flash_us / 1e3:.3f} ms "
+          f"({flash_us / max(busy_us, 1):.2%}); launches edt/flash_fwd/"
+          f"flash_bwd_dkdv/flash_bwd_dq {launched}")
+    if not kernels:
+        phase("tprofile", "no device time recorded: breakdown not measured")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[
+            :PROFILE_TOP]:
+        phase("tprofile", f"{e.self_device_time_total / busy_us:6.1%} "
+              f"{e.count:4d} x "
+              f"{e.self_device_time_total / e.count / 1e3:.4f} ms  "
+              f"{e.key[:90]}")
+    del state, step, images, masks, prof
+    torch.cuda.empty_cache()
+    return dict(model=label, size=size, batch=batch, ms=ms,
+                busy=busy_us / max(window_us, 1),
+                edt_share=edt_us / max(busy_us, 1),
+                flash_share=flash_us / max(busy_us, 1))
+
+
+def profile_training():
+    """The ResUNet train step at TRAIN_PROFILES."""
+    return [_profile_steps("ResUNet bf64 d5", size, batch)
+            for size, batch in TRAIN_PROFILES]
+
+
+def profile_transunet():
+    """The TransUNet train step on the kernel and the plain attention path:
+    the slice's model at S = 1024, and the S = 4096 one at the largest
+    batch of TLONG_BATCHES whose plain path fits in device memory."""
+    import gc
+
+    import torch
+
+    size, batch = TTRAIN["image_size"], TTRAIN["batch_size"]
+    rows = []
+    for path, flash in (("kernel", None), ("plain", False)):
+        kw = dict(TSLICE, image_size=size, use_flash_attention=flash)
+        rows.append(_profile_steps(f"TransUNet bf64 d4 S=1024 {path}", size,
+                                   batch, "TransUNet", kw))
+    kw = dict(TLONG, image_size=size)
+    for batch in TLONG_BATCHES:
+        try:
+            plain = _profile_steps(
+                "TransUNet bf32 d3 S=4096 plain", size, batch, "TransUNet",
+                dict(kw, use_flash_attention=False))
+            break
+        except torch.cuda.OutOfMemoryError:
+            phase("tprofile", f"TransUNet bf32 d3 S=4096 plain path at "
+                  f"batch {batch}: out of device memory, halving")
+        gc.collect()
         torch.cuda.empty_cache()
+    rows.append(_profile_steps("TransUNet bf32 d3 S=4096 kernel", size,
+                               batch, "TransUNet", kw))
+    rows.append(plain)
     return rows
 
 
@@ -770,13 +1119,17 @@ def main():
           f"{os.path.relpath(path)}")
 
     rows = check_kernels()
+    bwd_rows = check_bwd_kernels()
     edt_rows = check_edt()
     with tempfile.TemporaryDirectory() as tmp:
         launches, ckpt = run_slice(tmp)
         profile_slice(ckpt)
         edt_launches = run_training(tmp)
+        t_launches = run_transunet_training(tmp)
     step_kernel_vs_plain()
+    tstep_kernel_vs_plain()
     train_rows = profile_training()
+    ttrain_rows = profile_transunet()
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row = rows[0]
@@ -787,10 +1140,39 @@ def main():
         "replaces": "ddti_tpu/ops/attention.py:347",
         "also_replaces": "ddti_tpu/ops/attention.py:104",
         "launches": launches,
+        "train_launches": t_launches["flash_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "shapes": rows,
+    }, {
+        "name": "flash_bwd_dkdv",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "ddti_tpu/ops/attention.py:405",
+        "also_replaces": "ddti_tpu/ops/attention.py:180",
+        "launches": t_launches["flash_bwd_dkdv"],
+        "max_abs_err": max(max(r["abs_err"]["dk"], r["abs_err"]["dv"])
+                           for r in bwd_rows),
+        "max_rel_err": max(max(r["rel_err"]["dk"], r["rel_err"]["dv"])
+                           for r in bwd_rows),
+        "ms": bwd_rows[0]["ms_dkdv"],
+        "plain_ms": bwd_rows[0]["plain_ms"],
+        "plain_covers": "flash_backward_reference: dq, dk and dv together",
+        "shapes": bwd_rows,
+        "train_steps": ttrain_rows,
+    }, {
+        "name": "flash_bwd_dq",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "ddti_tpu/ops/attention.py:450",
+        "also_replaces": "ddti_tpu/ops/attention.py:222",
+        "launches": t_launches["flash_bwd_dq"],
+        "max_abs_err": max(r["abs_err"]["dq"] for r in bwd_rows),
+        "max_rel_err": max(r["rel_err"]["dq"] for r in bwd_rows),
+        "ms": bwd_rows[0]["ms_dq"],
+        "plain_ms": bwd_rows[0]["plain_ms"],
+        "plain_covers": "flash_backward_reference: dq, dk and dv together",
     }, {
         "name": "edt_minplus",
         "route": "cuda",

@@ -4,6 +4,10 @@
         --model_type ResUNet --base_filters 64 --depth 5 --image_size 512 \\
         --batch_size 16 --use_amp_autocast true --epochs 2
 
+A TransUNet takes its kwargs from a model YAML, as in the JAX CLI
+(``--config_path`` with ``{model: {model_type, kwargs}}``; ``dropout_rate:
+0.0`` lets its 1024-token bottleneck train through the flash kernels).
+
 The flags of the training slice keep the JAX package's names and
 defaults; ``--device`` (default ``cuda``, which raises where CUDA is
 absent; ``cpu`` for small runs) is the port's own. A flag of the JAX CLI
@@ -182,8 +186,10 @@ def main(argv=None) -> int:
         trainer.test()
     # the hand-written kernels this run launched (0 on the CPU, where the
     # plain versions run): the shell-capture proof of the kernel path
+    bwd = attention.flash_backward_cuda
     print(f"[KERNELS] edt_minplus={edt.edt_cuda.launches} "
-          f"flash_fwd={attention.flash_forward_cuda.launches}")
+          f"flash_fwd={attention.flash_forward_cuda.launches} "
+          f"flash_bwd_dkdv={bwd.launches_dkdv} flash_bwd_dq={bwd.launches_dq}")
     return 0
 
 

@@ -5,9 +5,16 @@ PyTorch idiom: NCHW ``nn.Module``s; bf16 compute comes from
 Submodule names follow the torch reference's attribute layout, so the
 ``state_dict`` keys are exactly those of
 ``ddti_tpu.train.torch_interop.export_state_dict``.
+
+Dropout (the transformer layer's, and the attention probabilities' on the
+plain path in training) draws from torch's global generator, as
+``nn.Dropout`` does; the JAX package's draws come from its ``dropout`` key,
+so the two agree in distribution, not in bits.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -115,6 +122,18 @@ def match_spatial(x, skip):
     return x
 
 
+def attention_dropout(q, k, v, p: float):
+    """Plain attention with dropout on the probabilities, in the JAX
+    layer's order (``ddti_tpu/models/blocks.py:304-313``): float32 scaled
+    scores, softmax cast to v's dtype, dropout at rate ``p``, then the PV
+    product with float32 accumulation."""
+    with torch.autocast(q.device.type, enabled=False):
+        s = q.float() @ k.float().transpose(-1, -2)
+        a = torch.softmax(s / math.sqrt(q.shape[-1]), dim=-1).to(v.dtype)
+        a = F.dropout(a, p, training=True)
+        return (a.float() @ v.float()).to(q.dtype)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with torch MHA's parameter names (packed
     ``in_proj_weight``/``in_proj_bias`` and ``out_proj``), whose attention
@@ -150,9 +169,7 @@ class SelfAttention(nn.Module):
         if use_flash:
             y = flash_attention(q, k, v)
         elif self.training and self.dropout:
-            raise NotImplementedError(
-                "attention-probability dropout in training is not ported "
-                "yet (ROADMAP.md, training slice); serve in eval mode")
+            y = attention_dropout(q, k, v, self.dropout)
         else:
             y = attention_reference(q, k, v)
         y = y.transpose(1, 2).reshape(b, s, e)

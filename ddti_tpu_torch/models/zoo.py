@@ -1,5 +1,6 @@
 """The model zoo, ported from ``ddti_tpu/models/zoo.py``: so far ResUNet
-(the flagship, trained by ``cli/main.py``) and TransUNet (served).
+(the flagship) and TransUNet, both trained by ``cli/main.py``, TransUNet
+also served.
 
 Models map NCHW ``(N, in_channels, H, W)`` inputs to ``(N, out_channels, H,
 W)`` logits (the JAX package is NHWC; ``train/export.py`` keeps NHWC at the

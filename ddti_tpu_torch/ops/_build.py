@@ -85,6 +85,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every kernel's C entry point: argument types; each returns a cudaError_t
 KERNELS = {
     "ddti_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ddti_flash_bwd_dkdv": [_P] * 9 + [_I] * 5 + [_P],
+    "ddti_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
     "ddti_edt": [_P, _P, _LL, _I, _I, _P],
 }
 

@@ -4,14 +4,16 @@
 and a softmax; the short-sequence path.
 
 ``flash_attention``: tiled online-softmax attention that never writes the
-(S, S) score matrix. On a CUDA tensor it launches the hand-written Hopper
-kernel in ``csrc/flash_fwd.cu``; on a CPU tensor it runs
-``flash_forward_reference``, the same function in plain PyTorch. There is no
-other route: a CUDA tensor the kernel does not take raises.
+(S, S) score matrix, in either direction. On a CUDA tensor the forward
+launches the hand-written Hopper kernel in ``csrc/flash_fwd.cu`` and the
+backward the dK/dV and dQ kernels in ``csrc/flash_bwd.cu``; on a CPU tensor
+each runs its plain PyTorch version (``flash_forward_reference``,
+``flash_backward_reference``). There is no other route: a CUDA tensor a
+kernel does not take raises.
 
-Layout: q, k, v are (B, H, S, D), the JAX package's layout. The kernel also
-returns the base-2 logsumexp ``lse2`` (B, H, S) float32, the residual the
-backward kernels will consume.
+Layout: q, k, v are (B, H, S, D), the JAX package's layout. The forward
+also returns the base-2 logsumexp ``lse2`` (B, H, S) float32, the residual
+from which the backward recomputes the probabilities.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ import math
 import torch
 
 LOG2E = 1.4426950408889634
-# the kernel takes every head width d with d % 8 == 0 up to this bound
+# the forward kernel takes every head width d with d % 8 == 0 up to this
+# bound, the backward kernels up to MAX_BWD_HEAD_DIM
 MAX_HEAD_DIM = 256
+MAX_BWD_HEAD_DIM = 128
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -92,11 +96,83 @@ def flash_forward_cuda(q, k, v):
 flash_forward_cuda.launches = 0
 
 
+def flash_backward_reference(q, k, v, o, lse2, do):
+    """The backward kernels' function in plain PyTorch: (dq, dk, dv) in the
+    inputs' dtype. The probabilities are recomputed from (q, k, lse2), not
+    from a fresh softmax; P is rounded to dO's dtype before dV = P^T dO and
+    dS = P * (dO V^T - delta) to q's dtype before dK and dQ, as the kernels
+    (and the TPU kernels) round them; every product accumulates in
+    float32."""
+    with torch.autocast(q.device.type, enabled=False):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        s = (qf @ kf.transpose(-1, -2)) * (LOG2E * scale)
+        p = torch.exp2(s - lse2.unsqueeze(-1))
+        delta = (dof * o.float()).sum(-1, keepdim=True)
+        dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
+        ds = (p * (dof @ vf.transpose(-1, -2) - delta)).to(q.dtype).float()
+        dk = (ds.transpose(-1, -2) @ qf) * scale
+        dq = (ds @ kf) * scale
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_cuda(q, k, v, o, lse2, do):
+    """Launch ``csrc/flash_bwd.cu`` on CUDA tensors: the delta pre-pass with
+    the dK/dV kernel, then the dQ kernel; returns (dq, dk, dv). Raises on
+    anything the kernels do not take. Adds one to
+    ``flash_backward_cuda.launches_dkdv`` and to ``.launches_dq`` per launch
+    of each kernel."""
+    ts = (q, k, v, o, do)
+    if q.dim() != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"q, k, v, o, do must share one (B, H, S, D) shape; "
+                         f"got {[tuple(t.shape) for t in ts]}")
+    if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"q, k, v, o, do must all be float32 or bfloat16; "
+                         f"got {[t.dtype for t in ts]}")
+    b, h, s, d = q.shape
+    if d % 8 or not 8 <= d <= MAX_BWD_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the backward kernels take multiples "
+                         f"of 8 up to {MAX_BWD_HEAD_DIM} (wider heads are a "
+                         f"ROADMAP.md Queue 2 item)")
+    if lse2.shape != (b, h, s) or lse2.dtype != torch.float32:
+        raise ValueError(f"lse2 must be (B, H, S) float32; got "
+                         f"{tuple(lse2.shape)} {lse2.dtype}")
+    ts += (lse2,)
+    if not (q.is_cuda and all(t.device == q.device for t in ts)):
+        raise ValueError("q, k, v, o, lse2, do must lie on one CUDA device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("q, k, v, o, lse2, do must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("q, k, v, o, lse2, do must be 16-byte aligned")
+    if not 0 < b * h <= 65535 or s == 0:
+        raise ValueError(f"B*H = {b * h} must lie in [1, 65535] and S > 0")
+    from ._build import launch
+
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty_like(lse2)
+    dev, bf16 = q.device.index, _KERNEL_DTYPES[q.dtype]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    launch("flash_bwd_dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           o.data_ptr(), do.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), b * h, s, d, bf16, dev, stream)
+    flash_backward_cuda.launches_dkdv += 1
+    launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+           b * h, s, d, bf16, dev, stream)
+    flash_backward_cuda.launches_dq += 1
+    return dq, dk, dv
+
+
+flash_backward_cuda.launches_dkdv = 0
+flash_backward_cuda.launches_dq = 0
+
+
 class _FlashAttention(torch.autograd.Function):
+    # the plain versions for CPU tensors; any other device takes the
+    # kernels, which raise on what they cannot take
+
     @staticmethod
     def forward(ctx, q, k, v):
-        # the plain version for CPU tensors; any other device takes the
-        # kernel, which raises on what it cannot take
         fwd = (flash_forward_reference if q.device.type == "cpu"
                else flash_forward_cuda)
         o, lse = fwd(q, k, v)
@@ -105,12 +181,26 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet: the dK/dV and dQ "
-            "kernels (ddti_tpu/ops/attention.py _dkdv_kernel[_packed], "
-            "_dq_kernel[_packed]) are ROADMAP.md Queue 2 items")
+        q, k, v, o, lse = ctx.saved_tensors
+        # do arrives as the gradient of a transposed view, and under
+        # autocast possibly in another dtype than o
+        do = do.contiguous().to(o.dtype)
+        bwd = (flash_backward_reference if q.device.type == "cpu"
+               else flash_backward_cuda)
+        return bwd(q, k, v, o, lse, do)
 
 
 def flash_attention(q, k, v):
-    """Flash attention forward on (B, H, S, D) q/k/v; returns o."""
+    """Flash attention on (B, H, S, D) q/k/v; returns o. Where a backward
+    may follow (grad enabled, an input requiring grad) on a non-CPU device,
+    a head width the backward kernels do not take raises here, before the
+    forward runs, rather than in the middle of ``backward()``."""
+    d = q.shape[-1]
+    if (d > MAX_BWD_HEAD_DIM and q.device.type != "cpu"
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise ValueError(f"head dim {d}: the flash backward kernels take "
+                         f"multiples of 8 up to {MAX_BWD_HEAD_DIM} (wider "
+                         f"heads are a ROADMAP.md Queue 2 item); run it "
+                         f"under torch.no_grad() or with narrower heads")
     return _FlashAttention.apply(q, k, v)

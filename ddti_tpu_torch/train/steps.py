@@ -2,8 +2,9 @@
 
 One train step: uint8 -> float, the augmentation chain, mixup, the forward
 pass (under bf16 autocast with ``use_amp_autocast``), all four loss terms
-(the boundary term's EDT is the CUDA kernel on the card), backward, the
-AdamW update and the confusion counts. The host feeds the batch and the
+(the boundary term's EDT is the CUDA kernel on the card), backward (a
+TransUNet's flash attention through the CUDA backward kernels), the AdamW
+update and the confusion counts. The host feeds the batch and the
 draws and reads nothing back: the returned metrics stay on the device
 until the epoch's end.
 

@@ -11,8 +11,11 @@ the flax default the JAX Trainer's models start from.
   ``xavier_normal_``; this matches flax.
 - ``lecun_normal_``: flax's default kernel initialiser
   (``variance_scaling(1, "fan_in", "truncated_normal")``), which every
-  ``nn.Conv`` / ``nn.ConvTranspose`` of the JAX zoo starts from, biases at
-  zero. ``init_like_flax`` applies it to a port model.
+  ``nn.Conv`` / ``nn.ConvTranspose`` / ``nn.Dense`` of the JAX zoo starts
+  from, biases at zero. ``init_like_flax`` applies it to a port model,
+  the packed attention projection ``in_proj_weight`` (flax's ``qkv``
+  Dense) included, and draws TransUNet's ``pos_emb`` from a standard normal
+  (flax ``normal(1.0)``).
 
 Fans follow flax's reading of its own layouts: a conv kernel's receptive
 field times its input (fan_in) or output (fan_out) channels; torch's
@@ -25,6 +28,9 @@ import math
 
 import torch
 from torch import nn
+
+from ddti_tpu_torch.models.blocks import SelfAttention
+from ddti_tpu_torch.models.zoo import TransEncoder
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling
 # divides by it so the truncated draw keeps the requested variance)
@@ -67,34 +73,50 @@ def lecun_normal_(w: torch.Tensor, transposed: bool = False,
     return _truncated_normal_(w, math.sqrt(1.0 / fan_in), generator)
 
 
+def _set_(param: torch.Tensor, value: torch.Tensor) -> None:
+    with torch.no_grad():
+        param.copy_(value)
+
+
 def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
-    """Initialise every conv, transposed conv and linear of ``model`` as
-    flax initialises the JAX zoo (lecun-normal kernels, zero biases), from
-    a ``torch.Generator`` seeded with ``seed``. BatchNorm keeps (1, 0)."""
+    """Initialise every conv, transposed conv, linear and packed attention
+    projection of ``model`` as flax initialises the JAX zoo (lecun-normal
+    kernels, zero biases) and TransUNet's positional embedding as a
+    standard normal, all from one ``torch.Generator`` seeded with ``seed``.
+    BatchNorm and LayerNorm keep (1, 0)."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-            w = torch.empty(m.weight.shape)
-            lecun_normal_(w, isinstance(m, nn.ConvTranspose2d), g)
-            with torch.no_grad():
-                m.weight.copy_(w)
-                if m.bias is not None:
-                    m.bias.zero_()
+            weight, bias = m.weight, m.bias
+            transposed = isinstance(m, nn.ConvTranspose2d)
+        elif isinstance(m, SelfAttention):
+            # (3E, E): fan_in E, as flax's (E, 3E) qkv kernel
+            weight, bias, transposed = m.in_proj_weight, m.in_proj_bias, False
+        elif isinstance(m, TransEncoder):
+            _set_(m.pos_emb, torch.randn(m.pos_emb.shape, generator=g))
+            continue
+        else:
+            continue
+        _set_(weight, lecun_normal_(torch.empty(weight.shape), transposed, g))
+        if bias is not None:
+            _set_(bias, torch.zeros(bias.shape))
     return model
 
 
 def apply_init(model: nn.Module, seed: int) -> nn.Module:
     """Re-initialise every conv kernel (transposed ones included) with
-    Kaiming-normal and every dense kernel with flax's Xavier-normal; biases,
-    norms and other parameters stay (JAX ``apply_init``)."""
+    Kaiming-normal and every dense kernel (the packed attention projection
+    included) with flax's Xavier-normal; biases, norms, the positional
+    embedding and other parameters stay (JAX ``apply_init``, which touches
+    only leaves named ``kernel``)."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-            w = torch.empty(m.weight.shape)
-            if isinstance(m, nn.Linear):
-                xavier_dense_(w, g)
-            else:
-                kaiming_conv_(w, isinstance(m, nn.ConvTranspose2d), g)
-            with torch.no_grad():
-                m.weight.copy_(w)
+        if isinstance(m, (nn.Linear, SelfAttention)):
+            weight = (m.in_proj_weight if isinstance(m, SelfAttention)
+                      else m.weight)
+            _set_(weight, xavier_dense_(torch.empty(weight.shape), g))
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            _set_(m.weight, kaiming_conv_(torch.empty(m.weight.shape),
+                                          isinstance(m, nn.ConvTranspose2d),
+                                          g))
     return model

@@ -21,6 +21,7 @@ from ddti_tpu.train.checkpoint import save_params_npz
 from ddti_tpu.train.export import serve_body as jax_serve_body
 from ddti_tpu.train.torch_interop import export_state_dict, save_pth
 from ddti_tpu_torch.models import blocks, create_model
+from ddti_tpu_torch.ops import attention as tattn
 from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
 from ddti_tpu_torch.train.export import serve_body
 
@@ -147,13 +148,43 @@ def test_flash_gate_matches_jax(monkeypatch, s, hd, train, dropout):
     tl = blocks.TransformerEncoderLayer(hd, 1, dropout=dropout)
     tl.train(train)
     with torch.no_grad():
-        try:
-            tl(torch.from_numpy(x))
-        except NotImplementedError:
-            # training with attention dropout is not ported; the plain path
-            # raises rather than run without the dropout
-            assert train and dropout and "port" not in took
+        tl(torch.from_numpy(x))
     assert took.get("port", False) == took.get("jax", False)
+
+
+def test_attention_probability_dropout():
+    """The plain path's training dropout acts on the probabilities: with
+    v = I the output is the dropped probability matrix itself. Eval is the
+    identity, p = 0 is bit-equal to the no-dropout path, and at p = 0.5
+    about half the probabilities are kept (65536 of them: 2% is ~10 sigma),
+    each scaled by exactly 2."""
+    rng = np.random.default_rng(0)
+    s = 64
+    q, k = (torch.from_numpy(rng.standard_normal((4, 4, s, s), np.float32))
+            for _ in range(2))
+    v = torch.eye(s).expand(4, 4, s, s)
+    a = tattn.attention_reference(q, k, v)  # softmax(q k^T / sqrt(d))
+    assert torch.equal(blocks.attention_dropout(q, k, v, 0.0), a)
+    torch.manual_seed(0)
+    y = blocks.attention_dropout(q, k, v, 0.5)
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.5) < 0.02
+    assert torch.equal(y[kept], 2 * a[kept])
+
+    layer = blocks.TransformerEncoderLayer(32, 4, dropout=0.5)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 32), np.float32))
+    with torch.no_grad():
+        layer.eval()
+        sa = layer.self_attn
+        qkv = torch.nn.functional.linear(x, sa.in_proj_weight,
+                                         sa.in_proj_bias)
+        qh, kh, vh = (t.reshape(2, 16, 4, 8).transpose(1, 2)
+                      for t in qkv.chunk(3, dim=-1))
+        plain = sa.out_proj(tattn.attention_reference(qh, kh, vh)
+                            .transpose(1, 2).reshape(2, 16, 32))
+        assert torch.equal(sa(x), plain)
+        layer.train()
+        assert not torch.equal(sa(x), plain)
 
 
 def test_gated_layer_raises_on_head_dim_the_kernel_cannot_take():
