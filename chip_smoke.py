@@ -15,12 +15,19 @@ and a non-zero exit:
 3. kernels  — every kernel against its plain PyTorch version on the card,
               with timings: flash attention forward at the serving path's
               shapes; the flash backward kernels (csrc/flash_bwd.cu: dK/dV
-              with the delta pre-pass, and dQ) at the same shapes and a
-              ragged S, dq/dk/dv against their limits, each kernel's device
-              time from torch.profiler beside the plain backward's; the EDT
-              (csrc/edt.cu) bit for bit against its plain version and
-              against scipy at the training path's shapes, ragged ones and
-              edge frames.
+              with the delta pre-pass, and dQ) at the same shapes, a ragged
+              S and bf16 heads of 64 and 128, dq/dk/dv against their limits,
+              two calls bit-equal; each flash row timed as one call between
+              CUDA events, as a queue of calls (device time alone, the
+              wrapper's host enqueue time beside it) and per kernel by
+              torch.profiler, beside the plain version's; beside each flash
+              row its bound (work counted from the shape over the card's
+              published peaks, and the exp2 floor) and the fastest backend
+              of PyTorch's fused
+              attention (scaled_dot_product_attention, a yardstick the port
+              never calls); the EDT (csrc/edt.cu) bit for bit against its
+              plain version and against scipy at the training path's
+              shapes, ragged ones and edge frames.
 4. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
               TransUNet of configs/config.yaml (base_filters 64, depth 4,
               512x512 -> 1024 bottleneck tokens), random weights from a seed,
@@ -126,9 +133,29 @@ TRAIN_PROFILE_STEPS = 3
 # dq, dk, dv: float32 by summation order, bf16 also by P and dS landing an
 # ulp apart where the two sides' float32 values straddle a bf16 boundary
 G_LIMIT = {"bfloat16": 2e-2, "float32": 1e-4}
-# the forward's shapes and a ragged S
-BWD_SHAPES = KERNEL_SHAPES + [(2, 8, 1000, 32, "bfloat16")]
+# the forward's shapes, a ragged S, and bf16 at the two wider padded head
+# widths (each its own kernel instantiation)
+BWD_SHAPES = KERNEL_SHAPES + [(2, 8, 1000, 32, "bfloat16"),
+                              (4, 4, 1024, 64, "bfloat16"),
+                              (2, 2, 1024, 128, "bfloat16")]
 BWD_PROFILE_CALLS = 5
+# calls of a kernel's wrapper enqueued back to back, with no synchronisation
+# inside, behind a device-side sleep of SLEEP_CYCLES clocks (~0.1 s, far
+# longer than the host takes to enqueue them): the host clock gives the
+# wrapper's enqueue time per call, CUDA events the device time per call
+# with no launch waiting for the host
+HOST_CALLS = 100
+SLEEP_CYCLES = 200_000_000
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): dense
+# tensor-core bf16 and float32 outside the tensor cores, in FLOP/s, and
+# HBM3 bytes/s; the exp2 unit issues 16 ex2 per clock per SM, 132 SMs at
+# the 1980 MHz boost clock
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+EX2_PER_S = 132 * 16 * 1.98e9
+# PyTorch's fused attention backends, timed as yardsticks; the fastest
+# that takes a shape is reported
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 # the TransUNet training slice: the serving slice's model from a model YAML
 # (configs/config.yaml:337-343) with dropout_rate 0.0, trained by the CLI
 TSLICE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
@@ -171,6 +198,204 @@ def median_ms(fn, runs=20, warmup=3):
     return statistics.median(times)
 
 
+def work_counts(kernel, shape, dtype="bfloat16"):
+    """What one call of ``kernel`` must do at ``shape``, counted from the
+    shape alone: ``flop`` (a multiply-add is two), ``bytes`` (each input
+    read once, each output written once) and ``exp2`` evaluations.
+
+    Flash kernels take (B, H, S, D) and move (B, H, S, D) tensors of
+    ``dtype`` and (B, H, S) float32 rows (lse2, delta); each (S, S, D)
+    product is 2 B H S^2 D FLOP and each pass over the scores B H S^2
+    exp2. ``flash_bwd`` is the pair (q, k, v, o, dO, lse2 -> dq, dk, dv:
+    five products, P recomputed once by each kernel); ``flash_bwd_dkdv``
+    (with the delta pre-pass: -> dk, dv, delta; S^T, dP^T, dV, dK) and
+    ``flash_bwd_dq`` (q, k, v, dO, lse2, delta -> dq; S, dP, dQ) are its
+    two kernels. ``edt`` takes (N, H, W): uint8 in, float32 out, and its
+    row pass does one add and one min per (row, column, column)."""
+    if kernel == "edt":
+        n, h, w = shape
+        return dict(flop=2 * n * h * w * w, bytes=n * h * w * (1 + 4),
+                    exp2=0)
+    b, h, s, d = shape
+    tensor = b * h * s * d * (2 if dtype == "bfloat16" else 4)
+    rows = b * h * s * 4
+    # products, tensors read + written, float32 rows read + written, exp2
+    # passes
+    products, tensors, nrows, passes = {
+        "flash_fwd": (2, 4, 1, 1),
+        "flash_bwd": (5, 8, 1, 2),
+        "flash_bwd_dkdv": (4, 7, 2, 1),
+        "flash_bwd_dq": (3, 5, 2, 1),
+    }[kernel]
+    return dict(flop=products * 2 * b * h * s * s * d,
+                bytes=tensors * tensor + nrows * rows,
+                exp2=passes * b * h * s * s)
+
+
+def bound(kernel, shape, dtype="bfloat16"):
+    """The least time the card could take for ``work_counts``: the larger
+    of operations over the peak for their type (bf16 on the tensor cores,
+    float32 outside them; the EDT is float32) and bytes over the memory
+    rate. Returns (bound_ms, bound_by, exp2_ms), exp2_ms the time the exp2
+    unit alone needs."""
+    w = work_counts(kernel, shape, dtype)
+    peak = PEAK_FLOPS["float32" if kernel == "edt" else dtype]
+    ops_ms, bytes_ms = w["flop"] / peak * 1e3, w["bytes"] / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes",
+            w["exp2"] / EX2_PER_S * 1e3)
+
+
+def sdpa_yardstick(q, k, v, do=None):
+    """The fastest backend of torch's scaled_dot_product_attention on these
+    (B, H, S, D) inputs: the forward, or with ``do`` the backward alone
+    (torch.autograd.grad of one forward, its graph retained). Returns (ms,
+    backend name, queued ms), the fastest by ``median_ms`` and its
+    ``queued_ms`` device time, or (None, None, None) where no backend takes
+    the inputs. A yardstick only: the port never calls it."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    best = (None, None, None)
+    for name in SDPA_BACKENDS:
+        try:
+            with warnings.catch_warnings(), \
+                    sdpa_kernel(getattr(SDPBackend, name)):
+                warnings.simplefilter("ignore")
+                if do is None:
+                    def fn():
+                        sdpa(q, k, v)
+                else:
+                    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                    o = sdpa(*leaves)
+
+                    def fn():
+                        torch.autograd.grad(o, leaves, do, retain_graph=True)
+                ms = median_ms(fn)
+                if best[0] is None or ms < best[0]:
+                    best = (ms, name, queued_ms(fn)[1])
+                del fn
+        except (RuntimeError, NotImplementedError, ValueError):
+            continue  # the backend does not take these inputs
+    return best
+
+
+def queued_ms(fn, calls=HOST_CALLS):
+    """(host_ms, device_ms) per call of ``fn``: the host clock over
+    ``calls`` calls enqueued back to back with no synchronisation inside,
+    and CUDA events around the same calls, which wait behind a device-side
+    sleep until all are enqueued, so that no launch waits for the host.
+    ``median_ms`` of one call also counts the host's latency up to the
+    first launch, which is most of it for a kernel of 0.1 ms."""
+    import torch
+
+    torch.cuda.synchronize()
+    slept = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slept.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    assert host_ms < slept.elapsed_time(start), \
+        "the device-side sleep ended before the calls were enqueued"
+    return host_ms / calls, start.elapsed_time(end) / calls
+
+
+def profiled_ms(fn, keys, calls=BWD_PROFILE_CALLS):
+    """Device time per call of ``fn`` from torch.profiler, summed over the
+    kernels whose names hold each of ``keys`` (a dict: label -> tuple of
+    name fragments)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # each kernel runs once a call: its mean over the launches the profiler
+    # recorded, which stays right where it drops some of them
+    split = dict.fromkeys(keys, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.count:
+            continue
+        for label, frags in keys.items():
+            if any(f in e.key for f in frags):
+                split[label] += e.self_device_time_total / e.count
+                break
+    assert all(split.values()), "torch.profiler recorded no kernel"
+    return {k: us / 1e3 for k, us in split.items()}
+
+
+def _bound_text(kernel, shape, dtype, ms):
+    bound_ms, by, exp2_ms = bound(kernel, shape, dtype)
+    return (f"bound {bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it "
+            f"reached), exp2 floor {exp2_ms:.4f} ms")
+
+
+def kernel_report(lib):
+    """Each kernel's registers and spills from the build's ptxas report,
+    and the SASS opcodes that show how it runs (cuobjdump -sass): HGMMA
+    (wgmma), UTMALDG (TMA loads), SYNCS (mbarriers), HMMA (mma.sync) and
+    atomics. The bf16 flash kernels (the forward, dK/dV and dQ) must issue
+    wgmma and TMA loads, and no flash kernel may use an atomic."""
+    import re
+    import shutil
+
+    def short(name):
+        m = re.search(r"\d((?:flash|edt)_\w+?_kernel)(?:ILi(\d+)E|I(\w)|E)",
+                      name)
+        if not m:
+            return name
+        arg = m.group(2) or m.group(3)
+        return f"{m.group(1)}<{arg}>" if arg else m.group(1)
+
+    regs, cur = {}, None
+    with open(os.path.splitext(lib)[0] + ".log") as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = short(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and cur:
+                regs.setdefault(cur, {})["spill"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                regs.setdefault(cur, {})["regs"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    ops = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = short(chunk.split(None, 1)[0])
+        ops[name] = {op: len(re.findall(pat, chunk)) for op, pat in (
+            ("HGMMA", r"\bHGMMA\."), ("UTMALDG", r"\bUTMALDG"),
+            ("SYNCS", r"\bSYNCS\."), ("HMMA", r"\bHMMA\."),
+            ("atomic", r"\b(?:ATOM|ATOMG|ATOMS|RED)\b"))}
+    for name in sorted(set(regs) | set(ops)):
+        r, o = regs.get(name, {}), ops.get(name, {})
+        phase("build", f"{name}: {r.get('regs')} registers, "
+              f"{r.get('spill')} bytes spilled; SASS "
+              + " ".join(f"{k} {v}" for k, v in o.items()))
+    for name, o in ops.items():
+        if name.startswith("flash_"):
+            assert o["atomic"] == 0, f"{name} uses atomics"
+        if name.startswith(("flash_fwd_bf16", "flash_bwd_dkdv_bf16",
+                            "flash_bwd_dq_bf16")):
+            assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"], \
+                f"{name} issues no wgmma or TMA load"
+    return regs, ops
+
+
 def check_kernels():
     import torch
 
@@ -189,26 +414,45 @@ def check_kernels():
         err_lse = (lse - lse_ref).abs().max().item()
         finite = bool(torch.isfinite(o.float()).all()
                       and torch.isfinite(lse).all())
+        twice_equal = all(torch.equal(a, w) for a, w in zip(
+            (o, lse), A.flash_forward_cuda(q, k, v)))
         ms = median_ms(lambda: A.flash_forward_cuda(q, k, v))
+        host_ms, queue_ms = queued_ms(lambda: A.flash_forward_cuda(q, k, v))
+        device_ms = profiled_ms(lambda: A.flash_forward_cuda(q, k, v),
+                                {"fwd": ("flash_fwd",)})["fwd"]
         plain_ms = median_ms(lambda: A.flash_forward_reference(q, k, v))
-        phase("kernels", f"flash_fwd {(b, h, s, d)} {dt}: max|do| {err_o:.3e} "
+        lib_ms, lib, lib_queue_ms = sdpa_yardstick(q, k, v)
+        shape = (b, h, s, d)
+        bound_ms, bound_by, exp2_ms = bound("flash_fwd", shape, dt)
+        phase("kernels", f"flash_fwd {shape} {dt}: max|do| {err_o:.3e} "
               f"(limit {O_LIMIT[dt]:g}) max|dlse2| {err_lse:.3e} (limit "
-              f"{LSE_LIMIT:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+              f"{LSE_LIMIT:g}), two calls bit-equal {twice_equal}; kernel "
+              f"{ms:.4f} ms (queued {queue_ms:.4f}, profiler "
+              f"{device_ms:.4f}; host enqueue {host_ms:.4f}) plain "
+              f"{plain_ms:.4f} ms; SDPA forward {lib_ms} ms (queued "
+              f"{lib_queue_ms}; {lib}); "
+              + _bound_text("flash_fwd", shape, dt, device_ms))
+        assert twice_equal, "two calls of the forward differ"
         assert finite, "non-finite kernel output"
         assert err_o <= O_LIMIT[dt] and err_lse <= LSE_LIMIT, \
             "kernel disagrees with its plain version"
         rows.append(dict(shape=[b, h, s, d], dtype=dt, max_abs_err=err_o,
-                         max_abs_err_lse2=err_lse, ms=ms, plain_ms=plain_ms))
+                         max_abs_err_lse2=err_lse, ms=ms, queue_ms=queue_ms,
+                         device_ms=device_ms, host_ms=host_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, library=lib,
+                         library_queue_ms=lib_queue_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, exp2_ms=exp2_ms))
     return rows
 
 
 def check_bwd_kernels():
     """csrc/flash_bwd.cu against flash_backward_reference on the forward
-    kernel's o and lse2: dq, dk, dv against G_LIMIT; the whole backward's
-    time (CUDA events) beside the plain one's, and each kernel's device
-    time from torch.profiler (the delta pre-pass counted with dK/dV)."""
+    kernel's o and lse2: dq, dk, dv against G_LIMIT and two calls
+    bit-equal; the whole backward's time (one call between CUDA events, and
+    queued) beside the plain one's and SDPA's backward, each kernel's
+    device time from torch.profiler (the delta pre-pass counted with
+    dK/dV), the wrapper's host enqueue time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ddti_tpu_torch.ops import attention as A
 
@@ -221,6 +465,7 @@ def check_bwd_kernels():
         o, lse = A.flash_forward_cuda(q, k, v)
         args = (q, k, v, o, lse, do)
         got = A.flash_backward_cuda(*args)
+        again = A.flash_backward_cuda(*args)
         torch.cuda.synchronize()
         want = A.flash_backward_reference(*args)
         abs_err, rel_err = {}, {}
@@ -229,36 +474,78 @@ def check_bwd_kernels():
             abs_err[name] = (a.float() - w.float()).abs().max().item()
             rel_err[name] = abs_err[name] / max(
                 w.float().abs().max().item(), 1e-30)
-        del got, want
+        twice_equal = all(torch.equal(a, w) for a, w in zip(got, again))
+        del got, again, want
         ms = median_ms(lambda: A.flash_backward_cuda(*args))
+        host_ms, queue_ms = queued_ms(lambda: A.flash_backward_cuda(*args))
         plain_ms = median_ms(lambda: A.flash_backward_reference(*args))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(BWD_PROFILE_CALLS):
-                A.flash_backward_cuda(*args)
-            torch.cuda.synchronize()
-        split = {"dkdv": 0.0, "dq": 0.0}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            if "flash_bwd_dq" in e.key:
-                split["dq"] += e.self_device_time_total
-            elif "flash_bwd_dkdv" in e.key or "flash_bwd_delta" in e.key:
-                split["dkdv"] += e.self_device_time_total
-        assert split["dkdv"] > 0 and split["dq"] > 0, \
-            "torch.profiler recorded no backward kernel"
-        split = {k: us / BWD_PROFILE_CALLS / 1e3 for k, us in split.items()}
-        phase("kernels", f"flash_bwd {(b, h, s, d)} {dt}: max|d|/max|g| "
+        lib_ms, lib, lib_queue_ms = sdpa_yardstick(q, k, v, do)
+        split = profiled_ms(lambda: A.flash_backward_cuda(*args), {
+            "dq": ("flash_bwd_dq",),
+            "dkdv": ("flash_bwd_dkdv", "flash_bwd_delta", "flash_bwd_rows")})
+        shape = (b, h, s, d)
+        bounds = {n: bound(n, shape, dt) for n in
+                  ("flash_bwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+        phase("kernels", f"flash_bwd {shape} {dt}: max|d|/max|g| "
               + " ".join(f"{n} {e:.3e}" for n, e in rel_err.items())
-              + f" (limit {G_LIMIT[dt]:g}); kernels {ms:.4f} ms (profiler: "
-              f"delta + dK/dV {split['dkdv']:.4f}, dQ {split['dq']:.4f}) "
-              f"plain {plain_ms:.4f} ms")
+              + f" (limit {G_LIMIT[dt]:g}); two calls bit-equal "
+              f"{twice_equal}; kernels {ms:.4f} ms (queued {queue_ms:.4f}; "
+              f"profiler: delta + dK/dV {split['dkdv']:.4f}, dQ "
+              f"{split['dq']:.4f}; host enqueue {host_ms:.4f}) plain "
+              f"{plain_ms:.4f} ms; SDPA backward {lib_ms} ms (queued "
+              f"{lib_queue_ms}; {lib}); pair "
+              + _bound_text("flash_bwd", shape, dt,
+                            split["dkdv"] + split["dq"])
+              + "; dK/dV " + _bound_text("flash_bwd_dkdv", shape, dt,
+                                         split["dkdv"])
+              + "; dQ " + _bound_text("flash_bwd_dq", shape, dt, split["dq"]))
         assert max(rel_err.values()) <= G_LIMIT[dt], \
             "a backward kernel disagrees with its plain version"
-        rows.append(dict(shape=[b, h, s, d], dtype=dt, abs_err=abs_err,
-                         rel_err=rel_err, ms=ms, ms_dkdv=split["dkdv"],
-                         ms_dq=split["dq"], plain_ms=plain_ms))
+        assert twice_equal, "two calls of the backward differ"
+        rows.append(dict(
+            shape=[b, h, s, d], dtype=dt, abs_err=abs_err, rel_err=rel_err,
+            ms=ms, queue_ms=queue_ms, host_ms=host_ms, ms_dkdv=split["dkdv"],
+            ms_dq=split["dq"], plain_ms=plain_ms, library_ms=lib_ms,
+            library=lib, library_queue_ms=lib_queue_ms,
+            bound_ms=bounds["flash_bwd"][0], bound_by=bounds["flash_bwd"][1],
+            exp2_ms=bounds["flash_bwd"][2],
+            bound_ms_dkdv=bounds["flash_bwd_dkdv"][0],
+            bound_ms_dq=bounds["flash_bwd_dq"][0]))
     return rows
+
+
+def decide(fwd_rows, bwd_rows):
+    """The ratios that order the kernels' redesigns, at the slice's shape
+    (16, 8, 1024, 32) bf16: r_fwd = forward ms / fastest SDPA forward and
+    r_bwd = backward pair ms / fastest SDPA backward, from one call between
+    CUDA events each (``median_ms``, which counts the host's latency too),
+    and the same ratios of the queued device times (``queued_ms``). A
+    kernel slower than the library call comes first, the larger factor
+    first, by device time. Returns the four ratios by name."""
+    f, b = fwd_rows[0], bwd_rows[0]
+    r = dict(r_fwd=f["ms"] / f["library_ms"],
+             r_bwd=b["ms"] / b["library_ms"],
+             r_fwd_queued=f["queue_ms"] / f["library_queue_ms"],
+             r_bwd_queued=b["queue_ms"] / b["library_queue_ms"])
+    slower = sorted(((q, n) for q, n in (
+        (r["r_fwd_queued"], "the forward"),
+        (r["r_bwd_queued"], "the backward pair")) if q > 1), reverse=True)
+    phase("kernels", f"r_fwd {r['r_fwd']:.3f} (flash_fwd {f['ms']:.4f} / "
+          f"SDPA {f['library_ms']:.4f} ms, {f['library']}), r_bwd "
+          f"{r['r_bwd']:.3f} (pair {b['ms']:.4f} / SDPA "
+          f"{b['library_ms']:.4f} ms, {b['library']}); queued: r_fwd "
+          f"{r['r_fwd_queued']:.3f}, r_bwd {r['r_bwd_queued']:.3f}; slower "
+          "than SDPA by device time: "
+          + (", ".join(n for _, n in slower) or "neither"))
+    return r
+
+
+def kernel_phases():
+    """Phase 3's flash rows: the forward, the backward and the ratios that
+    order their redesigns. Returns (forward rows, backward rows, ratios)."""
+    rows = check_kernels()
+    bwd_rows = check_bwd_kernels()
+    return rows, bwd_rows, decide(rows, bwd_rows)
 
 
 def random_state(model, seed):
@@ -1117,9 +1404,9 @@ def main():
     phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}, one process per "
           f"source: {f'{secs:.2f} s' if secs else 'already built'} -> "
           f"{os.path.relpath(path)}")
+    kernel_report(path)
 
-    rows = check_kernels()
-    bwd_rows = check_bwd_kernels()
+    rows, bwd_rows, ratios = kernel_phases()
     edt_rows = check_edt()
     with tempfile.TemporaryDirectory() as tmp:
         launches, ckpt = run_slice(tmp)
@@ -1132,7 +1419,11 @@ def main():
     ttrain_rows = profile_transunet()
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
-    main_row = rows[0]
+    main_row, bwd_row = rows[0], bwd_rows[0]
+    bwd_shape, bwd_dt = tuple(bwd_row["shape"]), bwd_row["dtype"]
+    edt_bound = bound("edt", tuple(edt_rows[0]["shape"]))
+    library_covers = ("scaled_dot_product_attention's backward: dq, dk and "
+                      "dv together")
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1144,6 +1435,14 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "library": f"scaled_dot_product_attention ({main_row['library']})",
+        "queue_ms": main_row["queue_ms"],
+        "library_queue_ms": main_row["library_queue_ms"],
+        "r_fwd": ratios["r_fwd"],
+        "r_fwd_queued": ratios["r_fwd_queued"],
         "shapes": rows,
     }, {
         "name": "flash_bwd_dkdv",
@@ -1156,9 +1455,20 @@ def main():
                            for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"]["dk"], r["rel_err"]["dv"])
                            for r in bwd_rows),
-        "ms": bwd_rows[0]["ms_dkdv"],
-        "plain_ms": bwd_rows[0]["plain_ms"],
+        "ms": bwd_row["ms_dkdv"],
+        "plain_ms": bwd_row["plain_ms"],
         "plain_covers": "flash_backward_reference: dq, dk and dv together",
+        "bound_ms": bwd_row["bound_ms_dkdv"],
+        "bound_by": bound("flash_bwd_dkdv", bwd_shape, bwd_dt)[1],
+        "library_ms": bwd_row["library_ms"],
+        "library": f"scaled_dot_product_attention ({bwd_row['library']})",
+        "library_covers": library_covers,
+        "pair_ms": bwd_row["ms"],
+        "pair_queue_ms": bwd_row["queue_ms"],
+        "library_queue_ms": bwd_row["library_queue_ms"],
+        "pair_bound_ms": bwd_row["bound_ms"],
+        "r_bwd": ratios["r_bwd"],
+        "r_bwd_queued": ratios["r_bwd_queued"],
         "shapes": bwd_rows,
         "train_steps": ttrain_rows,
     }, {
@@ -1170,9 +1480,14 @@ def main():
         "launches": t_launches["flash_bwd_dq"],
         "max_abs_err": max(r["abs_err"]["dq"] for r in bwd_rows),
         "max_rel_err": max(r["rel_err"]["dq"] for r in bwd_rows),
-        "ms": bwd_rows[0]["ms_dq"],
-        "plain_ms": bwd_rows[0]["plain_ms"],
+        "ms": bwd_row["ms_dq"],
+        "plain_ms": bwd_row["plain_ms"],
         "plain_covers": "flash_backward_reference: dq, dk and dv together",
+        "bound_ms": bwd_row["bound_ms_dq"],
+        "bound_by": bound("flash_bwd_dq", bwd_shape, bwd_dt)[1],
+        "library_ms": bwd_row["library_ms"],
+        "library": f"scaled_dot_product_attention ({bwd_row['library']})",
+        "library_covers": library_covers,
     }, {
         "name": "edt_minplus",
         "route": "cuda",
@@ -1182,6 +1497,9 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in edt_rows),
         "ms": edt_rows[0]["ms"],
         "plain_ms": edt_rows[0]["plain_ms"],
+        "bound_ms": edt_bound[0],
+        "bound_by": edt_bound[1],
+        "library_ms": None,  # no PyTorch call computes an EDT
         "shapes": edt_rows,
         "train_steps": train_rows,
     }]}), flush=True)

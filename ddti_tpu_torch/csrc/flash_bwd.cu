@@ -4,9 +4,10 @@
 //   _dkdv_kernel and _dkdv_kernel_packed -> flash_bwd_dkdv_*_kernel
 //   _dq_kernel and _dq_kernel_packed     -> flash_bwd_dq_*_kernel
 // and the per-tile delta = rowsum(dO * O) both TPU kernels compute inline ->
-// flash_bwd_delta_kernel, a pre-pass. The head packing of the *_packed forms
-// only existed to fill the TPU's 128-lane vector registers; here a head of
-// any supported width is one (b*h) slice, so each TPU pair is one kernel.
+// a pre-pass (flash_bwd_rows_bf16_kernel, flash_bwd_delta_f32_kernel). The
+// head packing of the *_packed forms only existed to fill the TPU's 128-lane
+// vector registers; here a head of any supported width is one (b*h) slice,
+// so each TPU pair is one kernel.
 //
 // Per (b*h) slice of contiguous (B, H, S, D) q/k/v/o/dO, with lse2 the
 // forward's base-2 logsumexp ((B, H, S) float32), c = D^-1/2 * log2(e):
@@ -23,64 +24,88 @@
 // Head widths: every D with D % 8 == 0 and 8 <= D <= 128, instantiated for
 // the padded widths DP = 32, 64, 128 with the actual D at run time (columns
 // D..DP-1 of the staged tiles are zeros and are not written back). Wider
-// heads are refused: a warp keeps its 16 rows of dK and dV (2 * DP float32
-// accumulators per thread in bf16) in registers, which run out past 128.
+// heads are refused: the dK and dV accumulators live in registers (in bf16
+// DP / 2 float32 of each per consumer thread, beside 64 of S^T and dP^T),
+// which run out past 128.
 //
-// What bounds it on an H100: at the TransUNet training shape (B=16, H=8,
-// S=1024, D=32) dK/dV does four (S, S, D) products per (b*h), 34 GFLOP,
-// plus B*H*S^2 = 134 M exp2; dQ three products, 26 GFLOP, and the same
-// exp2 count again. Against ~40 MB of q/k/v/o/dO traffic that is compute-
-// and exp-bound, not memory-bound. Neither kernel writes an (S, S) tile to
-// device memory.
+// What bounds it on an H100 (bf16 dense peak 989 TFLOP/s, 3.35 TB/s, 16
+// exp2 per clock per SM at the 1980 MHz boost clock): at the TransUNet
+// training shape (B=16, H=8, S=1024, D=32) the pair does five (S, S, D)
+// products, 42.9 GFLOP (0.0434 ms at the tensor-core peak), against 67.6 MB
+// of q/k/v/o/dO/lse2 in and dq/dk/dv out (0.020 ms); dK/dV alone does four
+// of them (S^T, dP^T, dV, dK: 34.4 GFLOP, 0.035 ms), dQ three (S, dP, dQ:
+// 25.8 GFLOP, 0.026 ms). Each kernel recomputes P, B*H*S^2 = 134 M exp2:
+// 0.032 ms of the exp2 unit alone, so a pair without atomics has an exp2
+// floor of 0.064 ms, above its tensor-core bound. Neither kernel writes an
+// (S, S) tile to device memory.
 //
-// Design (first versions, right and simple):
-//  - bf16: products on the tensor cores, mma.sync.m16n8k16 with float32
-//    accumulation. dK/dV: one block per (64-key tile, b*h), 4 warps of 16
-//    keys; K/V stay in shared memory and each warp computes its transposed
-//    score tile s^T = K q^T (16 keys x 64 queries), so P^T and dS^T come out
-//    in the accumulator layout that is the A operand of dV += P^T dO and
-//    dK += dS^T q. The query tile is staged twice, row-major (B operand of
-//    the score and dP products) and transposed (B operand of the dK/dV
-//    products), with dO likewise. dQ: one block per (64-query tile, b*h),
-//    4 warps of 16 queries, K staged row-major and transposed. Row strides
-//    are padded by 16 bytes so a warp's fragment loads hit 32 distinct
-//    banks. Single-buffered tile loads with block barriers, as in the
-//    forward (cp.async/TMA pipelining and wgmma are later work).
-//  - float32: scalar FMAs (tensor cores have no full float32 product). Four
-//    threads own each row of the block's tile; each computes 16 of the
-//    row's 64 scores and DP/4 of its output columns; the row's P or dS tile
-//    passes through shared memory within the quad's warp.
-//  - Ragged S is masked in the kernels: query rows past S get lse2 = +inf
-//    (so P = 0) and zero dO, key columns past S are masked in dQ, and rows
-//    past S are not written.
+// Design, bf16. The first versions (mma.sync) ran at 13% of the bf16 peak,
+// held back three ways; what replaced each, in both kernels:
+//   1. tiles staged by blocking 16-byte loads between two block barriers per
+//      tile, single-buffered -> one producer warpgroup, one thread of which
+//      issues TMA loads into a ring of kStages slots under mbarriers (full:
+//      the slot landed; empty: every consumer is done with it), kept ahead
+//      of the consumers; no block-wide barrier in the loop. Each tensor is a
+//      3-D map (D, S, b*h), so rows past S of a slice read as zeros, never as
+//      the next slice's, and so do columns D..DP-1;
+//   2. q and dO (dK/dV) or K (dQ) staged a second time transposed, one 2-byte
+//      store at a time with 4-way bank conflicts -> wgmma reads them MN-major
+//      straight from the row-major tiles, which TMA writes with the swizzle
+//      wgmma reads; no transposed copy;
+//   3. mma.sync.m16n8k16 fed by 32-bit shared loads, 16 rows a warp ->
+//      wgmma, 64 rows a warpgroup, operands by shared-memory descriptor.
+// A block is 128 rows of one slice (BwdSmem): two consumer warpgroups of 64
+// rows, whose resident tiles load once, share every streamed tile (half the
+// load traffic per row), and setmaxnreg hands the producer's registers to
+// them; at DP = 128, where two would spill, one consumer of 64 rows.
+//  - dK/dV: 64 keys a consumer (K and V resident), streaming 64-query tiles
+//    of q and dO with the tile's lse2 and delta. Per tile: S^T = K q^T and
+//    dP^T = V dO^T by wgmma.m64n64k16, all four operands K-major;
+//    P^T = exp2(S^T c - lse2) and dS^T = P^T (dP^T - delta) in registers;
+//    then dV += P^T dO and dK += dS^T q by wgmma.m64nDPk16 with P^T and
+//    dS^T from registers (the accumulators rounded to bf16 are the A
+//    fragments) and dO, q MN-major; dS^T is computed while dV runs.
+//  - dQ: 64 queries a consumer (q and dO resident, lse2 and delta of its
+//    rows in registers), streaming 64-key tiles of K and V. Per tile:
+//    S = q K^T and dP = dO V^T, P = exp2(S c - lse2) with key columns past
+//    S masked to 0, dS = P (dP - delta), then dQ += dS K with dS from
+//    registers and K MN-major. It reads delta as the pre-pass wrote it,
+//    (bh, s) float32.
+//
+// Design, float32: scalar FMAs (tensor cores have no full float32 product).
+// Four threads own each row of the block's tile; each computes 16 of the
+// row's 64 scores and DP/4 of its output columns; the row's P or dS tile
+// passes through shared memory within the quad's warp.
+//
+// Ragged S: query rows past S get lse2 = +inf, so P = 0 there (the bf16 row
+// pre-pass pads the rows that dK/dV loads by TMA so; the other kernels set
+// it), key columns past S are masked in dQ, and rows past S are not written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr double kLog2e = 1.4426950408889634;
-constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
 constexpr int kFmaThreads = 256;  // 4 threads per row
 constexpr int kDeltaThreads = 256;
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 // ---------------------------------------------------------------------------
 // delta = rowsum(dO * O): one warp per row
 
-template <typename T>
 __global__ void __launch_bounds__(kDeltaThreads)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, size_t rows, int D) {
+flash_bwd_delta_f32_kernel(const float* __restrict__ o,
+                           const float* __restrict__ dout,
+                           float* __restrict__ delta, size_t rows, int D) {
   const size_t row =
       ((size_t)blockIdx.x * kDeltaThreads + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
@@ -88,7 +113,7 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const size_t base = row * D;
   float acc = 0.f;
   for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_f32(dout[base + c]), to_f32(o[base + c]), acc);
+    acc = fmaf(dout[base + c], o[base + c], acc);
 #pragma unroll
   for (int off = 16; off; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -96,294 +121,344 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync)
+// bfloat16: TMA + wgmma
 
-// Stage rows [r0, r0 + 64) of a (S, D) bf16 slice as a row-major [64][DP+8]
-// tile and, when `tr` is given, also transposed as [DP][64+8]; rows past S
-// and columns past D are zeros.
-template <int DP>
-__device__ __forceinline__ void stage_bf16(const bf16* __restrict__ src,
-                                           int r0, int S, int D, bf16* rm,
-                                           bf16* tr) {
-  constexpr int RS = DP + 8, TS = kBlockQ + 8, kVec = 8;
-  constexpr int kVecPerRow = DP / kVec;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < kBlockQ * kVecPerRow; i += kMmaThreads) {
-    const int r = i / kVecPerRow, c = (i % kVecPerRow) * kVec;
-    const uint4 val = r0 + r < S && c < D
-        ? *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c)
-        : zero;
-    *reinterpret_cast<uint4*>(rm + r * RS + c) = val;
-    if (tr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) tr[(c + j) * TS + r] = e[j];
-    }
-  }
-}
-
-// acc[n] += A B over a 16-row strip, where A's fragments are read from the
-// row-major tile `arow` (this warp's rows, offset by 2t) and B[k][n] is the
-// row-major tile `b` read with its rows as the n index: a product over the
-// head dimension, (16 x DP) x (DP x 64) -> 16 x 64 in 8 accumulator tiles.
-template <int DP>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[8][4],
-                                                 const bf16* arow,
-                                                 const bf16* b, int g, int t) {
-  constexpr int RS = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const uint32_t a[4] = {ld32(arow + kk * 16), ld32(arow + 8 * RS + kk * 16),
-                           ld32(arow + kk * 16 + 8),
-                           ld32(arow + 8 * RS + kk * 16 + 8)};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const bf16* brow = b + (n * 8 + g) * RS + t * 2 + kk * 16;
-      mma_16816(acc[n], a, ld32(brow), ld32(brow + 8));
-    }
-  }
-}
-
-// Round two accumulator tiles per k-step to the A fragments of the next
-// product over their 64 columns: tiles 2j and 2j+1 form k-step j.
-__device__ __forceinline__ void to_a_fragments(const float (&x)[8][4],
-                                               uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    a[n >> 1][(n & 1) * 2] = pack_bf16(x[n][0], x[n][1]);
-    a[n >> 1][(n & 1) * 2 + 1] = pack_bf16(x[n][2], x[n][3]);
-  }
-}
-
-// acc[nt] += A B, A = 16 x 64 in fragments, B[k][n] the transposed tile
-// `bt` ([DP][64+8], k = its column): (16 x 64) x (64 x DP) -> 16 x DP.
-template <int DP>
-__device__ __forceinline__ void mma_frag_by_tr(float (&acc)[DP / 8][4],
-                                               const uint32_t (&a)[4][4],
-                                               const bf16* bt, int g, int t) {
-  constexpr int TS = kBlockQ + 8;
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt) {
-    const bf16* col = bt + (nt * 8 + g) * TS + t * 2;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      mma_16816(acc[nt], a[j], ld32(col + j * 16), ld32(col + j * 16 + 8));
-  }
-}
-
-// Write this warp's 16 rows x D of acc * mul as bf16 rows of `out`.
-template <int DP>
-__device__ __forceinline__ void store_rows_bf16(const float (&acc)[DP / 8][4],
-                                                bf16* out, int row0, int S,
-                                                int D, float mul, int g,
-                                                int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= S) continue;
-    bf16* orow = out + (size_t)row * D + t * 2;
-#pragma unroll
-    for (int nt = 0; nt < DP / 8; ++nt)
-      if (nt * 8 < D)
-        *reinterpret_cast<uint32_t*>(orow + nt * 8) =
-            pack_bf16(acc[nt][2 * r] * mul, acc[nt][2 * r + 1] * mul);
-  }
-}
-
-template <int DP>
-constexpr size_t dkdv_bf16_smem_bytes() {
-  // k, v, q, dO tiles [64][DP + 8] and q, dO transposed [DP][64 + 8] in
-  // bf16; lse2 and delta of the query tile in float32
-  return sizeof(bf16) * (4 * (size_t)kBlockK * (DP + 8) +
-                         2 * (size_t)DP * (kBlockQ + 8)) +
-         2 * kBlockQ * sizeof(float);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
+// delta = rowsum(dO * O) for dQ ((bh, s) float32) and, for the dK/dV
+// kernel's TMA loads, `rows` (bh, 2, sp) float32 with sp = s rounded up to
+// 64: lse2, +inf past s (so P = 0 there), then delta, 0 past s. (The q and
+// dO rows past s load as zeros, which already make P^T dO and dS^T q zero
+// there; the +inf keeps P itself zero.) LPR threads per row, 16 bytes of dO
+// and O each at a time.
+template <int LPR>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_rows_bf16_kernel(const bf16* __restrict__ o,
                            const bf16* __restrict__ dout,
                            const float* __restrict__ lse,
-                           const float* __restrict__ delta,
+                           float* __restrict__ delta,
+                           float* __restrict__ rows, int bh, int s, int sp,
+                           int D) {
+  const size_t i = (size_t)blockIdx.x * kDeltaThreads + threadIdx.x;
+  const size_t slice = i / LPR / sp;
+  const int r = (int)(i / LPR % sp), part = (int)(i % LPR);
+  const bool live = slice < (size_t)bh && r < s;
+  float acc = 0.f;
+  if (live) {
+    const size_t base = (slice * s + r) * D;
+    for (int c = part * 8; c < D; c += LPR * 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(dout + base + c);
+      const uint4 b = *reinterpret_cast<const uint4*>(o + base + c);
+      const bf16* ae = reinterpret_cast<const bf16*>(&a);
+      const bf16* be = reinterpret_cast<const bf16*>(&b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc = fmaf(to_f32(ae[j]), to_f32(be[j]), acc);
+    }
+  }
+#pragma unroll
+  for (int off = LPR / 2; off; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0 && slice < (size_t)bh) {
+    if (live) delta[slice * s + r] = acc;
+    rows[2 * slice * sp + r] = live ? lse[slice * s + r] : INFINITY;
+    rows[(2 * slice + 1) * sp + r] = acc;
+  }
+}
+
+// A backward block: C consumer warpgroups, each with two resident 64-row
+// tiles (dK/dV: its K and V; dQ: its q and dO), and a producer warpgroup
+// that streams the other two tiles (dK/dV: q and dO with the tile's lse2
+// and delta rows; dQ: K and V) into a ring of kStages slots. Shared memory:
+// the resident tiles (all first tiles, then all second ones), the ring, the
+// rows (dK/dV), then the mbarriers full[kStages], empty[kStages] and
+// resident_full.
+template <int DP, bool kRows>
+struct BwdSmem {
+  using T = Tile<DP>;
+  // consumer warpgroups: one at DP = 128, where two spill registers
+  static constexpr int kConsumers = DP == 128 ? 1 : 2;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kStage = 2 * T::kBytes;
+  static constexpr uint32_t kRowBytes = kRows ? 2 * kTileRows * 4 : 0;
+  static constexpr uint32_t resident = 0;
+  static constexpr uint32_t stages = 2 * kConsumers * T::kBytes;
+  static constexpr uint32_t rows = stages + kStages * kStage;
+  static constexpr uint32_t bars = rows + kStages * kRowBytes;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+// Rows row0 + 16 warp + g + 8 r (r = 0, 1) of a wgmma accumulator times
+// `mul`, as bf16 rows of `out` (the rows before S, the columns below D).
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
+                                           bf16* out, int row0, int S,
+                                           int D, float mul, int warp, int g,
+                                           int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= S) continue;
+    bf16* orow = out + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      if (n * 8 < D)
+        *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(
+            acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BwdSmem<DP, true>::kThreads, 1)
+flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const __grid_constant__ CUtensorMap rows_map,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
                            int S, int D, float scale_log2, float scale) {
-  constexpr int RS = DP + 8;
-  constexpr int TS = kBlockQ + 8;
-  constexpr int kOutTiles = DP / 8;
+  using T = Tile<DP>;
+  using L = BwdSmem<DP, true>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* kv_full = empty + L::kStages;
+  const int slice = blockIdx.y;
+  const int k0 = blockIdx.x * L::kConsumers * kTileRows;
+  const int n_tiles = (S + kBlockQ - 1) / kBlockQ;
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kBlockK * RS;
-  bf16* qs = vs + kBlockK * RS;
-  bf16* dos = qs + kBlockQ * RS;
-  bf16* qts = dos + kBlockQ * RS;
-  bf16* dots = qts + DP * TS;
-  float* lse_s = reinterpret_cast<float*>(dots + DP * TS);
-  float* delta_s = lse_s + kBlockQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kBlockK;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const size_t rbase = (size_t)blockIdx.y * S;
-
-  stage_bf16<DP>(k + base, k0, S, D, ks, nullptr);
-  stage_bf16<DP>(v + base, k0, S, D, vs, nullptr);
-
-  float dk_acc[kOutTiles][4], dv_acc[kOutTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOutTiles; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  // this warp's 16 keys, as A fragments (offset by the fragment column 2t)
-  const bf16* krow = ks + (warp * 16 + g) * RS + t * 2;
-  const bf16* vrow = vs + (warp * 16 + g) * RS + t * 2;
-
-  for (int q0 = 0; q0 < S; q0 += kBlockQ) {
-    __syncthreads();  // the previous query tile is fully consumed
-    stage_bf16<DP>(q + base, q0, S, D, qs, qts);
-    stage_bf16<DP>(dout + base, q0, S, D, dos, dots);
-    for (int i = tid; i < kBlockQ; i += kMmaThreads) {
-      const bool ok = q0 + i < S;
-      lse_s[i] = ok ? lse[rbase + q0 + i] : INFINITY;  // P = 0 past S
-      delta_s[i] = ok ? delta[rbase + q0 + i] : 0.f;
+  if (wg == L::kConsumers) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers * 128) {
+      mbar_expect_tx(kv_full, 2 * L::kConsumers * T::kBytes);
+      for (int c = 0; c < L::kConsumers; ++c) {
+        tma_load_tile<DP>(smem + L::resident + c * T::kBytes, &k_map,
+                          kv_full, k0 + c * kTileRows, slice);
+        tma_load_tile<DP>(
+            smem + L::resident + (L::kConsumers + c) * T::kBytes, &v_map,
+            kv_full, k0 + c * kTileRows, slice);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % L::kStages;
+        mbar_wait(empty + st, ((it / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, L::kStage + L::kRowBytes);
+        unsigned char* qd = smem + L::stages + st * L::kStage;
+        tma_load_tile<DP>(qd, &q_map, full + st, it * kBlockQ, slice);
+        tma_load_tile<DP>(qd + T::kBytes, &do_map, full + st, it * kBlockQ,
+                          slice);
+        tma_load(smem + L::rows + st * L::kRowBytes, &rows_map, full + st,
+                 it * kBlockQ, 2 * slice);
+      }
     }
-    __syncthreads();
+  } else {  // a consumer: keys k0 + 64 wg .. + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t k_tile = smem_addr(smem + L::resident + wg * T::kBytes);
+    const uint32_t v_tile =
+        smem_addr(smem + L::resident + (L::kConsumers + wg) * T::kBytes);
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
 
-    // P^T = exp2(K q^T * c - lse2): 16 keys x 64 queries; element e of tile
-    // n is key g + 8*(e >> 1), query n*8 + 2t + (e & 1)
-    float p[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-    mma_rows_by_rows<DP>(p, krow, qs, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[n][e] = exp2f(p[n][e] * scale_log2 - lse_s[n * 8 + t * 2 + (e & 1)]);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % L::kStages;
+      mbar_wait(full + st, (it / L::kStages) & 1);
+      const uint32_t q_tile = smem_addr(smem + L::stages + st * L::kStage);
+      const uint32_t do_tile = q_tile + T::kBytes;
+      const float* lse_s =
+          reinterpret_cast<const float*>(smem + L::rows + st * L::kRowBytes);
+      const float* delta_s = lse_s + kTileRows;
 
-    // dV += P^T dO, P rounded to bf16
-    uint32_t pa[4][4];
-    to_a_fragments(p, pa);
-    mma_frag_by_tr<DP>(dv_acc, pa, dots, g, t);
+      // S^T = K q^T and dP^T = V dO^T: element 4n + e is key g + 8 (e >> 1),
+      // query it * 64 + 8n + 2t + (e & 1)
+      float p[32], ds[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n64k16_ss(p, desc_k_major<DP>(k_tile, kk),
+                           desc_k_major<DP>(q_tile, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n64k16_ss(ds, desc_k_major<DP>(v_tile, kk),
+                           desc_k_major<DP>(do_tile, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(p);
+      fence_acc(ds);
 
-    // dS^T = P^T * (V dO^T - delta)
-    float ds[8][4];
+      // P^T = exp2(S^T c - lse2); dV += P^T dO, P rounded to bf16
 #pragma unroll
-    for (int n = 0; n < 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-    mma_rows_by_rows<DP>(ds, vrow, dos, g, t);
+      for (int n = 0; n < 8; ++n) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+        for (int e = 0; e < 4; ++e)
+          p[4 * n + e] =
+              exp2_ftz(fmaf(p[4 * n + e], scale_log2, -(e & 1 ? l2.y : l2.x)));
+      }
+      uint32_t pa[4][4];
+      to_a_fragments(p, pa);
+      fence_acc(dv_acc);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = p[n][e] * (ds[n][e] - delta_s[n * 8 + t * 2 + (e & 1)]);
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs_mn<DP>(dv_acc, pa[j], desc_mn_major<DP>(do_tile, j));
+      wgmma_commit();
 
-    // dK += dS^T q, dS rounded to bf16 (the scale comes once, at the end)
-    uint32_t dsa[4][4];
-    to_a_fragments(ds, dsa);
-    mma_frag_by_tr<DP>(dk_acc, dsa, qts, g, t);
+      // dS^T = P^T (dP^T - delta) while dV runs; dK += dS^T q, dS rounded
+      // to bf16 (the scale comes once, at the end)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[4 * n + e] =
+              p[4 * n + e] * (ds[4 * n + e] - (e & 1 ? d2.y : d2.x));
+      }
+      uint32_t dsa[4][4];
+      to_a_fragments(ds, dsa);
+      fence_acc(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs_mn<DP>(dk_acc, dsa[j], desc_mn_major<DP>(q_tile, j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dv_acc);
+      fence_acc(dk_acc);
+      mbar_arrive(empty + st);
+    }
+
+    const size_t base = (size_t)slice * S * D;
+    const int row0 = k0 + wg * kTileRows;
+    store_rows<DP>(dk_acc, dk + base, row0, S, D, scale, warp, g, t);
+    store_rows<DP>(dv_acc, dv + base, row0, S, D, 1.f, warp, g, t);
   }
-
-  store_rows_bf16<DP>(dk_acc, dk + base, k0 + warp * 16, S, D, scale, g, t);
-  store_rows_bf16<DP>(dv_acc, dv + base, k0 + warp * 16, S, D, 1.f, g, t);
 }
 
 template <int DP>
-constexpr size_t dq_bf16_smem_bytes() {
-  // q, dO, k, v tiles [64][DP + 8] and k transposed [DP][64 + 8], bf16
-  return sizeof(bf16) * (4 * (size_t)kBlockQ * (DP + 8) +
-                         (size_t)DP * (kBlockK + 8));
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(BwdSmem<DP, false>::kThreads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          bf16* __restrict__ dq, int S, int D,
                          float scale_log2, float scale) {
-  constexpr int RS = DP + 8;
-  constexpr int kOutTiles = DP / 8;
+  using T = Tile<DP>;
+  using L = BwdSmem<DP, false>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qdo_full = empty + L::kStages;
+  const int slice = blockIdx.y;
+  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  const int n_tiles = (S + kBlockK - 1) / kBlockK;
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kBlockQ * RS;
-  bf16* ks = dos + kBlockQ * RS;
-  bf16* vs = ks + kBlockK * RS;
-  bf16* kts = vs + kBlockK * RS;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const size_t rbase = (size_t)blockIdx.y * S;
-
-  stage_bf16<DP>(q + base, q0, S, D, qs, nullptr);
-  stage_bf16<DP>(dout + base, q0, S, D, dos, nullptr);
-
-  // this thread's two query rows, g and g + 8 of the warp's strip
-  float lse_r[2], delta_r[2];
+  if (wg == L::kConsumers) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers * 128) {
+      mbar_expect_tx(qdo_full, 2 * L::kConsumers * T::kBytes);
+      for (int c = 0; c < L::kConsumers; ++c) {
+        tma_load_tile<DP>(smem + L::resident + c * T::kBytes, &q_map,
+                          qdo_full, q0 + c * kTileRows, slice);
+        tma_load_tile<DP>(
+            smem + L::resident + (L::kConsumers + c) * T::kBytes, &do_map,
+            qdo_full, q0 + c * kTileRows, slice);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % L::kStages;
+        mbar_wait(empty + st, ((it / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, L::kStage);
+        unsigned char* kv = smem + L::stages + st * L::kStage;
+        tma_load_tile<DP>(kv, &k_map, full + st, it * kBlockK, slice);
+        tma_load_tile<DP>(kv + T::kBytes, &v_map, full + st, it * kBlockK,
+                          slice);
+      }
+    }
+  } else {  // a consumer: queries q0 + 64 wg .. + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + wg * kTileRows;
+    const uint32_t q_tile = smem_addr(smem + L::resident + wg * T::kBytes);
+    const uint32_t do_tile =
+        smem_addr(smem + L::resident + (L::kConsumers + wg) * T::kBytes);
+    // this thread's query rows g and g + 8 of its warp's 16: lse2 (+inf
+    // past S, so P = 0 there) and delta
+    float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    lse_r[r] = row < S ? lse[rbase + row] : INFINITY;
-    delta_r[r] = row < S ? delta[rbase + row] : 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + warp * 16 + g + 8 * r;
+      lse_r[r] = row < S ? lse[(size_t)slice * S + row] : INFINITY;
+      delta_r[r] = row < S ? delta[(size_t)slice * S + row] : 0.f;
+    }
+    float dq_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(qdo_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % L::kStages;
+      mbar_wait(full + st, (it / L::kStages) & 1);
+      const uint32_t k_tile = smem_addr(smem + L::stages + st * L::kStage);
+      const uint32_t v_tile = k_tile + T::kBytes;
+
+      // S = q K^T and dP = dO V^T: element 4n + e is query g + 8 (e >> 1),
+      // key it * 64 + 8n + 2t + (e & 1)
+      float p[32], ds[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n64k16_ss(p, desc_k_major<DP>(q_tile, kk),
+                           desc_k_major<DP>(k_tile, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n64k16_ss(ds, desc_k_major<DP>(do_tile, kk),
+                           desc_k_major<DP>(v_tile, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(p);
+      fence_acc(ds);
+
+      // P = exp2(S c - lse2), 0 for keys past S (TMA's zero rows there
+      // would give exp2(-lse2)); dS = P (dP - delta)
+      const int k0 = it * kBlockK;
+      const bool ragged = k0 + kBlockK > S;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float pi = exp2_ftz(fmaf(p[i], scale_log2, -lse_r[r]));
+        if (ragged && k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) pi = 0.f;
+        ds[i] = pi * (ds[i] - delta_r[r]);
+      }
+      // dQ += dS K, dS rounded to bf16, K read with its rows (keys) as k
+      uint32_t dsa[4][4];
+      to_a_fragments(ds, dsa);
+      fence_acc(dq_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs_mn<DP>(dq_acc, dsa[j], desc_mn_major<DP>(k_tile, j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq_acc);
+      mbar_arrive(empty + st);
+    }
+
+    store_rows<DP>(dq_acc, dq + (size_t)slice * S * D, row0, S, D, scale,
+                   warp, g, t);
   }
-
-  float acc[kOutTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOutTiles; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const bf16* qrow = qs + (warp * 16 + g) * RS + t * 2;
-  const bf16* dorow = dos + (warp * 16 + g) * RS + t * 2;
-
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // the previous key tile is fully consumed
-    stage_bf16<DP>(k + base, k0, S, D, ks, kts);
-    stage_bf16<DP>(v + base, k0, S, D, vs, nullptr);
-    __syncthreads();
-
-    // P = exp2(q K^T * c - lse2), 0 for keys past S; element e of tile n is
-    // query g + 8*(e >> 1), key n*8 + 2t + (e & 1)
-    float p[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-    mma_rows_by_rows<DP>(p, qrow, ks, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        p[n][e] = k0 + n * 8 + t * 2 + (e & 1) < S
-                      ? exp2f(p[n][e] * scale_log2 - lse_r[e >> 1])
-                      : 0.f;
-
-    // dS = P * (dO V^T - delta)
-    float ds[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) ds[n][0] = ds[n][1] = ds[n][2] = ds[n][3] = 0.f;
-    mma_rows_by_rows<DP>(ds, dorow, vs, g, t);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[n][e] = p[n][e] * (ds[n][e] - delta_r[e >> 1]);
-
-    // dQ += dS K, dS rounded to bf16
-    uint32_t dsa[4][4];
-    to_a_fragments(ds, dsa);
-    mma_frag_by_tr<DP>(acc, dsa, kts, g, t);
-  }
-
-  store_rows_bf16<DP>(acc, dq + base, q0 + warp * 16, S, D, scale, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -599,50 +674,72 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 // launch
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-cudaError_t launch_delta(const void* o, const void* dout, float* delta,
-                         int bh, int s, int d, bool use_bf16,
-                         cudaStream_t st) {
+cudaError_t launch_delta_f32(const void* o, const void* dout, float* delta,
+                             int bh, int s, int d, cudaStream_t st) {
   const size_t rows = (size_t)bh * s;
   const unsigned blocks =
       (unsigned)((rows * 32 + kDeltaThreads - 1) / kDeltaThreads);
-  if (use_bf16)
-    flash_bwd_delta_kernel<bf16><<<blocks, kDeltaThreads, 0, st>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
-        rows, d);
-  else
-    flash_bwd_delta_kernel<float><<<blocks, kDeltaThreads, 0, st>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), delta,
-        rows, d);
+  flash_bwd_delta_f32_kernel<<<blocks, kDeltaThreads, 0, st>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), delta,
+      rows, d);
   return cudaGetLastError();
+}
+
+// the (bh, 2, sp) row buffer as a 2-D map (sp, 2 bh): one box is a query
+// tile's lse2 and delta
+cudaError_t rows_map(CUtensorMap* map, const float* rows, int bh, int sp) {
+  const cuuint64_t dims[2] = {(cuuint64_t)sp, 2ull * bh};
+  const cuuint64_t strides[1] = {4ull * sp};
+  const cuuint32_t box[2] = {kTileRows, 2};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, rows, dims, strides,
+                box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int DP>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
-                        const void* dout, const float* lse,
-                        const float* delta, void* dk, void* dv, int bh,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, float* rows, void* dk, void* dv, int bh,
                         int s, int d, bool use_bf16, cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)d));
   const float scale_log2 = (float)(kLog2e / sqrt((double)d));
-  const dim3 grid((s + kBlockK - 1) / kBlockK, bh);
   cudaError_t err;
   if (use_bf16) {
-    constexpr size_t smem = dkdv_bf16_smem_bytes<DP>();
-    if ((err = set_smem(flash_bwd_dkdv_bf16_kernel<DP>, smem))) return err;
-    flash_bwd_dkdv_bf16_kernel<DP><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, d,
-        scale_log2, scale);
+    const int sp = (s + kTileRows - 1) / kTileRows * kTileRows;
+    constexpr int kLpr = DP / 8;  // threads per row, 8 columns each
+    const size_t threads = (size_t)bh * sp * kLpr;
+    flash_bwd_rows_bf16_kernel<kLpr>
+        <<<(unsigned)((threads + kDeltaThreads - 1) / kDeltaThreads),
+           kDeltaThreads, 0, st>>>(static_cast<const bf16*>(o),
+                                   static_cast<const bf16*>(dout), lse,
+                                   delta, rows, bh, s, sp, d);
+    if ((err = cudaGetLastError())) return err;
+    CUtensorMap qm, km, vm, dom, rm;
+    if ((err = tile_map<DP>(&qm, q, bh, s, d)) ||
+        (err = tile_map<DP>(&km, k, bh, s, d)) ||
+        (err = tile_map<DP>(&vm, v, bh, s, d)) ||
+        (err = tile_map<DP>(&dom, dout, bh, s, d)) ||
+        (err = rows_map(&rm, rows, bh, sp)))
+      return err;
+    using L = BwdSmem<DP, true>;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dkdv_bf16_kernel<DP>, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool = check_register_pool(
+        flash_bwd_dkdv_bf16_kernel<DP>, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
+    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    flash_bwd_dkdv_bf16_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
+        qm, km, vm, dom, rm, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        s, d, scale_log2, scale);
   } else {
+    if ((err = launch_delta_f32(o, dout, delta, bh, s, d, st))) return err;
     constexpr size_t smem = bwd_f32_smem_bytes<DP>();
-    if ((err = set_smem(flash_bwd_dkdv_f32_kernel<DP>, smem))) return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dkdv_f32_kernel<DP>, smem, smem_set)))
+      return err;
+    const dim3 grid((s + kBlockK - 1) / kBlockK, bh);
     flash_bwd_dkdv_f32_kernel<DP><<<grid, kFmaThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -659,18 +756,33 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)d));
   const float scale_log2 = (float)(kLog2e / sqrt((double)d));
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
   cudaError_t err;
   if (use_bf16) {
-    constexpr size_t smem = dq_bf16_smem_bytes<DP>();
-    if ((err = set_smem(flash_bwd_dq_bf16_kernel<DP>, smem))) return err;
-    flash_bwd_dq_bf16_kernel<DP><<<grid, kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, static_cast<bf16*>(dq), s, d, scale_log2, scale);
+    CUtensorMap qm, km, vm, dom;
+    if ((err = tile_map<DP>(&qm, q, bh, s, d)) ||
+        (err = tile_map<DP>(&km, k, bh, s, d)) ||
+        (err = tile_map<DP>(&vm, v, bh, s, d)) ||
+        (err = tile_map<DP>(&dom, dout, bh, s, d)))
+      return err;
+    using L = BwdSmem<DP, false>;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dq_bf16_kernel<DP>, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool =
+        check_register_pool(flash_bwd_dq_bf16_kernel<DP>, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
+    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    flash_bwd_dq_bf16_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
+        qm, km, vm, dom, lse, delta, static_cast<bf16*>(dq), s, d,
+        scale_log2, scale);
   } else {
     constexpr size_t smem = bwd_f32_smem_bytes<DP>();
-    if ((err = set_smem(flash_bwd_dq_f32_kernel<DP>, smem))) return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dq_f32_kernel<DP>, smem, smem_set)))
+      return err;
+    const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
     flash_bwd_dq_f32_kernel<DP><<<grid, kFmaThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -687,16 +799,18 @@ bool bad_shape(int bh, int s, int d) {
 
 // q, k, v, o, dout, dk, dv: contiguous (bh, s, d) device arrays of float32
 // (is_bf16 == 0) or bfloat16 (is_bf16 == 1), 16-byte aligned, d % 8 == 0 and
-// 8 <= d <= 128; lse (the forward's lse2) and delta: (bh, s) float32.
-// Launches the delta pre-pass (delta = rowsum(dout * o), written for
-// ddti_flash_bwd_dq) and the dK/dV kernel on `stream` without
-// synchronising; returns the first cudaError_t (0 = success).
+// 8 <= d <= 128; lse (the forward's lse2) and delta: (bh, s) float32; rows
+// (bf16 only, else unused): a 16-byte aligned (bh, 2, sp) float32 scratch,
+// sp = s rounded up to 64. Launches the pre-pass (delta = rowsum(dout * o),
+// written for ddti_flash_bwd_dq, and in bf16 the padded rows) and the dK/dV
+// kernel on `stream` without synchronising; returns the first cudaError_t
+// (0 = success).
 extern "C" int ddti_flash_bwd_dkdv(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
-                                   void* delta, void* dk, void* dv, int bh,
-                                   int s, int d, int is_bf16, int device,
-                                   void* stream) {
+                                   void* delta, void* rows, void* dk,
+                                   void* dv, int bh, int s, int d,
+                                   int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
@@ -704,12 +818,15 @@ extern "C" int ddti_flash_bwd_dkdv(const void* q, const void* k,
   const bool bf = is_bf16 != 0;
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if ((err = launch_delta(o, dout, dl, bh, s, d, bf, st))) return (int)err;
+  float* r = static_cast<float*>(rows);
   if (d <= 32)
-    return (int)launch_dkdv<32>(q, k, v, dout, l, dl, dk, dv, bh, s, d, bf, st);
+    return (int)launch_dkdv<32>(q, k, v, o, dout, l, dl, r, dk, dv, bh, s, d,
+                                bf, st);
   if (d <= 64)
-    return (int)launch_dkdv<64>(q, k, v, dout, l, dl, dk, dv, bh, s, d, bf, st);
-  return (int)launch_dkdv<128>(q, k, v, dout, l, dl, dk, dv, bh, s, d, bf, st);
+    return (int)launch_dkdv<64>(q, k, v, o, dout, l, dl, r, dk, dv, bh, s, d,
+                                bf, st);
+  return (int)launch_dkdv<128>(q, k, v, o, dout, l, dl, r, dk, dv, bh, s, d,
+                               bf, st);
 }
 
 // As ddti_flash_bwd_dkdv, for dq; delta must hold what ddti_flash_bwd_dkdv

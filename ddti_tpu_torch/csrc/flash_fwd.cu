@@ -21,212 +21,213 @@
 // probability tile is rounded to the input dtype before the PV product (as
 // attention.py:131-133 casts p to v.dtype), while l sums the unrounded p.
 //
-// What bounds it on an H100: at the TransUNet serving shape (B=16, H=8,
-// S=1024, D=32) one layer is 4*B*H*S^2*D = 17.2 GFLOP of products and
-// B*H*S^2 = 134 M exp2 against ~34 MB of q/k/v/o in bf16, ~500 FLOP per byte:
-// compute- and exp-bound, not memory-bound. The (S, S) score matrix never
-// reaches device memory: each block keeps its 64x64 score tile on chip, so
-// device traffic is one read of q/k/v per query tile and one write of o.
+// What bounds it on an H100 (bf16 dense peak 989 TFLOP/s, 3.35 TB/s, 16
+// exp2 per clock per SM): at the TransUNet shape (B=16, H=8, S=1024, D=32)
+// one call is 4*B*H*S^2*D = 17.2 GFLOP of products, 0.0174 ms at the
+// tensor-core peak, against 34 MB of q/k/v/o/lse2 (0.010 ms), and
+// B*H*S^2 = 134 M exp2, 0.032 ms for the exp2 unit alone at the boost
+// clock: the exp2 floor, not the tensor cores or the memory, bounds it. The
+// (S, S) score matrix never reaches device memory.
 //
-// Design (first versions, right and simple). Both dtypes: one block per
-// (64-query tile, b*h slice); K/V tiles of 64 keys staged in shared memory,
-// single-buffered; an online-softmax loop over the key tiles inside the
-// block takes the place of the TPU's sequential grid axis. Any S is taken:
-// the ragged key tile is masked to -inf and ragged query rows are computed
-// on zeros and not written.
-//  - bf16: the products run on the tensor cores, mma.sync.m16n8k16 with
-//    float32 accumulation, in the FlashAttention-2 register layout: each of
-//    4 warps owns 16 query rows, keeps its Q fragments and its 16x64 score
-//    tile in registers, and reuses the score tile's accumulator layout as the
-//    A operand of the PV product. V is staged transposed so that every B
-//    fragment is a 32-bit shared-memory load; row strides are padded by 16
-//    bytes so that a warp's fragment loads hit 32 distinct banks. What is
-//    left bounds it: the single-buffered tile loads and the block barriers
-//    around them (cp.async/TMA double-buffering and wgmma are later work).
+// Design.
+//  - bf16 (Hopper). The first version (mma.sync fed by 32-bit shared loads,
+//    K/V staged by blocking loads between block barriers, V staged a
+//    second time transposed) ran at 10% of the roofline bound. Now one
+//    block per (128 queries, b*h) holds two consumer warpgroups of 64 query
+//    rows and a producer, one thread of which issues TMA loads: the block's
+//    q tiles once, then K and V tiles of 64 keys into a ring of kStages
+//    slots under mbarriers (full: the tile landed; empty: both consumers
+//    are done with it). The loop has no block-wide barrier. A consumer
+//    computes S = q K^T by wgmma.m64n64k16 with q and K both K-major in
+//    shared memory, the online softmax on the float32 accumulator (rows g
+//    and g + 8 of each warp, their max and sum reduced over the quad), then
+//    O += P V by wgmma.m64nDPk16 with P from registers (the accumulator
+//    rounded to bf16 is the A fragment) and V read MN-major straight from
+//    its row-major tile: no transposed copy. The exp2 unit sets the pace,
+//    so what matters is how many warps keep it fed: at DP = 32 a consumer
+//    needs 88 registers, and two blocks share an SM, each with a producer
+//    warp; wider heads take one block per SM with a producer warpgroup
+//    whose registers setmaxnreg hands to the consumers (at DP = 256 one
+//    consumer of 64 rows, where two would spill). TMA zero-fills rows past
+//    S and columns past D; key columns past S are masked to -inf before
+//    the max, query rows past S are not written.
 //  - float32: tensor cores offer no full-precision float32 product, so the
-//    products are scalar FMAs. Four threads own each query row: each
-//    computes 16 of the row's 64 scores and DP/4 of its output columns; the
-//    row's max and sum are reduced with two quad shuffles. Bound by
-//    shared-memory loads, about one per FMA.
+//    products are scalar FMAs. One block per (64 queries, b*h); four
+//    threads own each query row: each computes 16 of the row's 64 scores
+//    and DP/4 of its output columns; the row's max and sum are reduced with
+//    two quad shuffles. Bound by shared-memory loads, about one per FMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr double kLog2e = 1.4426950408889634;
+typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync)
-
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows
+// bfloat16: TMA + wgmma
 
 template <int DP>
-constexpr size_t mma_smem_bytes() {
-  // q and k tiles [64][DP + 8], v transposed [DP][64 + 8], all bf16
-  return sizeof(__nv_bfloat16) *
-         ((size_t)(kBlockQ + kBlockK) * (DP + 8) + (size_t)DP * (kBlockK + 8));
-}
+struct FwdSmem {
+  using T = Tile<DP>;
+  // consumer warpgroups: one at DP = 256, where two spill registers
+  static constexpr int kConsumers = DP == 256 ? 1 : 2;
+  // DP = 32 needs few registers: two blocks share an SM, each with a
+  // producer warp and no setmaxnreg, so that four consumer warps per
+  // scheduler keep the exp2 unit busy; wider heads take one block of a
+  // producer warpgroup whose registers setmaxnreg hands to the consumers
+  static constexpr bool kGrowRegs = DP != 32;
+  static constexpr int kBlocksPerSm = kGrowRegs ? 1 : 2;
+  static constexpr int kThreads = 128 * kConsumers + (kGrowRegs ? 128 : 32);
+  static constexpr int kStages = DP == 256 ? 2 : 4;
+  static constexpr uint32_t kStage = 2 * T::kBytes;  // K tile, V tile
+  static constexpr uint32_t q = 0;                   // the consumers' q tiles
+  static constexpr uint32_t kv = kConsumers * T::kBytes;
+  // full[kStages], empty[kStages], q_full
+  static constexpr uint32_t bars = kv + kStages * kStage;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
 
 // DP: padded head width (template); D: actual head width, D % 8 == 0, D <= DP
 template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int S, int D, float scale_log2) {
-  constexpr int QS = DP + 8;           // q/k tile row stride (bf16)
-  constexpr int VS = kBlockK + 8;      // transposed v row stride (bf16)
-  constexpr int kSteps = DP / 16;      // k-steps of q k^T
-  constexpr int kOutTiles = DP / 8;    // n-tiles of the output
-  constexpr int kScoreTiles = kBlockK / 8;
-  constexpr int kPvSteps = kBlockK / 16;
-  constexpr int kVec = 8;              // bf16 per 16-byte load
-  constexpr int kVecPerRow = DP / kVec;
+__global__ void __launch_bounds__(FwdSmem<DP>::kThreads,
+                                  FwdSmem<DP>::kBlocksPerSm)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      bf16* __restrict__ o, float* __restrict__ lse, int S,
+                      int D, float scale_log2) {
+  using T = Tile<DP>;
+  using L = FwdSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
+  const int slice = blockIdx.y;
+  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  const int n_tiles = (S + kBlockK - 1) / kBlockK;
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockQ * QS;
-  __nv_bfloat16* vts = ks + kBlockK * QS;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < kBlockQ * kVecPerRow; i += kMmaThreads) {
-    const int r = i / kVecPerRow, c = (i % kVecPerRow) * kVec;
-    *reinterpret_cast<uint4*>(qs + r * QS + c) =
-        q0 + r < S && c < D ? *reinterpret_cast<const uint4*>(
-                                  q + base + (size_t)(q0 + r) * D + c)
-                            : zero;
-  }
-  __syncthreads();
-
-  // this warp's rows warp*16 + g and warp*16 + g + 8, as A fragments
-  uint32_t qa[kSteps][4];
-  const __nv_bfloat16* qrow = qs + (warp * 16 + g) * QS + t * 2;
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    qa[kk][0] = ld32(qrow + kk * 16);
-    qa[kk][1] = ld32(qrow + 8 * QS + kk * 16);
-    qa[kk][2] = ld32(qrow + kk * 16 + 8);
-    qa[kk][3] = ld32(qrow + 8 * QS + kk * 16 + 8);
-  }
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[kOutTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOutTiles; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's ks/vts are fully consumed
-    for (int i = tid; i < kBlockK * kVecPerRow; i += kMmaThreads) {
-      const int r = i / kVecPerRow, c = (i % kVecPerRow) * kVec;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < S && c < D) {
-        const size_t off = base + (size_t)(k0 + r) * D + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
+  if (wg == L::kConsumers) {  // the producer
+    if constexpr (L::kGrowRegs) regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers * 128) {
+      mbar_expect_tx(q_full, L::kConsumers * T::kBytes);
+      for (int c = 0; c < L::kConsumers; ++c)
+        tma_load_tile<DP>(smem + L::q + c * T::kBytes, &q_map, q_full,
+                          q0 + c * kTileRows, slice);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % L::kStages;
+        mbar_wait(empty + st, ((it / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, L::kStage);
+        unsigned char* kv = smem + L::kv + st * L::kStage;
+        tma_load_tile<DP>(kv, &k_map, full + st, it * kBlockK, slice);
+        tma_load_tile<DP>(kv + T::kBytes, &v_map, full + st, it * kBlockK,
+                          slice);
       }
-      *reinterpret_cast<uint4*>(ks + r * QS + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) vts[(c + j) * VS + r] = ve[j];
     }
-    __syncthreads();
+  } else {  // a consumer: query rows q0 + 64 wg .. + 63
+    if constexpr (L::kGrowRegs) regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t q_tile = smem_addr(smem + L::q + wg * T::kBytes);
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    // rows g and g + 8 of this warp's 16, in the base-2 scaled domain
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
 
-    // scores: 16 rows x 64 keys per warp, in 8 accumulator tiles
-    float s[kScoreTiles][4];
-#pragma unroll
-    for (int n = 0; n < kScoreTiles; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = ks + (n * 8 + g) * QS + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        mma_16816(s[n], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % L::kStages;
+      mbar_wait(full + st, (it / L::kStages) & 1);
+      const uint32_t k_tile = smem_addr(smem + L::kv + st * L::kStage);
+      const uint32_t v_tile = k_tile + T::kBytes;
 
-    // online softmax; element e of a tile is row g + 8*(e >> 1),
-    // column n*8 + 2t + (e & 1)
-    float tile_max[2] = {-INFINITY, -INFINITY};
+      // raw scores q K^T: element 4n + e is row g + 8 (e >> 1), key
+      // it * 64 + 8n + 2t + (e & 1)
+      float s[32];
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kScoreTiles; ++n)
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n64k16_ss(s, desc_k_major<DP>(q_tile, kk),
+                           desc_k_major<DP>(k_tile, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+
+      const int k0 = it * kBlockK;
+      if (k0 + kBlockK > S) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t * 2 + (e & 1);
-        s[n][e] = col < S ? s[n][e] * scale_log2 : -INFINITY;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[n][e]);
+        for (int i = 0; i < 32; ++i)
+          if (k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
       }
-    float alpha[2];
+      float alpha[2], bias[2], tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(s[2 * r], s[2 * r + 1]);
+#pragma unroll
+        for (int n = 1; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // every tile holds at least one valid key, so m_new is finite
+        const float m_new = fmaxf(m[r], mx * scale_log2);
+        alpha[r] = exp2_ftz(m[r] - m_new);
+        m[r] = m_new;
+        bias[r] = -m_new;
+      }
+      // p = exp2(s c - m) rounded to bf16 as the A fragments of P V; l sums
+      // it unrounded
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = exp2_ftz(fmaf(s[i], scale_log2, bias[(i >> 1) & 1]));
+        tile_sum[(i >> 1) & 1] += s[i];
+      }
+      uint32_t pa[4][4];
+      to_a_fragments(s, pa);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 1);
+        tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 2);
+        l[r] = l[r] * alpha[r] + tile_sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs_mn<DP>(acc, pa[j], desc_mn_major<DP>(v_tile, j));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(empty + st);
+    }
+
+    const size_t base = (size_t)slice * S;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      tile_max[r] = fmaxf(tile_max[r],
-                          __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r],
-                          __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      // every tile holds at least one valid key, so the new max is finite
-      const float m_new = fmaxf(m[r], tile_max[r]);
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
+      const int row = q0 + wg * kTileRows + warp * 16 + g + 8 * r;
+      if (row >= S) continue;
+      const float inv_l = 1.f / l[r];
+      bf16* orow = o + (base + row) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        if (n * 8 < D)
+          *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(
+              acc[4 * n + 2 * r] * inv_l, acc[4 * n + 2 * r + 1] * inv_l);
+      if (t == 0) lse[base + row] = m[r] + log2f(l[r]);
     }
-
-    // p in bf16, laid out as the A fragments of the PV product: score tiles
-    // 2j and 2j+1 form k-step j
-    uint32_t pa[kPvSteps][4];
-    float tile_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kScoreTiles; ++n) {
-      const float p0 = exp2f(s[n][0] - m[0]), p1 = exp2f(s[n][1] - m[0]);
-      const float p2 = exp2f(s[n][2] - m[1]), p3 = exp2f(s[n][3] - m[1]);
-      tile_sum[0] += p0 + p1;
-      tile_sum[1] += p2 + p3;
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 1);
-      tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 2);
-      l[r] = l[r] * alpha[r] + tile_sum[r];
-    }
-
-#pragma unroll
-    for (int n = 0; n < kOutTiles; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-      const __nv_bfloat16* vrow = vts + (n * 8 + g) * VS + t * 2;
-#pragma unroll
-      for (int j = 0; j < kPvSteps; ++j)
-        mma_16816(acc[n], pa[j], ld32(vrow + j * 16), ld32(vrow + j * 16 + 8));
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int gr = q0 + warp * 16 + g + 8 * r;
-    if (gr >= S) continue;
-    const float inv_l = 1.f / l[r];
-    __nv_bfloat16* orow = o + base + (size_t)gr * D + t * 2;
-#pragma unroll
-    for (int n = 0; n < kOutTiles; ++n)
-      if (n * 8 < D)
-        *reinterpret_cast<uint32_t*>(orow + n * 8) =
-            pack_bf16(acc[n][2 * r] * inv_l, acc[n][2 * r + 1] * inv_l);
-    if (t == 0) lse[(size_t)blockIdx.y * S + gr] = m[r] + log2f(l[r]);
   }
 }
 
@@ -360,29 +361,37 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int s, int d, bool bf16,
+                   void* lse, int bh, int s, int d, bool use_bf16,
                    cudaStream_t stream) {
   const float scale_log2 = (float)(kLog2e / sqrt((double)d));
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
   cudaError_t err;
-  if (bf16) {
-    constexpr size_t smem = mma_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_fwd_bf16_kernel<DP><<<grid, kMmaThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), s, d,
+  if (use_bf16) {
+    CUtensorMap qm, km, vm;
+    if ((err = tile_map<DP>(&qm, q, bh, s, d)) ||
+        (err = tile_map<DP>(&km, k, bh, s, d)) ||
+        (err = tile_map<DP>(&vm, v, bh, s, d)))
+      return err;
+    constexpr size_t smem = FwdSmem<DP>::bytes;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_fwd_bf16_kernel<DP>, smem, smem_set)))
+      return err;
+    if constexpr (FwdSmem<DP>::kGrowRegs) {
+      static const cudaError_t pool = check_register_pool(
+          flash_fwd_bf16_kernel<DP>, FwdSmem<DP>::kConsumers);
+      if (pool != cudaSuccess) return pool;
+    }
+    constexpr int kRowsPerBlock = FwdSmem<DP>::kConsumers * kTileRows;
+    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock,
+                    bh);
+    flash_fwd_bf16_kernel<DP><<<grid, FwdSmem<DP>::kThreads, smem, stream>>>(
+        qm, km, vm, static_cast<bf16*>(o), static_cast<float*>(lse), s, d,
         scale_log2);
   } else {
     constexpr size_t smem = fma_smem_bytes<DP>();
-    err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_fwd_f32_kernel<DP>, smem, smem_set)))
+      return err;
+    const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
     flash_fwd_f32_kernel<DP><<<grid, kFmaThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
@@ -406,9 +415,9 @@ extern "C" int ddti_flash_fwd(const void* q, const void* k, const void* v,
   if (bh <= 0 || bh > 65535 || s <= 0 || d < 8 || d > 256 || d % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool bf16 = is_bf16 != 0;
-  if (d <= 32) return (int)launch<32>(q, k, v, o, lse, bh, s, d, bf16, st);
-  if (d <= 64) return (int)launch<64>(q, k, v, o, lse, bh, s, d, bf16, st);
-  if (d <= 128) return (int)launch<128>(q, k, v, o, lse, bh, s, d, bf16, st);
-  return (int)launch<256>(q, k, v, o, lse, bh, s, d, bf16, st);
+  const bool use_bf16 = is_bf16 != 0;
+  if (d <= 32) return (int)launch<32>(q, k, v, o, lse, bh, s, d, use_bf16, st);
+  if (d <= 64) return (int)launch<64>(q, k, v, o, lse, bh, s, d, use_bf16, st);
+  if (d <= 128) return (int)launch<128>(q, k, v, o, lse, bh, s, d, use_bf16, st);
+  return (int)launch<256>(q, k, v, o, lse, bh, s, d, use_bf16, st);
 }

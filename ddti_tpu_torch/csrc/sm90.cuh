@@ -1,0 +1,497 @@
+// Hopper (sm_90a) building blocks of the flash-attention kernels, in inline
+// PTX: TMA tile loads that complete on mbarriers, wgmma with shared-memory
+// matrix descriptors, setmaxnreg, and the host-side encoding of the TMA
+// tensor maps (cuTensorMapEncodeTiled, looked up in libcuda at run time,
+// so the plain-C library links no -lcuda).
+//
+// Tiles. An operand tile is 64 rows of a contiguous (bh, S, D) bf16 array,
+// padded to DP columns (D <= DP; TMA fills columns past D and rows past S
+// with zeros). TMA loads it as DP / 64 boxes of [64 rows][64 columns] (one
+// box of [64][32] at DP = 32) with the swizzle that matches a box row's
+// bytes, 64 B at DP = 32 and 128 B otherwise; eight box rows are the
+// swizzle's repeat (the "atom", 512 or 1024 bytes), and every box starts on
+// a 1024-byte boundary. wgmma reads such a tile
+//   K-major, where the head dimension is the product's k (q K^T, K q^T):
+//     k-step kk (16 columns) starts in box 16 kk / 64 at byte 32 (kk % 4)
+//     of the row, 8-row groups one atom apart (SBO);
+//   MN-major, where the rows are the product's k (P V, P^T dO, dS^T q):
+//     k-step kk (16 rows) starts 16 rows down, 8-row groups one atom apart
+//     (SBO) and 64-column boxes along N one box apart (LBO).
+// Accumulators follow wgmma's m64nN layout: warp w of the warpgroup holds
+// rows 16w + g and 16w + g + 8 (g = lane / 4) at columns 8n + 2t and
+// 8n + 2t + 1 (t = lane % 4) in d[4n .. 4n + 3]. That is mma.sync's C
+// layout tile by tile, so two adjacent 8-column tiles rounded to bf16 are
+// the register A fragment of one k16 step (to_a_fragments).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
+
+namespace {
+
+constexpr int kTileRows = 64;
+// A block is C consumer warpgroups of 64 rows each and a producer, one
+// thread of which issues the TMA loads. Where the consumers need more
+// registers than an even share, the producer is a whole warpgroup and
+// setmaxnreg takes it down to kProducerRegs and the consumers up to
+// kConsumerRegs: the register file is four quadrants of 16 K, one per warp
+// scheduler, so a lone ninth warp would cap every thread at 168 just as a
+// producer warpgroup does, and at C = 2, 168 x 384 = 240 x 256 + 24 x 128.
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+
+template <int DP>
+struct Tile {
+  static_assert(DP == 32 || DP == 64 || DP == 128 || DP == 256, "DP");
+  static constexpr int kBoxCols = DP < 64 ? DP : 64;
+  static constexpr int kBoxes = DP / kBoxCols;
+  static constexpr uint32_t kRowBytes = 2 * kBoxCols;
+  static constexpr uint32_t kBoxBytes = kTileRows * kRowBytes;
+  static constexpr uint32_t kBytes = kBoxes * kBoxBytes;
+  static constexpr uint32_t kAtom = 8 * kRowBytes;
+  static constexpr uint64_t kLayout = DP == 32 ? 2 : 1;  // wgmma: 64B, 128B
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      DP == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+};
+
+// ---------------------------------------------------------------------------
+// device
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the dynamic shared memory rounded up to the swizzle's 1024-byte boundary
+// (the kernels ask for 1024 bytes more than they use)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// arrive, and expect `bytes` more of TMA traffic before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A barrier that stays
+// open for 2^34 clocks (seconds) means a broken pipeline: trap, so the
+// launch fails with an error instead of hanging the device.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (!start) start = now;
+    else if (now - start > (1ll << 34)) __trap();
+  }
+}
+
+// The barriers of a block's ring of L::kStages slots, from `full` on, and
+// the block's sync: full[i] completes when slot i's tiles land (one
+// arrival, the producer's, plus the TMA bytes), empty[i] = full[kStages +
+// i] when all L::kConsumers consumer warpgroups are done with it, and
+// full[2 kStages] when the tiles the block loads once land.
+template <typename L>
+__device__ __forceinline__ void init_ring(uint64_t* full) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(full + L::kStages + i, L::kConsumers * 128);
+    }
+    mbar_init(full + 2 * L::kStages, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// 2^x on the exp2 unit alone: exp2f adds a fix-up for subnormal results
+// around it, which probabilities below 2^-126 do not need
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// rows [row, row + 64) of slice `slice` as a DP-wide tile at `dst`
+template <int DP>
+__device__ __forceinline__ void tma_load_tile(unsigned char* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row,
+                                              int slice) {
+#pragma unroll
+  for (int b = 0; b < Tile<DP>::kBoxes; ++b)
+    tma_load(dst + b * Tile<DP>::kBoxBytes, map, bar, b * Tile<DP>::kBoxCols,
+             row, slice);
+}
+
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+// descriptor of k-step kk of the tile at shared address `tile`, read with
+// the head dimension as k
+template <int DP>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
+  using T = Tile<DP>;
+  return smem_desc(tile + (kk * 16 / T::kBoxCols) * T::kBoxBytes +
+                       (kk * 16 % T::kBoxCols) * 2,
+                   16, T::kAtom, T::kLayout);
+}
+
+// descriptor of k-step kk of the tile, read with its rows as k
+template <int DP>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk) {
+  using T = Tile<DP>;
+  return smem_desc(tile + kk * 16 * T::kRowBytes, T::kBoxBytes, T::kAtom,
+                   T::kLayout);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a 64-column accumulator rounded to bf16 as the A fragments of four k16
+// steps over its columns
+__device__ __forceinline__ void to_a_fragments(const float (&x)[32],
+                                               uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[j][i] = pack_bf16(x[8 * j + 2 * i], x[8 * j + 2 * i + 1]);
+}
+
+// d (64 x N, float32) += A B over one k16 step: A (64 x 16) from registers
+// (a k16 A fragment), B (16 x N) MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b);
+
+
+// d (64 x 64, float32) {=, +=} A B over one k16 step: A (64 x 16) and B
+// (16 x 64, its 64 rows of k) both K-major in shared memory; accumulate = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<32>(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<64>(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45,"
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56,"
+      "%57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_mn<256>(float (&d)[128],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45,"
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56,"
+      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67,"
+      "%68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78,"
+      "%79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100,"
+      "%101, %102, %103, %104, %105, %106, %107, %108, %109,"
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118,"
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                            12000, cudaEnableDefault,
+                                            &found) == cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,
+                          cuuint32_t rank, const void* base,
+                          const cuuint64_t* dims, const cuuint64_t* strides,
+                          const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory a kernel may use, set once per kernel and
+// device (cudaFuncSetAttribute costs host time on every launch otherwise).
+// `done` is the caller's flag word for this one kernel, one bit per device
+// 0..63: a static here would be shared by every kernel of the same
+// signature, such as one kernel's instantiations for several widths.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, size_t bytes,
+                          std::atomic<uint64_t>& done) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
+// setmaxnreg.inc waits until the block's register pool, fixed at launch,
+// holds what it asks for: refuse a kernel whose pool is too small rather
+// than launch it into a hang (the check runs once per kernel)
+template <typename Kernel>
+cudaError_t check_register_pool(Kernel kernel, int consumers) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  return a.numRegs * 128 * (consumers + 1) >=
+                 128 * (kConsumerRegs * consumers + kProducerRegs)
+             ? cudaSuccess
+             : cudaErrorInvalidConfiguration;
+}
+
+// a contiguous (bh, s, d) bf16 array as DP-wide tiles of 64 rows: a 3-D map
+// (d, s, bh), so rows past s of one slice read as zeros and never as the
+// next slice's, and so do columns d..DP-1
+template <int DP>
+cudaError_t tile_map(CUtensorMap* map, const void* base, int bh, int s,
+                     int d) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {2ull * d, 2ull * d * s};
+  const cuuint32_t box[3] = {(cuuint32_t)Tile<DP>::kBoxCols, kTileRows, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                strides, box, Tile<DP>::kSwizzle);
+}
+
+}  // namespace

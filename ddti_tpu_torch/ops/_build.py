@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddti_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -50,7 +50,8 @@ def library_path() -> Path:
 
 def build() -> tuple[Path, float]:
     """Compile the sources unless the library for them exists. Returns the
-    library's path and the seconds spent compiling (0.0 when it existed)."""
+    library's path and the seconds spent compiling (0.0 when it existed);
+    the compiler's output lands beside it, with the suffix ``.log``."""
     out = library_path()
     if out.exists():
         return out, 0.0
@@ -77,6 +78,10 @@ def build() -> tuple[Path, float]:
         if rc != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+    # the compiler's report (ptxas: registers, spills, shared memory per
+    # kernel) beside the library
+    out.with_suffix(".log").write_text(
+        "".join(f"$ {' '.join(cmd)}\n{log}" for cmd, log, _ in steps))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out, time.perf_counter() - t0
 
@@ -85,7 +90,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every kernel's C entry point: argument types; each returns a cudaError_t
 KERNELS = {
     "ddti_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ddti_flash_bwd_dkdv": [_P] * 9 + [_I] * 5 + [_P],
+    "ddti_flash_bwd_dkdv": [_P] * 10 + [_I] * 5 + [_P],
     "ddti_flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
     "ddti_edt": [_P, _P, _LL, _I, _I, _P],
 }

@@ -56,6 +56,14 @@ def flash_forward_reference(q, k, v):
         return o.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
 
 
+def _stream(index):
+    """The current CUDA stream of device ``index`` as a raw pointer: the
+    call PyTorch's own kernel launchers make, without building the Stream
+    object of torch.cuda.current_stream, which costs a fifth of the forward
+    wrapper's host time."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def flash_forward_cuda(q, k, v):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: returns (o, lse2).
     Raises on anything the kernel does not take. Adds one to
@@ -73,22 +81,22 @@ def flash_forward_cuda(q, k, v):
         raise ValueError(f"head dim {d}: the kernel takes multiples of 8 "
                          f"up to {MAX_HEAD_DIM} (wider heads are a "
                          f"ROADMAP.md Queue 2 item)")
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    dev = q.device
+    if not (q.is_cuda and k.device == dev and v.device == dev):
         raise ValueError("q, k, v must lie on one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if any(p % 16 for p in ptrs):
         raise ValueError("q, k, v must be 16-byte aligned")
     if not 0 < b * h <= 65535 or s == 0:
         raise ValueError(f"B*H = {b * h} must lie in [1, 65535] and S > 0")
     from ._build import launch
 
     o = torch.empty_like(q)
-    lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           o.data_ptr(), lse.data_ptr(), b * h, s, d,
-           _KERNEL_DTYPES[q.dtype], q.device.index, stream)
+    lse = q.new_empty((b, h, s), dtype=torch.float32)
+    launch("flash_fwd", *ptrs, o.data_ptr(), lse.data_ptr(), b * h, s, d,
+           _KERNEL_DTYPES[q.dtype], dev.index, _stream(dev.index))
     flash_forward_cuda.launches += 1
     return o, lse
 
@@ -138,11 +146,13 @@ def flash_backward_cuda(q, k, v, o, lse2, do):
         raise ValueError(f"lse2 must be (B, H, S) float32; got "
                          f"{tuple(lse2.shape)} {lse2.dtype}")
     ts += (lse2,)
-    if not (q.is_cuda and all(t.device == q.device for t in ts)):
+    dev = q.device
+    if not (q.is_cuda and all(t.device == dev for t in ts)):
         raise ValueError("q, k, v, o, lse2, do must lie on one CUDA device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("q, k, v, o, lse2, do must be contiguous")
-    if any(t.data_ptr() % 16 for t in ts):
+    pq, pk, pv, po, pdo, plse = ptrs = [t.data_ptr() for t in ts]
+    if any(p % 16 for p in ptrs):
         raise ValueError("q, k, v, o, lse2, do must be 16-byte aligned")
     if not 0 < b * h <= 65535 or s == 0:
         raise ValueError(f"B*H = {b * h} must lie in [1, 65535] and S > 0")
@@ -150,15 +160,17 @@ def flash_backward_cuda(q, k, v, o, lse2, do):
 
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse2)
-    dev, bf16 = q.device.index, _KERNEL_DTYPES[q.dtype]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    launch("flash_bwd_dkdv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           o.data_ptr(), do.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
-           dk.data_ptr(), dv.data_ptr(), b * h, s, d, bf16, dev, stream)
+    bf16 = _KERNEL_DTYPES[q.dtype]
+    # bf16: the dK/dV kernel's TMA loads read lse2 and delta from a (B*H, 2,
+    # S rounded up to 64) buffer that the pre-pass pads with +inf and 0
+    rows = lse2.new_empty((b * h, 2, -(-s // 64) * 64)) if bf16 else None
+    stream = _stream(dev.index)
+    launch("flash_bwd_dkdv", pq, pk, pv, po, pdo, plse, delta.data_ptr(),
+           rows.data_ptr() if bf16 else None, dk.data_ptr(), dv.data_ptr(),
+           b * h, s, d, bf16, dev.index, stream)
     flash_backward_cuda.launches_dkdv += 1
-    launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           do.data_ptr(), lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-           b * h, s, d, bf16, dev, stream)
+    launch("flash_bwd_dq", pq, pk, pv, pdo, plse, delta.data_ptr(),
+           dq.data_ptr(), b * h, s, d, bf16, dev.index, stream)
     flash_backward_cuda.launches_dq += 1
     return dq, dk, dv
 

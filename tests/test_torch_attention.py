@@ -198,3 +198,20 @@ def test_flash_forward_cuda_rejects_head_dims_before_launch(d):
     q = torch.empty((1, 2, 64, d), device="meta")
     with pytest.raises(ValueError, match=f"head dim {d}"):
         tattn.flash_forward_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("needle", ["scaled_dot_product_attention",
+                                    "torch.nn.attention",
+                                    "_scaled_dot_product_"])
+def test_port_calls_no_library_attention(needle):
+    """Every attention of the port is its own kernel or plain version:
+    no module of ddti_tpu_torch names PyTorch's fused attention
+    (chip_smoke.py, outside the package, times it as a yardstick)."""
+    import pathlib
+
+    root = pathlib.Path(tattn.__file__).resolve().parents[1]
+    files = sorted(root.rglob("*.py"))
+    assert len(files) > 20
+    hits = [str(p.relative_to(root)) for p in files
+            if needle in p.read_text(encoding="utf-8")]
+    assert not hits, f"{needle} in {hits}"

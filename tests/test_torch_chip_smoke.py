@@ -1,0 +1,64 @@
+"""The work counts and bounds that chip_smoke.py prints beside each kernel's
+time, held to counts made by hand from the shapes. CPU only: chip_smoke
+imports nothing but the standard library at module level."""
+
+import pytest
+
+import chip_smoke as C
+
+SLICE = (16, 8, 1024, 32)  # the TransUNet bottleneck at 512^2: 1024 tokens
+
+
+@pytest.mark.parametrize("kernel, shape, dtype, flop, nbytes, exp2", [
+    # five (S, S, D) products; q, k, v, o, dO in and dq, dk, dv out (bf16),
+    # lse2 in (float32); P recomputed by both kernels
+    ("flash_bwd", SLICE, "bfloat16", 42.9e9, 67.6e6, 268.4e6),
+    # two products; q, k, v in and o out, lse2 out
+    ("flash_fwd", SLICE, "bfloat16", 17.2e9, 34.1e6, 134.2e6),
+    # its two kernels: S^T, dP^T, dV, dK (+ delta) and S, dP, dQ
+    ("flash_bwd_dkdv", SLICE, "bfloat16", 34.4e9, 59.8e6, 134.2e6),
+    ("flash_bwd_dq", SLICE, "bfloat16", 25.8e9, 43.0e6, 134.2e6),
+    # float32 moves twice the bytes for the same products
+    ("flash_bwd", SLICE, "float32", 42.9e9, 134.7e6, 268.4e6),
+    # the EDT's row pass: an add and a min per (row, column, column)
+    ("edt", (16, 512, 512), "bfloat16", 4.29e9, 21.0e6, 0),
+])
+def test_work_counts_match_hand_counts(kernel, shape, dtype, flop, nbytes,
+                                       exp2):
+    w = C.work_counts(kernel, shape, dtype)
+    assert w["flop"] == pytest.approx(flop, rel=2e-3)
+    assert w["bytes"] == pytest.approx(nbytes, rel=2e-3)
+    assert w["exp2"] == pytest.approx(exp2, rel=2e-3)
+
+
+def test_bounds_at_the_slice_shape():
+    """bf16 flash work is bound by the tensor cores (989 TFLOP/s) rather
+    than the bytes (3.35 TB/s); the pair's exp2 floor (two passes of 134 M
+    exp2 at 16 a clock on 132 SMs at 1980 MHz) lies above its FLOP bound;
+    the EDT is float32 work (67 TFLOP/s)."""
+    ms, by, exp2_ms = C.bound("flash_bwd", SLICE)
+    assert by == "operations"
+    assert ms == pytest.approx(0.0434, rel=1e-2)
+    assert exp2_ms == pytest.approx(0.0642, rel=1e-2)
+    assert C.bound("flash_fwd", SLICE)[0] == pytest.approx(0.0174, rel=1e-2)
+    edt_ms, edt_by, _ = C.bound("edt", (16, 512, 512))
+    assert edt_by == "operations"
+    assert edt_ms == pytest.approx(0.0641, rel=1e-2)
+    # a product too thin for its bytes is bound by memory
+    assert C.bound("flash_fwd", (64, 8, 64, 8))[1] == "bytes"
+
+
+def test_redesign_order_follows_device_time(capsys):
+    """The ratios to the fastest SDPA call come from one call between CUDA
+    events (host latency included) and from queued device time; the
+    redesign order follows the device time."""
+    fwd = [dict(ms=0.17, library_ms=0.10, queue_ms=0.145,
+                library_queue_ms=0.088, library="CUDNN_ATTENTION")]
+    bwd = [dict(ms=0.50, library_ms=0.33, queue_ms=0.466,
+                library_queue_ms=0.229, library="CUDNN_ATTENTION")]
+    r = C.decide(fwd, bwd)
+    assert r["r_fwd"] == pytest.approx(1.7)
+    assert r["r_fwd"] > r["r_bwd"] and r["r_bwd_queued"] > r["r_fwd_queued"]
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith(
+        "slower than SDPA by device time: the backward pair, the forward")

@@ -173,6 +173,21 @@ def test_flash_backward_kernels_match_plain(cuda, shape, dtype):
         assert err <= G_TOL[dtype] * scale + 1e-6, (name, err, scale)
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 1024, 32), (1, 2, 1000, 128),
+                                   (2, 2, 333, 64)])
+def test_flash_kernels_are_deterministic_in_bf16(cuda, shape):
+    """No atomics: two calls give bit-identical o, lse2, dq, dk and dv."""
+    q, k, v, _, _, do = _bwd_inputs(shape, torch.bfloat16, cuda)
+    first, again = (A.flash_forward_cuda(q, k, v) for _ in range(2))
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    o, lse = first
+    first, again = (A.flash_backward_cuda(q, k, v, o, lse, do)
+                    for _ in range(2))
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
 def test_flash_backward_kernels_reject_what_they_do_not_take(cuda):
     args = _bwd_inputs((1, 2, 64, 32), torch.float32, cuda)
     q, k, v, o, lse, do = args
