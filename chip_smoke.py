@@ -5,6 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+or, to compare another tree of the repository (a commit unpacked with git
+archive) with this one on the same card, in the order other, this, this,
+other: ``python3 chip_smoke.py --ab OTHER_TREE`` (see ``ab``).
+
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
 
@@ -19,8 +23,9 @@ and a non-zero exit:
               S and bf16 heads of 64 and 128, dq/dk/dv against their limits,
               two calls bit-equal; each flash row timed as one call between
               CUDA events, as a queue of calls (device time alone, the
-              wrapper's host enqueue time beside it) and per kernel by
-              torch.profiler, beside the plain version's; beside each flash
+              wrapper's host enqueue time beside it) and per kernel entry
+              point by CUDA events around its launch, beside the plain
+              version's; beside each flash
               row its bound (work counted from the shape over the card's
               published peaks, and the exp2 floor) and the fastest backend
               of PyTorch's fused
@@ -65,13 +70,15 @@ and a non-zero exit:
               updated parameters within the stated normwise limits; then a
               bf16 step at the default dropout 0.1, which the gate sends to
               the plain attention: no flash launch, finite terms.
-10. tprofile — device time per bf16 train step (CUDA events): ResUNet at
-              512^2 / batch 16 and 256^2 / batch 128, with the EDT kernels'
-              share; the TransUNet at 512^2 / batch 16 (S = 1024) on the
+10. tprofile — device time per train step (CUDA events), bf16 first:
+              ResUNet at 512^2 / batch 16 and 256^2 / batch 128, with the
+              EDT kernels' share; the TransUNet at 512^2 / batch 16 (S = 1024) on the
               kernel path and the plain path, and the S = 4096 TransUNet
               (base_filters 32, depth 3) at the largest batch <= 16 whose
-              plain path fits; torch.profiler top-8, busy share and the
-              flash kernels' share.
+              plain path fits; then the TransUNet in float32 (the training
+              CLI's default dtype, TF32 off): S = 1024 on both paths and
+              S = 4096 on the kernel path; torch.profiler top-8, busy share
+              and the flash kernels' share.
 11. result  — the total wall time, a JSON line of the kernels, then the
               device line.
 """
@@ -106,9 +113,11 @@ SERVED_MARGIN = 5e-4
 O_LIMIT = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_LIMIT = 1e-3
 # (B, H, S, D, dtype): the slice's shape in both dtypes, the S = 4096
-# bottleneck of config.yaml's TransUNet at depth 3, and full-width heads
+# bottleneck of config.yaml's TransUNet at depth 3 in both dtypes, and
+# full-width heads
 KERNEL_SHAPES = [(16, 8, 1024, 32, "bfloat16"), (16, 8, 1024, 32, "float32"),
-                 (2, 8, 4096, 32, "bfloat16"), (2, 2, 1024, 128, "float32")]
+                 (2, 8, 4096, 32, "bfloat16"), (2, 2, 1024, 128, "float32"),
+                 (2, 8, 4096, 32, "float32")]
 F32_LOGIT_LIMIT = 1e-3
 # float32 masks of the kernel path and the plain path: at least this share
 # of pixels agree (bf16 masks are held to the noise floor above instead)
@@ -147,10 +156,14 @@ BWD_PROFILE_CALLS = 5
 HOST_CALLS = 100
 SLEEP_CYCLES = 200_000_000
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): dense
-# tensor-core bf16 and float32 outside the tensor cores, in FLOP/s, and
-# HBM3 bytes/s; the exp2 unit issues 16 ex2 per clock per SM, 132 SMs at
-# the 1980 MHz boost clock
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# tensor-core bf16, float32 outside the tensor cores and dense TF32 on them,
+# in FLOP/s, and HBM3 bytes/s; the exp2 unit issues 16 ex2 per clock per
+# SM, 132 SMs at the 1980 MHz boost clock. A float32-accurate product runs
+# on the tensor cores as three TF32 products (3xTF32: a_lo b_hi + a_hi b_lo
+# + a_hi b_hi), at a third of the TF32 rate and above the FMA rate, so the
+# float32 flash kernels' work is bound at 495 / 3 TFLOP/s; the EDT (adds
+# and mins) at the float32 rate.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 EX2_PER_S = 132 * 16 * 1.98e9
 # PyTorch's fused attention backends, timed as yardsticks; the fastest
@@ -235,11 +248,12 @@ def work_counts(kernel, shape, dtype="bfloat16"):
 def bound(kernel, shape, dtype="bfloat16"):
     """The least time the card could take for ``work_counts``: the larger
     of operations over the peak for their type (bf16 on the tensor cores,
-    float32 outside them; the EDT is float32) and bytes over the memory
-    rate. Returns (bound_ms, bound_by, exp2_ms), exp2_ms the time the exp2
-    unit alone needs."""
+    float32 flash products as 3xTF32 on them; the EDT is float32 outside
+    them) and bytes over the memory rate. Returns (bound_ms, bound_by,
+    exp2_ms), exp2_ms the time the exp2 unit alone needs."""
     w = work_counts(kernel, shape, dtype)
-    peak = PEAK_FLOPS["float32" if kernel == "edt" else dtype]
+    peak = PEAK_FLOPS["float32" if kernel == "edt"
+                      else "tf32x3" if dtype == "float32" else dtype]
     ops_ms, bytes_ms = w["flop"] / peak * 1e3, w["bytes"] / PEAK_BYTES * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes",
@@ -310,30 +324,84 @@ def queued_ms(fn, calls=HOST_CALLS):
     return host_ms / calls, start.elapsed_time(end) / calls
 
 
-def profiled_ms(fn, keys, calls=BWD_PROFILE_CALLS):
+def launch_ms(fn, calls=HOST_CALLS):
+    """Device time per call of each kernel entry point that ``fn`` reaches
+    through ``_build.launch`` (one entry point may launch more than one
+    kernel): CUDA events recorded on the current stream, which the wrappers
+    launch on, just before and just after each entry point, over ``calls``
+    calls queued behind a device-side sleep. Needs no profiler. Returns
+    {entry point: ms per call}."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    launch, marks = _build.launch, []
+
+    def timed(name, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(name, *args)
+        end.record()
+        marks.append((name, start, end))
+
+    slept = torch.cuda.Event(enable_timing=True)
+    woke = torch.cuda.Event(enable_timing=True)
+    _build.launch = timed
+    try:
+        slept.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        woke.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    finally:
+        _build.launch = launch
+    assert marks, "no kernel entry point was called"
+    assert host_ms < slept.elapsed_time(woke), \
+        "the device-side sleep ended before the calls were enqueued"
+    ms = {}
+    for name, start, end in marks:
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end) / calls
+    return ms
+
+
+def profiled_ms(fn, keys, calls=BWD_PROFILE_CALLS, tries=3):
     """Device time per call of ``fn`` from torch.profiler, summed over the
     kernels whose names hold each of ``keys`` (a dict: label -> tuple of
-    name fragments)."""
+    name fragments); None for a label whose kernels the profiler recorded in
+    none of ``tries`` windows (it has dropped every event of a kernel in
+    some runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    split = dict.fromkeys(keys)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    # each kernel runs once a call: its mean over the launches the profiler
-    # recorded, which stays right where it drops some of them
-    split = dict.fromkeys(keys, 0.0)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or not e.count:
-            continue
-        for label, frags in keys.items():
-            if any(f in e.key for f in frags):
-                split[label] += e.self_device_time_total / e.count
-                break
-    assert all(split.values()), "torch.profiler recorded no kernel"
-    return {k: us / 1e3 for k, us in split.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        # each kernel runs once a call: its mean over the launches the
+        # profiler recorded, which stays right where it drops some of them
+        got = dict.fromkeys(keys, 0.0)
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or not e.count:
+                continue
+            for label, frags in keys.items():
+                if any(f in e.key for f in frags):
+                    got[label] += e.self_device_time_total / e.count / 1e3
+                    break
+        for label, ms in got.items():
+            if split[label] is None and ms:
+                split[label] = ms
+        if all(split.values()):
+            break
+    return split
 
 
 def _bound_text(kernel, shape, dtype, ms):
@@ -346,8 +414,9 @@ def kernel_report(lib):
     """Each kernel's registers and spills from the build's ptxas report,
     and the SASS opcodes that show how it runs (cuobjdump -sass): HGMMA
     (wgmma), UTMALDG (TMA loads), SYNCS (mbarriers), HMMA (mma.sync) and
-    atomics. The bf16 flash kernels (the forward, dK/dV and dQ) must issue
-    wgmma and TMA loads, and no flash kernel may use an atomic."""
+    atomics. The bf16 flash kernels (the forward, dK/dV and dQ) and the
+    float32 backward kernels must issue wgmma and TMA loads, and no flash
+    kernel may use an atomic."""
     import re
     import shutil
 
@@ -390,7 +459,8 @@ def kernel_report(lib):
         if name.startswith("flash_"):
             assert o["atomic"] == 0, f"{name} uses atomics"
         if name.startswith(("flash_fwd_bf16", "flash_bwd_dkdv_bf16",
-                            "flash_bwd_dq_bf16")):
+                            "flash_bwd_dq_bf16", "flash_bwd_dkdv_f32",
+                            "flash_bwd_dq_f32")):
             assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"], \
                 f"{name} issues no wgmma or TMA load"
     return regs, ops
@@ -418,8 +488,8 @@ def check_kernels():
             (o, lse), A.flash_forward_cuda(q, k, v)))
         ms = median_ms(lambda: A.flash_forward_cuda(q, k, v))
         host_ms, queue_ms = queued_ms(lambda: A.flash_forward_cuda(q, k, v))
-        device_ms = profiled_ms(lambda: A.flash_forward_cuda(q, k, v),
-                                {"fwd": ("flash_fwd",)})["fwd"]
+        device_ms = launch_ms(
+            lambda: A.flash_forward_cuda(q, k, v))["flash_fwd"]
         plain_ms = median_ms(lambda: A.flash_forward_reference(q, k, v))
         lib_ms, lib, lib_queue_ms = sdpa_yardstick(q, k, v)
         shape = (b, h, s, d)
@@ -427,7 +497,7 @@ def check_kernels():
         phase("kernels", f"flash_fwd {shape} {dt}: max|do| {err_o:.3e} "
               f"(limit {O_LIMIT[dt]:g}) max|dlse2| {err_lse:.3e} (limit "
               f"{LSE_LIMIT:g}), two calls bit-equal {twice_equal}; kernel "
-              f"{ms:.4f} ms (queued {queue_ms:.4f}, profiler "
+              f"{ms:.4f} ms (queued {queue_ms:.4f}, events at the launch "
               f"{device_ms:.4f}; host enqueue {host_ms:.4f}) plain "
               f"{plain_ms:.4f} ms; SDPA forward {lib_ms} ms (queued "
               f"{lib_queue_ms}; {lib}); "
@@ -449,9 +519,11 @@ def check_bwd_kernels():
     """csrc/flash_bwd.cu against flash_backward_reference on the forward
     kernel's o and lse2: dq, dk, dv against G_LIMIT and two calls
     bit-equal; the whole backward's time (one call between CUDA events, and
-    queued) beside the plain one's and SDPA's backward, each kernel's
-    device time from torch.profiler (the delta pre-pass counted with
-    dK/dV), the wrapper's host enqueue time."""
+    queued) beside the plain one's and SDPA's backward, each entry point's
+    device time from CUDA events around its launch (the pre-pass counted
+    with dK/dV, as one entry point launches both), the pre-pass's own from
+    torch.profiler where it recorded it, the wrapper's host enqueue
+    time."""
     import torch
 
     from ddti_tpu_torch.ops import attention as A
@@ -480,9 +552,14 @@ def check_bwd_kernels():
         host_ms, queue_ms = queued_ms(lambda: A.flash_backward_cuda(*args))
         plain_ms = median_ms(lambda: A.flash_backward_reference(*args))
         lib_ms, lib, lib_queue_ms = sdpa_yardstick(q, k, v, do)
-        split = profiled_ms(lambda: A.flash_backward_cuda(*args), {
-            "dq": ("flash_bwd_dq",),
-            "dkdv": ("flash_bwd_dkdv", "flash_bwd_delta", "flash_bwd_rows")})
+        split = launch_ms(lambda: A.flash_backward_cuda(*args))
+        split = dict(dkdv=split["flash_bwd_dkdv"], dq=split["flash_bwd_dq"])
+        # the pre-pass alone; flash_bwd_delta in trees before the float32
+        # kernels ran on the tensor cores (for --ab)
+        prep_ms = profiled_ms(lambda: A.flash_backward_cuda(*args), {
+            "rows": ("flash_bwd_rows", "flash_bwd_delta")})["rows"]
+        prep_text = ("not recorded" if prep_ms is None
+                     else f"{prep_ms:.4f}")
         shape = (b, h, s, d)
         bounds = {n: bound(n, shape, dt) for n in
                   ("flash_bwd", "flash_bwd_dkdv", "flash_bwd_dq")}
@@ -490,7 +567,8 @@ def check_bwd_kernels():
               + " ".join(f"{n} {e:.3e}" for n, e in rel_err.items())
               + f" (limit {G_LIMIT[dt]:g}); two calls bit-equal "
               f"{twice_equal}; kernels {ms:.4f} ms (queued {queue_ms:.4f}; "
-              f"profiler: delta + dK/dV {split['dkdv']:.4f}, dQ "
+              f"events at the launch: pre-pass + dK/dV {split['dkdv']:.4f} "
+              f"(profiler: pre-pass {prep_text}), dQ "
               f"{split['dq']:.4f}; host enqueue {host_ms:.4f}) plain "
               f"{plain_ms:.4f} ms; SDPA backward {lib_ms} ms (queued "
               f"{lib_queue_ms}; {lib}); pair "
@@ -505,6 +583,7 @@ def check_bwd_kernels():
         rows.append(dict(
             shape=[b, h, s, d], dtype=dt, abs_err=abs_err, rel_err=rel_err,
             ms=ms, queue_ms=queue_ms, host_ms=host_ms, ms_dkdv=split["dkdv"],
+            ms_prepass=prep_ms,
             ms_dq=split["dq"], plain_ms=plain_ms, library_ms=lib_ms,
             library=lib, library_queue_ms=lib_queue_ms,
             bound_ms=bounds["flash_bwd"][0], bound_by=bounds["flash_bwd"][1],
@@ -1280,17 +1359,20 @@ def tstep_kernel_vs_plain():
     torch.cuda.empty_cache()
 
 
-def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None):
-    """Device time per bf16 train step (CUDA events) and a torch.profiler
-    window over TRAIN_PROFILE_STEPS steps: busy share, the EDT's and the
-    flash kernels' share, the top kernels."""
+def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None,
+                   dtype="bfloat16"):
+    """Device time per train step in ``dtype`` (bf16 autocast, or float32
+    with TF32 off; CUDA events) and a torch.profiler window over
+    TRAIN_PROFILE_STEPS steps: busy share, the EDT's and the flash kernels'
+    share, the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ddti_tpu_torch.ops import edt as E
 
     _, state, step, (images, masks, draws) = _train_setup(
-        size, batch, True, model_type=model_type, model_kw=model_kw)
+        size, batch, dtype == "bfloat16", model_type=model_type,
+        model_kw=model_kw)
 
     def one():
         step(state, images, masks, draws, None)
@@ -1315,7 +1397,7 @@ def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None):
                  if "edt_" in e.key)
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key)
-    phase("tprofile", f"{label}: bf16 train step {size}^2 batch {batch}: "
+    phase("tprofile", f"{label}: {dtype} train step {size}^2 batch {batch}: "
           f"{ms:.3f} ms device time (CUDA events, median of 10), "
           f"{batch / ms * 1e3:.1f} img/s; torch.profiler over "
           f"{TRAIN_PROFILE_STEPS} steps: window {window_us / 1e3:.3f} ms, "
@@ -1335,7 +1417,7 @@ def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None):
               f"{e.key[:90]}")
     del state, step, images, masks, prof
     torch.cuda.empty_cache()
-    return dict(model=label, size=size, batch=batch, ms=ms,
+    return dict(model=label, dtype=dtype, size=size, batch=batch, ms=ms,
                 busy=busy_us / max(window_us, 1),
                 edt_share=edt_us / max(busy_us, 1),
                 flash_share=flash_us / max(busy_us, 1))
@@ -1350,7 +1432,9 @@ def profile_training():
 def profile_transunet():
     """The TransUNet train step on the kernel and the plain attention path:
     the slice's model at S = 1024, and the S = 4096 one at the largest
-    batch of TLONG_BATCHES whose plain path fits in device memory."""
+    batch of TLONG_BATCHES whose plain path fits in device memory, in bf16;
+    then in float32 (the training CLI's default dtype) the slice's model on
+    both paths and the S = 4096 one on the kernel path at that batch."""
     import gc
 
     import torch
@@ -1376,7 +1460,50 @@ def profile_transunet():
     rows.append(_profile_steps("TransUNet bf32 d3 S=4096 kernel", size,
                                batch, "TransUNet", kw))
     rows.append(plain)
+    for path, flash in (("kernel", None), ("plain", False)):
+        rows.append(_profile_steps(
+            f"TransUNet bf64 d4 S=1024 {path}", size, TTRAIN["batch_size"],
+            "TransUNet", dict(TSLICE, image_size=size,
+                              use_flash_attention=flash), "float32"))
+    rows.append(_profile_steps("TransUNet bf32 d3 S=4096 kernel", size,
+                               batch, "TransUNet", kw, "float32"))
     return rows
+
+
+def ab_side(tree):
+    """One side of a same-card comparison of two trees: kernel_phases() and
+    the TransUNet train steps on the kernel path (float32, the training
+    CLI's default, then bf16; S = 1024 at batch 16 and S = 4096 at batch 8)
+    with ``tree``'s ddti_tpu_torch and this file's measurements. Prints one
+    line "[ab] {json}"."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ddti_tpu_torch.ops import _build
+
+    _build.build()
+    _build.load_library()
+    fwd, bwd, _ = kernel_phases()
+    size = TTRAIN["image_size"]
+    steps = [_profile_steps(f"{label} {tree}", size, batch, "TransUNet",
+                            dict(kw, image_size=size), dt)
+             for dt in ("float32", "bfloat16")
+             for label, batch, kw in (("S=1024", TTRAIN["batch_size"], TSLICE),
+                                      ("S=4096", 8, TLONG))]
+    print("[ab] " + json.dumps(dict(tree=tree, source=_build.__file__,
+                                    fwd=fwd, bwd=bwd, steps=steps)),
+          flush=True)
+
+
+def ab(parent):
+    """Compare the tree at ``parent`` (another commit unpacked, e.g. with
+    git archive) with this one on one card, in the order parent, this, this,
+    parent, each side in its own process (ab_side)."""
+    for tree in (parent, ".", ".", parent):
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--ab-side", tree], check=True)
 
 
 def main():
@@ -1420,6 +1547,7 @@ def main():
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
+    f32_row = next(r for r in bwd_rows if r["dtype"] == "float32")
     bwd_shape, bwd_dt = tuple(bwd_row["shape"]), bwd_row["dtype"]
     edt_bound = bound("edt", tuple(edt_rows[0]["shape"]))
     library_covers = ("scaled_dot_product_attention's backward: dq, dk and "
@@ -1469,6 +1597,10 @@ def main():
         "pair_bound_ms": bwd_row["bound_ms"],
         "r_bwd": ratios["r_bwd"],
         "r_bwd_queued": ratios["r_bwd_queued"],
+        "f32_shape": f32_row["shape"],
+        "f32_pair_queue_ms": f32_row["queue_ms"],
+        "f32_library_queue_ms": f32_row["library_queue_ms"],
+        "f32_pair_bound_ms": f32_row["bound_ms"],
         "shapes": bwd_rows,
         "train_steps": ttrain_rows,
     }, {
@@ -1510,4 +1642,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"]:      # python3 chip_smoke.py --ab TREE
+        sys.exit(ab(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-side"]:
+        sys.exit(ab_side(sys.argv[2]))
     sys.exit(main())

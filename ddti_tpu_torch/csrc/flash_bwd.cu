@@ -4,7 +4,7 @@
 //   _dkdv_kernel and _dkdv_kernel_packed -> flash_bwd_dkdv_*_kernel
 //   _dq_kernel and _dq_kernel_packed     -> flash_bwd_dq_*_kernel
 // and the per-tile delta = rowsum(dO * O) both TPU kernels compute inline ->
-// a pre-pass (flash_bwd_rows_bf16_kernel, flash_bwd_delta_f32_kernel). The
+// a pre-pass (flash_bwd_rows_bf16_kernel, flash_bwd_rows_f32_kernel). The
 // head packing of the *_packed forms only existed to fill the TPU's 128-lane
 // vector registers; here a head of any supported width is one (b*h) slice,
 // so each TPU pair is one kernel.
@@ -17,27 +17,28 @@
 //   dS    = P * (dO v^T - delta)                      (float32)
 //   dK    = D^-1/2 * dS^T q,  dQ = D^-1/2 * dS k      (dS rounded to q's dtype)
 // with float32 accumulation and outputs in the input dtype, as the TPU
-// kernels do. dQ has its own kernel (no atomics): every output element is
+// kernels do (in float32 nothing is rounded: every product is 3xTF32). dQ has its own kernel (no atomics): every output element is
 // summed by one thread in a fixed order, so the result does not depend on
 // block scheduling.
 //
 // Head widths: every D with D % 8 == 0 and 8 <= D <= 128, instantiated for
 // the padded widths DP = 32, 64, 128 with the actual D at run time (columns
 // D..DP-1 of the staged tiles are zeros and are not written back). Wider
-// heads are refused: the dK and dV accumulators live in registers (in bf16
-// DP / 2 float32 of each per consumer thread, beside 64 of S^T and dP^T),
-// which run out past 128.
+// heads are refused: the dK and dV accumulators live in registers (DP / 2
+// float32 of each per consumer thread, beside those of S^T and dP^T), which
+// run out past 128.
 //
-// What bounds it on an H100 (bf16 dense peak 989 TFLOP/s, 3.35 TB/s, 16
-// exp2 per clock per SM at the 1980 MHz boost clock): at the TransUNet
-// training shape (B=16, H=8, S=1024, D=32) the pair does five (S, S, D)
-// products, 42.9 GFLOP (0.0434 ms at the tensor-core peak), against 67.6 MB
-// of q/k/v/o/dO/lse2 in and dq/dk/dv out (0.020 ms); dK/dV alone does four
-// of them (S^T, dP^T, dV, dK: 34.4 GFLOP, 0.035 ms), dQ three (S, dP, dQ:
-// 25.8 GFLOP, 0.026 ms). Each kernel recomputes P, B*H*S^2 = 134 M exp2:
-// 0.032 ms of the exp2 unit alone, so a pair without atomics has an exp2
-// floor of 0.064 ms, above its tensor-core bound. Neither kernel writes an
-// (S, S) tile to device memory.
+// What bounds it on an H100 (dense peaks 989 TFLOP/s bf16 and 495 TF32,
+// 3.35 TB/s, 16 exp2 per clock per SM at the 1980 MHz boost clock): at the
+// TransUNet training shape (B=16, H=8, S=1024, D=32) the pair does five
+// (S, S, D) products, 42.9 GFLOP; dK/dV alone four (S^T, dP^T, dV, dK: 34.4
+// GFLOP), dQ three (S, dP, dQ: 25.8 GFLOP). In bf16 that is 0.0434 ms at
+// the tensor-core peak against 67.6 MB in and out (0.020 ms); in float32,
+// as 3xTF32 products at 165 TFLOP/s, 0.260 ms against 134.7 MB (0.040 ms).
+// Each kernel recomputes P, B*H*S^2 = 134 M exp2: 0.032 ms of the exp2
+// unit alone, so a pair without atomics has an exp2 floor of 0.064 ms,
+// above its bf16 tensor-core bound. Neither kernel writes an (S, S) tile to
+// device memory.
 //
 // Design, bf16. The first versions (mma.sync) ran at 13% of the bf16 peak,
 // held back three ways; what replaced each, in both kernels:
@@ -72,10 +73,31 @@
 //    registers and K MN-major. It reads delta as the pre-pass wrote it,
 //    (bh, s) float32.
 //
-// Design, float32: scalar FMAs (tensor cores have no full float32 product).
-// Four threads own each row of the block's tile; each computes 16 of the
-// row's 64 scores and DP/4 of its output columns; the row's P or dS tile
-// passes through shared memory within the quad's warp.
+// Design, float32 (BwdSmemF32). The first versions, scalar-FMA loops, ran
+// at 6-9% of the float32 bound, held back by one shared-memory load per FMA
+// and synchronous staging. Now the bf16 kernels' shape (a producer warpgroup
+// feeding TMA loads into an mbarrier ring, consumer warpgroups of 64 rows
+// on wgmma, setmaxnreg, no block-wide barrier in the loop) with every
+// product as three TF32 products (sm90.cuh: x = hi + lo, a_lo b_hi + a_hi
+// b_lo + a_hi b_hi, the small terms first), which keep float32's accuracy
+// on the tensor cores at a third of the TF32 rate. What that took:
+//   1. tf32 wgmma reads K-major operands only, so the products whose B
+//      operand is naturally MN-major (dV += P^T dO, dK += dS^T q, dQ += dS
+//      K) read transposed planes: the pre-pass writes q^T, dO^T and K^T,
+//      and every operand's hi and lo planes, to scratch (14 planes, written
+//      and read once), and TMA loads ready tiles;
+//   2. an accumulator holds columns 2t, 2t + 1 of each 8-column group where
+//      a tf32 A fragment wants t, t + 4: the transposed planes store each
+//      group of 8 in the order {0, 2, 4, 6, 1, 3, 5, 7} (free in the
+//      pre-pass), so P^T and dS (split k8 step by k8 step) are A fragments
+//      as they stand;
+//   3. hi + lo doubles float32 tiles: the ring's slots hold one part each
+//      (one operand's hi and lo planes), released as soon as its product
+//      is done, as many as fit beside the resident tiles (8 at DP = 32, 4
+//      at 64, 3 at 128); two consumers at DP = 32, one above; 32-row
+//      streamed tiles at DP = 128.
+// dK/dV streams parts q, dO (S^T, dP^T), dO^T (dV), q^T (dK) a tile; dQ
+// streams K, V (S, dP), K^T (dQ).
 //
 // Ragged S: query rows past S get lse2 = +inf, so P = 0 there (the bf16 row
 // pre-pass pads the rows that dK/dV loads by TMA so; the other kernels set
@@ -93,32 +115,11 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr double kLog2e = 1.4426950408889634;
-constexpr int kFmaThreads = 256;  // 4 threads per row
 constexpr int kDeltaThreads = 256;
+constexpr int kMaxD = 128;
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-// ---------------------------------------------------------------------------
-// delta = rowsum(dO * O): one warp per row
-
-__global__ void __launch_bounds__(kDeltaThreads)
-flash_bwd_delta_f32_kernel(const float* __restrict__ o,
-                           const float* __restrict__ dout,
-                           float* __restrict__ delta, size_t rows, int D) {
-  const size_t row =
-      ((size_t)blockIdx.x * kDeltaThreads + threadIdx.x) / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // the whole warp leaves together
-  const size_t base = row * D;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32)
-    acc = fmaf(dout[base + c], o[base + c], acc);
-#pragma unroll
-  for (int off = 16; off; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: TMA + wgmma
@@ -462,249 +463,496 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMAs
+// float32: 3xTF32 on wgmma, TMA
 
-// Stage rows [r0, r0 + 64) of a (S, D) float32 slice as [64][DP + 1]; rows
-// past S and columns past D are zeros.
-template <int DP>
-__device__ __forceinline__ void stage_f32(const float* __restrict__ src,
-                                          int r0, int S, int D, float* dst) {
-  for (int i = threadIdx.x; i < kBlockQ * DP; i += kFmaThreads) {
-    const int r = i / DP, c = i % DP;
-    dst[r * (DP + 1) + c] =
-        r0 + r < S && c < D ? src[(size_t)(r0 + r) * D + c] : 0.f;
-  }
-}
-
-// out[j] = sum_d a_row[d] * b[(quad + 4j)][d] for the 16 columns of this
-// thread's quad: one row of a (row x 64) product over the head dimension.
-template <int DP>
-__device__ __forceinline__ void fma_row_by_rows(float (&out)[16],
-                                                const float* arow,
-                                                const float* b, int quad) {
-  constexpr int RS = DP + 1;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) out[j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DP; ++d) {
-    const float ad = arow[d];
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      out[j] = fmaf(ad, b[(quad + 4 * j) * RS + d], out[j]);
-  }
-}
-
-// acc[j] += sum_c w_row[c] * b[c][quad + 4j]: one row of (row x 64) x
-// (64 x DP), for this thread's DP/4 output columns.
-template <int DP>
-__device__ __forceinline__ void fma_row_by_tile(float (&acc)[DP / 4],
-                                                const float* wrow,
-                                                const float* b, int quad) {
-  constexpr int RS = DP + 1;
-#pragma unroll 4
-  for (int c = 0; c < kBlockK; ++c) {
-    const float w = wrow[c];
-    const float* brow = b + c * RS;
-#pragma unroll
-    for (int j = 0; j < DP / 4; ++j)
-      acc[j] = fmaf(w, brow[quad + 4 * j], acc[j]);
-  }
-}
-
-template <int DP>
-constexpr size_t bwd_f32_smem_bytes() {
-  // four [64][DP + 1] tiles, the P / dS tile [64][65], and two 64-vectors,
-  // float32 (DP = 128: 149 KiB of the 227 KiB a block may hold)
-  return sizeof(float) * (4 * (size_t)kBlockQ * (DP + 1) +
-                          (size_t)kBlockQ * (kBlockK + 1) + 2 * kBlockQ);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kFmaThreads)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+// The float32 pre-pass, per 64-row block of one slice: delta = rowsum(dO *
+// O) ((bh, s) for dQ, and the (bh, 2, sp) lse2 / delta rows of dK/dV as in
+// bf16), and the operand planes both kernels load by TMA, each hi then lo
+// (split_tf32):
+//   `split` (4, bh, 2, s, d): q, K, V, dO as they are (row-major);
+//   `trans` (3, bh, 2, d, sp): q^T, dO^T, K^T, zero past s, with the s
+//   positions of each group of 8 in the order {0, 2, 4, 6, 1, 3, 5, 7}
+//   that split_fragments expects of a B operand met by an accumulator.
+// Four threads a row for delta, 16 bytes at a time; the transposes pass
+// through shared memory.
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_rows_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
+                          const float* __restrict__ o,
                           const float* __restrict__ dout,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int S, int D, float scale_log2, float scale) {
-  constexpr int RS = DP + 1;
-  constexpr int BKP = kBlockQ + 1;
-  constexpr int kDims = DP / 4;
-
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kBlockK * RS;
-  float* qs = vs + kBlockK * RS;
-  float* dos = qs + kBlockQ * RS;
-  float* ps = dos + kBlockQ * RS;  // [64 keys][BKP]: P^T, then dS^T
-  float* lse_s = ps + kBlockK * BKP;
-  float* delta_s = lse_s + kBlockQ;
-
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;  // key row inside the tile
-  const int quad = tid & 3;
-  const int k0 = blockIdx.x * kBlockK;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const size_t rbase = (size_t)blockIdx.y * S;
-
-  stage_f32<DP>(k + base, k0, S, D, ks);
-  stage_f32<DP>(v + base, k0, S, D, vs);
-
-  float dk_acc[kDims], dv_acc[kDims];
+                          float* __restrict__ delta, float* __restrict__ rows,
+                          float* __restrict__ split, float* __restrict__ trans,
+                          int bh, int s, int sp, int D) {
+  __shared__ float tile[kTileRows][kMaxD + 1];
+  const int slice = blockIdx.y, r0 = blockIdx.x * kTileRows;
+  const int tid = threadIdx.x, D4 = D / 4;  // 16-byte chunks of a row
+  {
+    const int r = tid / 4, part = tid % 4, row = r0 + r;
+    const bool live = row < s;
+    const size_t base = ((size_t)slice * s + row) * D;
+    float acc = 0.f;
+    if (live)
+      for (int c = part; c < D4; c += 4) {
+        const float4 a = reinterpret_cast<const float4*>(dout + base)[c];
+        const float4 b = reinterpret_cast<const float4*>(o + base)[c];
+        acc = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w,
+                                                                acc))));
+      }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      if (live) delta[(size_t)slice * s + row] = acc;
+      rows[2 * (size_t)slice * sp + row] =
+          live ? lse[(size_t)slice * s + row] : INFINITY;
+      rows[(2 * (size_t)slice + 1) * sp + row] = acc;
+    }
+  }
+  const float* src[4] = {q, k, v, dout};
+  const int to_trans[4] = {0, 2, -1, 1};  // q -> q^T, K -> K^T, dO -> dO^T
+  const size_t plane = (size_t)s * D, tplane = (size_t)D * sp;
+  for (int x = 0; x < 4; ++x) {
+    const float* in = src[x] + (size_t)slice * plane;
+    float* out = split + ((size_t)x * bh + slice) * 2 * plane;
+    for (int i = tid; i < kTileRows * D4; i += kDeltaThreads) {
+      const int r = i / D4, c = 4 * (i - r * D4), row = r0 + r;
+      float val[4] = {0.f, 0.f, 0.f, 0.f};
+      if (row < s) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(in + (size_t)row * D + c);
+        val[0] = f.x, val[1] = f.y, val[2] = f.z, val[3] = f.w;
+        uint32_t hi[4], lo[4];
 #pragma unroll
-  for (int j = 0; j < kDims; ++j) dk_acc[j] = dv_acc[j] = 0.f;
-  float* prow = ps + row * BKP;
-
-  for (int q0 = 0; q0 < S; q0 += kBlockQ) {
-    __syncthreads();  // the previous query tile is fully consumed
-    stage_f32<DP>(q + base, q0, S, D, qs);
-    stage_f32<DP>(dout + base, q0, S, D, dos);
-    for (int i = tid; i < kBlockQ; i += kFmaThreads) {
-      const bool ok = q0 + i < S;
-      lse_s[i] = ok ? lse[rbase + q0 + i] : INFINITY;  // P = 0 past S
-      delta_s[i] = ok ? delta[rbase + q0 + i] : 0.f;
+        for (int j = 0; j < 4; ++j) split_tf32(val[j], hi[j], lo[j]);
+        *reinterpret_cast<uint4*>(out + (size_t)row * D + c) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(out + plane + (size_t)row * D + c) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      if (to_trans[x] >= 0)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tile[r][c + j] = val[j];
+    }
+    if (to_trans[x] < 0) continue;
+    __syncthreads();
+    // four positions p .. p + 3 of a transposed row a thread: the tile rows
+    // (p & ~7) + {0, 2, 4, 6} where p % 8 = 0, + {1, 3, 5, 7} where it is 4
+    float* tout = trans + ((size_t)to_trans[x] * bh + slice) * 2 * tplane;
+    for (int i = tid; i < D * kTileRows / 4; i += kDeltaThreads) {
+      const int c = i / (kTileRows / 4), p = 4 * (i % (kTileRows / 4));
+      const int r = (p & ~7) | (p & 4 ? 1 : 0);
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32(tile[r + 2 * j][c], hi[j], lo[j]);
+      *reinterpret_cast<uint4*>(tout + (size_t)c * sp + r0 + p) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(tout + tplane + (size_t)c * sp + r0 + p) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
     __syncthreads();
-
-    // P^T for queries quad + 4j of this key row
-    float p[16];
-    fma_row_by_rows<DP>(p, ks + row * RS, qs, quad);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      p[j] = exp2f(p[j] * scale_log2 - lse_s[quad + 4 * j]);
-      prow[quad + 4 * j] = p[j];
-    }
-    __syncwarp();  // a row's quad lies inside one warp
-    fma_row_by_tile<DP>(dv_acc, prow, dos, quad);
-
-    float ds[16];
-    fma_row_by_rows<DP>(ds, vs + row * RS, dos, quad);
-    __syncwarp();  // the quad is done reading P^T
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      prow[quad + 4 * j] = p[j] * (ds[j] - delta_s[quad + 4 * j]);
-    __syncwarp();
-    fma_row_by_tile<DP>(dk_acc, prow, qs, quad);
   }
+}
 
-  const int key = k0 + row;
-  if (key < S) {
+// A float32 backward block: C consumer warpgroups of 64 rows, each with two
+// resident tiles split hi / lo (dK/dV: K and V; dQ: q and dO), and a
+// producer warpgroup that streams tiles of kBlk rows of the other side as
+// kParts parts a tile through a ring of kStages slots, one part (hi and lo
+// planes of one operand) a slot: dK/dV q, dO, dO^T, q^T (with the tile's
+// lse2 / delta rows beside q); dQ K, V, K^T. Each part is released as soon
+// as its product is done, so the ring holds what fits of 227 KB. Shared
+// memory: the resident planes (consumer c: X hi, X lo, Y hi, Y lo), the
+// slots, the rows (dK/dV), the mbarriers.
+template <int DP, int kParts>
+struct BwdSmemF32 {
+  static constexpr bool kRows = kParts == 4;
+  // consumer warpgroups: two at DP = 32; one above, where two tiles' split
+  // planes leave no room for the ring
+  static constexpr int kConsumers = DP == 32 ? 2 : 1;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // streamed rows a tile: 32 at DP = 128, where a 64-row part (64 KB) and
+  // the resident 128 KB leave room for one slot
+  static constexpr int kBlk = DP == 128 ? 32 : 64;
+  static constexpr uint32_t kRes = kTileRows * DP * 4;  // one plane
+  static constexpr uint32_t kPlane = kBlk * DP * 4;
+  static constexpr uint32_t kPart = 2 * kPlane;
+  static constexpr uint32_t kRowBytes = kRows ? 2 * kBlk * 4 : 0;
+  static constexpr uint32_t resident = 0;
+  static constexpr uint32_t stages = 4 * kConsumers * kRes;
+  static constexpr int kFit =
+      (int)((232448 - 1024 - 8 * 17 - stages) / (kPart + kRowBytes));
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static_assert(kStages >= 2, "ring");
+  static constexpr uint32_t rows = stages + kStages * kPart;
+  static constexpr uint32_t bars = rows + kStages * kRowBytes;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+// rows [row, row + R) of a (bh, 2, s, d) split plane pair, hi then lo, as
+// DP / 32 boxes each
+template <int DP, int R>
+__device__ __forceinline__ void tma_load_split(unsigned char* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int row,
+                                               int slice) {
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) {
-      const int c = quad + 4 * j;
-      if (c < D) {
-        dk[base + (size_t)key * D + c] = dk_acc[j] * scale;
-        dv[base + (size_t)key * D + c] = dv_acc[j];
-      }
-    }
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int b = 0; b < DP / 32; ++b)
+      tma_load(dst + h * R * DP * 4 + b * R * 128, map, bar, 32 * b, row,
+               2 * slice + h);
+}
+
+// columns [col, col + C) of a (bh, 2, d, sp) transposed plane pair, DP
+// rows, hi then lo, as C / 32 boxes each
+template <int DP, int C>
+__device__ __forceinline__ void tma_load_trans(unsigned char* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int col,
+                                               int slice) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int b = 0; b < C / 32; ++b)
+      tma_load(dst + h * DP * C * 4 + b * DP * 128, map, bar, col + 32 * b, 0,
+               2 * slice + h);
+}
+
+// slot of ring position n, waited for
+template <typename L>
+__device__ __forceinline__ uint32_t wait_part(uint64_t* full,
+                                              unsigned char* smem, int n) {
+  const int st = n % L::kStages;
+  mbar_wait(full + st, (n / L::kStages) & 1);
+  return smem_addr(smem + L::stages + st * L::kPart);
+}
+
+template <int DP>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[DP / 2],
+                                               float* out, int row0, int S,
+                                               int D, float mul, int warp,
+                                               int g, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + warp * 16 + g + 8 * r;
+    if (row >= S) continue;
+    float* orow = out + (size_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      if (n * 8 < D)
+        *reinterpret_cast<float2*>(orow + n * 8) = make_float2(
+            acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kFmaThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
+__global__ void __launch_bounds__(BwdSmemF32<DP, 4>::kThreads, 1)
+flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap dot_map,
+                          const __grid_constant__ CUtensorMap qt_map,
+                          const __grid_constant__ CUtensorMap rows_map,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int S, int D, float scale_log2, float scale) {
+  using L = BwdSmemF32<DP, 4>;
+  constexpr int B = L::kBlk;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* kv_full = empty + L::kStages;
+  const int slice = blockIdx.y;
+  const int k0 = blockIdx.x * L::kConsumers * kTileRows;
+  const int n_tiles = (S + B - 1) / B;
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
+
+  if (wg == L::kConsumers) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers * 128) {
+      mbar_expect_tx(kv_full, 4 * L::kConsumers * L::kRes);
+      for (int c = 0; c < L::kConsumers; ++c) {
+        unsigned char* res = smem + L::resident + c * 4 * L::kRes;
+        tma_load_split<DP, kTileRows>(res, &k_map, kv_full,
+                                      k0 + c * kTileRows, slice);
+        tma_load_split<DP, kTileRows>(res + 2 * L::kRes, &v_map, kv_full,
+                                      k0 + c * kTileRows, slice);
+      }
+      for (int n = 0; n < 4 * n_tiles; ++n) {
+        const int st = n % L::kStages, it = n / 4, part = n % 4;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, L::kPart + (part ? 0 : L::kRowBytes));
+        unsigned char* dst = smem + L::stages + st * L::kPart;
+        if (part == 0) {
+          tma_load_split<DP, B>(dst, &q_map, full + st, it * B, slice);
+          tma_load(smem + L::rows + st * L::kRowBytes, &rows_map, full + st,
+                   it * B, 2 * slice);
+        } else if (part == 1) {
+          tma_load_split<DP, B>(dst, &do_map, full + st, it * B, slice);
+        } else {
+          tma_load_trans<DP, B>(dst, part == 2 ? &dot_map : &qt_map,
+                                full + st, it * B, slice);
+        }
+      }
+    }
+  } else {  // a consumer: keys k0 + 64 wg .. + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t k_hi = smem_addr(smem + L::resident + wg * 4 * L::kRes);
+    const uint32_t k_lo = k_hi + L::kRes, v_hi = k_lo + L::kRes,
+                   v_lo = v_hi + L::kRes;
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n = 4 * it;
+      const uint32_t q_hi = wait_part<L>(full, smem, n);
+      const uint32_t do_hi = wait_part<L>(full, smem, n + 1);
+
+      // S^T = K q^T and dP^T = V dO^T: element 4n + e is key g + 8 (e >> 1),
+      // query it * B + 8n + 2t + (e & 1)
+      float p[B / 2], dp[B / 2];
+      wgmma_fence();
+      product3_ss<B, kTileRows, DP / 8>(p, k_hi, k_lo, q_hi,
+                                        q_hi + L::kPlane);
+      product3_ss<B, kTileRows, DP / 8>(dp, v_hi, v_lo, do_hi,
+                                        do_hi + L::kPlane);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(p);
+      fence_acc(dp);
+
+      // P^T = exp2(S^T c - lse2) and dS^T = P^T (dP^T - delta) in float32
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem + L::rows + (n % L::kStages) * L::kRowBytes);
+      const float* delta_s = lse_s + B;
+#pragma unroll
+      for (int j = 0; j < B / 8; ++j) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          p[i] = exp2_ftz(fmaf(p[i], scale_log2, -(e & 1 ? l2.y : l2.x)));
+          dp[i] = p[i] * (dp[i] - (e & 1 ? d2.y : d2.x));
+        }
+      }
+      mbar_arrive(empty + n % L::kStages);
+      mbar_arrive(empty + (n + 1) % L::kStages);
+
+      // dV += P^T dO (dO^T's rows), then dK += dS^T q (q^T's rows), each
+      // tile's product summed apart (acc_tile)
+      uint32_t ph[B / 8][4], pl[B / 8][4];
+      split_fragments<B>(p, ph, pl);
+      const uint32_t dot_hi = wait_part<L>(full, smem, n + 2);
+      acc_tile<DP, B>(dv_acc, ph, pl, dot_hi, dot_hi + L::kPlane);
+      mbar_arrive(empty + (n + 2) % L::kStages);
+      uint32_t sh[B / 8][4], sl[B / 8][4];
+      split_fragments<B>(dp, sh, sl);
+      const uint32_t qt_hi = wait_part<L>(full, smem, n + 3);
+      acc_tile<DP, B>(dk_acc, sh, sl, qt_hi, qt_hi + L::kPlane);
+      mbar_arrive(empty + (n + 3) % L::kStages);
+    }
+
+    const size_t base = (size_t)slice * S * D;
+    const int row0 = k0 + wg * kTileRows;
+    store_rows_f32<DP>(dk_acc, dk + base, row0, S, D, scale, warp, g, t);
+    store_rows_f32<DP>(dv_acc, dv + base, row0, S, D, 1.f, warp, g, t);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BwdSmemF32<DP, 3>::kThreads, 1)
+flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap kt_map,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int S, int D,
                         float scale_log2, float scale) {
-  constexpr int RS = DP + 1;
-  constexpr int BKP = kBlockK + 1;
-  constexpr int kDims = DP / 4;
+  using L = BwdSmemF32<DP, 3>;
+  constexpr int B = L::kBlk;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qdo_full = empty + L::kStages;
+  const int slice = blockIdx.y;
+  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  const int n_tiles = (S + B - 1) / B;
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
 
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kBlockQ * RS;
-  float* ks = dos + kBlockQ * RS;
-  float* vs = ks + kBlockK * RS;
-  float* ps = vs + kBlockK * RS;  // [64 queries][BKP]: dS
-
-  const int tid = threadIdx.x;
-  const int row = tid >> 2;  // query row inside the tile
-  const int quad = tid & 3;
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const int gr = q0 + row;
-  const float lse_r =
-      gr < S ? lse[(size_t)blockIdx.y * S + gr] : INFINITY;
-  const float delta_r = gr < S ? delta[(size_t)blockIdx.y * S + gr] : 0.f;
-
-  stage_f32<DP>(q + base, q0, S, D, qs);
-  stage_f32<DP>(dout + base, q0, S, D, dos);
-
-  float acc[kDims];
-#pragma unroll
-  for (int j = 0; j < kDims; ++j) acc[j] = 0.f;
-  float* prow = ps + row * BKP;
-
-  for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // the previous key tile and dS row are consumed
-    stage_f32<DP>(k + base, k0, S, D, ks);
-    stage_f32<DP>(v + base, k0, S, D, vs);
-    __syncthreads();
-
-    // P and dP for keys quad + 4j, then dS
-    float p[16], dp[16];
-    fma_row_by_rows<DP>(p, qs + row * RS, ks, quad);
-    fma_row_by_rows<DP>(dp, dos + row * RS, vs, quad);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float pj = k0 + quad + 4 * j < S
-                           ? exp2f(p[j] * scale_log2 - lse_r)
-                           : 0.f;
-      prow[quad + 4 * j] = pj * (dp[j] - delta_r);
+  if (wg == L::kConsumers) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers * 128) {
+      mbar_expect_tx(qdo_full, 4 * L::kConsumers * L::kRes);
+      for (int c = 0; c < L::kConsumers; ++c) {
+        unsigned char* res = smem + L::resident + c * 4 * L::kRes;
+        tma_load_split<DP, kTileRows>(res, &q_map, qdo_full,
+                                      q0 + c * kTileRows, slice);
+        tma_load_split<DP, kTileRows>(res + 2 * L::kRes, &do_map, qdo_full,
+                                      q0 + c * kTileRows, slice);
+      }
+      for (int n = 0; n < 3 * n_tiles; ++n) {
+        const int st = n % L::kStages, it = n / 3, part = n % 3;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, L::kPart);
+        unsigned char* dst = smem + L::stages + st * L::kPart;
+        if (part < 2)
+          tma_load_split<DP, B>(dst, part ? &v_map : &k_map, full + st,
+                                it * B, slice);
+        else
+          tma_load_trans<DP, B>(dst, &kt_map, full + st, it * B, slice);
+      }
     }
-    __syncwarp();  // a row's quad lies inside one warp
-    fma_row_by_tile<DP>(acc, prow, ks, quad);
-  }
-
-  if (gr < S) {
+  } else {  // a consumer: queries q0 + 64 wg .. + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + wg * kTileRows;
+    const uint32_t q_hi = smem_addr(smem + L::resident + wg * 4 * L::kRes);
+    const uint32_t q_lo = q_hi + L::kRes, do_hi = q_lo + L::kRes,
+                   do_lo = do_hi + L::kRes;
+    // this thread's query rows g and g + 8 of its warp's 16: lse2 (+inf
+    // past S, so P = 0 there) and delta
+    float lse_r[2], delta_r[2];
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) {
-      const int c = quad + 4 * j;
-      if (c < D) dq[base + (size_t)gr * D + c] = acc[j] * scale;
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + warp * 16 + g + 8 * r;
+      lse_r[r] = row < S ? lse[(size_t)slice * S + row] : INFINITY;
+      delta_r[r] = row < S ? delta[(size_t)slice * S + row] : 0.f;
     }
+    float dq_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(qdo_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n = 3 * it;
+      const uint32_t k_hi = wait_part<L>(full, smem, n);
+      const uint32_t v_hi = wait_part<L>(full, smem, n + 1);
+
+      // S = q K^T and dP = dO V^T: element 4n + e is query g + 8 (e >> 1),
+      // key it * B + 8n + 2t + (e & 1)
+      float p[B / 2], ds[B / 2];
+      wgmma_fence();
+      product3_ss<B, kTileRows, DP / 8>(p, q_hi, q_lo, k_hi,
+                                        k_hi + L::kPlane);
+      product3_ss<B, kTileRows, DP / 8>(ds, do_hi, do_lo, v_hi,
+                                        v_hi + L::kPlane);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(p);
+      fence_acc(ds);
+      mbar_arrive(empty + n % L::kStages);
+      mbar_arrive(empty + (n + 1) % L::kStages);
+
+      // P = exp2(S c - lse2), 0 for keys past S (TMA's zero rows there
+      // would give exp2(-lse2)); dS = P (dP - delta) in float32
+      const int kb = it * B;
+      const bool ragged = kb + B > S;
+#pragma unroll
+      for (int i = 0; i < B / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float pi = exp2_ftz(fmaf(p[i], scale_log2, -lse_r[r]));
+        if (ragged && kb + (i / 4) * 8 + 2 * t + (i & 1) >= S) pi = 0.f;
+        ds[i] = pi * (ds[i] - delta_r[r]);
+      }
+      // dQ += dS K (K^T's rows), each tile's product summed apart
+      uint32_t sh[B / 8][4], sl[B / 8][4];
+      split_fragments<B>(ds, sh, sl);
+      const uint32_t kt_hi = wait_part<L>(full, smem, n + 2);
+      acc_tile<DP, B>(dq_acc, sh, sl, kt_hi, kt_hi + L::kPlane);
+      mbar_arrive(empty + (n + 2) % L::kStages);
+    }
+
+    store_rows_f32<DP>(dq_acc, dq + (size_t)slice * S * D, row0, S, D, scale,
+                       warp, g, t);
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 
-cudaError_t launch_delta_f32(const void* o, const void* dout, float* delta,
-                             int bh, int s, int d, cudaStream_t st) {
-  const size_t rows = (size_t)bh * s;
-  const unsigned blocks =
-      (unsigned)((rows * 32 + kDeltaThreads - 1) / kDeltaThreads);
-  flash_bwd_delta_f32_kernel<<<blocks, kDeltaThreads, 0, st>>>(
-      static_cast<const float*>(o), static_cast<const float*>(dout), delta,
-      rows, d);
-  return cudaGetLastError();
-}
-
-// the (bh, 2, sp) row buffer as a 2-D map (sp, 2 bh): one box is a query
-// tile's lse2 and delta
-cudaError_t rows_map(CUtensorMap* map, const float* rows, int bh, int sp) {
+// the (bh, 2, sp) row buffer as a 2-D map (sp, 2 bh): one box is a
+// streamed tile's lse2 and delta (`box` rows)
+cudaError_t rows_map(CUtensorMap* map, const float* rows, int bh, int sp,
+                     int box = kTileRows) {
   const cuuint64_t dims[2] = {(cuuint64_t)sp, 2ull * bh};
   const cuuint64_t strides[1] = {4ull * sp};
-  const cuuint32_t box[2] = {kTileRows, 2};
+  const cuuint32_t box_dims[2] = {(cuuint32_t)box, 2};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, rows, dims, strides,
-                box, CU_TENSOR_MAP_SWIZZLE_NONE);
+                box_dims, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
+
+// float32 split planes (bh, 2, s, d) as a 3-D map (d, s, 2 bh) of boxes of
+// `box_rows` rows and 32 columns (128 bytes, the 128-byte swizzle); rows
+// past s and columns past d read as zeros
+cudaError_t split_map(CUtensorMap* map, const float* planes, int bh, int s,
+                      int d, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, 2ull * bh};
+  const cuuint64_t strides[2] = {4ull * d, 4ull * d * s};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, planes, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// float32 transposed planes (bh, 2, d, sp) as a 3-D map (sp, d, 2 bh) of
+// boxes of DP rows (d, zeros past it) and 32 columns
+cudaError_t trans_map(CUtensorMap* map, const float* planes, int bh, int d,
+                      int sp, int dp) {
+  const cuuint64_t dims[3] = {(cuuint64_t)sp, (cuuint64_t)d, 2ull * bh};
+  const cuuint64_t strides[2] = {4ull * sp, 4ull * sp * d};
+  const cuuint32_t box[3] = {32, (cuuint32_t)dp, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, planes, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the float32 scratch: split planes of q, K, V, dO (4 x bh x 2 x s x d),
+// then transposed planes of q, dO, K (3 x bh x 2 x d x sp)
+struct F32Planes {
+  float* split;
+  float* trans;
+  size_t plane, tplane;
+  F32Planes(void* scratch, int bh, int s, int sp, int d)
+      : split(static_cast<float*>(scratch)),
+        trans(split + 8 * (size_t)bh * s * d),
+        plane(2 * (size_t)bh * s * d),
+        tplane(2 * (size_t)bh * d * sp) {}
+  const float* q() const { return split; }
+  const float* k() const { return split + plane; }
+  const float* v() const { return split + 2 * plane; }
+  const float* dout() const { return split + 3 * plane; }
+  const float* qt() const { return trans; }
+  const float* dot() const { return trans + tplane; }
+  const float* kt() const { return trans + 2 * tplane; }
+};
+
+int round_up_tile(int s) { return (s + kTileRows - 1) / kTileRows * kTileRows; }
 
 template <int DP>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const float* lse,
-                        float* delta, float* rows, void* dk, void* dv, int bh,
-                        int s, int d, bool use_bf16, cudaStream_t st) {
+                        float* delta, float* rows, void* scratch, void* dk,
+                        void* dv, int bh, int s, int d, bool use_bf16,
+                        cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)d));
   const float scale_log2 = (float)(kLog2e / sqrt((double)d));
+  const int sp = round_up_tile(s);
   cudaError_t err;
   if (use_bf16) {
-    const int sp = (s + kTileRows - 1) / kTileRows * kTileRows;
     constexpr int kLpr = DP / 8;  // threads per row, 8 columns each
     const size_t threads = (size_t)bh * sp * kLpr;
     flash_bwd_rows_bf16_kernel<kLpr>
@@ -734,17 +982,36 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
         qm, km, vm, dom, rm, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
         s, d, scale_log2, scale);
   } else {
-    if ((err = launch_delta_f32(o, dout, delta, bh, s, d, st))) return err;
-    constexpr size_t smem = bwd_f32_smem_bytes<DP>();
-    static std::atomic<uint64_t> smem_set{0};
-    if ((err = set_smem_once(flash_bwd_dkdv_f32_kernel<DP>, smem, smem_set)))
-      return err;
-    const dim3 grid((s + kBlockK - 1) / kBlockK, bh);
-    flash_bwd_dkdv_f32_kernel<DP><<<grid, kFmaThreads, smem, st>>>(
+    const F32Planes f(scratch, bh, s, sp, d);
+    flash_bwd_rows_f32_kernel<<<dim3(sp / kTileRows, bh), kDeltaThreads, 0,
+                                st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), s, d,
-        scale_log2, scale);
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(dout), lse, delta, rows,
+        f.split, f.trans, bh, s, sp, d);
+    if ((err = cudaGetLastError())) return err;
+    using L = BwdSmemF32<DP, 4>;
+    CUtensorMap km, vm, qm, dom, dotm, qtm, rm;
+    if ((err = split_map(&km, f.k(), bh, s, d, kTileRows)) ||
+        (err = split_map(&vm, f.v(), bh, s, d, kTileRows)) ||
+        (err = split_map(&qm, f.q(), bh, s, d, L::kBlk)) ||
+        (err = split_map(&dom, f.dout(), bh, s, d, L::kBlk)) ||
+        (err = trans_map(&dotm, f.dot(), bh, d, sp, DP)) ||
+        (err = trans_map(&qtm, f.qt(), bh, d, sp, DP)) ||
+        (err = rows_map(&rm, rows, bh, sp, L::kBlk)))
+      return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dkdv_f32_kernel<DP>, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool = check_register_pool(
+        flash_bwd_dkdv_f32_kernel<DP>, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
+    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    flash_bwd_dkdv_f32_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
+        km, vm, qm, dom, dotm, qtm, rm, static_cast<float*>(dk),
+        static_cast<float*>(dv), s, d, scale_log2, scale);
   }
   return cudaGetLastError();
 }
@@ -752,8 +1019,8 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
 template <int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int bh, int s, int d, bool use_bf16,
-                      cudaStream_t st) {
+                      void* scratch, void* dq, int bh, int s, int d,
+                      bool use_bf16, cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)d));
   const float scale_log2 = (float)(kLog2e / sqrt((double)d));
   cudaError_t err;
@@ -778,15 +1045,28 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
         qm, km, vm, dom, lse, delta, static_cast<bf16*>(dq), s, d,
         scale_log2, scale);
   } else {
-    constexpr size_t smem = bwd_f32_smem_bytes<DP>();
-    static std::atomic<uint64_t> smem_set{0};
-    if ((err = set_smem_once(flash_bwd_dq_f32_kernel<DP>, smem, smem_set)))
+    const int sp = round_up_tile(s);
+    const F32Planes f(scratch, bh, s, sp, d);
+    using L = BwdSmemF32<DP, 3>;
+    CUtensorMap qm, dom, km, vm, ktm;
+    if ((err = split_map(&qm, f.q(), bh, s, d, kTileRows)) ||
+        (err = split_map(&dom, f.dout(), bh, s, d, kTileRows)) ||
+        (err = split_map(&km, f.k(), bh, s, d, L::kBlk)) ||
+        (err = split_map(&vm, f.v(), bh, s, d, L::kBlk)) ||
+        (err = trans_map(&ktm, f.kt(), bh, d, sp, DP)))
       return err;
-    const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-    flash_bwd_dq_f32_kernel<DP><<<grid, kFmaThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), s, d, scale_log2, scale);
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dq_f32_kernel<DP>, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool =
+        check_register_pool(flash_bwd_dq_f32_kernel<DP>, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
+    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    flash_bwd_dq_f32_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
+        qm, dom, km, vm, ktm, lse, delta, static_cast<float*>(dq), s, d,
+        scale_log2, scale);
   }
   return cudaGetLastError();
 }
@@ -799,17 +1079,19 @@ bool bad_shape(int bh, int s, int d) {
 
 // q, k, v, o, dout, dk, dv: contiguous (bh, s, d) device arrays of float32
 // (is_bf16 == 0) or bfloat16 (is_bf16 == 1), 16-byte aligned, d % 8 == 0 and
-// 8 <= d <= 128; lse (the forward's lse2) and delta: (bh, s) float32; rows
-// (bf16 only, else unused): a 16-byte aligned (bh, 2, sp) float32 scratch,
-// sp = s rounded up to 64. Launches the pre-pass (delta = rowsum(dout * o),
-// written for ddti_flash_bwd_dq, and in bf16 the padded rows) and the dK/dV
-// kernel on `stream` without synchronising; returns the first cudaError_t
-// (0 = success).
+// 8 <= d <= 128; lse (the forward's lse2) and delta: (bh, s) float32; rows:
+// a 16-byte aligned (bh, 2, sp) float32 scratch, sp = s rounded up to 64;
+// scratch (float32 only, else unused): a 16-byte aligned float32 scratch of
+// 8 bh s d + 6 bh d sp elements. Launches the pre-pass (delta =
+// rowsum(dout * o), written for ddti_flash_bwd_dq, the padded rows, and in
+// float32 the split and transposed operand planes in `scratch`) and the
+// dK/dV kernel on `stream` without synchronising; returns the first
+// cudaError_t (0 = success).
 extern "C" int ddti_flash_bwd_dkdv(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
-                                   void* delta, void* rows, void* dk,
-                                   void* dv, int bh, int s, int d,
+                                   void* delta, void* rows, void* scratch,
+                                   void* dk, void* dv, int bh, int s, int d,
                                    int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -820,22 +1102,23 @@ extern "C" int ddti_flash_bwd_dkdv(const void* q, const void* k,
   float* dl = static_cast<float*>(delta);
   float* r = static_cast<float*>(rows);
   if (d <= 32)
-    return (int)launch_dkdv<32>(q, k, v, o, dout, l, dl, r, dk, dv, bh, s, d,
-                                bf, st);
+    return (int)launch_dkdv<32>(q, k, v, o, dout, l, dl, r, scratch, dk, dv,
+                                bh, s, d, bf, st);
   if (d <= 64)
-    return (int)launch_dkdv<64>(q, k, v, o, dout, l, dl, r, dk, dv, bh, s, d,
-                                bf, st);
-  return (int)launch_dkdv<128>(q, k, v, o, dout, l, dl, r, dk, dv, bh, s, d,
-                               bf, st);
+    return (int)launch_dkdv<64>(q, k, v, o, dout, l, dl, r, scratch, dk, dv,
+                                bh, s, d, bf, st);
+  return (int)launch_dkdv<128>(q, k, v, o, dout, l, dl, r, scratch, dk, dv,
+                               bh, s, d, bf, st);
 }
 
-// As ddti_flash_bwd_dkdv, for dq; delta must hold what ddti_flash_bwd_dkdv
-// wrote for the same (o, dout), earlier on the same stream.
+// As ddti_flash_bwd_dkdv, for dq; delta (and in float32 scratch) must hold
+// what ddti_flash_bwd_dkdv wrote for the same inputs, earlier on the same
+// stream.
 extern "C" int ddti_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dq, int bh, int s,
-                                 int d, int is_bf16, int device,
-                                 void* stream) {
+                                 const void* delta, void* scratch, void* dq,
+                                 int bh, int s, int d, int is_bf16,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
@@ -844,8 +1127,11 @@ extern "C" int ddti_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (d <= 32)
-    return (int)launch_dq<32>(q, k, v, dout, l, dl, dq, bh, s, d, bf, st);
+    return (int)launch_dq<32>(q, k, v, dout, l, dl, scratch, dq, bh, s, d, bf,
+                              st);
   if (d <= 64)
-    return (int)launch_dq<64>(q, k, v, dout, l, dl, dq, bh, s, d, bf, st);
-  return (int)launch_dq<128>(q, k, v, dout, l, dl, dq, bh, s, d, bf, st);
+    return (int)launch_dq<64>(q, k, v, dout, l, dl, scratch, dq, bh, s, d, bf,
+                              st);
+  return (int)launch_dq<128>(q, k, v, dout, l, dl, scratch, dq, bh, s, d, bf,
+                             st);
 }

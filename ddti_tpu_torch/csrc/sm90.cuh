@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels, in inline
 // PTX: TMA tile loads that complete on mbarriers, wgmma with shared-memory
-// matrix descriptors, setmaxnreg, and the host-side encoding of the TMA
+// matrix descriptors (bf16; tf32 for float32 as three TF32 products, see
+// "3xTF32" below), setmaxnreg, and the host-side encoding of the TMA
 // tensor maps (cuTensorMapEncodeTiled, looked up in libcuda at run time,
 // so the plain-C library links no -lcuda).
 //
@@ -407,6 +408,259 @@ __device__ __forceinline__ void wgmma_rs_mn<256>(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// float32 products as three TF32 products (3xTF32)
+//
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), both rounded to
+// nearest (cvt.rna), so the tensor core's truncation of the low 13 bits
+// never applies; a b = a_lo b_hi + a_hi b_lo + a_hi b_hi leaves about 2^-21
+// of each term (a_lo b_lo, ~2^-22, is dropped). tf32 wgmma takes K-major
+// operands only. A float32 operand region of R rows is loaded by TMA as
+// 32-column boxes of R x 128 bytes with the 128-byte swizzle: byte for byte
+// a bf16 tile of twice the columns, and a k8 step is 32 bytes, as a bf16
+// k16 step is. The register A fragment of a k8 step holds, per thread, rows
+// g and g + 8 at columns t and t + 4 (CUTLASS's ALayout_64x8), while an
+// accumulator holds columns 2t and 2t + 1 of each 8-column group: the B
+// operand that meets an accumulator as A stores its k positions of each
+// group of 8 in the order {0, 2, 4, 6, 1, 3, 5, 7} (split_fragments).
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// an m64nK accumulator (K / 2 floats a thread) as the hi and lo A
+// fragments of its K / 8 k8 steps, k permuted as the B operand stores it
+template <int K>
+__device__ __forceinline__ void split_fragments(const float (&x)[K / 2],
+                                               uint32_t (&hi)[K / 8][4],
+                                               uint32_t (&lo)[K / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    split_tf32(x[4 * j], hi[j][0], lo[j][0]);      // row g,     k t
+    split_tf32(x[4 * j + 2], hi[j][1], lo[j][1]);  // row g + 8, k t
+    split_tf32(x[4 * j + 1], hi[j][2], lo[j][2]);  // row g,     k t + 4
+    split_tf32(x[4 * j + 3], hi[j][3], lo[j][3]);  // row g + 8, k t + 4
+  }
+}
+
+// keep A fragments live (and in place) until the wgmma reading them is
+// waited for
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
+}
+
+// descriptor of k8 step kk of a float32 region of R rows (K-major)
+template <int R>
+__device__ __forceinline__ uint64_t desc_f32(uint32_t region, int kk) {
+  return smem_desc(region + (kk / 4) * R * 128 + (kk % 4) * 32, 16, 1024, 1);
+}
+
+// d (64 x N, float32) {=, +=} A B over one k8 step, tf32: A (64 x 8) and
+// B (8 x N) K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int accumulate);
+
+// d (64 x N, float32) += A B over one k8 step, tf32: A from registers, B
+// K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45,"
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56,"
+      "%57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d = A B^T over k = 8 ksteps, A (64 rows) and B (N rows) float32 regions
+// split hi / lo, K-major, as three TF32 products, the small terms first:
+// every a_lo b_hi, then every a_hi b_lo, then every a_hi b_hi
+template <int N, int R_A, int ksteps>
+__device__ __forceinline__ void product3_ss(float (&d)[N / 2], uint32_t a_hi,
+                                            uint32_t a_lo, uint32_t b_hi,
+                                            uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < ksteps; ++kk)
+    wgmma_tf32_ss<N>(d, desc_f32<R_A>(a_lo, kk), desc_f32<N>(b_hi, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < ksteps; ++kk)
+    wgmma_tf32_ss<N>(d, desc_f32<R_A>(a_hi, kk), desc_f32<N>(b_lo, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < ksteps; ++kk)
+    wgmma_tf32_ss<N>(d, desc_f32<R_A>(a_hi, kk), desc_f32<N>(b_hi, kk), 1);
+}
+
+// d += A B over K columns of A from registers (split_fragments) and a
+// float32 B region (N rows, boxes of R rows) split hi / lo, as three TF32
+// products
+template <int N, int K, int R>
+__device__ __forceinline__ void product3_rs(float (&d)[N / 2],
+                                            const uint32_t (&a_hi)[K / 8][4],
+                                            const uint32_t (&a_lo)[K / 8][4],
+                                            uint32_t b_hi, uint32_t b_lo) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j)
+    wgmma_tf32_rs<N>(d, a_lo[j], desc_f32<R>(b_hi, j));
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j)
+    wgmma_tf32_rs<N>(d, a_hi[j], desc_f32<R>(b_lo, j));
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j)
+    wgmma_tf32_rs<N>(d, a_hi[j], desc_f32<R>(b_hi, j));
+}
+
+// acc (64 x N) += A B for one streamed tile, A (64 x K) split in registers,
+// B (N rows, K columns) split hi / lo in shared memory. The tensor cores'
+// float32 accumulation rounds toward zero, so summing a whole sequence in
+// one wgmma accumulator drifts by about its number of k8 steps times
+// 2^-24 (~1e-5 of the result at S = 1024, 4e-5 at 4096): each tile's
+// product is summed in a fresh accumulator instead, at most 64 columns at
+// a time, and added to `acc` on the CUDA cores, rounded to nearest. Waits
+// for its products, so the fragments are free again on return.
+template <int N, int K>
+__device__ __forceinline__ void acc_tile(float (&acc)[N / 2],
+                                         uint32_t (&a_hi)[K / 8][4],
+                                         uint32_t (&a_lo)[K / 8][4],
+                                         uint32_t b_hi, uint32_t b_lo) {
+  constexpr int NT = N < 64 ? N : 64;
+#pragma unroll
+  for (int h = 0; h < N / NT; ++h) {
+    float tmp[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) tmp[i] = 0.f;
+    fence_acc(tmp);
+    wgmma_fence();
+    product3_rs<NT, K, N>(tmp, a_hi, a_lo, b_hi + h * NT * 128,
+                          b_lo + h * NT * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(tmp);
+    fence_frag(a_hi);
+    fence_frag(a_lo);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[h * NT / 2 + i] += tmp[i];
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -161,15 +161,21 @@ def flash_backward_cuda(q, k, v, o, lse2, do):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse2)
     bf16 = _KERNEL_DTYPES[q.dtype]
-    # bf16: the dK/dV kernel's TMA loads read lse2 and delta from a (B*H, 2,
-    # S rounded up to 64) buffer that the pre-pass pads with +inf and 0
-    rows = lse2.new_empty((b * h, 2, -(-s // 64) * 64)) if bf16 else None
+    # the dK/dV kernel's TMA loads read lse2 and delta from a (B*H, 2, S
+    # rounded up to 64) buffer that the pre-pass pads with +inf and 0
+    sp = -(-s // 64) * 64
+    rows = lse2.new_empty((b * h, 2, sp))
+    # float32: the pre-pass splits q, K, V, dO into TF32 hi and lo planes,
+    # row-major and (q, dO, K) transposed, for both kernels' TMA loads
+    scratch = (None if bf16 else
+               lse2.new_empty(8 * b * h * s * d + 6 * b * h * d * sp))
+    pscratch = None if bf16 else scratch.data_ptr()
     stream = _stream(dev.index)
     launch("flash_bwd_dkdv", pq, pk, pv, po, pdo, plse, delta.data_ptr(),
-           rows.data_ptr() if bf16 else None, dk.data_ptr(), dv.data_ptr(),
-           b * h, s, d, bf16, dev.index, stream)
+           rows.data_ptr(), pscratch, dk.data_ptr(), dv.data_ptr(), b * h, s,
+           d, bf16, dev.index, stream)
     flash_backward_cuda.launches_dkdv += 1
-    launch("flash_bwd_dq", pq, pk, pv, pdo, plse, delta.data_ptr(),
+    launch("flash_bwd_dq", pq, pk, pv, pdo, plse, delta.data_ptr(), pscratch,
            dq.data_ptr(), b * h, s, d, bf16, dev.index, stream)
     flash_backward_cuda.launches_dq += 1
     return dq, dk, dv

@@ -215,3 +215,69 @@ def test_port_calls_no_library_attention(needle):
     hits = [str(p.relative_to(root)) for p in files
             if needle in p.read_text(encoding="utf-8")]
     assert not hits, f"{needle} in {hits}"
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties to even, in int32 bit operations on the float32 pattern."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0xFFF + ((b >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b as the float32 backward kernels form it on the tensor cores:
+    x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a b = a_lo b_hi +
+    a_hi b_lo + a_hi b_hi (each TF32 product exact in float32, summed in
+    float32); a_lo b_lo is dropped."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _backward_with(q, k, v, o, lse2, do, matmul):
+    """flash_backward_reference's float32 function with every product
+    taken by ``matmul``."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    p = torch.exp2(matmul(q, k.transpose(-1, -2)) * (tattn.LOG2E * scale)
+                   - lse2.unsqueeze(-1))
+    delta = (do * o).sum(-1, keepdim=True)
+    dv = matmul(p.transpose(-1, -2), do)
+    ds = p * (matmul(do, v.transpose(-1, -2)) - delta)
+    return (matmul(ds, k) * scale, matmul(ds.transpose(-1, -2), q) * scale,
+            dv)
+
+
+@pytest.mark.parametrize("x, want", [
+    (1 + 2 ** -11, 1.0),                  # a tie: to even
+    (1 + 3 * 2 ** -11, 1 + 2 ** -9),      # a tie: to even, upwards
+    (1 + 2 ** -11 + 2 ** -20, 1 + 2 ** -10),  # above the tie
+    (-(1 + 2 ** -12), -1.0),              # below the tie
+])
+def test_tf32_rounding_model(x, want):
+    assert _tf32(torch.tensor([x], dtype=torch.float32)).item() == want
+
+
+def test_3xtf32_backward_keeps_float32_accuracy():
+    """The float32 backward kernels' arithmetic, modelled on the CPU: every
+    product as three TF32 products. Against a float64 backward of the same
+    inputs, and against flash_backward_reference (float32 products), each
+    of dq, dk, dv stays within 4e-6 of its max |value| (measured: 9.6e-7 and
+    1.2e-6, the float32 reference itself 1.0e-6 from float64): 3xTF32 leaves
+    about 2^-21 of each term, float32 summation about as much, so the card's
+    limit of 1e-4 keeps a margin of ~100x. One TF32 product alone misses it
+    (~1e-3), which is why the kernels take three."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 2, 130, 32)).astype(np.float32)) for _ in range(4))
+    o, lse2 = tattn.flash_forward_reference(q, k, v)
+    args = (q, k, v, o, lse2, do)
+    split = _backward_with(*args, _matmul_3xtf32)
+    exact = _backward_with(*(t.double() for t in args), torch.matmul)
+    ref = tattn.flash_backward_reference(*args)
+    one_pass = _backward_with(*args, lambda a, b: _tf32(a) @ _tf32(b))
+    for name, s, e, r, t in zip(("dq", "dk", "dv"), split, exact, ref,
+                                one_pass):
+        scale = e.abs().max().item()
+        assert (s.double() - e).abs().max().item() <= 4e-6 * scale, name
+        assert (s - r).abs().max().item() <= 4e-6 * scale, name
+        assert (t.double() - e).abs().max().item() > 1e-4 * scale, name

@@ -62,3 +62,22 @@ def test_redesign_order_follows_device_time(capsys):
     out = capsys.readouterr().out
     assert out.rstrip().endswith(
         "slower than SDPA by device time: the backward pair, the forward")
+
+
+@pytest.mark.parametrize("kernel, shape, ms", [
+    # five products of 2 B H S^2 D FLOP at 495 / 3 TFLOP/s (3xTF32)
+    ("flash_bwd", SLICE, 0.2603),
+    ("flash_bwd_dkdv", SLICE, 0.2082),
+    ("flash_bwd_dq", SLICE, 0.1562),
+    ("flash_bwd", (2, 2, 1024, 128), 0.03254),
+    ("flash_fwd", SLICE, 0.1041),
+])
+def test_float32_flash_bounds_at_the_3xtf32_rate(kernel, shape, ms):
+    """float32 flash work is bound at the tensor cores' TF32 rate over
+    three (a float32-accurate product as three TF32 products), not at the
+    FMA rate of 67 TFLOP/s, which the EDT keeps."""
+    got, by, _ = C.bound(kernel, shape, "float32")
+    assert by == "operations"
+    assert got == pytest.approx(ms, rel=2e-3)
+    assert C.bound("edt", (16, 512, 512), "float32")[0] == pytest.approx(
+        0.0641, rel=1e-2)

@@ -173,11 +173,12 @@ def test_flash_backward_kernels_match_plain(cuda, shape, dtype):
         assert err <= G_TOL[dtype] * scale + 1e-6, (name, err, scale)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 8, 1024, 32), (1, 2, 1000, 128),
                                    (2, 2, 333, 64)])
-def test_flash_kernels_are_deterministic_in_bf16(cuda, shape):
+def test_flash_kernels_are_deterministic(cuda, shape, dtype):
     """No atomics: two calls give bit-identical o, lse2, dq, dk and dv."""
-    q, k, v, _, _, do = _bwd_inputs(shape, torch.bfloat16, cuda)
+    q, k, v, _, _, do = _bwd_inputs(shape, dtype, cuda)
     first, again = (A.flash_forward_cuda(q, k, v) for _ in range(2))
     for a, b in zip(first, again):
         assert torch.equal(a, b)
@@ -186,6 +187,52 @@ def test_flash_kernels_are_deterministic_in_bf16(cuda, shape):
                     for _ in range(2))
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape, row, c_q, c_do", [
+    ((1, 1, 64, 32), 5, 3, 7),
+    ((1, 1, 100, 32), 90, 30, 1),
+    ((1, 1, 70, 64), 63, 17, 60),
+    ((1, 1, 100, 128), 42, 127, 64),
+])
+def test_flash_backward_f32_fragment_layout(cuda, shape, row, c_q, c_do):
+    """The float32 kernels' TF32 fragment layout, held with one non-zero
+    entry of q and of dO in the same row: dS is then non-zero in that row
+    alone, so dV's column c_do is P's row, dK's column c_q is dS's row, and
+    dQ's row is dS's row times K; a key placed in the wrong k position of a
+    fragment shows as a misplaced value, not as noise."""
+    g = torch.Generator().manual_seed(7)
+    q = torch.zeros(shape)
+    q[0, 0, row, c_q] = 3.0
+    do = torch.zeros(shape)
+    do[0, 0, row, c_do] = 1.0
+    k, v = (torch.randn(shape, generator=g) for _ in range(2))
+    q, k, v, do = (t.to(cuda) for t in (q, k, v, do))
+    o, lse = A.flash_forward_reference(q, k, v)
+    got = A.flash_backward_cuda(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    want = A.flash_backward_reference(q, k, v, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = b.abs().max().item()
+        assert scale > 0, name
+        # 3xTF32 products: about 2^-21 of each term
+        assert (a - b).abs().max().item() <= 1e-5 * scale, name
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4096, 32), (1, 2, 2048, 128)])
+def test_flash_backward_f32_error_does_not_grow_with_s(cuda, shape):
+    """The float32 kernels sum each streamed tile's 3xTF32 product in a
+    fresh wgmma accumulator and add it to the running sum on the CUDA
+    cores: the tensor cores' float32 sums round toward zero, and summed
+    over a whole long sequence in one accumulator they drift by about
+    4e-5 of max |g| at S = 4096 (against about 3e-6 this way)."""
+    args = _bwd_inputs(shape, torch.float32, cuda)
+    got = A.flash_backward_cuda(*args)
+    torch.cuda.synchronize()
+    want = A.flash_backward_reference(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-5 * scale, name
 
 
 def test_flash_backward_kernels_reject_what_they_do_not_take(cuda):
