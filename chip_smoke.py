@@ -18,7 +18,8 @@ and a non-zero exit:
               (one process per source, all at once) into build/.
 3. kernels  — every kernel against its plain PyTorch version on the card,
               with timings: flash attention forward at the serving path's
-              shapes; the flash backward kernels (csrc/flash_bwd.cu: dK/dV
+              shapes (in float32 with its TF32 split pre-pass timed apart);
+              the flash backward kernels (csrc/flash_bwd.cu: dK/dV
               with the delta pre-pass, and dQ) at the same shapes, a ragged
               S and bf16 heads of 64 and 128, dq/dk/dv against their limits,
               two calls bit-equal; each flash row timed as one call between
@@ -32,7 +33,8 @@ and a non-zero exit:
               attention (scaled_dot_product_attention, a yardstick the port
               never calls); the EDT (csrc/edt.cu) bit for bit against its
               plain version and against scipy at the training path's
-              shapes, ragged ones and edge frames.
+              shapes, ragged ones and edge frames, its column and row passes
+              timed apart (torch.profiler).
 4. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
               TransUNet of configs/config.yaml (base_filters 64, depth 4,
               512x512 -> 1024 bottleneck tokens), random weights from a seed,
@@ -415,8 +417,9 @@ def kernel_report(lib):
     and the SASS opcodes that show how it runs (cuobjdump -sass): HGMMA
     (wgmma), UTMALDG (TMA loads), SYNCS (mbarriers), HMMA (mma.sync) and
     atomics. The bf16 flash kernels (the forward, dK/dV and dQ) and the
-    float32 backward kernels must issue wgmma and TMA loads, and no flash
-    kernel may use an atomic."""
+    float32 ones (the forward but its FMA loop for heads above 128, dK/dV
+    and dQ) must run on wgmma and TMA loads, and no flash kernel may use an
+    atomic."""
     import re
     import shutil
 
@@ -458,9 +461,10 @@ def kernel_report(lib):
     for name, o in ops.items():
         if name.startswith("flash_"):
             assert o["atomic"] == 0, f"{name} uses atomics"
-        if name.startswith(("flash_fwd_bf16", "flash_bwd_dkdv_bf16",
-                            "flash_bwd_dq_bf16", "flash_bwd_dkdv_f32",
-                            "flash_bwd_dq_f32")):
+        if name.startswith(("flash_fwd_bf16", "flash_fwd_f32",
+                            "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
+                            "flash_bwd_dkdv_f32", "flash_bwd_dq_f32")) \
+                and name != "flash_fwd_f32_fma_kernel<256>":
             assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"], \
                 f"{name} issues no wgmma or TMA load"
     return regs, ops
@@ -488,8 +492,11 @@ def check_kernels():
             (o, lse), A.flash_forward_cuda(q, k, v)))
         ms = median_ms(lambda: A.flash_forward_cuda(q, k, v))
         host_ms, queue_ms = queued_ms(lambda: A.flash_forward_cuda(q, k, v))
-        device_ms = launch_ms(
-            lambda: A.flash_forward_cuda(q, k, v))["flash_fwd"]
+        # float32 at D <= 128: the TF32 split pre-pass, its own entry point
+        # (none in trees before the float32 forward ran on the tensor cores)
+        split = launch_ms(lambda: A.flash_forward_cuda(q, k, v))
+        device_ms = sum(split.values())
+        prep_ms = split.get("flash_fwd_split_f32")
         plain_ms = median_ms(lambda: A.flash_forward_reference(q, k, v))
         lib_ms, lib, lib_queue_ms = sdpa_yardstick(q, k, v)
         shape = (b, h, s, d)
@@ -498,7 +505,10 @@ def check_kernels():
               f"(limit {O_LIMIT[dt]:g}) max|dlse2| {err_lse:.3e} (limit "
               f"{LSE_LIMIT:g}), two calls bit-equal {twice_equal}; kernel "
               f"{ms:.4f} ms (queued {queue_ms:.4f}, events at the launch "
-              f"{device_ms:.4f}; host enqueue {host_ms:.4f}) plain "
+              f"{device_ms:.4f}"
+              + (f" of which the split pre-pass {prep_ms:.4f}" if prep_ms
+                 else "")
+              + f"; host enqueue {host_ms:.4f}) plain "
               f"{plain_ms:.4f} ms; SDPA forward {lib_ms} ms (queued "
               f"{lib_queue_ms}; {lib}); "
               + _bound_text("flash_fwd", shape, dt, device_ms))
@@ -508,7 +518,8 @@ def check_kernels():
             "kernel disagrees with its plain version"
         rows.append(dict(shape=[b, h, s, d], dtype=dt, max_abs_err=err_o,
                          max_abs_err_lse2=err_lse, ms=ms, queue_ms=queue_ms,
-                         device_ms=device_ms, host_ms=host_ms,
+                         device_ms=device_ms, prepass_ms=prep_ms,
+                         host_ms=host_ms,
                          plain_ms=plain_ms, library_ms=lib_ms, library=lib,
                          library_queue_ms=lib_queue_ms, bound_ms=bound_ms,
                          bound_by=bound_by, exp2_ms=exp2_ms))
@@ -931,7 +942,8 @@ def edt_masks(n, h, w, seed):
 
 def check_edt():
     """csrc/edt.cu against its plain version (bit for bit, every frame) and
-    scipy (every frame with a zero), with kernel and plain timings."""
+    scipy (every frame with a zero), with kernel and plain timings and the
+    kernel's column and row passes timed apart."""
     import numpy as np
     import torch
     from scipy import ndimage
@@ -958,14 +970,22 @@ def check_edt():
                     np.float32))
         row = dict(shape=[n, h, w], max_abs_err=err, bit_equal=equal,
                    scipy_frames=scipy_frames, scipy_equal=scipy_equal)
+        timing = ""
         if i < EDT_TIMED:
             row["ms"] = median_ms(lambda: E.edt_cuda(m))
             row["plain_ms"] = median_ms(lambda: E.edt_reference(m))
+            # the column pass and the row pass apart (torch.profiler)
+            row.update(profiled_ms(lambda: E.edt_cuda(m), {
+                "column_ms": ("edt_column",), "row_ms": ("edt_row",)}))
+            timing = (f", kernel {row['ms']:.4f} ms (profiler: column pass "
+                      + ", row pass ".join(
+                          "not recorded" if row[key] is None
+                          else f"{row[key]:.4f}"
+                          for key in ("column_ms", "row_ms"))
+                      + f") plain {row['plain_ms']:.4f} ms")
         phase("kernels", f"edt_minplus {(n, h, w)} uint8: bit-equal to plain "
               f"{equal} (max|d| {err:.3e}), bit-equal to scipy on "
-              f"{scipy_equal}/{scipy_frames} frames with a zero"
-              + (f", kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
-                 f"ms" if "ms" in row else ""))
+              f"{scipy_equal}/{scipy_frames} frames with a zero" + timing)
         assert equal, "the EDT kernel disagrees with its plain version"
         assert scipy_equal == scipy_frames, \
             "the EDT kernel disagrees with scipy"
@@ -1548,6 +1568,7 @@ def main():
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
     f32_row = next(r for r in bwd_rows if r["dtype"] == "float32")
+    f32_fwd = next(r for r in rows if r["dtype"] == "float32")
     bwd_shape, bwd_dt = tuple(bwd_row["shape"]), bwd_row["dtype"]
     edt_bound = bound("edt", tuple(edt_rows[0]["shape"]))
     library_covers = ("scaled_dot_product_attention's backward: dq, dk and "
@@ -1571,6 +1592,11 @@ def main():
         "library_queue_ms": main_row["library_queue_ms"],
         "r_fwd": ratios["r_fwd"],
         "r_fwd_queued": ratios["r_fwd_queued"],
+        "f32_shape": f32_fwd["shape"],
+        "f32_queue_ms": f32_fwd["queue_ms"],
+        "f32_prepass_ms": f32_fwd["prepass_ms"],
+        "f32_library_queue_ms": f32_fwd["library_queue_ms"],
+        "f32_bound_ms": f32_fwd["bound_ms"],
         "shapes": rows,
     }, {
         "name": "flash_bwd_dkdv",

@@ -26,8 +26,10 @@
 // one call is 4*B*H*S^2*D = 17.2 GFLOP of products, 0.0174 ms at the
 // tensor-core peak, against 34 MB of q/k/v/o/lse2 (0.010 ms), and
 // B*H*S^2 = 134 M exp2, 0.032 ms for the exp2 unit alone at the boost
-// clock: the exp2 floor, not the tensor cores or the memory, bounds it. The
-// (S, S) score matrix never reaches device memory.
+// clock: the exp2 floor, not the tensor cores or the memory, bounds it. In
+// float32 the products run as 3xTF32 at 495 / 3 TFLOP/s: 0.104 ms at that
+// shape, above the exp2 floor and the 67 MB of float32 traffic (0.020 ms).
+// The (S, S) score matrix never reaches device memory.
 //
 // Design.
 //  - bf16 (Hopper). The first version (mma.sync fed by 32-bit shared loads,
@@ -51,11 +53,31 @@
 //    consumer of 64 rows, where two would spill). TMA zero-fills rows past
 //    S and columns past D; key columns past S are masked to -inf before
 //    the max, query rows past S are not written.
-//  - float32: tensor cores offer no full-precision float32 product, so the
-//    products are scalar FMAs. One block per (64 queries, b*h); four
-//    threads own each query row: each computes 16 of the row's 64 scores
-//    and DP/4 of its output columns; the row's max and sum are reduced with
-//    two quad shuffles. Bound by shared-memory loads, about one per FMA.
+//  - float32 (FwdSmemF32). The first version, scalar-FMA loops, ran at 8%
+//    of the float32 bound (one shared-memory load per FMA, K and V staged
+//    by blocking loads between block barriers). Now the bf16 kernel's
+//    shape with every product as three TF32 products on wgmma (sm90.cuh:
+//    x = hi + lo, a_lo b_hi + a_hi b_lo + a_hi b_hi), which keeps float32's
+//    accuracy at a third of the TF32 rate, as the float32 backward does.
+//    A pre-pass (flash_fwd_split_f32_kernel, its own entry point) writes
+//    the TF32 hi and lo planes of q and K (row-major) and of V^T (tf32
+//    wgmma reads K-major operands only, and P V's B operand is V read with
+//    the keys as k), each group of 8 keys in the order {0, 2, 4, 6, 1, 3,
+//    5, 7}, so that P, split k8 step by k8 step, is an A fragment as it
+//    stands. A block is C consumer warpgroups of 64 query rows with their
+//    q planes resident and a producer warpgroup whose one thread streams
+//    tiles of kBlk keys as two parts, K and V^T (hi and lo planes each),
+//    through a ring of slots, each released as soon as its product is
+//    done. Per tile: S = q K^T (3 x DP/8 k8 steps in one accumulator), the
+//    online softmax on the CUDA cores as in bf16 (p stays float32), acc *=
+//    alpha, then P V summed in a fresh accumulator and added to acc on the
+//    CUDA cores (acc_tile): the tensor cores' float32 sums round toward
+//    zero, and summed over the whole sequence in one accumulator they
+//    would drift with S. Two consumers and 8 slots at DP = 32, two and 5
+//    at 64, one and 5 slots of 32-key tiles at 128.
+//    DP = 256 (D = 136..256) still runs the first version's FMA loops
+//    (flash_fwd_f32_fma_kernel): q's planes alone and one K part take 256
+//    KB there, more than a block may hold (ROADMAP.md Queue 2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -232,23 +254,231 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMAs
+// float32, D <= 128: 3xTF32 on wgmma, TMA
+
+constexpr int kSplitThreads = 256;
+constexpr int kMaxSplitD = 128;
+
+// The float32 pre-pass, per 64-row block of one slice: q and K as TF32 hi
+// and lo planes (split_tf32), `split` (2, bh, 2, s, d), and V^T as `trans`
+// (bh, 2, d, sp), zero past s, each group of 8 keys in the order {0, 2, 4,
+// 6, 1, 3, 5, 7} (store_trans_split). 16 bytes a thread at a time; V's
+// transpose passes through shared memory.
+__global__ void __launch_bounds__(kSplitThreads)
+flash_fwd_split_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ split,
+                           float* __restrict__ trans, int bh, int s, int sp,
+                           int D) {
+  __shared__ float tile[kTileRows][kMaxSplitD + 1];
+  const int slice = blockIdx.y, r0 = blockIdx.x * kTileRows;
+  const int D4 = D / 4;  // 16-byte chunks of a row
+  const size_t plane = (size_t)s * D, tplane = (size_t)D * sp;
+  for (int x = 0; x < 3; ++x) {
+    const float* in = (x == 0 ? q : x == 1 ? k : v) + (size_t)slice * plane;
+    float* out = split + ((size_t)x * bh + slice) * 2 * plane;  // x < 2
+    for (int i = threadIdx.x; i < kTileRows * D4; i += kSplitThreads) {
+      const int r = i / D4, c = 4 * (i - r * D4), row = r0 + r;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < s)
+        f = *reinterpret_cast<const float4*>(in + (size_t)row * D + c);
+      if (x == 2) {
+        tile[r][c] = f.x, tile[r][c + 1] = f.y;
+        tile[r][c + 2] = f.z, tile[r][c + 3] = f.w;
+      } else if (row < s) {
+        uint32_t hi[4], lo[4];
+        split_tf32(f.x, hi[0], lo[0]);
+        split_tf32(f.y, hi[1], lo[1]);
+        split_tf32(f.z, hi[2], lo[2]);
+        split_tf32(f.w, hi[3], lo[3]);
+        *reinterpret_cast<uint4*>(out + (size_t)row * D + c) =
+            make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(out + plane + (size_t)row * D + c) =
+            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+  }
+  __syncthreads();
+  store_trans_split<kSplitThreads>(tile, trans + (size_t)slice * 2 * tplane,
+                                   tplane, sp, r0, D);
+}
+
+// A float32 forward block: C consumer warpgroups of 64 query rows, each
+// with its q planes (hi, lo) resident, and a producer warpgroup that streams
+// tiles of kBlk keys as two parts a tile, K (kBlk rows) and V^T (DP rows of
+// kBlk keys), hi and lo planes each, through a ring of kStages slots, as
+// many as fit of 227 KB. Shared memory: the q planes (consumer c: hi, lo),
+// the slots, the mbarriers.
+template <int DP>
+struct FwdSmemF32 {
+  // consumer warpgroups: two up to DP = 64; one at 128, where two q tiles'
+  // planes leave room for three 32-key slots only
+  static constexpr int kConsumers = DP == 128 ? 1 : 2;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // keys a streamed tile: 32 at DP = 128, so that the ring holds five
+  static constexpr int kBlk = DP == 128 ? 32 : 64;
+  static constexpr uint32_t kRes = kTileRows * DP * 4;  // one q plane
+  static constexpr uint32_t kPlane = kBlk * DP * 4;
+  static constexpr uint32_t kPart = 2 * kPlane;
+  static constexpr uint32_t resident = 0;
+  static constexpr uint32_t stages = 2 * kConsumers * kRes;
+  static constexpr int kFit =
+      (int)((232448 - 1024 - 8 * 17 - stages) / kPart);
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static_assert(kStages >= 2, "ring");
+  static constexpr uint32_t bars = stages + kStages * kPart;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+// DP: padded head width (template); D: actual head width, D % 8 == 0, D <= DP
+template <int DP>
+__global__ void __launch_bounds__(FwdSmemF32<DP>::kThreads, 1)
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap vt_map,
+                     float* __restrict__ o, float* __restrict__ lse, int S,
+                     int D, float scale_log2) {
+  using L = FwdSmemF32<DP>;
+  constexpr int B = L::kBlk;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
+  const int slice = blockIdx.y;
+  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  const int n_tiles = (S + B - 1) / B;
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
+
+  if (wg == L::kConsumers) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers * 128) {
+      mbar_expect_tx(q_full, 2 * L::kConsumers * L::kRes);
+      for (int c = 0; c < L::kConsumers; ++c)
+        tma_load_split<DP, kTileRows>(smem + L::resident + c * 2 * L::kRes,
+                                      &q_map, q_full, q0 + c * kTileRows,
+                                      slice);
+      for (int n = 0; n < 2 * n_tiles; ++n) {
+        const int st = n % L::kStages, it = n / 2;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, L::kPart);
+        unsigned char* dst = smem + L::stages + st * L::kPart;
+        if (n % 2 == 0)
+          tma_load_split<DP, B>(dst, &k_map, full + st, it * B, slice);
+        else
+          tma_load_trans<DP, B>(dst, &vt_map, full + st, it * B, slice);
+      }
+    }
+  } else {  // a consumer: query rows q0 + 64 wg .. + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t q_hi = smem_addr(smem + L::resident + wg * 2 * L::kRes);
+    const uint32_t q_lo = q_hi + L::kRes;
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    // rows g and g + 8 of this warp's 16, in the base-2 scaled domain
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n = 2 * it;
+      const uint32_t k_hi = wait_part<L>(full, smem, n);
+
+      // raw scores q K^T: element 4n + e is row g + 8 (e >> 1), key
+      // it * B + 8n + 2t + (e & 1)
+      float s[B / 2];
+      wgmma_fence();
+      product3_ss<B, kTileRows, DP / 8>(s, q_hi, q_lo, k_hi,
+                                        k_hi + L::kPlane);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      mbar_arrive(empty + n % L::kStages);
+
+      const int k0 = it * B;
+      if (k0 + B > S) {
+#pragma unroll
+        for (int i = 0; i < B / 2; ++i)
+          if (k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
+      }
+      float alpha[2], bias[2], tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(s[2 * r], s[2 * r + 1]);
+#pragma unroll
+        for (int j = 1; j < B / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // every tile holds at least one valid key, so m_new is finite
+        const float m_new = fmaxf(m[r], mx * scale_log2);
+        alpha[r] = exp2_ftz(m[r] - m_new);
+        m[r] = m_new;
+        bias[r] = -m_new;
+      }
+      // p = exp2(s c - m), float32 throughout: l sums it, P V takes it
+      // split into TF32 hi and lo A fragments
+#pragma unroll
+      for (int i = 0; i < B / 2; ++i) {
+        s[i] = exp2_ftz(fmaf(s[i], scale_log2, bias[(i >> 1) & 1]));
+        tile_sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 1);
+        tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 2);
+        l[r] = l[r] * alpha[r] + tile_sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V (V^T's rows), this tile's product summed apart
+      uint32_t ph[B / 8][4], pl[B / 8][4];
+      split_fragments<B>(s, ph, pl);
+      const uint32_t vt_hi = wait_part<L>(full, smem, n + 1);
+      acc_tile<DP, B>(acc, ph, pl, vt_hi, vt_hi + L::kPlane);
+      mbar_arrive(empty + (n + 1) % L::kStages);
+    }
+
+    const size_t base = (size_t)slice * S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wg * kTileRows + warp * 16 + g + 8 * r;
+      if (row >= S) continue;
+      const float inv_l = 1.f / l[r];
+      float* orow = o + (base + row) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        if (n * 8 < D)
+          *reinterpret_cast<float2*>(orow + n * 8) = make_float2(
+              acc[4 * n + 2 * r] * inv_l, acc[4 * n + 2 * r + 1] * inv_l);
+      if (t == 0) lse[base + row] = m[r] + log2f(l[r]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32, D > 128: scalar FMAs
 
 constexpr int kFmaThreads = 256;  // 4 threads per query row
 
 template <int DP>
 constexpr size_t fma_smem_bytes() {
   // q, k, v tiles with row stride DP+1, and the probability tile with row
-  // stride kBlockK+1, all float32 (DP = 256: 209 KiB of the 227 KiB a block
-  // may hold)
+  // stride kBlockK+1, all float32 (209 KiB of the 227 KiB a block may hold)
   return sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (DP + 1) +
                           (size_t)kBlockQ * (kBlockK + 1));
 }
 
-// DP: padded head width (template); D: actual head width, D % 8 == 0, D <= DP
+// DP = 256: padded head width; D: actual head width, D % 8 == 0, D <= DP
 template <int DP>
 __global__ void __launch_bounds__(kFmaThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+flash_fwd_f32_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int S, int D, float scale_log2) {
   constexpr int RS = DP + 1;       // q/k/v tile row stride (float32)
@@ -361,8 +591,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int s, int d, bool use_bf16,
-                   cudaStream_t stream) {
+                   void* lse, const float* scratch, int bh, int s, int d,
+                   bool use_bf16, cudaStream_t stream) {
   const float scale_log2 = (float)(kLog2e / sqrt((double)d));
   cudaError_t err;
   if (use_bf16) {
@@ -386,38 +616,90 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     flash_fwd_bf16_kernel<DP><<<grid, FwdSmem<DP>::kThreads, smem, stream>>>(
         qm, km, vm, static_cast<bf16*>(o), static_cast<float*>(lse), s, d,
         scale_log2);
-  } else {
+  } else if constexpr (DP == 256) {
     constexpr size_t smem = fma_smem_bytes<DP>();
     static std::atomic<uint64_t> smem_set{0};
-    if ((err = set_smem_once(flash_fwd_f32_kernel<DP>, smem, smem_set)))
+    if ((err = set_smem_once(flash_fwd_f32_fma_kernel<DP>, smem, smem_set)))
       return err;
     const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-    flash_fwd_f32_kernel<DP><<<grid, kFmaThreads, smem, stream>>>(
+    flash_fwd_f32_fma_kernel<DP><<<grid, kFmaThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
         static_cast<float*>(lse), s, d, scale_log2);
+  } else {
+    using L = FwdSmemF32<DP>;
+    const size_t plane = 2 * (size_t)bh * s * d;  // one operand's hi + lo
+    CUtensorMap qm, km, vtm;
+    if ((err = split_map(&qm, scratch, bh, s, d, kTileRows)) ||
+        (err = split_map(&km, scratch + plane, bh, s, d, L::kBlk)) ||
+        (err = trans_map(&vtm, scratch + 2 * plane, bh, d, round_up_tile(s),
+                         DP)))
+      return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_fwd_f32_kernel<DP>, L::bytes, smem_set)))
+      return err;
+    static const cudaError_t pool =
+        check_register_pool(flash_fwd_f32_kernel<DP>, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
+    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    flash_fwd_f32_kernel<DP><<<grid, L::kThreads, L::bytes, stream>>>(
+        qm, km, vtm, static_cast<float*>(o), static_cast<float*>(lse), s, d,
+        scale_log2);
   }
   return cudaGetLastError();
 }
 
+bool bad_shape(int bh, int s, int d, int max_d) {
+  return bh <= 0 || bh > 65535 || s <= 0 || d < 8 || d > max_d || d % 8;
+}
+
 }  // namespace
+
+// q, k, v: contiguous (bh, s, d) float32 device arrays, 16-byte aligned,
+// d % 8 == 0 and 8 <= d <= 128; scratch: a 16-byte aligned float32 array of
+// 4 bh s d + 2 bh d sp elements, sp = s rounded up to 64. Launches the
+// float32 forward's pre-pass on `stream` without synchronising: the TF32 hi
+// and lo planes of q and K, then of V^T, into `scratch`, for a later
+// ddti_flash_fwd on the same stream. Returns the launch's cudaError_t (0 =
+// success).
+extern "C" int ddti_flash_fwd_split_f32(const void* q, const void* k,
+                                        const void* v, void* scratch, int bh,
+                                        int s, int d, int device,
+                                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(bh, s, d, kMaxSplitD)) return (int)cudaErrorInvalidValue;
+  const int sp = round_up_tile(s);
+  float* split = static_cast<float*>(scratch);
+  flash_fwd_split_f32_kernel<<<dim3(sp / kTileRows, bh), kSplitThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), split, split + 4 * (size_t)bh * s * d, bh,
+      s, sp, d);
+  return (int)cudaGetLastError();
+}
 
 // q, k, v, o: contiguous (bh, s, d) device arrays of float32 (is_bf16 == 0)
 // or bfloat16 (is_bf16 == 1), 16-byte aligned, d % 8 == 0 and 8 <= d <= 256;
-// lse: (bh, s) float32.
+// lse: (bh, s) float32; scratch: in float32 with d <= 128, what
+// ddti_flash_fwd_split_f32 wrote for the same q, k, v earlier on the same
+// stream, else unused.
 // Launches on `stream` without synchronising and returns the launch's
 // cudaError_t (0 = success).
 extern "C" int ddti_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int bh, int s, int d,
-                              int is_bf16, int device, void* stream) {
+                              void* o, void* lse, const void* scratch, int bh,
+                              int s, int d, int is_bf16, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bh <= 0 || bh > 65535 || s <= 0 || d < 8 || d > 256 || d % 8)
+  const bool bf = is_bf16 != 0;
+  if (bad_shape(bh, s, d, 256) || (!bf && d <= kMaxSplitD && !scratch))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool use_bf16 = is_bf16 != 0;
-  if (d <= 32) return (int)launch<32>(q, k, v, o, lse, bh, s, d, use_bf16, st);
-  if (d <= 64) return (int)launch<64>(q, k, v, o, lse, bh, s, d, use_bf16, st);
-  if (d <= 128) return (int)launch<128>(q, k, v, o, lse, bh, s, d, use_bf16, st);
-  return (int)launch<256>(q, k, v, o, lse, bh, s, d, use_bf16, st);
+  const float* sc = static_cast<const float*>(scratch);
+  if (d <= 32) return (int)launch<32>(q, k, v, o, lse, sc, bh, s, d, bf, st);
+  if (d <= 64) return (int)launch<64>(q, k, v, o, lse, sc, bh, s, d, bf, st);
+  if (d <= 128) return (int)launch<128>(q, k, v, o, lse, sc, bh, s, d, bf, st);
+  return (int)launch<256>(q, k, v, o, lse, sc, bh, s, d, bf, st);
 }

@@ -663,6 +663,74 @@ __device__ __forceinline__ void acc_tile(float (&acc)[N / 2],
   }
 }
 
+// Float32 operands reach the tf32 kernels as TF32 hi and lo planes that a
+// pre-pass writes to scratch: row-major (bh, 2, s, d), or transposed (bh,
+// 2, d, sp) with sp = s rounded up to 64 and zeros past s.
+
+// rows [row, row + R) of a (bh, 2, s, d) split plane pair, hi then lo, as
+// DP / 32 boxes each
+template <int DP, int R>
+__device__ __forceinline__ void tma_load_split(unsigned char* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int row,
+                                               int slice) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int b = 0; b < DP / 32; ++b)
+      tma_load(dst + h * R * DP * 4 + b * R * 128, map, bar, 32 * b, row,
+               2 * slice + h);
+}
+
+// columns [col, col + C) of a (bh, 2, d, sp) transposed plane pair, DP
+// rows, hi then lo, as C / 32 boxes each
+template <int DP, int C>
+__device__ __forceinline__ void tma_load_trans(unsigned char* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int col,
+                                               int slice) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int b = 0; b < C / 32; ++b)
+      tma_load(dst + h * DP * C * 4 + b * DP * 128, map, bar, col + 32 * b, 0,
+               2 * slice + h);
+}
+
+// slot of ring position n of a block whose ring of L::kStages slots of
+// L::kPart bytes starts at L::stages, waited for
+template <typename L>
+__device__ __forceinline__ uint32_t wait_part(uint64_t* full,
+                                              unsigned char* smem, int n) {
+  const int st = n % L::kStages;
+  mbar_wait(full + st, (n / L::kStages) & 1);
+  return smem_addr(smem + L::stages + st * L::kPart);
+}
+
+// A pre-pass block's 64 rows r0 .. r0 + 63 of one float32 operand, staged
+// in `tile` (zeros past s), as columns r0 .. r0 + 63 of the operand's
+// transposed hi and lo planes (`out`, out + tplane: d rows of sp columns),
+// the positions of each group of 8 in the order {0, 2, 4, 6, 1, 3, 5, 7}
+// that split_fragments expects of a B operand met by an accumulator. Four
+// positions p .. p + 3 of a transposed row a thread: the tile rows
+// (p & ~7) + {0, 2, 4, 6} where p % 8 = 0, + {1, 3, 5, 7} where it is 4.
+template <int kThreads, int kLd>
+__device__ __forceinline__ void store_trans_split(const float (*tile)[kLd],
+                                                  float* out, size_t tplane,
+                                                  int sp, int r0, int d) {
+  for (int i = threadIdx.x; i < d * kTileRows / 4; i += kThreads) {
+    const int c = i / (kTileRows / 4), p = 4 * (i % (kTileRows / 4));
+    const int r = (p & ~7) | (p & 4 ? 1 : 0);
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32(tile[r + 2 * j][c], hi[j], lo[j]);
+    *reinterpret_cast<uint4*>(out + (size_t)c * sp + r0 + p) =
+        make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(out + tplane + (size_t)c * sp + r0 + p) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host
 
@@ -746,6 +814,33 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int bh, int s,
   const cuuint32_t box[3] = {(cuuint32_t)Tile<DP>::kBoxCols, kTileRows, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
                 strides, box, Tile<DP>::kSwizzle);
+}
+
+// float32 split planes (bh, 2, s, d) as a 3-D map (d, s, 2 bh) of boxes of
+// `box_rows` rows and 32 columns (128 bytes, the 128-byte swizzle); rows
+// past s and columns past d read as zeros
+inline cudaError_t split_map(CUtensorMap* map, const float* planes, int bh,
+                             int s, int d, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, 2ull * bh};
+  const cuuint64_t strides[2] = {4ull * d, 4ull * d * s};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, planes, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// float32 transposed planes (bh, 2, d, sp) as a 3-D map (sp, d, 2 bh) of
+// boxes of DP rows (d, zeros past it) and 32 columns
+inline cudaError_t trans_map(CUtensorMap* map, const float* planes, int bh,
+                             int d, int sp, int dp) {
+  const cuuint64_t dims[3] = {(cuuint64_t)sp, (cuuint64_t)d, 2ull * bh};
+  const cuuint64_t strides[2] = {4ull * sp, 4ull * sp * d};
+  const cuuint32_t box[3] = {32, (cuuint32_t)dp, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, planes, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+inline int round_up_tile(int s) {
+  return (s + kTileRows - 1) / kTileRows * kTileRows;
 }
 
 }  // namespace

@@ -27,6 +27,14 @@ LOG2E = 1.4426950408889634
 # bound, the backward kernels up to MAX_BWD_HEAD_DIM
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128
+# float32 forwards up to this width run on the tensor cores (3xTF32), fed
+# by a pre-pass that splits q, K and V^T into TF32 hi and lo planes; wider
+# heads on FMAs
+MAX_SPLIT_HEAD_DIM = 128
+# the order in which the transposed TF32 planes store each group of 8 keys:
+# position i holds key KEY_ORDER[i], so that P, an accumulator, is a TF32 A
+# fragment as it stands (csrc/sm90.cuh)
+KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,6 +64,47 @@ def flash_forward_reference(q, k, v):
         return o.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
 
 
+def _tf32_rna(x):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, the 13 low bits cleared (an integer add
+    on the sign-magnitude bit pattern)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _round_up_tile(s):
+    return -(-s // 64) * 64
+
+
+def _split_scratch_size(bh, s, d):
+    """Float32 elements of the forward pre-pass's scratch: the hi and lo
+    planes of q and K, (2, bh, 2, s, d), then of V^T, (bh, 2, d, sp) with
+    sp = s rounded up to 64."""
+    return 4 * bh * s * d + 2 * bh * d * _round_up_tile(s)
+
+
+def flash_forward_split_reference(q, k, v):
+    """What the float32 forward's pre-pass (``flash_fwd_split_f32_kernel``)
+    writes, in plain PyTorch, as one flat float32 tensor: q's and K's TF32
+    hi and lo planes as they are, then V^T's, zero past S, each group of 8
+    keys in the order KEY_ORDER."""
+    b, h, s, d = q.shape
+    bh, sp = b * h, _round_up_tile(s)
+    vt = v.new_zeros((bh, sp, d))
+    vt[:, :s] = v.reshape(bh, s, d)
+    order = torch.arange(sp).view(-1, 8)[:, list(KEY_ORDER)].reshape(-1)
+    vt = vt[:, order].transpose(1, 2)
+    planes = [torch.stack(_split_tf32(t), 1)
+              for t in (q.reshape(bh, s, d), k.reshape(bh, s, d), vt)]
+    return torch.cat([p.reshape(-1) for p in planes])
+
+
 def _stream(index):
     """The current CUDA stream of device ``index`` as a raw pointer: the
     call PyTorch's own kernel launchers make, without building the Stream
@@ -65,9 +114,10 @@ def _stream(index):
 
 
 def flash_forward_cuda(q, k, v):
-    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: returns (o, lse2).
-    Raises on anything the kernel does not take. Adds one to
-    ``flash_forward_cuda.launches`` per launch."""
+    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: returns (o, lse2). In
+    float32 with d <= MAX_SPLIT_HEAD_DIM the pre-pass that splits q, K and
+    V^T into TF32 planes runs first. Raises on anything the kernel does not
+    take. Adds one to ``flash_forward_cuda.launches`` per forward."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q, k, v must share one (B, H, S, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -95,8 +145,14 @@ def flash_forward_cuda(q, k, v):
 
     o = torch.empty_like(q)
     lse = q.new_empty((b, h, s), dtype=torch.float32)
-    launch("flash_fwd", *ptrs, o.data_ptr(), lse.data_ptr(), b * h, s, d,
-           _KERNEL_DTYPES[q.dtype], dev.index, _stream(dev.index))
+    stream, scratch, pscratch = _stream(dev.index), None, None
+    if q.dtype == torch.float32 and d <= MAX_SPLIT_HEAD_DIM:
+        scratch = lse.new_empty(_split_scratch_size(b * h, s, d))
+        pscratch = scratch.data_ptr()
+        launch("flash_fwd_split_f32", *ptrs, pscratch, b * h, s, d,
+               dev.index, stream)
+    launch("flash_fwd", *ptrs, o.data_ptr(), lse.data_ptr(), pscratch,
+           b * h, s, d, _KERNEL_DTYPES[q.dtype], dev.index, stream)
     flash_forward_cuda.launches += 1
     return o, lse
 
@@ -163,7 +219,7 @@ def flash_backward_cuda(q, k, v, o, lse2, do):
     bf16 = _KERNEL_DTYPES[q.dtype]
     # the dK/dV kernel's TMA loads read lse2 and delta from a (B*H, 2, S
     # rounded up to 64) buffer that the pre-pass pads with +inf and 0
-    sp = -(-s // 64) * 64
+    sp = _round_up_tile(s)
     rows = lse2.new_empty((b * h, 2, sp))
     # float32: the pre-pass splits q, K, V, dO into TF32 hi and lo planes,
     # row-major and (q, dO, K) transposed, for both kernels' TMA loads

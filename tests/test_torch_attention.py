@@ -281,3 +281,85 @@ def test_3xtf32_backward_keeps_float32_accuracy():
         assert (s.double() - e).abs().max().item() <= 4e-6 * scale, name
         assert (s - r).abs().max().item() <= 4e-6 * scale, name
         assert (t.double() - e).abs().max().item() > 1e-4 * scale, name
+
+
+def _forward_with(q, k, v, matmul):
+    """flash_forward_reference's float32 function with both products taken
+    by ``matmul``: S = q K^T, and P V with the unnormalised float32 P."""
+    s = matmul(q, k.transpose(-1, -2)) * (tattn.LOG2E / np.sqrt(q.shape[-1]))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    return matmul(p, v) / l, (m + torch.log2(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 130, 32), (1, 2, 200, 128)])
+def test_3xtf32_forward_keeps_float32_accuracy(shape):
+    """The float32 forward kernel's arithmetic, modelled on the CPU: q K^T
+    and P V as three TF32 products each, P split into hi and lo as the
+    kernel splits it. Against a float64 forward of the same inputs and
+    against flash_forward_reference (float32 products), o stays within 4e-6
+    of max |o| (measured: 3.4e-7 / 8.0e-7 from float64, 5.7e-7 / 1.6e-6
+    from the reference at D = 32 / 128) and lse2 within 4e-6 (7.7e-7 /
+    8.7e-7): the card's limits of 1e-4 and 1e-3 keep a margin of ~25x and
+    more. One TF32 product alone misses it (o 3.5e-4 to 5.4e-4 off)."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for _ in range(3))
+    o3, lse3 = _forward_with(q, k, v, _matmul_3xtf32)
+    exact_o, exact_lse = _forward_with(q.double(), k.double(), v.double(),
+                                       torch.matmul)
+    ref_o, ref_lse = tattn.flash_forward_reference(q, k, v)
+    one_o, one_lse = _forward_with(q, k, v, lambda a, b: _tf32(a) @ _tf32(b))
+    scale = exact_o.abs().max().item()
+    assert (o3.double() - exact_o).abs().max().item() <= 4e-6 * scale
+    assert (o3 - ref_o).abs().max().item() <= 4e-6 * scale
+    assert (lse3.double() - exact_lse).abs().max().item() <= 4e-6
+    assert (lse3 - ref_lse).abs().max().item() <= 4e-6
+    assert (one_o.double() - exact_o).abs().max().item() > 1e-4 * scale
+    assert (one_lse.double() - exact_lse).abs().max().item() > 1e-4
+
+
+@pytest.mark.parametrize("x, want", [
+    (1 + 2 ** -11, 1 + 2 ** -10),             # a tie: away from zero
+    (-(1 + 2 ** -11), -(1 + 2 ** -10)),
+    (1 + 3 * 2 ** -11, 1 + 2 ** -9),          # a tie: away from zero
+    (1 + 2 ** -11 - 2 ** -20, 1.0),           # below the tie
+])
+def test_tf32_rna_rounding(x, want):
+    """The float32 kernels split with cvt.rna (ties away from zero), which
+    the pre-pass's plain version models bit for bit."""
+    got = tattn._tf32_rna(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == want
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 100, 32), (2, 1, 64, 8),
+                                   (1, 1, 1, 16), (1, 1, 130, 128)])
+def test_forward_split_reference_layout(shape):
+    """The plain version of the float32 forward's pre-pass, held against
+    numpy: q's and K's TF32 hi and lo planes as they are; V^T's with
+    position p of each group of 8 holding key {0, 2, 4, 6, 1, 3, 5, 7}[p %
+    8] (the order in which P's accumulator columns meet a TF32 A fragment)
+    and zeros past S; hi is x rounded to TF32 and hi + lo is x to 2^-21 of
+    |x|. The card holds the kernel's pre-pass bit for bit against it."""
+    b, h, s, d = shape
+    bh, sp = b * h, -(-s // 64) * 64
+    q, k, v = _qkv(shape, seed=s + d)
+    flat = tattn.flash_forward_split_reference(
+        *(torch.from_numpy(t) for t in (q, k, v))).numpy()
+    n = bh * 2 * s * d
+    assert flat.shape == (2 * n + bh * 2 * d * sp,)
+    qp, kp = flat[:n].reshape(bh, 2, s, d), flat[n:2 * n].reshape(bh, 2, s, d)
+    vt = flat[2 * n:].reshape(bh, 2, d, sp)
+    want_vt = np.zeros((bh, d, sp), np.float32)
+    for p in range(sp):
+        key = 8 * (p // 8) + (0, 2, 4, 6, 1, 3, 5, 7)[p % 8]
+        if key < s:
+            want_vt[:, :, p] = v.reshape(bh, s, d)[:, key]
+    for planes, want in ((qp, q.reshape(bh, s, d)), (kp, k.reshape(bh, s, d)),
+                         (vt, want_vt)):
+        hi, lo = planes[:, 0], planes[:, 1]
+        assert (hi.view(np.int32) & 0x1FFF == 0).all()
+        assert (lo.view(np.int32) & 0x1FFF == 0).all()
+        assert (np.abs(want - hi) <= 2.0 ** -11 * np.abs(want)).all()
+        assert (np.abs(want - (hi + lo)) <= 2.0 ** -21 * np.abs(want)).all()

@@ -92,6 +92,74 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         A.flash_forward_cuda(shifted, k, v)
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 100, 32), (2, 2, 333, 64),
+                                   (1, 2, 130, 128), (2, 4, 200, 8),
+                                   (1, 1, 1, 16)])
+def test_flash_forward_split_kernel_bit_equal_to_plain(cuda, shape):
+    """The float32 forward's pre-pass writes, bit for bit, what its plain
+    version builds: q's and K's TF32 hi and lo planes, V^T's in the key
+    order {0, 2, 4, 6, 1, 3, 5, 7} with zeros past S (every element of the
+    scratch, which starts as NaN)."""
+    from ddti_tpu_torch.ops._build import launch
+
+    q, k, v = _qkv(shape, torch.float32, cuda)
+    b, h, s, d = shape
+    scratch = torch.full((A._split_scratch_size(b * h, s, d),), float("nan"),
+                         device=cuda)
+    launch("flash_fwd_split_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           scratch.data_ptr(), b * h, s, d, cuda.index or 0,
+           A._stream(cuda.index or 0))
+    torch.cuda.synchronize()
+    assert torch.equal(scratch, A.flash_forward_split_reference(q, k, v))
+
+
+@pytest.mark.parametrize("shape, key, col", [
+    ((1, 1, 100, 32), 45, 3),
+    ((1, 1, 70, 64), 66, 60),
+    ((1, 1, 130, 128), 121, 127),
+    ((1, 1, 100, 128), 14, 64),
+])
+def test_flash_forward_f32_fragment_layout(cuda, shape, key, col):
+    """The float32 forward's TF32 fragment layout, held with V zero but for
+    one entry (key ``key``, column ``col``; key % 8 in 1..6, as 0 and 7 are
+    where the order {0, 2, 4, 6, 1, 3, 5, 7} keeps a key in place): o's
+    column col is then P's column key times that entry and every other
+    column is zero, so a key met in the wrong k position of a fragment
+    shows as a misplaced probability, not as noise."""
+    g = torch.Generator().manual_seed(11)
+    q, k = (torch.randn(shape, generator=g) for _ in range(2))
+    v = torch.zeros(shape)
+    v[0, 0, key, col] = 2.0
+    q, k, v = (t.to(cuda) for t in (q, k, v))
+    o, lse = A.flash_forward_cuda(q, k, v)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+    others = torch.ones(shape[-1], dtype=torch.bool)
+    others[col] = False
+    assert (o[..., others.to(cuda)] == 0).all()
+    scale = o_ref.abs().max().item()
+    assert scale > 0
+    # 3xTF32 products: about 2^-21 of each term
+    assert (o - o_ref).abs().max().item() <= 1e-5 * scale
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4096, 32), (1, 2, 2048, 128)])
+def test_flash_forward_f32_error_does_not_grow_with_s(cuda, shape):
+    """The float32 forward sums each key tile's 3xTF32 P V product in a
+    fresh wgmma accumulator and adds it to the output on the CUDA cores, as
+    the backward does (the tensor cores' float32 sums round toward zero and
+    would drift with S): o within 1e-5 of max |o| and lse2 within 1e-5 at
+    S = 4096, as at short S (a CPU model of the arithmetic gives ~1e-6)."""
+    q, k, v = _qkv(shape, torch.float32, cuda)
+    o, lse = A.flash_forward_cuda(q, k, v)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+    scale = o_ref.abs().max().item()
+    assert (o - o_ref).abs().max().item() <= 1e-5 * scale
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
+
+
 def _edt_masks(n, h, w, seed):
     g = torch.Generator().manual_seed(seed)
     m = torch.rand((n, h, w), generator=g) < 0.02
