@@ -15,7 +15,11 @@ and a non-zero exit:
 1. device   — needs CUDA; prints the card's name and power limit
               (nvidia-smi) and turns TF32 off, so float32 means float32.
 2. build    — compiles the CUDA sources under ddti_tpu_torch/csrc with nvcc
-              (one process per source, all at once) into build/.
+              (one process per source, all at once) into build/, and the
+              DDTI_POLY_EXP2=1 library beside it at the same time; prints
+              each kernel's registers, spills and SASS opcode counts, and
+              holds the poly build to the polynomial (no MUFU.EX2 in a
+              flash kernel, no FRND or F2I on any poly path).
 3. kernels  — every kernel against its plain PyTorch version on the card,
               with timings: flash attention forward at the serving path's
               shapes (in float32 with its TF32 split pre-pass timed apart);
@@ -35,7 +39,17 @@ and a non-zero exit:
               plain version and against scipy at the training path's
               shapes, ragged ones and edge frames, its column and row passes
               timed apart (torch.profiler).
-4. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
+4. probes   — the ports of the softmax probes of benchmarks/
+              (ddti_tpu_torch/probes): csrc/exp2_probe.cu in every mode
+              against its plain version (<= 2 ulp, the copy bit for bit)
+              on the probe's input and on edge values; the m-skip forward
+              bit for bit against the production forward and within the
+              forward's limits of its plain version; in a subprocess with
+              DDTI_POLY_EXP2=1 (its own library, built beside the default
+              one in the build phase) the flash forward and backward
+              against their plain versions in poly mode, queued times
+              beside; then the three probes' lines.
+5. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
               TransUNet of configs/config.yaml (base_filters 64, depth 4,
               512x512 -> 1024 bottleneck tokens), random weights from a seed,
               bf16, batch 16. A few dozen PNG frames are POSTed concurrently
@@ -47,10 +61,10 @@ and a non-zero exit:
               loosely for the masks the daemon served (its batches form by
               arrival). In float32 both paths' masks must agree on >= 99.9%
               of pixels and their logits to 1e-3.
-5. profile  — device time per bf16 serving batch of 16 on the kernel path
+6. profile  — device time per bf16 serving batch of 16 on the kernel path
               and on the plain path (CUDA events), and a torch.profiler
               breakdown of the kernel path with the device's busy share.
-6. train    — the training CLI (python -m ddti_tpu_torch.cli.main --mode
+7. train    — the training CLI (python -m ddti_tpu_torch.cli.main --mode
               both --synthetic) with the flagship ResUNet (base_filters 64,
               depth 5) at 512^2, batch 16, bf16, 2 epochs, in a subprocess:
               exit 0, the parameter count, the JAX CLI's run tree, finite
@@ -58,21 +72,21 @@ and a non-zero exit:
               metrics with HD95/ASSD, a best .pth that loads strictly and an
               .npz in the JAX package's key layout, and exactly the expected
               number of EDT kernel launches.
-7. ttrain   — the same CLI training the serving slice's TransUNet
+8. ttrain   — the same CLI training the serving slice's TransUNet
               (base_filters 64, depth 4, 512^2 -> 1024 tokens) from a model
               YAML with dropout_rate 0.0, batch 16, bf16, 2 epochs: the same
               checks, and exactly the expected launches of the flash forward,
               both backward kernels and the EDT.
-8. step     — one float32 train step from one state and batch with the
+9. step     — one float32 train step from one state and batch with the
               kernel EDT and with the plain EDT: bit-equal boundary terms and
               updated parameters equal to 1e-6.
-9. tstep    — one float32 TransUNet train step from one state and batch
+10. tstep   — one float32 TransUNet train step from one state and batch
               through the flash kernels and through their plain versions
               (swapped in explicitly): loss terms to 1e-6, gradients and
               updated parameters within the stated normwise limits; then a
               bf16 step at the default dropout 0.1, which the gate sends to
               the plain attention: no flash launch, finite terms.
-10. tprofile — device time per train step (CUDA events), bf16 first:
+11. tprofile — device time per train step (CUDA events), bf16 first:
               ResUNet at 512^2 / batch 16 and 256^2 / batch 128, with the
               EDT kernels' share; the TransUNet at 512^2 / batch 16 (S = 1024) on the
               kernel path and the plain path, and the S = 4096 TransUNet
@@ -81,7 +95,7 @@ and a non-zero exit:
               CLI's default dtype, TF32 off): S = 1024 on both paths and
               S = 4096 on the kernel path; torch.profiler top-8, busy share
               and the flash kernels' share.
-11. result  — the total wall time, a JSON line of the kernels, then the
+12. result  — the total wall time, a JSON line of the kernels, then the
               device line.
 """
 
@@ -157,6 +171,10 @@ BWD_PROFILE_CALLS = 5
 # with no launch waiting for the host
 HOST_CALLS = 100
 SLEEP_CYCLES = 200_000_000
+# the host shares its cores: where it enqueued the calls slower than the
+# sleep lasted (autograd calls take ~1 ms each), the measurement is taken
+# again behind a sleep the next of these many times as long
+SLEEP_SCALES = (1, 4, 16)
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): dense
 # tensor-core bf16, float32 outside the tensor cores and dense TF32 on them,
 # in FLOP/s, and HBM3 bytes/s; the exp2 unit issues 16 ex2 per clock per
@@ -190,6 +208,19 @@ TSTEP_PARAM_RTOL = 1e-5
 TLONG = dict(in_channels=1, out_channels=1, base_filters=32, depth=3,
              dropout_rate=0.0)
 TLONG_BATCHES = (16, 8, 4, 2, 1)
+# the probes phase: exp2_probe's edge values (signed zeros, -inf, the TPU
+# kernels' -1e30 sentinel, halves that round to even, both ends of the
+# clamp, a subnormal), held to EXP2_ULPS of the plain version; the m-skip
+# forward's shapes (the probe's, the slice's, a ragged S), bit for bit
+# against the production forward; the poly build's flash shapes (a and c of
+# PERF.md)
+EXP2_EDGES = (0.0, -0.0, float("-inf"), -1e30, -126.5, 127.0, 0.5, 1.5, 2.5,
+              -0.5, -1.5, -2.5, -125.5, -126.0, -127.5, -130.0, 126.5, 3.0,
+              -20.0, 1e-40, -1e-40, 0.25, -0.75)
+EXP2_ULPS = 2
+MSKIP_SHAPES = [(8, 8, 4096, 32), (16, 8, 1024, 32), (2, 8, 1000, 32)]
+POLY_SHAPES = [(16, 8, 1024, 32, "bfloat16"), (16, 8, 1024, 32, "float32")]
+POLY_TIMEOUT_S = 600
 
 
 def phase(name, msg):
@@ -225,12 +256,29 @@ def work_counts(kernel, shape, dtype="bfloat16"):
     five products, P recomputed once by each kernel); ``flash_bwd_dkdv``
     (with the delta pre-pass: -> dk, dv, delta; S^T, dP^T, dV, dK) and
     ``flash_bwd_dq`` (q, k, v, dO, lse2, delta -> dq; S, dP, dQ) are its
-    two kernels. ``edt`` takes (N, H, W): uint8 in, float32 out, and its
-    row pass does one add and one min per (row, column, column)."""
+    two kernels; ``flash_fwd_mskip`` does the forward's work (the rescale it
+    skips is not counted in either). ``edt`` takes (N, H, W): uint8 in,
+    float32 out, and its row pass does one add and one min per (row, column,
+    column). ``exp2_probe`` takes (rows, cols) float32 in and out, one exp2
+    an element and no FLOP that the bound counts. Two TPU probes still to
+    port, at their shapes: ``conv3x3`` (benchmarks/pallas_conv_probe.py)
+    takes (N, H, W, C, CO), the input padded by one pixel and the output
+    in bf16, and ``gather`` (benchmarks/gather_probe*.py) (N, H, W, element
+    bytes), one int32 index an element gathered."""
     if kernel == "edt":
         n, h, w = shape
         return dict(flop=2 * n * h * w * w, bytes=n * h * w * (1 + 4),
                     exp2=0)
+    if kernel == "exp2_probe":
+        n = shape[0] * shape[1]
+        return dict(flop=0, bytes=2 * 4 * n, exp2=n)
+    if kernel == "conv3x3":
+        n, h, w, c, co = shape
+        return dict(flop=2 * n * h * w * 9 * c * co, exp2=0, bytes=2 * (
+            n * (h + 2) * (w + 2) * c + n * h * w * co + 9 * c * co + co))
+    if kernel == "gather":
+        n, h, w, elem = shape
+        return dict(flop=0, bytes=n * h * w * (2 * elem + 4), exp2=0)
     b, h, s, d = shape
     tensor = b * h * s * d * (2 if dtype == "bfloat16" else 4)
     rows = b * h * s * 4
@@ -238,6 +286,7 @@ def work_counts(kernel, shape, dtype="bfloat16"):
     # passes
     products, tensors, nrows, passes = {
         "flash_fwd": (2, 4, 1, 1),
+        "flash_fwd_mskip": (2, 4, 1, 1),
         "flash_bwd": (5, 8, 1, 2),
         "flash_bwd_dkdv": (4, 7, 2, 1),
         "flash_bwd_dq": (3, 5, 2, 1),
@@ -254,7 +303,7 @@ def bound(kernel, shape, dtype="bfloat16"):
     them) and bytes over the memory rate. Returns (bound_ms, bound_by,
     exp2_ms), exp2_ms the time the exp2 unit alone needs."""
     w = work_counts(kernel, shape, dtype)
-    peak = PEAK_FLOPS["float32" if kernel == "edt"
+    peak = PEAK_FLOPS["float32" if kernel in ("edt", "exp2_probe", "gather")
                       else "tf32x3" if dtype == "float32" else dtype]
     ops_ms, bytes_ms = w["flop"] / peak * 1e3, w["bytes"] / PEAK_BYTES * 1e3
     return (max(ops_ms, bytes_ms),
@@ -308,22 +357,24 @@ def queued_ms(fn, calls=HOST_CALLS):
     first launch, which is most of it for a kernel of 0.1 ms."""
     import torch
 
-    torch.cuda.synchronize()
-    slept = torch.cuda.Event(enable_timing=True)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    slept.record()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    assert host_ms < slept.elapsed_time(start), \
-        "the device-side sleep ended before the calls were enqueued"
-    return host_ms / calls, start.elapsed_time(end) / calls
+    for scale in SLEEP_SCALES:
+        torch.cuda.synchronize()
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        slept.record()
+        torch.cuda._sleep(SLEEP_CYCLES * scale)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if host_ms < slept.elapsed_time(start):
+            return host_ms / calls, start.elapsed_time(end) / calls
+    raise AssertionError("the device-side sleep ended before the calls were "
+                         "enqueued")
 
 
 def launch_ms(fn, calls=HOST_CALLS):
@@ -349,23 +400,28 @@ def launch_ms(fn, calls=HOST_CALLS):
         end.record()
         marks.append((name, start, end))
 
-    slept = torch.cuda.Event(enable_timing=True)
-    woke = torch.cuda.Event(enable_timing=True)
     _build.launch = timed
     try:
-        slept.record()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        woke.record()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
+        for scale in SLEEP_SCALES:
+            marks.clear()
+            slept = torch.cuda.Event(enable_timing=True)
+            woke = torch.cuda.Event(enable_timing=True)
+            slept.record()
+            torch.cuda._sleep(SLEEP_CYCLES * scale)
+            woke.record()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            if host_ms < slept.elapsed_time(woke):
+                break
+        else:
+            raise AssertionError("the device-side sleep ended before the "
+                                 "calls were enqueued")
     finally:
         _build.launch = launch
     assert marks, "no kernel entry point was called"
-    assert host_ms < slept.elapsed_time(woke), \
-        "the device-side sleep ended before the calls were enqueued"
     ms = {}
     for name, start, end in marks:
         ms[name] = ms.get(name, 0.0) + start.elapsed_time(end) / calls
@@ -412,23 +468,28 @@ def _bound_text(kernel, shape, dtype, ms):
             f"reached), exp2 floor {exp2_ms:.4f} ms")
 
 
-def kernel_report(lib):
+def kernel_report(lib, quiet=False):
     """Each kernel's registers and spills from the build's ptxas report,
     and the SASS opcodes that show how it runs (cuobjdump -sass): HGMMA
-    (wgmma), UTMALDG (TMA loads), SYNCS (mbarriers), HMMA (mma.sync) and
-    atomics. The bf16 flash kernels (the forward, dK/dV and dQ) and the
+    (wgmma), UTMALDG (TMA loads), SYNCS (mbarriers), HMMA (mma.sync),
+    atomics, and the exp2 unit's MUFU.EX2 beside FRND and F2I (which issue
+    at its rate). The bf16 flash kernels (the forward, dK/dV and dQ) and the
     float32 ones (the forward but its FMA loop for heads above 128, dK/dV
     and dQ) must run on wgmma and TMA loads, and no flash kernel may use an
-    atomic."""
+    atomic. Prints a line a kernel (none where ``quiet``) and every line in
+    which ptxas reports a performance loss. Returns ({kernel: registers,
+    spills}, {kernel: opcode counts}); the m-skip forward is named
+    ``flash_fwd_bf16_kernel<DP,mskip>``."""
     import re
     import shutil
 
     def short(name):
-        m = re.search(r"\d((?:flash|edt)_\w+?_kernel)(?:ILi(\d+)E|I(\w)|E)",
-                      name)
+        m = re.search(r"\d((?:flash|edt|exp2)_\w+?_kernel)"
+                      r"(?:ILi(\d+)E(Lb1E)?|I(\w)|E)", name)
         if not m:
             return name
-        arg = m.group(2) or m.group(3)
+        arg = m.group(2) or m.group(4)
+        arg = f"{arg},mskip" if m.group(3) else arg
         return f"{m.group(1)}<{arg}>" if arg else m.group(1)
 
     regs, cur = {}, None
@@ -443,6 +504,8 @@ def kernel_report(lib):
             m = re.search(r"Used (\d+) registers", line)
             if m and cur:
                 regs.setdefault(cur, {})["regs"] = int(m.group(1))
+            if "Performance Loss" in line:
+                phase("build", f"ptxas: {line.strip()[:200]}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -452,8 +515,10 @@ def kernel_report(lib):
         ops[name] = {op: len(re.findall(pat, chunk)) for op, pat in (
             ("HGMMA", r"\bHGMMA\."), ("UTMALDG", r"\bUTMALDG"),
             ("SYNCS", r"\bSYNCS\."), ("HMMA", r"\bHMMA\."),
-            ("atomic", r"\b(?:ATOM|ATOMG|ATOMS|RED)\b"))}
-    for name in sorted(set(regs) | set(ops)):
+            ("atomic", r"\b(?:ATOM|ATOMG|ATOMS|RED)\b"),
+            ("MUFU.EX2", r"\bMUFU\.EX2\b"), ("FRND", r"\bFRND\b"),
+            ("F2I", r"\bF2I\b"))}
+    for name in [] if quiet else sorted(set(regs) | set(ops)):
         r, o = regs.get(name, {}), ops.get(name, {})
         phase("build", f"{name}: {r.get('regs')} registers, "
               f"{r.get('spill')} bytes spilled; SASS "
@@ -468,6 +533,33 @@ def kernel_report(lib):
             assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"], \
                 f"{name} issues no wgmma or TMA load"
     return regs, ops
+
+
+def check_poly_build(path, default_ops):
+    """The DDTI_POLY_EXP2=1 library at ``path`` against the default one's
+    opcode counts. Its poly paths are the flash kernels whose default build
+    runs MUFU.EX2 and exp2_probe's poly modes: none of them may issue
+    MUFU.EX2, nor FRND or F2I (which run at the exp2 unit's rate) beyond
+    what the default kernel (for the probe, its copy mode) issues without
+    the polynomial."""
+    regs, ops = kernel_report(path, quiet=True)
+    keys = ("MUFU.EX2", "FRND", "F2I")
+    base = {n: default_ops[n] for n in ops if n.startswith("flash_")
+            and default_ops[n]["MUFU.EX2"]}
+    base.update({f"exp2_probe_kernel<{m}>": default_ops["exp2_probe_kernel<0>"]
+                 for m in (4, 5, 6)})
+    for name, d in sorted(base.items()):
+        o, r = ops[name], regs.get(name, {})
+        phase("build", f"poly {name}: {r.get('regs')} registers, "
+              f"{r.get('spill')} bytes spilled; " + " ".join(
+                  f"{k} {o[k]} (without the polynomial {d[k]})"
+                  for k in keys))
+    assert len(base) > 3 and all(ops[n]["MUFU.EX2"] == 0 for n in base), \
+        "a poly path issues MUFU.EX2"
+    assert all(ops[n][k] <= d[k] for n, d in base.items()
+               for k in ("FRND", "F2I")), "a poly path issues FRND or F2I"
+    assert default_ops["exp2_probe_kernel<1>"]["MUFU.EX2"], \
+        "exp2_probe's builtin mode does not run on the exp2 unit"
 
 
 def check_kernels():
@@ -636,6 +728,166 @@ def kernel_phases():
     rows = check_kernels()
     bwd_rows = check_bwd_kernels()
     return rows, bwd_rows, decide(rows, bwd_rows)
+
+
+def check_probes():
+    """Phase 4: the probes of benchmarks/ as the port runs them. Returns
+    what the kernels line reports of exp2_probe, the m-skip forward and the
+    poly build."""
+    import torch
+
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.probes import exp2_probe as E2
+    from ddti_tpu_torch.probes import flash_mskip_ab as MS
+    from ddti_tpu_torch.probes import flash_poly_ab as PA
+
+    phase("probes", f"exp2_probe {(E2.ROWS, E2.COLS)} float32 uniform on "
+          f"[{E2.LOW}, {E2.HIGH}), seed {SEED} (the CPU's max rel err: "
+          "poly4 5.6e-5, poly5 3.3e-6, poly6 2.2e-7):")
+    e2 = E2.run(seed=SEED)
+    x = E2.make_input(E2.ROWS, E2.COLS, SEED, "cuda")
+    e2["plain_ms"] = median_ms(lambda: E2.exp2_probe_reference(x, "poly6"))
+    edges = torch.tensor(EXP2_EDGES, device="cuda")
+    edge_ulps = {}
+    for mode in E2.MODES:
+        got = E2.exp2_probe_cuda(edges, mode)
+        want = E2.exp2_probe_reference(edges, mode)
+        assert not torch.isnan(got).any(), f"exp2_probe {mode}: NaN"
+        edge_ulps[mode] = E2.ulp_distance(got, want)
+        if mode == "copy":
+            assert torch.equal(got.view(torch.int32), edges.view(torch.int32))
+    e2["edge_ulps"] = edge_ulps
+    ulps = {m: r["ulps_vs_plain"] for m, r in e2["modes"].items()}
+    phase("probes", f"exp2_probe vs plain, ulps on the probe's input {ulps}, "
+          f"on {len(EXP2_EDGES)} edge values {edge_ulps} (limit "
+          f"{EXP2_ULPS}; copy bit for bit); plain poly6 "
+          f"{e2['plain_ms']:.4f} ms")
+    assert ulps["copy"] == 0 and edge_ulps["copy"] == 0
+    assert max(ulps.values()) <= EXP2_ULPS \
+        and max(edge_ulps.values()) <= EXP2_ULPS, \
+        "exp2_probe disagrees with its plain version"
+
+    phase("probes", "flash_mskip_ab (B, H, S, D) = "
+          f"{(MS.B, MS.H, MS.S, MS.D)} bfloat16, seed {SEED}:")
+    ms = MS.run(seed=SEED)
+    assert ms["bit_equal"], "the m-skip forward differs from the baseline"
+    rows = []
+    for shape in MSKIP_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        o, lse = MS.flash_forward_mskip_cuda(q, k, v)
+        o0, lse0 = A.flash_forward_cuda(q, k, v)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = MS.flash_forward_mskip_reference(q, k, v)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        bit = torch.equal(o, o0) and torch.equal(lse, lse0)
+        row = dict(shape=list(shape), bit_equal_to_flash_fwd=bit,
+                   max_abs_err=err_o, max_abs_err_lse2=err_lse)
+        row["stale_share"] = MS.flash_forward_mskip_reference.stale_share
+        if shape == MSKIP_SHAPES[0]:
+            row["plain_ms"] = median_ms(
+                lambda: MS.flash_forward_mskip_reference(q, k, v))
+            lib_ms, lib, lib_queue_ms = sdpa_yardstick(q, k, v)
+            row.update(library_ms=lib_ms, library=lib,
+                       library_queue_ms=lib_queue_ms)
+        phase("probes", f"flash_fwd_mskip {shape} bfloat16: bit-equal to "
+              f"flash_fwd (o, lse2) {bit}; vs its plain version max|do| "
+              f"{err_o:.3e} (limit {O_LIMIT['bfloat16']:g}) max|dlse2| "
+              f"{err_lse:.3e} (limit {LSE_LIMIT:g}); the plain version took "
+              f"the stale branch on {row['stale_share']:.1%} of (16-row "
+              f"group, 64-key tile) pairs"
+              + (f"; plain {row['plain_ms']:.4f} ms, SDPA forward "
+                 f"{row['library_ms']} ms (queued "
+                 f"{row['library_queue_ms']}; {row['library']})"
+                 if "plain_ms" in row else ""))
+        assert bit, "the m-skip forward differs from the production forward"
+        assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+        assert err_o <= O_LIMIT["bfloat16"] and err_lse <= LSE_LIMIT, \
+            "the m-skip forward disagrees with its plain version"
+        rows.append(row)
+    ms["shapes"] = rows
+
+    # the flash kernels built with the polynomial, in a process of their own
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--poly-child"], capture_output=True, text=True,
+                         env=dict(os.environ, DDTI_POLY_EXP2="1"),
+                         timeout=POLY_TIMEOUT_S)
+    lines = res.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("[poly] "):
+            print(line, flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-8000:], file=sys.stderr)
+    assert res.returncode == 0, "the DDTI_POLY_EXP2=1 flash checks failed"
+    poly = json.loads(next(l for l in lines if l.startswith("[poly] "))[7:])
+
+    phase("probes", f"flash_poly_ab (B, H, S, D) = {(PA.B, PA.H, PA.S, PA.D)}"
+          " bfloat16, one process per setting of DDTI_POLY_EXP2:")
+    ab_rows = PA.run(seed=SEED)
+    assert all(r["finite"] == "True" for r in ab_rows), "non-finite output"
+    return dict(exp2_probe=e2, mskip=ms, poly=poly, poly_ab=ab_rows)
+
+
+def poly_child():
+    """Run as ``chip_smoke.py --poly-child`` with DDTI_POLY_EXP2=1: the
+    flash forward and backward kernels of the poly build against their
+    plain versions in poly mode at POLY_SHAPES (today's limits, no NaN),
+    with their queued times; prints one line "[poly] {json}"."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ddti_tpu_torch.ops import _build
+    from ddti_tpu_torch.ops import attention as A
+
+    assert _build.USE_POLY_EXP2 and A.USE_POLY_EXP2, "DDTI_POLY_EXP2 unset"
+    _build.load_library()
+    rows = []
+    for b, h, s, d, dt in POLY_SHAPES:
+        shape = (b, h, s, d)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                       .to(getattr(torch, dt)) for _ in range(4))
+        o, lse = A.flash_forward_cuda(q, k, v)
+        args = (q, k, v, o, lse, do)
+        got = A.flash_backward_cuda(*args)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+        want = A.flash_backward_reference(*args)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        rel = {n: ((a.float() - w.float()).abs().max()
+                   / w.float().abs().max().clamp(min=1e-30)).item()
+               for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (o, lse, *got))
+        del got, want, o_ref, lse_ref
+        fwd_q = queued_ms(lambda: A.flash_forward_cuda(q, k, v))[1]
+        pair_q = queued_ms(lambda: A.flash_backward_cuda(*args))[1]
+        split = launch_ms(lambda: A.flash_backward_cuda(*args))
+        row = dict(shape=list(shape), dtype=dt, max_abs_err=err_o,
+                   max_abs_err_lse2=err_lse, rel_err=rel, finite=finite,
+                   fwd_queue_ms=fwd_q, pair_queue_ms=pair_q,
+                   dkdv_ms=split["flash_bwd_dkdv"],
+                   dq_ms=split["flash_bwd_dq"])
+        phase("probes", f"DDTI_POLY_EXP2=1 flash {shape} {dt} vs plain in "
+              f"poly mode: forward max|do| {err_o:.3e} (limit "
+              f"{O_LIMIT[dt]:g}) max|dlse2| {err_lse:.3e} (limit "
+              f"{LSE_LIMIT:g}); backward max|d|/max|g| "
+              + " ".join(f"{n} {e:.3e}" for n, e in rel.items())
+              + f" (limit {G_LIMIT[dt]:g}); finite {finite}; queued: "
+              f"forward {fwd_q:.4f} ms, pair {pair_q:.4f} ms (events at the "
+              f"launch: pre-pass + dK/dV {row['dkdv_ms']:.4f}, dQ "
+              f"{row['dq_ms']:.4f})")
+        assert finite, "non-finite output of a poly flash kernel"
+        assert err_o <= O_LIMIT[dt] and err_lse <= LSE_LIMIT, \
+            "a poly forward disagrees with its plain version"
+        assert max(rel.values()) <= G_LIMIT[dt], \
+            "a poly backward kernel disagrees with its plain version"
+        rows.append(row)
+    print("[poly] " + json.dumps(rows), flush=True)
 
 
 def random_state(model, seed):
@@ -1530,6 +1782,9 @@ def main():
     import torch
 
     t_start = time.perf_counter()
+    # the default build here and in the CLI runs; the probes phase's
+    # subprocess sets DDTI_POLY_EXP2=1 for itself
+    os.environ["DDTI_POLY_EXP2"] = "0"
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1545,18 +1800,38 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from ddti_tpu_torch.ops import _build
+    from ddti_tpu_torch.probes import exp2_probe as E2
+    from ddti_tpu_torch.probes import flash_mskip_ab as MS
 
+    # the DDTI_POLY_EXP2=1 library, built at the same time by a process of
+    # its own (the flag is read once, at import)
+    poly_build = subprocess.Popen(
+        [sys.executable, "-c", "from ddti_tpu_torch.ops import _build; "
+         "print(_build.build()[0])"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, DDTI_POLY_EXP2="1"))
     path, secs = _build.build()
+    poly_out, poly_err = poly_build.communicate()
+    assert poly_build.returncode == 0, f"the poly build failed:\n{poly_err}"
+    poly_path = poly_out.split()[-1]
     _build.load_library()
     phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}, one process per "
           f"source: {f'{secs:.2f} s' if secs else 'already built'} -> "
-          f"{os.path.relpath(path)}")
-    kernel_report(path)
+          f"{os.path.relpath(path)}; with -DDDTI_POLY_EXP2=1 at the same "
+          f"time -> {os.path.relpath(poly_path)}")
+    _, default_ops = kernel_report(path)
+    check_poly_build(poly_path, default_ops)
 
     rows, bwd_rows, ratios = kernel_phases()
     edt_rows = check_edt()
+    t_probes = time.perf_counter()
+    probes = check_probes()
+    phase("probes", f"phase wall time {time.perf_counter() - t_probes:.1f} s")
+    E2.exp2_probe_cuda.launches = MS.flash_forward_mskip_cuda.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         launches, ckpt = run_slice(tmp)
+        probe_launches = (E2.exp2_probe_cuda.launches,
+                          MS.flash_forward_mskip_cuda.launches)
         profile_slice(ckpt)
         edt_launches = run_training(tmp)
         t_launches = run_transunet_training(tmp)
@@ -1573,6 +1848,16 @@ def main():
     edt_bound = bound("edt", tuple(edt_rows[0]["shape"]))
     library_covers = ("scaled_dot_product_attention's backward: dq, dk and "
                       "dv together")
+    e2, mskip, ab_rows = (probes["exp2_probe"], probes["mskip"],
+                          probes["poly_ab"])
+    poly = {r["dtype"]: r for r in probes["poly"]}
+    e2_bound = bound("exp2_probe", tuple(e2["shape"]))
+    ms_shape = tuple(mskip["shape"])
+    ms_bound = bound("flash_fwd_mskip", ms_shape)
+    # the DDTI_POLY_EXP2=1 build's queued times at a and c, and the probe's
+    # A/B (poly=0, then 1) at (8, 8, 4096, 32) bf16
+    poly_fwd = {dt: r["fwd_queue_ms"] for dt, r in poly.items()}
+    poly_pair = {dt: r["pair_queue_ms"] for dt, r in poly.items()}
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1597,6 +1882,9 @@ def main():
         "f32_prepass_ms": f32_fwd["prepass_ms"],
         "f32_library_queue_ms": f32_fwd["library_queue_ms"],
         "f32_bound_ms": f32_fwd["bound_ms"],
+        "poly_queue_ms": poly_fwd,
+        "poly_ab": [{k: r[k] for k in ("poly", "fwd_ms", "fwdbwd_ms",
+                                       "fwd_err")} for r in ab_rows],
         "shapes": rows,
     }, {
         "name": "flash_bwd_dkdv",
@@ -1627,6 +1915,8 @@ def main():
         "f32_pair_queue_ms": f32_row["queue_ms"],
         "f32_library_queue_ms": f32_row["library_queue_ms"],
         "f32_pair_bound_ms": f32_row["bound_ms"],
+        "poly_ms": {dt: r["dkdv_ms"] for dt, r in poly.items()},
+        "poly_pair_queue_ms": poly_pair,
         "shapes": bwd_rows,
         "train_steps": ttrain_rows,
     }, {
@@ -1646,6 +1936,7 @@ def main():
         "library_ms": bwd_row["library_ms"],
         "library": f"scaled_dot_product_attention ({bwd_row['library']})",
         "library_covers": library_covers,
+        "poly_ms": {dt: r["dq_ms"] for dt, r in poly.items()},
     }, {
         "name": "edt_minplus",
         "route": "cuda",
@@ -1660,6 +1951,42 @@ def main():
         "library_ms": None,  # no PyTorch call computes an EDT
         "shapes": edt_rows,
         "train_steps": train_rows,
+    }, {
+        "name": "exp2_probe",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/exp2_probe.cu",
+        "replaces": "benchmarks/exp2_probe.py:50",
+        "launches": probe_launches[0],
+        "max_abs_err": max(r["abs_vs_plain"] for r in e2["modes"].values()),
+        "ms": e2["modes"]["poly6"]["ms"],
+        "plain_ms": e2["plain_ms"],
+        "bound_ms": e2_bound[0],
+        "bound_by": e2_bound[1],
+        "library_ms": e2["library_ms"]["torch.exp2"],
+        "library": "torch.exp2 (the builtin mode's function)",
+        "mode": "poly6; every mode in modes, queued device time",
+        "copy_ms": e2["library_ms"]["copy_"],
+        "modes": e2["modes"],
+        "edge_ulps": e2["edge_ulps"],
+    }, {
+        "name": "flash_fwd_mskip",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "benchmarks/flash_mskip_ab.py:81",
+        "launches": probe_launches[1],
+        "max_abs_err": max(r["max_abs_err"] for r in mskip["shapes"]),
+        "ms": mskip["m-skip"]["ms"],
+        "baseline_ms": mskip["baseline"]["ms"],
+        "plain_ms": mskip["shapes"][0]["plain_ms"],
+        "bound_ms": ms_bound[0],
+        "bound_by": ms_bound[1],
+        "exp2_ms": ms_bound[2],
+        "library_ms": mskip["shapes"][0]["library_queue_ms"],
+        "library": f"scaled_dot_product_attention "
+                   f"({mskip['shapes'][0]['library']}), queued",
+        "shape": list(ms_shape),
+        "max_abs_err_vs_attention_reference": mskip["m-skip"]["max_abs_err"],
+        "shapes": mskip["shapes"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1672,4 +1999,6 @@ if __name__ == "__main__":
         sys.exit(ab(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-side"]:
         sys.exit(ab_side(sys.argv[2]))
+    if sys.argv[1:2] == ["--poly-child"]:
+        sys.exit(poly_child())
     sys.exit(main())

@@ -298,8 +298,8 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
             *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          p[4 * n + e] =
-              exp2_ftz(fmaf(p[4 * n + e], scale_log2, -(e & 1 ? l2.y : l2.x)));
+          p[4 * n + e] = flash_exp2(
+              fmaf(p[4 * n + e], scale_log2, -(e & 1 ? l2.y : l2.x)));
       }
       uint32_t pa[4][4];
       to_a_fragments(p, pa);
@@ -439,7 +439,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int r = (i >> 1) & 1;
-        float pi = exp2_ftz(fmaf(p[i], scale_log2, -lse_r[r]));
+        float pi = flash_exp2(fmaf(p[i], scale_log2, -lse_r[r]));
         if (ragged && k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) pi = 0.f;
         ds[i] = pi * (ds[i] - delta_r[r]);
       }
@@ -691,7 +691,7 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * j + e;
-          p[i] = exp2_ftz(fmaf(p[i], scale_log2, -(e & 1 ? l2.y : l2.x)));
+          p[i] = flash_exp2(fmaf(p[i], scale_log2, -(e & 1 ? l2.y : l2.x)));
           dp[i] = p[i] * (dp[i] - (e & 1 ? d2.y : d2.x));
         }
       }
@@ -816,7 +816,7 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < B / 2; ++i) {
         const int r = (i >> 1) & 1;
-        float pi = exp2_ftz(fmaf(p[i], scale_log2, -lse_r[r]));
+        float pi = flash_exp2(fmaf(p[i], scale_log2, -lse_r[r]));
         if (ragged && kb + (i / 4) * 8 + 2 * t + (i & 1) >= S) pi = 0.f;
         ds[i] = pi * (ds[i] - delta_r[r]);
       }

@@ -78,6 +78,12 @@
 //    DP = 256 (D = 136..256) still runs the first version's FMA loops
 //    (flash_fwd_f32_fma_kernel): q's planes alone and one K part take 256
 //    KB there, more than a block may hold (ROADMAP.md Queue 2).
+//  - Variants. Built with -DDDTI_POLY_EXP2=1 (ddti_tpu_torch/ops/_build.py),
+//    every exponential of every kernel here is sm90.cuh's order-6 polynomial
+//    on the FMA pipes (flash_exp2, flash_exp2f) instead of the exp2 unit,
+//    the TPU kernels' DDTI_POLY_EXP2 switch. ddti_flash_fwd_mskip runs the
+//    bf16 kernel with kSkipRescale (the port of the TPU probe
+//    benchmarks/flash_mskip_ab.py:fwd; see the kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,8 +123,16 @@ struct FwdSmem {
   static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
 };
 
-// DP: padded head width (template); D: actual head width, D % 8 == 0, D <= DP
-template <int DP>
+// DP: padded head width (template); D: actual head width, D % 8 == 0, D <= DP.
+// kSkipRescale: the m-skip variant (ddti_flash_fwd_mskip), which replaces
+// the TPU probe benchmarks/flash_mskip_ab.py:fwd. Where none of a warp's
+// 16 rows raised its running max on a tile (one __any_sync vote, the
+// probe's lax.cond(grew, rescale, stale) at the granularity a GPU votes
+// at), the warp skips alpha's two exponentials, l *= alpha and acc *=
+// alpha. alpha would be exp2(0) = 1 there, so o and lse2 are bit for bit
+// the baseline's; what a skip saves is 2 of ~34 exponentials and the
+// DP / 2 multiplies of acc *= alpha a thread a tile.
+template <int DP, bool kSkipRescale>
 __global__ void __launch_bounds__(FwdSmem<DP>::kThreads,
                                   FwdSmem<DP>::kBlocksPerSm)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -194,6 +208,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
           if (k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
       }
       float alpha[2], bias[2], tile_sum[2] = {0.f, 0.f};
+      const float m_prev[2] = {m[0], m[1]};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float mx = fmaxf(s[2 * r], s[2 * r + 1]);
@@ -204,15 +219,25 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         // every tile holds at least one valid key, so m_new is finite
         const float m_new = fmaxf(m[r], mx * scale_log2);
-        alpha[r] = exp2_ftz(m[r] - m_new);
+        if constexpr (!kSkipRescale) alpha[r] = flash_exp2(m[r] - m_new);
         m[r] = m_new;
         bias[r] = -m_new;
+      }
+      bool rescale = true;
+      if constexpr (kSkipRescale) {
+        rescale = __any_sync(0xffffffffu,
+                             m[0] > m_prev[0] || m[1] > m_prev[1]);
+        if (rescale) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            alpha[r] = flash_exp2(m_prev[r] - m[r]);
+        }
       }
       // p = exp2(s c - m) rounded to bf16 as the A fragments of P V; l sums
       // it unrounded
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        s[i] = exp2_ftz(fmaf(s[i], scale_log2, bias[(i >> 1) & 1]));
+        s[i] = flash_exp2(fmaf(s[i], scale_log2, bias[(i >> 1) & 1]));
         tile_sum[(i >> 1) & 1] += s[i];
       }
       uint32_t pa[4][4];
@@ -221,10 +246,14 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int r = 0; r < 2; ++r) {
         tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 1);
         tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 2);
-        l[r] = l[r] * alpha[r] + tile_sum[r];
+        // fmaf(l, 1, x) == l + x: the skip changes no bit
+        l[r] = rescale ? fmaf(l[r], alpha[r], tile_sum[r])
+                       : l[r] + tile_sum[r];
       }
+      if (rescale) {
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
 
       wgmma_fence();
 #pragma unroll
@@ -417,7 +446,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         // every tile holds at least one valid key, so m_new is finite
         const float m_new = fmaxf(m[r], mx * scale_log2);
-        alpha[r] = exp2_ftz(m[r] - m_new);
+        alpha[r] = flash_exp2(m[r] - m_new);
         m[r] = m_new;
         bias[r] = -m_new;
       }
@@ -425,7 +454,7 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
       // split into TF32 hi and lo A fragments
 #pragma unroll
       for (int i = 0; i < B / 2; ++i) {
-        s[i] = exp2_ftz(fmaf(s[i], scale_log2, bias[(i >> 1) & 1]));
+        s[i] = flash_exp2(fmaf(s[i], scale_log2, bias[(i >> 1) & 1]));
         tile_sum[(i >> 1) & 1] += s[i];
       }
 #pragma unroll
@@ -546,12 +575,12 @@ flash_fwd_f32_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
     // every tile holds at least one valid key, so m_new is finite
     const float m_new = fmaxf(m, tile_max);
-    const float alpha = exp2f(m - m_new);
+    const float alpha = flash_exp2f(m - m_new);
     float tile_sum = 0.f;
     float* prow = ps + row * BKP;
 #pragma unroll
     for (int j = 0; j < kColsPerThread; ++j) {
-      const float p = exp2f(s[j] - m_new);
+      const float p = flash_exp2f(s[j] - m_new);
       tile_sum += p;
       prow[quad + 4 * j] = p;
     }
@@ -589,33 +618,44 @@ flash_fwd_f32_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
 // ---------------------------------------------------------------------------
 // launch
 
+float scale_log2_of(int d) { return (float)(kLog2e / sqrt((double)d)); }
+
+template <int DP, bool kSkipRescale>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int bh, int s, int d,
+                        cudaStream_t stream) {
+  cudaError_t err;
+  CUtensorMap qm, km, vm;
+  if ((err = tile_map<DP>(&qm, q, bh, s, d)) ||
+      (err = tile_map<DP>(&km, k, bh, s, d)) ||
+      (err = tile_map<DP>(&vm, v, bh, s, d)))
+    return err;
+  const auto kernel = flash_fwd_bf16_kernel<DP, kSkipRescale>;
+  constexpr size_t smem = FwdSmem<DP>::bytes;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((err = set_smem_once(kernel, smem, smem_set))) return err;
+  if constexpr (FwdSmem<DP>::kGrowRegs) {
+    static const cudaError_t pool =
+        check_register_pool(kernel, FwdSmem<DP>::kConsumers);
+    if (pool != cudaSuccess) return pool;
+  }
+  constexpr int kRowsPerBlock = FwdSmem<DP>::kConsumers * kTileRows;
+  const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+  flash_fwd_bf16_kernel<DP, kSkipRescale>
+      <<<grid, FwdSmem<DP>::kThreads, smem, stream>>>(
+          qm, km, vm, static_cast<bf16*>(o), static_cast<float*>(lse), s, d,
+          scale_log2_of(d));
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, const float* scratch, int bh, int s, int d,
                    bool use_bf16, cudaStream_t stream) {
-  const float scale_log2 = (float)(kLog2e / sqrt((double)d));
+  const float scale_log2 = scale_log2_of(d);
   cudaError_t err;
   if (use_bf16) {
-    CUtensorMap qm, km, vm;
-    if ((err = tile_map<DP>(&qm, q, bh, s, d)) ||
-        (err = tile_map<DP>(&km, k, bh, s, d)) ||
-        (err = tile_map<DP>(&vm, v, bh, s, d)))
-      return err;
-    constexpr size_t smem = FwdSmem<DP>::bytes;
-    static std::atomic<uint64_t> smem_set{0};
-    if ((err = set_smem_once(flash_fwd_bf16_kernel<DP>, smem, smem_set)))
-      return err;
-    if constexpr (FwdSmem<DP>::kGrowRegs) {
-      static const cudaError_t pool = check_register_pool(
-          flash_fwd_bf16_kernel<DP>, FwdSmem<DP>::kConsumers);
-      if (pool != cudaSuccess) return pool;
-    }
-    constexpr int kRowsPerBlock = FwdSmem<DP>::kConsumers * kTileRows;
-    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock,
-                    bh);
-    flash_fwd_bf16_kernel<DP><<<grid, FwdSmem<DP>::kThreads, smem, stream>>>(
-        qm, km, vm, static_cast<bf16*>(o), static_cast<float*>(lse), s, d,
-        scale_log2);
+    return launch_bf16<DP, false>(q, k, v, o, lse, bh, s, d, stream);
   } else if constexpr (DP == 256) {
     constexpr size_t smem = fma_smem_bytes<DP>();
     static std::atomic<uint64_t> smem_set{0};
@@ -702,4 +742,23 @@ extern "C" int ddti_flash_fwd(const void* q, const void* k, const void* v,
   if (d <= 64) return (int)launch<64>(q, k, v, o, lse, sc, bh, s, d, bf, st);
   if (d <= 128) return (int)launch<128>(q, k, v, o, lse, sc, bh, s, d, bf, st);
   return (int)launch<256>(q, k, v, o, lse, sc, bh, s, d, bf, st);
+}
+
+// As ddti_flash_fwd, through the m-skip variant of the bf16 kernel (the
+// port of benchmarks/flash_mskip_ab.py:fwd): bfloat16 only (is_bf16 == 0
+// returns cudaErrorInvalidValue); scratch is unused.
+extern "C" int ddti_flash_fwd_mskip(const void* q, const void* k,
+                                    const void* v, void* o, void* lse,
+                                    const void* scratch, int bh, int s, int d,
+                                    int is_bf16, int device, void* stream) {
+  (void)scratch;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(bh, s, d, 256) || !is_bf16) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 32) return (int)launch_bf16<32, true>(q, k, v, o, lse, bh, s, d, st);
+  if (d <= 64) return (int)launch_bf16<64, true>(q, k, v, o, lse, bh, s, d, st);
+  if (d <= 128)
+    return (int)launch_bf16<128, true>(q, k, v, o, lse, bh, s, d, st);
+  return (int)launch_bf16<256, true>(q, k, v, o, lse, bh, s, d, st);
 }

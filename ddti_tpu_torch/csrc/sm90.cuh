@@ -146,6 +146,68 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// The Taylor coefficient ln2^k / k! of 2^f = e^(f ln2), k = 0..6, rounded
+// to float32 (ddti_tpu_torch/ops/attention.py:EXP2_POLY_COEFFS)
+__device__ __forceinline__ constexpr float exp2_coeff(int k) {
+  return k == 1   ? 0x1.62e430p-1f
+         : k == 2 ? 0x1.ebfbe0p-3f
+         : k == 3 ? 0x1.c6b08ep-5f
+         : k == 4 ? 0x1.3b2ab6p-7f
+         : k == 5 ? 0x1.5d87fep-10f
+         : k == 6 ? 0x1.430912p-13f
+                  : 1.0f;
+}
+
+// 2^x on the FMA pipes: the TPU kernels' polynomial exp2
+// (ddti_tpu/ops/attention.py:_exp2_poly, benchmarks/exp2_probe.py:
+// _poly_exp2). 2^x = 2^i P(f), i = x rounded half to even, f = x - i in
+// [-0.5, 0.5], P the Taylor polynomial of order ORDER by Horner (one FMA a
+// term), i clamped to [-126, 127] and 2^i built as (i + 127) << 23. The
+// rounding is the add of 1.5 * 2^23, which leaves i in the sum's low
+// mantissa bits: no FRND and no F2I, which issue at the exp2 unit's rate.
+// x is first clamped to >= -2^22, where the add is exact, so -inf and the
+// -1e30 sentinel give 2^-126 (the TPU kernels' value at their sentinel),
+// never NaN. Max relative error against float64 on [-20, 3]: 5.6e-5,
+// 3.3e-6 and 2.2e-7 at orders 4, 5, 6.
+template <int ORDER>
+__device__ __forceinline__ float exp2_poly(float x) {
+  static_assert(ORDER >= 4 && ORDER <= 6, "order");
+  constexpr float kRound = 12582912.f;  // 1.5 * 2^23
+  x = fmaxf(x, -4194304.f);             // -2^22
+  const float r = __fadd_rn(x, kRound);
+  const float f = __fsub_rn(x, __fsub_rn(r, kRound));
+  const int i = min(max(__float_as_int(r) - 0x4B400000, -126), 127);
+  float p = exp2_coeff(ORDER);
+#pragma unroll
+  for (int k = ORDER - 1; k >= 0; --k) p = fmaf(p, f, exp2_coeff(k));
+  return p * __int_as_float((i + 127) << 23);
+}
+
+// The flash kernels' exponential: the exp2 unit, or where the library is
+// built with -DDDTI_POLY_EXP2=1 (ddti_tpu_torch/ops/_build.py) the order-6
+// polynomial on the FMA pipes, as the TPU kernels' DDTI_POLY_EXP2 switch
+// does. flash_exp2f is the same switch over exp2f, which the float32 FMA
+// loop calls.
+#ifndef DDTI_POLY_EXP2
+#define DDTI_POLY_EXP2 0
+#endif
+
+__device__ __forceinline__ float flash_exp2(float x) {
+#if DDTI_POLY_EXP2
+  return exp2_poly<6>(x);
+#else
+  return exp2_ftz(x);
+#endif
+}
+
+__device__ __forceinline__ float flash_exp2f(float x) {
+#if DDTI_POLY_EXP2
+  return exp2_poly<6>(x);
+#else
+  return exp2f(x);
+#endif
+}
+
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
                                          uint64_t* bar, int c0, int c1) {
   asm volatile(

@@ -23,8 +23,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddti_tpu_torch"
+# DDTI_POLY_EXP2=1 in the environment, read once as the JAX package reads it
+# (ddti_tpu/ops/attention.py): every flash kernel's exponential becomes the
+# order-6 polynomial on the FMA pipes (csrc/sm90.cuh:flash_exp2) and every
+# plain version's ops/attention.py:_exp2_poly. The flag is part of the
+# library's hashed name, so both builds live side by side.
+USE_POLY_EXP2 = os.environ.get("DDTI_POLY_EXP2", "0") == "1"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v") + (
+                  ("-DDDTI_POLY_EXP2=1",) if USE_POLY_EXP2 else ())
 
 
 def _nvcc() -> str:
@@ -93,7 +100,9 @@ KERNELS = {
     "ddti_flash_fwd": [_P] * 6 + [_I] * 5 + [_P],
     "ddti_flash_bwd_dkdv": [_P] * 11 + [_I] * 5 + [_P],
     "ddti_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
+    "ddti_flash_fwd_mskip": [_P] * 6 + [_I] * 5 + [_P],
     "ddti_edt": [_P, _P, _LL, _I, _I, _P],
+    "ddti_exp2_probe": [_P, _P, _LL, _I, _I, _P],
 }
 
 

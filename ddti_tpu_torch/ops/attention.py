@@ -14,13 +14,20 @@ kernel does not take raises.
 Layout: q, k, v are (B, H, S, D), the JAX package's layout. The forward
 also returns the base-2 logsumexp ``lse2`` (B, H, S) float32, the residual
 from which the backward recomputes the probabilities.
+
+``DDTI_POLY_EXP2=1`` in the environment (``USE_POLY_EXP2``, read once as
+the JAX package reads it) swaps every exponential of the kernels and of
+their plain versions for the polynomial ``_exp2_poly``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from ._build import USE_POLY_EXP2
 
 LOG2E = 1.4426950408889634
 # the forward kernel takes every head width d with d % 8 == 0 up to this
@@ -36,6 +43,39 @@ MAX_SPLIT_HEAD_DIM = 128
 # fragment as it stands (csrc/sm90.cuh)
 KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the Taylor coefficients ln2^k / k! of 2^f = e^(f ln2), k = 0..6, rounded
+# to float32, as csrc/sm90.cuh:exp2_coeff writes them
+EXP2_POLY_COEFFS = tuple(float(np.float32(math.log(2.0) ** k
+                                          / math.factorial(k)))
+                         for k in range(7))
+
+
+def _exp2_poly(x, order=6):
+    """2^x as the TPU kernels' polynomial (ddti_tpu/ops/attention.py:
+    _exp2_poly; order 4-6 as benchmarks/exp2_probe.py:_poly_exp2) and
+    csrc/sm90.cuh:exp2_poly compute it on float32: 2^round(x) * P(f), x
+    rounded half to even, f = x - round(x), P the Taylor polynomial of
+    ``order`` by Horner, round(x) clamped to [-126, 127] and 2^round(x)
+    built from its exponent bits. x is first clamped to >= -2^22 (exact
+    above), so -inf and the -1e30 sentinel give 2^-126, not NaN. The kernel
+    fuses each Horner step into one FMA; here the multiply and the add
+    round apart, as in JAX: the two differ by at most an ulp or two."""
+    x = torch.fmax(x.float(), x.new_tensor(-2.0 ** 22, dtype=torch.float32))
+    i = torch.round(x)
+    f = x - i
+    p = torch.zeros_like(f)
+    for c in EXP2_POLY_COEFFS[order:0:-1]:
+        p = (p + c) * f
+    p = p + 1.0
+    ii = i.clamp(-126.0, 127.0).to(torch.int32)
+    return p * ((ii + 127) << 23).view(torch.float32)
+
+
+def _exp2(x):
+    """The flash kernels' exponential: torch.exp2, or the polynomial where
+    DDTI_POLY_EXP2=1 (ops/_build.py:USE_POLY_EXP2) builds the kernels with
+    it."""
+    return _exp2_poly(x) if USE_POLY_EXP2 else torch.exp2(x)
 
 
 def attention_reference(q, k, v):
@@ -58,7 +98,7 @@ def flash_forward_reference(q, k, v):
         s = (q.float() @ k.float().transpose(-1, -2)) * (
             LOG2E / math.sqrt(q.shape[-1]))
         m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp2(s - m)
+        p = _exp2(s - m)
         l = p.sum(dim=-1, keepdim=True)
         o = (p.to(v.dtype).float() @ v.float()) / l
         return o.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
@@ -113,11 +153,10 @@ def _stream(index):
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def flash_forward_cuda(q, k, v):
-    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: returns (o, lse2). In
-    float32 with d <= MAX_SPLIT_HEAD_DIM the pre-pass that splits q, K and
-    V^T into TF32 planes runs first. Raises on anything the kernel does not
-    take. Adds one to ``flash_forward_cuda.launches`` per forward."""
+def check_forward_inputs(q, k, v):
+    """Raise ValueError on q, k, v that the forward kernels do not take:
+    one (B, H, S, D) shape, float32 or bfloat16 alike, D % 8 == 0 up to
+    MAX_HEAD_DIM, contiguous and 16-byte aligned on one CUDA device."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q, k, v must share one (B, H, S, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -141,8 +180,18 @@ def flash_forward_cuda(q, k, v):
         raise ValueError("q, k, v must be 16-byte aligned")
     if not 0 < b * h <= 65535 or s == 0:
         raise ValueError(f"B*H = {b * h} must lie in [1, 65535] and S > 0")
+
+
+def flash_forward_cuda(q, k, v):
+    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: returns (o, lse2). In
+    float32 with d <= MAX_SPLIT_HEAD_DIM the pre-pass that splits q, K and
+    V^T into TF32 planes runs first. Raises on anything the kernel does not
+    take. Adds one to ``flash_forward_cuda.launches`` per forward."""
+    check_forward_inputs(q, k, v)
     from ._build import launch
 
+    b, h, s, d = q.shape
+    dev, ptrs = q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr())
     o = torch.empty_like(q)
     lse = q.new_empty((b, h, s), dtype=torch.float32)
     stream, scratch, pscratch = _stream(dev.index), None, None
@@ -171,7 +220,7 @@ def flash_backward_reference(q, k, v, o, lse2, do):
         scale = 1.0 / math.sqrt(q.shape[-1])
         qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
         s = (qf @ kf.transpose(-1, -2)) * (LOG2E * scale)
-        p = torch.exp2(s - lse2.unsqueeze(-1))
+        p = _exp2(s - lse2.unsqueeze(-1))
         delta = (dof * o.float()).sum(-1, keepdim=True)
         dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
         ds = (p * (dof @ vf.transpose(-1, -2) - delta)).to(q.dtype).float()

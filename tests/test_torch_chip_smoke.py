@@ -22,6 +22,11 @@ SLICE = (16, 8, 1024, 32)  # the TransUNet bottleneck at 512^2: 1024 tokens
     ("flash_bwd", SLICE, "float32", 42.9e9, 134.7e6, 268.4e6),
     # the EDT's row pass: an add and a min per (row, column, column)
     ("edt", (16, 512, 512), "bfloat16", 4.29e9, 21.0e6, 0),
+    # the exp2 probe: 512 x 16384 float32 read and written, one exp2 each
+    ("exp2_probe", (512, 16384), "float32", 0, 67_108_864, 8_388_608),
+    # the m-skip forward: the forward's two products at the probe's shape
+    ("flash_fwd_mskip", (8, 8, 4096, 32), "bfloat16", 137_438_953_472,
+     68_157_440, 1_073_741_824),
 ])
 def test_work_counts_match_hand_counts(kernel, shape, dtype, flop, nbytes,
                                        exp2):
@@ -81,3 +86,39 @@ def test_float32_flash_bounds_at_the_3xtf32_rate(kernel, shape, ms):
     assert got == pytest.approx(ms, rel=2e-3)
     assert C.bound("edt", (16, 512, 512), "float32")[0] == pytest.approx(
         0.0641, rel=1e-2)
+
+
+def test_probe_bounds():
+    """The exp2 probe is bound by its 67.1 MB at 3.35 TB/s (0.0200 ms; its
+    exp2 alone 0.0020 ms of the unit); the m-skip forward at the probe's
+    shape by the tensor cores (137.4 GFLOP at 989 TFLOP/s, 0.139 ms), under
+    an exp2 floor of 0.257 ms."""
+    ms, by, exp2_ms = C.bound("exp2_probe", (512, 16384))
+    assert by == "bytes"
+    assert ms == pytest.approx(0.0200, rel=2e-3)
+    assert exp2_ms == pytest.approx(0.00201, rel=1e-2)
+    ms, by, exp2_ms = C.bound("flash_fwd_mskip", (8, 8, 4096, 32))
+    assert by == "operations"
+    assert ms == pytest.approx(0.139, rel=2e-3)
+    assert exp2_ms == pytest.approx(0.257, rel=2e-3)
+
+
+@pytest.mark.parametrize("kernel, shape, ms, by", [
+    # benchmarks/pallas_conv_probe.py at N128 128^2 C = CO = 128 bf16:
+    # 618.5 GFLOP at 989 TFLOP/s, above its 1.09 GB (0.326 ms; the input
+    # padded by one pixel)
+    ("conv3x3", (128, 128, 128, 128, 128), 0.6254, "operations"),
+    # the gather probes at N128 256^2: f32 values and int32 indices in, f32
+    # out (100.7 MB); packed u16 (67.1 MB); u8 (50.3 MB)
+    ("gather", (128, 256, 256, 4), 0.03005, "bytes"),
+    ("gather", (128, 256, 256, 2), 0.02003, "bytes"),
+    ("gather", (128, 256, 256, 1), 0.01502, "bytes"),
+])
+def test_bounds_of_the_probes_still_to_port(kernel, shape, ms, by):
+    got, got_by, _ = C.bound(kernel, shape)
+    assert got_by == by
+    assert got == pytest.approx(ms, rel=2e-3)
+    if kernel == "conv3x3":
+        w = C.work_counts(kernel, shape)
+        assert w["flop"] == 618_475_290_624
+        assert w["bytes"] == 1_090_945_280

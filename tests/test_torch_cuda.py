@@ -354,3 +354,127 @@ def test_flash_attention_backward_dispatches_to_kernels(cuda, dtype):
         scale = t.grad.float().abs().max().item()
         assert (a.float() - t.grad.float()).abs().max().item() <= \
             2 * G_TOL[dtype] * scale
+
+
+# ---------------------------------------------------------------------------
+# the softmax probes (ddti_tpu_torch/probes) and the DDTI_POLY_EXP2 build
+
+EXP2_EDGES = [0.0, -0.0, float("-inf"), -1e30, -126.5, 127.0, 0.5, 1.5, 2.5,
+              -0.5, -1.5, -2.5, -125.5, -127.5, -130.0, 126.5, 1e-40, 3.0,
+              -20.0]
+
+
+@pytest.mark.parametrize("n", [512 * 1024, 4097, 3])
+@pytest.mark.parametrize("mode", ["copy", "builtin", "poly4", "poly5",
+                                  "poly6"])
+def test_exp2_probe_kernel_matches_plain(cuda, mode, n):
+    """csrc/exp2_probe.cu against its plain version on the probe's range
+    and on edge values (signed zeros, -inf, the -1e30 sentinel, halves,
+    both ends of the clamp, a subnormal), with a ragged tail: within 2 ulp,
+    the copy bit for bit, no NaN."""
+    from ddti_tpu_torch.probes import exp2_probe as E2
+
+    x = torch.cat([torch.tensor(EXP2_EDGES),
+                   E2.make_input(1, n, seed=n, device="cpu")[0]])[:n]
+    x = x.to(cuda)
+    before = E2.exp2_probe_cuda.launches
+    y = E2.exp2_probe_cuda(x, mode)
+    torch.cuda.synchronize()
+    assert E2.exp2_probe_cuda.launches == before + 1
+    want = E2.exp2_probe_reference(x, mode)
+    assert not torch.isnan(y).any()
+    if mode == "copy":
+        assert torch.equal(y.view(torch.int32), x.view(torch.int32))
+    else:
+        assert E2.ulp_distance(y, want) <= 2
+
+
+def test_exp2_probe_rejects_what_it_does_not_take(cuda):
+    from ddti_tpu_torch.probes import exp2_probe as E2
+
+    x = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="mode"):
+        E2.exp2_probe_cuda(x, "poly7")
+    with pytest.raises(ValueError, match="float32"):
+        E2.exp2_probe_cuda(x.half(), "copy")
+    with pytest.raises(ValueError, match="contiguous"):
+        E2.exp2_probe_cuda(x.view(8, 8).t(), "copy")
+
+
+MSKIP_SHAPES = [(1, 4, 4096, 32), (1, 3, 1000, 32), (2, 2, 333, 64),
+                (1, 2, 1000, 128), (1, 2, 130, 256), (1, 1, 1, 32)]
+
+
+@pytest.mark.parametrize("shape", MSKIP_SHAPES)
+def test_mskip_kernel_bit_equal_to_forward(cuda, shape):
+    """The m-skip forward's o and lse2 are the production forward's bit for
+    bit (exp2(0) == 1), at S = 4096, ragged S and every padded head width;
+    within the forward's limits of its plain version."""
+    from ddti_tpu_torch.probes import flash_mskip_ab as MS
+
+    q, k, v = _qkv(shape, torch.bfloat16, cuda)
+    before = MS.flash_forward_mskip_cuda.launches
+    o, lse = MS.flash_forward_mskip_cuda(q, k, v)
+    o0, lse0 = A.flash_forward_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert MS.flash_forward_mskip_cuda.launches == before + 1
+    assert torch.equal(o, o0) and torch.equal(lse, lse0)
+    o_ref, lse_ref = MS.flash_forward_mskip_reference(q, k, v)
+    assert (o.float() - o_ref.float()).abs().max().item() <= \
+        O_TOL[torch.bfloat16]
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+def test_mskip_kernel_rejects_float32(cuda):
+    from ddti_tpu_torch.probes import flash_mskip_ab as MS
+
+    q, k, v = _qkv((1, 2, 64, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        MS.flash_forward_mskip_cuda(q, k, v)
+
+
+POLY_CHECK = """
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from ddti_tpu_torch.ops import _build, attention as A
+assert _build.USE_POLY_EXP2 and A.USE_POLY_EXP2
+O_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+for shape in [(2, 8, 1024, 32), (1, 3, 100, 32), (1, 2, 1000, 128),
+              (2, 2, 333, 64), (1, 2, 130, 256)]:
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator().manual_seed(0)
+        q, k, v, do = (torch.randn(shape, generator=g).to("cuda", dtype)
+                       for _ in range(4))
+        o, lse = A.flash_forward_cuda(q, k, v)
+        o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+        assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+        assert (o.float() - o_ref.float()).abs().max() <= O_TOL[dtype]
+        assert (lse - lse_ref).abs().max() <= 1e-3
+        if shape[3] > 128:
+            continue
+        got = A.flash_backward_cuda(q, k, v, o, lse, do)
+        want = A.flash_backward_reference(q, k, v, o, lse, do)
+        for a, b in zip(got, want):
+            assert torch.isfinite(a.float()).all()
+            err = (a.float() - b.float()).abs().max()
+            assert err <= O_TOL[dtype] * b.float().abs().max() + 1e-6
+print("poly ok")
+"""
+
+
+def test_poly_build_kernels_match_plain_in_poly_mode(cuda):
+    """With DDTI_POLY_EXP2=1 (a process of its own: the flag is read at
+    import and picks its own library) the flash forward and backward
+    kernels meet today's limits against their plain versions in poly mode,
+    with no NaN, at the slice's shape, ragged S and every head width."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    res = subprocess.run(
+        [sys.executable, "-c", POLY_CHECK], capture_output=True, text=True,
+        cwd=pathlib.Path(__file__).resolve().parents[1], timeout=900,
+        env={**os.environ, "DDTI_POLY_EXP2": "1"})
+    assert res.returncode == 0 and "poly ok" in res.stdout, \
+        res.stdout[-2000:] + res.stderr[-4000:]

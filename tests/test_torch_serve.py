@@ -164,8 +164,9 @@ def test_device_cuda_without_cuda_raises(pth):
 def test_port_imports_no_jax():
     """At run time: importing every module of the port (the serving and
     training entry points among them) loads neither JAX nor the JAX
-    package. In the source: no module of the port (nor
-    chip_smoke.py) names them in an import, lazy ones included."""
+    package nor its probes (benchmarks/). In the source: no module of the
+    port (nor chip_smoke.py) names them in an import, lazy ones
+    included."""
     modules = sorted(
         ".".join(f.relative_to(ROOT).with_suffix("").parts)
         for f in (ROOT / "ddti_tpu_torch").rglob("*.py")
@@ -173,7 +174,7 @@ def test_port_imports_no_jax():
     assert "ddti_tpu_torch.cli.main" in modules
     code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'ddti_tpu')); "
+            "('jax', 'jaxlib', 'flax', 'ddti_tpu', 'benchmarks')); "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
@@ -189,4 +190,5 @@ def test_port_imports_no_jax():
                 continue
             for n in names:
                 assert n.split(".")[0] not in ("jax", "jaxlib", "flax",
-                                               "ddti_tpu"), (f, n)
+                                               "ddti_tpu", "benchmarks"), \
+                    (f, n)
