@@ -48,7 +48,17 @@ and a non-zero exit:
               DDTI_POLY_EXP2=1 (its own library, built beside the default
               one in the build phase) the flash forward and backward
               against their plain versions in poly mode, queued times
-              beside; then the three probes' lines.
+              beside; then the three probes' lines. The conv3x3 and
+              gather probes: csrc/conv3x3.cu against its plain version
+              (within one bf16 ulp or 2^-8 max|y|) at the probe's shape,
+              its CPU shape, a ragged one and C = CO of 64-512, and (the
+              error-growth check) where the bias cancels a sum of 9 C
+              positive products, within CANCEL_LIMIT of the exact value
+              at every C; csrc/gather_probe.cu bit for bit against its plain
+              version in every mode with edge indices planted and on
+              every builder (A, B, C, B2, F, P4, P5, P6); then the four
+              probes' runs, with queued times beside cuDNN, torch.gather
+              and the XLA builders' torch calls, and the bounds.
 5. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
               TransUNet of configs/config.yaml (base_filters 64, depth 4,
               512x512 -> 1024 bottleneck tokens), random weights from a seed,
@@ -219,6 +229,11 @@ EXP2_EDGES = (0.0, -0.0, float("-inf"), -1e30, -126.5, 127.0, 0.5, 1.5, 2.5,
               -20.0, 1e-40, -1e-40, 0.25, -0.75)
 EXP2_ULPS = 2
 MSKIP_SHAPES = [(8, 8, 4096, 32), (16, 8, 1024, 32), (2, 8, 1000, 32)]
+# conv3x3 kernel vs plain: the probe's shape, its CPU shape, a ragged one,
+# and (N, spatial, C = CO) of the error-growth check
+CONV_SHAPES = [(128, 128, 128, 128, 128), (2, 16, 16, 128, 128),
+               (3, 10, 12, 64, 96)]
+CONV_GROWTH = (16, 64, (64, 128, 256, 512))
 POLY_SHAPES = [(16, 8, 1024, 32, "bfloat16"), (16, 8, 1024, 32, "float32")]
 POLY_TIMEOUT_S = 600
 
@@ -244,7 +259,7 @@ def median_ms(fn, runs=20, warmup=3):
     return statistics.median(times)
 
 
-def work_counts(kernel, shape, dtype="bfloat16"):
+def work_counts(kernel, shape, dtype="bfloat16", shared_index=False):
     """What one call of ``kernel`` must do at ``shape``, counted from the
     shape alone: ``flop`` (a multiply-add is two), ``bytes`` (each input
     read once, each output written once) and ``exp2`` evaluations.
@@ -260,11 +275,14 @@ def work_counts(kernel, shape, dtype="bfloat16"):
     skips is not counted in either). ``edt`` takes (N, H, W): uint8 in,
     float32 out, and its row pass does one add and one min per (row, column,
     column). ``exp2_probe`` takes (rows, cols) float32 in and out, one exp2
-    an element and no FLOP that the bound counts. Two TPU probes still to
-    port, at their shapes: ``conv3x3`` (benchmarks/pallas_conv_probe.py)
-    takes (N, H, W, C, CO), the input padded by one pixel and the output
-    in bf16, and ``gather`` (benchmarks/gather_probe*.py) (N, H, W, element
-    bytes), one int32 index an element gathered."""
+    an element and no FLOP that the bound counts. ``conv3x3``
+    (benchmarks/pallas_conv_probe.py) takes (N, H, W, C, CO), the input
+    counted padded by one pixel as the TPU probe pads it (csrc/conv3x3.cu
+    reads it unpadded, slightly fewer bytes) and the output in bf16;
+    ``gather`` (benchmarks/gather_probe*.py) (N, H, W, element bytes), src
+    read and out written once, and one int32 index an element gathered, or
+    with ``shared_index`` one (H, W) index plane read once for all N
+    images (builders A, B, C and B2)."""
     if kernel == "edt":
         n, h, w = shape
         return dict(flop=2 * n * h * w * w, bytes=n * h * w * (1 + 4),
@@ -278,7 +296,8 @@ def work_counts(kernel, shape, dtype="bfloat16"):
             n * (h + 2) * (w + 2) * c + n * h * w * co + 9 * c * co + co))
     if kernel == "gather":
         n, h, w, elem = shape
-        return dict(flop=0, bytes=n * h * w * (2 * elem + 4), exp2=0)
+        index = h * w * 4 * (1 if shared_index else n)
+        return dict(flop=0, bytes=n * h * w * 2 * elem + index, exp2=0)
     b, h, s, d = shape
     tensor = b * h * s * d * (2 if dtype == "bfloat16" else 4)
     rows = b * h * s * 4
@@ -296,13 +315,13 @@ def work_counts(kernel, shape, dtype="bfloat16"):
                 exp2=passes * b * h * s * s)
 
 
-def bound(kernel, shape, dtype="bfloat16"):
+def bound(kernel, shape, dtype="bfloat16", shared_index=False):
     """The least time the card could take for ``work_counts``: the larger
     of operations over the peak for their type (bf16 on the tensor cores,
     float32 flash products as 3xTF32 on them; the EDT is float32 outside
     them) and bytes over the memory rate. Returns (bound_ms, bound_by,
     exp2_ms), exp2_ms the time the exp2 unit alone needs."""
-    w = work_counts(kernel, shape, dtype)
+    w = work_counts(kernel, shape, dtype, shared_index)
     peak = PEAK_FLOPS["float32" if kernel in ("edt", "exp2_probe", "gather")
                       else "tf32x3" if dtype == "float32" else dtype]
     ops_ms, bytes_ms = w["flop"] / peak * 1e3, w["bytes"] / PEAK_BYTES * 1e3
@@ -484,7 +503,10 @@ def kernel_report(lib, quiet=False):
     import shutil
 
     def short(name):
-        m = re.search(r"\d((?:flash|edt|exp2)_\w+?_kernel)"
+        m = re.search(r"\dgather_kernelILi(\d)ELb([01])ELb([01])E", name)
+        if m:  # <mode, 16-byte, shared index>
+            return f"gather_kernel<{m.group(1)},{m.group(2)},{m.group(3)}>"
+        m = re.search(r"\d((?:flash|edt|exp2|conv3x3)_\w+?_kernel)"
                       r"(?:ILi(\d+)E(Lb1E)?|I(\w)|E)", name)
         if not m:
             return name
@@ -828,6 +850,136 @@ def check_probes():
     ab_rows = PA.run(seed=SEED)
     assert all(r["finite"] == "True" for r in ab_rows), "non-finite output"
     return dict(exp2_probe=e2, mskip=ms, poly=poly, poly_ab=ab_rows)
+
+
+def check_conv_gather():
+    """Phase 4, the conv3x3 and warp-gather probes: each kernel against its
+    plain version at the listed shapes (outside any launch count), then
+    each probe's ``run()``, the path a user drives, with its kernel's count
+    set to 0 just before and read just after; it must launch. Returns what
+    the kernels line reports of both."""
+    import torch
+
+    from ddti_tpu_torch.probes import gather_probe as G
+    from ddti_tpu_torch.probes import gather_probe2 as G2
+    from ddti_tpu_torch.probes import gather_probe3 as G3
+    from ddti_tpu_torch.probes import pallas_conv_probe as P
+
+    conv_rows = []
+    for shape in CONV_SHAPES + [(CONV_GROWTH[0], CONV_GROWTH[1],
+                                 CONV_GROWTH[1], c, c)
+                                for c in CONV_GROWTH[2]]:
+        n, h, w, c, co = shape
+        x, wk, b = P.make_inputs(n, max(h, w), c, co, seed=SEED, device="cuda")
+        x = x[:, :h, :w].contiguous()
+        wt = P.pack_weights(wk)
+        y = P.conv3x3_relu_cuda(x, wt, b)
+        again = P.conv3x3_relu_cuda(x, wt, b)
+        torch.cuda.synchronize()
+        ok, err, share = P.within_tolerance(
+            y, P.conv3x3_relu_reference(x, wk, b))
+        bit = torch.equal(y, again)
+        conv_rows.append(dict(shape=list(shape), within=ok, max_abs_err=err,
+                              differ_share=share, deterministic=bit))
+        phase("probes", f"conv3x3 {shape} bf16 vs plain: max|d| {err:.3e}, "
+              f"{share:.3e} of elements differ, within one bf16 ulp or "
+              f"2^-8 max|y|: {ok}; two calls bit-equal {bit}")
+        assert ok and bit and bool(torch.isfinite(y.float()).all()), \
+            f"conv3x3 {shape} disagrees with its plain version"
+        del x, wk, b, wt, y, again
+    # the float32 sum's error where the bf16 output can see it: b cancels
+    # a sum of 9 C positive products, an interior y is ~1 (P.cancelling_
+    # inputs); within P.CANCEL_LIMIT at every C, kernel and plain
+    growth = {}
+    for c in CONV_GROWTH[2]:
+        x, wk, b, exact = P.cancelling_inputs(CONV_GROWTH[0], CONV_GROWTH[1],
+                                              c, seed=SEED, device="cuda")
+        errs = [(y.float()[:, 1:-1, 1:-1] - exact.float()).abs().max().item()
+                for y in (P.conv3x3_relu_cuda(x, P.pack_weights(wk), b),
+                          P.conv3x3_relu_reference(x, wk, b))]
+        growth[c] = dict(kernel=errs[0], plain=errs[1])
+        del x, wk, b, exact
+    phase("probes", f"conv3x3 error growth, |y - exact| where b cancels a "
+          f"sum of 9 C positive products (y ~1, limit {P.CANCEL_LIMIT:g}; "
+          f"a truncating accumulator ~0.07 at C = 512), by C: "
+          + ", ".join(f"{c}: kernel {e['kernel']:.3e} plain {e['plain']:.3e}"
+                      for c, e in growth.items()))
+    assert max(max(e.values()) for e in growth.values()) <= P.CANCEL_LIMIT, \
+        "conv3x3's float32 sum drifts with C"
+
+    phase("probes", f"pallas_conv_probe N{P.N} {P.SPATIAL}^2 C = CO = "
+          f"{P.CHANNELS} bf16, seed {SEED}:")
+    P.conv3x3_relu_cuda.launches = 0
+    conv = P.run(seed=SEED)
+    conv_launches = P.conv3x3_relu_cuda.launches
+    conv_shape = (P.N, P.SPATIAL, P.SPATIAL, P.CHANNELS, P.CHANNELS)
+    b_ms, b_by, _ = bound("conv3x3", conv_shape)
+    phase("probes", f"conv3x3 {conv_shape}: kernel {conv['ms']:.4f} ms, "
+          f"cuDNN {conv['library_ms']:.4f} ms, plain {conv['plain_ms']:.4f} "
+          f"ms (queued device time); bound {b_ms:.4f} ms ({b_by}): kernel "
+          f"{b_ms / conv['ms']:.1%} of it, cuDNN "
+          f"{b_ms / conv['library_ms']:.1%}; {conv_launches} launches")
+    assert conv["within"] and conv_launches > 0
+
+    # every mode on the builders' shapes with edge indices planted: -1 and
+    # -len wrap, len and -len - 1 give NaN; bit for bit (NaN's bits too)
+    edge_rows = []
+    src = torch.from_numpy(G.make_src((G.N, G.H, G.W), SEED)).cuda()
+    for mode, shape in (("flat", (G.H, G.W)), (0, (G.H, G.W)),
+                        (1, (G.H, G.W)), (0, (2048, 128)), (1, (512, 128))):
+        s = src if shape == (G.H, G.W) else \
+            torch.from_numpy(G.make_src(shape, SEED)).cuda()
+        r, c = s.shape[-2:]
+        length = r * c if mode == "flat" else (r, c)[mode]
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        idx = torch.randint(0, length, shape, generator=g, device="cuda",
+                            dtype=torch.int32)
+        idx.view(-1)[:4] = torch.tensor([-1, -length, length, -length - 1],
+                                        dtype=torch.int32)
+        got = G.gather_cuda(s, idx, mode)
+        want = G.gather_reference(s, idx, mode)
+        torch.cuda.synchronize()
+        bit = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        nans = int(torch.isnan(got).sum())
+        edge_rows.append(dict(mode=str(mode), shape=list(s.shape),
+                              bit_equal=bit, nan=nans))
+        phase("probes", f"gather {tuple(s.shape)} mode {mode} with edge "
+              f"indices: bit-equal to plain {bit}, {nans} NaN (want "
+              f"{(s.shape[0] if s.dim() == 3 else 1) * 2})")
+        assert bit and nans == (s.shape[0] if s.dim() == 3 else 1) * 2, \
+            "the gather kernel differs from its plain version"
+
+    G.gather_cuda.launches = 0
+    rows = {}
+    for mod in (G, G2, G3):
+        phase("probes", f"{mod.__name__.split('.')[-1]} N{G.N} "
+              f"{G.H}x{G.W}, seed {SEED}:")
+        rows.update(mod.run(seed=SEED))
+    gather_launches = G.gather_cuda.launches
+    kernel_rows = {k: r for k, r in rows.items() if "torch_call" not in r}
+    assert len(kernel_rows) == 8 and all(r["match"] for r in rows.values()), \
+        "a gather builder differs from the probe's want"
+    assert gather_launches > 0
+    # each builder through the kernel against the plain version on the card
+    table = dict(G.builders())
+    table.update(G2.builders()[0])
+    table.update(G3.builders()[1])
+    for name, (s_np, i_np, mode, _) in table.items():
+        s, i = torch.from_numpy(s_np).cuda(), torch.from_numpy(i_np).cuda()
+        bit = torch.equal(G.gather_cuda(s, i, mode).view(torch.int32),
+                          G.gather_reference(s, i, mode).view(torch.int32))
+        kernel_rows[name.strip()]["bit_equal_to_plain"] = bit
+        assert bit, f"gather builder {name.strip()} differs from plain"
+    a_row = kernel_rows["A pallas flat take"]
+    phase("probes", "gather builders through the kernel, bit-equal to "
+          "plain: " + ", ".join(
+              f"{k.split()[0]} {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}"
+              f" of {r['bound_ms']:.5f}; torch.gather {r['library_ms']:.4f})"
+              for k, r in kernel_rows.items())
+          + f"; {gather_launches} launches")
+    return dict(conv=conv, conv_rows=conv_rows, conv_launches=conv_launches,
+                conv_growth=growth, gather=rows, gather_edges=edge_rows,
+                gather_launches=gather_launches, gather_a=a_row)
 
 
 def poly_child():
@@ -1826,6 +1978,7 @@ def main():
     edt_rows = check_edt()
     t_probes = time.perf_counter()
     probes = check_probes()
+    cg = check_conv_gather()
     phase("probes", f"phase wall time {time.perf_counter() - t_probes:.1f} s")
     E2.exp2_probe_cuda.launches = MS.flash_forward_mskip_cuda.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -1854,6 +2007,9 @@ def main():
     e2_bound = bound("exp2_probe", tuple(e2["shape"]))
     ms_shape = tuple(mskip["shape"])
     ms_bound = bound("flash_fwd_mskip", ms_shape)
+    conv_bound = bound("conv3x3", tuple(cg["conv"]["shape"]))
+    gather_bound = bound("gather", (*cg["gather_a"]["shape"], 4),
+                         shared_index=True)
     # the DDTI_POLY_EXP2=1 build's queued times at a and c, and the probe's
     # A/B (poly=0, then 1) at (8, 8, 4096, 32) bf16
     poly_fwd = {dt: r["fwd_queue_ms"] for dt, r in poly.items()}
@@ -1987,6 +2143,46 @@ def main():
         "shape": list(ms_shape),
         "max_abs_err_vs_attention_reference": mskip["m-skip"]["max_abs_err"],
         "shapes": mskip["shapes"],
+    }, {
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "benchmarks/pallas_conv_probe.py:42",
+        "launches": cg["conv_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in cg["conv_rows"]),
+        "ms": cg["conv"]["ms"],
+        "plain_ms": cg["conv"]["plain_ms"],
+        "bound_ms": conv_bound[0],
+        "bound_by": conv_bound[1],
+        "library_ms": cg["conv"]["library_ms"],
+        "library": "F.conv2d (cuDNN, channels_last, bias) + relu_, queued",
+        "shape": cg["conv"]["shape"],
+        "pack_ms": cg["conv"]["pack_ms"],
+        "cancel_err_by_c": cg["conv_growth"],
+        "shapes": cg["conv_rows"],
+    }, {
+        "name": "gather",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/gather_probe.cu",
+        "replaces": "benchmarks/gather_probe.py:55",
+        "also_replaces": ["benchmarks/gather_probe.py:77",
+                          "benchmarks/gather_probe.py:99",
+                          "benchmarks/gather_probe2.py:73",
+                          "benchmarks/gather_probe2.py:100",
+                          "benchmarks/gather_probe3.py:96",
+                          "benchmarks/gather_probe3.py:115",
+                          "benchmarks/gather_probe3.py:134"],
+        "launches": cg["gather_launches"],
+        "max_abs_err": 0.0,  # bit for bit, NaN's bits included
+        "ms": cg["gather_a"]["ms"],
+        "plain_ms": cg["gather_a"]["plain_ms"],
+        "bound_ms": gather_bound[0],
+        "bound_by": gather_bound[1],
+        "library_ms": cg["gather_a"]["library_ms"],
+        "library": "torch.gather, the same call (builder A), queued",
+        "builder": "A: flat take, (128, 256, 256) float32, shared index",
+        "builders": cg["gather"],
+        "edges": cg["gather_edges"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -122,3 +122,26 @@ def test_bounds_of_the_probes_still_to_port(kernel, shape, ms, by):
         w = C.work_counts(kernel, shape)
         assert w["flop"] == 618_475_290_624
         assert w["bytes"] == 1_090_945_280
+
+
+@pytest.mark.parametrize("shape, shared, nbytes, ms", [
+    # builders A, B, C and B2: N128 256^2 f32 in and out, one (256, 256)
+    # int32 index plane read once for the batch
+    ((128, 256, 256, 4), True, 67_371_008, 0.02011),
+    # F: (2048, 128) f32 src and out, an int32 index per element
+    ((1, 2048, 128, 4), False, 3_145_728, 0.000939),
+    # P4: (8, 128)
+    ((1, 8, 128, 4), False, 12_288, 12_288 / 3.35e12 * 1e3),
+    # P5 (512, 128) and P6 (256, 256): 786,432 B each
+    ((1, 512, 128, 4), False, 786_432, 0.000235),
+    ((1, 256, 256, 4), False, 786_432, 0.000235),
+])
+def test_bounds_of_the_ported_gather_builders(shape, shared, nbytes, ms):
+    """The gather kernel's builders at their own shapes: bound by bytes, a
+    shared index counted once (not once per image, as the per-image default
+    counts it)."""
+    w = C.work_counts("gather", shape, shared_index=shared)
+    assert w["bytes"] == nbytes and w["flop"] == 0
+    got, by, _ = C.bound("gather", shape, shared_index=shared)
+    assert by == "bytes"
+    assert got == pytest.approx(ms, rel=2e-3)

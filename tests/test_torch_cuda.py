@@ -7,6 +7,7 @@ one. The file imports no JAX, so it also runs where JAX is absent:
         tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -478,3 +479,192 @@ def test_poly_build_kernels_match_plain_in_poly_mode(cuda):
         env={**os.environ, "DDTI_POLY_EXP2": "1"})
     assert res.returncode == 0 and "poly ok" in res.stdout, \
         res.stdout[-2000:] + res.stderr[-4000:]
+
+
+# the warp-gather probes (probes/gather_probe*.py, csrc/gather_probe.cu)
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+# (src shape, idx shape, mode): the builders' shapes (A-C and B2 shared
+# across a batch, F and P4-P6 2-D), per-image indices, an index plane of
+# another size than the image, and odd sizes that take the scalar path
+GATHER_CASES = [
+    ((16, 256, 256), (256, 256), "flat"),
+    ((16, 256, 256), (256, 256), 0),
+    ((16, 256, 256), (256, 256), 1),
+    ((2048, 128), (2048, 128), 0),
+    ((8, 128), (8, 128), 0),
+    ((512, 128), (512, 128), 0),
+    ((256, 256), (256, 256), 1),
+    ((3, 40, 24), (3, 40, 24), "flat"),
+    ((3, 40, 24), (3, 17, 24), 0),
+    ((3, 40, 24), (3, 40, 9), 1),
+    ((5, 7, 5), (7, 5), 0),
+    ((5, 7, 5), (3, 3), "flat"),
+]
+
+
+def _gather_inputs(src_shape, idx_shape, mode, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    src = torch.rand(src_shape, generator=g)
+    r, c = src_shape[-2:]
+    length = r * c if mode == "flat" else (r, c)[mode]
+    idx = torch.randint(0, length, idx_shape, generator=g,
+                        dtype=torch.int32)
+    return src, idx, length
+
+
+@pytest.mark.parametrize("src_shape, idx_shape, mode", GATHER_CASES)
+def test_gather_kernel_bit_equal_to_plain(cuda, src_shape, idx_shape, mode):
+    """csrc/gather_probe.cu against its plain version, bit for bit, with
+    edge indices planted: -1 and -len wrap, len and -len - 1 give NaN (the
+    NaN's bits included); two calls give equal bits."""
+    from ddti_tpu_torch.probes import gather_probe as G
+
+    src, idx, length = _gather_inputs(src_shape, idx_shape, mode)
+    flat = idx.view(-1)
+    edges = torch.tensor([-1, -length, length, -length - 1, length - 1, 0],
+                         dtype=torch.int32)
+    flat[:min(len(edges), flat.numel())] = edges[:flat.numel()]
+    s, i = src.to(cuda), idx.to(cuda)
+    before = G.gather_cuda.launches
+    out = G.gather_cuda(s, i, mode)
+    again = G.gather_cuda(s, i, mode)
+    torch.cuda.synchronize()
+    assert G.gather_cuda.launches == before + 2
+    want = G.gather_reference(src, idx, mode)
+    assert out.shape == want.shape
+    assert torch.equal(_bits(out).cpu(), _bits(want))
+    assert torch.equal(_bits(out), _bits(again))
+    assert torch.isnan(out).sum().item() == torch.isnan(want).sum().item()
+
+
+def test_gather_builders_through_the_kernel(cuda):
+    """Every kernel builder of the three probes (A, B, C, B2, F, P4, P5,
+    P6) at a batch of 4 equals the probes' numpy want."""
+    from ddti_tpu_torch.probes import gather_probe as G
+    from ddti_tpu_torch.probes import gather_probe2 as G2
+    from ddti_tpu_torch.probes import gather_probe3 as G3
+
+    table = dict(G.builders(4))
+    table.update(G2.builders(4)[0])
+    table.update(G3.builders(4)[1])
+    assert len(table) == 8
+    for name, (src, idx, mode, want) in table.items():
+        out = G.gather_cuda(torch.from_numpy(src).to(cuda),
+                            torch.from_numpy(idx).to(cuda), mode)
+        assert np.array_equal(out.cpu().numpy(), want), name
+
+
+def test_gather_kernel_rejects_what_it_does_not_take(cuda):
+    from ddti_tpu_torch.probes import gather_probe as G
+
+    src = torch.rand((2, 8, 8), device=cuda)
+    idx = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        G.gather_cuda(src.double(), idx, 0)
+    with pytest.raises(ValueError, match="int32"):
+        G.gather_cuda(src, idx.long(), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.gather_cuda(src.transpose(1, 2), idx, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        G.gather_cuda(src, idx.cpu(), 0)
+    with pytest.raises(ValueError, match="axis"):
+        G.gather_cuda(src, idx[:, :5].contiguous(), 0)
+    with pytest.raises(ValueError, match="mode"):
+        G.gather_cuda(src, idx, 2)
+
+
+# the conv3x3 + bias + ReLU probe (probes/pallas_conv_probe.py,
+# csrc/conv3x3.cu)
+
+CONV_SHAPES = [
+    (2, 16, 16, 128, 128),   # the TPU probe's CPU shape
+    (8, 128, 128, 128, 128),  # the probe's level at a batch of 8
+    (3, 10, 12, 64, 96),     # ragged: H, W off every tile, CO = 96
+    (1, 1, 1, 32, 8),        # one pixel: only the centre tap
+    (2, 33, 7, 64, 200),     # CO past a 128-channel tile, odd W
+]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv3x3_kernel_matches_plain(cuda, shape):
+    """csrc/conv3x3.cu against its plain version: every element within one
+    bf16 ulp of the larger value or 2^-8 max|y| (the ReLU edge); two calls
+    give equal bits."""
+    from ddti_tpu_torch.probes import pallas_conv_probe as P
+
+    n, h, w, c, co = shape
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, wk, b = P.make_inputs(n, max(h, w), c, co, device=cuda)
+    x = x[:, :h, :w].contiguous()
+    wt = P.pack_weights(wk)
+    before = P.conv3x3_relu_cuda.launches
+    y = P.conv3x3_relu_cuda(x, wt, b)
+    again = P.conv3x3_relu_cuda(x, wt, b)
+    torch.cuda.synchronize()
+    assert P.conv3x3_relu_cuda.launches == before + 2
+    assert y.shape == (n, h, w, co) and y.dtype == torch.bfloat16
+    want = P.conv3x3_relu_reference(x, wk, b)
+    ok, err, share = P.within_tolerance(y, want)
+    assert ok, (err, share)
+    assert torch.equal(y, again)
+    assert torch.isfinite(y.float()).all()
+
+
+def test_conv3x3_error_does_not_grow_with_c(cuda, capsys):
+    """K = 9 C reaches 4608 at C = 512, and the tensor cores' float32
+    accumulation rounds toward zero: the kernel sums each chunk of 32 in a
+    fresh accumulator and adds it on the CUDA cores. On inputs whose bias
+    cancels a sum of K positive products (``cancelling_inputs``) every
+    interior output is ~1 and carries the sum's whole float32 error: within
+    CANCEL_LIMIT (2^-5) of the exact value at every C, as the plain version
+    is: the chunks' rounded sum wanders by up to 7.5e-3 at C = 512, one
+    truncating accumulator would drift by ~0.07. On the probe's random
+    inputs every C stays within the tolerance."""
+    from ddti_tpu_torch.probes import pallas_conv_probe as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for c in (64, 128, 256, 512):
+        x, wk, b, exact = P.cancelling_inputs(2, 16, c, seed=c, device=cuda)
+        y = P.conv3x3_relu_cuda(x, P.pack_weights(wk), b).float()
+        plain = P.conv3x3_relu_reference(x, wk, b).float()
+        err = (y[:, 1:-1, 1:-1] - exact.float()).abs().max().item()
+        err_plain = (plain[:, 1:-1, 1:-1] - exact.float()).abs().max().item()
+        assert max(err, err_plain) <= P.CANCEL_LIMIT, (c, err, err_plain)
+        # a border pixel misses at least three taps: its sum lies below -b
+        assert (y[:, 0] == 0).all() and (y[:, :, -1] == 0).all()
+        x, wk, b = P.make_inputs(4, 32, c, device=cuda, seed=c)
+        ok, d, share = P.within_tolerance(
+            P.conv3x3_relu_cuda(x, P.pack_weights(wk), b),
+            P.conv3x3_relu_reference(x, wk, b))
+        with capsys.disabled():
+            print(f"conv3x3 C = CO = {c}: cancelling sum off exact by "
+                  f"{err:.3e} (plain {err_plain:.3e}); random inputs max|d| "
+                  f"{d:.3e}, {share:.3e} of elements differ")
+        assert ok, (c, d)
+
+
+def test_conv3x3_kernel_rejects_what_it_does_not_take(cuda):
+    from ddti_tpu_torch.probes import pallas_conv_probe as P
+
+    x, wk, b = P.make_inputs(1, 8, 64, device=cuda)
+    wt = P.pack_weights(wk)
+    with pytest.raises(ValueError, match="C % 32"):
+        x48, wk48, b48 = P.make_inputs(1, 8, 48, device=cuda)
+        P.conv3x3_relu_cuda(x48, P.pack_weights(wk48), b48)
+    with pytest.raises(ValueError, match="CO % 8"):
+        xc, wkc, bc = P.make_inputs(1, 8, 64, 60, device=cuda)
+        P.conv3x3_relu_cuda(xc, P.pack_weights(wkc), bc)
+    with pytest.raises(ValueError, match="bfloat16"):
+        P.conv3x3_relu_cuda(x.float(), wt, b)
+    with pytest.raises(ValueError, match="float32"):
+        P.conv3x3_relu_cuda(x, wt, b.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        P.conv3x3_relu_cuda(x.transpose(1, 2), wt, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        P.conv3x3_relu_cuda(x, wt.cpu(), b)
+    with pytest.raises(ValueError, match="do not fit"):
+        P.conv3x3_relu_cuda(x, wt[:, :-32].contiguous(), b)
