@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 
 or, to compare another tree of the repository (a commit unpacked with git
 archive) with this one on the same card, in the order other, this, this,
-other: ``python3 chip_smoke.py --ab OTHER_TREE`` (see ``ab``).
+other: ``python3 chip_smoke.py --ab OTHER_TREE`` (see ``ab``; ``--ab
+OTHER_TREE probes`` for the conv3x3 and gather probes alone).
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -51,14 +52,18 @@ and a non-zero exit:
               beside; then the three probes' lines. The conv3x3 and
               gather probes: csrc/conv3x3.cu against its plain version
               (within one bf16 ulp or 2^-8 max|y|) at the probe's shape,
-              its CPU shape, a ragged one and C = CO of 64-512, and (the
-              error-growth check) where the bias cancels a sum of 9 C
-              positive products, within CANCEL_LIMIT of the exact value
-              at every C; csrc/gather_probe.cu bit for bit against its plain
-              version in every mode with edge indices planted and on
-              every builder (A, B, C, B2, F, P4, P5, P6); then the four
-              probes' runs, with queued times beside cuDNN, torch.gather
-              and the XLA builders' torch calls, and the bounds.
+              its CPU shape, ragged ones, its tiling's edges and C = CO of
+              64-512, and (the error-growth check) where the bias cancels a
+              sum of 9 C positive products, within CANCEL_LIMIT of the
+              exact value at every C; csrc/gather_probe.cu bit for bit
+              against its plain version in every mode with edge indices
+              planted, at the staged path's edges and on every builder (A,
+              B, C, B2, F, P4, P5, P6), its count of staged (tile, image)
+              pairs equal to plan_windows'; then the four probes' runs,
+              with queued times beside cuDNN, torch.gather and the XLA
+              builders' torch calls, the bounds, and each kernel's bytes
+              from L2 into the SMs a call, the previous design's beside
+              (mma.sync for the conv, per-element for the gather).
 5. slice    — the serving daemon (ddti_tpu_torch.cli.serve) with the
               TransUNet of configs/config.yaml (base_filters 64, depth 4,
               512x512 -> 1024 bottleneck tokens), random weights from a seed,
@@ -230,9 +235,14 @@ EXP2_EDGES = (0.0, -0.0, float("-inf"), -1e30, -126.5, 127.0, 0.5, 1.5, 2.5,
 EXP2_ULPS = 2
 MSKIP_SHAPES = [(8, 8, 4096, 32), (16, 8, 1024, 32), (2, 8, 1000, 32)]
 # conv3x3 kernel vs plain: the probe's shape, its CPU shape, a ragged one,
+# the kernel's edges (W below its 8-column tile, W = 1, one image 300 wide,
+# an odd count of pixel tiles, the 32-channel box at C = 32 and 96, CO of
+# one 8-channel group and past a 128-channel tile),
 # and (N, spatial, C = CO) of the error-growth check
 CONV_SHAPES = [(128, 128, 128, 128, 128), (2, 16, 16, 128, 128),
-               (3, 10, 12, 64, 96)]
+               (3, 10, 12, 64, 96), (2, 16, 5, 64, 64), (2, 9, 1, 64, 64),
+               (1, 4, 300, 64, 64), (3, 16, 24, 64, 64), (2, 20, 20, 32, 64),
+               (2, 20, 20, 96, 128), (2, 16, 16, 64, 8), (2, 16, 16, 64, 136)]
 CONV_GROWTH = (16, 64, (64, 128, 256, 512))
 POLY_SHAPES = [(16, 8, 1024, 32, "bfloat16"), (16, 8, 1024, 32, "float32")]
 POLY_TIMEOUT_S = 600
@@ -328,6 +338,142 @@ def bound(kernel, shape, dtype="bfloat16", shared_index=False):
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes",
             w["exp2"] / EX2_PER_S * 1e3)
+
+
+def kernel_constants(source, *names):
+    """The integer constants ``names`` as ddti_tpu_torch/csrc/``source``
+    defines them (``kName = 16``), read from the source, so that the models
+    below take the kernel's own tiling. Raises where one is missing."""
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ddti_tpu_torch", "csrc", source)
+    with open(path) as f:
+        text = f.read()
+    found = {}
+    for name in names:
+        m = re.search(rf"\b{name}\s*=\s*(\d+)\s*[,;]", text)
+        if not m:
+            raise ValueError(f"{source} defines no constant {name}")
+        found[name] = int(m.group(1))
+    return found
+
+
+# the conv3x3 kernel that csrc/conv3x3.cu replaced (mma.sync): tiles of 128
+# flattened pixels x 128 channels
+OLD_CONV_TILE = (128, 128)
+L2_SECTOR = 32  # bytes
+
+
+def conv_l2_bytes(n, h, w, c, co):
+    """Bytes one conv3x3 call moves from L2 into the SMs, counted from the
+    schedule, as {"old", "new"}: the mma.sync design (per 128-pixel x
+    128-channel tile, 9 C x 128 pixels of x and 9 C x 128 channels of
+    weights) and csrc/conv3x3.cu's (per kBH x kBW pixel tile and kBN
+    channels, three x boxes of (kBH + 2) x kBW pixels a channel box, one
+    for each dx, and all 9 C x kBN weights)."""
+    k = kernel_constants("conv3x3.cu", "kBH", "kBW", "kBN")
+    bh, bw, bn = k["kBH"], k["kBW"], k["kBN"]
+    om, on = OLD_CONV_TILE
+    old = -(-(n * h * w) // om) * -(-co // on) * 9 * c * (om + on) * 2
+    tiles = n * -(-h // bh) * -(-w // bw) * -(-co // bn)
+    return dict(old=old, new=tiles * (3 * c * (bh + 2) * bw + 9 * c * bn) * 2)
+
+
+def _sectors(offsets):
+    """Distinct L2 sectors a warp's 4-byte loads touch, summed over warps:
+    ``offsets`` (loads, 32 lanes) of float offsets, -1 for none."""
+    import numpy as np
+
+    sec = np.where(offsets >= 0, offsets * 4 // L2_SECTOR, -1)
+    sec = np.sort(sec, axis=1)
+    new = np.concatenate([sec[:, :1] >= 0, (sec[:, 1:] != sec[:, :-1])
+                          & (sec[:, 1:] >= 0)], axis=1)
+    return int(new.sum())
+
+
+def _gather_offsets(idx, r, c, mode):
+    """(offsets into an image, -1 out of range; in range) of a shared (R',
+    C') index plane."""
+    import numpy as np
+
+    i = np.asarray(idx, np.int64)
+    length = r * c if mode == "flat" else (r, c)[mode]
+    k = np.where(i < 0, i + length, i)
+    inr = (k >= 0) & (k < length)
+    if mode == "flat":
+        off = k
+    elif mode == 0:
+        off = k * c + np.arange(i.shape[1])
+    else:
+        off = np.arange(i.shape[0])[:, None] * c + k
+    return np.where(inr, off, -1), inr
+
+
+def gather_l2_bytes(idx, n, r, c, mode, sms):
+    """Source bytes one gather call moves from L2 into the SMs, for a shared
+    index plane, as {"old", "new"}: the per-element kernel that served every
+    mode before the windows (a thread's four neighbouring elements, a warp's
+    128 along the flattened plane, one load instruction per element of four)
+    and csrc/gather_probe.cu's (a staged tile's window per image, a direct
+    tile's warps of 32 columns of one row), both counted as the 32-byte
+    sectors a warp's loads touch with no reuse in L1; plus the index plane,
+    read once per chunk in the old design and once per block in the new.
+    The column mode and calls of fewer tiles than ``sms`` keep the
+    per-element path. An upper bound on what L1 lets through."""
+    import numpy as np
+
+    from ddti_tpu_torch.probes import gather_probe as G
+
+    off, _ = _gather_offsets(idx, r, c, mode)
+    ir, ic = off.shape
+    m = off.size
+    flat = np.full(-(-m // 128) * 128, -1, np.int64)
+    flat[:m] = off.reshape(-1)
+    # old: warp w, instruction e, lane l reads element 128 w + 4 l + e
+    old = _sectors(flat.reshape(-1, 32, 4).transpose(0, 2, 1).reshape(-1, 32))
+    old = old * L2_SECTOR * n + m * 4
+    tiles = -(-ir // G.TILE) * -(-ic // G.TILE)
+    if mode == 1 or tiles * n < sms:  # the per-element path, as before
+        return dict(old=old, new=old)
+    plan = G.plan_windows(idx, r, c, mode, n=n, sms=sms)
+    tiled = G._tile_view(off[None], -1)[0]
+    new = 0
+    for tr, tc in zip(*np.nonzero(~plan["staged"][0])):
+        new += _sectors(tiled[tr, :, tc, :].reshape(-1, 32)) * L2_SECTOR
+    new = (new + int(plan["bytes"][0][plan["staged"][0]].sum())) * n
+    return dict(old=old, new=new + m * 4)
+
+
+def gather_bank_wavefronts(idx, r, c, mode, pad=0):
+    """Shared-memory wavefronts a warp's load from a staged window takes,
+    averaged over the staged tiles of a shared (R', C') index plane: a warp
+    reads 32 neighbouring columns of one output row of a tile, at (source
+    row - rlo) x stride + source column - clo with a window-row stride of
+    cols + ``pad`` floats; each distinct word in one of the 32 banks is one
+    wavefront, the busiest bank's count the load's. 1.0 is conflict-free;
+    None where no tile stages."""
+    import numpy as np
+
+    from ddti_tpu_torch.probes import gather_probe as G
+
+    plan = G.plan_windows(idx, r, c, mode, n=1, sms=1)
+    off, inr = _gather_offsets(idx, r, c, mode)
+    rows, cols = off // c, off % c  # flat and row mode alike
+    t = G.TILE
+    fronts = []
+    for tr, tc in zip(*np.nonzero(plan["staged"][0])):
+        win = (slice(tr * t, (tr + 1) * t), slice(tc * t, (tc + 1) * t))
+        stride = plan["cols"][0, tr, tc] + pad
+        at = ((rows[win] - plan["rlo"][0, tr, tc]) * stride + cols[win]
+              - plan["clo"][0, tr, tc])
+        tile = np.full((t, t), -1, np.int64)  # a ragged edge tile padded
+        tile[:at.shape[0], :at.shape[1]] = np.where(inr[win], at, -1)
+        for load in tile.reshape(-1, 32):
+            words = np.unique(load[load >= 0])
+            if words.size:
+                fronts.append(np.bincount(words % 32, minlength=32).max())
+    return float(np.mean(fronts)) if fronts else None
 
 
 def sdpa_yardstick(q, k, v, do=None):
@@ -506,6 +652,9 @@ def kernel_report(lib, quiet=False):
         m = re.search(r"\dgather_kernelILi(\d)ELb([01])ELb([01])E", name)
         if m:  # <mode, 16-byte, shared index>
             return f"gather_kernel<{m.group(1)},{m.group(2)},{m.group(3)}>"
+        m = re.search(r"\dtiled_gather_kernelILi(\d)ELb([01])E", name)
+        if m:  # <mode, shared index>
+            return f"tiled_gather_kernel<{m.group(1)},{m.group(2)}>"
         m = re.search(r"\d((?:flash|edt|exp2|conv3x3)_\w+?_kernel)"
                       r"(?:ILi(\d+)E(Lb1E)?|I(\w)|E)", name)
         if not m:
@@ -554,6 +703,12 @@ def kernel_report(lib, quiet=False):
                 and name != "flash_fwd_f32_fma_kernel<256>":
             assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"], \
                 f"{name} issues no wgmma or TMA load"
+        if name.startswith("conv3x3_relu_kernel"):
+            assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"] \
+                and o["HMMA"] == 0, \
+                f"{name} does not run on wgmma and TMA alone: {o}"
+    assert sum(n.startswith("conv3x3_relu_kernel") for n in ops) == 2, \
+        "the conv3x3 kernel's two instances (boxes of 32 and 64 channels)"
     return regs, ops
 
 
@@ -864,6 +1019,7 @@ def check_conv_gather():
     from ddti_tpu_torch.probes import gather_probe2 as G2
     from ddti_tpu_torch.probes import gather_probe3 as G3
     from ddti_tpu_torch.probes import pallas_conv_probe as P
+    from ddti_tpu_torch.probes._timing import queued_ms as device_ms
 
     conv_rows = []
     for shape in CONV_SHAPES + [(CONV_GROWTH[0], CONV_GROWTH[1],
@@ -914,11 +1070,15 @@ def check_conv_gather():
     conv_launches = P.conv3x3_relu_cuda.launches
     conv_shape = (P.N, P.SPATIAL, P.SPATIAL, P.CHANNELS, P.CHANNELS)
     b_ms, b_by, _ = bound("conv3x3", conv_shape)
+    l2 = conv_l2_bytes(*conv_shape)
     phase("probes", f"conv3x3 {conv_shape}: kernel {conv['ms']:.4f} ms, "
           f"cuDNN {conv['library_ms']:.4f} ms, plain {conv['plain_ms']:.4f} "
           f"ms (queued device time); bound {b_ms:.4f} ms ({b_by}): kernel "
           f"{b_ms / conv['ms']:.1%} of it, cuDNN "
-          f"{b_ms / conv['library_ms']:.1%}; {conv_launches} launches")
+          f"{b_ms / conv['library_ms']:.1%}; {conv_launches} launches; L2 -> "
+          f"SM bytes a call (conv_l2_bytes) {l2['new'] / 1e9:.3f} GB (the "
+          f"mma.sync design {l2['old'] / 1e9:.3f} GB), "
+          f"{l2['new'] / conv['ms'] / 1e9:.2f} TB/s")
     assert conv["within"] and conv_launches > 0
 
     # every mode on the builders' shapes with edge indices planted: -1 and
@@ -949,6 +1109,36 @@ def check_conv_gather():
         assert bit and nans == (s.shape[0] if s.dim() == 3 else 1) * 2, \
             "the gather kernel differs from its plain version"
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # the staged path's edges (a window at the cap and past it, wrapping
+    # and out-of-range indices inside a staged tile, per-image planes):
+    # bit for bit, and the kernel's count of staged (tile, image) pairs
+    # equal to plan_windows'; the case that mixes staged and direct tiles
+    # timed beside torch.gather
+    for name, (s_np, i_np, mode) in G.window_cases(SEED).items():
+        s, i = torch.from_numpy(s_np).cuda(), torch.from_numpy(i_np).cuda()
+        got, count = G.staged_count(s, i, mode)
+        want = G.gather_reference(s, i, mode)
+        plan = G.planned_staged(i_np, s.shape[0], *s.shape[-2:], mode,
+                                sms=sms)
+        bit = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        row = dict(mode=str(mode), case=name, shape=list(s.shape),
+                   bit_equal=bit, staged=count)
+        timed = ""
+        if name == "flat per-image":
+            index = G.torch_index(i, s.shape[0])
+            row.update(ms=device_ms(lambda: G.gather_cuda(s, i, mode)),
+                       library_ms=device_ms(
+                           lambda: G.torch_gather(s, index, mode)))
+            timed = (f"; {row['ms']:.4f} ms, torch.gather "
+                     f"{row['library_ms']:.4f} ms (queued)")
+        edge_rows.append(row)
+        phase("probes", f"gather {name} {tuple(s.shape)} idx "
+              f"{tuple(i.shape)}: bit-equal to plain {bit}, staged (tile, "
+              f"image) pairs {count} (plan {plan}){timed}")
+        assert bit and count == plan, \
+            f"gather {name}: the staged path differs from plain or its plan"
+
     G.gather_cuda.launches = 0
     rows = {}
     for mod in (G, G2, G3):
@@ -964,17 +1154,51 @@ def check_conv_gather():
     table = dict(G.builders())
     table.update(G2.builders()[0])
     table.update(G3.builders()[1])
+    # (untimed calls: the timed ones pass no counter and carry no atomic);
+    # the plan, the byte and bank models go to the phase line only
+    models = {}
     for name, (s_np, i_np, mode, _) in table.items():
         s, i = torch.from_numpy(s_np).cuda(), torch.from_numpy(i_np).cuda()
-        bit = torch.equal(G.gather_cuda(s, i, mode).view(torch.int32),
+        got, count = G.staged_count(s, i, mode)
+        bit = torch.equal(got.view(torch.int32),
                           G.gather_reference(s, i, mode).view(torch.int32))
-        kernel_rows[name.strip()]["bit_equal_to_plain"] = bit
-        assert bit, f"gather builder {name.strip()} differs from plain"
+        n = s.shape[0] if s.dim() == 3 else 1
+        key = name.strip()
+        kernel_rows[key].update(bit_equal_to_plain=bit, staged=count)
+        model = models[key] = dict(
+            planned=G.planned_staged(i_np, n, *s.shape[-2:], mode, sms=sms),
+            tiles=G.plan_windows(i_np, *s.shape[-2:],
+                                 mode)["staged"].size * n)
+        if i_np.ndim == 2 and s.dim() == 3:
+            model["l2"] = gather_l2_bytes(i_np, n, *s.shape[-2:], mode, sms)
+            model["banks"] = gather_bank_wavefronts(i_np, *s.shape[-2:],
+                                                    mode)
+        assert bit, f"gather builder {key} differs from plain"
+        assert count == model["planned"], \
+            f"gather builder {key}: staged {count}, plan says " \
+            f"{model['planned']}"
+    for key in ("A pallas flat take", "B pallas taa axis0",
+                "B2 pallas taa ax0 promise"):
+        assert kernel_rows[key]["staged"] == models[key]["tiles"], \
+            f"gather builder {key}: a tile missed the staged path"
+    assert kernel_rows["F  pallas dyn_gather lanes"]["staged"] == 0
     a_row = kernel_rows["A pallas flat take"]
+
+    def models_text(m):
+        text = f"staged {m['staged']} of {m['tiles']} (tile, image) pairs"
+        if "l2" in m:
+            text += (f"; L2 -> SM sectors {m['l2']['new'] / 1e6:.1f} MB, "
+                     f"per-element {m['l2']['old'] / 1e6:.1f} MB")
+        if m.get("banks"):
+            text += f"; {m['banks']:.2f} shared-memory wavefronts a load"
+        return text
+
     phase("probes", "gather builders through the kernel, bit-equal to "
-          "plain: " + ", ".join(
+          "plain (models: gather_l2_bytes, gather_bank_wavefronts): "
+          + ", ".join(
               f"{k.split()[0]} {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}"
-              f" of {r['bound_ms']:.5f}; torch.gather {r['library_ms']:.4f})"
+              f" of {r['bound_ms']:.5f}; torch.gather {r['library_ms']:.4f}; "
+              + models_text(dict(models[k], staged=r["staged"])) + ")"
               for k, r in kernel_rows.items())
           + f"; {gather_launches} launches")
     return dict(conv=conv, conv_rows=conv_rows, conv_launches=conv_launches,
@@ -1894,12 +2118,32 @@ def profile_transunet():
     return rows
 
 
-def ab_side(tree):
+def ab_probes():
+    """The conv3x3 and gather kernels' queued times at the probes' shapes,
+    beside cuDNN's and torch.gather's, with the tree that is imported:
+    {"conv": {ms, library_ms}, "gather": {builder: {ms, library_ms}}}."""
+    from ddti_tpu_torch.probes import gather_probe as G
+    from ddti_tpu_torch.probes import gather_probe2 as G2
+    from ddti_tpu_torch.probes import gather_probe3 as G3
+    from ddti_tpu_torch.probes import pallas_conv_probe as P
+
+    conv = P.run(seed=SEED)
+    rows = {}
+    for mod in (G, G2, G3):
+        rows.update(mod.run(seed=SEED))
+    keep = ("ms", "library_ms", "match")
+    return dict(conv={k: conv[k] for k in keep[:2]},
+                gather={k: {f: r[f] for f in keep if f in r}
+                        for k, r in rows.items() if "torch_call" not in r})
+
+
+def ab_side(tree, probes_only=False):
     """One side of a same-card comparison of two trees: kernel_phases() and
     the TransUNet train steps on the kernel path (float32, the training
     CLI's default, then bf16; S = 1024 at batch 16 and S = 4096 at batch 8)
-    with ``tree``'s ddti_tpu_torch and this file's measurements. Prints one
-    line "[ab] {json}"."""
+    and the conv3x3 and gather probes (ab_probes), or with ``probes_only``
+    the probes alone, with ``tree``'s ddti_tpu_torch and this file's
+    measurements. Prints one line "[ab] {json}"."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -1909,6 +2153,10 @@ def ab_side(tree):
 
     _build.build()
     _build.load_library()
+    if probes_only:
+        print("[ab] " + json.dumps(dict(tree=tree, source=_build.__file__,
+                                        probes=ab_probes())), flush=True)
+        return
     fwd, bwd, _ = kernel_phases()
     size = TTRAIN["image_size"]
     steps = [_profile_steps(f"{label} {tree}", size, batch, "TransUNet",
@@ -1917,17 +2165,19 @@ def ab_side(tree):
              for label, batch, kw in (("S=1024", TTRAIN["batch_size"], TSLICE),
                                       ("S=4096", 8, TLONG))]
     print("[ab] " + json.dumps(dict(tree=tree, source=_build.__file__,
-                                    fwd=fwd, bwd=bwd, steps=steps)),
+                                    fwd=fwd, bwd=bwd, steps=steps,
+                                    probes=ab_probes())),
           flush=True)
 
 
-def ab(parent):
+def ab(parent, *which):
     """Compare the tree at ``parent`` (another commit unpacked, e.g. with
     git archive) with this one on one card, in the order parent, this, this,
-    parent, each side in its own process (ab_side)."""
+    parent, each side in its own process (ab_side); ``which`` = ("probes",)
+    compares the conv3x3 and gather probes alone."""
     for tree in (parent, ".", ".", parent):
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--ab-side", tree], check=True)
+                        "--ab-side", tree, *which], check=True)
 
 
 def main():
@@ -2191,10 +2441,10 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ab"]:      # python3 chip_smoke.py --ab TREE
-        sys.exit(ab(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab"]:  # python3 chip_smoke.py --ab TREE [probes]
+        sys.exit(ab(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ab-side"]:
-        sys.exit(ab_side(sys.argv[2]))
+        sys.exit(ab_side(sys.argv[2], sys.argv[3:4] == ["probes"]))
     if sys.argv[1:2] == ["--poly-child"]:
         sys.exit(poly_child())
     sys.exit(main())

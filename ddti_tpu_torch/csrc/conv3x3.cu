@@ -10,239 +10,404 @@
 // (3, 3, C, CO) bf16, b (CO,) float32, products summed in float32, y
 // (N, H, W, CO) bf16.
 //
-// What bounds it on an H100: the tensor cores. At the probe's N128 128^2
+// What bounds it on an H100, by its work: the tensor cores (it reaches
+// about half of their rate: see the epilogue below). At the probe's N128 128^2
 // C = CO = 128 it does 618.5 GFLOP, 0.625 ms at the dense bf16 peak of 989
 // TFLOP/s, against ~1.08 GB of x, y and weights (0.32 ms at 3.35 TB/s).
+// A first version, an implicit GEMM on mma.sync, streamed 9 C of x and 9 C
+// of weights per 128 x 128 tile from L2, 9.66 GB a call, with two
+// __syncthreads per 32-deep chunk; it reached 21% of the bound (2.95 ms on
+// an H100 80GB HBM3 at 700 W, where cuDNN's chain takes 2.03).
 //
-// Design: an implicit GEMM, M = N H W output pixels (flattened, so any H and
-// W), N = CO, K = 9 C (tap-major: k = (3 dy + dx) C + c), on mma.sync
-// m16n8k16 (bf16 in, float32 accumulate; the fragment layouts of sm90.cuh's
-// header). A block of 8 warps computes 128 pixels x 128 channels, each warp
-// 64 x 32 (4 x 4 tiles of m16n8). K advances in chunks of 32 that lie in
-// one tap: cp.async stages the chunk's (128 pixels, 32 channels) slice of x
-// and its (128 channels, 32) slice of the weights, relaid once outside the
-// call to (CO, 9 C), K contiguous, into shared memory, double buffered,
-// rows padded to 80 bytes so that ldmatrix reads them without bank
-// conflicts. The halo is not padded in memory, as the TPU probe's jnp.pad
-// did: a pixel row whose tap falls outside the image is a cp.async that
-// reads 0 bytes and fills 16 zeros. The tensor cores' float32 accumulation
-// rounds toward zero, so each chunk's two k16 products are summed in a
-// fresh accumulator and added to the running sum on the CUDA cores, rounded
-// to nearest (as sm90.cuh's acc_tile does for the flash kernels). Bias and
-// ReLU are applied on the way out, stored as bf16 pairs. The TPU grid
-// (n, H / HT) left the last H % HT rows unwritten; HT, a TPU tiling knob,
-// is not carried over.
+// Design: an implicit GEMM, M = output pixels in rectangular tiles of
+// kBH x kBW = 16 x 8, N = CO in tiles of 128, K = 9 C, on wgmma m64n128k16
+// (bf16 in, float32 sums), fed by TMA. A persistent grid of one block a SM
+// walks the tiles; a block is a producer warpgroup, one thread of which
+// issues TMA loads into a ring of stages, and two consumer warpgroups of
+// 64 pixels (8 image rows of 8) each.
+//  - x through a 4-D tensor map (C, W, H, N): a stage holds one box of
+//    (kBH + 2) x kBW pixels by CB channels (CB = 64, one 128-byte swizzled
+//    row, or 32 where C % 64 != 0, 64-byte swizzle), shifted by dx - 1
+//    columns and starting one row above the tile. TMA fills coordinates
+//    outside the image with zeros: no padding, no per-thread address.
+//  - The box serves the three taps (0..2, dx): tap dy reads it from pixel
+//    row dy kBW on, dy kBW x 2 CB bytes further, a whole number of swizzle
+//    atoms, so its wgmma descriptor is the box's advanced by that offset.
+//    x's bytes a tile fall from 9 chunks to 3 (kBH + 2) / kBH = 3.375, and
+//    a call moves 6.64 GB from L2 instead of 9.66.
+//  - Weights through a 3-D map (C, 9, CO) over pack_weights' (CO, 9 C):
+//    the stage's three taps' (128 channels, CB) tiles. (Sharing them
+//    between the two blocks of a cluster by TMA multicast halved their
+//    bytes, 4.2 GB a call, and made the kernel 1.7x slower on the H100,
+//    2.34 against 1.37 ms at the probe's shape: every stage then waits for
+//    both blocks of the pair.)
+//  - The tensor cores' float32 accumulation rounds toward zero, so each
+//    chunk (one tap, CB channels) is summed in a fresh accumulator and
+//    added to the running sum on the CUDA cores, rounded to nearest. Two
+//    fresh accumulators alternate: chunk j + 1's wgmma runs while chunk j
+//    is added (wgmma_wait<1>).
+//  - The epilogue adds the bias, applies ReLU and rounds to bf16 into the
+//    tile's last stage, once both warpgroups' products are done with it
+//    (stage_tile: 16-byte chunks, after a quad's lanes trade their pairs).
+//    A storer warp of the producer's warpgroup writes it to y with two TMA
+//    stores, which leave out pixels past H or W and channels past CO, and
+//    then hands the stage back to the loads. With stores from registers
+//    the kernel took 1.63 ms a call (4-byte pairs) and 1.37 ms (16-byte
+//    chunks) on the H100 at the probe's shape; with TMA stores 1.24-1.29.
+// The TPU grid (n, H / HT) left the last H % HT rows unwritten; HT, a TPU
+// tiling knob, is not carried over.
 //
-// Takes C % 32 == 0, CO % 8 == 0, N H W < 2^31 (the wrapper checks).
+// Takes C % 32 == 0, CO % 8 == 0, N H W < 2^31, x and wt 16-byte aligned
+// (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;       // pixels a block
-constexpr int kBN = 128;       // output channels a block
-constexpr int kBK = 32;        // K a chunk (two k16 steps, one tap)
-constexpr int kStride = 40;    // shared row, bf16 (80 bytes: 64 + padding)
+constexpr int kBH = 16, kBW = 8;  // pixel tile: image rows x columns
+constexpr int kBN = 128;          // output channels a tile
+constexpr int kConsumers = 2;     // warpgroups of 64 pixels (8 rows of 8)
+constexpr int kThreads = 128 * (kConsumers + 1);
+// setmaxnreg: the consumers hold a running sum and two fresh chunk sums
+// (3 x 64 floats a thread), the producer its tile walk
+constexpr int kConvConsumerRegs = 232, kConvProducerRegs = 40;
+constexpr uint32_t kOutBox = kBH * kBW * 128;  // 64 bf16 channels a pixel
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+template <int CB>
+struct ConvSmem {
+  static_assert(CB == 32 || CB == 64, "CB");
+  static constexpr uint32_t kRow = 2 * CB;                 // a pixel's chunk
+  static constexpr uint32_t kAtom = 8 * kRow;              // swizzle repeat
+  static constexpr uint32_t kXBox = (kBH + 2) * kBW * kRow;
+  static constexpr uint32_t kWTile = kBN * kRow;           // one tap
+  static constexpr uint32_t kStage = kXBox + 3 * kWTile;   // x box, 3 taps
+  static constexpr int kStages = CB == 64 ? 3 : 6;
+  static constexpr uint64_t kLayout = CB == 64 ? 1 : 2;    // 128B, 64B
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      CB == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  // full[kStages], empty[kStages], stored, drained
+  static constexpr uint32_t bars = kStages * kStage;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 2) + 1024;
+  static_assert(kXBox % 1024 == 0 && kWTile % 1024 == 0, "atoms");
+  // a tile's output, two boxes of kBH x kBW pixels by 64 channels, lies in
+  // its last stage once the stage's products are done
+  static_assert(kStage >= 2 * kOutBox, "the output tile fits a stage");
+};
+
+// descriptor of k16 step kk of a K-major operand of CB-channel rows
+template <int CB>
+__device__ __forceinline__ uint64_t conv_desc(uint32_t addr, int kk) {
+  return smem_desc(addr + kk * 32, 16, ConvSmem<CB>::kAtom,
+                   ConvSmem<CB>::kLayout);
 }
 
-// 16 bytes global -> shared; `bytes` 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
+// The walk: tile q of the call is pixel tile q % P (image, tile row, tile
+// column) of channel tile q / P; block b takes q = b, b + gridDim.x, ...
+struct Walk {
+  int th, tw, p, tiles;
+  __device__ Walk(int n, int h, int w, int co) {
+    th = (h + kBH - 1) / kBH;
+    tw = (w + kBW - 1) / kBW;
+    p = n * th * tw;
+    tiles = p * ((co + kBN - 1) / kBN);
+  }
+};
+
+// the two consumer warpgroups, named barrier 1 (the producer's warpgroup
+// does not take part)
+__device__ __forceinline__ void named_sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 128) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// a consumer warp is done with a stage: one arrival on its barrier
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// A consumer's chunk j of a tile (stage j / 3 from ring position pos0 on,
+// tap dy = j % 3): its CB / 16 k16 products into `cur`, a fresh sum; then,
+// once chunk j - 1's products are done, its sum `prev` added to acc on the
+// CUDA cores, rounded to nearest, and its stage released after its third
+// tap.
+template <int CB>
+__device__ __forceinline__ void conv_chunk(float (&acc)[64],
+                                           float (&cur)[64],
+                                           float (&prev)[64], int j, int pos0,
+                                           int wg, int lane, uint64_t* full,
+                                           uint64_t* empty) {
+  using L = ConvSmem<CB>;
+  const int pos = pos0 + j / 3, dy = j % 3, st = pos % L::kStages;
+  if (dy == 0) mbar_wait(full + st, (pos / L::kStages) & 1);
+  // the ring lies below the barriers
+  const uint32_t stage = smem_addr(full) - L::bars + st * L::kStage;
+  const uint32_t a = stage + (8 * wg + dy) * L::kAtom;
+  const uint32_t b = stage + L::kXBox + dy * L::kWTile;
+  fence_acc(cur);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CB / 16; ++kk)
+    wgmma_m64n128k16_ss(cur, conv_desc<CB>(a, kk), conv_desc<CB>(b, kk), kk);
+  wgmma_commit();
+  if (j == 0) return;
+  wgmma_wait<1>();
+  fence_acc(prev);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] += prev[i];
+  if ((j - 1) % 3 == 2)
+    release(empty + (pos0 + (j - 1) / 3) % L::kStages, lane);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
+// y = relu(acc + b) as bf16 for one warp's two tile rows row0, row0 + 1 at
+// column g, channels co0 + 8 i + 2 t + {0, 1} (i < 16) in acc[4 i + 2
+// half + {0, 1}], written into the output tile `out` that the TMA store
+// reads: two boxes (channels 0-63, 64-127) of kBH x kBW pixels, a pixel a
+// 128-byte row, 16-byte chunks swizzled as the 128-byte swizzle lays them
+// (chunk ^ row % 8). The four lanes of a quad (t = 0..3, one pixel) trade
+// their bf16 pairs so that lane t holds channels 32 m + 8 t .. + 7 for m =
+// 0..3 and writes them as one 16-byte chunk.
+__device__ __forceinline__ void stage_tile(const float (&acc)[64],
+                                           const float* __restrict__ bias,
+                                           unsigned char* out, int row0,
+                                           int g, int co0, int co, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int px = (row0 + half) * kBW + g;  // the pixel's row in a box
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      uint32_t p[4];  // this lane's pairs of groups 4 m .. 4 m + 3
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = 4 * m + k, o = min(co0 + 8 * i + 2 * t, co - 2);
+        p[k] = pack_bf16(fmaxf(acc[4 * i + 2 * half] + bias[o], 0.f),
+                         fmaxf(acc[4 * i + 2 * half + 1] + bias[o + 1], 0.f));
+      }
+      // round x: lane t takes lane (t ^ x)'s pair of group 4 m + t, which
+      // lane s = t ^ x holds as p[s ^ x]; it is channel pair s of group t
+      uint32_t got[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int k = t ^ x;
+        const uint32_t send = k == 0 ? p[0] : k == 1 ? p[1] : k == 2 ? p[2]
+                                                                   : p[3];
+        got[x] = __shfl_xor_sync(0xffffffffu, send, x);
+      }
+      uint32_t v[4];  // v[s] = got[s ^ t]
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int x = j ^ t;
+        v[j] = x == 0 ? got[0] : x == 1 ? got[1] : x == 2 ? got[2] : got[3];
+      }
+      const int chunk = (4 * (m & 1) + t) ^ (px & 7);
+      *reinterpret_cast<uint4*>(out + (m >> 1) * kOutBox + px * 128 +
+                                chunk * 16) = make_uint4(v[0], v[1], v[2],
+                                                         v[3]);
+    }
+  }
 }
 
-// d = a b + d, one m16n8k16 tile (bf16 in, float32 accumulate)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_relu_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ wt,
-                    const float* __restrict__ bias,
-                    __nv_bfloat16* __restrict__ y, int n_img, int h, int w,
+template <int CB>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_relu_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap y_map,
+                    const float* __restrict__ bias, int n_img, int h, int w,
                     int c, int co) {
-  __shared__ __align__(128) __nv_bfloat16 sa[2][kBM][kStride];
-  __shared__ __align__(128) __nv_bfloat16 sb[2][kBN][kStride];
+  using L = ConvSmem<CB>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* stored = empty + L::kStages;  // a tile's output is in its stage
+  uint64_t* drained = stored + 1;         // the TMA store has read it
+  const int wg = threadIdx.x / 128;
+  const Walk walk(n_img, h, w, co);
+  const int stages_per_tile = 3 * (c / CB);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;   // 2 x 4 warps: 64 x 32 each
-  const long long m = (long long)n_img * h * w;
-  const long long m0 = (long long)blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const long long k_all = 9ll * c;
-  const int chunks_per_tap = c / kBK, chunks = 9 * chunks_per_tap;
-
-  // the two pixel rows and the two weight rows this thread stages, and its
-  // 16-byte column of them
-  const int seg = tid & 3;
-  int ph[2], pw[2];
-  const __nv_bfloat16* px[2];
-  const __nv_bfloat16* pwt[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int row = (tid >> 2) + 64 * q;
-    const long long p = m0 + row;
-    if (p < m) {
-      pw[q] = (int)(p % w);
-      ph[q] = (int)((p / w) % h);
-      px[q] = x + p * c + seg * 8;
-    } else {
-      ph[q] = -4;  // outside every tap
-      pw[q] = 0;
-      px[q] = x;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kConsumers * 4);  // one arrival a consumer warp
     }
-    const int o = n0 + row;
-    pwt[q] = o < co ? wt + o * k_all + seg * 8 : nullptr;
+    mbar_init(stored, kConsumers * 4);
+    mbar_init(drained, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  auto load = [&](int stage, int kc) {
-    const int tap = kc / chunks_per_tap;
-    const int c0 = (kc - tap * chunks_per_tap) * kBK;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const long long shift = ((long long)dy * w + dx) * c + c0;
+  if (wg == kConsumers) {  // the producer: loads, and stores
+    regs_dealloc<kConvProducerRegs>();
+    if (threadIdx.x == kConsumers * 128 + 32) {
+      // the storer: each tile's output from its last stage to y, which it
+      // then hands back to the loads (for the consumers' eight arrivals)
+      int pos0 = 0, k = 0;
+      for (int q = blockIdx.x; q < walk.tiles; q += gridDim.x, ++k) {
+        const int st = (pos0 + stages_per_tile - 1) % L::kStages;
+        pos0 += stages_per_tile;
+        mbar_wait(stored, k & 1);
+        const int pt = q % walk.p;
+        const int img = pt / (walk.th * walk.tw);
+        const int h0 = (pt / walk.tw) % walk.th * kBH;
+        const int w0 = pt % walk.tw * kBW;
+        const int co0 = q / walk.p * kBN;
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int row = (tid >> 2) + 64 * q;
-      const int hh = ph[q] + dy, ww = pw[q] + dx;
-      const bool in = hh >= 0 && hh < h && ww >= 0 && ww < w;
-      cp_async16(&sa[stage][row][seg * 8], in ? px[q] + shift : x,
-                 in ? 16 : 0);
-      cp_async16(&sb[stage][row][seg * 8],
-                 pwt[q] ? pwt[q] + (long long)kc * kBK : wt,
-                 pwt[q] ? 16 : 0);
+        for (int b = 0; b < 2; ++b)
+          if (co0 + 64 * b < co)
+            tma_store(&y_map, smem + st * L::kStage + b * kOutBox,
+                      co0 + 64 * b, w0, h0, img);
+        bulk_commit();
+        bulk_wait<true>();
+        mbar_arrive(empty + st, kConsumers * 4);
+        mbar_arrive(drained);
+      }
+      bulk_wait<false>();
     }
-  };
+    if (threadIdx.x == kConsumers * 128) {
+      int pos = 0;
+      for (int q = blockIdx.x; q < walk.tiles; q += gridDim.x) {
+        const int pt = q % walk.p;
+        const int img = pt / (walk.th * walk.tw);
+        const int h0 = (pt / walk.tw) % walk.th * kBH;
+        const int w0 = pt % walk.tw * kBW;
+        const int co0 = q / walk.p * kBN;
+        for (int s = 0; s < stages_per_tile; ++s, ++pos) {
+          const int c0 = s / 3 * CB, dx = s % 3;
+          const int st = pos % L::kStages;
+          mbar_wait(empty + st, ((pos / L::kStages) & 1) ^ 1);
+          mbar_expect_tx(full + st, L::kStage);
+          unsigned char* stage = smem + st * L::kStage;
+          tma_load(stage, &x_map, full + st, c0, w0 + dx - 1, h0 - 1, img);
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+            tma_load(stage + L::kXBox + dy * L::kWTile, &w_map, full + st, c0,
+                     3 * dy + dx, co0);
+        }
+      }
+    }
+  } else {  // a consumer: tile rows 8 wg .. 8 wg + 7
+    regs_alloc<kConvConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int chunks = 3 * stages_per_tile;  // chunk j: stage j / 3, dy j % 3
+    float acc[64], f0[64], f1[64];
+    int pos0 = 0;  // the ring position of the tile's first stage
 
-  float acc[4][4][4];
+    for (int q = blockIdx.x, k = 0; q < walk.tiles; q += gridDim.x, ++k) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  load(0, 0);
-  cp_async_commit();
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 #pragma unroll 1
-  for (int kc = 0; kc < chunks; ++kc) {
-    if (kc + 1 < chunks) load((kc + 1) & 1, kc + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int s = kc & 1;
-    // B fragments of both k16 steps: for each pair of n8 tiles, ldmatrix
-    // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15,
-    // k 8-15) -> b[ks][tile][0..1]
-    uint32_t b[2][4][2];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int pr = 0; pr < 2; ++pr) {
-        const int mat = lane >> 3;
-        const int row = wn * 32 + pr * 16 + (mat >> 1) * 8 + (lane & 7);
-        uint32_t r[4];
-        ldmatrix_x4(r, &sb[s][row][ks * 16 + (mat & 1) * 8]);
-        b[ks][2 * pr][0] = r[0];
-        b[ks][2 * pr][1] = r[1];
-        b[ks][2 * pr + 1][0] = r[2];
-        b[ks][2 * pr + 1][1] = r[3];
+      for (int j = 0; j < chunks; j += 2) {
+        conv_chunk<CB>(acc, f0, f1, j, pos0, wg, lane, full, empty);
+        if (j + 1 < chunks)
+          conv_chunk<CB>(acc, f1, f0, j + 1, pos0, wg, lane, full, empty);
       }
+      // the last chunk, in f0 where their count is odd
+      wgmma_wait<0>();
+      fence_acc(f0);
+      fence_acc(f1);
+      if (chunks & 1) {
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      // A fragments: lanes 0-15 rows 0-15 at k 0, lanes 16-31 at k 8
-      uint32_t a[2][4];
-      const int row = wm * 64 + mi * 16 + (lane & 15);
+        for (int i = 0; i < 64; ++i) acc[i] += f0[i];
+      } else {
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-        ldmatrix_x4(a[ks], &sa[s][row][ks * 16 + (lane >> 4) * 8]);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        float t[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(t, a[0], b[0][ni][0], b[0][ni][1]);
-        mma_bf16(t, a[1], b[1][ni][0], b[1][ni][1]);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[mi][ni][v] += t[v];
+        for (int i = 0; i < 64; ++i) acc[i] += f1[i];
       }
+      // epilogue: accumulator row 16 warp + g + 8 half is tile pixel
+      // (8 wg + 2 warp + half, g), column 8 i + 2 t + e channel co0 + it.
+      // The output tile takes the last stage once both warpgroups' products
+      // are done with it, and once the storer has read the previous tile's
+      // (so that `stored` runs at most one phase ahead of it).
+      named_sync_consumers();
+      if (k > 0) mbar_wait(drained, (k - 1) & 1);
+      stage_tile(acc, bias,
+                 smem + (pos0 + stages_per_tile - 1) % L::kStages * L::kStage,
+                 8 * wg + 2 * warp, g, q / walk.p * kBN, co, t);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(stored);
+      pos0 += stages_per_tile;
     }
-    __syncthreads();
   }
+}
 
-  // epilogue: thread (g, t) = (lane / 4, lane % 4) holds rows g and g + 8
-  // of each m16 tile at columns 2t, 2t + 1 of each n8 tile
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int o = n0 + wn * 32 + ni * 8 + 2 * t4;
-    if (o >= co) continue;
-    const float b0 = bias[o], b1 = bias[o + 1];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long p = m0 + wm * 64 + mi * 16 + g + 8 * half;
-        if (p >= m) continue;
-        const __nv_bfloat162 v = __floats2bfloat162_rn(
-            fmaxf(acc[mi][ni][2 * half] + b0, 0.f),
-            fmaxf(acc[mi][ni][2 * half + 1] + b1, 0.f));
-        *reinterpret_cast<__nv_bfloat162*>(y + p * co + o) = v;
-      }
+template <int CB>
+cudaError_t launch(const void* x, const void* wt, const float* b,
+                   __nv_bfloat16* y, int n, int h, int w, int c, int co,
+                   int sms, cudaStream_t stream) {
+  using L = ConvSmem<CB>;
+  cudaError_t err;
+  CUtensorMap xm, wm, ym;
+  {
+    const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                                (cuuint64_t)n};
+    const cuuint64_t strides[3] = {2ull * c, 2ull * c * w, 2ull * c * w * h};
+    const cuuint32_t box[4] = {CB, kBW, kBH + 2, 1};
+    if ((err = encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
+                      strides, box, L::kSwizzle)))
+      return err;
   }
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)c, 9, (cuuint64_t)co};
+    const cuuint64_t strides[2] = {2ull * c, 18ull * c};
+    const cuuint32_t box[3] = {CB, 1, kBN};
+    if ((err = encode(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, wt, dims,
+                      strides, box, L::kSwizzle)))
+      return err;
+  }
+  {
+    const cuuint64_t dims[4] = {(cuuint64_t)co, (cuuint64_t)w, (cuuint64_t)h,
+                                (cuuint64_t)n};
+    const cuuint64_t strides[3] = {2ull * co, 2ull * co * w,
+                                   2ull * co * w * h};
+    const cuuint32_t box[4] = {64, kBW, kBH, 1};
+    if ((err = encode(&ym, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, y, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B)))
+      return err;
+  }
+  const auto kernel = conv3x3_relu_kernel<CB>;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((err = set_smem_once(kernel, L::bytes, smem_set))) return err;
+  static const cudaError_t pool =
+      check_register_pool<kConvConsumerRegs, kConvProducerRegs>(kernel,
+                                                                kConsumers);
+  if (pool != cudaSuccess) return pool;
+  // one block a SM (the ring takes ~200 KB), no more than the tiles
+  const long long tiles = (long long)n * ((h + kBH - 1) / kBH) *
+                          ((w + kBW - 1) / kBW) * ((co + kBN - 1) / kBN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, kThreads, L::bytes, stream>>>(xm, wm, ym, b, n, h, w, c, co);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (n, h, w, c) bf16 NHWC, contiguous; wt: (co, 9 c) bf16, contiguous,
 // wt[o, (3 dy + dx) c + ci] = wk[dy, dx, ci, o]; b: (co,) float32; y: (n, h,
-// w, co) bf16. c % 32 == 0, co % 8 == 0, n h w < 2^31. Launches on `stream`
-// without synchronising and returns the launch's cudaError_t (0 = success).
+// w, co) bf16. c % 32 == 0, co % 8 == 0, n h w < 2^31, x and wt 16-byte
+// aligned. Launches on `stream` without synchronising and returns the
+// launch's cudaError_t (0 = success).
 extern "C" int ddti_conv3x3_relu(const void* x, const void* wt, const void* b,
                                  void* y, int n, int h, int w, int c, int co,
                                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const long long m = (long long)n * h * w;
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || co <= 0 || c % kBK ||
-      co % 8 || m >= (1ll << 31))
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || co <= 0 || c % 32 ||
+      co % 8 || m >= (1ll << 31) || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(wt) & 15))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((m + kBM - 1) / kBM),
-                  (unsigned)((co + kBN - 1) / kBN));
-  conv3x3_relu_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(b),
-      static_cast<__nv_bfloat16*>(y), n, h, w, c, co);
-  return (int)cudaGetLastError();
+  int sms;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)))
+    return (int)err;
+  const float* bias = static_cast<const float*>(b);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(c % 64 ? launch<32>(x, wt, bias, out, n, h, w, c, co, sms, st)
+                      : launch<64>(x, wt, bias, out, n, h, w, c, co, sms,
+                                   st));
 }

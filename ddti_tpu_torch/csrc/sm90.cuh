@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels, in inline
-// PTX: TMA tile loads that complete on mbarriers, wgmma with shared-memory
-// matrix descriptors (bf16; tf32 for float32 as three TF32 products, see
+// Hopper (sm_90a) building blocks of the flash-attention kernels (and of
+// the conv3x3 probe's), in inline PTX: TMA tile loads that complete on
+// mbarriers (and TMA stores), wgmma with shared-memory matrix
+// descriptors (bf16; tf32 for float32 as three TF32 products, see
 // "3xTF32" below), setmaxnreg, and the host-side encoding of the TMA
 // tensor maps (cuTensorMapEncodeTiled, looked up in libcuda at run time,
 // so the plain-C library links no -lcuda).
@@ -229,6 +230,57 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// arrive `count` times at once
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the box at `src` in shared memory to global memory (coordinates past the
+// tensor's edges are not written), in the thread's bulk async-group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until the thread's bulk stores have read their shared memory (READ)
+// or are complete
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // rows [row, row + 64) of slice `slice` as a DP-wide tile at `dst`
 template <int DP>
 __device__ __forceinline__ void tma_load_tile(unsigned char* dst,
@@ -320,6 +372,40 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t b);
 
+
+// d (64 x 128, float32) {=, +=} A B over one k16 step: A (64 x 16) and B
+// (16 x 128) both K-major in shared memory; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45,"
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56,"
+      "%57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // d (64 x 64, float32) {=, +=} A B over one k16 step: A (64 x 16) and B
 // (16 x 64, its 64 rows of k) both K-major in shared memory; accumulate = 0
@@ -823,7 +909,7 @@ inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,
                           const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
-  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -854,13 +940,14 @@ cudaError_t set_smem_once(Kernel kernel, size_t bytes,
 // setmaxnreg.inc waits until the block's register pool, fixed at launch,
 // holds what it asks for: refuse a kernel whose pool is too small rather
 // than launch it into a hang (the check runs once per kernel)
-template <typename Kernel>
+template <int kConsumer = kConsumerRegs, int kProducer = kProducerRegs,
+          typename Kernel>
 cudaError_t check_register_pool(Kernel kernel, int consumers) {
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return err;
   return a.numRegs * 128 * (consumers + 1) >=
-                 128 * (kConsumerRegs * consumers + kProducerRegs)
+                 128 * (kConsumer * consumers + kProducer)
              ? cudaSuccess
              : cudaErrorInvalidConfiguration;
 }

@@ -103,7 +103,7 @@ KERNELS = {
     "ddti_flash_fwd_mskip": [_P] * 6 + [_I] * 5 + [_P],
     "ddti_edt": [_P, _P, _LL, _I, _I, _P],
     "ddti_exp2_probe": [_P, _P, _LL, _I, _I, _P],
-    "ddti_gather_probe": [_P] * 3 + [_I] * 8 + [_P],
+    "ddti_gather_probe": [_P] * 4 + [_I] * 8 + [_P],
     "ddti_conv3x3_relu": [_P] * 4 + [_I] * 6 + [_P],
 }
 

@@ -12,7 +12,11 @@ serves ``gather_probe2`` and ``gather_probe3``.
 ``gather_cuda`` launches the kernel on CUDA tensors, ``gather_reference``
 is its plain version and ``gather`` dispatches by device. Out-of-range
 indices follow JAX's default gather mode: k in [-len, -1] wraps, any other
-k outside [0, len) gives NaN.
+k outside [0, len) gives NaN. In the flat and row modes the kernel gives a
+block a 64 x 64 output tile and, where the tile's source window fits
+``STAGE_CAP`` bytes, copies the window into shared memory once per image
+and gathers from there; ``plan_windows`` computes that choice on the host,
+and ``gather_cuda(..., staged=counter)`` makes the kernel count it.
 
 On the card (times: CUDA events around calls queued behind a device-side
 sleep, device time only; torch.gather of the same call beside each):
@@ -40,6 +44,13 @@ THETA = 0.3
 # take_along_axis along its rows (axis 0) or along its columns (axis 1)
 MODES = {"flat": 0, 0: 1, 1: 2}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA's data sheet)
+# csrc/gather_probe.cu's flat and row modes: output tiles of TILE x TILE,
+# a source window staged where it holds at most STAGE_CAP bytes
+TILE = 64
+STAGE_CAP = 32768
+# an H100 SXM's SMs: a call of fewer tiles takes no window (plan_windows'
+# default; callers on the card pass the device's count)
+SMS = 132
 
 
 def _check_shapes(src, idx, mode):
@@ -83,12 +94,14 @@ def gather_reference(src, idx, mode):
     return out if src.dim() == 3 else out[0]
 
 
-def gather_cuda(src, idx, mode):
+def gather_cuda(src, idx, mode, staged=None):
     """Launch ``csrc/gather_probe.cu`` on contiguous float32 ``src`` and
     int32 ``idx`` CUDA tensors of ``gather_reference``'s shapes; a 2-D idx
-    is read once for all images. Checks no index element. Raises on
-    anything the kernel does not take. Adds one to ``gather_cuda.launches``
-    per launch."""
+    is read once for all images. Checks no index element. ``staged``: None,
+    or an int64 CUDA tensor of one element to which the kernel adds the
+    (tile, image) pairs it gathered from a staged window (``plan_windows``
+    says which). Raises on anything the kernel does not take. Adds one to
+    ``gather_cuda.launches`` per launch."""
     _check_shapes(src, idx, mode)
     if src.dtype != torch.float32 or idx.dtype != torch.int32:
         raise ValueError(f"src must be float32 and idx int32; got "
@@ -104,19 +117,138 @@ def gather_cuda(src, idx, mode):
     n = src.shape[0] if src.dim() == 3 else 1
     if r * c >= 2 ** 31 or n * ir * ic >= 2 ** 31:
         raise ValueError("an image and the output must hold < 2^31 elements")
+    if staged is not None and (staged.dtype != torch.int64
+                               or staged.device != src.device
+                               or staged.numel() != 1):
+        raise ValueError("staged must be one int64 on src's device")
     from ..ops._build import launch
 
     out = torch.empty(((n,) if src.dim() == 3 else ()) + (ir, ic),
                       dtype=torch.float32, device=src.device)
     dev = src.device.index
     launch("gather_probe", src.data_ptr(), idx.data_ptr(), out.data_ptr(),
-           n, r, c, ir, ic, int(idx.dim() == 2), MODES[mode], dev,
-           _stream(dev))
+           None if staged is None else staged.data_ptr(), n, r, c, ir, ic,
+           int(idx.dim() == 2), MODES[mode], dev, _stream(dev))
     gather_cuda.launches += 1
     return out
 
 
 gather_cuda.launches = 0
+
+
+def staged_count(src, idx, mode):
+    """The kernel once on CUDA tensors with its counter: (out, the number
+    of (tile, image) pairs it gathered from a staged window)."""
+    counter = torch.zeros(1, dtype=torch.int64, device=src.device)
+    out = gather_cuda(src, idx, mode, staged=counter)
+    return out, int(counter.item())
+
+
+def _tile_view(a, fill):
+    """(planes, R', C') -> (planes, TR, TILE, TC, TILE), padded with
+    ``fill`` to whole tiles."""
+    p, ir, ic = a.shape
+    tr, tc = -(-ir // TILE), -(-ic // TILE)
+    full = np.full((p, tr * TILE, tc * TILE), fill, a.dtype)
+    full[:, :ir, :ic] = a
+    return full.reshape(p, tr, TILE, tc, TILE)
+
+
+def plan_windows(idx, r, c, mode, aligned=True, n=None, sms=SMS):
+    """The kernel's plan of its flat and row modes, tile by tile, in numpy:
+    for an index plane ``idx`` ((R', C') shared, or (N, R', C')) over
+    images of (r, c), each TILE x TILE tile's source window (rows [rlo,
+    rhi] of the in-range indices after the wrap of negatives; in flat mode
+    columns k % c too, rounded out to multiples of 4, in row mode the
+    tile's own columns) and whether the tile stages it: the mode is flat
+    or rows, c % 4 == 0, the image is 16-byte ``aligned``, the call of
+    ``n`` images (default: one per plane) has at least ``sms`` (tile,
+    image) pairs, and the window holds at most STAGE_CAP bytes. A tile
+    with no in-range index has an empty window and stages (it only writes
+    NaN). Returns a dict of (planes, TR, TC) arrays: staged, rows, cols
+    (floats a window row), bytes, rlo, clo; the column mode stages
+    nothing."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of 'flat', 0, 1")
+    i = np.asarray(idx, np.int64)
+    i = i[None] if i.ndim == 2 else i
+    p, ir, ic = i.shape
+    if mode == 1:
+        zero = np.zeros((p, -(-ir // TILE), -(-ic // TILE)), np.int64)
+        return dict(staged=zero.astype(bool), rows=zero, cols=zero,
+                    bytes=zero, rlo=zero, clo=zero)
+    length = r * c if mode == "flat" else r
+    k = np.where(i < 0, i + length, i)
+    inr = (k >= 0) & (k < length)
+    cols = np.broadcast_to(np.arange(ic), i.shape)
+    sr = k // c if mode == "flat" else k
+    sc = k % c if mode == "flat" else cols
+    big = np.iinfo(np.int64).max
+    t_in = _tile_view(inr, False)
+    rlo = np.where(t_in, _tile_view(sr, 0), big).min((2, 4))
+    rhi = np.where(t_in, _tile_view(sr, 0), -big).max((2, 4))
+    nonempty = rhi >= rlo
+    if mode == "flat":
+        clo = np.where(t_in, _tile_view(sc, 0), big).min((2, 4))
+        chi = np.where(t_in, _tile_view(sc, 0), -big).max((2, 4))
+    else:
+        j0 = np.arange(-(-ic // TILE)) * TILE
+        clo = np.broadcast_to(j0, rlo.shape)
+        chi = np.broadcast_to(np.minimum(j0 + TILE, ic) - 1, rlo.shape)
+    clo4 = np.where(nonempty, clo & ~3, 0)
+    rows = np.where(nonempty, rhi - rlo + 1, 0)
+    ncols = np.where(nonempty, (chi | 3) + 1 - clo4, 0)
+    nbytes = rows * ncols * 4
+    n = p if n is None else n
+    ok = mode in ("flat", 0) and c % 4 == 0 and aligned \
+        and rlo[0].size * n >= sms
+    return dict(staged=ok & (nbytes <= STAGE_CAP), rows=rows, cols=ncols,
+                bytes=nbytes, rlo=np.where(nonempty, rlo, 0), clo=clo4)
+
+
+def planned_staged(idx, n, r, c, mode, aligned=True, sms=SMS):
+    """The staged (tile, image) pairs the kernel counts for a call of n
+    images: every staged tile of a shared plane n times, of per-image
+    planes once."""
+    staged = plan_windows(idx, r, c, mode, aligned, n, sms)["staged"]
+    return int(staged.sum()) * (n if np.ndim(idx) == 2 else 1)
+
+
+def window_cases(seed=0):
+    """Index planes at the edges of the kernel's staged path, {name: (src,
+    idx, mode)} as numpy arrays: in row and flat mode a window of exactly
+    STAGE_CAP bytes in every tile and one a step past it (the next size a
+    window can take: one more row, or four more columns); negative indices
+    that wrap into a staged window and indices out of range beside them;
+    per-image index planes (rotations by three angles) that stage."""
+    rng = np.random.default_rng(seed)
+    ii, jj = np.mgrid[:256, :128]
+    cases = {}
+    # batches of at least SMS (tile, image) pairs, so that the calls tile
+    for name, rows in (("rows at cap", 128), ("rows past cap", 129)):
+        # every 64 x 64 tile spans `rows` source rows, 64 columns
+        cases[name] = (make_src((17, 256, 128), seed),
+                       ((2 * ii + jj) % rows).astype(np.int32), 0)
+    ii, jj = np.mgrid[:128, :256]
+    for name, cols in (("flat at cap", 128), ("flat past cap", 132)):
+        # every tile spans 64 source rows of `cols` columns of 256
+        cases[name] = (make_src((17, 128, 256), seed),
+                       ((ii % 64) * 256 + (2 * jj + ii) % cols)
+                       .astype(np.int32), "flat")
+    for mode, length in ((0, 64), ("flat", 64 * 64)):
+        idx = rng.integers(length * 5 // 8, length, (64, 64)).astype(np.int32)
+        idx.reshape(-1)[[0, 9, 70, 3000, 4095]] = [-1, -3, length,
+                                                   -length - 1, -length]
+        cases[f"{mode} edges staged"] = (make_src((SMS, 64, 64), seed), idx,
+                                         mode)
+    thetas = np.linspace(-3.0, 3.0, 9)
+    fields = [rotation_fields(th) for th in thetas]
+    for mode in (0, "flat"):
+        idx = np.stack([f[0] if mode == 0 else f[0] * W + f[1]
+                        for f in fields])
+        cases[f"{mode} per-image"] = (make_src((len(thetas), H, W), seed),
+                                      idx, mode)
+    return cases
 
 
 def gather(src, idx, mode):

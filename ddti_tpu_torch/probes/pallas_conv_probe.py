@@ -5,10 +5,12 @@ The port of the TPU probe ``benchmarks/pallas_conv_probe.py``: y =
 relu(conv3x3(x) + b) with x (N, H, W, C) bf16 NHWC, wk (3, 3, C, CO) bf16
 HWIO, b (CO,) float32, products summed in float32, y bf16; N128 128^2
 C = CO = 128 by default. ``conv3x3_relu_cuda`` launches
-``csrc/conv3x3.cu`` (an implicit GEMM on mma.sync) on CUDA tensors, with
-the weights relaid once by ``pack_weights``; ``conv3x3_relu_reference``
-is its plain version (the probe's formulation: nine shifted (N H W, C) @
-(C, CO) products in float32); ``conv3x3_relu`` dispatches by device. The
+``csrc/conv3x3.cu`` (an implicit GEMM on TMA-fed wgmma: 16 x 8 pixel
+tiles, x reused across the three taps of a column, a persistent grid,
+TMA stores) on CUDA tensors, with the weights relaid once by
+``pack_weights``; ``conv3x3_relu_reference`` is its plain version (the
+probe's formulation: nine shifted (N H W, C) @ (C, CO) products in
+float32); ``conv3x3_relu`` dispatches by device. The
 yardstick is cuDNN (``F.conv2d`` on the channels_last view, bias, ReLU),
 timed only.
 
@@ -22,7 +24,7 @@ no times:
     python -m ddti_tpu_torch.probes.pallas_conv_probe --device cpu
 
 HT, the TPU kernel's row-strip height, is accepted and ignored: the kernel
-tiles 128 pixels x 128 channels and computes every row for any H and W.
+tiles 16 x 8 pixels x 128 channels and computes every row for any H and W.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ from ..ops.attention import _stream
 
 N, SPATIAL, CHANNELS, HT = 128, 128, 128, 8
 CPU_N, CPU_SPATIAL = 2, 16   # the TPU probe's interpret-mode shape
-# what csrc/conv3x3.cu takes: C in chunks of 32 (one tap a chunk), CO in
-# bf16 pairs of 8-column tiles
+# what csrc/conv3x3.cu takes: C in boxes of 32 or 64 channels, CO in bf16
+# pairs of 8-column tiles
 C_MULTIPLE, CO_MULTIPLE = 32, 8
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core peak, FLOP/s
 # |y - exact| on cancelling_inputs' interior, any C up to 512: 4x the
@@ -85,7 +87,8 @@ def conv3x3_relu_cuda(x, wt, b):
     """Launch ``csrc/conv3x3.cu`` on CUDA tensors: x (N, H, W, C) bf16,
     contiguous NHWC; wt (CO, 9 C) bf16 from ``pack_weights``; b (CO,)
     float32. Takes C % 32 == 0 and CO % 8 == 0 (C = CO in {64, 128, 256,
-    512}, the ResUNet levels at base 64, among them) and N H W < 2^31.
+    512}, the ResUNet levels at base 64, among them), N H W < 2^31, and x
+    and wt 16-byte aligned.
     Returns y (N, H, W, CO) bf16. Raises on anything the kernel does not
     take. Adds one to ``conv3x3_relu_cuda.launches`` per launch."""
     if x.dim() != 4 or wt.dim() != 2 or b.dim() != 1:
@@ -109,6 +112,8 @@ def conv3x3_relu_cuda(x, wt, b):
                          f"{CO_MULTIPLE} == 0; got C = {c}, CO = {co}")
     if x.numel() == 0 or n * h * w >= 2 ** 31:
         raise ValueError("x must hold 1 to 2^31 - 1 pixels")
+    if x.data_ptr() % 16 or wt.data_ptr() % 16:
+        raise ValueError("x and wt must be 16-byte aligned (TMA reads them)")
     from ..ops._build import launch
 
     y = torch.empty((n, h, w, co), dtype=torch.bfloat16, device=x.device)
@@ -214,8 +219,8 @@ def run(n=N, s=SPATIAL, c=CHANNELS, ht=HT, seed=0, device="cuda"):
         raise RuntimeError("no CUDA device: pass --device cpu for the plain "
                            "version")
     on_card = torch.device(device).type != "cpu"
-    print(f"HT {ht} accepted and ignored: the kernel tiles 128 pixels x 128 "
-          "channels and computes every row", flush=True)
+    print(f"HT {ht} accepted and ignored: the kernel chooses its own pixel "
+          "tiles and computes every row", flush=True)
     x, wk, b = make_inputs(n, s, c, seed=seed, device=device)
     got = conv3x3_relu(x, wk, b)
     want = conv3x3_relu_reference(x, wk, b)

@@ -23,6 +23,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke as C
 from ddti_tpu_torch.probes import gather_probe as G
 from ddti_tpu_torch.probes import gather_probe2 as G2
 from ddti_tpu_torch.probes import gather_probe3 as G3
@@ -461,3 +462,282 @@ def test_conv3x3_cancelling_inputs_expose_a_truncating_sum(c):
 
     assert drift(32, False) <= P.CANCEL_LIMIT / 4
     assert (drift(16, True) > P.CANCEL_LIMIT) == (c == 512)
+
+
+def _chunked_sum(terms, chunk, k16=16):
+    """The redesigned kernel's float32 sum of (K, CO) terms: fresh chunks
+    of ``chunk`` terms, each summed on the tensor cores k16 terms a step
+    (a step's own sum exact, added to the chunk's sum rounding toward
+    zero), and each chunk added to the running sum rounded to nearest."""
+    acc = np.zeros(terms.shape[1], np.float32)
+    for k0 in range(0, len(terms), chunk):
+        fresh = _sequential_sum(terms[k0:k0 + chunk], k16, truncate=True)
+        acc = (acc.astype(np.float64) + fresh).astype(np.float32)
+    return acc
+
+
+def _kernel_order(terms, c, cb):
+    """(9 C, CO) terms in tap-major order (k = (3 dy + dx) C + ci) in the
+    order csrc/conv3x3.cu sums them: channel box, then dx, then dy."""
+    t = terms.reshape(3, 3, c // cb, cb, -1)          # dy, dx, box, ci, o
+    return t.transpose(2, 1, 0, 3, 4).reshape(9 * c, -1)
+
+
+@pytest.mark.parametrize("design", ["mma.sync: exact chunks of 32",
+                                    "chunks of 32 truncating per k16",
+                                    "chunks of 64 truncating per k16"])
+def test_conv3x3_chunk_models_stay_within_cancel_limit(design):
+    """The float32 sum's error where the bias cancels 9 C positive products
+    (``cancelling_inputs``) at C = 512, in numpy models of the kernels'
+    arithmetic: the mma.sync version's (exact chunks of 32 added rounded
+    to nearest, which the card reproduced to the bit) and the redesign's
+    (fresh chunks of one tap and 32 or 64 channels, each truncating at
+    every k16 step, added rounded to nearest, in the kernel's order). Each
+    stays within CANCEL_LIMIT / 2, so a chunk of 64 (one 128-byte box) is
+    safe."""
+    c = 512
+    x, wk, b, exact = P.cancelling_inputs(1, 6, c, seed=c, device="cpu")
+    terms = (x[0, 0, 0].double().repeat(9)[:, None]
+             * wk.double().reshape(9 * c, c)).numpy()
+    if design.startswith("mma.sync"):
+        acc = _sequential_sum(terms, 32, False)
+    else:
+        cb = int(design.split()[2])
+        acc = _chunked_sum(_kernel_order(terms, c, cb), cb)
+    drift = np.abs(acc + b.numpy() - exact.numpy()).max()
+    assert drift <= P.CANCEL_LIMIT / 2, drift
+
+
+def _tile_walk(n, h, w, co, blocks):
+    """csrc/conv3x3.cu's persistent schedule, in Python, at the kernel's own
+    tile (kBH x kBW pixels, kBN channels, read from the source): for each
+    block of a grid of min(blocks, tiles) blocks, the tiles it computes in
+    order, as ((image, first row, first column), first output channel).
+    Tile q is pixel tile q % P of channel tile q // P; block b takes q = b,
+    b + grid, ..."""
+    k = C.kernel_constants("conv3x3.cu", "kBH", "kBW", "kBN")
+    bh, bw, bn = k["kBH"], k["kBW"], k["kBN"]
+    th, tw = -(-h // bh), -(-w // bw)
+    p = n * th * tw
+    tiles = p * -(-co // bn)
+    grid = min(blocks, tiles)
+    walk = {}
+    for b in range(grid):
+        walk[b] = []
+        for q in range(b, tiles, grid):
+            img, rest = divmod(q % p, th * tw)
+            walk[b].append(((img, rest // tw * bh, rest % tw * bw),
+                            q // p * bn))
+    return walk, (bh, bw, bn)
+
+
+# the card tests' ragged conv shapes (tests/test_torch_cuda.py CONV_SHAPES)
+WALK_SHAPES = [(3, 10, 12, 96), (1, 1, 1, 8), (2, 33, 7, 200), (2, 16, 5, 64),
+               (3, 21, 13, 64), (2, 9, 1, 64), (1, 4, 300, 64),
+               (2, 16, 16, 8), (2, 16, 16, 136), (3, 16, 24, 64),
+               (128, 128, 128, 128)]
+
+
+@pytest.mark.parametrize("blocks", [132, 6, 1])
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+def test_conv3x3_tile_walk_writes_every_output_once(shape, blocks):
+    """The kernel's persistent schedule (``_tile_walk``): every output pixel
+    of every channel is written exactly once, by a grid of at most
+    ``blocks`` blocks, each taking every grid-th tile."""
+    n, h, w, co = shape
+    walk, (bh, bw, bn) = _tile_walk(n, h, w, co, blocks)
+    assert 0 < len(walk) <= blocks
+    written = np.zeros((n, h, w, -(-co // bn)), np.int64)
+    for tiles in walk.values():
+        for (img, h0, w0), co0 in tiles:
+            written[img, h0:h0 + bh, w0:w0 + bw, co0 // bn] += 1
+    assert (written == 1).all()
+    sizes = [len(t) for t in walk.values()]
+    assert max(sizes) - min(sizes) <= 1  # the grid's blocks share evenly
+
+
+def test_conv3x3_l2_bytes_count_the_designs():
+    """Bytes from L2 into the SMs a call at the probe's shape
+    (``chip_smoke.conv_l2_bytes``): the mma.sync design 9.66 GB (16,384
+    tiles of 576 KB), the redesign's 6.64 GB (x reused over three taps of
+    18 x 8 pixel boxes: 108 KB of x and 288 KB of weights a tile)."""
+    shape = (P.N, P.SPATIAL, P.SPATIAL, P.CHANNELS, P.CHANNELS)
+    got = C.conv_l2_bytes(*shape)
+    assert got["old"] == 16384 * 9 * 128 * 256 * 2
+    assert got["new"] == 16384 * (3 * 128 * 18 * 8 + 9 * 128 * 128) * 2
+    assert 6.6e9 < got["new"] < 6.7e9
+    assert C.conv_l2_bytes(1, 16, 8, 64, 64)["new"] == (3 * 64 * 18 * 8 +
+                                                        9 * 64 * 128) * 2
+
+
+def test_kernel_constants_read_the_source():
+    """The models take the kernels' tiling from their sources, and a name
+    the source does not define raises."""
+    assert C.kernel_constants("conv3x3.cu", "kBH", "kBW", "kBN") == dict(
+        kBH=16, kBW=8, kBN=128)
+    assert C.kernel_constants("gather_probe.cu", "kTile", "kStageCap") == \
+        dict(kTile=G.TILE, kStageCap=G.STAGE_CAP)
+    with pytest.raises(ValueError):
+        C.kernel_constants("conv3x3.cu", "kNoSuchTile")
+
+
+def _all_builders():
+    table = dict(G.builders(2))
+    table.update(G2.builders(2)[0])
+    table.update(G3.builders(2)[1])
+    return table
+
+
+def _probe_batch(src):
+    """The batch of the probes' call of a builder: N images, or one."""
+    return G.N if src.ndim == 3 else 1
+
+
+def test_gather_plan_stages_the_rotations_and_not_the_scatters():
+    """The window plan on the probes' builders at the probes' batch: A, B
+    and B2 (rotations of 128 images) stage every tile; C (the column mode)
+    and F, P4, P5 (one image: fewer tiles than SMs) none, nor would F and
+    P5 (random rows over 2048 and 512) at any batch; every staged window
+    within the cap."""
+    staged = {}
+    for name, (src, idx, mode, _) in _all_builders().items():
+        plan = G.plan_windows(idx, *src.shape[-2:], mode,
+                              n=_probe_batch(src))
+        assert (plan["bytes"][plan["staged"]] <= G.STAGE_CAP).all()
+        staged[name.split()[0]] = (int(plan["staged"].sum()),
+                                   plan["staged"].size)
+        if name.split()[0] in ("F", "P5"):
+            assert not G.plan_windows(idx, *src.shape[-2:], mode,
+                                      n=10 ** 4)["staged"].any()
+    for key in ("A", "B", "B2"):
+        assert staged[key] == (16, 16), key
+    for key in ("C", "F", "P4", "P5", "P6"):
+        assert staged[key][0] == 0, key
+
+
+def _windows_hold_their_indices(idx, r, c, mode, n):
+    """Every in-range index (negatives wrapped) of a staged tile lies
+    inside its window."""
+    plan = G.plan_windows(idx, r, c, mode, n=n)
+    assert plan["staged"].any()
+    i = np.asarray(idx, np.int64)
+    i = i[None] if i.ndim == 2 else i
+    length = r * c if mode == "flat" else r
+    for p, tr, tc in zip(*np.nonzero(plan["staged"])):
+        tile = i[p, tr * G.TILE:(tr + 1) * G.TILE,
+                 tc * G.TILE:(tc + 1) * G.TILE]
+        k = np.where(tile < 0, tile + length, tile)
+        k = k[(k >= 0) & (k < length)]
+        if mode == "flat":
+            rows, cols = k // c, k % c
+        else:
+            rows = k
+            cols = np.arange(tc * G.TILE, tc * G.TILE + tile.shape[1])
+        lo, clo = plan["rlo"][p, tr, tc], plan["clo"][p, tr, tc]
+        assert (rows >= lo).all() \
+            and (rows < lo + plan["rows"][p, tr, tc]).all()
+        assert (cols >= clo).all() \
+            and (cols < clo + plan["cols"][p, tr, tc]).all()
+        assert plan["cols"][p, tr, tc] % 4 == 0 and clo % 4 == 0
+
+
+def test_gather_plan_windows_hold_every_in_range_index():
+    """On every builder and every edge case of the staged path."""
+    for name, (src, idx, mode, _) in _all_builders().items():
+        if name.split()[0] in ("A", "B", "B2"):
+            _windows_hold_their_indices(idx, *src.shape[-2:], mode, G.N)
+    for name, (src, idx, mode) in G.window_cases().items():
+        if "past cap" not in name:
+            _windows_hold_their_indices(idx, *src.shape[-2:], mode,
+                                        src.shape[0])
+
+
+def test_gather_plan_edges_of_the_cap():
+    """A window of exactly STAGE_CAP bytes stages, the next size past it
+    does not; a misaligned image or a row of a width that is not a
+    multiple of 4 never stages; per-image planes count each image's own
+    tiles, a shared plane its tiles once per image."""
+    cases = G.window_cases()
+    for name, (src, idx, mode) in cases.items():
+        n = src.shape[0]
+        plan = G.plan_windows(idx, *src.shape[-2:], mode, n=n)
+        if "at cap" in name:
+            assert (plan["bytes"] == G.STAGE_CAP).all()
+            assert plan["staged"].all()
+        if "past cap" in name:
+            assert (plan["bytes"] > G.STAGE_CAP).all()
+            assert not plan["staged"].any()
+        assert not G.plan_windows(idx, *src.shape[-2:], mode, False,
+                                  n)["staged"].any()
+        # a call of fewer (tile, image) pairs than SMs takes no window
+        assert not G.plan_windows(idx, *src.shape[-2:], mode, n=n,
+                                  sms=plan["staged"].size * n + 1)[
+                                      "staged"].any()
+    src, idx, mode = cases["flat per-image"]
+    per = G.plan_windows(idx, *src.shape[-2:], mode)["staged"]
+    assert G.planned_staged(idx, 9, *src.shape[-2:], mode) == per.sum()
+    assert 0 < per.sum() < per.size  # this case mixes both paths
+    src, idx, mode = cases["rows at cap"]
+    assert G.planned_staged(idx, 17, *src.shape[-2:], mode) == 17 * 8
+    assert G.planned_staged(idx, 16, *src.shape[-2:], mode) == 0  # 128
+    odd = np.zeros((8, 6), np.int32)
+    assert not G.plan_windows(odd, 8, 6, 0, n=10 ** 4)["staged"].any()
+
+
+def test_gather_l2_bytes_of_the_builders():
+    """Sectors a call moves from L2 into the SMs at the probes' shape
+    (``chip_smoke.gather_l2_bytes``): the staged windows cut A, B and B2's
+    by 5-7x against the per-element design (a rotated warp row's 32 loads
+    touch up to 32 sectors); the column mode keeps its path and its
+    count."""
+    table = dict(G.builders(1))
+    table.update(G2.builders(1)[0])
+    for key in ("A", "B", "B2", "C"):
+        _, idx, mode, _ = next(v for k, v in table.items()
+                               if k.split()[0] == key)
+        got = C.gather_l2_bytes(idx, G.N, G.H, G.W, mode, G.SMS)
+        if key == "C":
+            assert got["new"] == got["old"]
+        else:
+            assert 5 * got["new"] < got["old"] < 8 * got["new"], (key, got)
+            assert got["new"] > G.N * G.H * G.W * 4  # a window per image
+
+
+def test_gather_bank_wavefronts_of_the_builders():
+    """The shared-memory bank model (``chip_smoke.gather_bank_wavefronts``):
+    row mode's lanes own a column each and read without conflict (B, B2:
+    1.0); flat mode's rotated rows cross banks (A: between 2 and 4
+    wavefronts a load), fewer with a window row padded by 12 floats; the
+    column mode stages nothing (None). A hand case: 32 lanes down one
+    column of a 32-float window row all hit one bank."""
+    table = dict(G.builders(1))
+    table.update(G2.builders(1)[0])
+    got = {}
+    for key in ("A", "B", "B2", "C"):
+        _, idx, mode, _ = next(v for k, v in table.items()
+                               if k.split()[0] == key)
+        got[key] = C.gather_bank_wavefronts(idx, G.H, G.W, mode)
+    assert got["B"] == got["B2"] == 1.0 and got["C"] is None
+    assert 2.0 < got["A"] < 4.0
+    _, idx, mode, _ = next(v for k, v in table.items() if k.startswith("A"))
+    assert C.gather_bank_wavefronts(idx, G.H, G.W, mode, pad=12) < got["A"]
+    # flat index over a (64, 32) image: output column j reads source row j,
+    # column 0 or 31 by output row, so the window rows are 32 floats and a
+    # warp's 32 lanes read one column down 32 rows: one bank
+    rows = np.broadcast_to(np.arange(64), (64, 64))
+    idx = (rows * 32 + (np.arange(64)[:, None] % 2) * 31).astype(np.int32)
+    assert C.gather_bank_wavefronts(idx, 64, 32, "flat") == 32.0
+
+
+def test_gather_phases_instruments_the_kernel_source():
+    """The diagnostic ``probes/gather_phases.py`` still finds each of its
+    anchors in csrc/gather_probe.cu exactly once and adds its nine clock
+    reads; a source that lost an anchor raises."""
+    from ddti_tpu_torch.probes import gather_phases as GP
+
+    text = (GP.PKG / "csrc" / "gather_probe.cu").read_text()
+    assert "clock64" not in text
+    assert GP.instrumented_source(text).count("clock64()") == 9
+    with pytest.raises(ValueError):
+        GP.instrumented_source(text.replace("cp_async_wait<kBufs - 1>();",
+                                            ""))

@@ -558,6 +558,57 @@ def test_gather_builders_through_the_kernel(cuda):
         assert np.array_equal(out.cpu().numpy(), want), name
 
 
+@pytest.mark.parametrize("name", [
+    "rows at cap", "rows past cap", "flat at cap", "flat past cap",
+    "0 edges staged", "flat edges staged", "0 per-image", "flat per-image"])
+def test_gather_staged_path_edges(cuda, name):
+    """The flat and row modes' staged path at its edges
+    (``gather_probe.window_cases``): a window of exactly the cap in every
+    tile stages and one a step past it does not; wrapping and out-of-range
+    indices inside a staged tile; per-image index planes. Bit for bit
+    against the plain version, and the kernel's count of staged (tile,
+    image) pairs equal to ``plan_windows``'."""
+    from ddti_tpu_torch.probes import gather_probe as G
+
+    src, idx, mode = G.window_cases()[name]
+    s, i = torch.from_numpy(src).to(cuda), torch.from_numpy(idx).to(cuda)
+    out, count = G.staged_count(s, i, mode)
+    want = G.gather_reference(s, i, mode)
+    assert torch.equal(_bits(out), _bits(want))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = G.planned_staged(idx, src.shape[0], *src.shape[-2:], mode,
+                            sms=sms)
+    assert count == plan
+    assert (plan > 0) == ("past cap" not in name)
+
+
+def test_gather_builders_staged_as_planned(cuda):
+    """Every kernel builder at a batch of 9 (16 tiles x 9 images, more
+    pairs than SMs) and F at the probe's own (2048, 128): the kernel's
+    staged (tile, image) pairs equal the plan; A, B and B2 stage every
+    tile, C, F and P4-P6 none."""
+    from ddti_tpu_torch.probes import gather_probe as G
+    from ddti_tpu_torch.probes import gather_probe2 as G2
+    from ddti_tpu_torch.probes import gather_probe3 as G3
+
+    table = dict(G.builders(9))
+    table.update(G2.builders(9)[0])
+    table.update(G3.builders(9)[1])
+    f = "F  pallas dyn_gather lanes "
+    table[f] = G2.builders()[0][f]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    counts = {}
+    for name, (src, idx, mode, want) in table.items():
+        s, i = torch.from_numpy(src).to(cuda), torch.from_numpy(idx).to(cuda)
+        out, counts[name.split()[0]] = G.staged_count(s, i, mode)
+        assert np.array_equal(out.cpu().numpy(), want), name
+        n = src.shape[0] if src.ndim == 3 else 1
+        assert counts[name.split()[0]] == G.planned_staged(
+            idx, n, *src.shape[-2:], mode, sms=sms), name
+    assert counts["A"] == counts["B"] == counts["B2"] == 16 * 9
+    assert all(counts[k] == 0 for k in ("C", "F", "P4", "P5", "P6"))
+
+
 def test_gather_kernel_rejects_what_it_does_not_take(cuda):
     from ddti_tpu_torch.probes import gather_probe as G
 
@@ -586,6 +637,15 @@ CONV_SHAPES = [
     (3, 10, 12, 64, 96),     # ragged: H, W off every tile, CO = 96
     (1, 1, 1, 32, 8),        # one pixel: only the centre tap
     (2, 33, 7, 64, 200),     # CO past a 128-channel tile, odd W
+    (2, 16, 5, 64, 64),      # W below the kernel's 8-column tile
+    (3, 21, 13, 64, 64),     # H and W off every tile
+    (2, 9, 1, 64, 64),       # W = 1
+    (1, 4, 300, 64, 64),     # one image, 300 wide
+    (2, 20, 20, 32, 64),     # C = 32: the 32-channel box
+    (2, 20, 20, 96, 128),    # C = 96: the 32-channel box, three of them
+    (2, 16, 16, 64, 8),      # CO = 8
+    (2, 16, 16, 64, 136),    # CO = 136
+    (3, 16, 24, 64, 64),     # 9 pixel tiles, an odd count
 ]
 
 
@@ -645,6 +705,24 @@ def test_conv3x3_error_does_not_grow_with_c(cuda, capsys):
                   f"{err:.3e} (plain {err_plain:.3e}); random inputs max|d| "
                   f"{d:.3e}, {share:.3e} of elements differ")
         assert ok, (c, d)
+
+
+def test_conv3x3_kernel_rejects_unaligned_pointers(cuda):
+    """TMA reads x and the weights: the wrapper refuses a pointer that is
+    not 16-byte aligned."""
+    from ddti_tpu_torch.probes import pallas_conv_probe as P
+
+    x, wk, b = P.make_inputs(1, 8, 64, device=cuda)
+    wt = P.pack_weights(wk)
+    xs = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)
+    xs = xs[8:].view(x.shape)  # 16 bytes in: aligned
+    assert P.conv3x3_relu_cuda(xs.copy_(x), wt, b).shape == (1, 8, 8, 64)
+    xu = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        P.conv3x3_relu_cuda(xu.view(x.shape).copy_(x), wt, b)
+    wu = torch.empty(wt.numel() + 4, dtype=wt.dtype, device=cuda)[4:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        P.conv3x3_relu_cuda(x, wu.view(wt.shape).copy_(wt), b)
 
 
 def test_conv3x3_kernel_rejects_what_it_does_not_take(cuda):
