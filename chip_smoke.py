@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 or, to compare another tree of the repository (a commit unpacked with git
 archive) with this one on the same card, in the order other, this, this,
 other: ``python3 chip_smoke.py --ab OTHER_TREE`` (see ``ab``; ``--ab
-OTHER_TREE probes`` for the conv3x3 and gather probes alone).
+OTHER_TREE probes`` for the probes and the EDT alone: conv3x3, gather,
+exp2_probe in every mode and the EDT's queued time and passes).
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -38,8 +39,9 @@ and a non-zero exit:
               attention (scaled_dot_product_attention, a yardstick the port
               never calls); the EDT (csrc/edt.cu) bit for bit against its
               plain version and against scipy at the training path's
-              shapes, ragged ones and edge frames, its column and row passes
-              timed apart (torch.profiler).
+              shapes, ragged ones and edge frames, timed as one call and
+              queued, its column and row passes apart (torch.profiler),
+              beside its bound and the min-plus algorithm's.
 4. probes   — the ports of the softmax probes of benchmarks/
               (ddti_tpu_torch/probes): csrc/exp2_probe.cu in every mode
               against its plain version (<= 2 ulp, the copy bit for bit)
@@ -160,6 +162,8 @@ PROFILE_TOP = 8
 EDT_SHAPES = [(16, 512, 512), (128, 256, 256), (8, 100, 100), (4, 200, 333),
               (3, 1, 333)]
 EDT_TIMED = 2
+# the lower envelope's integer operations a pixel, both passes (work_counts)
+EDT_OPS_PER_PIXEL = 26
 # the training slice: the CLI's flagship ResUNet at its defaults
 TRAIN = dict(model_type="ResUNet", base_filters=64, depth=5, image_size=512,
              batch_size=16, epochs=2)
@@ -196,11 +200,14 @@ SLEEP_SCALES = (1, 4, 16)
 # SM, 132 SMs at the 1980 MHz boost clock. A float32-accurate product runs
 # on the tensor cores as three TF32 products (3xTF32: a_lo b_hi + a_hi b_lo
 # + a_hi b_hi), at a third of the TF32 rate and above the FMA rate, so the
-# float32 flash kernels' work is bound at 495 / 3 TFLOP/s; the EDT (adds
-# and mins) at the float32 rate.
+# float32 flash kernels' work is bound at 495 / 3 TFLOP/s. The EDT's
+# integer operations run on the SM's INT32 lanes, 64 a clock per SM (four
+# partitions of 16; NVIDIA's H100 architecture whitepaper), at the same
+# clock.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 EX2_PER_S = 132 * 16 * 1.98e9
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # PyTorch's fused attention backends, timed as yardsticks; the fastest
 # that takes a shape is reported
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
@@ -283,9 +290,16 @@ def work_counts(kernel, shape, dtype="bfloat16", shared_index=False):
     ``flash_bwd_dq`` (q, k, v, dO, lse2, delta -> dq; S, dP, dQ) are its
     two kernels; ``flash_fwd_mskip`` does the forward's work (the rescale it
     skips is not counted in either). ``edt`` takes (N, H, W): uint8 in,
-    float32 out, and its row pass does one add and one min per (row, column,
-    column). ``exp2_probe`` takes (rows, cols) float32 in and out, one exp2
-    an element and no FLOP that the bound counts. ``conv3x3``
+    float32 out, and ``flop`` counts the lower envelope's integer
+    operations, 26 a pixel at the INT32 rate: 10 in the column pass (a
+    zero's bit, the shift to the row, its lowest set bit, the two distances
+    and two minima) and 16 in the row pass (the band scan's test of a new
+    site against the stack's top two: two separator numerators and their
+    cross products; the walk's two parabola values and their compare, and
+    the clamp); the min-plus algorithm's add and min per (row, column,
+    column) that the TPU kernel and the port's first EDT did is
+    ``minplus_flop``. ``exp2_probe`` takes (rows, cols) float32 in and
+    out, one exp2 an element and no FLOP that the bound counts. ``conv3x3``
     (benchmarks/pallas_conv_probe.py) takes (N, H, W, C, CO), the input
     counted padded by one pixel as the TPU probe pads it (csrc/conv3x3.cu
     reads it unpadded, slightly fewer bytes) and the output in bf16;
@@ -295,8 +309,9 @@ def work_counts(kernel, shape, dtype="bfloat16", shared_index=False):
     images (builders A, B, C and B2)."""
     if kernel == "edt":
         n, h, w = shape
-        return dict(flop=2 * n * h * w * w, bytes=n * h * w * (1 + 4),
-                    exp2=0)
+        return dict(flop=EDT_OPS_PER_PIXEL * n * h * w,
+                    bytes=n * h * w * (1 + 4), exp2=0,
+                    minplus_flop=2 * n * h * w * w)
     if kernel == "exp2_probe":
         n = shape[0] * shape[1]
         return dict(flop=0, bytes=2 * 4 * n, exp2=n)
@@ -328,12 +343,13 @@ def work_counts(kernel, shape, dtype="bfloat16", shared_index=False):
 def bound(kernel, shape, dtype="bfloat16", shared_index=False):
     """The least time the card could take for ``work_counts``: the larger
     of operations over the peak for their type (bf16 on the tensor cores,
-    float32 flash products as 3xTF32 on them; the EDT is float32 outside
-    them) and bytes over the memory rate. Returns (bound_ms, bound_by,
-    exp2_ms), exp2_ms the time the exp2 unit alone needs."""
+    float32 flash products as 3xTF32 on them; the EDT's integer operations
+    on the INT32 lanes) and bytes over the memory rate. Returns (bound_ms,
+    bound_by, exp2_ms), exp2_ms the time the exp2 unit alone needs."""
     w = work_counts(kernel, shape, dtype, shared_index)
-    peak = PEAK_FLOPS["float32" if kernel in ("edt", "exp2_probe", "gather")
-                      else "tf32x3" if dtype == "float32" else dtype]
+    peak = INT32_OPS_PER_S if kernel == "edt" else PEAK_FLOPS[
+        "float32" if kernel in ("exp2_probe", "gather")
+        else "tf32x3" if dtype == "float32" else dtype]
     ops_ms, bytes_ms = w["flop"] / peak * 1e3, w["bytes"] / PEAK_BYTES * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes",
@@ -652,6 +668,10 @@ def kernel_report(lib, quiet=False):
         m = re.search(r"\dgather_kernelILi(\d)ELb([01])ELb([01])E", name)
         if m:  # <mode, 16-byte, shared index>
             return f"gather_kernel<{m.group(1)},{m.group(2)},{m.group(3)}>"
+        m = re.search(r"\dedt_column_kernelILi(\d+)E([jm])", name)
+        if m:  # <columns a lane, bits a word>
+            return (f"edt_column_kernel<{m.group(1)},"
+                    f"{32 if m.group(2) == 'j' else 64}>")
         m = re.search(r"\dtiled_gather_kernelILi(\d)ELb([01])E", name)
         if m:  # <mode, shared index>
             return f"tiled_gather_kernel<{m.group(1)},{m.group(2)}>"
@@ -1568,10 +1588,27 @@ def edt_masks(n, h, w, seed):
     return torch.from_numpy(m)
 
 
+def edt_times(shape, seed):
+    """The EDT kernel's device time at (N, H, W) on ``edt_masks``, with
+    whatever ``ddti_tpu_torch`` is imported: ``queued_ms`` (100 calls
+    queued behind a device-side sleep) and its column and row passes apart
+    (torch.profiler; None where it recorded no event of one)."""
+    import torch
+
+    from ddti_tpu_torch.ops import edt as E
+
+    m = edt_masks(*shape, seed).to(DEVICE)
+    times = dict(queued_ms=queued_ms(lambda: E.edt_cuda(m))[1])
+    times.update(profiled_ms(lambda: E.edt_cuda(m), {
+        "column_ms": ("edt_column",), "row_ms": ("edt_row",)}))
+    torch.cuda.synchronize()
+    return times
+
+
 def check_edt():
     """csrc/edt.cu against its plain version (bit for bit, every frame) and
-    scipy (every frame with a zero), with kernel and plain timings and the
-    kernel's column and row passes timed apart."""
+    scipy (every frame with a zero), with kernel and plain timings (one call
+    and queued) and the kernel's column and row passes timed apart."""
     import numpy as np
     import torch
     from scipy import ndimage
@@ -1602,15 +1639,20 @@ def check_edt():
         if i < EDT_TIMED:
             row["ms"] = median_ms(lambda: E.edt_cuda(m))
             row["plain_ms"] = median_ms(lambda: E.edt_reference(m))
-            # the column pass and the row pass apart (torch.profiler)
-            row.update(profiled_ms(lambda: E.edt_cuda(m), {
-                "column_ms": ("edt_column",), "row_ms": ("edt_row",)}))
-            timing = (f", kernel {row['ms']:.4f} ms (profiler: column pass "
+            row.update(edt_times((n, h, w), SEED + i))
+            b = bound("edt", (n, h, w))
+            row.update(bound_ms=b[0], bound_by=b[1])
+            minplus_ms = (work_counts("edt", (n, h, w))["minplus_flop"]
+                          / PEAK_FLOPS["float32"] * 1e3)
+            timing = (f", kernel {row['ms']:.4f} ms, queued "
+                      f"{row['queued_ms']:.4f} (profiler: column pass "
                       + ", row pass ".join(
                           "not recorded" if row[key] is None
                           else f"{row[key]:.4f}"
                           for key in ("column_ms", "row_ms"))
-                      + f") plain {row['plain_ms']:.4f} ms")
+                      + f") plain {row['plain_ms']:.4f} ms; bound "
+                      f"{b[0]:.5f} ms ({b[1]}; the min-plus algorithm's "
+                      f"{minplus_ms:.4f})")
         phase("kernels", f"edt_minplus {(n, h, w)} uint8: bit-equal to plain "
               f"{equal} (max|d| {err:.3e}), bit-equal to scipy on "
               f"{scipy_equal}/{scipy_frames} frames with a zero" + timing)
@@ -2120,8 +2162,13 @@ def profile_transunet():
 
 def ab_probes():
     """The conv3x3 and gather kernels' queued times at the probes' shapes,
-    beside cuDNN's and torch.gather's, with the tree that is imported:
-    {"conv": {ms, library_ms}, "gather": {builder: {ms, library_ms}}}."""
+    beside cuDNN's and torch.gather's; exp2_probe's in every mode beside
+    torch.exp2's and Tensor.copy_'s; and the EDT's queued time with its
+    column and row passes at the EDT_TIMED shapes; all with the tree that
+    is imported: {"conv": {ms, library_ms}, "gather": {builder: {ms,
+    library_ms}}, "exp2": {modes: {mode: {ms, ...}}, library_ms}, "edt":
+    [{shape, queued_ms, column_ms, row_ms}]}."""
+    from ddti_tpu_torch.probes import exp2_probe as E2
     from ddti_tpu_torch.probes import gather_probe as G
     from ddti_tpu_torch.probes import gather_probe2 as G2
     from ddti_tpu_torch.probes import gather_probe3 as G3
@@ -2132,9 +2179,17 @@ def ab_probes():
     for mod in (G, G2, G3):
         rows.update(mod.run(seed=SEED))
     keep = ("ms", "library_ms", "match")
+    e2 = E2.run(seed=SEED)
+    edt = [dict(shape=list(shape), **edt_times(shape, SEED + i))
+           for i, shape in enumerate(EDT_SHAPES[:EDT_TIMED])]
+    for r in edt:
+        phase("ab", f"edt {tuple(r['shape'])}: queued {r['queued_ms']:.4f} "
+              f"ms, column {r['column_ms']}, row {r['row_ms']}")
     return dict(conv={k: conv[k] for k in keep[:2]},
                 gather={k: {f: r[f] for f in keep if f in r}
-                        for k, r in rows.items() if "torch_call" not in r})
+                        for k, r in rows.items() if "torch_call" not in r},
+                exp2=dict(modes=e2["modes"], library_ms=e2["library_ms"]),
+                edt=edt)
 
 
 def ab_side(tree, probes_only=False):
@@ -2174,7 +2229,7 @@ def ab(parent, *which):
     """Compare the tree at ``parent`` (another commit unpacked, e.g. with
     git archive) with this one on one card, in the order parent, this, this,
     parent, each side in its own process (ab_side); ``which`` = ("probes",)
-    compares the conv3x3 and gather probes alone."""
+    compares the probes and the EDT alone (ab_probes)."""
     for tree in (parent, ".", ".", parent):
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--ab-side", tree, *which], check=True)
@@ -2354,6 +2409,9 @@ def main():
         "plain_ms": edt_rows[0]["plain_ms"],
         "bound_ms": edt_bound[0],
         "bound_by": edt_bound[1],
+        "queue_ms": edt_rows[0]["queued_ms"],
+        "column_ms": edt_rows[0]["column_ms"],
+        "row_ms": edt_rows[0]["row_ms"],
         "library_ms": None,  # no PyTorch call computes an EDT
         "shapes": edt_rows,
         "train_steps": train_rows,

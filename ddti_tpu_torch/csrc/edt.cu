@@ -9,99 +9,550 @@
 // distance_transform_edt semantics, as in the JAX package).
 //
 // Two kernels, one launch each, in place in the float32 output buffer:
-//   1. column pass: one thread per (image, column) sweeps the column down
-//      and up and writes g^2, the squared distance to the nearest zero in
-//      that column (capped at h + w);
-//   2. row pass:    D^2[i, j] = min_k g^2[i, k] + (j - k)^2, then the finish
-//      sqrt(min(D^2, (h + w)^2)). One block per row stages the row of g^2 in
-//      shared memory (it then overwrites the row in place); each thread
-//      keeps JPT output columns in registers and loops k over the whole row.
+//   1. column pass: g[i, j], the distance from (i, j) to the nearest zero
+//      in column j (h + w where the column has none), written as uint16 in
+//      the first 2w bytes of row i's 4w bytes of `out`;
+//   2. row pass: D^2[i, j] = min_k g[i, k]^2 + (j - k)^2 by the lower
+//      envelope of the parabolas k -> g^2[i, k] + (j - k)^2, O(w) a row in
+//      integer arithmetic, then out = sqrtf(min(D^2, (h + w)^2)) over the
+//      whole row.
 //
-// Bound: the row pass does N*H*W*W candidate evaluations (2.1e9 at the
-// training slice's 16 x 512 x 512), three FP32 instructions each (a
-// subtract, an FMA, a min) against one broadcast shared-memory load per k
-// for JPT columns. That is compute on the FP32 pipes, not bytes: the row is
-// read once and written once. The TPU kernel's 8x128x128 tiling existed for
-// its vector registers and is not carried over; a lower-envelope
-// (Felzenszwalb-Huttenlocher) row pass, O(W) per row instead of O(W^2), is
-// the later redesign (ROADMAP.md).
+// Column pass. A block takes a strip of 32 V columns of one image, its 32
+// warps the rows in segments of s = ceil(h / 32) <= 64, a thread V
+// neighbouring columns (V = 4, 2 or 1 mask bytes, one coalesced load a
+// row: the widest that w and the alignment allow and whose grid still
+// reaches three quarters of the SMs; column_bytes says what was measured).
+// The thread reads its rows once and keeps, for each of
+// its columns, a word with bit r set where row r of its segment is zero.
+// The segments' first and last zeros go through shared memory, where a
+// thread a column turns them into the last zero above each segment and the
+// first zero below it; then each thread writes g for its rows from its
+// bits (the next zero below a row is the lowest set bit of the word
+// shifted to it), coalesced. That is n h w / (V s) threads (131,072 at
+// 16 x 512 x 512, V = 2) where the first form had n w, each with its loads
+// independent of each other.
 //
-// Exactness: every candidate is fl(g^2 + d^2) of integers, the rounding the
-// JAX package does in float32, so the result is bit-equal to its plain
-// version for H, W <= 2048 (the wrapper's bound): true distances stay below
-// 2^23 and the all-foreground cap (h + w)^2 <= 2^24 is exact.
+// Row pass. D^2[j] = min_k g[k]^2 + (j - k)^2 is the lower envelope of the
+// parabolas of the row's sites k, evaluated at each column. A warp takes
+// a row, its lanes bands of ceil(w / 32) columns (narrower rows: 4 to 16
+// lanes of 32 columns, two to eight rows a warp), in three steps (phase
+// 2 of Cao, Tang, Mulder & Wong, "Parallel Banding Algorithm to Compute
+// Exact Distance Transform with the GPU", I3D 2010):
+//   1. each lane builds the envelope of its band's parabolas on a stack
+//      (Felzenszwalb & Huttenlocher's scan, "Distance Transforms of Sampled
+//      Functions", 2012): a site is dropped where the one before it and
+//      the new one hide it;
+//   2. neighbouring groups of bands merge, 1 + 1, 2 + 2, ... 16 + 16: the
+//      left group's last sites and the right group's first ones go while
+//      the three sites around the junction hide the middle one (each
+//      band's stack keeps a range [lo, hi) of survivors);
+//   3. each lane finds the lowest parabola at its first column by a walk
+//      from the nearest site on its left, then walks forward column by
+//      column and writes sqrtf(min(D^2, (h + w)^2)) to its columns.
+// A column with no zero in its column (g = h + w) is no site: its parabola
+// lies at or above (h + w)^2, where the result is clamped anyway. That
+// leaves rows above and below a nodule with the few columns that cross it.
+// "b hides between a and c" compares the abscissae where b starts to beat
+// a and where c starts to beat b, (b^2 - a^2 + g_b^2 - g_a^2) / (2 (b -
+// a)) against the same for (b, c): both numerators may be negative, and
+// the comparison is made cross-multiplied, in 64-bit integers, with no
+// division, floor or float at all. The values along the envelope at a
+// fixed column fall to the lowest and then rise, which is what makes the
+// walks of step 3 right; sites that own no integer column may stay on the
+// envelope and cost a step of a walk, never a wrong value. A lane's chain
+// is ~w / 32 sites long, where one thread a row (Meijster's scans, the
+// first redesign measured) ran a chain of w.
+//
+// Exactness. g <= h + w <= 4096 and the row pass takes only g < h + w, so
+// g^2 < 2^22, j^2 < 2^22, every parabola's value is below 2^23 and every
+// separator's numerator within +-2^23: exact in int32, and their cross
+// products (below 2^35) exact in int64. So the row pass gives the exact
+// integer minimum. The plain version (ops/edt.py) computes min(min_k
+// fl(g_k^2 + d^2), (h + w)^2) in float32. Every candidate at or below
+// (h + w)^2 <= 2^24 is exact in float32, and any candidate above it rounds
+// to at least (h + w)^2 (rounding is monotone and (h + w)^2 is
+// representable). So the exact minimum clamped to (h + w)^2 is bit-equal
+// to the plain value, and so is its correctly rounded sqrtf. Ties between
+// sites do not matter: only the value is written. The JAX package's Pallas
+// kernel and scipy agree with the plain version bit for bit.
+//
+// Bound: uint8 in, float32 out, 5 bytes a pixel (21 MB, 0.0063 ms at
+// 3.35 TB/s, at the training slice's 16 x 512 x 512), against ~26 integer
+// operations a pixel over both passes, 0.0065 ms on the INT32 lanes (64 a
+// clock per SM at 1980 MHz). The uint16 intermediate (8 MB there) stays in
+// the 50 MB L2 between the two launches. The TPU kernel's 8x128x128 tiling
+// and its O(w^2) min-plus existed for its vector units and are not
+// carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kMaxSide = 2048;     // the wrapper's bound; shared row size
-constexpr int kColThreads = 128;
-constexpr int kRowThreads = 128;
-constexpr int kJpt = 4;            // output columns a thread keeps
+constexpr int kMaxSide = 2048;         // the wrapper's bound
+constexpr int kSegs = 32;              // row segments of a strip: warps
+constexpr int kRowWarps = 4;           // row-pass warps a block
+constexpr int kMinBand = 32;           // row-pass columns a lane, at least
+constexpr int kFar = 1 << 20;          // no zero on that side
 
-__global__ void __launch_bounds__(kColThreads)
-edt_column_kernel(const uint8_t* __restrict__ fg, float* __restrict__ out,
-                  int64_t n_img, int h, int w) {
-  const int64_t t = blockIdx.x * (int64_t)kColThreads + threadIdx.x;
-  if (t >= n_img * w) return;
-  const int64_t n = t / w;
-  const int j = (int)(t - n * w);
-  const int64_t base = n * (int64_t)h * w + j;
-  const int cap = h + w;
-  // down: distance to the nearest zero at or above, kept in out
-  int last = -1;
-#pragma unroll 8
-  for (int i = 0; i < h; ++i) {
-    const int64_t at = base + (int64_t)i * w;
-    if (fg[at] == 0) last = i;
-    out[at] = (float)(last >= 0 ? i - last : cap);
-  }
-  // up: nearest zero at or below; keep the smaller, square it
-  int next = -1;
-#pragma unroll 8
-  for (int i = h - 1; i >= 0; --i) {
-    const int64_t at = base + (int64_t)i * w;
-    if (fg[at] == 0) next = i;
-    const float below = (float)(next >= 0 ? next - i : cap);
-    const float g = fminf(fminf(out[at], below), (float)cap);
-    out[at] = g * g;
-  }
+// ---------------------------------------------------------------------------
+// column pass
+
+template <int V>
+__device__ __forceinline__ void store_g(uint16_t* p, const uint32_t (&g)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(g[0] | g[1] << 16,
+                                              g[2] | g[3] << 16);
+  else if constexpr (V == 2)
+    *reinterpret_cast<uint32_t*>(p) = g[0] | g[1] << 16;
+  else
+    *p = (uint16_t)g[0];
 }
 
-__global__ void __launch_bounds__(kRowThreads)
-edt_row_kernel(float* __restrict__ buf, int64_t rows, int w, float cap2) {
-  __shared__ float row[kMaxSide];
-  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
-    float* src = buf + r * w;
-    __syncthreads();  // the previous row's reads of `row` are done
-    for (int k = threadIdx.x; k < w; k += kRowThreads) row[k] = src[k];
-    __syncthreads();
-    for (int j0 = threadIdx.x; j0 < w; j0 += kRowThreads * kJpt) {
-      float jf[kJpt], best[kJpt];
+__device__ __forceinline__ int lowest_bit(uint32_t x) { return __ffs(x) - 1; }
+__device__ __forceinline__ int lowest_bit(uint64_t x) {
+  return __ffsll((long long)x) - 1;
+}
+__device__ __forceinline__ int highest_bit(uint32_t x) {
+  return 31 - __clz(x);
+}
+__device__ __forceinline__ int highest_bit(uint64_t x) {
+  return 63 - __clzll((long long)x);
+}
+
+// A block: one strip of 32 V columns of one image; warp s the rows
+// [s seg, s seg + seg) of it, lane l the V columns from 32 V strip + V l.
+// Word holds a bit a row of the segment.
+template <int V, typename Word>
+__global__ void __launch_bounds__(32 * kSegs)
+edt_column_kernel(const uint8_t* __restrict__ fg, float* __restrict__ out,
+                  int h, int w, int strips) {
+  // the segments' first and last zero of each column: [segment][v][lane]
+  __shared__ int first_zero[kSegs * V * 32], last_zero[kSegs * V * 32];
+  const long long img = blockIdx.x / strips;
+  const int strip = blockIdx.x - (int)img * strips;
+  const int lane = threadIdx.x % 32, sg = threadIdx.x / 32;
+  const int c = (strip * 32 + lane) * V;
+  const bool on = c < w;  // w % V == 0
+  const int seg = (h + kSegs - 1) / kSegs;
+  const int r0 = sg * seg, r1 = min(h, r0 + seg);
+  const uint8_t* src = fg + img * h * w + c;
+  uint16_t* dst = reinterpret_cast<uint16_t*>(out + img * h * w) + c;
+  // V mask bytes, one load
+  using T = std::conditional_t<V == 4, uint32_t,
+                               std::conditional_t<V == 2, uint16_t, uint8_t>>;
+
+  // the thread's rows, a bit a zero: coalesced V-byte loads, eight rows
+  // in flight
+  Word bits[V];
 #pragma unroll
-      for (int m = 0; m < kJpt; ++m) {
-        jf[m] = (float)(j0 + m * kRowThreads);
-        best[m] = __int_as_float(0x7f800000);  // +inf
-      }
-      float kf = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < w; ++k, kf += 1.f) {
-        const float gk = row[k];
+  for (int v = 0; v < V; ++v) bits[v] = 0;
+  if (on) {
+    for (int r = r0; r < r1; r += 8) {
+      T b[8];
 #pragma unroll
-        for (int m = 0; m < kJpt; ++m) {
-          const float d = jf[m] - kf;
-          best[m] = fminf(best[m], fmaf(d, d, gk));
+      for (int k = 0; k < 8; ++k)
+        if (r + k < r1)
+          b[k] = __ldg(
+              reinterpret_cast<const T*>(src + (long long)(r + k) * w));
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (r + k < r1) {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            bits[v] |= (Word)(((b[k] >> (8 * v)) & 0xff) == 0) << (r + k - r0);
         }
-      }
+    }
+  }
 #pragma unroll
-      for (int m = 0; m < kJpt; ++m) {
-        const int j = j0 + m * kRowThreads;
-        if (j < w) src[j] = sqrtf(fminf(best[m], cap2));
+  for (int v = 0; v < V; ++v) {
+    const int at = (sg * V + v) * 32 + lane;
+    first_zero[at] = bits[v] ? r0 + lowest_bit(bits[v]) : kFar;
+    last_zero[at] = bits[v] ? r0 + highest_bit(bits[v]) : -kFar;
+  }
+  __syncthreads();
+
+  // a thread a column: the last zero above each segment (a running max
+  // down the segments) and the first zero below it (a running min up)
+  if (threadIdx.x < 32 * V) {
+    const int col = threadIdx.x;  // v * 32 + lane
+    int run = -kFar;
+    for (int k0 = 0; k0 < kSegs; k0 += 8) {
+      int x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = last_zero[(k0 + k) * V * 32 + col];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        last_zero[(k0 + k) * V * 32 + col] = run;
+        run = max(run, x[k]);
+      }
+    }
+    run = kFar;
+    for (int k0 = kSegs - 8; k0 >= 0; k0 -= 8) {
+      int x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = first_zero[(k0 + k) * V * 32 + col];
+#pragma unroll
+      for (int k = 7; k >= 0; --k) {
+        first_zero[(k0 + k) * V * 32 + col] = run;
+        run = min(run, x[k]);
       }
     }
   }
+  __syncthreads();
+  if (!on) return;
+
+  int above[V], below[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    above[v] = last_zero[(sg * V + v) * 32 + lane];
+    below[v] = first_zero[(sg * V + v) * 32 + lane];
+  }
+  const int cap = h + w;
+  for (int r = r0; r < r1; ++r) {
+    uint32_t g[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const Word rest = bits[v] >> (r - r0);  // rows r.. of the segment
+      if (rest & 1) above[v] = r;
+      const int next = rest ? r + lowest_bit(rest) : below[v];
+      g[v] = (uint32_t)min(min(r - above[v], next - r), cap);
+    }
+    // g of row r in the first 2w bytes of the row's 4w bytes of out
+    store_g<V>(dst + 2ll * r * w, g);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// row pass
+
+// the parabola of site s (G = g(s)^2) at column x
+__device__ __forceinline__ int parabola(int x, int s, int G) {
+  return (x - s) * (x - s) + G;
+}
+
+// Site b (a < b < c) is lowest nowhere that a or c is not: the abscissa
+// from which b beats a, (b^2 - a^2 + Gb - Ga) / (2 (b - a)), is at or past
+// the one from which c beats b. Cross-multiplied: exact in 64 bits.
+__device__ __forceinline__ bool hidden(int a, int ga, int b, int gb, int c,
+                                       int gc) {
+  const long long ab = b * b - a * a + gb - ga, bc = c * c - b * b + gc - gb;
+  return ab * (c - b) >= bc * (b - a);
+}
+
+// hidden() for three sites of one band (c - a < band <= 64): the cross
+// products stay below 2^23 * 2^6, and int32 holds them
+__device__ __forceinline__ bool hidden_near(int a, int ga, int b, int gb,
+                                            int c, int gc) {
+  const int ab = b * b - a * a + gb - ga, bc = c * c - b * b + gc - gb;
+  return ab * (c - b) >= bc * (b - a);
+}
+
+// A warp takes 32 / L rows, L lanes a row, a band of columns a lane: band
+// = ceil(w / 32) rounded up to a power of two (so that a column's band is
+// a shift), and while it is below kMinBand, half the lanes a row and twice
+// the band (L >= 4), so that rows share a warp's fixed costs (the merges,
+// the walks' first steps) rather than leave lanes with a few columns each:
+// w = 512 takes 16 lanes of 32, w = 256 8 of 32, w = 2048 32 of 64. (On
+// an H100, at 16 columns a lane the row pass took 1.18 and 1.14 times as
+// long at 16 x 512 x 512 and 128 x 256 x 256, at 64 1.35 and 1.41 times.)
+struct RowShape {
+  int band, lanes;
+};
+__host__ __device__ __forceinline__ RowShape row_shape(int w) {
+  RowShape r{2, 32};
+  while (32 * r.band < w) r.band *= 2;
+  while (r.band < kMinBand && r.lanes > 4) r.band *= 2, r.lanes /= 2;
+  return r;
+}
+// bp / 2 words odd: lanes at the same place in their own bands touch
+// different banks
+__host__ __device__ __forceinline__ int row_bp(int band) {
+  return 2 * ((band / 2) | 1);
+}
+// A warp's shared memory: g and the bands' stacks of sites ([32][bp]
+// uint16 each), and each band's surviving range [lo, hi) of its stack.
+__host__ __device__ __forceinline__ int row_smem(int w) {
+  return 2 * 2 * 32 * row_bp(row_shape(w).band) + 2 * 4 * 32;
+}
+
+// The stack position after (b, i) on the row's envelope: the band's next
+// entry, or the first of the next band (of the row's bands in `full`) that
+// has any (b = -1: none).
+__device__ __forceinline__ void step_next(int& b, int& i, const int* lo,
+                                          const int* hi, unsigned full) {
+  if (i + 1 < hi[b]) {
+    ++i;
+    return;
+  }
+  const unsigned m = full & ~((2u << b) - 1u);
+  b = m ? __ffs(m) - 1 : -1;
+  if (b >= 0) i = lo[b];
+}
+
+__device__ __forceinline__ void step_prev(int& b, int& i, const int* lo,
+                                          const int* hi, unsigned full) {
+  if (i - 1 >= lo[b]) {
+    --i;
+    return;
+  }
+  const unsigned m = full & ((1u << b) - 1u);
+  b = m ? 31 - __clz(m) : -1;
+  if (b >= 0) i = hi[b] - 1;
+}
+
+__global__ void __launch_bounds__(32 * kRowWarps)
+edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RowShape shape = row_shape(w);
+  const int band = shape.band, nl = shape.lanes, bp = row_bp(band);
+  const int shift = __ffs(band) - 1;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int sub = lane / nl, l = lane % nl;  // the warp's row, its band
+  unsigned char* mine = smem + warp * row_smem(w);
+  uint16_t* gs = reinterpret_cast<uint16_t*>(mine);          // [32][bp]
+  uint16_t* st = gs + 32 * bp;                                // [32][bp]
+  int* lo = reinterpret_cast<int*>(st + 32 * bp);
+  int* hi = lo + 32;
+  const long long row =
+      ((long long)blockIdx.x * kRowWarps + warp) * (32 / nl) + sub;
+  const bool on = row < rows;
+  float* out = buf + (on ? row : 0) * w;
+  // band b of the row holds columns [(b - b0) band, ...); its g at
+  // gs[b bp + column - (b - b0) band] = gs[b bp + column + off - b band]
+  const int b0 = sub * nl, off = b0 * band;
+
+  // g (the first 2w bytes of the row), coalesced
+  if (on && w % 2 == 0) {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(out);
+    for (int k = 2 * l; k < w; k += 2 * nl) {
+      const int b = b0 + (k >> shift);
+      *reinterpret_cast<uint32_t*>(gs + b * bp + k + off - b * band) =
+          src[k / 2];
+    }
+  } else if (on) {
+    const uint16_t* src = reinterpret_cast<const uint16_t*>(out);
+    for (int k = l; k < w; k += nl) {
+      const int b = b0 + (k >> shift);
+      gs[b * bp + k + off - b * band] = src[k];
+    }
+  }
+  __syncwarp();
+
+  // 1. the lane's band: the lower envelope of its columns' parabolas on a
+  // stack, the top two sites in registers. A column with no zero (g = cap)
+  // is no site: its parabola lies at or above cap^2, where the result is
+  // clamped anyway.
+  const int j0 = l * band, j1 = on ? min(w, j0 + band) : j0;
+  const uint16_t* gb = gs + lane * bp;
+  uint16_t* sb = st + lane * bp;
+  // The lanes step through their columns together: every lane takes
+  // `band` steps and the warp meets after each, or lanes that skip a column
+  // or pop a different number of sites drift apart and the warp runs
+  // their paths one after another.
+  int cnt = 0, s1 = 0, g1 = 0, s0 = 0, g0 = 0;
+  for (int k = j0; k < j0 + band; ++k) {
+    const int gk = k < j1 ? gb[k - j0] : cap;
+    if (gk < cap) {
+      const int g2 = gk * gk;
+      while (cnt >= 2 && hidden_near(s0, g0, s1, g1, k, g2)) {
+        --cnt;
+        s1 = s0;
+        g1 = g0;
+        if (cnt >= 2) {
+          s0 = sb[cnt - 2];
+          g0 = gb[s0 - j0] * gb[s0 - j0];
+        }
+      }
+      sb[cnt++] = (uint16_t)k;
+      s0 = s1;
+      g0 = g1;
+      s1 = k;
+      g1 = g2;
+    }
+    __syncwarp();
+  }
+  lo[lane] = 0;
+  hi[lane] = cnt;
+  __syncwarp();
+
+  // 2. merge neighbouring groups of a row's bands, 1 + 1, 2 + 2, ...: drop
+  // the left group's last sites and the right group's first ones while the
+  // junction hides one
+  for (int span = 1; span < nl; span *= 2) {
+    if (l % (2 * span) == 0) {
+      const int end = lane + 2 * span;
+      int tb = lane + span - 1, hb = lane + span;
+      while (tb >= lane && hi[tb] == lo[tb]) --tb;
+      while (hb < end && hi[hb] == lo[hb]) ++hb;
+      while (tb >= lane && hb < end) {
+        const int t = st[tb * bp + hi[tb] - 1], h = st[hb * bp + lo[hb]];
+        const int gt = gs[tb * bp + t + off - tb * band],
+                  gh = gs[hb * bp + h + off - hb * band];
+        const int gt2 = gt * gt, gh2 = gh * gh;
+        // the site before t
+        int pb = tb, pi = hi[tb] - 2;
+        if (pi < lo[tb]) {
+          for (pb = tb - 1; pb >= lane && hi[pb] == lo[pb];) --pb;
+          pi = pb >= lane ? hi[pb] - 1 : 0;
+        }
+        if (pb >= lane) {
+          const int p = st[pb * bp + pi];
+          const int gp = gs[pb * bp + p + off - pb * band];
+          if (hidden(p, gp * gp, t, gt2, h, gh2)) {
+            if (--hi[tb] == lo[tb]) tb = pb;
+            continue;
+          }
+        }
+        // the site after h
+        int nb = hb, ni = lo[hb] + 1;
+        if (ni >= hi[hb]) {
+          for (nb = hb + 1; nb < end && hi[nb] == lo[nb];) ++nb;
+          ni = nb < end ? lo[nb] : 0;
+        }
+        if (nb < end) {
+          const int q = st[nb * bp + ni];
+          const int gq = gs[nb * bp + q + off - nb * band];
+          if (hidden(t, gt2, h, gh2, q, gq * gq)) {
+            if (++lo[hb] == hi[hb]) hb = nb;
+            continue;
+          }
+        }
+        break;
+      }
+    }
+    __syncwarp();
+  }
+
+  // 3. each lane its band's columns: the lowest parabola at j0 by a walk
+  // from the nearest site on the left (the values along the envelope at a
+  // fixed column fall to the lowest, then rise), then forward, column by
+  // column, with the next site in registers; the distances go straight to
+  // the row (g is all in shared memory by now), 16 bytes at a time where
+  // the row allows
+  const unsigned rows_bands = nl == 32 ? ~0u : ((1u << nl) - 1u) << b0;
+  const unsigned full =
+      __ballot_sync(0xffffffffu, hi[lane] > lo[lane]) & rows_bands;
+  const int cap2 = cap * cap;
+  const bool vec = w % 4 == 0 && (uintptr_t)buf % 16 == 0;
+  const bool walks = j0 < j1 && full;  // columns, and sites to walk
+  int cb = 0, ci = 0, cs = 0, cg = 0, nb = -1, ni = 0, ns = 0, ng = 0;
+  if (walks) {
+    const unsigned left = full & ((1u << lane) - 1u);
+    cb = left ? 31 - __clz(left) : __ffs(full) - 1;
+    ci = left ? hi[cb] - 1 : lo[cb];
+    cs = st[cb * bp + ci];
+    cg = gs[cb * bp + cs + off - cb * band];
+    cg *= cg;
+    for (;;) {
+      int b = cb, i = ci;
+      step_prev(b, i, lo, hi, full);
+      if (b < 0) break;
+      const int s = st[b * bp + i], g = gs[b * bp + s + off - b * band];
+      if (parabola(j0, s, g * g) > parabola(j0, cs, cg)) break;
+      cb = b, ci = i, cs = s, cg = g * g;
+    }
+    nb = cb, ni = ci;
+    step_next(nb, ni, lo, hi, full);
+    if (nb >= 0) {
+      ns = st[nb * bp + ni];
+      ng = gs[nb * bp + ns + off - nb * band];
+      ng *= ng;
+    }
+  }
+  __syncwarp();
+  auto distance = [&](int j) {
+    if (!walks) return (float)cap;
+    while (nb >= 0 && parabola(j, ns, ng) <= parabola(j, cs, cg)) {
+      cb = nb, ci = ni, cs = ns, cg = ng;
+      step_next(nb, ni, lo, hi, full);
+      if (nb >= 0) {
+        ns = st[nb * bp + ni];
+        ng = gs[nb * bp + ns + off - nb * band];
+        ng *= ng;
+      }
+    }
+    return sqrtf((float)min(parabola(j, cs, cg), cap2));
+  };
+  // as in step 1, the lanes take `band` columns in step
+  if (vec) {  // j0 and j1 are multiples of 4
+    for (int j = j0; j < j0 + band; j += 4) {
+      float4 q;
+      q.x = distance(j);
+      q.y = distance(j + 1);
+      q.z = distance(j + 2);
+      q.w = distance(j + 3);
+      if (j < j1) *reinterpret_cast<float4*>(out + j) = q;
+      __syncwarp();
+    }
+  } else {
+    for (int j = j0; j < j0 + band; ++j) {
+      const float d = distance(j);
+      if (j < j1) out[j] = d;
+      __syncwarp();
+    }
+  }
+}
+
+template <int V>
+cudaError_t launch_columns(const uint8_t* fg, float* out, long long n, int h,
+                           int w, cudaStream_t s) {
+  const int strips = (w + 32 * V - 1) / (32 * V);
+  const long long blocks = n * strips;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  // segments past 32 rows take 64-bit words
+  if (h > 32 * kSegs)
+    edt_column_kernel<V, uint64_t><<<(unsigned)blocks, 32 * kSegs, 0, s>>>(
+        fg, out, h, w, strips);
+  else
+    edt_column_kernel<V, uint32_t><<<(unsigned)blocks, 32 * kSegs, 0, s>>>(
+        fg, out, h, w, strips);
+  return cudaGetLastError();
+}
+
+// Once a device: every kernel's shared-memory carveout at its largest
+// (left at its default, most of an SM's 256 KB may stay L1 and fewer
+// blocks run an SM: the row pass took 1.1 times as long on an H100), and
+// the SM count. Returns the count, or 0 with `err` set.
+int configure(int dev, cudaError_t& err) {
+  static int sms[64];  // 0: not yet configured
+  if (dev >= 0 && dev < 64 && sms[dev]) return sms[dev];
+  const void* kernels[] = {
+      (const void*)edt_row_kernel,
+      (const void*)edt_column_kernel<4, uint32_t>,
+      (const void*)edt_column_kernel<4, uint64_t>,
+      (const void*)edt_column_kernel<2, uint32_t>,
+      (const void*)edt_column_kernel<2, uint64_t>,
+      (const void*)edt_column_kernel<1, uint32_t>,
+      (const void*)edt_column_kernel<1, uint64_t>};
+  int n = 0;
+  for (const void* k : kernels)
+    if ((err = cudaFuncSetAttribute(
+             k, cudaFuncAttributePreferredSharedMemoryCarveout,
+             cudaSharedmemCarveoutMaxShared)))
+      return 0;
+  if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)))
+    return 0;
+  if (dev >= 0 && dev < 64) sms[dev] = n;
+  return n;
+}
+
+// The widest load (4, 2 or 1 mask bytes a thread) that w and the buffers'
+// alignment allow and whose grid still reaches three quarters of the SMs.
+// A wider load moves the same bytes in fewer load and store instructions:
+// on an H100 (132 SMs; probes/edt_column_widths.py) the column pass took
+// 0.63-0.65 of V = 1's time at V = 4 and 0.81-0.82 at V = 2, at (64, 512,
+// 512) and (128, 256, 256), where V = 4 has 256 blocks. At (16, 512, 512)
+// V = 4's 64 blocks took 1.10 of V = 1's time and V = 2's 128 blocks 0.79.
+int column_bytes(const void* fg, const void* out, long long n, int w,
+                 int sms) {
+  for (int v = 4; v > 1; v /= 2)
+    if (w % v == 0 && (uintptr_t)fg % v == 0 && (uintptr_t)out % (2 * v) == 0
+        && 4 * n * ((w + 32 * v - 1) / (32 * v)) >= 3ll * sms)
+      return v;
+  return 1;
 }
 
 }  // namespace
@@ -113,17 +564,27 @@ extern "C" int ddti_edt(const void* fg, void* out, long long n, int h, int w,
   if (n <= 0 || h <= 0 || w <= 0 || h > kMaxSide || w > kMaxSide)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t cols = (int64_t)n * w;
-  const int64_t col_blocks = (cols + kColThreads - 1) / kColThreads;
-  edt_column_kernel<<<(unsigned)col_blocks, kColThreads, 0, s>>>(
-      (const uint8_t*)fg, (float*)out, n, h, w);
-  cudaError_t err = cudaGetLastError();
+  const uint8_t* in = (const uint8_t*)fg;
+  float* o = (float*)out;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const int64_t rows = (int64_t)n * h;
-  const unsigned row_blocks = (unsigned)(rows < (1 << 30) ? rows : (1 << 30));
-  const float cap = (float)(h + w);
-  edt_row_kernel<<<row_blocks, kRowThreads, 0, s>>>((float*)out, rows, w,
-                                                     cap * cap);
+  const int sms = configure(dev, err);
+  if (!sms) return (int)err;
+  const int v = column_bytes(fg, out, n, w, sms);
+  err = v == 4   ? launch_columns<4>(in, o, n, h, w, s)
+        : v == 2 ? launch_columns<2>(in, o, n, h, w, s)
+                 : launch_columns<1>(in, o, n, h, w, s);
+  if (err != cudaSuccess) return (int)err;
+
+  const long long rows = n * h;
+  const int per_block = kRowWarps * (32 / row_shape(w).lanes);
+  const long long blocks = (rows + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  // at most 4 x 8,704 bytes (w = 2048): below the 48 KB that needs an
+  // opt-in
+  edt_row_kernel<<<(unsigned)blocks, 32 * kRowWarps,
+                   kRowWarps * row_smem(w), s>>>(o, rows, w, h + w);
   return (int)cudaGetLastError();
 }
 

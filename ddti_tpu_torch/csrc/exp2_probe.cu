@@ -17,9 +17,22 @@
 // bytes: on this card the probe measures the memory, not the exp2 trade,
 // which shows only where the exponentials are not hidden behind loads (the
 // flash kernels; ddti_tpu_torch/probes/flash_poly_ab.py). The TPU kernel's
-// (256, 1024) blocks existed for its vector memory: here every thread moves
-// 16 bytes a load and a store, in a grid-stride loop over as many blocks as
-// fill the SMs, and the last n % 4 elements go one a thread.
+// (256, 1024) blocks existed for its vector memory.
+//
+// The memory path. A block takes one tile of kThreads x kVecs 16-byte
+// vectors (16 KB) and the grid covers the array once, with no grid-stride
+// loop: ceil(n / kTileFloats) blocks. Each thread starts all kVecs loads
+// of its tile before it computes or stores any of them, so a thread keeps
+// 64 bytes in flight; the offsets inside a tile are 32-bit with trip counts
+// fixed at compile time, so nothing divides and no F2I appears (the SASS
+// check in chip_smoke.py forbids F2I and FRND on the poly paths, where they
+// would run at the exp2 unit's rate). Loads stream past L1
+// (ld.global.nc.L1::no_allocate) and stores are marked evict-first
+// (st.global.cs): nothing is read twice. Only the last block can be
+// partial; it masks its vectors and writes the last n % 4 elements one a
+// thread. Moving each tile in and out of shared memory by bulk
+// asynchronous copies (cp.async.bulk) instead was measured 6-9% slower on
+// an H100 (PERF.md) and is not kept.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,7 +42,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kVecs = 4;                       // 16-byte vectors a thread
+constexpr int kTileVecs = kThreads * kVecs;    // a block's tile
+constexpr long long kTileFloats = 4ll * kTileVecs;
 
 template <int MODE>
 __device__ __forceinline__ float probe_fn(float x) {
@@ -39,33 +54,69 @@ __device__ __forceinline__ float probe_fn(float x) {
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-exp2_probe_kernel(const float* __restrict__ x, float* __restrict__ y,
-                  long long n) {
-  const long long n4 = n / 4;
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
-  // not unrolled: the unrolled loop's trip count is a 64-bit division,
-  // which issues F2I
-#pragma unroll 1
-  for (long long i = first; i < n4; i += stride) {
-    const float4 v = x4[i];
-    y4[i] = make_float4(probe_fn<MODE>(v.x), probe_fn<MODE>(v.y),
-                        probe_fn<MODE>(v.z), probe_fn<MODE>(v.w));
-  }
-  if (first < n - 4 * n4)
-    y[4 * n4 + first] = probe_fn<MODE>(x[4 * n4 + first]);
+__device__ __forceinline__ float4 probe_fn4(float4 v) {
+  return make_float4(probe_fn<MODE>(v.x), probe_fn<MODE>(v.y),
+                     probe_fn<MODE>(v.z), probe_fn<MODE>(v.w));
+}
+
+__device__ __forceinline__ float4 load_stream(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void store_stream(float4* p, float4 v) {
+  asm volatile("st.global.cs.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// the n % 4 elements past the last whole vector, one a thread of the last
+// block
+template <int MODE>
+__device__ __forceinline__ void tail(const float* x, float* y, long long n) {
+  const long long at = (n & ~3ll) + threadIdx.x;
+  if (at < n) y[at] = probe_fn<MODE>(x[at]);
 }
 
 template <int MODE>
-cudaError_t launch(const float* x, float* y, long long n, int sms,
+__global__ void __launch_bounds__(kThreads)
+exp2_probe_kernel(const float* __restrict__ x, float* __restrict__ y,
+                  long long n) {
+  const long long first = (long long)blockIdx.x * kTileVecs;
+  const long long left = (n >> 2) - first;  // whole vectors from the tile on
+  const float4* src = reinterpret_cast<const float4*>(x) + first;
+  float4* dst = reinterpret_cast<float4*>(y) + first;
+  float4 v[kVecs];
+  if (left >= kTileVecs) {
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+      v[k] = load_stream(src + k * kThreads + threadIdx.x);
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k)
+      store_stream(dst + k * kThreads + threadIdx.x, probe_fn4<MODE>(v[k]));
+    return;
+  }
+  const int have = left > 0 ? (int)left : 0;
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k)
+    if (k * kThreads + (int)threadIdx.x < have)
+      v[k] = load_stream(src + k * kThreads + threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k)
+    if (k * kThreads + (int)threadIdx.x < have)
+      store_stream(dst + k * kThreads + threadIdx.x, probe_fn4<MODE>(v[k]));
+  tail<MODE>(x, y, n);
+}
+
+template <int MODE>
+cudaError_t launch(const float* x, float* y, long long n,
                    cudaStream_t stream) {
-  const long long want = (n / 4 + kThreads - 1) / kThreads;
-  const long long most = (long long)sms * kBlocksPerSm;
-  const unsigned blocks = (unsigned)(want < 1 ? 1 : want < most ? want : most);
-  exp2_probe_kernel<MODE><<<blocks, kThreads, 0, stream>>>(x, y, n);
+  const long long blocks = (n + kTileFloats - 1) / kTileFloats;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  exp2_probe_kernel<MODE><<<(unsigned)blocks, kThreads, 0, stream>>>(x, y, n);
   return cudaGetLastError();
 }
 
@@ -80,19 +131,15 @@ extern "C" int ddti_exp2_probe(const void* x, void* y, long long n, int mode,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  int sms;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)))
-    return (int)err;
   const float* in = static_cast<const float*>(x);
   float* out = static_cast<float*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return (int)launch<0>(in, out, n, sms, st);
-    case 1: return (int)launch<1>(in, out, n, sms, st);
-    case 4: return (int)launch<4>(in, out, n, sms, st);
-    case 5: return (int)launch<5>(in, out, n, sms, st);
-    case 6: return (int)launch<6>(in, out, n, sms, st);
+    case 0: return (int)launch<0>(in, out, n, st);
+    case 1: return (int)launch<1>(in, out, n, st);
+    case 4: return (int)launch<4>(in, out, n, st);
+    case 5: return (int)launch<5>(in, out, n, st);
+    case 6: return (int)launch<6>(in, out, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,8 +20,8 @@ SLICE = (16, 8, 1024, 32)  # the TransUNet bottleneck at 512^2: 1024 tokens
     ("flash_bwd_dq", SLICE, "bfloat16", 25.8e9, 43.0e6, 134.2e6),
     # float32 moves twice the bytes for the same products
     ("flash_bwd", SLICE, "float32", 42.9e9, 134.7e6, 268.4e6),
-    # the EDT's row pass: an add and a min per (row, column, column)
-    ("edt", (16, 512, 512), "bfloat16", 4.29e9, 21.0e6, 0),
+    # the EDT's lower envelope: 26 integer operations a pixel, both passes
+    ("edt", (16, 512, 512), "bfloat16", 109.05e6, 21.0e6, 0),
     # the exp2 probe: 512 x 16384 float32 read and written, one exp2 each
     ("exp2_probe", (512, 16384), "float32", 0, 67_108_864, 8_388_608),
     # the m-skip forward: the forward's two products at the probe's shape
@@ -40,7 +40,10 @@ def test_bounds_at_the_slice_shape():
     """bf16 flash work is bound by the tensor cores (989 TFLOP/s) rather
     than the bytes (3.35 TB/s); the pair's exp2 floor (two passes of 134 M
     exp2 at 16 a clock on 132 SMs at 1980 MHz) lies above its FLOP bound;
-    the EDT is float32 work (67 TFLOP/s)."""
+    the EDT's lower envelope does 26 integer operations a pixel on the
+    INT32 lanes (64 a clock per SM), a little longer than its 5 bytes a
+    pixel take; the min-plus algorithm's add and min per (row, column,
+    column) would have taken 0.0641 ms at the float32 rate."""
     ms, by, exp2_ms = C.bound("flash_bwd", SLICE)
     assert by == "operations"
     assert ms == pytest.approx(0.0434, rel=1e-2)
@@ -48,7 +51,15 @@ def test_bounds_at_the_slice_shape():
     assert C.bound("flash_fwd", SLICE)[0] == pytest.approx(0.0174, rel=1e-2)
     edt_ms, edt_by, _ = C.bound("edt", (16, 512, 512))
     assert edt_by == "operations"
-    assert edt_ms == pytest.approx(0.0641, rel=1e-2)
+    assert edt_ms == pytest.approx(0.00652, rel=1e-2)
+    assert C.bound("edt", (128, 256, 256))[0] == pytest.approx(0.01304,
+                                                               rel=1e-2)
+    edt_bytes = C.work_counts("edt", (16, 512, 512))["bytes"]
+    assert edt_bytes / C.PEAK_BYTES * 1e3 == pytest.approx(0.00626,
+                                                           rel=1e-2)
+    minplus = C.work_counts("edt", (16, 512, 512))["minplus_flop"]
+    assert minplus / C.PEAK_FLOPS["float32"] * 1e3 == pytest.approx(
+        0.0641, rel=1e-2)
     # a product too thin for its bytes is bound by memory
     assert C.bound("flash_fwd", (64, 8, 64, 8))[1] == "bytes"
 
@@ -80,12 +91,16 @@ def test_redesign_order_follows_device_time(capsys):
 def test_float32_flash_bounds_at_the_3xtf32_rate(kernel, shape, ms):
     """float32 flash work is bound at the tensor cores' TF32 rate over
     three (a float32-accurate product as three TF32 products), not at the
-    FMA rate of 67 TFLOP/s, which the EDT keeps."""
+    FMA rate of 67 TFLOP/s; the EDT's bound, its integer operations on the
+    INT32 lanes, does not follow the dtype argument."""
     got, by, _ = C.bound(kernel, shape, "float32")
     assert by == "operations"
     assert got == pytest.approx(ms, rel=2e-3)
-    assert C.bound("edt", (16, 512, 512), "float32")[0] == pytest.approx(
-        0.0641, rel=1e-2)
+    assert C.bound("edt", (16, 512, 512), "float32") == C.bound(
+        "edt", (16, 512, 512))
+    w = C.work_counts("edt", (16, 512, 512))
+    assert w["flop"] / C.INT32_OPS_PER_S * 1e3 == pytest.approx(
+        0.00652, rel=1e-2)
 
 
 def test_probe_bounds():

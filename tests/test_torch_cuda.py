@@ -194,6 +194,40 @@ def test_edt_kernel_bit_equal_to_plain(cuda, shape, dtype):
     assert (want[0] == shape[1] + shape[2]).all()
 
 
+# csrc/edt.cu's tiling edges: the row pass takes 32 / L rows a warp, four
+# warps a block, L lanes a row of a band of columns each (W = 2048: 32
+# lanes of 64, a row a warp; W = 512: 16 of 32, two rows; W = 256: 8 of
+# 32, four rows; W = 48, 16, 17: 4 of 16, eight rows, lanes without a
+# column, odd W), and the frames below give every remainder of N H rows
+# by rows a block; the column pass 32 segments of ceil(H / 32) rows (every
+# H % 32 from 32 to 63, and 64 rows, 64-bit words, past H = 1024), with
+# 4, 2 or 1 mask bytes a thread (the widest whose grid reaches three
+# quarters of the SMs: on an H100's 132 SMs, 4 at 40 and 26 frames of 512
+# columns, 2 at 20 and 13 and at 5 of 2048, 1 below)
+EDT_EDGE_SHAPES = ([(5, 16 + r, 2048) for r in range(16)]
+                   + [(5, 32 + r, 48) for r in range(32)]
+                   + [(3, 60 + r, 512) for r in range(8)]
+                   + [(3, 100 + r, 256) for r in range(16)]
+                   + [(5, 2048 - r, w) for r in (0, 1, 31, 33, 63)
+                      for w in (16, 17)]
+                   + [(5, 2048, 2048), (5, 1025, 2047)]
+                   + [(40, 32 + r, 512) for r in (1, 2, 31)]
+                   + [(26, 1057, 512), (20, 33, 512), (13, 1057, 512)])
+
+
+@pytest.mark.parametrize("shape", EDT_EDGE_SHAPES)
+def test_edt_kernel_bit_equal_at_its_tiling_edges(cuda, shape):
+    """The kernel bit-equal to its plain version on chip_smoke's EDT frames
+    (the edge frames first: all zeros, all ones, one zero, one nonzero
+    pixel) at every remainder of its row and column tiling."""
+    import chip_smoke
+
+    m = chip_smoke.edt_masks(*shape, seed=sum(shape)).to(cuda)
+    got = E.edt_cuda(m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, E.edt_reference(m))
+
+
 def test_edt_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="H = 4096"):
         E.edt_cuda(torch.zeros((1, 4096, 8), dtype=torch.uint8, device=cuda))
@@ -388,6 +422,27 @@ def test_exp2_probe_kernel_matches_plain(cuda, mode, n):
         assert torch.equal(y.view(torch.int32), x.view(torch.int32))
     else:
         assert E2.ulp_distance(y, want) <= 2
+
+
+@pytest.mark.parametrize("n", [1, 3, 4095, 4096, 4097, 512 * 16384])
+@pytest.mark.parametrize("mode", ["copy", "builtin", "poly4", "poly5",
+                                  "poly6"])
+def test_exp2_probe_kernel_at_its_tile_edges(cuda, mode, n):
+    """The kernel at n around the 4,096-float tile and at the probe's
+    size: within 2 ulp of the plain version, the copy bit for bit,
+    one launch a call."""
+    from ddti_tpu_torch.probes import exp2_probe as E2
+
+    x = E2.make_input(1, n, seed=n, device="cpu")[0].to(cuda)
+    before = E2.exp2_probe_cuda.launches
+    y = E2.exp2_probe_cuda(x, mode)
+    torch.cuda.synchronize()
+    assert E2.exp2_probe_cuda.launches == before + 1
+    if mode == "copy":
+        assert torch.equal(y.view(torch.int32), x.view(torch.int32))
+    else:
+        assert not torch.isnan(y).any()
+        assert E2.ulp_distance(y, E2.exp2_probe_reference(x, mode)) <= 2
 
 
 def test_exp2_probe_rejects_what_it_does_not_take(cuda):

@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from scipy import ndimage
 
 from ddti_tpu.ops import edt as jedt
@@ -110,3 +112,341 @@ def test_edt_batch_layouts():
 def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         edt.edt_cuda(torch.zeros(1, 4, 4, dtype=torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# numpy models of csrc/edt.cu's integer arithmetic, held bit-equal to the
+# plain version (the kernel itself is held to it on the card)
+
+FAR = 1 << 20  # the kernel's kFar: no zero on that side
+
+
+def _c_div(a, b):
+    """C's int division (b > 0): the quotient truncated toward zero."""
+    q = np.abs(a) // b
+    return np.where(a < 0, -q, q)
+
+
+STATS = dict(negative_numerators=0, largest_cross=0)
+
+
+def _hidden_exact(a, ga, b, gb, c, gc):
+    """csrc/edt.cu's hidden(): site b lies on the lower envelope of a < b
+    < c nowhere that a or c does not, the separators' comparison
+    cross-multiplied (the kernel's int64 products; Python's ints are
+    exact)."""
+    ab, bc = b * b - a * a + gb - ga, c * c - b * b + gc - gb
+    STATS["negative_numerators"] += (ab < 0) + (bc < 0)
+    STATS["largest_cross"] = max(STATS["largest_cross"], abs(ab * (c - b)),
+                                 abs(bc * (b - a)))
+    return ab * (c - b) >= bc * (b - a)
+
+
+def _hidden_truncated(a, ga, b, gb, c, gc):
+    """The same test on integer separators divided with C's truncation: a
+    hazard where a numerator is negative."""
+    ab, bc = b * b - a * a + gb - ga, c * c - b * b + gc - gb
+    return int(_c_div(np.array(ab), 2 * (b - a))) >= int(
+        _c_div(np.array(bc), 2 * (c - b)))
+
+
+_hidden = _hidden_exact
+
+
+def _row_shape(w):
+    """csrc/edt.cu's row_shape: (columns a band, lanes a row)."""
+    band, lanes = 2, 32
+    while 32 * band < w:
+        band *= 2
+    while band < 32 and lanes > 4:
+        band, lanes = band * 2, lanes // 2
+    return band, lanes
+
+
+def _banded_row(g, cap):
+    """csrc/edt.cu's row pass on one row of column distances, step by step
+    as its lanes run it: the kernel's bands (``_row_shape``), each band's
+    stack of sites (columns with g < cap) built by the hidden() test, the
+    merges of 1 + 1, 2 + 2, ... bands with each band's survivors a range
+    [lo, hi) of its stack, then each band's columns by a walk from the
+    nearest site on its left. Returns min(D^2, cap^2) as a list of ints."""
+    w = len(g)
+    band, nl = _row_shape(w)
+    g = [int(x) for x in g]
+    st = [[] for _ in range(nl)]
+    for lane in range(nl):
+        stack = st[lane]
+        for k in range(lane * band, min(w, lane * band + band)):
+            if g[k] >= cap:
+                continue
+            while len(stack) >= 2 and _hidden(
+                    stack[-2], g[stack[-2]] ** 2, stack[-1],
+                    g[stack[-1]] ** 2, k, g[k] ** 2):
+                stack.pop()
+            stack.append(k)
+    lo, hi = [0] * nl, [len(x) for x in st]
+    span = 1
+    while span < nl:
+        for lane in range(0, nl, 2 * span):
+            end = lane + 2 * span
+            tb, hb = lane + span - 1, lane + span
+            while tb >= lane and hi[tb] == lo[tb]:
+                tb -= 1
+            while hb < end and hi[hb] == lo[hb]:
+                hb += 1
+            while tb >= lane and hb < end:
+                t, h = st[tb][hi[tb] - 1], st[hb][lo[hb]]
+                pb, pi = tb, hi[tb] - 2
+                if pi < lo[tb]:
+                    pb = tb - 1
+                    while pb >= lane and hi[pb] == lo[pb]:
+                        pb -= 1
+                    pi = hi[pb] - 1 if pb >= lane else 0
+                if pb >= lane:
+                    p = st[pb][pi]
+                    if _hidden(p, g[p] ** 2, t, g[t] ** 2, h, g[h] ** 2):
+                        hi[tb] -= 1
+                        if hi[tb] == lo[tb]:
+                            tb = pb
+                        continue
+                nb, ni = hb, lo[hb] + 1
+                if ni >= hi[hb]:
+                    nb = hb + 1
+                    while nb < end and hi[nb] == lo[nb]:
+                        nb += 1
+                    ni = lo[nb] if nb < end else 0
+                if nb < end:
+                    q = st[nb][ni]
+                    if _hidden(t, g[t] ** 2, h, g[h] ** 2, q, g[q] ** 2):
+                        lo[hb] += 1
+                        if lo[hb] == hi[hb]:
+                            hb = nb
+                        continue
+                break
+        span *= 2
+    full = [b for b in range(nl) if hi[b] > lo[b]]
+    env = [s for b in full for s in st[b][lo[b]:hi[b]]]  # the envelope
+    assert env == sorted(env)
+    out = [cap * cap] * w
+    if not env:
+        return out
+    f = lambda j, s: (j - s) ** 2 + g[s] ** 2  # noqa: E731
+    for lane in range(nl):
+        j0, j1 = lane * band, min(w, lane * band + band)
+        if j0 >= w:
+            continue
+        left = [i for i, s in enumerate(env) if s < j0]
+        c = left[-1] if left else 0
+        while c > 0 and f(j0, env[c - 1]) <= f(j0, env[c]):
+            c -= 1
+        for j in range(j0, j1):
+            while c + 1 < len(env) and f(j, env[c + 1]) <= f(j, env[c]):
+                c += 1
+            out[j] = min(f(j, env[c]), cap * cap)
+    return out
+
+
+def _row_model(g, cap):
+    """``_banded_row`` over the rows of an (R, W) array -> int64."""
+    return np.array([_banded_row(r, cap) for r in g], np.int64)
+
+
+def _highest_bit(x):
+    """63 - clz of each uint64 (only where x != 0 is it used; -1 at 0)."""
+    hi = (x >> np.uint64(32)).astype(np.float64)
+    lo = (x & np.uint64(0xffffffff)).astype(np.float64)
+    top = np.where(hi > 0, 32 + np.floor(np.log2(np.maximum(hi, 1))),
+                   np.floor(np.log2(np.maximum(lo, 1))))
+    return np.where(x != 0, top, -1).astype(np.int64)
+
+
+def _lowest_bit(x):
+    return _highest_bit(x & (~x + np.uint64(1)))
+
+
+def _column_model(zero):
+    """The kernel's column pass on (N, H, W) bool (True where the mask is
+    zero): 32 segments of ceil(H / 32) rows (a block's warps) keep a bit a
+    zero row for each column; a thread a column turns the segments' first
+    and last zeros into the last zero above each segment (a running max
+    down) and the first below it (a running min up); each row's g comes
+    from the bits."""
+    n, h, w = zero.shape
+    segs = 32
+    seg = -(-h // segs)
+    cap = h + w
+    r0 = np.arange(segs) * seg
+    bits = np.zeros((segs, n, w), np.uint64)
+    for r in range(h):
+        bits[r // seg] |= zero[:, r].astype(np.uint64) << np.uint64(r % seg)
+    has = bits != 0
+    at = r0[:, None, None]
+    last = np.where(has, at + _highest_bit(bits), -FAR)
+    first = np.where(has, at + _lowest_bit(bits), FAR)
+    above = np.full_like(last, -FAR)
+    below = np.full_like(first, FAR)
+    for k in range(1, segs):
+        above[k] = np.maximum(above[k - 1], last[k - 1])
+        below[segs - 1 - k] = np.minimum(below[segs - k], first[segs - k])
+    g = np.empty((n, h, w), np.int64)
+    for r in range(h):
+        sg, rel = divmod(r, seg)
+        rest = bits[sg] >> np.uint64(rel)
+        above[sg] = np.where(rest & np.uint64(1), r, above[sg])
+        nxt = np.where(rest != 0, r + _lowest_bit(rest), below[sg])
+        g[:, r] = np.minimum(np.minimum(r - above[sg], nxt - r), cap)
+    return g
+
+
+def _kernel_model(masks):
+    """The whole kernel in numpy: float32 (N, H, W)."""
+    n, h, w = masks.shape
+    g = _column_model(masks == 0)
+    d2 = _row_model(g.reshape(n * h, w), h + w).reshape(n, h, w)
+    return np.sqrt(d2.astype(np.float32))
+
+
+def _edge_frames(h, w):
+    """All zeros, all ones (no zero: g = h + w), a single zero, a single
+    nonzero pixel."""
+    frames = np.stack([np.zeros((h, w)), np.ones((h, w)), np.ones((h, w)),
+                       np.zeros((h, w))]).astype(np.uint8)
+    frames[2, h // 2, w // 3] = 0
+    frames[3, h // 3, w // 2] = 1
+    return frames
+
+
+@pytest.mark.parametrize("h,w", [(16, 128), (24, 256)])
+def test_envelope_model_matches_pallas_kernel_in_interpret_mode(h, w):
+    """The kernel's banded integer row pass bit-equal to JAX's Pallas
+    min-plus kernel (interpret mode) and to the plain row pass, clamped at
+    (h + w)^2, on the same column distances; masks with a column of no
+    zero (g = h + w, no site) included."""
+    m = _masks(2, h, w, seed=h + 1)
+    m[1, :, w // 2] = 1
+    cap2 = float((h + w) ** 2)
+    for img in m:
+        g = jedt._column_pass(jnp.asarray(img) == 0)
+        want = np.minimum(np.asarray(jedt._minplus_pallas(
+            g * g, interpret=True)), cap2)
+        got = _row_model(np.asarray(g).astype(np.int64), h + w)
+        np.testing.assert_array_equal(got.astype(np.float32), want)
+        tg = edt._column_pass(torch.from_numpy(img[None]) == 0)[0]
+        np.testing.assert_array_equal(torch.clamp(edt._minplus_reference(
+            tg * tg), max=cap2).numpy(), got.astype(np.float32))
+
+
+@pytest.mark.parametrize("h,w", [(5, 1), (6, 2), (7, 3), (33, 100),
+                                 (17, 333), (40, 52), (1, 7), (64, 31)])
+def test_kernel_model_matches_plain_on_ragged_and_narrow_shapes(h, w):
+    """W = 1, 2, 3 and ragged W, with the edge frames and random masks."""
+    m = np.concatenate([_edge_frames(h, w), _masks(3, h, w, seed=h * w)])
+    np.testing.assert_array_equal(_kernel_model(m), _port(m))
+
+
+def test_negative_separator_numerators_need_the_exact_comparison():
+    """Where a site with a large g precedes one with a small g, the
+    abscissa from which the second beats the first has a negative
+    numerator; there C's truncating division is not the floor. The model
+    meets such numerators and stays bit-equal to the plain row pass with
+    the kernel's cross-multiplied comparison. With separators divided by
+    truncation in its place it drops a site that owns column 0: g = (3,
+    cap, 2, 0) puts the abscissae of sites 0 | 2 and 2 | 3 at -1/4 and 1/2,
+    both truncated to 0, so site 2 (8 at column 0, against 9 and 9) looks
+    hidden."""
+    global _hidden
+    m = _masks(6, 48, 96, seed=11)
+    m[:, ::9, :] = 1                # sparse zeros: large g beside small
+    cap = 48 + 96
+    rows = edt._column_pass(torch.from_numpy(m) == 0).reshape(-1, 96)
+    rows[0] = cap
+    rows[0, :4] = torch.tensor([3, cap, 2, 0])
+    want = torch.clamp(edt._minplus_reference(rows * rows),
+                       max=float(cap * cap)).numpy()
+    rows = rows.numpy().astype(np.int64)
+    STATS["negative_numerators"] = 0
+    np.testing.assert_array_equal(
+        _row_model(rows, cap).astype(np.float32), want)
+    assert STATS["negative_numerators"] > 0
+    assert want[0, 0] == 8
+    _hidden = _hidden_truncated
+    try:
+        trunc = _row_model(rows, cap)
+    finally:
+        _hidden = _hidden_exact
+    assert trunc[0, 0] == 9
+    np.testing.assert_array_equal(trunc[1:].astype(np.float32), want[1:])
+
+
+def test_kernel_model_at_the_largest_side():
+    """W = H = 2048: 64 rows a segment (64-bit words) in the column model
+    over the whole frame, and the row model on its extreme rows and on a
+    frame with no zero (every column capped, no site): the cross products
+    stay below 2^35 (int64) and the model agrees with the plain version."""
+    h = w = 2048
+    m = np.ones((2, h, w), np.uint8)
+    m[0, h - 1, 0] = m[0, 0, w - 1] = 0
+    m[0, 1000:1010, 1500] = 0
+    m[0, 5, 3:2040:97] = 0
+    zero = torch.from_numpy(m) == 0
+    g = edt._column_pass(zero)
+    np.testing.assert_array_equal(_column_model(m == 0).astype(np.float32),
+                                  g.numpy())
+    cap = h + w
+    STATS["largest_cross"] = 0
+    for img, row in ((0, 0), (0, 5), (0, 999), (0, 1005), (0, h - 1),
+                     (1, 0)):
+        r = g[img, row:row + 1]
+        plain = torch.clamp(edt._minplus_reference(r * r),
+                            max=float(cap * cap)).numpy()
+        model = _row_model(r.numpy().astype(np.int64), cap)
+        np.testing.assert_array_equal(model.astype(np.float32), plain)
+    assert 2 ** 30 < STATS["largest_cross"] < 2 ** 35
+    np.testing.assert_array_equal(np.sqrt(model[0].astype(np.float32)),
+                                  np.full(w, cap, np.float32))
+
+
+@pytest.mark.parametrize("h", [1, 31, 32, 33, 64, 95, 100, 512, 1025, 2048])
+def test_column_model_matches_plain_column_pass(h):
+    """The segmented column pass bit-equal to ``_column_pass``: H below,
+    at and past a multiple of the 32 segments, zeros planted on segments'
+    first and last rows, columns with no zero and all-zero columns."""
+    w = 24
+    rng = np.random.default_rng(h)
+    m = (rng.random((2, h, w)) > 0.02).astype(np.uint8)
+    seg = -(-h // 32)
+    m[0, ::seg, 3] = 0            # each segment's first row
+    m[0, seg - 1::seg, 5] = 0     # each segment's last row
+    m[:, :, 7] = 1                # no zero
+    m[:, :, 9] = 0                # all zeros
+    m[1, h - 1, 11] = 0           # only the last row
+    m[1, 0, 12] = 0               # only the first row
+    want = edt._column_pass(torch.from_numpy(m) == 0).numpy()
+    np.testing.assert_array_equal(_column_model(m == 0).astype(np.float32),
+                                  want)
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.integers(1, 33), st.integers(1, 70), st.integers(0, 2 ** 32 - 1),
+       st.floats(0.0, 1.0))
+def test_kernel_model_matches_plain_on_drawn_masks(h, w, seed, p):
+    """Hypothesis-drawn shapes and densities of zeros."""
+    m = (np.random.default_rng(seed).random((2, h, w)) >= p).astype(np.uint8)
+    np.testing.assert_array_equal(_kernel_model(m), _port(m))
+
+
+def test_edt_column_widths_fixes_the_load_width():
+    """The diagnostic ``probes/edt_column_widths.py`` still finds the
+    launch's choice of width in csrc/edt.cu exactly once and replaces it by
+    each width the column pass is built for; a source that lost it
+    raises."""
+    from ddti_tpu_torch.probes import edt_column_widths as CW
+
+    text = (CW.PKG / "csrc" / "edt.cu").read_text()
+    for v in CW.WIDTHS:
+        assert f"launch_columns<{v}>" in text
+        forced = CW.forced_source(text, v)
+        assert f"  const int v = {v};\n" in forced
+        assert forced.count("column_bytes(") == text.count("column_bytes(") - 1
+    with pytest.raises(ValueError):
+        CW.forced_source(text.replace(CW.ANCHOR, ""), 4)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as C
 from ddti_tpu.ops import attention as jattn
 from ddti_tpu_torch.ops import attention as tattn
 from ddti_tpu_torch.probes import exp2_probe as E2
@@ -329,6 +330,47 @@ def test_probe_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         MS.flash_forward_mskip_cuda(q, q, q)
     assert MS.flash_forward_mskip_cuda.launches == 0
+
+
+def _exp2_tile_walk(n):
+    """csrc/exp2_probe.cu's grid in numpy, at the kernel's own tile
+    (kThreads x kVecs 16-byte vectors, read from the source): ceil(n /
+    tile floats) blocks; a block whose tile holds only whole vectors loads
+    and stores all of them, the last block only its vectors below n // 4
+    and, one a thread, the n % 4 elements past them. Returns the times each
+    element was written and the number of blocks."""
+    k = C.kernel_constants("exp2_probe.cu", "kThreads", "kVecs")
+    threads, vecs = k["kThreads"], k["kVecs"]
+    tile = threads * vecs
+    blocks = -(-n // (4 * tile))
+    n4 = n >> 2
+    written = np.zeros(n, np.int64)
+    # thread t's k-th vector in a tile: k * threads + t, every slot once
+    slots = (np.arange(vecs)[:, None] * threads
+             + np.arange(threads)[None]).ravel()
+    assert np.array_equal(np.sort(slots), np.arange(tile))
+    for b in range(blocks):
+        first, left = b * tile, n4 - b * tile
+        v = first + (slots if left >= tile else slots[slots < max(left, 0)])
+        np.add.at(written, (4 * v[:, None] + np.arange(4)).ravel(), 1)
+        if left < tile:
+            at = (n & ~3) + np.arange(threads)
+            np.add.at(written, at[at < n], 1)
+    return written, blocks
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4095, 4096, 4097, 4099, 8192,
+                               8195, 12287, 16388, 4 * 1024 * 1024 + 2,
+                               E2.ROWS * E2.COLS])
+def test_exp2_probe_tile_walk_writes_every_element_once(n):
+    """The kernel's grid (``_exp2_tile_walk``): every element written
+    exactly once, for n around the 4,096-float tile and at the probe's
+    8,388,608, with no block left without work."""
+    written, blocks = _exp2_tile_walk(n)
+    assert (written == 1).all()
+    assert blocks == max(1, -(-n // 4096))
+    assert C.kernel_constants("exp2_probe.cu", "kThreads", "kVecs") == dict(
+        kThreads=256, kVecs=4)
 
 
 def test_exp2_probe_main_on_cpu(capsys):
