@@ -9,7 +9,9 @@ or, to compare another tree of the repository (a commit unpacked with git
 archive) with this one on the same card, in the order other, this, this,
 other: ``python3 chip_smoke.py --ab OTHER_TREE`` (see ``ab``; ``--ab
 OTHER_TREE probes`` for the probes and the EDT alone: conv3x3, gather,
-exp2_probe in every mode and the EDT's queued time and passes).
+exp2_probe in every mode and the EDT's queued time and passes); ``python3
+chip_smoke.py --zoo`` runs the zoo phases alone and profiles every zoo
+model at both sizes.
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -112,11 +114,31 @@ and a non-zero exit:
               CLI's default dtype, TF32 off): S = 1024 on both paths and
               S = 4096 on the kernel path; torch.profiler top-8, busy share
               and the flash kernels' share.
-12. result  — the total wall time, a JSON line of the kernels, then the
+12. zoo train — the same CLI training each of the rest of the zoo (UNet,
+              ASPPUNet, AttentionUNet, VNet2D and ImprovedVNet with
+              deep_supervision and --alpha 2) from a one-entry model YAML of
+              configs/config.yaml's base_filters 64, depth 5 entries, 512^2,
+              batch 16, bf16, 1 epoch, two runs at a time: run_cli's
+              checks with the JAX
+              package's key set of each model, its parameter count, and
+              exactly the expected EDT launches (the heads' loss runs none);
+              then zoo serve: each best .pth through cli/serve.py's
+              load_predictor on the card (a bf16 batch of 16, uint8 masks,
+              their agreement with float32 masks) and float32 logits on the
+              card against the CPU's at batch 2, within 1e-3.
+13. zoo step — for each of those models one float32 train step at 512^2,
+              batch 4, with the kernel EDT and with the plain one: bit-equal
+              boundary terms, parameters to 1e-6 (ImprovedVNet's step with
+              its heads' term).
+14. zoo profile — after tprofile: each of those models' bf16 train step at
+              512^2 / batch 16, and UNet's also at 256^2 / batch 128, as
+              tprofile reads the ResUNet's.
+15. result  — the total wall time, a JSON line of the kernels, then the
               device line.
 """
 
 import concurrent.futures
+import copy
 import http.client
 import io
 import json
@@ -253,6 +275,29 @@ CONV_SHAPES = [(128, 128, 128, 128, 128), (2, 16, 16, 128, 128),
 CONV_GROWTH = (16, 64, (64, 128, 256, 512))
 POLY_SHAPES = [(16, 8, 1024, 32, "bfloat16"), (16, 8, 1024, 32, "float32")]
 POLY_TIMEOUT_S = 600
+# the rest of the zoo, each at its configs/config.yaml entry of
+# base_filters 64, depth 5 (UNet :64-70, ASPPUNet :204-210, AttentionUNet
+# :274-280, VNet2D :414-420, ImprovedVNet :484-490), trained by the CLI from
+# a one-entry model YAML with these kwargs added; the JAX package's
+# parameter count of each entry as it stands (flax eval_shape)
+ZOO = {"UNet": {}, "ASPPUNet": {}, "AttentionUNet": {}, "VNet2D": {},
+       "ImprovedVNet": {"deep_supervision": True}}
+ZOO_JAX_PARAMS = {"UNet": 124_373_057, "ASPPUNet": 160_020_545,
+                  "AttentionUNet": 125_776_752, "VNet2D": 129_958_039,
+                  "ImprovedVNet": 131_361_712}
+ZOO_TRAIN = dict(image_size=512, batch_size=16, epochs=1)
+# the zoo's CLI runs, this many at a time: each holds its model, optimizer
+# state and 512^2 / batch 16 activations on the card, and most of its wall
+# time is process start, initialisation and weight files
+ZOO_TRAIN_PARALLEL = 2
+ZOO_STEP_BATCH = 4     # the float32 step, kernel EDT vs plain
+ZOO_CPU_BATCH = 2      # float32 logits on the card vs on the CPU
+ZOO_LOGIT_RTOL = 1e-3  # max |card - CPU| / max |CPU|, the serving limit
+# (model, image size, batch) of the zoo profile: every model at the CLI's
+# default, UNet alone also at bench.py's headline leg (the others' 256^2
+# rows were dropped to keep the smoke's wall time down)
+ZOO_PROFILES = [(m, *TRAIN_PROFILES[0]) for m in ZOO] + [
+    ("UNet", *TRAIN_PROFILES[1])]
 
 
 def phase(name, msg):
@@ -1676,47 +1721,96 @@ def _parse_terms(log_text):
             for g in pat.findall(log_text)]
 
 
+def _bn_keys(path):
+    return {f"params/{path}/scale", f"params/{path}/bias",
+            f"batch_stats/{path}/mean", f"batch_stats/{path}/var"}
+
+
+def _conv_bn_keys(block, convs=("conv1", "conv2"), prelu=False):
+    """A ConvBNAct (or, with ``skip``, ResidualBlock) block's keys."""
+    keys = {f"params/{block}/{conv}/kernel" for conv in convs}
+    keys |= _bn_keys(f"{block}/bn1") | _bn_keys(f"{block}/bn2")
+    if prelu:
+        keys |= {f"params/{block}/prelu{i}/negative_slope" for i in (1, 2)}
+    return keys
+
+
+def _kernel_keys(name, bias=True):
+    """The kernel (and bias) of a conv or dense layer."""
+    return {f"params/{name}/kernel"} | ({f"params/{name}/bias"} if bias
+                                       else set())
+
+
 def jax_resunet_keys(depth):
     """The key set ddti_tpu.train.checkpoint.save_params_npz writes for a
     ResUNet of this depth, written out from the flax module tree (encoders,
     bottleneck and decoders are ResidualBlocks)."""
-    keys = set()
-    blocks = ([f"encoders_{i}" for i in range(depth)] + ["bottleneck"]
-              + [f"decoders_{i}" for i in range(depth)])
-    for b in blocks:
-        for conv in ("conv1", "conv2", "skip"):
-            keys.add(f"params/{b}/{conv}/kernel")
-        for bn in ("bn1", "bn2"):
-            keys |= {f"params/{b}/{bn}/scale", f"params/{b}/{bn}/bias",
-                     f"batch_stats/{b}/{bn}/mean", f"batch_stats/{b}/{bn}/var"}
+    keys = _kernel_keys("final_conv")
+    for b in ([f"encoders_{i}" for i in range(depth)] + ["bottleneck"]
+              + [f"decoders_{i}" for i in range(depth)]):
+        keys |= _conv_bn_keys(b, ("conv1", "conv2", "skip"))
     for i in range(depth):
-        keys |= {f"params/upconvs_{i}/kernel", f"params/upconvs_{i}/bias"}
-    return keys | {"params/final_conv/kernel", "params/final_conv/bias"}
+        keys |= _kernel_keys(f"upconvs_{i}")
+    return keys
 
 
 def jax_transunet_keys(depth, layers):
     """The key set ddti_tpu.train.checkpoint.save_params_npz writes for a
     TransUNet of this depth and encoder layer count, written out from the
     flax module tree (encoders and decoders are ConvBNAct blocks)."""
-    keys = {"params/patchify/kernel", "params/pos_emb",
-            "params/trans_proj/kernel", "params/trans_proj/bias",
-            "params/final_conv/kernel", "params/final_conv/bias"}
+    keys = {"params/patchify/kernel", "params/pos_emb"}
+    keys |= _kernel_keys("trans_proj") | _kernel_keys("final_conv")
     for b in ([f"encoders_{i}" for i in range(depth)]
               + [f"decoders_{i}" for i in range(depth)]):
-        keys |= {f"params/{b}/conv1/kernel", f"params/{b}/conv2/kernel"}
-        for bn in ("bn1", "bn2"):
-            keys |= {f"params/{b}/{bn}/scale", f"params/{b}/{bn}/bias",
-                     f"batch_stats/{b}/{bn}/mean", f"batch_stats/{b}/{bn}/var"}
+        keys |= _conv_bn_keys(b)
     for i in range(depth):
-        keys |= {f"params/upconvs_{i}/kernel", f"params/upconvs_{i}/bias"}
+        keys |= _kernel_keys(f"upconvs_{i}")
     for i in range(layers):
         for dense in ("qkv", "out_proj", "fc1", "fc2"):
-            keys |= {f"params/trans_layers_{i}/{dense}/kernel",
-                     f"params/trans_layers_{i}/{dense}/bias"}
+            keys |= _kernel_keys(f"trans_layers_{i}/{dense}")
         for ln in ("ln1", "ln2"):
             keys |= {f"params/trans_layers_{i}/{ln}/scale",
                      f"params/trans_layers_{i}/{ln}/bias"}
     return keys
+
+
+def _gate_keys(gate):
+    keys = set()
+    for conv in ("w_g", "w_x", "psi"):
+        keys |= _kernel_keys(f"{gate}/{conv}") | _bn_keys(f"{gate}/{conv}_bn")
+    return keys
+
+
+def jax_zoo_keys(model_type, depth, use_attention=True,
+                 deep_supervision=False, aspp_dilations=(1, 6, 12, 18)):
+    """The key set ddti_tpu.train.checkpoint.save_params_npz writes for
+    UNet, ASPPUNet, AttentionUNet, VNet2D or ImprovedVNet of this depth,
+    written out from the flax module tree (ddti_tpu/models/zoo.py)."""
+    keys = _kernel_keys("final_conv")
+    if model_type in ("VNet2D", "ImprovedVNet"):
+        prelu = model_type == "VNet2D"
+        for i in range(depth):
+            keys |= _conv_bn_keys(f"enc_blocks_{i}", prelu=prelu)
+            keys |= _conv_bn_keys(f"dec_blocks_{i}", prelu=prelu)
+            keys |= _kernel_keys(f"down_convs_{i}", bias=False)
+            keys |= _kernel_keys(f"up_convs_{i}", bias=False)
+            if model_type == "ImprovedVNet" and use_attention:
+                keys |= _gate_keys(f"attn_gates_{i}")
+            if model_type == "ImprovedVNet" and deep_supervision:
+                keys |= _kernel_keys(f"ds_heads_{i}")
+        return keys | _conv_bn_keys("bottleneck", prelu=prelu)
+    for i in range(depth):
+        keys |= _conv_bn_keys(f"encoders_{i}")
+        keys |= _conv_bn_keys(f"decoders_{i}")
+        keys |= _kernel_keys(f"upconvs_{i}")
+        if model_type == "AttentionUNet":
+            keys |= _gate_keys(f"attn_gates_{i}")
+    if model_type != "ASPPUNet":
+        return keys | _conv_bn_keys("bottleneck")
+    for i in range(len(aspp_dilations)):
+        keys |= _kernel_keys(f"aspp/branch{i}", bias=False)
+    return (keys | _kernel_keys("aspp/project", bias=False)
+            | _bn_keys("aspp/project_bn"))
 
 
 def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
@@ -1725,7 +1819,8 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
     run tree, finite loss terms with a nonzero boundary term, val IoU and
     test metrics with HD95/ASSD, a best .pth that loads strictly and an .npz
     with the key set ``keys`` and the same tensors. Returns the launch count
-    of each kernel in that run."""
+    of each kernel in that run and the best weights' path without its
+    suffix."""
     import math
 
     import numpy as np
@@ -1792,7 +1887,7 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
         assert torch.equal(v, twin.state_dict()[k]), k
     phase(name, f"best .pth loads strictly; .npz holds the JAX layout's "
           f"{len(keys)} keys and the same tensors")
-    return launches
+    return launches, best
 
 
 def _cli_batches(batch):
@@ -1806,8 +1901,8 @@ def run_training(tmp):
     model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
     flags = [f"--{k}={v}" for k, v in TRAIN.items()
              if k not in ("model_type", "epochs")]
-    launches = run_cli(tmp, "train", "ResUNet", model_kw, flags,
-                       TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
+    launches, _ = run_cli(tmp, "train", "ResUNet", model_kw, flags,
+                          TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
     steps, val, test_b = _cli_batches(TRAIN["batch_size"])
     expected = TRAIN["epochs"] * (steps + val) + test_b
     phase("train", f"edt_minplus launches {launches['edt_minplus']}, "
@@ -1829,9 +1924,9 @@ def run_transunet_training(tmp):
     flags = ["--config_path", cfg, "--device", DEVICE,
              *(f"--{k}={v}" for k, v in TTRAIN.items() if k != "epochs")]
     model_kw = dict(TSLICE, image_size=TTRAIN["image_size"])
-    launches = run_cli(tmp, "ttrain", "TransUNet", model_kw, flags,
-                       TTRAIN["epochs"],
-                       jax_transunet_keys(TSLICE["depth"], N_LAYERS))
+    launches, _ = run_cli(tmp, "ttrain", "TransUNet", model_kw, flags,
+                          TTRAIN["epochs"],
+                          jax_transunet_keys(TSLICE["depth"], N_LAYERS))
     from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.state import count_params
 
@@ -1852,6 +1947,124 @@ def run_transunet_training(tmp):
         f"only")
     assert {k: launches[k] for k in expected} == expected
     return launches
+
+
+def zoo_entry(model_type):
+    """The model kwargs of ``model_type``'s base_filters 64, depth 5 entry of
+    configs/config.yaml, with ZOO's additions."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "config.yaml")) as f:
+        (kw,) = [e["model"]["kwargs"] for e in yaml.safe_load(f)
+                 if e["model"]["model_type"] == model_type
+                 and e["model"]["kwargs"]["base_filters"] == 64
+                 and e["model"]["kwargs"]["depth"] == 5]
+    return dict(kw, **ZOO[model_type])
+
+
+def run_zoo_training(tmp):
+    """The training CLI for each model of ZOO from its one-entry model YAML
+    (512^2, batch 16, bf16, ZOO_TRAIN's epochs): run_cli's checks, the
+    parameter count of the entry as JAX counts it (plus the heads), and
+    exactly the expected EDT launches: the boundary term of every train and
+    val step and the test batches' surface metrics; the heads' loss runs
+    none. Returns {model: EDT launches} and {model: (best weights, YAML)}."""
+    import yaml
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.state import count_params
+
+    t0 = time.perf_counter()
+    steps, val, test_b = _cli_batches(ZOO_TRAIN["batch_size"])
+    expected = ZOO_TRAIN["epochs"] * (steps + val) + test_b
+
+    def train(model_type):
+        kw = zoo_entry(model_type)
+        cfg = os.path.join(tmp, f"{model_type}_bf64_d5.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump({"model": {"model_type": model_type,
+                                      "kwargs": kw}}, f)
+        plain = {k: v for k, v in kw.items() if k not in ZOO[model_type]}
+        heads = (sum(c + 1 for c in create_model(model_type, **kw).channels)
+                 if kw.get("deep_supervision") else 0)
+        assert count_params(create_model(model_type, **plain)) \
+            == ZOO_JAX_PARAMS[model_type], f"{model_type}: not the entry"
+        flags = ["--config_path", cfg, "--device", DEVICE, "--alpha", "2",
+                 *(f"--{k}={v}" for k, v in ZOO_TRAIN.items()
+                   if k != "epochs")]
+        got, best = run_cli(tmp, f"zoo {model_type}", model_type, kw, flags,
+                            ZOO_TRAIN["epochs"],
+                            jax_zoo_keys(model_type, kw["depth"],
+                                         **ZOO[model_type]))
+        phase("zoo train", f"{model_type} {kw}: {ZOO_JAX_PARAMS[model_type]}"
+              f" parameters as JAX counts the entry (+ {heads} of the "
+              f"heads); edt_minplus launches {got['edt_minplus']}, expected "
+              f"{ZOO_TRAIN['epochs']} epoch x ({steps} train + {val} val "
+              f"steps) + {test_b} test batches = {expected}")
+        assert got["edt_minplus"] == expected
+        return got["edt_minplus"], (best, cfg)
+
+    with concurrent.futures.ThreadPoolExecutor(ZOO_TRAIN_PARALLEL) as pool:
+        done = dict(zip(ZOO, pool.map(train, ZOO)))
+    phase("zoo train", f"phase wall time {time.perf_counter() - t0:.1f} s "
+          f"({ZOO_TRAIN_PARALLEL} runs at a time)")
+    return ({m: n for m, (n, _) in done.items()},
+            {m: c for m, (_, c) in done.items()})
+
+
+def zoo_serve(ckpts):
+    """Each zoo model's best .pth through cli/serve.py's load_predictor on
+    the card: one bf16 batch of 16 at 512^2, uint8 {0, 1} masks out, and
+    their agreement with the float32 masks; float32 logits on the card (TF32
+    off) against the same weights on the CPU at batch ZOO_CPU_BATCH, within
+    ZOO_LOGIT_RTOL of the CPU's largest."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.cli import serve
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.export import serve_body
+
+    t0 = time.perf_counter()
+    size = ZOO_TRAIN["image_size"]
+    x = np.stack(make_frames(BATCH, size, SEED + 2))[..., None]
+    for model_type, (best, cfg) in ckpts.items():
+        args = serve.get_parser().parse_args(
+            ["--checkpoint", best + ".pth", "--config_path", cfg,
+             "--image_size", str(size), "--batch_size", str(BATCH),
+             "--bf16", "--device", "cuda"])
+        predict, batch_n, got_size, info = serve.load_predictor(args)
+        masks = predict(x)
+        assert info["model"] == model_type and (batch_n, got_size) == (
+            BATCH, size)
+        assert masks.dtype == np.uint8 and masks.shape == x.shape
+        assert set(np.unique(masks)) <= {0, 1}
+        del predict
+        cpu = load_checkpoint_into(best + ".pth", model_type, create_model(
+            model_type, **zoo_entry(model_type))).eval()
+        card = copy.deepcopy(cpu).cuda()
+        xf = torch.from_numpy(x[:ZOO_CPU_BATCH]).permute(0, 3, 1, 2) / 255.0
+        with torch.inference_mode():
+            masks32 = serve_body(card.eval(), torch.from_numpy(x).cuda()
+                                 ).cpu().numpy()
+            on_card = card(xf.cuda())
+            on_cpu = cpu(xf)
+        on_card, on_cpu = (o[0] if isinstance(o, tuple) else o
+                           for o in (on_card, on_cpu))
+        on_card = on_card.cpu()
+        del card
+        torch.cuda.empty_cache()
+        rel = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+        phase("zoo serve", f"{model_type}: load_predictor bf16 batch "
+              f"{BATCH} at {size}^2 -> uint8 masks {masks.shape}, "
+              f"foreground {masks.mean():.4f}; bf16 masks agree with float32 "
+              f"on {float((masks == masks32).mean()):.6%} of pixels; float32 "
+              f"logits card vs CPU at batch {ZOO_CPU_BATCH}: max|d| / "
+              f"max|logit| {rel:.3e} (limit {ZOO_LOGIT_RTOL:g})")
+        assert torch.isfinite(on_card).all() and rel <= ZOO_LOGIT_RTOL
+    phase("zoo serve", f"phase wall time {time.perf_counter() - t0:.1f} s")
 
 
 def _train_setup(size, batch, amp, seed=SEED, model_type="ResUNet",
@@ -1885,24 +2098,27 @@ def _train_setup(size, batch, amp, seed=SEED, model_type="ResUNet",
     return model, state, make_train_step(cfg, aug), (images, masks, draws)
 
 
-def step_kernel_vs_plain():
+def step_kernel_vs_plain(model_type="ResUNet", model_kw=None, batch=16,
+                         label="step"):
     """One float32 step from one state and batch through the kernel EDT and
     through the plain EDT (the boundary loss's EDT swapped explicitly);
-    deterministic cuDNN so that only the EDT route differs."""
+    deterministic cuDNN so that only the EDT route differs. The flagship
+    ResUNet unless ``model_type`` / ``model_kw`` say otherwise (a
+    deep-supervision model's step carries its heads' term)."""
     import torch
 
     from ddti_tpu_torch.losses import losses
     from ddti_tpu_torch.ops import edt as E
+    from ddti_tpu_torch.train.state import TrainState
 
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    model, _, step, (images, masks, draws) = _train_setup(512, 16, False)
+    model, _, step, (images, masks, draws) = _train_setup(
+        512, batch, False, model_type=model_type, model_kw=model_kw)
     sd0 = {k: v.clone() for k, v in model.state_dict().items()}
     out = {}
     try:
         for route in ("kernel", "plain"):
-            from ddti_tpu_torch.train.state import TrainState
-
             model.load_state_dict(sd0)
             state = TrainState(model, 1e-5, 4)
             launched = E.edt_cuda.launches
@@ -1911,21 +2127,33 @@ def step_kernel_vs_plain():
             m = step(state, images, masks, draws, None)
             torch.cuda.synchronize()
             assert (E.edt_cuda.launches - launched) == (route == "kernel")
-            out[route] = (m.boundary.clone(), {
+            out[route] = (m.boundary.clone(), m.loss.clone(), {
                 k: v.clone() for k, v in model.state_dict().items()})
     finally:
         losses.edt_batch = E.edt_batch
         torch.backends.cudnn.deterministic = False
-    (bk, pk), (bp, pp) = out["kernel"], out["plain"]
+    (bk, lk, pk), (bp, lp, pp) = out["kernel"], out["plain"]
     rel = max(((pk[k] - pp[k]).abs().max()
                / pp[k].abs().max().clamp(min=1e-30)).item() for k in pk)
     moved = sum(not torch.equal(pk[k], sd0[k]) for k in pk)
-    phase("step", f"float32 ResUNet 512^2 batch 16: boundary kernel "
-          f"{bk.item():.9g} plain {bp.item():.9g} (bit-equal "
-          f"{torch.equal(bk, bp)}); updated tensors {moved}/{len(pk)}, max "
+    phase(label, f"float32 {model_type} 512^2 batch {batch}: boundary "
+          f"kernel {bk.item():.9g} plain {bp.item():.9g} (bit-equal "
+          f"{torch.equal(bk, bp)}); loss kernel {lk.item():.9g} plain "
+          f"{lp.item():.9g}; updated tensors {moved}/{len(pk)}, max "
           f"relative difference {rel:.3e} (limit {STEP_PARAM_RTOL:g})")
     assert torch.equal(bk, bp), "kernel and plain boundary terms differ"
     assert rel <= STEP_PARAM_RTOL and moved == len(pk)
+    del model, step, images, masks, out, pk, pp, sd0
+    torch.cuda.empty_cache()
+
+
+def zoo_steps():
+    """step_kernel_vs_plain for each zoo model at ZOO_STEP_BATCH."""
+    t0 = time.perf_counter()
+    for model_type in ZOO:
+        step_kernel_vs_plain(model_type, zoo_entry(model_type),
+                             ZOO_STEP_BATCH, "zoo step")
+    phase("zoo step", f"phase wall time {time.perf_counter() - t0:.1f} s")
 
 
 def _plain_flash():
@@ -2119,6 +2347,16 @@ def profile_training():
             for size, batch in TRAIN_PROFILES]
 
 
+def profile_zoo(profiles=ZOO_PROFILES):
+    """Each zoo model's bf16 train step at ``profiles``."""
+    t0 = time.perf_counter()
+    rows = [_profile_steps(f"{model_type} bf64 d5", size, batch, model_type,
+                           zoo_entry(model_type))
+            for model_type, size, batch in profiles]
+    phase("zoo profile", f"phase wall time {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def profile_transunet():
     """The TransUNet train step on the kernel and the plain attention path:
     the slice's model at S = 1024, and the S = 4096 one at the largest
@@ -2235,6 +2473,27 @@ def ab(parent, *which):
                         "--ab-side", tree, *which], check=True)
 
 
+def zoo_only():
+    """The zoo phases alone (train, serve, step), then every zoo model's
+    bf16 step profiled at both TRAIN_PROFILES: ``python3 chip_smoke.py
+    --zoo`` (~6 min)."""
+    import torch
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, ckpts = run_zoo_training(tmp)
+        zoo_serve(ckpts)
+    zoo_steps()
+    rows = profile_zoo([(m, *p) for m in ZOO for p in TRAIN_PROFILES])
+    print(json.dumps({"zoo_launches": launches, "zoo_train_steps": rows}))
+    return 0
+
+
 def main():
     import torch
 
@@ -2293,10 +2552,14 @@ def main():
         profile_slice(ckpt)
         edt_launches = run_training(tmp)
         t_launches = run_transunet_training(tmp)
+        zoo_launches, zoo_ckpts = run_zoo_training(tmp)
+        zoo_serve(zoo_ckpts)
     step_kernel_vs_plain()
+    zoo_steps()
     tstep_kernel_vs_plain()
     train_rows = profile_training()
     ttrain_rows = profile_transunet()
+    zoo_rows = profile_zoo()
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
@@ -2415,6 +2678,8 @@ def main():
         "library_ms": None,  # no PyTorch call computes an EDT
         "shapes": edt_rows,
         "train_steps": train_rows,
+        "zoo_launches": zoo_launches,
+        "zoo_train_steps": zoo_rows,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -2505,4 +2770,6 @@ if __name__ == "__main__":
         sys.exit(ab_side(sys.argv[2], sys.argv[3:4] == ["probes"]))
     if sys.argv[1:2] == ["--poly-child"]:
         sys.exit(poly_child())
+    if sys.argv[1:2] == ["--zoo"]:
+        sys.exit(zoo_only())
     sys.exit(main())

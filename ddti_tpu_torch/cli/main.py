@@ -4,9 +4,13 @@
         --model_type ResUNet --base_filters 64 --depth 5 --image_size 512 \\
         --batch_size 16 --use_amp_autocast true --epochs 2
 
-A TransUNet takes its kwargs from a model YAML, as in the JAX CLI
-(``--config_path`` with ``{model: {model_type, kwargs}}``; ``dropout_rate:
-0.0`` lets its 1024-token bottleneck train through the flash kernels).
+Any of the seven models of ``models/zoo.py`` takes its kwargs from a model
+YAML, as in the JAX CLI (``--config_path`` with ``{model: {model_type,
+kwargs}}``, one entry of ``configs/config.yaml``): a TransUNet's
+``dropout_rate: 0.0`` lets its 1024-token bottleneck train through the
+flash kernels; ImprovedVNet's ``deep_supervision: true`` adds its heads'
+loss, weighted by ``--alpha``; ``use_attention`` and ``aspp_dilations``
+pass through too.
 
 The flags of the training slice keep the JAX package's names and
 defaults; ``--device`` (default ``cuda``, which raises where CUDA is
@@ -78,6 +82,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", default=20, type=int,
                    help="in-epoch progress interval in steps; 0 disables")
     p.add_argument("--early_stop_patience", default=50, type=int)
+    p.add_argument("--alpha", type=float, default=2,
+                   help="weight of the deep-supervision heads' loss "
+                        "(ImprovedVNet with deep_supervision: true)")
     p.add_argument("--use_amp_autocast", type=_str2bool, default=False,
                    help="bf16 autocast for the model's forward and backward")
     p.add_argument("--surface_metrics", default=True, type=_str2bool,
@@ -141,7 +148,7 @@ def main(argv=None) -> int:
     if not args.aug_fast_warp:
         raise NotImplementedError(
             "--aug_exact_warp (the exact PIL-map warp, fused_flip_rotate) "
-            "is not ported yet: ROADMAP.md Queue 1 item 12")
+            "is not ported yet: ROADMAP.md Queue 1 item 8")
 
     from ddti_tpu_torch.cli.serve import resolve_device
     from ddti_tpu_torch.core.logging import create_logger

@@ -18,6 +18,11 @@ Usage:
       --model_type TransUNet --base_filters 64 --depth 4 --image_size 512 \
       --batch_size 16 --bf16 [--device cuda]
 
+Any of the seven models of ``models/zoo.py`` serves; ``--config_path``
+takes the model YAML a run was trained from (an ImprovedVNet with
+``deep_supervision: true`` carries its heads' weights; its main logits
+decide the mask).
+
 Not ported yet (ROADMAP.md): serving bundles, /reload, --watch, /metrics,
 overlays, native JPEG decode, --tta, --fold_bn.
 """
@@ -182,12 +187,19 @@ def load_predictor(args):
     from ddti_tpu_torch.train.export import make_serve_fn
 
     device = resolve_device(args.device)
+    model_type = args.model_type
     kwargs = dict(in_channels=1, out_channels=1,
                   base_filters=args.base_filters, depth=args.depth)
-    if args.model_type == "TransUNet":
-        kwargs["image_size"] = args.image_size
-    model = create_model(args.model_type, **kwargs)
-    load_checkpoint_into(args.checkpoint, args.model_type, model)
+    if args.config_path:
+        from ddti_tpu_torch.core.config import Config
+
+        cfg = Config(model_type=model_type)
+        cfg.apply_model_yaml(args.config_path)
+        model_type, kwargs = cfg.model_type, cfg.model_kwargs
+    if model_type == "TransUNet":
+        kwargs.setdefault("image_size", args.image_size)
+    model = create_model(model_type, **kwargs)
+    load_checkpoint_into(args.checkpoint, model_type, model)
     serve = make_serve_fn(model.to(device), threshold=args.threshold,
                           compute_dtype=(torch.bfloat16 if args.bf16
                                          else torch.float32))
@@ -196,8 +208,8 @@ def load_predictor(args):
         out = serve(torch.from_numpy(np.ascontiguousarray(x)).to(device))
         return out.cpu().numpy()
 
-    info = {"model": args.model_type, "base_filters": args.base_filters,
-            "depth": args.depth, "device": str(device)}
+    info = {"model": model_type, **{k: kwargs[k] for k in (
+        "base_filters", "depth") if k in kwargs}, "device": str(device)}
     return predict, args.batch_size, args.image_size, info
 
 
@@ -386,6 +398,12 @@ def get_parser() -> argparse.ArgumentParser:
     ap.add_argument("--base_filters", type=int, default=64)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--image_size", type=int, default=512)
+    ap.add_argument("--config_path", default=None,
+                    help="model YAML ({model: {model_type, kwargs}}, as "
+                         "the training CLI takes): its model_type and "
+                         "kwargs replace --model_type, --base_filters and "
+                         "--depth (ImprovedVNet's deep_supervision, "
+                         "use_attention, ASPPUNet's aspp_dilations, ...)")
     ap.add_argument("--batch_size", type=int, default=16,
                     help="fixed batch shape of every device run")
     ap.add_argument("--bf16", action="store_true",

@@ -50,6 +50,7 @@ class Config:
     focal_ratio: float = 1.0
     boundary_ratio: float = 0.0
     compute_unused_losses: bool = True  # the reference computes all four
+    alpha: float = 2.0  # weight of the deep-supervision heads' loss
 
     # training
     epochs: int = 10000

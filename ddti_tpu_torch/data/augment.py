@@ -54,7 +54,7 @@ class AugmentConfig:
         if unported:
             raise NotImplementedError(
                 f"augmentation {', '.join(unported)} is not ported yet "
-                f"(ROADMAP.md Queue 1, items 12 and 17)")
+                f"(ROADMAP.md Queue 1, item 8)")
 
 
 class AugmentDraws(NamedTuple):

@@ -68,16 +68,34 @@ class BatchNorm2d(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
-class ConvBNAct(nn.Sequential):
-    """(3x3 conv without bias -> BatchNorm -> ReLU) twice; indices 0, 1, 3, 4
-    hold the weights, as in the reference's ``nn.Sequential``."""
+class PReLU(nn.PReLU):
+    """torch's one shared learnable slope (initialised at 0.25), applied in
+    the input's dtype as flax ``nn.PReLU`` does: under bf16 autocast the
+    float32 slope is cast to bf16 before the product."""
 
-    def __init__(self, in_channels: int, features: int):
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
+
+
+def _act(act: str) -> nn.Module:
+    if act == "relu":
+        return nn.ReLU(inplace=True)
+    if act == "prelu":
+        return PReLU()
+    raise ValueError(f"act {act!r}: expected 'relu' or 'prelu'")
+
+
+class ConvBNAct(nn.Sequential):
+    """(3x3 conv without bias -> BatchNorm -> activation) twice; indices 0,
+    1, 3, 4 hold the weights, as in the reference's ``nn.Sequential``, and
+    with ``act="prelu"`` (VNet2D) indices 2 and 5 the PReLU slopes."""
+
+    def __init__(self, in_channels: int, features: int, act: str = "relu"):
         super().__init__(
             nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
-            BatchNorm2d(features), nn.ReLU(inplace=True),
+            BatchNorm2d(features), _act(act),
             nn.Conv2d(features, features, 3, padding=1, bias=False),
-            BatchNorm2d(features), nn.ReLU(inplace=True))
+            BatchNorm2d(features), _act(act))
 
 
 class ResidualBlock(nn.Module):
@@ -98,21 +116,86 @@ class ResidualBlock(nn.Module):
         return F.relu(self.conv(x) + self.skip(x))
 
 
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling bottleneck: parallel dilated 3x3 convs
+    without bias (``branches``, padding = dilation), concatenated, then
+    ``project`` = (1x1 conv without bias, BatchNorm) and ReLU. Every tap is
+    kept, also those of a dilation wider than the map, which read only
+    padding (cuDNN and XLA both keep them)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 dilations=(1, 6, 12, 18)):
+        super().__init__()
+        self.branches = nn.ModuleList(
+            nn.Conv2d(in_channels, features, 3, padding=d, dilation=d,
+                      bias=False) for d in dilations)
+        self.project = nn.Sequential(
+            nn.Conv2d(len(self.branches) * features, features, 1,
+                      bias=False),
+            BatchNorm2d(features))
+
+    def forward(self, x):
+        return F.relu(self.project(torch.cat([b(x) for b in self.branches],
+                                             dim=1)))
+
+
+class AttentionGate(nn.Module):
+    """Additive attention gate on a skip connection: psi = sigmoid(BN(conv(
+    relu(W_g g + W_x x)))), returns x * psi. ``W_g``, ``W_x`` and ``psi``
+    are each (biased 1x1 conv, BatchNorm); the sigmoid and the product run
+    in the compute dtype (bf16 under autocast), as in JAX. ``g`` and ``x``
+    must share their spatial size: the sum broadcasts nothing."""
+
+    def __init__(self, g_channels: int, x_channels: int, inter: int):
+        super().__init__()
+        self.W_g = nn.Sequential(nn.Conv2d(g_channels, inter, 1),
+                                 BatchNorm2d(inter))
+        self.W_x = nn.Sequential(nn.Conv2d(x_channels, inter, 1),
+                                 BatchNorm2d(inter))
+        self.psi = nn.Sequential(nn.Conv2d(inter, 1, 1), BatchNorm2d(1))
+
+    def forward(self, g, x):
+        psi = self.psi(F.relu(self.W_g(g) + self.W_x(x)))
+        return x * torch.sigmoid(psi)
+
+
+class DownConv2x2(nn.Conv2d):
+    """2x2 stride-2 conv without bias with flax's ``"SAME"`` padding: an
+    odd side is padded by one at the bottom or right, so it gives
+    ceil(H / 2) where torch's own padding gives floor(H / 2)."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__(in_channels, features, 2, stride=2, bias=False)
+
+    def forward(self, x):
+        h, w = x.shape[-2:]
+        if h % 2 or w % 2:
+            x = F.pad(x, (0, w % 2, 0, h % 2))
+        return super().forward(x)
+
+
 def max_pool_2x2(x):
     return F.max_pool2d(x, 2, 2)
 
 
-def up_conv(in_channels: int, features: int) -> nn.ConvTranspose2d:
+def up_conv(in_channels: int, features: int,
+            use_bias: bool = True) -> nn.ConvTranspose2d:
     """2x2 stride-2 transposed conv (torch's own layout; the checkpoint
-    loaders flip flax kernels into it)."""
-    return nn.ConvTranspose2d(in_channels, features, 2, stride=2)
+    loaders flip flax kernels into it); VNet2D and ImprovedVNet take it
+    without bias."""
+    return nn.ConvTranspose2d(in_channels, features, 2, stride=2,
+                              bias=use_bias)
 
 
 def resize_bilinear(x, h: int, w: int):
-    """Bilinear resize on NCHW, align_corners=False (the decoders only ever
-    upsample, where this equals jax.image's 'linear')."""
+    """Bilinear resize on NCHW, half-pixel centres, antialiased where it
+    shrinks a side: ``jax.image.resize(..., "linear")``, whose antialias
+    widens the triangle filter by the downscale ratio and is the plain
+    filter on upsample. The strided-conv models downsample here (VNet2D at
+    36^2 matches a 10^2 map to a 9^2 skip)."""
+    shrink = h < x.shape[-2] or w < x.shape[-1]
     return F.interpolate(x, size=(h, w), mode="bilinear",
-                         align_corners=False)
+                         align_corners=False, antialias=shrink)
 
 
 def match_spatial(x, skip):

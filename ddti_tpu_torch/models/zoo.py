@@ -1,19 +1,31 @@
-"""The model zoo, ported from ``ddti_tpu/models/zoo.py``: so far ResUNet
-(the flagship) and TransUNet, both trained by ``cli/main.py``, TransUNet
-also served.
+"""The model zoo, ported from ``ddti_tpu/models/zoo.py``: its seven active
+architectures (UNet, ResUNet, ASPPUNet, AttentionUNet, TransUNet, VNet2D,
+ImprovedVNet), each trained by ``cli/main.py`` and served by
+``cli/serve.py``.
 
 Models map NCHW ``(N, in_channels, H, W)`` inputs to ``(N, out_channels, H,
 W)`` logits (the JAX package is NHWC; ``train/export.py`` keeps NHWC at the
-serving boundary). The rest of the zoo is still to port (ROADMAP.md).
+serving boundary); ImprovedVNet with ``deep_supervision=True`` returns
+``(logits, [head logits, deepest first])``, as in JAX. Attribute names are
+the JAX modules' (``encoders``, ``enc_blocks``, ``attn_gates``, ``aspp``,
+``ds_heads``, ...), so ``train/torch_interop.py`` maps every flax path onto
+a ``state_dict`` key. The fixed-architecture models of ``models/legacy.py``
+and ``models/mores.py`` are still to port (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
+
+import inspect
+import warnings
 
 import torch
 from torch import nn
 
 from .blocks import (
+    ASPP,
+    AttentionGate,
     ConvBNAct,
+    DownConv2x2,
     ResidualBlock,
     TransformerEncoderLayer,
     match_spatial,
@@ -38,24 +50,37 @@ class _EncoderDecoderBase(nn.Module):
         return [self.base_filters * (2 ** i) for i in range(self.depth)]
 
 
-class ResUNet(_EncoderDecoderBase):
-    """UNet topology with residual blocks everywhere: encoders, a bottleneck
-    of twice the deepest width, transposed-conv upsampling, [skip, x]
-    concatenation, a 1x1 head."""
+class _PoolUNet(_EncoderDecoderBase):
+    """The max-pool UNet topology: encoder blocks, a bottleneck of twice the
+    deepest width, transposed-conv upsampling, [skip, x] concatenation and
+    a 1x1 head. ``block`` builds every encoder, bottleneck and decoder
+    block; ``_bottleneck`` may replace the bottleneck (ASPPUNet)."""
+
+    block = ConvBNAct
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 64, depth: int = 5):
         super().__init__(in_channels, out_channels, base_filters, depth)
         ch = self.channels
         self.encoders = nn.ModuleList(
-            ResidualBlock(cin, c) for cin, c in zip([in_channels] + ch[:-1],
-                                                    ch))
-        self.bottleneck = ResidualBlock(ch[-1], 2 * ch[-1])
+            self.block(cin, c) for cin, c in zip([in_channels] + ch[:-1],
+                                                 ch))
+        self._bottleneck(ch[-1])
         rev = ch[::-1]
         self.upconvs = nn.ModuleList(
             up_conv(cin, c) for cin, c in zip([2 * ch[-1]] + rev[:-1], rev))
-        self.decoders = nn.ModuleList(ResidualBlock(2 * c, c) for c in rev)
+        self.decoders = nn.ModuleList(self.block(2 * c, c) for c in rev)
         self.final_conv = nn.Conv2d(ch[0], out_channels, 1)
+
+    def _bottleneck(self, c: int) -> None:
+        self.bottleneck = self.block(c, 2 * c)
+
+    def _middle(self, x):
+        return self.bottleneck(x)
+
+    def _skip(self, i: int, x, skip):
+        """The skip connection of decoder ``i`` given the upsampled ``x``."""
+        return skip
 
     def forward(self, x):
         skips = []
@@ -63,12 +88,53 @@ class ResUNet(_EncoderDecoderBase):
             x = enc(x)
             skips.append(x)
             x = max_pool_2x2(x)
-        x = self.bottleneck(x)
-        for up, dec, skip in zip(self.upconvs, self.decoders,
-                                 reversed(skips)):
+        x = self._middle(x)
+        for i, (up, dec, skip) in enumerate(zip(self.upconvs, self.decoders,
+                                                reversed(skips))):
             x = match_spatial(up(x), skip)
-            x = dec(torch.cat([skip, x], dim=1))
+            x = dec(torch.cat([self._skip(i, x, skip), x], dim=1))
         return self.final_conv(x)
+
+
+class UNet(_PoolUNet):
+    """Plain parametric UNet: double-conv (ConvBNAct) blocks."""
+
+
+class ResUNet(_PoolUNet):
+    """UNet topology with residual blocks everywhere."""
+
+    block = ResidualBlock
+
+
+class ASPPUNet(_PoolUNet):
+    """UNet with an atrous-spatial-pyramid-pooling bottleneck (``aspp``) of
+    twice the deepest width."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 base_filters: int = 64, depth: int = 5,
+                 aspp_dilations=(1, 6, 12, 18)):
+        self.aspp_dilations = tuple(aspp_dilations)
+        super().__init__(in_channels, out_channels, base_filters, depth)
+
+    def _bottleneck(self, c: int) -> None:
+        self.aspp = ASPP(c, 2 * c, self.aspp_dilations)
+
+    def _middle(self, x):
+        return self.aspp(x)
+
+
+class AttentionUNet(_PoolUNet):
+    """UNet with additive attention gates (``attn_gates``, inner width half
+    the level's) on the skip connections, gated by the upsampled map."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 base_filters: int = 64, depth: int = 5):
+        super().__init__(in_channels, out_channels, base_filters, depth)
+        self.attn_gates = nn.ModuleList(
+            AttentionGate(c, c, c // 2) for c in self.channels[::-1])
+
+    def _skip(self, i: int, x, skip):
+        return self.attn_gates[i](x, skip)
 
 
 class TransEncoder(nn.Module):
@@ -140,14 +206,141 @@ class TransUNet(_EncoderDecoderBase):
         return self.final_conv(x)
 
 
-MODEL_REGISTRY = {"ResUNet": ResUNet, "TransUNet": TransUNet}
+class VNet2D(_EncoderDecoderBase):
+    """UNet topology with PReLU blocks, strided 2x2 conv downsampling
+    (``down_convs``, flax ``"SAME"`` padding) and transposed convs without
+    bias (``up_convs``); ``enc_blocks``, ``dec_blocks``."""
+
+    act = "prelu"
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 base_filters: int = 16, depth: int = 5):
+        super().__init__(in_channels, out_channels, base_filters, depth)
+        ch = self.channels
+        self.enc_blocks = nn.ModuleList(
+            ConvBNAct(cin, c, self.act)
+            for cin, c in zip([in_channels] + ch[:-1], ch))
+        self.down_convs = nn.ModuleList(DownConv2x2(c, c) for c in ch)
+        self.bottleneck = ConvBNAct(ch[-1], 2 * ch[-1], self.act)
+        rev = ch[::-1]
+        self.up_convs = nn.ModuleList(
+            up_conv(cin, c, use_bias=False)
+            for cin, c in zip([2 * ch[-1]] + rev[:-1], rev))
+        self.dec_blocks = nn.ModuleList(ConvBNAct(2 * c, c, self.act)
+                                        for c in rev)
+        self.final_conv = nn.Conv2d(ch[0], out_channels, 1)
+
+    def _encode(self, x):
+        skips = []
+        for enc, down in zip(self.enc_blocks, self.down_convs):
+            x = enc(x)
+            skips.append(x)
+            x = down(x)
+        return self.bottleneck(x), skips
+
+    def forward(self, x):
+        x, skips = self._encode(x)
+        for up, dec, skip in zip(self.up_convs, self.dec_blocks,
+                                 reversed(skips)):
+            x = match_spatial(up(x), skip)
+            x = dec(torch.cat([skip, x], dim=1))
+        return self.final_conv(x)
+
+
+class ImprovedVNet(VNet2D):
+    """VNet2D's topology with ReLU blocks, optional attention gates on the
+    skips (``use_attention``) and optional deep-supervision heads
+    (``deep_supervision``): a 1x1 head on every decoder output,
+    ``ds_heads[i]`` taking decoder i's width (the deepest first), and then
+    ``(logits, [head logits])`` is returned.
+
+    The gate runs before the sizes are matched (JAX ``zoo.py:387-389``), so
+    where an odd side leaves the upsampled map a pixel larger than its skip
+    the gate's sum fails, as JAX's broadcast does."""
+
+    act = "relu"
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 base_filters: int = 16, depth: int = 5,
+                 use_attention: bool = True,
+                 deep_supervision: bool = False):
+        super().__init__(in_channels, out_channels, base_filters, depth)
+        self.use_attention = use_attention
+        self.deep_supervision = deep_supervision
+        rev = self.channels[::-1]
+        if use_attention:
+            self.attn_gates = nn.ModuleList(AttentionGate(c, c, c // 2)
+                                            for c in rev)
+        if deep_supervision:
+            self.ds_heads = nn.ModuleList(nn.Conv2d(c, out_channels, 1)
+                                          for c in rev)
+
+    def forward(self, x):
+        x, skips = self._encode(x)
+        ds_outs = []
+        for i, (up, dec) in enumerate(zip(self.up_convs, self.dec_blocks)):
+            x = up(x)
+            skip = skips[-1 - i]
+            if self.use_attention:
+                skip = self.attn_gates[i](x, skip)
+            x = match_spatial(x, skip)
+            x = dec(torch.cat([skip, x], dim=1))
+            if self.deep_supervision:
+                ds_outs.append(self.ds_heads[i](x))
+        out = self.final_conv(x)
+        if self.deep_supervision:
+            return out, ds_outs
+        return out
+
+
+MODEL_REGISTRY = {
+    "UNet": UNet,
+    "ResUNet": ResUNet,
+    "ASPPUNet": ASPPUNet,
+    "AttentionUNet": AttentionUNet,
+    "TransUNet": TransUNet,
+    "VNet2D": VNet2D,
+    "ImprovedVNet": ImprovedVNet,
+}
+# the JAX package's fixed-architecture models, still to port
+_UNPORTED = ("LegacyUNet", "TripleBranchImprovedVNet", "MoresUNet",
+             "MoresVNet2D", "MoresResUNet", "MoresASPPUNet",
+             "MoresAttentionUNet", "MoresTransUNet", "MoresImprovedVNet")
 
 
 def create_model(model_type: str, **kwargs) -> nn.Module:
-    """Instantiate a ported zoo model by name."""
+    """Instantiate a zoo model by name, with the JAX package's rules
+    (``ddti_tpu/models/zoo.py:create_model``): a ``features=[...]`` doubling
+    schedule maps onto (base_filters = features[0], depth = len(features));
+    the reference's ctor aliases ``num_classes`` / ``base_num_filters`` name
+    ``out_channels`` / ``base_filters``; unknown kwargs are dropped with a
+    warning."""
+    if model_type in _UNPORTED:
+        raise NotImplementedError(
+            f"model_type {model_type!r} (models/legacy.py, models/mores.py) "
+            f"is not ported to ddti_tpu_torch yet; ROADMAP.md Queue 1 lists "
+            f"it")
     if model_type not in MODEL_REGISTRY:
         raise NotImplementedError(
-            f"model_type {model_type!r} is not ported to ddti_tpu_torch yet "
-            f"(ported: {sorted(MODEL_REGISTRY)}); ROADMAP.md Queue 1 lists "
-            f"the rest of the zoo")
-    return MODEL_REGISTRY[model_type](**kwargs)
+            f"Unknown model_type {model_type!r}; choose from "
+            f"{sorted(MODEL_REGISTRY)} (ROADMAP.md Queue 1 lists the models "
+            f"still to port)")
+    cls = MODEL_REGISTRY[model_type]
+    features = kwargs.pop("features", None)
+    if features is not None:
+        feats = list(features)
+        if any(feats[i + 1] != feats[i] * 2 for i in range(len(feats) - 1)):
+            raise ValueError(
+                f"features list {feats} is not a doubling schedule; the "
+                f"parametric zoo expects base_filters * 2**i channels")
+        kwargs.setdefault("base_filters", feats[0])
+        kwargs.setdefault("depth", len(feats))
+    valid = set(inspect.signature(cls).parameters)
+    for alias, canon in (("num_classes", "out_channels"),
+                         ("base_num_filters", "base_filters")):
+        if alias in kwargs:
+            kwargs.setdefault(canon, kwargs.pop(alias))
+    dropped = sorted(k for k in kwargs if k not in valid)
+    if dropped:
+        warnings.warn(f"{model_type} ignores kwargs {dropped}", stacklevel=2)
+    return cls(**{k: v for k, v in kwargs.items() if k in valid})

@@ -14,13 +14,16 @@ def serve_body(model: nn.Module, images: torch.Tensor,
     """``images``: (B, S, S, C) uint8 in [0, 255] or float in [0, 1], on the
     model's device. Returns (B, S, S, out_channels) uint8 masks. With
     ``compute_dtype=torch.bfloat16`` the model runs under bf16 autocast:
-    parameters and BatchNorm statistics stay float32, as in JAX."""
+    parameters and BatchNorm statistics stay float32, as in JAX. A
+    deep-supervision model's heads are dropped: its main logits decide."""
     x = images.permute(0, 3, 1, 2)
     if images.dtype == torch.uint8:
         x = x.to(compute_dtype) / 255.0
     with torch.autocast(x.device.type, dtype=torch.bfloat16,
                         enabled=compute_dtype == torch.bfloat16):
         logits = model(x)
+    if isinstance(logits, tuple):
+        logits = logits[0]
     probs = torch.sigmoid(logits.float())
     return (probs > threshold).to(torch.uint8).permute(0, 2, 3, 1)
 

@@ -5,7 +5,7 @@ weight decay 1e-2 on every parameter, as optax ``adamw`` without a mask),
 its learning rate set before every step from the per-epoch cosine warm
 restarts of ``schedule.py``: step s trains at ``schedule(s //
 steps_per_epoch)``, as the JAX package's optax schedule does. Freezing and
-gradient clipping are still to port (ROADMAP.md Queue 1 item 18).
+gradient clipping are still to port (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations

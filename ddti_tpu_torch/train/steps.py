@@ -8,9 +8,11 @@ update and the confusion counts. The host feeds the batch and the
 draws and reads nothing back: the returned metrics stay on the device
 until the epoch's end.
 
-Only the one-shot step is ported; ``grad_accum``, the nan-guard, EMA, QAT,
-distillation and deep supervision raise where the config asks for them
-(ROADMAP.md Queue 1 items 16 and 18).
+A deep-supervision model (ImprovedVNet with ``deep_supervision=True``)
+adds the auxiliary heads' loss, weighted by ``config.alpha``
+(``_ds_aux_loss``). Only the one-shot step is ported; ``grad_accum``, the
+nan-guard, EMA, QAT and distillation raise where the config asks for them
+(ROADMAP.md Queue 1 items 9 and 11).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ddti_tpu_torch.data.augment import (
 )
 from ddti_tpu_torch.eval.metrics import ConfusionCounts, confusion_counts
 from ddti_tpu_torch.losses.losses import weighted_loss
+from ddti_tpu_torch.ops.resample import resize_bilinear_hw
 
 from .state import TrainState
 
@@ -61,12 +64,42 @@ def _loss_kw(config) -> dict:
                 compute_unused=config.compute_unused_losses)
 
 
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1)
+
+
 def _forward(model, images, amp: bool):
-    """NHWC images -> NHWC logits, under bf16 autocast when ``amp``."""
+    """NHWC images -> NHWC logits under bf16 autocast when ``amp``; a
+    deep-supervision model's ``(logits, [head logits])`` keeps its form."""
     with torch.autocast(images.device.type, dtype=torch.bfloat16,
                         enabled=amp):
-        logits = model(images.permute(0, 3, 1, 2))
-    return logits.permute(0, 2, 3, 1)
+        out = model(images.permute(0, 3, 1, 2))
+    if isinstance(out, tuple):
+        logits, heads = out
+        return _nhwc(logits), [_nhwc(h) for h in heads]
+    return _nhwc(out)
+
+
+def _main_logits(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _ds_aux_loss(out, masks, loss_kw: dict, ds_weight: float):
+    """Deep-supervision auxiliary loss (JAX ``_ds_aux_loss``): the same
+    weighted loss on each head against the target downscaled to the head's
+    size (bilinear, antialiased), the boundary term and the unused terms
+    off, so the heads launch no EDT; averaged over the heads and scaled by
+    ``ds_weight`` (``--alpha``)."""
+    _, heads = out
+    kw = dict(loss_kw, boundary_ratio=0.0, compute_unused=False)
+    total = masks.new_zeros((), dtype=torch.float32)
+    for head in heads:
+        m = masks
+        if head.shape[1:3] != masks.shape[1:3]:
+            m = resize_bilinear_hw(masks[..., 0], head.shape[1],
+                                   head.shape[2])[..., None]
+        total = total + weighted_loss(head, m, **kw).total
+    return ds_weight * total / max(len(heads), 1)
 
 
 def _check_ported(config) -> None:
@@ -92,6 +125,7 @@ def make_train_step(config, aug_cfg: AugmentConfig):
     loss_kw = _loss_kw(config)
     amp = bool(config.use_amp_autocast)
     use_mixup = bool(config.use_mixup)
+    ds_weight = float(getattr(config, "alpha", 0.0) or 0.0)
 
     def step(state: TrainState, images_u8, masks_u8, draws: AugmentDraws,
              mix: MixupDraws | None) -> StepMetrics:
@@ -101,8 +135,12 @@ def make_train_step(config, aug_cfg: AugmentConfig):
             images, masks = mixup(images, masks, mix)
         model = state.model
         model.train()
-        logits = _forward(model, images, amp)
+        out = _forward(model, images, amp)
+        logits = _main_logits(out)
         terms = weighted_loss(logits, masks, **loss_kw)
+        if isinstance(out, tuple) and ds_weight > 0:
+            terms = terms._replace(total=terms.total + _ds_aux_loss(
+                out, masks, loss_kw, ds_weight))
         state.optimizer.zero_grad(set_to_none=True)
         terms.total.backward()
         state.apply_gradients()
@@ -130,7 +168,7 @@ def make_eval_step(config):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
         state.model.eval()
-        logits = _forward(state.model, images, amp)
+        logits = _main_logits(_forward(state.model, images, amp))
         terms = weighted_loss(logits, masks, **loss_kw)
         if valid is None:
             counts = confusion_counts(logits, masks)
@@ -158,7 +196,7 @@ def make_infer_step(config, threshold: float = 0.5):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
         state.model.eval()
-        logits = _forward(state.model, images, amp)
+        logits = _main_logits(_forward(state.model, images, amp))
         preds = (torch.sigmoid(logits.to(torch.float32)) > threshold
                  ).to(torch.uint8)
         per_img = confusion_counts(logits, masks, threshold=threshold,

@@ -1,18 +1,20 @@
 """Flax parameters -> the port's ``state_dict``, in numpy alone.
 
 The key rules of ``ddti_tpu/train/torch_interop.py`` (flax module path ->
-the torch reference's key), restricted to the module kinds the port has so
-far: ``ConvBNAct`` and ``ResidualBlock`` encoders/decoders/bottleneck,
-transposed-conv ``upconvs``, the transformer bottleneck and plain leaves.
-``state_dict_from_flax`` applies them to a flat ``{"params/..." |
-"batch_stats/...": array}`` dict, which is what ``np.load`` of a
-``ddti_tpu.train.checkpoint.save_params_npz`` file yields;
-``flat_flax_from_state_dict`` is its inverse, for the ``.npz`` the port's
-Trainer writes in that same format.
+the torch reference's key) for the seven models of ``models/zoo.py``:
+encoder, decoder and bottleneck blocks through each model's block map
+(``ConvBNAct``, its PReLU form for VNet2D, ``ResidualBlock``), transposed
+convs (``upconvs``, ``up_convs``), plain convs (``down_convs``,
+``ds_heads``, ``final_conv``), attention gates, the ASPP bottleneck and the
+transformer bottleneck. ``state_dict_from_flax`` applies them to a flat
+``{"params/..." | "batch_stats/...": array}`` dict, which is what
+``np.load`` of a ``ddti_tpu.train.checkpoint.save_params_npz`` file
+yields; ``flat_flax_from_state_dict`` is its inverse, for the ``.npz`` the
+port's Trainer writes in that same format.
 
 Weight layouts: Conv2d HWIO -> OIHW; ConvTranspose2d HWIO -> IOHW with a
 spatial flip (torch applies the kernel in gradient orientation); Linear
-(in, out) -> (out, in).
+(in, out) -> (out, in); a PReLU slope () -> (1,).
 """
 
 from __future__ import annotations
@@ -23,43 +25,62 @@ import torch
 from ddti_tpu_torch.models.zoo import MODEL_REGISTRY
 
 # flax child name -> torch suffix, per block kind: ConvBNAct's
-# nn.Sequential indices, ResidualBlock's ``conv`` Sequential and ``skip``
+# nn.Sequential indices (with the PReLU slopes at 2 and 5 in VNet2D),
+# ResidualBlock's ``conv`` Sequential and ``skip``
 _CONVBN = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
+_CONVBN_PRELU = {**_CONVBN, "prelu1": "2", "prelu2": "5"}
 _RES = {"conv1": "conv.0", "bn1": "conv.1", "conv2": "conv.3",
         "bn2": "conv.4", "skip": "skip"}
-_BLOCKS = {"ResUNet": _RES, "TransUNet": _CONVBN}
+_GATE = {"w_g": "W_g.0", "w_g_bn": "W_g.1", "w_x": "W_x.0",
+         "w_x_bn": "W_x.1", "psi": "psi.0", "psi_bn": "psi.1"}
+_ASPP_PROJECT = {"project": "project.0", "project_bn": "project.1"}
 _TRANS_LAYER = {"qkv": "self_attn.in_proj", "out_proj": "self_attn.out_proj",
                 "fc1": "linear1", "fc2": "linear2",
                 "ln1": "norm1", "ln2": "norm2"}
+_BLOCK_STEMS = ("encoders", "decoders", "enc_blocks", "dec_blocks")
+_INDEXED = _BLOCK_STEMS + ("upconvs", "up_convs", "down_convs", "ds_heads")
+
+
+def _block_map(model_type: str) -> dict:
+    """The block map of every encoder, decoder and bottleneck block of a
+    model (JAX ``_block_map``; ImprovedVNet's blocks, its bottleneck
+    included, are plain ConvBNAct)."""
+    return {"ResUNet": _RES, "VNet2D": _CONVBN_PRELU}.get(model_type,
+                                                          _CONVBN)
 
 
 def _torch_key(model_type: str, path: tuple[str, ...]) -> str:
     """Translate a flax module path to the torch key prefix (without the
     .weight/.bias leaf suffix)."""
-    block = _BLOCKS[model_type]
+    block = _block_map(model_type)
     out: list[str] = []
     i = 0
     while i < len(path):
         p = path[i]
-        if "_" in p and p.rsplit("_", 1)[-1].isdigit():
-            stem, idx = p.rsplit("_", 1)
-            if stem == "trans_layers":
-                out.append(f"trans.layers.{idx}.{_TRANS_LAYER[path[i + 1]]}")
-                i += 2
-                continue
+        nxt = path[i + 1] if i + 1 < len(path) else None
+        stem, _, idx = p.rpartition("_")
+        if stem == "trans_layers" and idx.isdigit():
+            out.append(f"trans.layers.{idx}.{_TRANS_LAYER[nxt]}")
+            i += 2
+        elif stem == "attn_gates" and idx.isdigit():
+            out.append(f"attn_gates.{idx}.{_GATE[nxt]}")
+            i += 2
+        elif stem in _INDEXED and idx.isdigit():
             out.append(f"{stem}.{idx}")
-            if stem in ("encoders", "decoders") and i + 1 < len(path) \
-                    and path[i + 1] in block:
-                out.append(block[path[i + 1]])
+            if stem in _BLOCK_STEMS and nxt in block:
+                out.append(block[nxt])
                 i += 1
             i += 1
-            continue
-        if p == "bottleneck" and i + 1 < len(path) and path[i + 1] in block:
-            out.append(f"bottleneck.{block[path[i + 1]]}")
+        elif p == "bottleneck" and nxt in block:
+            out.append(f"bottleneck.{block[nxt]}")
             i += 2
-            continue
-        out.append("trans.patchify" if p == "patchify" else p)
-        i += 1
+        elif p == "aspp":  # branch<k> or project / project_bn
+            out.append("aspp." + _ASPP_PROJECT.get(
+                nxt, f"branches.{nxt[len('branch'):]}"))
+            i += 2
+        else:
+            out.append("trans.patchify" if p == "patchify" else p)
+            i += 1
     return ".".join(out)
 
 
@@ -72,14 +93,14 @@ def _is_layernorm(path) -> bool:
 
 
 def _is_transpose_conv(path) -> bool:
-    return any(p.startswith("upconvs_") for p in path)
+    return any(p.startswith(("upconvs_", "up_convs_")) for p in path)
 
 
 def _leaf_suffix(leaf: str, kind: str) -> str:
     if kind == "bn":
         return {"scale": "weight", "bias": "bias",
                 "mean": "running_mean", "var": "running_var"}[leaf]
-    if leaf == "kernel":
+    if leaf in ("kernel", "negative_slope"):
         return "weight"
     return leaf  # bias
 
@@ -105,16 +126,21 @@ def flax_to_torch_key(model_type: str, path: tuple[str, ...]) -> str:
 def flax_key_from_torch(model_type: str, key: str) -> str:
     """The inverse of ``flax_to_torch_key``: a torch ``state_dict`` key ->
     ``"params/<flax path>"`` or ``"batch_stats/<flax path>"``."""
-    parts = key.split(".")
-    inv_block = {v: k for k, v in _BLOCKS[model_type].items()}
-    inv_layer = {v: k for k, v in _TRANS_LAYER.items()}
     if key == "trans.pos_emb":
         return "params/pos_emb"
+    parts = key.split(".")
     leaf = parts.pop()
+    inv_layer = {v: k for k, v in _TRANS_LAYER.items()}
+    # the rest of the key after a module with children -> its flax child
+    inv_child = {
+        **{v: k for k, v in _block_map(model_type).items()},
+        **{f"attn_gates.{v}": k for k, v in _GATE.items()},
+        **{v: k for k, v in _ASPP_PROJECT.items()}}
     mods: list[str] = []
     i = 0
     while i < len(parts):
         p = parts[i]
+        rest = ".".join(parts[i + 2:])
         if p == "trans" and parts[i + 1] == "layers":
             name = ".".join(parts[i + 3:])
             if leaf.startswith("in_proj_"):  # torch MHA's packed projection
@@ -123,22 +149,25 @@ def flax_key_from_torch(model_type: str, key: str) -> str:
             break
         if p == "trans" and parts[i + 1] == "patchify":
             mods.append("patchify")
-            i += 2
-            continue
-        if p in ("encoders", "decoders", "upconvs"):
-            mods.append(f"{p}_{parts[i + 1]}")
-            i += 2
-        elif p == "bottleneck":
-            mods.append(p)
-            i += 1
-        else:
-            mods.append(p)
-            i += 1
-            continue
-        rest = ".".join(parts[i:])
-        if rest:
-            mods.append(inv_block[rest])
             break
+        if p == "attn_gates":
+            mods += [f"{p}_{parts[i + 1]}", inv_child[f"{p}.{rest}"]]
+            break
+        if p == "aspp":
+            mods.append(p)
+            sub = ".".join(parts[i + 1:])
+            mods.append(inv_child.get(sub, f"branch{parts[-1]}"))
+            break
+        if p in _INDEXED:
+            mods.append(f"{p}_{parts[i + 1]}")
+            if rest:
+                mods.append(inv_child[rest])
+            break
+        mods.append(p)
+        if p == "bottleneck":
+            mods.append(inv_child[".".join(parts[i + 1:])])
+            break
+        i += 1
     if _is_layernorm(mods):
         collection, leaf = "params", {"weight": "scale", "bias": "bias"}[leaf]
     elif _is_bn(mods):
@@ -146,6 +175,8 @@ def flax_key_from_torch(model_type: str, key: str) -> str:
                       else "params")
         leaf = {"weight": "scale", "bias": "bias", "running_mean": "mean",
                 "running_var": "var"}[leaf]
+    elif mods[-1].startswith("prelu"):
+        collection, leaf = "params", "negative_slope"
     else:
         collection, leaf = "params", {"weight": "kernel"}.get(leaf, leaf)
     return "/".join([collection, *mods, leaf])
@@ -153,6 +184,8 @@ def flax_key_from_torch(model_type: str, key: str) -> str:
 
 def _from_flax_array(path, a: np.ndarray) -> np.ndarray:
     a = np.asarray(a)
+    if path[-1] == "negative_slope":
+        return a.reshape(1)
     if path[-1] == "kernel":
         if a.ndim == 4:
             if _is_transpose_conv(path[:-1]):
@@ -184,13 +217,15 @@ def flat_flax_from_state_dict(model_type: str, sd: dict) -> dict:
     """The port's ``state_dict`` -> the flat ``{"params/..." |
     "batch_stats/...": float32 array}`` dict that ``np.savez`` turns into a
     ``save_params_npz`` file (flax layouts: HWIO kernels, (in, out)
-    dense)."""
+    dense, scalar PReLU slopes)."""
     _check_ported(model_type)
     flat = {}
     for key, t in sd.items():
         fk = flax_key_from_torch(model_type, key)
         a = t.detach().to("cpu", torch.float32).numpy()
-        if fk.endswith("/kernel"):
+        if fk.endswith("/negative_slope"):
+            a = a.reshape(())
+        elif fk.endswith("/kernel"):
             if a.ndim == 4:
                 if _is_transpose_conv(fk.split("/")):
                     a = a[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)

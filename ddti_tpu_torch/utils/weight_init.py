@@ -12,10 +12,12 @@ the flax default the JAX Trainer's models start from.
 - ``lecun_normal_``: flax's default kernel initialiser
   (``variance_scaling(1, "fan_in", "truncated_normal")``), which every
   ``nn.Conv`` / ``nn.ConvTranspose`` / ``nn.Dense`` of the JAX zoo starts
-  from, biases at zero. ``init_like_flax`` applies it to a port model,
-  the packed attention projection ``in_proj_weight`` (flax's ``qkv``
-  Dense) included, and draws TransUNet's ``pos_emb`` from a standard normal
-  (flax ``normal(1.0)``).
+  from, biases at zero. ``init_like_flax`` applies it to a port model:
+  every conv (ASPP's dilated branches, the 1x1 convs of the attention
+  gates, projections and heads, the strided down-convs), transposed conv
+  and linear, the packed attention projection ``in_proj_weight`` (flax's
+  ``qkv`` Dense) included, and draws TransUNet's ``pos_emb`` from a
+  standard normal (flax ``normal(1.0)``); PReLU slopes keep their 0.25.
 
 Fans follow flax's reading of its own layouts: a conv kernel's receptive
 field times its input (fan_in) or output (fan_out) channels; torch's
@@ -83,7 +85,8 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
     projection of ``model`` as flax initialises the JAX zoo (lecun-normal
     kernels, zero biases) and TransUNet's positional embedding as a
     standard normal, all from one ``torch.Generator`` seeded with ``seed``.
-    BatchNorm and LayerNorm keep (1, 0)."""
+    BatchNorm and LayerNorm keep (1, 0), PReLU slopes 0.25 (flax
+    ``negative_slope_init``)."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -106,9 +109,9 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
 def apply_init(model: nn.Module, seed: int) -> nn.Module:
     """Re-initialise every conv kernel (transposed ones included) with
     Kaiming-normal and every dense kernel (the packed attention projection
-    included) with flax's Xavier-normal; biases, norms, the positional
-    embedding and other parameters stay (JAX ``apply_init``, which touches
-    only leaves named ``kernel``)."""
+    included) with flax's Xavier-normal; biases, norms, PReLU slopes, the
+    positional embedding and other parameters stay (JAX ``apply_init``,
+    which touches only leaves named ``kernel``)."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Linear, SelfAttention)):

@@ -160,3 +160,29 @@ def test_bounds_of_the_ported_gather_builders(shape, shared, nbytes, ms):
     got, by, _ = C.bound("gather", shape, shared_index=shared)
     assert by == "bytes"
     assert got == pytest.approx(ms, rel=2e-3)
+
+
+@pytest.mark.parametrize("model_type, kw", [
+    ("UNet", {}), ("ASPPUNet", {}), ("AttentionUNet", {}), ("VNet2D", {}),
+    ("ImprovedVNet", {"deep_supervision": True}),
+    ("ImprovedVNet", {"use_attention": False})])
+def test_jax_zoo_keys_match_save_params_npz(model_type, kw, tmp_path):
+    """The key sets the smoke's zoo train phase holds each .npz to, written
+    out from the flax module tree, equal the keys JAX's own
+    ``save_params_npz`` writes at depth 3."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from ddti_tpu.models import create_model
+    from ddti_tpu.train.checkpoint import save_params_npz
+
+    jm = create_model(model_type, base_filters=4, depth=3, **kw)
+    v = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), jax.eval_shape(
+        lambda: jm.init({"params": jax.random.PRNGKey(0)},
+                        jnp.zeros((1, 32, 32, 1)), train=False)))
+    path = str(tmp_path / "w.npz")
+    save_params_npz(path, v["params"], v["batch_stats"])
+    with np.load(path) as z:
+        want = set(z.files)
+    assert C.jax_zoo_keys(model_type, 3, **kw) == want

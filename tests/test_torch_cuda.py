@@ -801,3 +801,60 @@ def test_conv3x3_kernel_rejects_what_it_does_not_take(cuda):
         P.conv3x3_relu_cuda(x, wt.cpu(), b)
     with pytest.raises(ValueError, match="do not fit"):
         P.conv3x3_relu_cuda(x, wt[:, :-32].contiguous(), b)
+
+
+# the rest of the zoo at a small width: float32 on the card (TF32 off) vs
+# the CPU, relative to the largest logit; summation order alone differs
+ZOO_CASES = [("UNet", {}), ("ASPPUNet", {}), ("AttentionUNet", {}),
+             ("VNet2D", {}), ("ImprovedVNet", {"deep_supervision": True}),
+             ("ImprovedVNet", {"use_attention": False})]
+ZOO_RTOL = 1e-4
+
+
+def _zoo_model(model_type, kw):
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    m = init_like_flax(create_model(model_type, base_filters=8, depth=3,
+                                    **kw), 0)
+    g = torch.Generator().manual_seed(1)
+    for name, buf in m.named_buffers():  # BN statistics off (0, 1)
+        if name.endswith("running_mean"):
+            buf.copy_(torch.randn(buf.shape, generator=g) * 0.2)
+        elif name.endswith("running_var"):
+            buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+    return m.eval()
+
+
+def _outs(out):
+    return [out[0], *out[1]] if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.parametrize("size", [64, 36])
+@pytest.mark.parametrize("model_type, kw", ZOO_CASES)
+def test_zoo_forward_on_card_matches_cpu(cuda, model_type, kw, size):
+    """Each zoo model's float32 eval forward (every deep-supervision head
+    too) on the card against its CPU forward; at 36^2 the strided models
+    pad their down-convs and resize down, and ImprovedVNet's gates refuse
+    the 10^2 map against a 9^2 skip on both devices."""
+    m = _zoo_model(model_type, kw)
+    x = torch.randn(2, 1, size, size, generator=torch.Generator()
+                    .manual_seed(2))
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            if (size % 8 and model_type == "ImprovedVNet"
+                    and kw.get("use_attention", True)):
+                for dev in ("cpu", "cuda"):
+                    with pytest.raises(RuntimeError, match="size of tensor"):
+                        m.to(dev)(x.to(dev))
+                return
+            want = _outs(m(x))
+            got = _outs(m.to(cuda)(x.to(cuda)))
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_cuda
+        rel = float((g.cpu() - w).abs().max() / w.abs().max())
+        assert rel < ZOO_RTOL, rel

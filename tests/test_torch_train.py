@@ -163,15 +163,21 @@ def _port_model(params, stats):
     return m
 
 
-@pytest.mark.parametrize("model_type", ["ResUNet", "TransUNet"])
-def test_key_rules_round_trip(model_type, tmp_path):
+@pytest.mark.parametrize("model_type, extra", [
+    pytest.param(name, extra, id=name) for name, extra in (
+        ("ResUNet", {}), ("TransUNet", {"image_size": SIZE}), ("UNet", {}),
+        ("ASPPUNet", {}), ("AttentionUNet", {}), ("VNet2D", {}),
+        ("ImprovedVNet", {"deep_supervision": True}))])
+def test_key_rules_round_trip(model_type, extra, tmp_path):
     """Every key of the JAX package's export maps back to its flax path,
     and the port's .npz holds the key set and layouts of
-    ``save_params_npz``."""
-    kw = dict(SMALL, image_size=SIZE) if model_type == "TransUNet" else SMALL
-    v = jcreate_model(model_type, **kw).init(
-        {"params": jax.random.PRNGKey(1)}, jnp.zeros((1, SIZE, SIZE, 1)),
-        train=False)
+    ``save_params_npz``: all seven models, ImprovedVNet with its gates and
+    deep-supervision heads."""
+    kw = dict(SMALL, **extra)
+    jm = jcreate_model(model_type, **kw)
+    v = jax.jit(lambda k: jm.init({"params": k},
+                                  jnp.zeros((1, SIZE, SIZE, 1)),
+                                  train=False))(jax.random.PRNGKey(1))
     save_params_npz(str(tmp_path / "j.npz"), v["params"], v["batch_stats"])
     want = dict(np.load(tmp_path / "j.npz"))
     m = load_checkpoint_into(str(tmp_path / "j.npz"), model_type,

@@ -216,7 +216,7 @@ def test_bf16_npz_loads_exactly(ckpt, tmp_path):
 
 def test_unported_model_and_orbax_dir_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("UNet")
+        create_model("MoresUNet")
     with pytest.raises(ValueError, match="Orbax"):
         load_checkpoint_into(str(tmp_path), "TransUNet",
                              create_model("TransUNet", **SMALL))
