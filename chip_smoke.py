@@ -9,9 +9,11 @@ or, to compare another tree of the repository (a commit unpacked with git
 archive) with this one on the same card, in the order other, this, this,
 other: ``python3 chip_smoke.py --ab OTHER_TREE`` (see ``ab``; ``--ab
 OTHER_TREE probes`` for the probes and the EDT alone: conv3x3, gather,
-exp2_probe in every mode and the EDT's queued time and passes); ``python3
+exp2_probe in every mode and the EDT's queued time and passes; ``--ab
+OTHER_TREE serve`` for the bf16 serving batch alone); ``python3
 chip_smoke.py --zoo`` runs the zoo phases alone and profiles every zoo
-model at both sizes.
+model at both sizes; ``python3 chip_smoke.py --infer`` runs the infer phase
+alone (the AttentionUNet trained first, as the zoo phase trains it).
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -93,9 +95,10 @@ and a non-zero exit:
               number of EDT kernel launches.
 8. ttrain   — the same CLI training the serving slice's TransUNet
               (base_filters 64, depth 4, 512^2 -> 1024 tokens) from a model
-              YAML with dropout_rate 0.0, batch 16, bf16, 2 epochs: the same
-              checks, and exactly the expected launches of the flash forward,
-              both backward kernels and the EDT.
+              YAML with dropout_rate 0.0 and --tta, batch 16, bf16, 2
+              epochs: the same checks, "tta": true in test_metrics.json, and
+              exactly the expected launches of the flash forward (four
+              forwards a test batch), both backward kernels and the EDT.
 9. step     — one float32 train step from one state and batch with the
               kernel EDT and with the plain EDT: bit-equal boundary terms and
               updated parameters equal to 1e-6.
@@ -126,6 +129,23 @@ and a non-zero exit:
               load_predictor on the card (a bf16 batch of 16, uint8 masks,
               their agreement with float32 masks) and float32 logits on the
               card against the CPU's at batch 2, within 1e-3.
+    infer   — the inference CLI (python -m ddti_tpu_torch.cli.infer
+              --device cuda) over synthetic JPEG frames (600x480 and
+              1024x768, the latter 6 tiles at window 512, stride 256), on
+              the slice's TransUNet in (a) resized --bf16 --tta --mask_dir,
+              (b) --sliding_window, (c) --fold_bn --prob --overlay and (d) a
+              two-checkpoint ensemble, and on the AttentionUNet entry's
+              trained .pth in (a) and (c): exit 0, every output file, and
+              exactly the expected flash launches (layers x flips x batches
+              or tile chunks x members, + --fold_bn's check). In process:
+              TTA'd float32 logits, kernel vs plain path, within 1e-3 of the
+              largest; folded vs unfolded float32 logits within
+              fold_batchnorm's own tolerance; bf16 vs float32 TTA masks
+              >= 99.5%; device times of a bf16 batch of 16 with and without
+              TTA and --fold_bn, and of one tiled 1024x768 frame. Then the
+              daemon with --tta --fold_bn: single POSTs equal to serve_body's
+              masks of the same padded batch, one ?overlay=1 equal to
+              _overlay_png, 16 flash launches a batch.
 13. zoo step — for each of those models one float32 train step at 512^2,
               batch 4, with the kernel EDT and with the plain one: bit-equal
               boundary terms, parameters to 1e-6 (ImprovedVNet's step with
@@ -133,8 +153,9 @@ and a non-zero exit:
 14. zoo profile — after tprofile: each of those models' bf16 train step at
               512^2 / batch 16, and UNet's also at 256^2 / batch 128, as
               tprofile reads the ResUNet's.
-15. result  — the total wall time, a JSON line of the kernels, then the
-              device line.
+15. result  — the total wall time, a JSON line of the kernels (the flash
+              forward's with the infer phase's launches), then the device
+              line.
 """
 
 import concurrent.futures
@@ -298,6 +319,26 @@ ZOO_LOGIT_RTOL = 1e-3  # max |card - CPU| / max |CPU|, the serving limit
 # rows were dropped to keep the smoke's wall time down)
 ZOO_PROFILES = [(m, *TRAIN_PROFILES[0]) for m in ZOO] + [
     ("UNet", *TRAIN_PROFILES[1])]
+
+# the infer phase (the inference CLI, its modes, the daemon's --tta and
+# --fold_bn): synthetic grayscale JPEG frames (width, height, count), the
+# 1024 x 768 ones 6 tiles each at the CLI's window 512, stride 256
+INFER_FRAMES = ((600, 480, 24), (1024, 768, 8))
+INFER_WINDOW, INFER_STRIDE, INFER_TILE_BATCH = 512, 256, 8
+INFER_FLIPS = 4
+INFER_PARALLEL = 6     # CLI runs at a time (process start dominates each)
+INFER_TIMEOUT_S = 300
+INFER_LOGIT_RTOL = 1e-3   # TTA'd float32 logits, kernel vs plain path
+INFER_BF16_AGREE = 0.995  # bf16 masks vs float32 masks, TTA on
+INFER_CHECK_BATCH = 4     # in-process float32 comparisons
+INFER_TIMED_RUNS = 20     # median of, CUDA events
+INFER_DAEMON_POSTS = 4
+# --overlay's marching squares run in Python over every mixed 2x2 cell of
+# a mask, seconds a 1024 x 768 frame where a random-weight model's mask is
+# speckled: mode (c) takes this many frames of each size
+INFER_OVERLAY_FRAMES = 2
+# the AttentionUNet of configs/config.yaml:274-280 (the zoo's entry)
+INFER_ATTN = dict(base_filters=64, depth=5)
 
 
 def phase(name, msg):
@@ -1871,10 +1912,12 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
         test = json.load(f)
     phase(name, "test: " + ", ".join(
         f"{k} {test[k]:.4f}" for k in ("iou", "f1", "hd95_mean",
-                                       "assd_mean", "total_images")))
+                                       "assd_mean", "total_images"))
+        + f", tta {test['tta']}")
     for k in ("iou", "f1", "hd95_mean", "assd_mean"):
         assert math.isfinite(test[k]), k
     assert test["total_images"] == SYNTHETIC[2]
+    assert test["tta"] is ("--tta" in flags), test["tta"]
 
     best = os.path.join(run, "models", f"{model_type}_best")
     load_checkpoint_into(best + ".pth", model_type, model)  # strict
@@ -1913,7 +1956,8 @@ def run_training(tmp):
 
 
 def run_transunet_training(tmp):
-    """The TransUNet training CLI from a model YAML with dropout_rate 0.0;
+    """The TransUNet training CLI from a model YAML with dropout_rate 0.0 and
+    --tta (test() predicts each batch four times; validation once);
     returns the launch counts, each checked against its expected value."""
     import yaml
 
@@ -1921,7 +1965,7 @@ def run_transunet_training(tmp):
     with open(cfg, "w") as f:
         yaml.safe_dump({"model": {"model_type": "TransUNet",
                                   "kwargs": TSLICE}}, f)
-    flags = ["--config_path", cfg, "--device", DEVICE,
+    flags = ["--config_path", cfg, "--device", DEVICE, "--tta",
              *(f"--{k}={v}" for k, v in TTRAIN.items() if k != "epochs")]
     model_kw = dict(TSLICE, image_size=TTRAIN["image_size"])
     launches, _ = run_cli(tmp, "ttrain", "TransUNet", model_kw, flags,
@@ -1935,7 +1979,8 @@ def run_transunet_training(tmp):
     steps, val, test_b = _cli_batches(TTRAIN["batch_size"])
     epochs = TTRAIN["epochs"]
     expected = {
-        "flash_fwd": N_LAYERS * (epochs * (steps + val) + test_b),
+        "flash_fwd": N_LAYERS * (epochs * (steps + val)
+                                 + INFER_FLIPS * test_b),
         "flash_bwd_dkdv": N_LAYERS * epochs * steps,
         "flash_bwd_dq": N_LAYERS * epochs * steps,
         "edt_minplus": epochs * (steps + val) + test_b,
@@ -1943,8 +1988,8 @@ def run_transunet_training(tmp):
     phase("ttrain", "launches " + ", ".join(
         f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
         + f": {N_LAYERS} layers, {epochs} epochs x ({steps} train + {val} "
-        f"val steps) + {test_b} test batches; the backward in train steps "
-        f"only")
+        f"val steps) + {test_b} test batches, each {INFER_FLIPS} forwards "
+        f"under --tta; the backward in train steps only")
     assert {k: launches[k] for k in expected} == expected
     return launches
 
@@ -1963,8 +2008,9 @@ def zoo_entry(model_type):
     return dict(kw, **ZOO[model_type])
 
 
-def run_zoo_training(tmp):
-    """The training CLI for each model of ZOO from its one-entry model YAML
+def run_zoo_training(tmp, models=tuple(ZOO)):
+    """The training CLI for each of ``models`` (default: every model of ZOO)
+    from its one-entry model YAML
     (512^2, batch 16, bf16, ZOO_TRAIN's epochs): run_cli's checks, the
     parameter count of the entry as JAX counts it (plus the heads), and
     exactly the expected EDT launches: the boundary term of every train and
@@ -2006,7 +2052,7 @@ def run_zoo_training(tmp):
         return got["edt_minplus"], (best, cfg)
 
     with concurrent.futures.ThreadPoolExecutor(ZOO_TRAIN_PARALLEL) as pool:
-        done = dict(zip(ZOO, pool.map(train, ZOO)))
+        done = dict(zip(models, pool.map(train, models)))
     phase("zoo train", f"phase wall time {time.perf_counter() - t0:.1f} s "
           f"({ZOO_TRAIN_PARALLEL} runs at a time)")
     return ({m: n for m, (n, _) in done.items()},
@@ -2065,6 +2111,447 @@ def zoo_serve(ckpts):
               f"max|logit| {rel:.3e} (limit {ZOO_LOGIT_RTOL:g})")
         assert torch.isfinite(on_card).all() and rel <= ZOO_LOGIT_RTOL
     phase("zoo serve", f"phase wall time {time.perf_counter() - t0:.1f} s")
+
+
+def make_infer_frames(root, seed):
+    """INFER_FRAMES as grayscale JPEGs under ``root/imgs`` (speckle over a
+    dark field, one brighter ellipse each, as make_frames draws them) and
+    their ellipses as ``root/masks/<stem>_mask.png``. Returns the two
+    directories and [(name, (width, height))]."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    imgs, masks = os.path.join(root, "imgs"), os.path.join(root, "masks")
+    os.makedirs(imgs)
+    os.makedirs(masks)
+    frames = []
+    for w, h, n in INFER_FRAMES:
+        yy, xx = np.mgrid[0:h, 0:w]
+        for _ in range(n):
+            cy, cx, ry, rx = rng.uniform([0.3, 0.3, 0.08, 0.08],
+                                         [0.7, 0.7, 0.25, 0.25])
+            inside = ((yy / h - cy) / ry) ** 2 + ((xx / w - cx) / rx) ** 2 < 1
+            img = 60 + 90 * inside + rng.normal(0, 25, (h, w))
+            stem = f"f{len(frames):02d}"
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(imgs, stem + ".jpg"))
+            Image.fromarray(inside.astype(np.uint8) * 255).save(
+                os.path.join(masks, stem + "_mask.png"))
+            frames.append((stem + ".jpg", (w, h)))
+    return imgs, masks, frames
+
+
+def infer_forwards(sizes, batch, sliding=False):
+    """Model forwards of one pass of the infer CLI over frames of ``sizes``
+    [(width, height)]: batches of ``batch`` resized frames, or under
+    --sliding_window one a chunk of INFER_TILE_BATCH tiles of each frame."""
+    if not sliding:
+        return -(-len(sizes) // batch)
+    from ddti_tpu_torch.eval.sliding_window import tile_coords
+
+    return sum(-(-len(tile_coords(h, w, INFER_WINDOW, INFER_STRIDE)[2])
+               // INFER_TILE_BATCH) for w, h in sizes)
+
+
+def infer_flash_launches(layers, sizes, batch, *, tta=False, members=1,
+                         sliding=False, fold_bn=False):
+    """The flash forward's launches in one infer CLI run of a model with
+    ``layers`` attention layers: one a layer in each forward, four forwards
+    under --tta, one a member of an ensemble, and --fold_bn's check (the
+    model and its folded copy on one frame, each member)."""
+    flips = INFER_FLIPS if tta else 1
+    fold = 2 * members if fold_bn else 0
+    return layers * (flips * members * infer_forwards(sizes, batch, sliding)
+                     + fold)
+
+
+def parse_infer_output(text):
+    """(images, seconds, img/s, flash launches) from the infer CLI's
+    ``predicted N images in Ts (R img/s)`` and ``[KERNELS] flash_fwd=K``
+    lines."""
+    import re
+
+    m = re.search(r"^predicted (\d+) images in ([\d.]+)s \(([\d.]+) img/s\)",
+                  text, re.M)
+    k = re.search(r"^\[KERNELS\] flash_fwd=(\d+)$", text, re.M)
+    assert m and k, text[-2000:]
+    return int(m.group(1)), float(m.group(2)), float(m.group(3)), \
+        int(k.group(1))
+
+
+def run_infer_cli(label, ckpt, model_args, flags, imgs, out, frames,
+                  expected):
+    """One run of ``python -m ddti_tpu_torch.cli.infer --device cuda``:
+    exit 0, a mask of each frame's size (binary, or soft under --prob),
+    an overlay of each under --overlay, eval_metrics.json and
+    per_image_metrics.csv under --mask_dir, and exactly ``expected`` flash
+    launches. Returns its numbers."""
+    import numpy as np
+    from PIL import Image
+
+    cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.infer", "--device",
+           "cuda", "--checkpoint", ckpt, "--input_dir", imgs,
+           "--output_dir", out, *model_args, *flags]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=INFER_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-3000:], res.stderr[-6000:], sep="\n",
+              file=sys.stderr)
+    assert res.returncode == 0, f"infer {label} failed"
+    n, secs, rate, flash = parse_infer_output(res.stdout)
+    assert n == len(frames)
+    soft = 0
+    for name, size in frames:
+        stem = os.path.splitext(name)[0]
+        m = Image.open(os.path.join(out, stem + "_pred.png"))
+        assert m.mode == "L" and m.size == size, (stem, m.mode, m.size)
+        values = set(np.unique(np.asarray(m)).tolist())
+        soft += len(values - {0, 255})
+        if "--prob" not in flags:
+            assert values <= {0, 255}, (stem, sorted(values)[:8])
+        if "--overlay" in flags:
+            o = Image.open(os.path.join(out, stem + "_overlay.png"))
+            assert o.mode == "RGB" and o.size == size
+    if "--prob" in flags:
+        assert soft > 0, "--prob wrote binary maps"
+    line = ""
+    if "--mask_dir" in flags:
+        with open(os.path.join(out, "eval_metrics.json")) as f:
+            ev = json.load(f)
+        assert os.path.exists(os.path.join(out, "per_image_metrics.csv"))
+        assert ev["images"] == len(frames)
+        line = (f"; --mask_dir IoU {ev['iou']:.4f} F1 {ev['f1']:.4f} "
+                f"HD95 {ev.get('hd95_mean', float('nan')):.2f}")
+    phase("infer", f"{label}: {' '.join(flags)} -> exit 0 in {wall:.1f} s; "
+          f"'predicted {n} images in {secs}s ({rate} img/s)'; flash_fwd "
+          f"launches {flash} (expected {expected}){line}")
+    assert flash == expected, f"{label}: {flash} flash launches"
+    return {"mode": label, "flags": flags, "wall_s": wall, "cli_s": secs,
+            "img_per_s": rate, "flash_fwd": flash}
+
+
+def _resized_batch(imgs, frames, n, size):
+    """uint8 (n, size, size, 1) of the first n frames, PIL-bilinear
+    resized as the CLI resizes them."""
+    import numpy as np
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(os.path.join(imgs, name))
+                                .convert("L").resize((size, size),
+                                                     Image.BILINEAR),
+                                np.uint8)
+                     for name, _ in frames[:n]])[..., None]
+
+
+def run_infer(tmp, trans_ckpt, attn_ckpt):
+    """The infer phase: the inference CLI in its modes on the serving
+    slice's TransUNet and on an AttentionUNet (its gates' BatchNorms
+    folded), then in-process on the card: TTA'd float32 logits kernel vs
+    plain path, folded vs unfolded float32 logits, bf16 vs float32 TTA
+    masks, and device times of one bf16 batch (TTA and --fold_bn on and
+    off) and of one tiled 1024 x 768 frame."""
+    import numpy as np
+    import torch
+
+    from PIL import Image
+
+    from ddti_tpu_torch.eval.sliding_window import (
+        sliding_window_logits,
+        tile_coords,
+    )
+    from ddti_tpu_torch.eval.tta import tta_logits
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.export import (
+        make_serve_fn,
+        nhwc_logits,
+        serve_body,
+    )
+    from ddti_tpu_torch.train.fold_bn import fold_batchnorm
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "infer")
+    imgs, masks, frames = make_infer_frames(root, SEED + 3)
+    sizes = [s for _, s in frames]
+    # mode (c)'s folder: the first INFER_OVERLAY_FRAMES frames of each size
+    imgs_c = os.path.join(root, "imgs_c")
+    os.makedirs(imgs_c)
+    frames_c = []
+    for w, h, _ in INFER_FRAMES:
+        frames_c += [f for f in frames if f[1] == (w, h)][
+            :INFER_OVERLAY_FRAMES]
+    for name, _ in frames_c:
+        os.symlink(os.path.join(imgs, name), os.path.join(imgs_c, name))
+    sizes_c = [s for _, s in frames_c]
+    size = SLICE["image_size"]
+    trans_b = os.path.join(tmp, "transunet_seed1.pth")
+    torch.save(random_state(create_model("TransUNet", **SLICE), SEED + 1),
+               trans_b)
+    common = ["--image_size", str(size), "--batch_size", str(BATCH)]
+    trans_args = ["--model_type", "TransUNet", "--base_filters",
+                  str(SLICE["base_filters"]), "--depth", str(SLICE["depth"]),
+                  *common]
+    attn_args = ["--model_type", "AttentionUNet", "--base_filters",
+                 str(INFER_ATTN["base_filters"]), "--depth",
+                 str(INFER_ATTN["depth"]), *common]
+    a_flags = ["--bf16", "--tta", "--mask_dir", masks]
+    c_flags = ["--fold_bn", "--prob", "--overlay"]
+    all_f, c_f = (imgs, frames), (imgs_c, frames_c)
+    runs = [  # (label, checkpoint, model args, flags, frames, launches)
+        ("TransUNet (a) resized", trans_ckpt, trans_args, a_flags, all_f,
+         infer_flash_launches(N_LAYERS, sizes, BATCH, tta=True)),
+        ("TransUNet (b) tiled", trans_ckpt, trans_args,
+         ["--sliding_window", "--window", str(INFER_WINDOW), "--stride",
+          str(INFER_STRIDE)], all_f,
+         infer_flash_launches(N_LAYERS, sizes, BATCH, sliding=True)),
+        ("TransUNet (c) folded", trans_ckpt, trans_args, c_flags, c_f,
+         infer_flash_launches(N_LAYERS, sizes_c, BATCH, fold_bn=True)),
+        ("TransUNet (d) ensemble", f"{trans_ckpt},{trans_b}", trans_args, [],
+         all_f, infer_flash_launches(N_LAYERS, sizes, BATCH, members=2)),
+        ("AttentionUNet (a) resized", attn_ckpt, attn_args, a_flags, all_f,
+         0),
+        ("AttentionUNet (c) folded", attn_ckpt, attn_args, c_flags, c_f, 0),
+    ]
+    phase("infer", f"{len(frames)} synthetic JPEG frames "
+          f"{', '.join(f'{c} at {w}x{h}' for w, h, c in INFER_FRAMES)}; "
+          f"checkpoints: the slice's TransUNet {os.path.basename(trans_ckpt)}"
+          f" (+ seed {SEED + 1} for the ensemble), AttentionUNet "
+          f"{os.path.basename(attn_ckpt)}; {len(runs)} CLI runs, "
+          f"{INFER_PARALLEL} at a time; mode (c) over {len(frames_c)} of "
+          f"the frames")
+
+    def one(i):
+        label, ck, margs, flags, (src, fr), expected = runs[i]
+        return run_infer_cli(label, ck, margs, flags, src,
+                             os.path.join(root, f"out{i}"), fr, expected)
+
+    with concurrent.futures.ThreadPoolExecutor(INFER_PARALLEL) as pool:
+        cli = list(pool.map(one, range(len(runs))))
+    launches = sum(r["flash_fwd"] for r in cli)
+
+    def load(model_type, ck, **kw):
+        kw = dict(SLICE, **kw) if model_type == "TransUNet" else \
+            dict(INFER_ATTN, **kw)
+        return load_checkpoint_into(ck, model_type, create_model(
+            model_type, **kw)).cuda().eval()
+
+    x_u8 = torch.from_numpy(_resized_batch(imgs, frames, BATCH, size)).cuda()
+    xf = x_u8[:INFER_CHECK_BATCH].float() / 255.0
+    trans = load("TransUNet", trans_ckpt)
+    plain = load("TransUNet", trans_ckpt, use_flash_attention=False)
+    with torch.inference_mode():
+        n0 = A.flash_forward_cuda.launches
+        lk = tta_logits(lambda x: nhwc_logits(trans, x), xf)
+        n_kernel = A.flash_forward_cuda.launches - n0
+        lp = tta_logits(lambda x: nhwc_logits(plain, x), xf)
+        n_plain = A.flash_forward_cuda.launches - n0 - n_kernel
+    rel = float((lk - lp).abs().max() / lp.abs().max())
+    phase("infer", f"float32 TTA logits of {INFER_CHECK_BATCH} frames, "
+          f"kernel path ({n_kernel} flash launches) vs plain path "
+          f"({n_plain}): max|d| / max|logit| {rel:.3e} (limit "
+          f"{INFER_LOGIT_RTOL:g}); finite {bool(torch.isfinite(lk).all())}")
+    assert n_kernel == INFER_FLIPS * N_LAYERS and n_plain == 0
+    assert torch.isfinite(lk).all() and rel <= INFER_LOGIT_RTOL
+    del plain
+
+    agree, fold_rows, folded = {}, {}, {}
+    for name, model in (("TransUNet", trans),
+                        ("AttentionUNet", load("AttentionUNet", attn_ckpt))):
+        tf = time.perf_counter()
+        folded[name] = fold_batchnorm(model, name)
+        fold_s = time.perf_counter() - tf
+        with torch.inference_mode():
+            want = nhwc_logits(model, xf)
+            got = nhwc_logits(folded[name], xf)
+            m32 = serve_body(model, x_u8, tta=True)
+            m16 = serve_body(model, x_u8, compute_dtype=torch.bfloat16,
+                             tta=True)
+        err = float((got - want).abs().max())
+        tol = 1e-3 + 0.01 * float(want.abs().max())
+        agree[name] = float((m32 == m16).float().mean())
+        fold_rows[name] = {"max_abs_err": err, "tol": tol,
+                           "fold_s": fold_s}
+        phase("infer", f"{name}: fold_batchnorm on the card in {fold_s:.2f}"
+              f" s (its own check included); folded vs unfolded float32 "
+              f"logits max|d| {err:.3e} (limit 1e-3 + 0.01 max|logit| = "
+              f"{tol:.3e}); bf16 vs float32 TTA masks of {BATCH} frames "
+              f"agree on {agree[name]:.6%} (limit {INFER_BF16_AGREE:.1%}); "
+              f"foreground {float(m32.float().mean()):.4f}")
+        assert err <= tol and agree[name] >= INFER_BF16_AGREE
+        if name == "AttentionUNet":
+            del model, folded[name]
+
+    ms = {}
+    for fold in (False, True):
+        model = folded["TransUNet"] if fold else trans
+        for use_tta in (False, True):
+            serve = make_serve_fn(model, compute_dtype=torch.bfloat16,
+                                  tta=use_tta)
+            ms[f"tta={use_tta} fold_bn={fold}"] = median_ms(
+                lambda: serve(x_u8), runs=INFER_TIMED_RUNS)
+    phase("infer", f"device time per bf16 batch of {BATCH} at {size}^2 "
+          f"(CUDA events, median of {INFER_TIMED_RUNS}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f"; TTA / plain {ms['tta=True fold_bn=False'] / ms['tta=False fold_bn=False']:.3f}"
+          f", folded / unfolded {ms['tta=False fold_bn=True'] / ms['tta=False fold_bn=False']:.4f}")
+
+    big_w, big_h = INFER_FRAMES[-1][:2]
+    big = next((n, s) for n, s in frames if s == (big_w, big_h))
+    frame = torch.from_numpy(np.asarray(Image.open(os.path.join(
+        imgs, big[0])).convert("L"), np.float32)[..., None] / 255.0).cuda()
+
+    def fwd16(x):
+        return nhwc_logits(trans, x, bf16=True)
+
+    with torch.inference_mode():
+        n0 = A.flash_forward_cuda.launches
+        tiled = sliding_window_logits(fwd16, frame, window=INFER_WINDOW,
+                                      stride=INFER_STRIDE,
+                                      tile_batch=INFER_TILE_BATCH)
+        n_tiled = A.flash_forward_cuda.launches - n0
+        tiled_ms = median_ms(lambda: sliding_window_logits(
+            fwd16, frame, window=INFER_WINDOW, stride=INFER_STRIDE,
+            tile_batch=INFER_TILE_BATCH), runs=INFER_TIMED_RUNS)
+    n_tiles = len(tile_coords(big_h, big_w, INFER_WINDOW, INFER_STRIDE)[2])
+    phase("infer", f"sliding_window_logits of one {big_w}x{big_h} frame, "
+          f"bf16, "
+          f"{n_tiles} tiles at window {INFER_WINDOW} stride {INFER_STRIDE} "
+          f"({n_tiled} flash launches): {tiled_ms:.3f} ms (CUDA events, "
+          f"median of {INFER_TIMED_RUNS}); logits {tuple(tiled.shape)} "
+          f"finite {bool(torch.isfinite(tiled).all())}")
+    assert tiled.shape == (big_h, big_w, 1) and torch.isfinite(tiled).all()
+    assert n_tiled == N_LAYERS * -(-n_tiles // INFER_TILE_BATCH)
+    del trans, folded
+    torch.cuda.empty_cache()
+    phase("infer", f"phase wall time {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "cli": cli, "tta_logit_rel": rel,
+            "fold": fold_rows, "bf16_agree": agree, "batch_ms": ms,
+            "tiled_ms": tiled_ms, "tiles": n_tiles}
+
+
+def _padded_batch(orig, size):
+    """The daemon's batch of one frame: PIL-bilinear resized to size^2,
+    zero-padded to BATCH, uint8 (BATCH, size, size, 1)."""
+    import numpy as np
+    from PIL import Image
+
+    x = np.zeros((BATCH, size, size, 1), np.uint8)
+    x[0, ..., 0] = np.asarray(orig.resize((size, size), Image.BILINEAR))
+    return x
+
+
+def infer_daemon(ckpt):
+    """The daemon with --tta --fold_bn (bf16, the slice's TransUNet): /healthz
+    reports both; INFER_DAEMON_POSTS frames POSTed one at a time (each its
+    own zero-padded batch) come back as serve_body's masks of the same
+    padded batch on the folded model, resized to the frame; one ?overlay=1
+    answers the frame with the mask's contours, as _overlay_png draws
+    them; 16 flash launches a batch (4 flips x 4 layers). The daemon's
+    --threshold is the median TTA probability of the POSTed frames: at 0.5
+    this random-weight model's TTA'd masks are empty, and an empty mask has
+    no contour to draw."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddti_tpu_torch.cli import serve
+    from ddti_tpu_torch.eval.tta import tta_probs
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.export import nhwc_logits, serve_body
+    from ddti_tpu_torch.train.fold_bn import fold_batchnorm
+
+    size = SLICE["image_size"]
+    rng = np.random.default_rng(SEED + 4)
+    posts = []  # (JPEG bytes, the frame as PIL decodes it)
+    for i in range(INFER_DAEMON_POSTS):
+        w, h = INFER_FRAMES[i % len(INFER_FRAMES)][:2]
+        frame = make_frames(1, max(w, h), int(rng.integers(1 << 30)))[0]
+        buf = io.BytesIO()
+        Image.fromarray(frame[:h, :w], "L").save(buf, "JPEG")
+        posts.append((buf.getvalue(),
+                      Image.open(io.BytesIO(buf.getvalue())).convert("L")))
+    folded = fold_batchnorm(load_checkpoint_into(
+        ckpt, "TransUNet", create_model("TransUNet", **SLICE)).cuda().eval())
+    def fwd16(x):
+        return nhwc_logits(folded, x, bf16=True)
+
+    with torch.inference_mode():
+        probs = torch.cat([tta_probs(fwd16, torch.from_numpy(
+            _padded_batch(orig, size)[:1]).cuda().float() / 255.0)
+            for _, orig in posts])
+    threshold = f"{float(probs.median()):.6f}"
+
+    args = serve.get_parser().parse_args(
+        ["--checkpoint", ckpt, "--model_type", "TransUNet",
+         "--base_filters", str(SLICE["base_filters"]),
+         "--depth", str(SLICE["depth"]), "--image_size", str(size),
+         "--batch_size", str(BATCH), "--bf16", "--tta", "--fold_bn",
+         "--threshold", threshold, "--device", "cuda", "--port", "0"])
+    server = serve.create_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        health = get_json(port, "/healthz")
+        phase("infer", f"daemon --tta --fold_bn --threshold {threshold} "
+              f"(the median TTA probability of the {len(posts)} frames): "
+              f"/healthz {json.dumps(health)}")
+        assert health["tta"] is True and health["fold_bn"] is True
+        batches0 = server.batcher.n_batches
+        answers, launches = [], 0
+        for i, (body, orig) in enumerate(posts):
+            # the daemon's launches alone, not the reference's below
+            A.flash_forward_cuda.launches = 0
+            status, headers, data, dt = post(port, body)
+            launches += A.flash_forward_cuda.launches
+            assert status == 200, (status, data[:200])
+            got = np.frombuffer(data, np.uint8).reshape(
+                int(headers["X-Height"]), int(headers["X-Width"]))
+            with torch.inference_mode():
+                mask = serve_body(
+                    folded, torch.from_numpy(_padded_batch(orig, size)).cuda(),
+                    float(threshold), compute_dtype=torch.bfloat16,
+                    tta=True)[0, ..., 0].cpu().numpy()
+            want = np.asarray(Image.fromarray(mask * 255).resize(
+                orig.size, Image.NEAREST))
+            same = float((got == want).mean())
+            fg = float((got > 0).mean())
+            phase("infer", f"daemon POST {orig.size[0]}x{orig.size[1]} JPEG "
+                  f"-> {got.shape} mask in {dt * 1e3:.1f} ms, equal to "
+                  f"serve_body's on the same padded batch on {same:.6%} of "
+                  f"pixels, foreground {fg:.4f}")
+            assert got.shape == orig.size[::-1] and same == 1.0
+            answers.append((abs(fg - 0.5), i, got))
+        n_batches = server.batcher.n_batches - batches0
+        # the overlay of the frame whose mask is the most mixed
+        _, i, got = min(answers)
+        body, orig = posts[i]
+        status, headers, data, _ = post(port, body, "/predict?overlay=1")
+        overlay = np.asarray(Image.open(io.BytesIO(data)))
+        want_o = serve._overlay_png(orig, got)
+        red = int((overlay[..., 0] != overlay[..., 1]).sum()) \
+            if overlay.ndim == 3 else 0
+        phase("infer", f"daemon ?overlay=1 -> HTTP {status} "
+              f"{headers.get('Content-Type')} {overlay.shape}, equal to "
+              f"_overlay_png of the frame and its mask: "
+              f"{bool(np.array_equal(overlay, want_o))} ({red} contour "
+              f"pixels); {launches} flash launches for {n_batches} "
+              f"batches (expected {INFER_FLIPS * N_LAYERS} a batch)")
+        assert status == 200 and np.array_equal(overlay, want_o)
+        assert overlay.shape == (*got.shape, 3) and red > 0
+        assert n_batches == INFER_DAEMON_POSTS
+        assert launches == INFER_FLIPS * N_LAYERS * n_batches
+    finally:
+        server.shutdown()
+        server.close()
+        thread.join(timeout=30)
+    return launches
 
 
 def _train_setup(size, batch, amp, seed=SEED, model_type="ResUNet",
@@ -2430,13 +2917,49 @@ def ab_probes():
                 edt=edt)
 
 
-def ab_side(tree, probes_only=False):
+def ab_serve():
+    """The slice's TransUNet (random weights, seed SEED) serving one bf16
+    batch of BATCH frames through make_serve_fn, with the tree that is
+    imported: device ms (CUDA events, median of 20) and torch.profiler's
+    top kernels over PROFILE_BATCHES batches: {"ms", "top": [[share,
+    kernel], ...]}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.export import make_serve_fn
+
+    model = create_model("TransUNet", **SLICE)
+    model.load_state_dict(random_state(model, SEED))
+    serve = make_serve_fn(model.cuda(), compute_dtype=torch.bfloat16)
+    x = torch.from_numpy(np.stack(make_frames(
+        BATCH, SLICE["image_size"], SEED + 1))[..., None]).cuda()
+    ms = median_ms(lambda: serve(x))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_BATCHES):
+            serve(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) or 1.0
+    top = [[round(e.self_device_time_total / busy, 4), e.key[:90]]
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+           [:PROFILE_TOP]]
+    phase("ab", f"bf16 serving batch of {BATCH}: {ms:.3f} ms; top "
+          + "; ".join(f"{a:.1%} {k[:60]}" for a, k in top[:4]))
+    return dict(ms=ms, top=top)
+
+
+def ab_side(tree, which=None):
     """One side of a same-card comparison of two trees: kernel_phases() and
     the TransUNet train steps on the kernel path (float32, the training
     CLI's default, then bf16; S = 1024 at batch 16 and S = 4096 at batch 8)
-    and the conv3x3 and gather probes (ab_probes), or with ``probes_only``
-    the probes alone, with ``tree``'s ddti_tpu_torch and this file's
-    measurements. Prints one line "[ab] {json}"."""
+    and the conv3x3 and gather probes (ab_probes); with ``which`` "probes"
+    the probes alone, with "serve" the serving batch alone (ab_serve); with
+    ``tree``'s ddti_tpu_torch and this file's measurements. Prints one line
+    "[ab] {json}"."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -2446,9 +2969,10 @@ def ab_side(tree, probes_only=False):
 
     _build.build()
     _build.load_library()
-    if probes_only:
-        print("[ab] " + json.dumps(dict(tree=tree, source=_build.__file__,
-                                        probes=ab_probes())), flush=True)
+    if which in ("probes", "serve"):
+        got = ab_probes() if which == "probes" else ab_serve()
+        print("[ab] " + json.dumps({"tree": tree, "source": _build.__file__,
+                                    which: got}), flush=True)
         return
     fwd, bwd, _ = kernel_phases()
     size = TTRAIN["image_size"]
@@ -2467,7 +2991,8 @@ def ab(parent, *which):
     """Compare the tree at ``parent`` (another commit unpacked, e.g. with
     git archive) with this one on one card, in the order parent, this, this,
     parent, each side in its own process (ab_side); ``which`` = ("probes",)
-    compares the probes and the EDT alone (ab_probes)."""
+    compares the probes and the EDT alone (ab_probes), ("serve",) the bf16
+    serving batch alone (ab_serve)."""
     for tree in (parent, ".", ".", parent):
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--ab-side", tree, *which], check=True)
@@ -2491,6 +3016,35 @@ def zoo_only():
     zoo_steps()
     rows = profile_zoo([(m, *p) for m in ZOO for p in TRAIN_PROFILES])
     print(json.dumps({"zoo_launches": launches, "zoo_train_steps": rows}))
+    return 0
+
+
+def infer_only():
+    """The infer phase alone, on the slice's TransUNet with random weights
+    (seed SEED, as the slice phase makes it) and the AttentionUNet entry
+    trained for ZOO_TRAIN's epoch, as the zoo train phase trains it; then
+    the daemon: ``python3 chip_smoke.py --infer``."""
+    import torch
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import _build
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the CLI processes load it
+    with tempfile.TemporaryDirectory() as tmp:
+        trans = os.path.join(tmp, "transunet_bf64_d4_512.pth")
+        torch.save(random_state(create_model("TransUNet", **SLICE), SEED),
+                   trans)
+        _, zoo_ckpts = run_zoo_training(tmp, ["AttentionUNet"])
+        infer = run_infer(tmp, trans, zoo_ckpts["AttentionUNet"][0] + ".pth")
+        infer["daemon_launches"] = infer_daemon(trans)
+    print(json.dumps({"infer": infer}))
     return 0
 
 
@@ -2554,6 +3108,8 @@ def main():
         t_launches = run_transunet_training(tmp)
         zoo_launches, zoo_ckpts = run_zoo_training(tmp)
         zoo_serve(zoo_ckpts)
+        infer = run_infer(tmp, ckpt, zoo_ckpts["AttentionUNet"][0] + ".pth")
+        infer["daemon_launches"] = infer_daemon(ckpt)
     step_kernel_vs_plain()
     zoo_steps()
     tstep_kernel_vs_plain()
@@ -2590,6 +3146,8 @@ def main():
         "also_replaces": "ddti_tpu/ops/attention.py:104",
         "launches": launches,
         "train_launches": t_launches["flash_fwd"],
+        "infer_launches": infer["launches"],
+        "infer": infer,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -2767,9 +3325,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"]:  # python3 chip_smoke.py --ab TREE [probes]
         sys.exit(ab(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ab-side"]:
-        sys.exit(ab_side(sys.argv[2], sys.argv[3:4] == ["probes"]))
+        sys.exit(ab_side(sys.argv[2], *sys.argv[3:4]))
     if sys.argv[1:2] == ["--poly-child"]:
         sys.exit(poly_child())
     if sys.argv[1:2] == ["--zoo"]:
         sys.exit(zoo_only())
+    if sys.argv[1:2] == ["--infer"]:
+        sys.exit(infer_only())
     sys.exit(main())

@@ -89,6 +89,11 @@ def get_parser() -> argparse.ArgumentParser:
                    help="bf16 autocast for the model's forward and backward")
     p.add_argument("--surface_metrics", default=True, type=_str2bool,
                    help="per-image HD95/ASSD surface distances in test()")
+    p.add_argument("--tta", action="store_true",
+                   help="4-way flip test-time augmentation in test(): the "
+                        "sigmoid probabilities averaged over {identity, h, "
+                        "v, hv} flips (4 forward passes, eval/tta.py); "
+                        "validation stays without it")
     p.add_argument("--mode", default="test", choices=["train", "test", "both"])
     p.add_argument("--image_size", default=512, type=int)
     p.add_argument("--store_size", default=512, type=int)

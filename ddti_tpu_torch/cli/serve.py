@@ -10,21 +10,26 @@ Endpoints:
   GET  /stats     request/image/batch counters, throughput, latency (JSON)
   POST /predict   body = raw image bytes (JPEG/PNG/BMP, any size, decoded
                   with PIL); response = PNG mask at the ORIGINAL resolution.
-                  ``?format=raw`` returns raw uint8 bytes (X-Width /
-                  X-Height / X-Channels headers) and skips the PNG encoder.
+                  ``?overlay=1`` returns the original frame (RGB) with the
+                  mask's contours drawn in red instead. ``?format=raw``
+                  returns raw uint8 bytes (X-Width / X-Height / X-Channels
+                  headers) and skips the PNG encoder.
 
 Usage:
   python -m ddti_tpu_torch.cli.serve --checkpoint <.pth|.npz> \
       --model_type TransUNet --base_filters 64 --depth 4 --image_size 512 \
-      --batch_size 16 --bf16 [--device cuda]
+      --batch_size 16 --bf16 [--tta] [--fold_bn] [--device cuda]
 
 Any of the seven models of ``models/zoo.py`` serves; ``--config_path``
 takes the model YAML a run was trained from (an ImprovedVNet with
 ``deep_supervision: true`` carries its heads' weights; its main logits
-decide the mask).
+decide the mask). ``--tta`` thresholds the mean probability of the 4-way
+flip ensemble (four forwards a batch); ``--fold_bn`` folds every Conv ->
+BatchNorm pair into the conv before serving (``train/fold_bn.py``, checked
+against the unfolded model at load). ``/healthz`` reports both.
 
 Not ported yet (ROADMAP.md): serving bundles, /reload, --watch, /metrics,
-overlays, native JPEG decode, --tta, --fold_bn.
+native JPEG decode.
 """
 
 from __future__ import annotations
@@ -200,17 +205,41 @@ def load_predictor(args):
         kwargs.setdefault("image_size", args.image_size)
     model = create_model(model_type, **kwargs)
     load_checkpoint_into(args.checkpoint, model_type, model)
-    serve = make_serve_fn(model.to(device), threshold=args.threshold,
+    model = model.to(device)
+    if args.fold_bn:
+        from ddti_tpu_torch.train.fold_bn import fold_batchnorm
+
+        model = fold_batchnorm(model, model_type)
+    serve = make_serve_fn(model, threshold=args.threshold,
                           compute_dtype=(torch.bfloat16 if args.bf16
-                                         else torch.float32))
+                                         else torch.float32),
+                          tta=args.tta)
 
     def predict(x):
         out = serve(torch.from_numpy(np.ascontiguousarray(x)).to(device))
         return out.cpu().numpy()
 
     info = {"model": model_type, **{k: kwargs[k] for k in (
-        "base_filters", "depth") if k in kwargs}, "device": str(device)}
+        "base_filters", "depth") if k in kwargs}, "device": str(device),
+        "tta": bool(args.tta), "fold_bn": bool(args.fold_bn)}
     return predict, args.batch_size, args.image_size, info
+
+
+def _overlay_png(orig_gray, mask_2d):
+    """Red predicted contours (``eval/contours.py`` marching squares) drawn
+    on the original grayscale frame: the online twin of the infer CLI's
+    --overlay. Returns (H, W, 3) uint8."""
+    import numpy as np
+
+    from ddti_tpu_torch.eval.contours import find_contours
+
+    rgb = np.repeat(np.asarray(orig_gray)[..., None], 3, axis=-1).copy()
+    for c in find_contours((np.asarray(mask_2d) > 0).astype(np.float32),
+                           0.5):
+        rr = np.clip(np.round(c[:, 0]).astype(int), 0, rgb.shape[0] - 1)
+        cc = np.clip(np.round(c[:, 1]).astype(int), 0, rgb.shape[1] - 1)
+        rgb[rr, cc] = (255, 0, 0)
+    return rgb
 
 
 def _quantiles(latencies) -> list:
@@ -282,6 +311,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         t0 = time.perf_counter()
         query = parse_qs(parsed.query)
+        want_overlay = query.get("overlay", ["0"])[0] not in ("0", "",
+                                                              "false")
         try:
             length = int(self.headers.get("Content-Length", 0))
             data = self.rfile.read(length)
@@ -312,12 +343,15 @@ class _Handler(BaseHTTPRequestHandler):
             return
         m = Image.fromarray((mask[..., 0] * 255).astype(np.uint8))
         m = m.resize(orig_size, Image.NEAREST)
+        if want_overlay:  # drawn on the frame at its original resolution
+            m = Image.fromarray(_overlay_png(img, np.asarray(m)))
         if query.get("format", ["png"])[0] == "raw":
             arr = np.asarray(m)
             body = arr.tobytes()
             ctype = "application/octet-stream"
             dims = {"X-Width": str(arr.shape[1]),
-                    "X-Height": str(arr.shape[0]), "X-Channels": "1"}
+                    "X-Height": str(arr.shape[0]),
+                    "X-Channels": str(1 if arr.ndim == 2 else arr.shape[2])}
         else:
             buf = io.BytesIO()
             m.save(buf, "PNG")
@@ -410,6 +444,11 @@ def get_parser() -> argparse.ArgumentParser:
                     help="bf16 autocast compute (params stay float32)")
     ap.add_argument("--threshold", type=float, default=0.5,
                     help="binarization threshold")
+    ap.add_argument("--tta", action="store_true",
+                    help="4-way flip test-time augmentation (four forwards "
+                         "a batch)")
+    ap.add_argument("--fold_bn", action="store_true",
+                    help="fold BatchNorm into the conv weights at load")
     ap.add_argument("--device", default="cuda",
                     help="cuda[:N] (default; raises if CUDA is absent) or "
                          "cpu")

@@ -61,6 +61,7 @@ class Config:
     log_every: int = 20
     early_stop_patience: int = 50
     surface_metrics: bool = True  # per-image HD95/ASSD in Trainer.test()
+    tta: bool = False  # 4-way flip test-time augmentation in test()
 
     # precision / data / device
     use_amp_autocast: bool = False  # bf16 autocast

@@ -92,3 +92,33 @@ def surface_metrics_batch(preds: torch.Tensor, gts: torch.Tensor) -> dict:
     g = gts[..., 0] if gts.dim() == 4 else gts
     return surface_distance_stats(p.to(torch.float32) > 0,
                                   g.to(torch.float32) > 0)
+
+
+def surface_distance_stats_oracle(pred, gt) -> dict:
+    """Host/scipy version of one image pair's HD, HD95 and ASSD with the
+    same conventions (medpy's formulas from scipy primitives), as
+    ``ddti_tpu/eval/surface.py:surface_distance_stats_oracle``. The folder
+    scorer (``eval/folder_eval.py``) uses it because its images may each
+    have their own shape."""
+    import numpy as np
+    from scipy import ndimage
+
+    pred = np.asarray(pred).astype(bool)
+    gt = np.asarray(gt).astype(bool)
+    footprint = ndimage.generate_binary_structure(2, 1)
+
+    def border(m):
+        return m ^ ndimage.binary_erosion(m, structure=footprint,
+                                          border_value=0)
+
+    pb, gb = border(pred), border(gt)
+    if not pb.any() or not gb.any():
+        return {"hd": float("nan"), "hd95": float("nan"),
+                "assd": float("nan"), "valid": 0.0}
+    d_pg = ndimage.distance_transform_edt(~gb)[pb]
+    d_gp = ndimage.distance_transform_edt(~pb)[gb]
+    both = np.hstack([d_pg, d_gp])
+    return {"hd": float(both.max()),
+            "hd95": float(np.percentile(both, 95)),
+            "assd": float(both.mean()),
+            "valid": 1.0}

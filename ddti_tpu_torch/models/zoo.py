@@ -171,6 +171,7 @@ class TransUNet(_EncoderDecoderBase):
         super().__init__(in_channels, out_channels, base_filters, depth)
         ch = self.channels
         self.embed_dim = embed_dim
+        self.image_size = image_size
         self.encoders = nn.ModuleList(
             ConvBNAct(cin, c) for cin, c in zip([in_channels] + ch[:-1], ch))
         s = image_size // (2 ** depth)

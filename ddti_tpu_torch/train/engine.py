@@ -1,7 +1,8 @@
 """The training engine, ported from ``ddti_tpu/train/engine.py``:
 ``Trainer`` with stepwise train epochs, validation, best-by-val-IoU and
 last saves, early stopping and the test phase (global and per-image
-metrics, HD95/ASSD surface distances).
+metrics, HD95/ASSD surface distances, and with ``config.tta`` the 4-way
+flip ensemble in the test phase, as ``test_metrics.json`` records).
 
 Data are device-resident uint8 stores (``data/dataset.py``); each step
 gathers its batch on the device and returns its metrics there, so the host
@@ -247,7 +248,8 @@ class Trainer:
             json.dump({**{k: float(v) for k, v in m.items()},
                        "total_images": total,
                        "model_type": self.config.model_type,
-                       "threshold": 0.5, "tta": False}, f, indent=1)
+                       "threshold": 0.5,
+                       "tta": bool(self.config.tta)}, f, indent=1)
         if rows:
             self._write_per_image_csv(rows)
         return m

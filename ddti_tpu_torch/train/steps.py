@@ -30,6 +30,7 @@ from ddti_tpu_torch.data.augment import (
     mixup,
 )
 from ddti_tpu_torch.eval.metrics import ConfusionCounts, confusion_counts
+from ddti_tpu_torch.eval.tta import tta_logits
 from ddti_tpu_torch.losses.losses import weighted_loss
 from ddti_tpu_torch.ops.resample import resize_bilinear_hw
 
@@ -109,8 +110,7 @@ def _check_ported(config) -> None:
         ("ema_decay", float(getattr(config, "ema_decay", 0.0) or 0.0) > 0),
         ("qat", bool(getattr(config, "qat", False))),
         ("distill_checkpoint", bool(getattr(config, "distill_checkpoint",
-                                            ""))),
-        ("tta", bool(getattr(config, "tta", False)))) if on]
+                                            "")))) if on]
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)} is not ported yet (ROADMAP.md Queue 1)")
@@ -186,17 +186,24 @@ def make_infer_step(config, threshold: float = 0.5):
     """``step(state, images, masks) -> (images_f, masks_f, preds_u8,
     counts, per_img)`` for the test routine: NHWC float images and masks at
     ``image_size``, uint8 {0, 1} predictions, the global confusion counts
-    and their per-image vectors. No flip TTA yet (ROADMAP.md)."""
+    and their per-image vectors. With ``config.tta`` the logits are the
+    4-way flip ensemble (``eval/tta.py``: four forwards, logit of the mean
+    probability); validation stays without it, as in JAX."""
     _check_ported(config)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
+    use_tta = bool(getattr(config, "tta", False))
 
     @torch.no_grad()
     def step(state: TrainState, images_u8, masks_u8):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
         state.model.eval()
-        logits = _main_logits(_forward(state.model, images, amp))
+
+        def fwd(x):
+            return _main_logits(_forward(state.model, x, amp))
+
+        logits = tta_logits(fwd, images) if use_tta else fwd(images)
         preds = (torch.sigmoid(logits.to(torch.float32)) > threshold
                  ).to(torch.uint8)
         per_img = confusion_counts(logits, masks, threshold=threshold,

@@ -186,3 +186,77 @@ def test_jax_zoo_keys_match_save_params_npz(model_type, kw, tmp_path):
     with np.load(path) as z:
         want = set(z.files)
     assert C.jax_zoo_keys(model_type, 3, **kw) == want
+
+
+@pytest.mark.parametrize("kw, forwards, launches", [
+    # (a) resized, --tta: 32 frames in 2 batches of 16, 4 flips, 4 layers
+    (dict(tta=True), 2, 32),
+    # (b) --sliding_window: 24 frames of 2 tiles and 8 of 6, one chunk of
+    # up to 8 tiles each
+    (dict(sliding=True), 32, 128),
+    # (c) --fold_bn: 2 batches + the check's two forwards of one frame
+    (dict(fold_bn=True), 2, 16),
+    # (d) two members, one forward each a batch
+    (dict(members=2), 2, 16),
+    (dict(sliding=True, tta=True, members=2, fold_bn=True), 32, 4 * (
+        4 * 2 * 32 + 4)),
+])
+def test_infer_flash_launches(kw, forwards, launches):
+    """The infer phase's expected flash launches, counted by hand for its
+    frames (24 at 600 x 480, 8 at 1024 x 768) and the slice's TransUNet (4
+    attention layers, batch 16)."""
+    sizes = [(w, h) for w, h, n in C.INFER_FRAMES for _ in range(n)]
+    assert len(sizes) == 32
+    assert C.infer_forwards(sizes, 16, kw.get("sliding", False)) == forwards
+    assert C.infer_flash_launches(4, sizes, 16, **kw) == launches
+    assert C.infer_flash_launches(0, sizes, 16, **kw) == 0  # AttentionUNet
+
+
+def test_infer_tiles_of_the_two_frame_sizes():
+    from ddti_tpu_torch.eval.sliding_window import tile_coords
+
+    got = {(w, h): len(tile_coords(h, w, C.INFER_WINDOW,
+                                   C.INFER_STRIDE)[2])
+           for w, h, _ in C.INFER_FRAMES}
+    assert got == {(600, 480): 2, (1024, 768): 6}
+    assert max(got.values()) <= C.INFER_TILE_BATCH
+
+
+def test_parse_infer_output():
+    text = ("ensembling 2 checkpoints (probability mean)\n"
+            "predicted 32 images in 3.4s (9.4 img/s)\n"
+            "eval vs 32 masks: IoU=0.1000 F1=0.2000\n"
+            "[KERNELS] flash_fwd=128\n")
+    assert C.parse_infer_output(text) == (32, 3.4, 9.4, 128)
+    with pytest.raises(AssertionError):
+        C.parse_infer_output("predicted 32 images in 3.4s (9.4 img/s)\n")
+
+
+def test_make_infer_frames(tmp_path):
+    """The frames and masks the infer phase writes: INFER_FRAMES' sizes,
+    grayscale JPEGs, binary masks named <stem>_mask.png, the ellipses
+    inside the frames; the same from the same seed."""
+    import numpy as np
+    from PIL import Image
+
+    imgs, masks, frames = C.make_infer_frames(str(tmp_path / "a"), 3)
+    assert [s for _, s in frames] == [
+        (w, h) for w, h, n in C.INFER_FRAMES for _ in range(n)]
+    for name, size in frames:
+        img = Image.open(f"{imgs}/{name}")
+        assert img.mode == "L" and img.size == size
+        m = np.asarray(Image.open(f"{masks}/{name[:-4]}_mask.png"))
+        assert set(np.unique(m)) == {0, 255}
+        assert 0.005 < (m > 0).mean() < 0.5
+    again = C.make_infer_frames(str(tmp_path / "b"), 3)[2]
+    assert again == frames
+    a = np.asarray(Image.open(f"{imgs}/{frames[-1][0]}"))
+    b = np.asarray(Image.open(f"{tmp_path}/b/imgs/{frames[-1][0]}"))
+    np.testing.assert_array_equal(a, b)
+
+
+def test_infer_limits():
+    """The limits the infer phase prints beside each check."""
+    assert C.INFER_LOGIT_RTOL == 1e-3
+    assert C.INFER_BF16_AGREE == 0.995
+    assert C.INFER_FLIPS == 4 and C.INFER_TIMED_RUNS >= 10

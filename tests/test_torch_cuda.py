@@ -858,3 +858,93 @@ def test_zoo_forward_on_card_matches_cpu(cuda, model_type, kw, size):
         assert g.shape == w.shape and g.is_cuda
         rel = float((g.cpu() - w).abs().max() / w.abs().max())
         assert rel < ZOO_RTOL, rel
+
+
+# the inference path: BatchNorm folding and flip TTA on the card against
+# the CPU, float32 with TF32 off; the TransUNet at 1024 bottleneck tokens
+# takes the flash kernel on the card and the plain path on the CPU
+INFER_CASES = [("AttentionUNet", {}, 64),
+               ("ImprovedVNet", {"deep_supervision": True}, 64),
+               ("TransUNet", dict(image_size=128, embed_dim=64, num_heads=2,
+                                  num_transformer_layers=1), 128)]
+
+
+def _infer_model(model_type, kw):
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    depth = 2 if model_type == "TransUNet" else 3
+    m = init_like_flax(create_model(model_type, base_filters=8, depth=depth,
+                                    **kw), 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, t in m.state_dict().items():
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            elif name.endswith(("running_mean", "bias")):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.2)
+    return m.eval()
+
+
+@pytest.mark.parametrize("model_type, kw, size", INFER_CASES)
+def test_fold_batchnorm_on_card_matches_cpu(cuda, model_type, kw, size):
+    """``fold_batchnorm`` on the card (its own check runs there) gives the
+    CPU's folded weights to float32 rounding, and logits within ZOO_RTOL
+    of the CPU's folded model."""
+    from ddti_tpu_torch.ops import attention
+    from ddti_tpu_torch.train.fold_bn import fold_batchnorm
+
+    m = _infer_model(model_type, kw)
+    cpu = fold_batchnorm(m)
+    launches = attention.flash_forward_cuda.launches
+    card = fold_batchnorm(m.to(cuda))
+    if model_type == "TransUNet":  # its check ran both models on the card
+        assert attention.flash_forward_cuda.launches == launches + 2
+    for k, v in cpu.state_dict().items():
+        w = card.state_dict()[k]
+        assert w.is_cuda
+        torch.testing.assert_close(w.cpu(), v, rtol=1e-6, atol=1e-7)
+    x = torch.rand(2, 1, size, size, generator=torch.Generator()
+                   .manual_seed(3))
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = _outs(cpu(x))[0]
+            got = _outs(card(x.to(cuda)))[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert rel < ZOO_RTOL, rel
+
+
+@pytest.mark.parametrize("model_type, kw, size", INFER_CASES)
+def test_tta_logits_on_card_match_cpu(cuda, model_type, kw, size):
+    """``tta_logits`` of one model on the card (four forwards; the
+    TransUNet's through the flash kernel, 1 launch a forward) against the
+    CPU's, within ZOO_RTOL of the largest."""
+    from ddti_tpu_torch.eval.tta import tta_logits
+    from ddti_tpu_torch.ops import attention
+
+    m = _infer_model(model_type, kw)
+    x = torch.rand(2, size, size, 1, generator=torch.Generator()
+                   .manual_seed(4))
+
+    def fwd(model):
+        return lambda t: _outs(model(t.permute(0, 3, 1, 2)))[0].permute(
+            0, 2, 3, 1)
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = tta_logits(fwd(m), x)
+            launches = attention.flash_forward_cuda.launches
+            got = tta_logits(fwd(m.to(cuda)), x.to(cuda))
+            n = attention.flash_forward_cuda.launches - launches
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    assert n == (4 if model_type == "TransUNet" else 0)
+    assert got.is_cuda and torch.isfinite(got).all()
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    assert rel < ZOO_RTOL, rel

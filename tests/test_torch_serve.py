@@ -192,3 +192,78 @@ def test_port_imports_no_jax():
                 assert n.split(".")[0] not in ("jax", "jaxlib", "flax",
                                                "ddti_tpu", "benchmarks"), \
                     (f, n)
+
+
+def test_daemon_tta_fold_bn_masks_equal_serve_body(pth):
+    """``--tta --fold_bn``: /healthz reports both, and a POSTed JPEG comes
+    back as ``serve_body(fold_batchnorm(model), frame, tta=True)``'s mask,
+    resized to the frame as the daemon resizes it."""
+    from ddti_tpu_torch.train.export import serve_body
+    from ddti_tpu_torch.train.fold_bn import fold_batchnorm
+
+    srv = tserve.create_server(tserve.get_parser().parse_args(
+        ["--checkpoint", pth, "--device", "cpu", "--tta", "--fold_bn",
+         *ARGS]))
+    t = _serving(srv)
+    try:
+        health = json.loads(_request(srv, "GET", "/healthz")[1])
+        assert health["tta"] is True and health["fold_bn"] is True
+        for seed, size in ((0, (64, 64)), (1, (90, 50))):
+            img = Image.open(io.BytesIO(_jpeg(seed))).convert("L")
+            buf = io.BytesIO()
+            img.resize(size).save(buf, "JPEG")
+            body = buf.getvalue()
+            resp, data = _request(srv, "POST", "/predict", body)
+            assert resp.status == 200
+            got = np.asarray(Image.open(io.BytesIO(data)))
+            frame = Image.open(io.BytesIO(body)).convert("L")
+            x = np.asarray(frame.resize((64, 64), Image.BILINEAR),
+                           np.uint8)[None, ..., None]
+            model = fold_batchnorm(load_checkpoint_into(
+                pth, "TransUNet", create_model("TransUNet", **SMALL)))
+            with torch.inference_mode():
+                mask = serve_body(model.eval(), torch.from_numpy(x),
+                                  tta=True)[0, ..., 0].numpy()
+            want = np.asarray(Image.fromarray(mask * 255).resize(
+                frame.size, Image.NEAREST))
+            assert got.shape == (size[1], size[0])
+            np.testing.assert_array_equal(got, want)
+    finally:
+        _stop(srv, t)
+    plain = tserve.load_predictor(tserve.get_parser().parse_args(
+        ["--checkpoint", pth, "--device", "cpu", *ARGS]))[3]
+    assert plain["tta"] is False and plain["fold_bn"] is False
+
+
+def test_overlay_equals_jax_overlay_png(pth):
+    """``?overlay=1`` answers the frame at its own size with the mask's
+    contours in red: JAX's ``_overlay_png`` of the same frame and mask; as
+    ``?format=raw`` too, with three channels."""
+    srv = tserve.create_server(tserve.get_parser().parse_args(
+        ["--checkpoint", pth, "--device", "cpu", *ARGS]))
+    t = _serving(srv)
+    try:
+        img = Image.open(io.BytesIO(_jpeg(2))).convert("L")
+        buf = io.BytesIO()
+        img.resize((80, 48)).save(buf, "JPEG")
+        body = buf.getvalue()
+        _, data = _request(srv, "POST", "/predict", body)
+        mask = np.asarray(Image.open(io.BytesIO(data)))
+        assert 0 < mask.mean() < 255  # a contour to draw
+        resp, data = _request(srv, "POST", "/predict?overlay=1", body)
+        assert resp.status == 200
+        assert resp.getheader("Content-Type") == "image/png"
+        got = np.asarray(Image.open(io.BytesIO(data)))
+        orig = Image.open(io.BytesIO(body)).convert("L")
+        want = jserve._overlay_png(orig, mask)
+        assert got.shape == (48, 80, 3)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(tserve._overlay_png(orig, mask), want)
+        assert np.any(got[..., 0] != got[..., 1])  # red drawn
+        resp, raw = _request(srv, "POST", "/predict?overlay=1&format=raw",
+                             body)
+        assert resp.getheader("X-Channels") == "3"
+        np.testing.assert_array_equal(
+            np.frombuffer(raw, np.uint8).reshape(48, 80, 3), want)
+    finally:
+        _stop(srv, t)
