@@ -13,7 +13,8 @@ exp2_probe in every mode and the EDT's queued time and passes; ``--ab
 OTHER_TREE serve`` for the bf16 serving batch alone); ``python3
 chip_smoke.py --zoo`` runs the zoo phases alone and profiles every zoo
 model at both sizes; ``python3 chip_smoke.py --infer`` runs the infer phase
-alone (the AttentionUNet trained first, as the zoo phase trains it).
+alone (the AttentionUNet trained first, as the zoo phase trains it);
+``python3 chip_smoke.py --recipe`` runs the recipe phase alone.
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -153,9 +154,31 @@ and a non-zero exit:
 14. zoo profile — after tprofile: each of those models' bf16 train step at
               512^2 / batch 16, and UNet's also at 256^2 / batch 128, as
               tprofile reads the ResUNet's.
-15. result  — the total wall time, a JSON line of the kernels (the flash
-              forward's with the infer phase's launches), then the device
-              line.
+15. recipe  — the training recipe's augmentation branches and train-step
+              options, on the flagship ResUNet (base_filters 64, depth 5):
+              augment_batch with every branch on (crop, elastic, the exact
+              warp, speckle, TGC, CLAHE) on the card and the CPU from the
+              same draws at 512^2 / batch 16 and 256^2 / batch 128 (masks
+              equal but at near-integer ties of a floored coordinate, at
+              most 0.05% of the pixels; images up to CLAHE within 1e-5
+              (at 64 px; scaled with the size, the float32 spacing of the
+              remap's coordinates) but there; CLAHE bit for bit on the same uint8 frames, whose values differ
+              only within 1e-5 of a rounding boundary; the Paeth warp bit
+              for bit where its shifts agree); test.sh's six ablation commands through the CLI (256^2,
+              batch 16, bf16, 1 epoch, four at a time) and one run with
+              --grad_accum 2 --clip_grad_norm 1.0 --ema_decay 0.999
+              --nan_guard --freeze encoders_0 --freeze_bn_stats --remat 0,1:
+              run_cli's checks, exactly the expected EDT launches (2 a
+              train step under --grad_accum 2), the frozen tensors
+              bit-equal to the initial weights in both saved .npz; one
+              float32 step at 512^2 / batch 16 with --remat and --remat 0,1
+              against none (loss and gradients <= 1e-6 normwise, running
+              statistics equal, a lower memory peak); the bf16 step's device
+              time at both sizes with each branch, all, and --remat, beside
+              augment_batch's own time; whether cv2 imports.
+16. result  — the total wall time, a JSON line of the kernels (the flash
+              forward's with the infer phase's launches; the EDT's with the
+              recipe phase's launches and numbers), then the device line.
 """
 
 import concurrent.futures
@@ -201,9 +224,10 @@ F32_MASK_AGREE = 0.999
 PROFILE_BATCHES = 5
 PROFILE_TOP = 8
 # the EDT at the training path's shape (N, H, W), bs128 at 256^2 (bench.py's
-# headline leg), ragged widths and a single row; timed at the first two
-EDT_SHAPES = [(16, 512, 512), (128, 256, 256), (8, 100, 100), (4, 200, 333),
-              (3, 1, 333)]
+# headline leg), the recipe phase's 256^2 batch of 16 and its --grad_accum 2
+# microbatch, ragged widths and a single row; timed at the first two
+EDT_SHAPES = [(16, 512, 512), (128, 256, 256), (16, 256, 256), (8, 256, 256),
+              (8, 100, 100), (4, 200, 333), (3, 1, 333)]
 EDT_TIMED = 2
 # the lower envelope's integer operations a pixel, both passes (work_counts)
 EDT_OPS_PER_PIXEL = 26
@@ -339,6 +363,36 @@ INFER_DAEMON_POSTS = 4
 INFER_OVERLAY_FRAMES = 2
 # the AttentionUNet of configs/config.yaml:274-280 (the zoo's entry)
 INFER_ATTN = dict(base_filters=64, depth=5)
+# the recipe phase: test.sh:8-13's ablations (the reference's recorded
+# experiments) at 256^2, batch 16, 1 epoch, bf16, and one run with every
+# train-step option; the card-vs-CPU, remat and timing checks at
+# TRAIN_PROFILES
+RECIPE_SETTINGS = {"plain": [], "speckle": ["--use_speckle"],
+                   "tgc": ["--use_tgc"], "clahe": ["--use_clahe"],
+                   "mixup": ["--use_mixup"], "elastic": ["--use_elastic"]}
+RECIPE_OPTIONS = ["--grad_accum", "2", "--clip_grad_norm", "1.0",
+                  "--ema_decay", "0.999", "--nan_guard", "--freeze",
+                  "encoders_0", "--freeze_bn_stats", "--remat", "0,1"]
+RECIPE_TRAIN = dict(image_size=256, store_size=256, batch_size=16, epochs=1)
+RECIPE_PARALLEL = 4
+CLI_SEED = 42          # the CLI's --seed default: its initial weights
+RECIPE_BRANCHES = {"crop": dict(p_crop=0.5), "elastic": dict(use_elastic=True),
+                   "exact warp": dict(fast_warp=False),
+                   "shared geometry": dict(shared_geometry=True),
+                   "speckle": dict(use_speckle=True),
+                   "tgc": dict(use_tgc=True), "clahe": dict(use_clahe=True)}
+RECIPE_ALL = dict(p_crop=0.5, use_elastic=True, use_speckle=True,
+                  use_tgc=True, use_clahe=True)
+RECIPE_TIE = 1e-4        # a floored coordinate this close to an integer
+RECIPE_TIE_SHARE = 5e-4  # mask pixels that may differ, all at ties
+# image values off ties: the CPU tests' 1e-5 at 64 px frames, scaled with
+# the float32 spacing of the remap's absolute source coordinates (2^-23 H:
+# 7.6e-6 at 64 px, 6.1e-5 at 512), since a one-ulp coordinate difference
+# moves a bilinear sample by up to that spacing
+RECIPE_TOL = 1e-5
+RECIPE_TOL_SIZE = 64
+RECIPE_FREEZE = "encoders"  # the prefix profile_recipe's frozen steps take
+REMAT_RTOL = 1e-6        # remat vs plain float32 step: loss, gradients
 
 
 def phase(name, msg):
@@ -2555,10 +2609,12 @@ def infer_daemon(ckpt):
 
 
 def _train_setup(size, batch, amp, seed=SEED, model_type="ResUNet",
-                 model_kw=None):
+                 model_kw=None, aug_kw=None, cfg_kw=None):
     """A full-width model on the card (the flagship ResUNet unless
     ``model_type`` / ``model_kw`` say otherwise), its train state and step,
-    one synthetic batch and its draws."""
+    one synthetic batch and its draws: the default chain's, or with
+    ``aug_kw`` the branches it enables (their fields drawn on the card);
+    ``cfg_kw`` sets the step's options."""
     import torch
 
     from ddti_tpu_torch.core.config import Config
@@ -2573,14 +2629,16 @@ def _train_setup(size, batch, amp, seed=SEED, model_type="ResUNet",
         model_kw = dict(base_filters=TRAIN["base_filters"],
                         depth=TRAIN["depth"])
     cfg = Config(image_size=size, store_size=size, batch_size=batch,
-                 use_amp_autocast=amp)
+                 use_amp_autocast=amp, **(cfg_kw or {}))
     model = init_like_flax(create_model(model_type, **model_kw),
                            seed).to(DEVICE)
     src = synthetic_source(batch, (size, size), seed, device=DEVICE)
     images, masks = src.gather(list(range(batch)))
-    aug = AugmentConfig(out_size=(size, size))
-    draws = sample_draws(torch.Generator().manual_seed(seed), batch,
-                         aug).to(DEVICE)
+    aug = AugmentConfig(out_size=(size, size), **(aug_kw or {}))
+    draws = sample_draws(torch.Generator().manual_seed(seed), batch, aug,
+                         (size, size),
+                         torch.Generator(device=DEVICE).manual_seed(seed)
+                         ).to(DEVICE)
     state = TrainState(model, cfg.lr, 4, cfg.weight_decay)
     return model, state, make_train_step(cfg, aug), (images, masks, draws)
 
@@ -2998,6 +3056,362 @@ def ab(parent, *which):
                         "--ab-side", tree, *which], check=True)
 
 
+def _near_integer(t):
+    """Where a float32 coordinate lies within RECIPE_TIE of an integer."""
+    t = t.double()
+    return (t - t.round()).abs() < RECIPE_TIE
+
+
+def _recipe_frames(n, size, seed=SEED):
+    """A synthetic batch as float32 (N, H, W) in [0, 1], on the CPU."""
+    import torch
+
+    from ddti_tpu_torch.data.synthetic import generate_ddti_like
+
+    imgs, masks = generate_ddti_like(n, (size, size), seed)
+    return (torch.from_numpy(imgs[..., 0]).float() / 255.0,
+            torch.from_numpy(masks[..., 0]).float() / 255.0)
+
+
+def _chain_ties(draws, size):
+    """(N, H, W) bool, at the chain's output: the exact warp's ties (a
+    source coordinate within RECIPE_TIE of an integer) and the elastic
+    mask sample's ties, carried to the output by the same warp. Computed
+    on the CPU from the draws."""
+    import torch
+
+    from ddti_tpu_torch.ops import resample as R
+
+    n = draws.flip_h.shape[0]
+    xs, ys = R._source_coords(draws.angle, size, size)
+    xs = torch.where(draws.flip_h[:, None, None], size - xs, xs)
+    ys = torch.where(draws.flip_v[:, None, None], size - ys, ys)
+    ties = _near_integer(xs) | _near_integer(ys)
+    el = torch.zeros(n, size, size)
+    idx = draws.elastic_idx
+    if len(idx):
+        a = draws.elastic_alpha[idx][:, None, None]
+        dx = R.gaussian_blur_17(draws.elastic_dx, draws.elastic_sigma[idx]) * a
+        dy = R.gaussian_blur_17(draws.elastic_dy, draws.elastic_sigma[idx]) * a
+        yy = torch.arange(size, dtype=torch.float32)[:, None]
+        xx = torch.arange(size, dtype=torch.float32)[None, :]
+        el[idx] = (_near_integer(yy + dy + 0.5)
+                   | _near_integer(xx + dx + 0.5)).float()
+    moved, _ = R.fused_flip_rotate(el, el, draws.flip_h, draws.flip_v,
+                                   draws.angle)
+    return ties | (moved > 0)
+
+
+def recipe_card_vs_cpu():
+    """augment_batch with every branch on (the exact warp, whose ties are
+    countable pixel by pixel), on the card and on the CPU from the same
+    draws, at both TRAIN_PROFILES. Up to CLAHE: masks equal but at ties,
+    at most RECIPE_TIE_SHARE of the pixels; images within RECIPE_TOL but
+    there; CLAHE's uint8 inputs equal but where a value lies within
+    RECIPE_TOL of a rounding boundary. clahe_u8 bit for bit on the same
+    uint8 frames, and the whole chain on the card bit-equal to its
+    pre-CLAHE frames through clahe_float. The Paeth warp bit for bit in
+    every image whose shear shifts agree."""
+    import dataclasses
+
+    import torch
+
+    from ddti_tpu_torch.data.augment import (
+        AugmentConfig,
+        augment_batch,
+        sample_draws,
+    )
+    from ddti_tpu_torch.ops import resample as R
+    from ddti_tpu_torch.ops.clahe import clahe_float, clahe_u8
+
+    rows = []
+    for size, n in TRAIN_PROFILES:
+        t0 = time.perf_counter()
+        img, mask = _recipe_frames(n, size)
+        cfg = AugmentConfig(out_size=(size, size), fast_warp=False,
+                            **RECIPE_ALL)
+        pre_cfg = dataclasses.replace(cfg, use_clahe=False)
+        draws = sample_draws(torch.Generator().manual_seed(SEED), n, cfg,
+                             (size, size))
+        gdraws = draws.to(DEVICE)
+        x, y = img[..., None], mask[..., None]
+        ci, cm = (t[..., 0] for t in augment_batch(x, y, draws, pre_cfg))
+        gi, gm = (t[..., 0] for t in augment_batch(
+            x.to(DEVICE), y.to(DEVICE), gdraws, pre_cfg))
+        full, _ = augment_batch(x.to(DEVICE), y.to(DEVICE), gdraws, cfg)
+        idx = gdraws.clahe_idx
+        want = gi.index_copy(0, idx, clahe_float(gi[idx]))
+        full_equal = torch.equal(full[..., 0], want)
+        gi, gm = gi.cpu(), gm.cpu()
+        ties = _chain_ties(draws, size)
+        tol = RECIPE_TOL * max(size / RECIPE_TOL_SIZE, 1.0)
+        dm = cm != gm
+        di = (ci - gi).abs() > tol
+        uc = torch.clamp(torch.round(ci * 255.0), 0, 255).to(torch.uint8)
+        ug = torch.clamp(torch.round(gi * 255.0), 0, 255).to(torch.uint8)
+        edge = ((ci * 255.0 - torch.floor(ci * 255.0) - 0.5).abs()
+                < 255 * tol)
+        du = uc != ug
+        cl_equal = torch.equal(clahe_u8(uc), clahe_u8(uc.to(DEVICE)).cpu())
+        k4c, sxc, syc = R.paeth_shifts(draws.angle, size)
+        k4g, sxg, syg = (t.cpu() for t in R.paeth_shifts(
+            draws.angle.to(DEVICE), size))
+        same = ((sxc == sxg).all(1) & (syc == syg).all(1) & (k4c == k4g))
+        pc = R.paeth_flip_rotate(img, mask, draws.flip_h, draws.flip_v,
+                                 draws.angle)
+        pg = R.paeth_flip_rotate(img.to(DEVICE), mask.to(DEVICE),
+                                 draws.flip_h.to(DEVICE),
+                                 draws.flip_v.to(DEVICE),
+                                 draws.angle.to(DEVICE))
+        paeth_ok = all(torch.equal(a[same], b.cpu()[same])
+                       for a, b in zip(pc, pg))
+        row = dict(
+            shape=[n, size, size], tol=tol, tie_pixels=int(ties.sum()),
+            mask_pixels_off=int(dm.sum()), image_pixels_off=int(di.sum()),
+            max_abs_err=float((ci - gi).abs().max()),
+            max_abs_err_off_ties=float(((ci - gi).abs() * (~ties)).max()),
+            clahe_inputs_off=int(du.sum()), clahe_images=len(idx),
+            clahe_bit_equal=cl_equal, chain_with_clahe_equal=full_equal,
+            paeth_images_with_other_shifts=int((~same).sum()),
+            seconds=round(time.perf_counter() - t0, 1))
+        phase("recipe", f"card vs CPU, every branch, exact warp, {n} x "
+              f"{size}^2: {json.dumps(row)}")
+        assert not (dm & ~ties).any(), "a mask pixel off a tie differs"
+        assert dm.sum() <= RECIPE_TIE_SHARE * dm.numel(), int(dm.sum())
+        assert not (di & ~ties).any(), "an image pixel off a tie differs"
+        assert not (du & ~ties & ~edge).any(), "a CLAHE input differs"
+        assert cl_equal, "clahe_u8 differs between the card and the CPU"
+        assert full_equal, "the chain's CLAHE is not clahe_float's"
+        assert paeth_ok, "the Paeth warp differs where its shifts agree"
+        rows.append(row)
+    return rows
+
+
+def _recipe_flags():
+    """test.sh's flags (the CLI's default ResUNet, bf64 d5, spelled out)."""
+    return ["--device", DEVICE, f"--base_filters={TRAIN['base_filters']}",
+            f"--depth={TRAIN['depth']}",
+            *(f"--{k}={v}" for k, v in RECIPE_TRAIN.items()
+              if k != "epochs")]
+
+
+def run_recipe_cli(tmp):
+    """test.sh's six ablation commands (and one with every train-step
+    option) through the port's CLI on the card, RECIPE_PARALLEL at a time:
+    run_cli's checks, exactly the expected EDT launches (grad_accum k: k a
+    train step), and under --freeze --freeze_bn_stats the frozen tensors of
+    both saved .npz bit-equal to the seeded initial weights."""
+    import numpy as np
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.torch_interop import flat_flax_from_state_dict
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    t0 = time.perf_counter()
+    try:
+        import cv2
+        phase("recipe", f"import cv2: {cv2.__version__}")
+    except Exception as e:  # the host oracle chain needs it
+        phase("recipe", f"import cv2: {type(e).__name__}: {e}")
+    steps, val, test_b = _cli_batches(RECIPE_TRAIN["batch_size"])
+    epochs = RECIPE_TRAIN["epochs"]
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    keys = jax_resunet_keys(TRAIN["depth"])
+    runs = {**RECIPE_SETTINGS, "options": RECIPE_OPTIONS}
+
+    def train(name):
+        flags = [*_recipe_flags(), *runs[name]]
+        got, best = run_cli(tmp, f"recipe {name}", "ResUNet", model_kw,
+                            flags, epochs, keys)
+        accum = 2 if name == "options" else 1
+        expected = epochs * (accum * steps + val) + test_b
+        phase("recipe", f"{name}: edt_minplus launches "
+              f"{got['edt_minplus']}, expected {epochs} epoch x "
+              f"({accum} x {steps} train + {val} val steps) + {test_b} test "
+              f"batches = {expected}")
+        assert got["edt_minplus"] == expected
+        return got["edt_minplus"], best
+
+    with concurrent.futures.ThreadPoolExecutor(RECIPE_PARALLEL) as pool:
+        done = dict(zip(runs, pool.map(train, runs)))
+    init = flat_flax_from_state_dict("ResUNet", init_like_flax(
+        create_model("ResUNet", **model_kw), CLI_SEED).state_dict())
+    frozen = [k for k in init if k.split("/")[1] == "encoders_0"]
+    for which in ("best", "last"):
+        path = done["options"][1][:-len("best")] + which + ".npz"
+        with np.load(path) as z:
+            for k in frozen:
+                assert np.array_equal(z[k], init[k]), (which, k)
+            moved = not np.array_equal(z["params/final_conv/kernel"],
+                                       init["params/final_conv/kernel"])
+        assert moved, f"{which}: the trainable weights did not move"
+    phase("recipe", f"options: the {len(frozen)} frozen tensors of "
+          f"encoders_0 (parameters and, pinned, BatchNorm statistics) "
+          f"bit-equal to the initial weights in the best and last .npz; "
+          f"phase wall time {time.perf_counter() - t0:.1f} s "
+          f"({RECIPE_PARALLEL} runs at a time)")
+    return {name: n for name, (n, _) in done.items()}
+
+
+def _flat_grads(model):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+def recipe_remat():
+    """One float32 step at 512^2 / batch 16 without remat, with --remat
+    and with --remat 0,1, from one state and batch, deterministic cuDNN:
+    loss and gradients within REMAT_RTOL normwise of the plain step,
+    running statistics equal, and the peak of allocated memory lower."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    size, batch = TRAIN_PROFILES[0]
+    out = {}
+    try:
+        for remat in (False, True, (0, 1)):
+            model, state, step, (images, masks, draws) = _train_setup(
+                size, batch, False, model_kw=dict(
+                    base_filters=TRAIN["base_filters"], depth=TRAIN["depth"],
+                    remat=remat))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            m = step(state, images, masks, draws, None)
+            torch.cuda.synchronize()
+            out[remat] = (m.loss.item(), _flat_grads(model).clone(),
+                          {k: b.clone() for k, b in model.named_buffers()},
+                          torch.cuda.max_memory_allocated(), before)
+            del model, state, step, images, masks, draws, m
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss0, g0, b0, peak0, base0 = out[False]
+    rows = {}
+    for remat in (True, (0, 1)):
+        loss, g, b, peak, base = out[remat]
+        rel = ((g - g0).norm() / g0.norm()).item()
+        equal = all(torch.equal(b[k], b0[k]) for k in b0)
+        label = "all levels" if remat is True else f"levels {remat}"
+        rows[label] = dict(loss=loss, loss_plain=loss0, grad_rel=rel,
+                           stats_equal=equal, step_gib=(peak - base) / 2**30,
+                           plain_step_gib=(peak0 - base0) / 2**30,
+                           peak_gib=peak / 2**30, plain_peak_gib=peak0 / 2**30)
+        phase("recipe", f"remat {label}: float32 {batch} x {size}^2 step "
+              f"loss {loss:.9g} (plain {loss0:.9g}), gradients normwise "
+              f"{rel:.3e} (limit {REMAT_RTOL:g}), running statistics equal "
+              f"{equal}; peak allocated above the step's start "
+              f"{(peak - base) / 2**30:.3f} GiB, plain "
+              f"{(peak0 - base0) / 2**30:.3f} GiB (peaks {peak / 2**30:.3f} "
+              f"and {peak0 / 2**30:.3f} GiB)")
+        assert abs(loss - loss0) <= REMAT_RTOL * abs(loss0)
+        assert rel <= REMAT_RTOL and equal
+        assert peak - base < peak0 - base0, "remat did not lower the peak"
+    return rows
+
+
+def profile_recipe():
+    """Device time per bf16 train step (CUDA events, median of 10) at both
+    TRAIN_PROFILES with the default chain, each branch alone, all of them,
+    --remat (one model a size, and one with remat), and with the default
+    chain --freeze encoders, alone (the frozen tensors out of autograd)
+    and with --nan_guard (their gradients computed for its check); beside
+    each, augment_batch's own time and its share of the step."""
+    import torch
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.data.augment import (
+        AugmentConfig,
+        augment_batch,
+        sample_draws,
+    )
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.train.steps import _to_float, make_train_step
+
+    rows = []
+    configs = [("default", {}), *RECIPE_BRANCHES.items(),
+               ("all branches", RECIPE_ALL)]
+    for size, batch in TRAIN_PROFILES:
+        for remat in (False, True):
+            model, state, _, (images, masks, _) = _train_setup(
+                size, batch, True, model_kw=dict(
+                    base_filters=TRAIN["base_filters"], depth=TRAIN["depth"],
+                    remat=remat))
+            x, y = _to_float(images, masks)
+            # (label, branches, --nan_guard under --freeze or None)
+            runs = [(label, aug_kw, None) for label, aug_kw in configs] + [
+                (f"--freeze {RECIPE_FREEZE}", {}, False),
+                (f"--freeze {RECIPE_FREEZE} --nan_guard", {}, True)]
+            if remat:
+                runs = [("remat (all levels)", {}, None)]
+            for label, aug_kw, nan_guard in runs:
+                cfg = Config(image_size=size, store_size=size,
+                             batch_size=batch, use_amp_autocast=True,
+                             nan_guard=bool(nan_guard))
+                if nan_guard is not None:
+                    state = TrainState(
+                        model, cfg.lr, 4, cfg.weight_decay,
+                        model_type=TRAIN["model_type"],
+                        freeze=(RECIPE_FREEZE,), nan_guard=nan_guard)
+                aug = AugmentConfig(out_size=(size, size), **aug_kw)
+                draws = sample_draws(
+                    torch.Generator().manual_seed(SEED), batch, aug,
+                    (size, size),
+                    torch.Generator(device=DEVICE).manual_seed(SEED)
+                ).to(DEVICE)
+                step = make_train_step(cfg, aug)
+                ms = median_ms(lambda: step(state, images, masks, draws,
+                                            None), runs=10, warmup=3)
+                aug_ms = median_ms(lambda: augment_batch(x, y, draws, aug),
+                                   runs=10, warmup=3)
+                if nan_guard is not None:  # frozen gradients only for it
+                    assert all((p.grad is None) != nan_guard
+                               for k, p in model.named_parameters()
+                               if k in state.frozen)
+                rows.append(dict(config=label, size=size, batch=batch, ms=ms,
+                                 augment_ms=aug_ms,
+                                 augment_share=aug_ms / ms))
+                phase("recipe", f"bf16 train step {size}^2 batch {batch}, "
+                      f"{label}: {ms:.3f} ms (CUDA events, median of 10), "
+                      f"augment_batch alone {aug_ms:.3f} ms "
+                      f"({aug_ms / ms:.1%} of the step)")
+            del model, state, images, masks, draws, step, x, y
+            torch.cuda.empty_cache()
+    return rows
+
+
+def run_recipe(tmp):
+    """The recipe phase: card vs CPU, the CLI runs, remat, timings."""
+    t0 = time.perf_counter()
+    out = dict(card_vs_cpu=recipe_card_vs_cpu(),
+               cli_launches=run_recipe_cli(tmp), remat=recipe_remat(),
+               steps=profile_recipe())
+    phase("recipe", f"phase wall time {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def recipe_only():
+    """The recipe phase alone: ``python3 chip_smoke.py --recipe``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the CLI processes load it
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = run_recipe(tmp)
+    print(json.dumps({"recipe": recipe}))
+    return 0
+
+
 def zoo_only():
     """The zoo phases alone (train, serve, step), then every zoo model's
     bf16 step profiled at both TRAIN_PROFILES: ``python3 chip_smoke.py
@@ -3116,6 +3530,8 @@ def main():
     train_rows = profile_training()
     ttrain_rows = profile_transunet()
     zoo_rows = profile_zoo()
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = run_recipe(tmp)
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
@@ -3238,6 +3654,7 @@ def main():
         "train_steps": train_rows,
         "zoo_launches": zoo_launches,
         "zoo_train_steps": zoo_rows,
+        "recipe": recipe,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -3332,4 +3749,6 @@ if __name__ == "__main__":
         sys.exit(zoo_only())
     if sys.argv[1:2] == ["--infer"]:
         sys.exit(infer_only())
+    if sys.argv[1:2] == ["--recipe"]:
+        sys.exit(recipe_only())
     sys.exit(main())

@@ -12,11 +12,14 @@ flash kernels; ImprovedVNet's ``deep_supervision: true`` adds its heads'
 loss, weighted by ``--alpha``; ``use_attention`` and ``aspp_dilations``
 pass through too.
 
-The flags of the training slice keep the JAX package's names and
-defaults; ``--device`` (default ``cuda``, which raises where CUDA is
-absent; ``cpu`` for small runs) is the port's own. A flag of the JAX CLI
-that is not ported yet is absent, so argparse rejects it; the
-``--aug_exact_warp`` warp raises with a pointer to ROADMAP.md.
+The flags keep the JAX package's names, defaults and help: the
+augmentation branches (``--p_crop --use_elastic --use_speckle --use_tgc
+--use_clahe --aug_shared_geometry --aug_exact_warp``) and the train-step
+options (``--grad_accum --nan_guard --nan_guard_patience --clip_grad_norm
+--ema_decay --freeze --freeze_bn_stats --remat [LEVELS]``) among them.
+``--device`` (default ``cuda``, which raises where CUDA is absent; ``cpu``
+for small runs) is the port's own. A flag of the JAX CLI that is not
+ported yet is absent, so argparse rejects it (ROADMAP.md Queue 1).
 
 Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded to a
 device-resident uint8 store at ``--store_size``, or with ``--synthetic``
@@ -45,6 +48,29 @@ def _str2bool(v: str) -> bool:
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
 
 
+def parse_remat_arg(v):
+    """--remat value -> the models' ``remat`` kwarg: True (bare flag) or a
+    tuple of level indices from a comma list ('0,1' -> (0, 1)); a
+    malformed value is a usage error at parse time (JAX
+    ``parse_remat_arg``)."""
+    if v in (True, False, None):
+        return bool(v)
+    try:
+        levels = tuple(sorted({int(t) for t in str(v).split(",")
+                               if t.strip()}))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--remat expects no value or a comma list of level indices "
+            f"(e.g. 0,1), got {v!r}")
+    if not levels:  # '--remat ,' is refused, not read as full remat
+        raise argparse.ArgumentTypeError(
+            f"--remat got an empty level list: {v!r}")
+    if any(level < 0 for level in levels):
+        raise argparse.ArgumentTypeError(
+            f"--remat level indices must be >= 0, got {v!r}")
+    return levels
+
+
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -55,14 +81,26 @@ def get_parser() -> argparse.ArgumentParser:
                    help="weights-only warm start from a .pth or .npz")
     p.add_argument("--config_path", default=None, type=str)
     # augmentation
+    p.add_argument("--p_crop", default=0, type=float)
+    p.add_argument("--use_elastic", action="store_true")
+    p.add_argument("--use_speckle", action="store_true")
+    p.add_argument("--use_tgc", action="store_true")
+    p.add_argument("--use_clahe", action="store_true")
     p.add_argument("--use_mixup", action="store_true")
     p.add_argument("--mixup_alpha", type=float, default=0.2)
     p.add_argument("--mixup_prob", type=float, default=0.3)
+    p.add_argument("--aug_shared_geometry", action="store_true",
+                   help="one flip/rotation draw per batch (diverges from "
+                        "the reference's per-image draws)")
     p.add_argument("--aug_fast_warp", action="store_true", default=True,
-                   help="Paeth three-shear flip+rotate (the default)")
+                   help="Paeth three-shear flip+rotate (per-image geometry "
+                        "kept; sub-pixel nearest-rounding divergence from "
+                        "PIL, QUIRKS #23). The default; this flag is kept "
+                        "as a no-op for compatibility")
     p.add_argument("--aug_exact_warp", dest="aug_fast_warp",
                    action="store_false",
-                   help="exact PIL-map flip+rotate: not ported yet, raises")
+                   help="exact PIL-map flip+rotate (bit-parity with the "
+                        "reference's TF.rotate; one gather a pixel)")
     # model
     p.add_argument("--model_type", default="ResUNet", type=str)
     p.add_argument("--base_filters", default=64, type=int)
@@ -79,6 +117,47 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", default=16, type=int)
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--weight_decay", type=float, default=1e-2)
+    p.add_argument("--grad_accum", default=1, type=int,
+                   help="microbatches per optimizer step: each train step "
+                        "runs batch_size/grad_accum-sized microbatches, "
+                        "averages their gradients and applies ONE update "
+                        "(BatchNorm normalizes per microbatch, like torch "
+                        "accumulation loops)")
+    p.add_argument("--clip_grad_norm", default=0.0, type=float,
+                   help="clip gradients to this global L2 norm before the "
+                        "AdamW update; 0 disables (reference parity: its "
+                        "optimizer is bare AdamW)")
+    p.add_argument("--nan_guard", action="store_true",
+                   help="reject train steps whose loss or gradients are "
+                        "non-finite: the update is skipped (the whole "
+                        "train state, including the step counter, is "
+                        "kept), the step contributes nothing to epoch "
+                        "metrics, and training stops gracefully after "
+                        "--nan_guard_patience consecutive rejections")
+    p.add_argument("--nan_guard_patience", default=5, type=int,
+                   help="consecutive non-finite steps tolerated under "
+                        "--nan_guard before training stops")
+    p.add_argument("--freeze", default="", type=str,
+                   help="fine-tuning: comma list of param-path prefixes "
+                        "to freeze (no updates, no weight decay) — e.g. "
+                        "'encoders,bottleneck' trains only the decoder; "
+                        "the JAX package's paths (encoders_0/conv1/...), "
+                        "so one string freezes the same tensors in both")
+    p.add_argument("--freeze_bn_stats", action="store_true",
+                   help="also pin frozen modules' BatchNorm running "
+                        "stats (default: BN-adapt — stats keep tracking "
+                        "the fine-tuning data)")
+    p.add_argument("--ema_decay", type=float, default=0.0,
+                   help="exponential-moving-average shadow of the params "
+                        "(e.g. 0.999), updated after every step; "
+                        "validation/test and the saved weights use it")
+    p.add_argument("--remat", nargs="?", const=True, default=False,
+                   type=parse_remat_arg, metavar="LEVELS",
+                   help="recompute conv-block activations in the backward "
+                        "pass (torch.utils.checkpoint). Bare --remat remats "
+                        "every block; a comma list of level indices "
+                        "(--remat 0,1; 0 = highest resolution) remats only "
+                        "those encoder/decoder levels")
     p.add_argument("--log_every", default=20, type=int,
                    help="in-epoch progress interval in steps; 0 disables")
     p.add_argument("--early_stop_patience", default=50, type=int)
@@ -150,10 +229,6 @@ def load_sources(cfg, device, synthetic: bool):
 
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
-    if not args.aug_fast_warp:
-        raise NotImplementedError(
-            "--aug_exact_warp (the exact PIL-map warp, fused_flip_rotate) "
-            "is not ported yet: ROADMAP.md Queue 1 item 8")
 
     from ddti_tpu_torch.cli.serve import resolve_device
     from ddti_tpu_torch.core.logging import create_logger
@@ -172,6 +247,8 @@ def main(argv=None) -> int:
     logger = create_logger(os.path.join(cfg.log_dir, "train_log.log"))
 
     model_kwargs = dict(cfg.model_kwargs)
+    if args.remat:
+        model_kwargs["remat"] = args.remat
     if cfg.model_type == "TransUNet":
         model_kwargs.setdefault("image_size", cfg.image_size)
     model = init_like_flax(create_model(cfg.model_type, **model_kwargs),

@@ -34,11 +34,17 @@ class Config:
     checkpoint_path: str = ""
     config_path: Optional[str] = None
 
-    # augmentation (the default chain; the unported branches raise)
+    # augmentation
+    p_crop: float = 0.0
+    use_elastic: bool = False
+    use_speckle: bool = False
+    use_tgc: bool = False
+    use_clahe: bool = False
     use_mixup: bool = False
     mixup_alpha: float = 0.2
     mixup_prob: float = 0.3
-    aug_fast_warp: bool = True
+    aug_shared_geometry: bool = False  # one flip/rotation draw a batch
+    aug_fast_warp: bool = True  # Paeth warp; False: the exact PIL map
 
     # model
     model_type: str = "ResUNet"
@@ -58,6 +64,13 @@ class Config:
     lr: float = 1e-5
     weight_decay: float = 1e-2  # torch AdamW's default, which the
     # reference applies whatever its (unused) flag says
+    grad_accum: int = 1  # microbatches a step, one update of their mean
+    clip_grad_norm: float = 0.0  # > 0: global-norm clipping ahead of AdamW
+    nan_guard: bool = False  # keep the whole state on a non-finite step
+    nan_guard_patience: int = 5  # consecutive rejections before stopping
+    freeze: str = ""  # comma list of JAX parameter-path prefixes
+    freeze_bn_stats: bool = False  # frozen modules' BN statistics pinned
+    ema_decay: float = 0.0  # > 0: EMA shadow used by eval, test and saves
     log_every: int = 20
     early_stop_patience: int = 50
     surface_metrics: bool = True  # per-image HD95/ASSD in Trainer.test()

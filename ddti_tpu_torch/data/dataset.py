@@ -22,9 +22,10 @@ import torch
 def to_device(t: torch.Tensor, device) -> torch.Tensor:
     """A host tensor onto ``device`` without waiting for the device: a copy
     from pageable memory would first drain the stream, so CUDA copies go
-    through pinned memory."""
+    through pinned memory. A tensor already on a card (the augmentation's
+    fields, drawn there) moves as it is."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if device.type != "cuda" or t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 

@@ -14,7 +14,9 @@ so the two agree in distribution, not in bits.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +28,34 @@ from ddti_tpu_torch.ops.attention import attention_reference, flash_attention
 # retention factor of the same update)
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True inside a rematerialised block's recomputation (the backward
+    pass of ``torch.utils.checkpoint``), which runs in the thread that
+    entered ``recompute_context``'s second manager."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextlib.contextmanager
+def _recomputation():
+    prev = recomputing()
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def recompute_context():
+    """``context_fn`` of ``torch.utils.checkpoint``: nothing around the
+    forward, ``recomputing()`` around the recomputation, so BatchNorm
+    updates its running statistics once a step, as under flax's
+    ``nn.remat``."""
+    return contextlib.nullcontext(), _recomputation()
 
 
 class BatchNorm2d(nn.Module):
@@ -40,7 +70,8 @@ class BatchNorm2d(nn.Module):
     as flax ``nn.BatchNorm`` does: ``new = 0.9 old + 0.1 batch`` with the
     **biased** batch variance. torch's own train-mode update would store
     the unbiased n/(n-1) variance instead. The statistics are reduced in
-    float32 whatever the autocast dtype of ``x``."""
+    float32 whatever the autocast dtype of ``x``. A recomputation under
+    ``--remat`` normalises alike and leaves the statistics alone."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -53,6 +84,9 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
+        if recomputing():
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, BN_EPS)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        correction=0)

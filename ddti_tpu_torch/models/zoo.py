@@ -20,6 +20,7 @@ import warnings
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import (
     ASPP,
@@ -30,24 +31,57 @@ from .blocks import (
     TransformerEncoderLayer,
     match_spatial,
     max_pool_2x2,
+    recompute_context,
     up_conv,
 )
+
+
+def remat_levels(remat, depth: int) -> frozenset:
+    """The levels whose encoder and decoder blocks recompute (JAX
+    ``_remat_on``): a bool or int (a YAML ``remat: 1`` too) is every level
+    or none; a tuple or list selects levels, each in 0..depth-1."""
+    if isinstance(remat, (bool, int)):
+        return frozenset(range(depth)) if remat else frozenset()
+    if not remat:
+        return frozenset()
+    levels = tuple(int(v) for v in remat)
+    bad = [v for v in levels if not 0 <= v < depth]
+    if bad:
+        raise ValueError(
+            f"remat level(s) {bad} out of range for depth {depth} "
+            f"(valid: 0..{depth - 1}); an out-of-range level would "
+            f"silently rematerialize nothing")
+    return frozenset(levels)
 
 
 class _EncoderDecoderBase(nn.Module):
     """Shared scaffold config for the pool-based UNet variants."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
-                 base_filters: int = 64, depth: int = 5):
+                 base_filters: int = 64, depth: int = 5, remat=False):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.base_filters = base_filters
         self.depth = depth
+        self.remat = remat
+        self._remat = remat_levels(remat, depth)
 
     @property
     def channels(self) -> list[int]:
         return [self.base_filters * (2 ** i) for i in range(self.depth)]
+
+    def _block(self, block: nn.Module, level: int, x):
+        """``block(x)``, recomputed in the backward pass where ``level`` is
+        rematerialised and a gradient is being recorded."""
+        if level in self._remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False,
+                              context_fn=recompute_context)
+        return block(x)
+
+    def _decoder_level(self, i: int) -> int:
+        """Decoder ``i`` (deepest first) works at level depth - 1 - i."""
+        return self.depth - 1 - i
 
 
 class _PoolUNet(_EncoderDecoderBase):
@@ -59,8 +93,9 @@ class _PoolUNet(_EncoderDecoderBase):
     block = ConvBNAct
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
-                 base_filters: int = 64, depth: int = 5):
-        super().__init__(in_channels, out_channels, base_filters, depth)
+                 base_filters: int = 64, depth: int = 5, remat=False):
+        super().__init__(in_channels, out_channels, base_filters, depth,
+                         remat)
         ch = self.channels
         self.encoders = nn.ModuleList(
             self.block(cin, c) for cin, c in zip([in_channels] + ch[:-1],
@@ -84,15 +119,16 @@ class _PoolUNet(_EncoderDecoderBase):
 
     def forward(self, x):
         skips = []
-        for enc in self.encoders:
-            x = enc(x)
+        for level, enc in enumerate(self.encoders):
+            x = self._block(enc, level, x)
             skips.append(x)
             x = max_pool_2x2(x)
         x = self._middle(x)
         for i, (up, dec, skip) in enumerate(zip(self.upconvs, self.decoders,
                                                 reversed(skips))):
             x = match_spatial(up(x), skip)
-            x = dec(torch.cat([self._skip(i, x, skip), x], dim=1))
+            x = self._block(dec, self._decoder_level(i),
+                            torch.cat([self._skip(i, x, skip), x], dim=1))
         return self.final_conv(x)
 
 
@@ -112,9 +148,10 @@ class ASPPUNet(_PoolUNet):
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 64, depth: int = 5,
-                 aspp_dilations=(1, 6, 12, 18)):
+                 aspp_dilations=(1, 6, 12, 18), remat=False):
         self.aspp_dilations = tuple(aspp_dilations)
-        super().__init__(in_channels, out_channels, base_filters, depth)
+        super().__init__(in_channels, out_channels, base_filters, depth,
+                         remat)
 
     def _bottleneck(self, c: int) -> None:
         self.aspp = ASPP(c, 2 * c, self.aspp_dilations)
@@ -128,8 +165,9 @@ class AttentionUNet(_PoolUNet):
     the level's) on the skip connections, gated by the upsampled map."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
-                 base_filters: int = 64, depth: int = 5):
-        super().__init__(in_channels, out_channels, base_filters, depth)
+                 base_filters: int = 64, depth: int = 5, remat=False):
+        super().__init__(in_channels, out_channels, base_filters, depth,
+                         remat)
         self.attn_gates = nn.ModuleList(
             AttentionGate(c, c, c // 2) for c in self.channels[::-1])
 
@@ -167,8 +205,9 @@ class TransUNet(_EncoderDecoderBase):
                  embed_dim: int = 256, image_size: int = 512,
                  dropout_rate: float = 0.1,
                  batch_axis_attention: bool = False,
-                 use_flash_attention: bool | None = None):
-        super().__init__(in_channels, out_channels, base_filters, depth)
+                 use_flash_attention: bool | None = None, remat=False):
+        super().__init__(in_channels, out_channels, base_filters, depth,
+                         remat)
         ch = self.channels
         self.embed_dim = embed_dim
         self.image_size = image_size
@@ -189,8 +228,8 @@ class TransUNet(_EncoderDecoderBase):
 
     def forward(self, x):
         skips = []
-        for enc in self.encoders:
-            x = enc(x)
+        for level, enc in enumerate(self.encoders):
+            x = self._block(enc, level, x)
             skips.append(x)
             x = max_pool_2x2(x)
         n, _, h, w = x.shape
@@ -200,10 +239,11 @@ class TransUNet(_EncoderDecoderBase):
         for layer in self.trans.layers:
             x = layer(x)
         x = self.trans_proj(x).transpose(1, 2).reshape(n, -1, h, w)
-        for up, dec, skip in zip(self.upconvs, self.decoders,
-                                 reversed(skips)):
+        for i, (up, dec, skip) in enumerate(zip(self.upconvs, self.decoders,
+                                                reversed(skips))):
             x = match_spatial(up(x), skip)
-            x = dec(torch.cat([skip, x], dim=1))
+            x = self._block(dec, self._decoder_level(i),
+                            torch.cat([skip, x], dim=1))
         return self.final_conv(x)
 
 
@@ -215,8 +255,9 @@ class VNet2D(_EncoderDecoderBase):
     act = "prelu"
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
-                 base_filters: int = 16, depth: int = 5):
-        super().__init__(in_channels, out_channels, base_filters, depth)
+                 base_filters: int = 16, depth: int = 5, remat=False):
+        super().__init__(in_channels, out_channels, base_filters, depth,
+                         remat)
         ch = self.channels
         self.enc_blocks = nn.ModuleList(
             ConvBNAct(cin, c, self.act)
@@ -233,18 +274,21 @@ class VNet2D(_EncoderDecoderBase):
 
     def _encode(self, x):
         skips = []
-        for enc, down in zip(self.enc_blocks, self.down_convs):
-            x = enc(x)
+        for level, (enc, down) in enumerate(zip(self.enc_blocks,
+                                                self.down_convs)):
+            x = self._block(enc, level, x)
             skips.append(x)
             x = down(x)
         return self.bottleneck(x), skips
 
     def forward(self, x):
         x, skips = self._encode(x)
-        for up, dec, skip in zip(self.up_convs, self.dec_blocks,
-                                 reversed(skips)):
+        for i, (up, dec, skip) in enumerate(zip(self.up_convs,
+                                                self.dec_blocks,
+                                                reversed(skips))):
             x = match_spatial(up(x), skip)
-            x = dec(torch.cat([skip, x], dim=1))
+            x = self._block(dec, self._decoder_level(i),
+                            torch.cat([skip, x], dim=1))
         return self.final_conv(x)
 
 
@@ -264,8 +308,9 @@ class ImprovedVNet(VNet2D):
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 16, depth: int = 5,
                  use_attention: bool = True,
-                 deep_supervision: bool = False):
-        super().__init__(in_channels, out_channels, base_filters, depth)
+                 deep_supervision: bool = False, remat=False):
+        super().__init__(in_channels, out_channels, base_filters, depth,
+                         remat)
         self.use_attention = use_attention
         self.deep_supervision = deep_supervision
         rev = self.channels[::-1]
@@ -285,7 +330,8 @@ class ImprovedVNet(VNet2D):
             if self.use_attention:
                 skip = self.attn_gates[i](x, skip)
             x = match_spatial(x, skip)
-            x = dec(torch.cat([skip, x], dim=1))
+            x = self._block(dec, self._decoder_level(i),
+                            torch.cat([skip, x], dim=1))
             if self.deep_supervision:
                 ds_outs.append(self.ds_heads[i](x))
         out = self.final_conv(x)

@@ -58,11 +58,15 @@ def load_checkpoint_into(path: str, model_type: str,
     return model
 
 
-def save_weights(base: str, model_type: str, model: nn.Module) -> None:
+def save_weights(base: str, model_type: str, model: nn.Module,
+                 state_dict: dict | None = None) -> None:
     """Write ``base + ".npz"`` (``save_params_npz`` layout) and
-    ``base + ".pth"`` (the reference's ``state_dict``), each through a
+    ``base + ".pth"`` (the reference's ``state_dict``) of ``model``, or of
+    ``state_dict`` where given (the Trainer's EMA weights), each through a
     temporary file so a reader never sees a torn one."""
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if state_dict is None:
+        state_dict = model.state_dict()
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
     tmp = base + ".tmp.npz"
     np.savez(tmp, **flat_flax_from_state_dict(model_type, sd))
     os.replace(tmp, base + ".npz")

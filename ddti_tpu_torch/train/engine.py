@@ -6,16 +6,24 @@ flip ensemble in the test phase, as ``test_metrics.json`` records).
 
 Data are device-resident uint8 stores (``data/dataset.py``); each step
 gathers its batch on the device and returns its metrics there, so the host
-reads scalars once an epoch (and every ``log_every`` steps). Batch order
-comes from ``numpy.random.default_rng((seed, epoch))`` as in the JAX
-package; the augmentation draws from a CPU ``torch.Generator`` seeded from
-(seed, epoch), so a run's randomness depends on its epoch alone.
+reads scalars once an epoch (and every ``log_every`` steps; every step
+under ``--nan_guard``, whose per-step bookkeeping stops the run, its
+checkpoints intact, after ``--nan_guard_patience`` consecutive rejected
+steps). Batch order comes from ``numpy.random.default_rng((seed,
+epoch))`` as in the JAX package; the augmentation's per-image draws from a
+CPU ``torch.Generator`` and its frame-sized fields from one on the
+training device, both seeded from (seed, epoch), so a run's randomness
+depends on its epoch alone. The train state carries ``--clip_grad_norm``,
+``--freeze`` (logged as the JAX Trainer logs it) and ``--ema_decay``.
 
 Weights are saved as ``<model_dir>/<Model>_best`` / ``_last`` in two
 formats: ``.npz`` (the JAX package's ``save_params_npz`` layout) and
-``.pth`` (the reference's ``state_dict``). Still to port (ROADMAP.md):
-overlay images, Orbax full-state checkpoints and resume, periodic
-checkpoints, ``--fused_epoch``, the threshold sweep, serving exports.
+``.pth`` (the reference's ``state_dict``); under ``--ema_decay`` both hold
+the EMA shadow with the live BatchNorm statistics, as the JAX Trainer's
+``_eval_weights``. Still to port (ROADMAP.md): overlay images, Orbax
+full-state checkpoints and resume, periodic checkpoints,
+``--fused_epoch``, the threshold sweep, serving exports, QAT and
+distillation.
 """
 
 from __future__ import annotations
@@ -43,13 +51,18 @@ from ddti_tpu_torch.eval.surface import surface_metrics_batch
 from ddti_tpu_torch.utils.early_stopping import EarlyStopping
 
 from .checkpoint import save_weights
-from .state import TrainState
+from .state import TrainState, describe_freeze, parse_freeze
 from .steps import accumulate, make_eval_step, make_infer_step, make_train_step
 
 
 def aug_config_from(config) -> AugmentConfig:
-    return AugmentConfig(fast_warp=bool(config.aug_fast_warp),
-                         out_size=(config.image_size, config.image_size))
+    return AugmentConfig(
+        use_elastic=bool(config.use_elastic),
+        use_speckle=bool(config.use_speckle), use_tgc=bool(config.use_tgc),
+        use_clahe=bool(config.use_clahe), p_crop=float(config.p_crop),
+        shared_geometry=bool(config.aug_shared_geometry),
+        fast_warp=bool(config.aug_fast_warp),
+        out_size=(config.image_size, config.image_size))
 
 
 class Trainer:
@@ -63,8 +76,19 @@ class Trainer:
         self.train_src, self.val_src, self.test_src = data
         self.steps_per_epoch = max(
             self.train_src.num_batches(config.batch_size), 1)
-        self.state = TrainState(model, config.lr, self.steps_per_epoch,
-                                config.weight_decay)
+        freeze = parse_freeze(config)
+        self.state = TrainState(
+            model, config.lr, self.steps_per_epoch, config.weight_decay,
+            model_type=config.model_type, freeze=freeze,
+            clip_norm=config.clip_grad_norm, ema=config.ema_decay > 0,
+            nan_guard=bool(config.nan_guard))
+        if freeze:
+            logger.info(
+                f"Freezing {','.join(freeze)}: "
+                f"{describe_freeze(config.model_type, model, freeze)} "
+                f"params fixed" + (", BN stats pinned too"
+                                   if config.freeze_bn_stats
+                                   else " (BN stats keep adapting)"))
         self.aug_cfg = aug_config_from(config)
         self.train_step = make_train_step(config, self.aug_cfg)
         self.eval_step = make_eval_step(config)
@@ -75,7 +99,14 @@ class Trainer:
         # drives the test split's shuffle (the reference's quirk #10)
         self.rng = np.random.default_rng(config.seed)
         self.best_val_iou = -np.inf
-        self._gen = None
+        self._gen = self._field_gen = None
+        self._frame_hw = tuple(self.train_src.images.shape[1:3])
+        # --nan_guard: consecutive rejected steps; the run stops, its
+        # checkpoints intact, once the patience is spent
+        self._nan_guard = bool(config.nan_guard)
+        self._nan_patience = int(config.nan_guard_patience or 5)
+        self._consecutive_skips = 0
+        self._diverged = False
 
     # ------------------------------------------------------------------
 
@@ -106,20 +137,25 @@ class Trainer:
         """Batch order of one train epoch, from (seed, epoch) alone."""
         return np.random.default_rng((self.config.seed, epoch))
 
-    def _epoch_generator(self, epoch: int) -> torch.Generator:
-        """The augmentation draws' generator for one train epoch."""
+    def _epoch_generator(self, epoch: int, device="cpu") -> torch.Generator:
+        """The augmentation draws' generator for one train epoch: the
+        per-image draws' on the CPU, the fields' on ``device``."""
         seed = np.random.SeedSequence((self.config.seed, epoch))
-        return torch.Generator().manual_seed(int(seed.generate_state(1)[0]))
+        state = seed.generate_state(2)
+        dev = torch.device(device)
+        return torch.Generator(device=dev).manual_seed(
+            int(state[0] if dev.type == "cpu" else state[1]))
 
     def _draws(self, epoch: int, step: int, n: int):
         """The chain's and mixup's draws for one train step, from the
-        epoch's generator in step order; (epoch, step) name the step for a
-        substitute that derives its draws from them (the tests feed JAX's
+        epoch's generators in step order; (epoch, step) name the step for
+        a substitute that derives its draws from them (the tests feed JAX's
         draws this way)."""
         cfg = self.config
         mix = (sample_mixup(self._gen, n, cfg.mixup_alpha, cfg.mixup_prob)
                if cfg.use_mixup else None)
-        return sample_draws(self._gen, n, self.aug_cfg), mix
+        return sample_draws(self._gen, n, self.aug_cfg, self._frame_hw,
+                            self._field_gen), mix
 
     def _batches(self, src, shuffle: bool, rng: np.random.Generator):
         for idx in src.epoch_batches(rng, self.config.batch_size,
@@ -131,6 +167,8 @@ class Trainer:
     def train_one_epoch(self, epoch: int):
         total = None
         self._gen = self._epoch_generator(epoch)
+        self._field_gen = self._epoch_generator(
+            epoch, self.train_src.images.device)
         log_every = int(self.config.log_every or 0)
         t0 = time.perf_counter()
         n_imgs = 0
@@ -142,6 +180,9 @@ class Trainer:
                                 None if mix is None else mix.to(dev))
             total = accumulate(total, m)
             n_imgs += int(images.shape[0])
+            if self._nan_guard and not self._note_skip(
+                    float(m.skipped), epoch, i):
+                break  # patience spent: stop the epoch and the run
             if log_every and (i + 1) % log_every == 0:
                 ips = n_imgs / max(time.perf_counter() - t0, 1e-9)
                 self.logger.info(f"Epoch {epoch + 1} step {i + 1}: "
@@ -152,6 +193,43 @@ class Trainer:
                                   f"({n_imgs} imgs)")
         em = epoch_metrics_from_counts(total.counts)
         self._log_epoch("Train", epoch, self._avgs(total), em)
+        self._log_skips(epoch, float(total.skipped))
+
+    def _note_skip(self, skipped: float, epoch: int, step: int) -> bool:
+        """Per-step --nan_guard accounting; False once the consecutive
+        skips reach the patience (training should stop)."""
+        if skipped > 0:
+            self._consecutive_skips += 1
+            self.logger.warning(
+                f"--nan_guard: non-finite loss/gradients at epoch "
+                f"{epoch + 1} step {step + 1} — update skipped "
+                f"({self._consecutive_skips} consecutive)")
+            if self._consecutive_skips >= self._nan_patience:
+                self.logger.error(
+                    f"--nan_guard: {self._consecutive_skips} consecutive "
+                    f"non-finite steps — training has diverged; stopping "
+                    f"(best/last checkpoints are intact)")
+                self._diverged = True
+                return False
+        else:
+            self._consecutive_skips = 0
+        return True
+
+    def _log_skips(self, epoch: int, skipped: float) -> None:
+        if self._nan_guard:
+            self.writer.add_scalar("SkippedSteps/Train", skipped, epoch)
+            if skipped:
+                self.logger.warning(f"--nan_guard: {int(skipped)} step(s) "
+                                    f"skipped in epoch {epoch + 1}")
+
+    def _save(self, suffix: str) -> None:
+        """``<Model>_<suffix>.{npz,pth}`` of the eval weights (the EMA
+        shadow under --ema_decay)."""
+        cfg = self.config
+        save_weights(os.path.join(cfg.model_dir,
+                                  f"{cfg.model_type}_{suffix}"),
+                     cfg.model_type, self.model,
+                     self.state.eval_state_dict())
 
     @staticmethod
     def _first_occurrence_mask(idx, seen: set, device) -> torch.Tensor:
@@ -181,20 +259,19 @@ class Trainer:
         cfg = self.config
         for epoch in range(cfg.epochs):
             self.train_one_epoch(epoch)
+            if self._diverged:  # --nan_guard patience spent; the last
+                break           # weights below are still saved
             _, val_iou = self.validate(epoch)
             if val_iou > self.best_val_iou:
                 self.best_val_iou = val_iou
-                save_weights(os.path.join(cfg.model_dir,
-                                          f"{cfg.model_type}_best"),
-                             cfg.model_type, self.model)
+                self._save("best")
                 self.logger.info(f"--Best model saved at epoch {epoch + 1} "
                                  f"with IoU: {val_iou:.4f}")
             self.early_stopping(-val_iou)
             if self.early_stopping.early_stop:
                 self.logger.info("--Early stopping triggered")
                 break
-        save_weights(os.path.join(cfg.model_dir, f"{cfg.model_type}_last"),
-                     cfg.model_type, self.model)
+        self._save("last")
         self.writer.close()
 
     # ------------------------------------------------------------------

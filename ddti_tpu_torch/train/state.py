@@ -1,19 +1,29 @@
 """Train state and optimizer, ported from ``ddti_tpu/train/state.py``.
 
 AdamW with the reference's effective settings (b1 0.9, b2 0.999, eps 1e-8,
-weight decay 1e-2 on every parameter, as optax ``adamw`` without a mask),
-its learning rate set before every step from the per-epoch cosine warm
+weight decay 1e-2 on every trainable parameter, as optax ``adamw``), its
+learning rate set before every step from the per-epoch cosine warm
 restarts of ``schedule.py``: step s trains at ``schedule(s //
-steps_per_epoch)``, as the JAX package's optax schedule does. Freezing and
-gradient clipping are still to port (ROADMAP.md Queue 1 item 9).
+steps_per_epoch)``, as the JAX package's optax schedule does. Ported with
+it: ``--clip_grad_norm`` (global-norm clipping ahead of AdamW, the norm
+over the trainable gradients alone), ``--freeze`` (the JAX package's
+parameter-path prefixes, mapped onto the port's tensors through the key
+rules of ``torch_interop.py``; frozen tensors leave the optimizer: no
+update, no weight decay, no moments) with ``--freeze_bn_stats``, and the
+``--ema_decay`` shadow. Frozen tensors take no gradient (XLA drops
+theirs as dead code) unless ``--nan_guard``'s check, which counts every
+gradient as JAX's does, needs them. ``train/state.py:flat_fused`` is an
+XLA layout choice and is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from .schedule import cosine_warm_restarts
+from .torch_interop import flax_key_from_torch
 
 
 def make_optimizer(params, lr: float, weight_decay: float = 1e-2,
@@ -25,26 +35,142 @@ def make_optimizer(params, lr: float, weight_decay: float = 1e-2,
     return opt, sched
 
 
+def parse_freeze(config) -> tuple:
+    """The --freeze prefixes as a tuple (JAX ``parse_freeze``)."""
+    return tuple(p.strip() for p in
+                 str(getattr(config, "freeze", "") or "").split(",")
+                 if p.strip())
+
+
+def _freeze_match(path: str, prefixes: tuple) -> bool:
+    """True when the '/'-joined JAX path ``path`` is frozen by a prefix: at
+    path-segment boundaries only, and a final prefix segment ``encoders``
+    also matches ``encoders_<digits>`` (JAX ``_freeze_match``)."""
+    segs = path.split("/")
+    for p in prefixes:
+        psegs = p.split("/")
+        if len(psegs) > len(segs):
+            continue
+        if psegs[:-1] != segs[:len(psegs) - 1]:
+            continue
+        last, seg = psegs[-1], segs[len(psegs) - 1]
+        if seg == last or (seg.startswith(last + "_")
+                           and seg[len(last) + 1:].isdigit()):
+            return True
+    return False
+
+
+def jax_path(model_type: str, key: str) -> str:
+    """A ``state_dict`` key -> its JAX parameter or statistic path without
+    the collection (``encoders.0.0.weight`` -> ``encoders_0/conv1/kernel``),
+    the names --freeze prefixes match."""
+    return flax_key_from_torch(model_type, key).split("/", 1)[1]
+
+
+def frozen_names(model_type: str, model: nn.Module, prefixes: tuple,
+                 buffers: bool = False) -> list[str]:
+    """The parameters (or with ``buffers`` the BatchNorm statistics) whose
+    JAX path a prefix matches."""
+    named = model.named_buffers() if buffers else model.named_parameters()
+    return [k for k, _ in named
+            if prefixes and _freeze_match(jax_path(model_type, k), prefixes)]
+
+
+def describe_freeze(model_type: str, model: nn.Module,
+                    prefixes: tuple) -> str:
+    """'<frozen>/<total>' parameter elements, for the engine's log line."""
+    frozen = set(frozen_names(model_type, model, prefixes))
+    sizes = [(p.numel(), k in frozen) for k, p in model.named_parameters()]
+    n_f = sum(s for s, f in sizes if f)
+    return f"{n_f:,}/{sum(s for s, _ in sizes):,}"
+
+
 class TrainState:
-    """The model, its optimizer and the step count (JAX ``TrainState``,
-    which is immutable; here the train step updates this one in place)."""
+    """The model, its optimizer, the step count and the EMA shadow (JAX
+    ``TrainState``, which is immutable; here the train step updates this
+    one in place).
+
+    ``freeze`` (prefixes) keeps the matched parameters out of the
+    optimizer and, unless ``nan_guard`` (whose finiteness check counts
+    every gradient), out of autograd; ``clip_norm`` > 0 clips the trainable gradients to that
+    global L2 norm (optax ``clip_by_global_norm``); ``ema`` keeps a
+    float32 shadow of every parameter, seeded with their values here."""
 
     def __init__(self, model: nn.Module, lr: float, steps_per_epoch: int,
-                 weight_decay: float = 1e-2):
+                 weight_decay: float = 1e-2, *, model_type: str = "",
+                 freeze: tuple = (), clip_norm: float = 0.0,
+                 ema: bool = False, nan_guard: bool = False):
         self.model = model
+        self.model_type = model_type
+        frozen = set(frozen_names(model_type, model, freeze))
+        if freeze and not frozen:
+            raise ValueError(
+                f"--freeze {','.join(freeze)} matched no parameters; "
+                "prefixes are '/'-joined module paths like 'encoders' or "
+                "'encoders_0/conv1'")
+        self.frozen = frozen
+        for k, p in model.named_parameters():
+            p.requires_grad_(nan_guard or k not in frozen)
+        # the BatchNorm statistics --freeze_bn_stats pins
+        self.frozen_buffers = frozen_names(model_type, model, freeze,
+                                           buffers=True)
+        self.trainable = [p for k, p in model.named_parameters()
+                          if k not in frozen]
         self.optimizer, self.schedule = make_optimizer(
-            model.parameters(), lr, weight_decay)
+            self.trainable, lr, weight_decay)
+        self.clip_norm = float(clip_norm or 0.0)
         self.steps_per_epoch = steps_per_epoch
         self.step = 0
+        self.ema = ({k: p.detach().clone()
+                     for k, p in model.named_parameters()} if ema else None)
+
+    def clip_gradients(self) -> None:
+        """optax ``clip_by_global_norm`` on the trainable gradients: where
+        their global norm g reaches ``clip_norm``, each becomes
+        grad / g * clip_norm (a device-side select, no host read)."""
+        grads = [p.grad for p in self.trainable if p.grad is not None]
+        if self.clip_norm <= 0 or not grads:
+            return
+        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        keep = norm < self.clip_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
 
     def apply_gradients(self) -> None:
         """One AdamW update from the parameters' ``.grad`` at this step's
-        scheduled learning rate; advances the step."""
+        scheduled learning rate (after clipping); advances the step."""
+        self.clip_gradients()
         lr = self.schedule(self.step // self.steps_per_epoch)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
+
+    @torch.no_grad()
+    def update_ema(self, decay: float) -> None:
+        """ema <- decay * ema + (1 - decay) * params (no-op without EMA),
+        with JAX's float32 ``d`` and ``1 - d``. A frozen parameter's
+        shadow stays its value: JAX's shadow of that constant wanders by
+        float32 rounding, a few ulps a step."""
+        if self.ema is None:
+            return
+        d = np.float32(decay)
+        names = [k for k, _ in self.model.named_parameters()
+                 if k not in self.frozen]
+        live = dict(self.model.named_parameters())
+        ema = [self.ema[k] for k in names]
+        torch._foreach_mul_(ema, float(d))
+        torch._foreach_add_(ema, [live[k].detach() for k in names],
+                            alpha=float(np.float32(1) - d))
+
+    def eval_state_dict(self) -> dict:
+        """``state_dict`` with the eval weights, what best/last save: the
+        EMA shadow's parameters under --ema_decay with the live BatchNorm
+        statistics (JAX ``_eval_weights``), else the live model's."""
+        sd = self.model.state_dict()
+        if self.ema is not None:
+            sd.update({k: v.detach() for k, v in self.ema.items()})
+        return sd
 
 
 def count_params(model: nn.Module) -> int:

@@ -10,9 +10,19 @@ until the epoch's end.
 
 A deep-supervision model (ImprovedVNet with ``deep_supervision=True``)
 adds the auxiliary heads' loss, weighted by ``config.alpha``
-(``_ds_aux_loss``). Only the one-shot step is ported; ``grad_accum``, the
-nan-guard, EMA, QAT and distillation raise where the config asks for them
-(ROADMAP.md Queue 1 items 9 and 11).
+(``_ds_aux_loss``). The step's options, as ``_build_train_step_impl``:
+``grad_accum`` (microbatches of the augmented and mixed batch, BatchNorm
+per microbatch with its statistics chained, one update of the mean
+gradient: the loss, so the EDT, runs once a microbatch), ``nan_guard``
+(a step whose loss or any gradient is non-finite keeps the whole state:
+parameters, AdamW's moments and step, BatchNorm statistics, the EMA and the
+schedule position; its metrics are zeros and ``skipped`` 1; it is the one
+option that reads the device every step), ``clip_grad_norm`` and
+``freeze`` (``state.py``), ``freeze_bn_stats`` (the frozen modules'
+running statistics keep their values from the start of the step) and
+``ema_decay`` (the shadow updated after every applied step; eval and
+inference use it). QAT and distillation raise (ROADMAP.md Queue 1 item
+11).
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.func import functional_call
 
 from ddti_tpu_torch.data.augment import (
     AugmentConfig,
@@ -45,6 +56,9 @@ class StepMetrics(NamedTuple):
     boundary: torch.Tensor
     counts: ConfusionCounts
     n: torch.Tensor
+    # 1.0 when --nan_guard rejected the step (its other fields are zeros);
+    # always 0.0 with the guard off
+    skipped: torch.Tensor | float = 0.0
 
 
 def _to_float(images, masks):
@@ -69,12 +83,16 @@ def _nhwc(t):
     return t.permute(0, 2, 3, 1)
 
 
-def _forward(model, images, amp: bool):
-    """NHWC images -> NHWC logits under bf16 autocast when ``amp``; a
-    deep-supervision model's ``(logits, [head logits])`` keeps its form."""
+def _forward(model, images, amp: bool, weights: dict | None = None):
+    """NHWC images -> NHWC logits under bf16 autocast when ``amp``, with
+    ``weights`` (the EMA shadow) in place of the model's parameters where
+    given; a deep-supervision model's ``(logits, [head logits])`` keeps its
+    form."""
+    x = images.permute(0, 3, 1, 2)
     with torch.autocast(images.device.type, dtype=torch.bfloat16,
                         enabled=amp):
-        out = model(images.permute(0, 3, 1, 2))
+        out = (model(x) if weights is None
+               else functional_call(model, weights, (x,)))
     if isinstance(out, tuple):
         logits, heads = out
         return _nhwc(logits), [_nhwc(h) for h in heads]
@@ -105,9 +123,6 @@ def _ds_aux_loss(out, masks, loss_kw: dict, ds_weight: float):
 
 def _check_ported(config) -> None:
     unported = [name for name, on in (
-        ("grad_accum", int(getattr(config, "grad_accum", 1) or 1) != 1),
-        ("nan_guard", bool(getattr(config, "nan_guard", False))),
-        ("ema_decay", float(getattr(config, "ema_decay", 0.0) or 0.0) > 0),
         ("qat", bool(getattr(config, "qat", False))),
         ("distill_checkpoint", bool(getattr(config, "distill_checkpoint",
                                             "")))) if on]
@@ -116,16 +131,61 @@ def _check_ported(config) -> None:
             f"{', '.join(unported)} is not ported yet (ROADMAP.md Queue 1)")
 
 
+def _ema_decay(config) -> float:
+    return float(getattr(config, "ema_decay", 0.0) or 0.0)
+
+
+def _bn_buffers(model, names) -> dict:
+    return {k: v for k, v in model.named_buffers() if k in names}
+
+
+def _snapshot(tensors: dict) -> dict:
+    return {k: v.detach().clone() for k, v in tensors.items()}
+
+
+@torch.no_grad()
+def _restore(tensors: dict, saved: dict) -> None:
+    for k, v in saved.items():
+        tensors[k].copy_(v)
+
+
+def _finite(loss, model) -> torch.Tensor:
+    """Device bool: the loss and every gradient element are finite."""
+    ok = torch.isfinite(loss)
+    for p in model.parameters():
+        if p.grad is not None:
+            ok = ok & torch.isfinite(p.grad).all()
+    return ok
+
+
 def make_train_step(config, aug_cfg: AugmentConfig):
     """Build ``step(state, images, masks, draws, mix_draws) ->
     StepMetrics``: uint8 (or float) NHWC batches, the chain's draws, and
     the mixup draws (ignored unless ``config.use_mixup``). Updates
-    ``state`` in place."""
+    ``state`` in place. A batch that ``config.grad_accum`` does not divide
+    raises."""
     _check_ported(config)
     loss_kw = _loss_kw(config)
     amp = bool(config.use_amp_autocast)
     use_mixup = bool(config.use_mixup)
     ds_weight = float(getattr(config, "alpha", 0.0) or 0.0)
+    grad_accum = int(getattr(config, "grad_accum", 1) or 1)
+    ema_decay = _ema_decay(config)
+    nan_guard = bool(getattr(config, "nan_guard", False))
+    pin_bn = bool(getattr(config, "freeze_bn_stats", False))
+
+    def forward_backward(model, images, masks):
+        """Loss terms, counts and (accumulated) gradients of one batch."""
+        out = _forward(model, images, amp)
+        logits = _main_logits(out)
+        terms = weighted_loss(logits, masks, **loss_kw)
+        if isinstance(out, tuple) and ds_weight > 0:
+            terms = terms._replace(total=terms.total + _ds_aux_loss(
+                out, masks, loss_kw, ds_weight))
+        terms.total.backward()
+        with torch.no_grad():
+            counts = confusion_counts(logits, masks)
+        return [t.detach() for t in terms], counts
 
     def step(state: TrainState, images_u8, masks_u8, draws: AugmentDraws,
              mix: MixupDraws | None) -> StepMetrics:
@@ -133,23 +193,58 @@ def make_train_step(config, aug_cfg: AugmentConfig):
         images, masks = augment_batch(images, masks, draws, aug_cfg)
         if use_mixup:
             images, masks = mixup(images, masks, mix)
+        n_img = images.shape[0]
+        if n_img % grad_accum:
+            raise ValueError(f"batch_size {n_img} not divisible by "
+                             f"grad_accum {grad_accum}")
         model = state.model
         model.train()
-        out = _forward(model, images, amp)
-        logits = _main_logits(out)
-        terms = weighted_loss(logits, masks, **loss_kw)
-        if isinstance(out, tuple) and ds_weight > 0:
-            terms = terms._replace(total=terms.total + _ds_aux_loss(
-                out, masks, loss_kw, ds_weight))
-        state.optimizer.zero_grad(set_to_none=True)
-        terms.total.backward()
+        pinned = _bn_buffers(model, state.frozen_buffers if pin_bn else ())
+        kept = _snapshot(pinned)
+        if nan_guard:  # the forward moves them; a rejected step restores
+            bn_all = dict(model.named_buffers())
+            bn_start = _snapshot(bn_all)
+        model.zero_grad(set_to_none=True)
+        # microbatches of the augmented, mixed batch: BatchNorm normalises
+        # each alone and chains its statistics; .grad sums their gradients
+        micro = n_img // grad_accum
+        terms = counts = None
+        for i in range(grad_accum):
+            sl = slice(i * micro, (i + 1) * micro)
+            t, c = forward_backward(model, images[sl], masks[sl])
+            terms = t if terms is None else [a + b for a, b in zip(terms, t)]
+            counts = c if counts is None else counts + c
+        if grad_accum > 1:
+            inv = 1.0 / grad_accum
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.mul_(inv)
+            terms = [t * inv for t in terms]
+        _restore(pinned, kept)
+        n = images.new_full((), float(n_img))
+        if nan_guard and not bool(_finite(terms[0], model)):
+            _restore(bn_all, bn_start)
+            zero = images.new_zeros(())
+            return StepMetrics(
+                *(zero for _ in terms),
+                ConfusionCounts(*(torch.zeros_like(c) for c in counts)),
+                zero, images.new_ones(()))
         state.apply_gradients()
-        with torch.no_grad():
-            counts = confusion_counts(logits, masks)
-        n = images.new_full((), float(images.shape[0]))
-        return StepMetrics(*(t.detach() for t in terms), counts, n)
+        if ema_decay:
+            state.update_ema(ema_decay)
+        return StepMetrics(*terms, counts, n,
+                           images.new_zeros(()) if nan_guard else 0.0)
 
     return step
+
+
+def _eval_weights(state: TrainState, use_ema: bool):
+    """The model in eval mode and the weights it predicts with: the EMA
+    shadow where ``use_ema`` and the state keeps one (JAX
+    ``_eval_variables``), else its own (None)."""
+    state.model.eval()
+    return state.ema if use_ema else None
 
 
 def make_eval_step(config):
@@ -162,13 +257,14 @@ def make_eval_step(config):
     loss_kw = _loss_kw(config)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
+    use_ema = _ema_decay(config) > 0
 
     @torch.no_grad()
     def step(state: TrainState, images_u8, masks_u8, valid=None):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
-        state.model.eval()
-        logits = _main_logits(_forward(state.model, images, amp))
+        logits = _main_logits(_forward(state.model, images, amp,
+                                       _eval_weights(state, use_ema)))
         terms = weighted_loss(logits, masks, **loss_kw)
         if valid is None:
             counts = confusion_counts(logits, masks)
@@ -188,20 +284,23 @@ def make_infer_step(config, threshold: float = 0.5):
     ``image_size``, uint8 {0, 1} predictions, the global confusion counts
     and their per-image vectors. With ``config.tta`` the logits are the
     4-way flip ensemble (``eval/tta.py``: four forwards, logit of the mean
-    probability); validation stays without it, as in JAX."""
+    probability); validation stays without it, as in JAX. The eval weights
+    (the EMA shadow under --ema_decay) predict."""
     _check_ported(config)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
     use_tta = bool(getattr(config, "tta", False))
+    use_ema = _ema_decay(config) > 0
 
     @torch.no_grad()
     def step(state: TrainState, images_u8, masks_u8):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
-        state.model.eval()
+
+        weights = _eval_weights(state, use_ema)
 
         def fwd(x):
-            return _main_logits(_forward(state.model, x, amp))
+            return _main_logits(_forward(state.model, x, amp, weights))
 
         logits = tta_logits(fwd, images) if use_tta else fwd(images)
         preds = (torch.sigmoid(logits.to(torch.float32)) > threshold
@@ -215,12 +314,14 @@ def make_infer_step(config, threshold: float = 0.5):
 
 
 def accumulate(total: StepMetrics | None, m: StepMetrics) -> StepMetrics:
-    """Running sums of per-batch metrics, weighted by n (on the device)."""
+    """Running sums of per-batch metrics, weighted by n (on the device);
+    ``skipped`` is an unweighted step count."""
     if total is None:
         return StepMetrics(m.loss * m.n, m.bce * m.n, m.dice * m.n,
-                           m.focal * m.n, m.boundary * m.n, m.counts, m.n)
+                           m.focal * m.n, m.boundary * m.n, m.counts, m.n,
+                           m.skipped)
     return StepMetrics(
         total.loss + m.loss * m.n, total.bce + m.bce * m.n,
         total.dice + m.dice * m.n, total.focal + m.focal * m.n,
         total.boundary + m.boundary * m.n,
-        total.counts + m.counts, total.n + m.n)
+        total.counts + m.counts, total.n + m.n, total.skipped + m.skipped)

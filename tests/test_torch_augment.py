@@ -191,13 +191,6 @@ def test_samplers_follow_their_probabilities():
     assert abs(mixed.var() - 1 / 5.6) < 0.03
 
 
-def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="use_elastic"):
-        ta.AugmentConfig(use_elastic=True).check_ported()
-    with pytest.raises(NotImplementedError, match="exact warp"):
-        ta.AugmentConfig(fast_warp=False).check_ported()
-
-
 @pytest.mark.parametrize("steps_per_epoch", [1, 7])
 def test_schedule_matches_jax_over_200_epochs(steps_per_epoch):
     j = jsched(1e-3, steps_per_epoch)

@@ -260,3 +260,49 @@ def test_infer_limits():
     assert C.INFER_LOGIT_RTOL == 1e-3
     assert C.INFER_BF16_AGREE == 0.995
     assert C.INFER_FLIPS == 4 and C.INFER_TIMED_RUNS >= 10
+
+
+def test_recipe_card_vs_cpu_runs_on_the_cpu(monkeypatch, capsys):
+    """The recipe phase's card-vs-CPU check, with the CPU as the card at a
+    toy size: every branch's draws made, ties counted, nothing off."""
+    monkeypatch.setattr(C, "DEVICE", "cpu")
+    monkeypatch.setattr(C, "TRAIN_PROFILES", [(64, 6), (32, 4)])
+    rows = C.recipe_card_vs_cpu()
+    assert [r["shape"] for r in rows] == [[6, 64, 64], [4, 32, 32]]
+    for r in rows:
+        assert r["image_pixels_off"] == r["mask_pixels_off"] == 0
+        assert r["clahe_bit_equal"] and r["chain_with_clahe_equal"]
+        assert r["tie_pixels"] > 0 and r["clahe_inputs_off"] == 0
+    assert "card vs CPU, every branch" in capsys.readouterr().out
+
+
+def test_chain_ties_hold_the_exact_warps_floors():
+    """Every pixel where the exact warp's floored source coordinate moves
+    when the angle moves by a few ulps lies on a counted tie."""
+    import torch
+
+    from ddti_tpu_torch.data.augment import AugmentConfig, sample_draws
+    from ddti_tpu_torch.ops import resample as R
+
+    cfg = AugmentConfig(fast_warp=False, use_elastic=True, p_elastic=1.0)
+    d = sample_draws(torch.Generator().manual_seed(1), 8, cfg, (48, 48))
+    ties = C._chain_ties(d, 48)
+    assert ties.shape == (8, 48, 48) and 0 < ties.float().mean() < 0.01
+    xs, ys = R._source_coords(d.angle, 48, 48)
+    nudged = d.angle.double().mul(1 + 1e-7).float()
+    xs2, ys2 = R._source_coords(nudged, 48, 48)
+    moved = (torch.floor(xs) != torch.floor(xs2)) | (
+        torch.floor(ys) != torch.floor(ys2))
+    moved = torch.where(d.flip_h[:, None, None] | d.flip_v[:, None, None],
+                        torch.zeros_like(moved), moved)
+    assert not (moved & ~ties).any()
+
+
+def test_recipe_cli_flags_are_test_sh():
+    flags = C._recipe_flags()
+    assert "--image_size=256" in flags and "--store_size=256" in flags
+    assert "--base_filters=64" in flags and "--depth=5" in flags
+    assert set(C.RECIPE_SETTINGS) == {"plain", "speckle", "tgc", "clahe",
+                                      "mixup", "elastic"}
+    assert C.RECIPE_OPTIONS[C.RECIPE_OPTIONS.index("--grad_accum") + 1] \
+        == "2"
