@@ -14,7 +14,8 @@ OTHER_TREE serve`` for the bf16 serving batch alone); ``python3
 chip_smoke.py --zoo`` runs the zoo phases alone and profiles every zoo
 model at both sizes; ``python3 chip_smoke.py --infer`` runs the infer phase
 alone (the AttentionUNet trained first, as the zoo phase trains it);
-``python3 chip_smoke.py --recipe`` runs the recipe phase alone.
+``python3 chip_smoke.py --recipe`` runs the recipe phase alone;
+``python3 chip_smoke.py --lifecycle`` the lifecycle phase alone.
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -176,9 +177,30 @@ and a non-zero exit:
               statistics equal, a lower memory peak); the bf16 step's device
               time at both sizes with each branch, all, and --remat, beside
               augment_batch's own time; whether cv2 imports.
-16. result  — the total wall time, a JSON line of the kernels (the flash
+16. lifecycle — the Trainer's run lifecycle on the flagship ResUNet
+              (base_filters 64, depth 5, 512^2, batch 16, bf16) through the
+              CLI, 3 epochs with --save_interval 1 --max_keep_checkpoints 2
+              --tune_threshold --best_full_state --ema_decay 0.999: one run
+              uninterrupted and, at the same time, one sent SIGTERM once
+              epoch 2 is under way (exit 75, "test phase skipped", the
+              DDTI_RESUME_HINT JSON, ResUNet_last/ with its .npz and .pth),
+              then that run resumed from the hint ("Resuming at epoch 2/3",
+              epochs 2-3 only); for both full runs periodic/ holding 2 and
+              3, the tuned threshold in test_metrics.json, a decodable
+              test_boundaries_0.png and one EDT launch a train and val step
+              and a test batch. The preempted state restored on the card
+              bit for bit against its file (every tensor and the step), its
+              bytes and save time; one float32 step from it with the kernel
+              EDT and with the plain EDT, bit-equal boundary terms. An
+              improving epoch's cost: _save_best and the next train epoch,
+              blocking and async, with and without the full state. Then
+              cli/average.py over the resumed run's periodic states with
+              the BatchNorm pass on 32 frames (the JAX layout's keys), and
+              cli/infer.py predicting the infer phase's frames from it.
+17. result  — the total wall time, a JSON line of the kernels (the flash
               forward's with the infer phase's launches; the EDT's with the
-              recipe phase's launches and numbers), then the device line.
+              recipe and lifecycle phases' launches and numbers), then the
+              device line.
 """
 
 import concurrent.futures
@@ -393,6 +415,17 @@ RECIPE_TOL = 1e-5
 RECIPE_TOL_SIZE = 64
 RECIPE_FREEZE = "encoders"  # the prefix profile_recipe's frozen steps take
 REMAT_RTOL = 1e-6        # remat vs plain float32 step: loss, gradients
+# the lifecycle phase: the flagship ResUNet (TRAIN's width and size, bf16)
+# through the CLI for 3 epochs with a rotated full state every epoch (2
+# kept), the best full state, the threshold tuned on val and an EMA shadow
+# (so that the restored state holds one); once uninterrupted, once sent
+# SIGTERM in epoch 2 and resumed; then cli/average.py over the periodic
+# states with the BatchNorm pass on 32 frames, and cli/infer.py on that
+LIFECYCLE_EPOCHS = 3
+LIFECYCLE_FLAGS = ["--save_interval=1", "--max_keep_checkpoints=2",
+                   "--tune_threshold", "--best_full_state",
+                   "--ema_decay=0.999", "--log_every=1"]
+LIFECYCLE_RECALIB = 32
 
 
 def phase(name, msg):
@@ -3392,6 +3425,435 @@ def run_recipe(tmp):
     return out
 
 
+def lifecycle_cmd(base, *extra):
+    """The lifecycle phase's CLI command: the flagship ResUNet at TRAIN's
+    size, LIFECYCLE_EPOCHS epochs, LIFECYCLE_FLAGS, bf16."""
+    return [sys.executable, "-m", "ddti_tpu_torch.cli.main", "--mode",
+            "both", "--synthetic", "--use_amp_autocast", "true",
+            "--device", DEVICE, "--base_dir", base, "--model_type", "ResUNet",
+            f"--epochs={LIFECYCLE_EPOCHS}",
+            *(f"--{k}={v}" for k, v in TRAIN.items()
+              if k not in ("model_type", "epochs")),
+            *LIFECYCLE_FLAGS, *extra]
+
+
+def parse_lifecycle_log(text):
+    """What the lifecycle phase reads from a CLI run's output: the
+    [KERNELS] counts, the tuned threshold, the grids' frames and
+    seconds, the resume line's epoch and step, and the epochs trained."""
+    import re
+
+    out = {"epochs": [int(e) for e in
+                      re.findall(r"Train Epoch: (\d+), Avg Loss", text)]}
+    k = re.search(r"^\[KERNELS\] (.*)$", text, re.M)
+    if k:
+        out["kernels"] = {a: int(b) for a, b in
+                          (kv.split("=") for kv in k.group(1).split())}
+    t = re.search(r"Threshold sweep \(val IoU\): .* -> using ([\d.]+)$",
+                  text, re.M)
+    if t:
+        out["threshold"] = float(t.group(1))
+    g = re.search(r"Contour grids: (\d+) frames in ([\d.]+) s", text)
+    if g:
+        out["grid_frames"], out["grid_s"] = int(g.group(1)), float(
+            g.group(2))
+    r = re.search(r"Resuming at epoch (\d+)/(\d+) \(restored step (\d+)\)",
+                  text)
+    if r:
+        out["resumed_epoch"], out["resumed_step"] = int(r.group(1)), int(
+            r.group(3))
+    return out
+
+
+def _lifecycle_run(base, name, *extra, preempt=False, env=None):
+    """One lifecycle CLI run in its own process, stdout and stderr
+    together; with ``preempt`` SIGTERM once the log shows epoch 2's first
+    step. Returns (exit code, output, wall seconds, run directory)."""
+    import signal
+
+    os.makedirs(base)
+    cmd = lifecycle_cmd(base, *extra)
+    phase("lifecycle", f"{name}: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         env=dict(os.environ, **(env or {})))
+    try:
+        seen = []
+        if preempt:
+            for line in p.stdout:
+                seen.append(line)
+                if "Epoch 2 step 1:" in line:
+                    p.send_signal(signal.SIGTERM)
+                    phase("lifecycle", f"{name}: SIGTERM at "
+                          f"{time.perf_counter() - t0:.1f} s")
+                    break
+        out = "".join(seen) + p.communicate(timeout=TRAIN_TIMEOUT_S)[0]
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    wall = time.perf_counter() - t0
+    (run,) = os.listdir(base)
+    phase("lifecycle", f"{name}: exit {p.returncode} in {wall:.1f} s")
+    if p.returncode not in (0, 75):
+        print(out[-8000:], file=sys.stderr)
+    return p.returncode, out, wall, os.path.join(base, run)
+
+
+def _check_full_run(name, rc, out, run, epochs):
+    """A completed lifecycle run: exit 0, the epochs it trained, the
+    periodic directories [2, 3], the tuned threshold in
+    test_metrics.json, a decodable test_boundaries_0.png, the full
+    states, and exactly one EDT launch a train and val step and a test
+    batch. Returns what parse_lifecycle_log read."""
+    from PIL import Image
+
+    from ddti_tpu_torch.train.checkpoint import is_full_state
+
+    assert rc == 0, f"{name}: the CLI failed"
+    got = parse_lifecycle_log(out)
+    assert got["epochs"] == epochs, (name, got["epochs"])
+    models = os.path.join(run, "models")
+    periodic = sorted(os.listdir(os.path.join(models, "periodic")))
+    assert periodic == ["2", "3"], (name, periodic)
+    for d in ("ResUNet_last", "ResUNet_best", "periodic/2", "periodic/3"):
+        assert is_full_state(os.path.join(models, d)), (name, d)
+    with open(os.path.join(run, "result", "test_metrics.json")) as f:
+        test = json.load(f)
+    grid = [round(0.05 * i, 2) for i in range(1, 20)]
+    assert test["threshold"] == got["threshold"] and \
+        got["threshold"] in grid, (name, test["threshold"], got)
+    with Image.open(os.path.join(run, "result",
+                                 "test_boundaries_0.png")) as im:
+        im.load()
+        size = im.size
+    steps, val, test_b = _cli_batches(TRAIN["batch_size"])
+    # (a rehearsal on the CPU launches no kernel)
+    expected = (len(epochs) * (steps + val) + test_b) * (DEVICE != "cpu")
+    assert got["kernels"]["edt_minplus"] == expected, (name, got["kernels"])
+    phase("lifecycle", f"{name}: epochs {epochs}, periodic {periodic}, "
+          f"tuned threshold {got['threshold']} in test_metrics.json, "
+          f"test_boundaries_0.png {size[0]}x{size[1]} "
+          f"({got['grid_frames']} frames in {got['grid_s']:.3f} s, "
+          f"{got['grid_s'] / got['grid_frames']:.3f} s a frame), "
+          f"edt_minplus launches {got['kernels']['edt_minplus']} = "
+          f"{len(epochs)} x ({steps} train + {val} val) + {test_b} test")
+    return got
+
+
+def _sync():
+    import torch
+
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _flagship_state(ema=True):
+    """A flagship ResUNet's TrainState on the card, as the CLI makes it
+    (weights from CLI_SEED, the synthetic split's 4 steps an epoch)."""
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    model = init_like_flax(create_model(
+        "ResUNet", base_filters=TRAIN["base_filters"], depth=TRAIN["depth"]),
+        CLI_SEED).to(DEVICE)
+    return TrainState(model, 1e-5, _cli_batches(TRAIN["batch_size"])[0],
+                      model_type="ResUNet", ema=ema)
+
+
+def lifecycle_restore(last, tmp):
+    """The preempted run's ``_last`` restored on the card, held bit for bit
+    to the file (every parameter, statistic, AdamW moment and step, EMA
+    tensor, and the step); the full state's bytes and save time; then one
+    float32 step from it with the kernel EDT and with the plain EDT (as
+    step_kernel_vs_plain): bit-equal boundary terms."""
+    import torch
+
+    from ddti_tpu_torch.losses import losses
+    from ddti_tpu_torch.ops import edt as E
+    from ddti_tpu_torch.train import checkpoint as ck
+
+    tree = ck.read_checkpoint(last)
+    state = ck.restore_checkpoint(last, _flagship_state())
+    got = ck.to_host(state.full_state_dict())
+    n = 0
+
+    def same(a, b, where):
+        nonlocal n
+        assert a.keys() == b.keys(), where
+        for k in a:
+            if isinstance(a[k], dict):
+                same(a[k], b[k], f"{where}/{k}")
+            elif isinstance(a[k], torch.Tensor):
+                assert a[k].dtype == b[k].dtype and torch.equal(
+                    a[k], b[k]), f"{where}/{k}"
+                n += 1
+            else:
+                assert a[k] == b[k], f"{where}/{k}"
+
+    same(got, {k: v for k, v in tree.items() if k != "format"}, "")
+    steps = _cli_batches(TRAIN["batch_size"])[0]
+    assert got["step"] // steps == 1, got["step"]  # saved in epoch 2
+    nbytes = os.path.getsize(os.path.join(last, ck.STATE_FILE))
+    _sync()
+    t0 = time.perf_counter()
+    ck.save_checkpoint(os.path.join(tmp, "resaved"), state)
+    save_s = time.perf_counter() - t0
+    phase("lifecycle", f"restored {last} on the card: {n} tensors (model "
+          f"{len(tree['model'])}, AdamW {sum(len(v) for v in tree['adam'].values())}, "
+          f"EMA {len(tree['ema'])}) and the step {got['step']} bit-equal "
+          f"to the file; full state {nbytes} bytes, saved from the card "
+          f"in {save_s:.3f} s ({nbytes / save_s / 1e9:.3f} GB/s)")
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _, _, step, (images, masks, draws) = _train_setup(
+        TRAIN["image_size"], TRAIN["batch_size"], False,
+        cfg_kw=dict(ema_decay=0.999))
+    out = {}
+    try:
+        for route in ("kernel", "plain"):
+            state.load_full_state_dict(tree)
+            launched = E.edt_cuda.launches
+            if route == "plain":
+                losses.edt_batch = E.edt_reference
+            m = step(state, images, masks, draws, None)
+            _sync()
+            assert (E.edt_cuda.launches - launched) == (
+                route == "kernel" and DEVICE != "cpu")
+            out[route] = (m.boundary.clone(), {
+                k: v.clone() for k, v in state.model.state_dict().items()})
+    finally:
+        losses.edt_batch = E.edt_batch
+        torch.backends.cudnn.deterministic = False
+    (bk, pk), (bp, pp) = out["kernel"], out["plain"]
+    rel = max(((pk[k] - pp[k]).abs().max()
+               / pp[k].abs().max().clamp(min=1e-30)).item() for k in pk)
+    phase("lifecycle", f"one float32 step from the restored state: "
+          f"boundary kernel {bk.item():.9g} plain {bp.item():.9g} "
+          f"(bit-equal {torch.equal(bk, bp)}); parameters max relative "
+          f"difference {rel:.3e} (limit {STEP_PARAM_RTOL:g})")
+    assert torch.equal(bk, bp), "kernel and plain boundary terms differ"
+    assert rel <= STEP_PARAM_RTOL
+    del state, step, images, masks, out, pk, pp
+    torch.cuda.empty_cache()
+    return {"tensors": n, "step": got["step"], "bytes": nbytes,
+            "save_s": save_s}
+
+
+def lifecycle_best_saves(tmp):
+    """What an improving epoch costs the step loop: a flagship Trainer on
+    the card (the CLI's synthetic splits, bf16), the time of one train
+    epoch alone (median of 3) and of ``_save_best`` and the next train
+    epoch, with --async_best_save false and true, without and with
+    --best_full_state; the async saver's background write beside."""
+    import statistics
+
+    import torch
+
+    from ddti_tpu_torch.cli.main import load_sources
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.core.logging import create_logger
+    from ddti_tpu_torch.train.engine import Trainer
+
+    state = _flagship_state()
+    cfg = Config(model_type="ResUNet", use_amp_autocast=True,
+                 base_dir=os.path.join(tmp, "best_saves"), log_every=0,
+                 ema_decay=0.999, image_size=TRAIN["image_size"],
+                 store_size=TRAIN["image_size"],
+                 batch_size=TRAIN["batch_size"])
+    cfg.make_dirs()
+    tr = Trainer(cfg, load_sources(cfg, DEVICE, True),
+                 create_logger(os.path.join(cfg.log_dir, "log.log"),
+                               console=False), state.model)
+
+    def epoch():
+        _sync()
+        t0 = time.perf_counter()
+        tr.train_one_epoch(0)
+        _sync()
+        return time.perf_counter() - t0
+
+    epoch()  # warm-up
+    plain = statistics.median(epoch() for _ in range(3))
+    rows = []
+    for full in (False, True):
+        for mode in (False, True):
+            cfg.best_full_state, cfg.async_best_save = full, mode
+            _sync()
+            t0 = time.perf_counter()
+            tr._save_best(0, 0.5)
+            save_s = time.perf_counter() - t0
+            ep = epoch()
+            write_s = None
+            if tr._best_saver is not None:
+                tr._best_saver.close()
+                tr._best_saver = None
+                write_s = time.perf_counter() - t0
+            rows.append({"best_full_state": full, "async": mode,
+                         "save_call_s": save_s, "next_epoch_s": ep,
+                         "improving_epoch_s": save_s + ep,
+                         "background_write_s": write_s})
+            phase("lifecycle", f"best save, full state {full}, async "
+                  f"{mode}: the call {save_s:.3f} s, the next epoch "
+                  f"{ep:.3f} s (alone {plain:.3f} s): an improving epoch "
+                  f"{save_s + ep:.3f} s"
+                  + (f"; written in the background by {write_s:.3f} s"
+                     if write_s is not None else ""))
+    del tr, state
+    torch.cuda.empty_cache()
+    return {"epoch_s": plain, "steps_an_epoch": _cli_batches(
+        TRAIN["batch_size"])[0], "rows": rows}
+
+
+def run_lifecycle(tmp):
+    """The lifecycle phase: the flagship through the CLI uninterrupted and,
+    at the same time, preempted in epoch 2 (exit 75, the resume hint, the
+    saved state); then resumed; the restored state on the card; the best
+    saves' cost; cli/average.py over the resumed run's periodic states and
+    cli/infer.py serving the average."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from ddti_tpu_torch.train.checkpoint import is_full_state
+
+    t_phase = time.perf_counter()
+    try:
+        import matplotlib
+        drawn_by = f"matplotlib {matplotlib.__version__}"
+    except ImportError as e:
+        drawn_by = f"Pillow (import matplotlib: {e})"
+    phase("lifecycle", f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free "
+          f"under the temporary directory; the grids are drawn by "
+          f"{drawn_by}")
+    hint = os.path.join(tmp, "resume_hint.json")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        full_f = pool.submit(_lifecycle_run, os.path.join(tmp, "lc_full"),
+                             "uninterrupted")
+        pre_f = pool.submit(_lifecycle_run, os.path.join(tmp, "lc_pre"),
+                            "preempted", preempt=True,
+                            env={"DDTI_RESUME_HINT": hint})
+        rc, out, full_wall, run = full_f.result()
+        p_rc, p_out, pre_wall, p_run = pre_f.result()
+    full = _check_full_run("uninterrupted", rc, out, run, [1, 2, 3])
+    shutil.rmtree(os.path.join(run, "models"))  # the disk, for what follows
+
+    assert p_rc == 75, f"preempted: exit {p_rc}"
+    assert "test phase skipped" in p_out.lower() and "Test Metrics" \
+        not in p_out
+    with open(hint) as f:
+        h = json.load(f)
+    last = os.path.join(p_run, "models", "ResUNet_last")
+    assert h == {"checkpoint_path": last, "epochs": LIFECYCLE_EPOCHS}, h
+    assert is_full_state(last)
+    for suffix in (".npz", ".pth"):
+        assert os.path.exists(last + suffix), suffix
+    phase("lifecycle", f"preempted: exit 75, test phase skipped, resume "
+          f"hint {h}, ResUNet_last/ .npz .pth on disk")
+
+    rc, out, res_wall, r_run = _lifecycle_run(
+        os.path.join(tmp, "lc_resumed"), "resumed", "--resume",
+        "--checkpoint_path", h["checkpoint_path"])
+    resumed = _check_full_run("resumed", rc, out, r_run, [2, 3])
+    assert resumed["resumed_epoch"] == 2, resumed
+    restore = lifecycle_restore(last, tmp)
+    assert resumed["resumed_step"] == restore["step"]
+    shutil.rmtree(os.path.join(p_run, "models"))
+    best = lifecycle_best_saves(tmp)
+
+    periodic = os.path.join(r_run, "models", "periodic")
+    avg = os.path.join(tmp, "lc_avg.npz")
+    cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.average",
+           "--checkpoints", periodic, "--output", avg, "--model_type",
+           "ResUNet", f"--base_filters={TRAIN['base_filters']}",
+           f"--depth={TRAIN['depth']}",
+           f"--image_size={TRAIN['image_size']}",
+           f"--recalib_count={LIFECYCLE_RECALIB}", "--device", DEVICE]
+    phase("lifecycle", " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=TRAIN_TIMEOUT_S)
+    avg_wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-8000:], sep="\n",
+              file=sys.stderr)
+    assert res.returncode == 0, "cli/average.py failed"
+    assert sum(line.startswith("averaged ")
+               for line in res.stdout.splitlines()) == 2, res.stdout
+    assert f"recalibrated BN stats on {LIFECYCLE_RECALIB} images" \
+        in res.stdout, res.stdout
+    with np.load(avg) as z:
+        keys = set(z.files)
+        finite = all(np.isfinite(z[k]).all() for k in z.files)
+    assert keys == jax_resunet_keys(TRAIN["depth"]) and finite
+    phase("lifecycle", f"cli/average.py: periodic 2 and 3, BN recalibrated "
+          f"on {LIFECYCLE_RECALIB} frames, in {avg_wall:.1f} s -> the JAX "
+          f"layout's {len(keys)} keys, finite")
+
+    root = os.path.join(tmp, "lc_infer")
+    imgs, masks, frames = make_infer_frames(root, SEED)
+    preds = os.path.join(root, "preds")
+    cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.infer", "--checkpoint",
+           avg, "--input_dir", imgs, "--output_dir", preds, "--model_type",
+           "ResUNet", f"--base_filters={TRAIN['base_filters']}",
+           f"--depth={TRAIN['depth']}", f"--image_size={TRAIN['image_size']}",
+           "--mask_dir", masks, "--device", DEVICE]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=INFER_TIMEOUT_S)
+    infer_wall = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-4000:]
+    n, secs, ips, _ = parse_infer_output(res.stdout)
+    assert n == len(frames)
+    for name, size in frames:
+        with Image.open(os.path.join(
+                preds, name.rsplit(".", 1)[0] + "_pred.png")) as im:
+            m = np.asarray(im)
+        assert im.size == size and set(np.unique(m)) <= {0, 255}
+    phase("lifecycle", f"cli/infer.py on the average: {n} masks at the "
+          f"frames' sizes, {secs:.1f} s ({ips:.1f} img/s), {infer_wall:.1f} "
+          f"s of process")
+    wall = time.perf_counter() - t_phase
+    phase("lifecycle", f"CLI wall times: uninterrupted {full_wall:.1f} s, "
+          f"preempted {pre_wall:.1f} s (the two at once), resumed "
+          f"{res_wall:.1f} s, average {avg_wall:.1f} s, infer "
+          f"{infer_wall:.1f} s; phase wall time {wall:.1f} s")
+    return {"launches": {"uninterrupted": full["kernels"]["edt_minplus"],
+                         "resumed": resumed["kernels"]["edt_minplus"]},
+            "wall_s": {"uninterrupted": full_wall, "preempted": pre_wall,
+                       "resumed": res_wall, "average": avg_wall,
+                       "infer": infer_wall, "phase": wall},
+            "grid_s_a_frame": [r["grid_s"] / r["grid_frames"]
+                               for r in (full, resumed)],
+            "threshold": [full["threshold"], resumed["threshold"]],
+            "grids_drawn_by": drawn_by, "restore": restore,
+            "best_saves": best}
+
+
+def lifecycle_only():
+    """The lifecycle phase alone: ``python3 chip_smoke.py --lifecycle``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the CLI processes load it
+    with tempfile.TemporaryDirectory() as tmp:
+        lifecycle = run_lifecycle(tmp)
+    print(json.dumps({"lifecycle": lifecycle}))
+    return 0
+
+
 def recipe_only():
     """The recipe phase alone: ``python3 chip_smoke.py --recipe``."""
     import torch
@@ -3532,6 +3994,8 @@ def main():
     zoo_rows = profile_zoo()
     with tempfile.TemporaryDirectory() as tmp:
         recipe = run_recipe(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        lifecycle = run_lifecycle(tmp)
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
@@ -3655,6 +4119,7 @@ def main():
         "zoo_launches": zoo_launches,
         "zoo_train_steps": zoo_rows,
         "recipe": recipe,
+        "lifecycle": lifecycle,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -3751,4 +4216,6 @@ if __name__ == "__main__":
         sys.exit(infer_only())
     if sys.argv[1:2] == ["--recipe"]:
         sys.exit(recipe_only())
+    if sys.argv[1:2] == ["--lifecycle"]:
+        sys.exit(lifecycle_only())
     sys.exit(main())

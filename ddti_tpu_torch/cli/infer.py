@@ -1,8 +1,10 @@
 """Batch inference CLI, ported from ``ddti_tpu/cli/infer.py`` (its
 live-checkpoint path).
 
-Loads a checkpoint (``.pth`` state_dict or ``save_params_npz`` ``.npz``; a
-comma list of them predicts as a probability-mean ensemble) and predicts a
+Loads a checkpoint (``.pth`` state_dict, ``save_params_npz`` ``.npz`` or
+a full-state directory such as ``<run>/models/<Model>_last``, whose EMA
+shadow it prefers; a comma list of them predicts as a probability-mean
+ensemble) and predicts a
 nodule mask for every image of a directory, either resized to the model's
 resolution (the reference's behaviour) or at native resolution through
 sliding-window tiling. Writes ``<name>_pred.png`` masks, with ``--overlay``
@@ -79,7 +81,8 @@ def get_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="batch nodule-mask inference (PyTorch/CUDA)")
     ap.add_argument("--checkpoint", required=True,
-                    help=".pth state_dict or .npz weight export. A COMMA "
+                    help=".pth state_dict, .npz weight export or a "
+                         "full-state directory (<Model>_last). A COMMA "
                          "LIST of checkpoints of the same architecture "
                          "predicts as a probability-mean ensemble")
     ap.add_argument("--input_dir", required=True)

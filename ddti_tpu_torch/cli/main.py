@@ -24,16 +24,30 @@ ported yet is absent, so argparse rejects it (ROADMAP.md Queue 1).
 Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded to a
 device-resident uint8 store at ``--store_size``, or with ``--synthetic``
 (or when the directories are absent) 64/16/16 generated DDTI-like frames.
-``--checkpoint_path`` warm-starts the weights from a ``.pth`` or a
-``save_params_npz`` ``.npz``. ``[PARAMS] <model>,<count>`` is printed for
-shell capture, as the JAX CLI does, and at the end ``[KERNELS]`` with the
-launch count of each hand-written kernel.
+``[PARAMS] <model>,<count>`` is printed for shell capture, as the JAX CLI
+does, and at the end ``[KERNELS]`` with the launch count of each
+hand-written kernel.
+
+The run lifecycle is the JAX CLI's: ``--checkpoint_path`` warm-starts the
+weights from a ``.pth``, a ``save_params_npz`` ``.npz`` or a full-state
+directory of the port; with ``--resume`` it restores the full train state
+from such a directory (``<run>/models/<Model>_last``, or the newest step of
+a ``periodic/`` root) and completes the original ``--epochs`` budget.
+SIGTERM or SIGINT saves the state and exits with 75 (EX_TEMPFAIL), the
+test phase skipped, and writes ``{"checkpoint_path", "epochs"}`` to the
+JSON file ``$DDTI_RESUME_HINT`` names, where set. ``--save_interval``,
+``--max_keep_checkpoints``, ``--async_best_save``, ``--best_full_state``
+and ``--tune_threshold`` keep their JAX meaning:
+
+    python -m ddti_tpu_torch.cli.main --mode both --synthetic --epochs 3 \
+        --resume --checkpoint_path <run>/models/ResUNet_last
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -78,7 +92,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_path", default="data/dataset", type=str)
     p.add_argument("--dataset", default="DDTI", type=str)
     p.add_argument("--checkpoint_path", default="", type=str,
-                   help="weights-only warm start from a .pth or .npz")
+                   help="warm start from a .pth, .npz or full-state "
+                        "directory; with --resume the full state")
     p.add_argument("--config_path", default=None, type=str)
     # augmentation
     p.add_argument("--p_crop", default=0, type=float)
@@ -158,6 +173,26 @@ def get_parser() -> argparse.ArgumentParser:
                         "every block; a comma list of level indices "
                         "(--remat 0,1; 0 = highest resolution) remats only "
                         "those encoder/decoder levels")
+    p.add_argument("--save_interval", default=20, type=int)
+    p.add_argument("--max_keep_checkpoints", default=3, type=int,
+                   help="rotation depth of the periodic checkpoint manager")
+    p.add_argument("--async_best_save", type=_str2bool, default=True,
+                   help="write best-epoch artifacts on a background "
+                        "thread (the device-to-host copy and writes "
+                        "overlap training); false = blocking")
+    p.add_argument("--best_full_state", action="store_true",
+                   help="also write the full train state at best-IoU "
+                        "epochs (resume-from-best with optimizer state). "
+                        "Default: best epochs write the .npz/.pth weights "
+                        "only; <Model>_last stays resumable")
+    p.add_argument("--tune_threshold", action="store_true",
+                   help="pick the mask binarization threshold maximizing "
+                        "val IoU (19-point device sweep) and test with it "
+                        "instead of the fixed 0.5")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the full train state (params, optimizer, "
+                        "step) from --checkpoint_path before training — "
+                        "unlike the reference's weights-only warm start")
     p.add_argument("--log_every", default=20, type=int,
                    help="in-epoch progress interval in steps; 0 disables")
     p.add_argument("--early_stop_patience", default=50, type=int)
@@ -227,6 +262,72 @@ def load_sources(cfg, device, synthetic: bool):
     return tuple(sources)
 
 
+def _warm_start(cfg, args, model, logger) -> None:
+    """The weights-only warm starts (JAX ``cli/main.py``): a ``.pth``
+    (also under --resume, as in JAX), an ``.npz`` (refused under
+    --resume: it holds no optimizer state) or, without --resume, a
+    full-state directory's live weights."""
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+
+    cp = cfg.checkpoint_path
+    if cp.endswith(".npz") and args.resume:
+        raise ValueError(
+            ".npz bundles hold weights only (no optimizer/step); use "
+            "--checkpoint_path without --resume to warm start")
+    if cp.endswith(".pth") or cp.endswith(".npz") or not args.resume:
+        load_checkpoint_into(cp, cfg.model_type, model, prefer_ema=False)
+        logger.info(f"Warm-started weights from {cp}")
+
+
+def _resume(cfg, trainer, logger) -> None:
+    """The full resume: parameters, BatchNorm statistics, AdamW, the step
+    and the EMA shadow from a full-state directory, or the newest step of
+    a managed root (numeric step directories); the run continues the
+    ORIGINAL epoch budget from the restored step's epoch."""
+    from ddti_tpu_torch.train.checkpoint import (
+        ManagedCheckpointer,
+        restore_checkpoint,
+    )
+
+    cp = cfg.checkpoint_path
+    try:
+        if any(d.isdigit() for d in os.listdir(cp)):
+            mgr = ManagedCheckpointer(cp)
+            restored = mgr.restore_latest(trainer.state)
+            mgr.close()
+            if restored is None:
+                raise FileNotFoundError(
+                    f"no checkpoint steps found under {cp}")
+            logger.info(f"Resumed full state from {cp} step {restored[1]}")
+        else:
+            restore_checkpoint(cp, trainer.state)
+            logger.info(f"Resumed full state from {cp}")
+    except ValueError as e:
+        raise ValueError(
+            f"--resume could not restore {cp} into this run's state — a "
+            "full resume needs the SAME optimizer structure (check "
+            "--freeze/--clip_grad_norm match the original run; use "
+            "--checkpoint_path without --resume for a weights-only warm "
+            "start)") from e
+    trainer.start_epoch = min(
+        int(trainer.state.step) // trainer.steps_per_epoch, cfg.epochs)
+
+
+def _write_resume_hint(cfg, logger) -> None:
+    """``$DDTI_RESUME_HINT``'s JSON, the sweep runner's contract: relaunch
+    with --resume --checkpoint_path <checkpoint_path>."""
+    hint = os.environ.get("DDTI_RESUME_HINT")
+    if not hint:
+        return
+    try:
+        with open(hint, "w") as f:
+            json.dump({"checkpoint_path": os.path.join(
+                cfg.model_dir, f"{cfg.model_type}_last"),
+                "epochs": cfg.epochs}, f)
+    except OSError as e:
+        logger.warning(f"could not write resume hint {hint}: {e}")
+
+
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
 
@@ -235,13 +336,19 @@ def main(argv=None) -> int:
     from ddti_tpu_torch.core.prng import set_seed
     from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.ops import attention, edt
-    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
     from ddti_tpu_torch.train.engine import Trainer
     from ddti_tpu_torch.train.state import count_params
     from ddti_tpu_torch.utils.weight_init import init_like_flax
 
     device = resolve_device(args.device)
     cfg = build_config(args)
+    if ((args.resume or cfg.checkpoint_path)
+            and not os.path.exists(cfg.checkpoint_path or "")):
+        # an asked-for warm start or resume never falls through to a fresh
+        # random init
+        raise FileNotFoundError(
+            f"--checkpoint_path {cfg.checkpoint_path!r} does not exist"
+            + (" (required by --resume)" if args.resume else ""))
     set_seed(cfg.seed)
     cfg.make_dirs()
     logger = create_logger(os.path.join(cfg.log_dir, "train_log.log"))
@@ -254,24 +361,30 @@ def main(argv=None) -> int:
     model = init_like_flax(create_model(cfg.model_type, **model_kwargs),
                            cfg.seed)
     if cfg.checkpoint_path:
-        if not os.path.exists(cfg.checkpoint_path):
-            raise FileNotFoundError(
-                f"--checkpoint_path {cfg.checkpoint_path!r} does not exist")
-        load_checkpoint_into(cfg.checkpoint_path, cfg.model_type, model)
-        logger.info(f"Warm-started weights from {cfg.checkpoint_path}")
+        _warm_start(cfg, args, model, logger)
     model.to(device)
 
     sources = load_sources(cfg, device, args.synthetic)
     trainer = Trainer(cfg, sources, logger, model)
+    if args.resume and os.path.isdir(cfg.checkpoint_path):
+        _resume(cfg, trainer, logger)
 
     n_params = count_params(model)
     logger.info(f"Model: {cfg.model_type} | Trainable params: "
                 f"{n_params / 1e6:.2f}M ({n_params:,}) | device {device}")
     print(f"[PARAMS] {cfg.model_type},{n_params}")  # shell-capture hook
 
+    rc = 0
     if args.mode in ("train", "both"):
         trainer.train()
-    if args.mode in ("test", "both"):
+        if trainer.preempted:
+            # checkpoints are saved; EX_TEMPFAIL tells a scheduler or the
+            # sweep runner to relaunch with --resume
+            _write_resume_hint(cfg, logger)
+            logger.info("Run preempted — test phase skipped "
+                        "(exit code 75, checkpoints saved)")
+            rc = 75
+    if rc == 0 and args.mode in ("test", "both"):
         trainer.test()
     # the hand-written kernels this run launched (0 on the CPU, where the
     # plain versions run): the shell-capture proof of the kernel path
@@ -279,7 +392,7 @@ def main(argv=None) -> int:
     print(f"[KERNELS] edt_minplus={edt.edt_cuda.launches} "
           f"flash_fwd={attention.flash_forward_cuda.launches} "
           f"flash_bwd_dkdv={bwd.launches_dkdv} flash_bwd_dq={bwd.launches_dq}")
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ Endpoints:
                   headers) and skips the PNG encoder.
 
 Usage:
-  python -m ddti_tpu_torch.cli.serve --checkpoint <.pth|.npz> \
+  python -m ddti_tpu_torch.cli.serve --checkpoint <.pth|.npz|_last> \
       --model_type TransUNet --base_filters 64 --depth 4 --image_size 512 \
       --batch_size 16 --bf16 [--tta] [--fold_bn] [--device cuda]
 
@@ -420,8 +420,9 @@ def get_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="HTTP nodule-segmentation server (PyTorch/CUDA)")
     ap.add_argument("--checkpoint", required=True,
-                    help=".pth state_dict (reference format) or .npz "
-                         "weight export of the JAX package")
+                    help=".pth state_dict (reference format), .npz "
+                         "weight export of the JAX package or a full-state "
+                         "directory of the port (<Model>_last)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--max_wait_ms", type=float, default=5.0,

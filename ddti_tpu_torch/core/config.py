@@ -1,7 +1,7 @@
 """Experiment configuration, ported from ``ddti_tpu/core/config.py``: the
-fields the training slice reads, with the JAX package's names and
-defaults, the YAML model dispatch (``--config_path``) and the run
-directories.
+fields the training slice reads (the run lifecycle's among them), with
+the JAX package's names and defaults, the YAML model dispatch
+(``--config_path``) and the run directories.
 
 Run-directory layout, as in the JAX package and the reference:
 ``<base_dir>/<ModelType>_<YYYYmmdd_HHMMSS>/{models,log,result}`` with an
@@ -75,6 +75,16 @@ class Config:
     early_stop_patience: int = 50
     surface_metrics: bool = True  # per-image HD95/ASSD in Trainer.test()
     tta: bool = False  # 4-way flip test-time augmentation in test()
+    tune_threshold: bool = False  # test() at the val split's argmax-IoU
+    # threshold of a 19-point sweep instead of 0.5
+
+    # run lifecycle
+    save_interval: int = 20  # epochs between rotated full-state saves
+    max_keep_checkpoints: int = 3  # rotation depth of those saves
+    async_best_save: bool = True  # best-epoch writes on a background
+    # thread from on-device copies; False: blocking writes
+    best_full_state: bool = False  # also the full train state at every
+    # best-IoU epoch (<Model>_last always carries one)
 
     # precision / data / device
     use_amp_autocast: bool = False  # bf16 autocast

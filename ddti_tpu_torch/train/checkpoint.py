@@ -1,17 +1,29 @@
-"""Weight checkpoints, ported from ``ddti_tpu/train/checkpoint.py``
-(``load_checkpoint_into``, ``save_params_npz``).
+"""Checkpoints, ported from ``ddti_tpu/train/checkpoint.py``: weight files,
+the full train state with save, restore and a rotating manager, and the
+weights-only loader.
 
-Two formats load and save: a torch ``.pth`` state_dict (the reference's
-own files and ``ddti_tpu.train.torch_interop.save_pth`` exports) and a flat
-``.npz`` in the layout of ``ddti_tpu.train.checkpoint.save_params_npz``
-(flax key paths and layouts), so either package reads the other's
-weights. Orbax checkpoint directories are a JAX format and are refused
-(ROADMAP.md lists a counterpart).
+Weights load and save in two formats: a torch ``.pth`` state_dict (the
+reference's own files and ``ddti_tpu.train.torch_interop.save_pth``
+exports) and a flat ``.npz`` in the layout of
+``ddti_tpu.train.checkpoint.save_params_npz`` (flax key paths and
+layouts), so either package reads the other's weights.
+
+The full train state (``TrainState.full_state_dict``: parameters and
+BatchNorm statistics, AdamW's moments by parameter name, the step and the
+EMA shadow) is the port's own format, where the JAX package writes Orbax:
+a directory (``<Model>_last``, ``<Model>_best`` under --best_full_state,
+``periodic/<epoch>``) holding one ``train_state.pt`` written by
+``torch.save`` through a temporary file and ``os.replace``, read with
+``weights_only=True``. Orbax directories are refused: neither a JAX
+full state nor its weights load here (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import json
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -20,6 +32,8 @@ from torch import nn
 from .torch_interop import flat_flax_from_state_dict, state_dict_from_flax
 
 _BF16_MARKER = "::bf16"
+STATE_FILE = "train_state.pt"
+_FORMAT = "ddti_tpu_torch.train_state"
 
 
 def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
@@ -38,24 +52,159 @@ def load_npz_flat(path: str) -> dict:
                 for k in data.files}
 
 
-def load_checkpoint_into(path: str, model_type: str,
-                         model: nn.Module) -> nn.Module:
-    """Load ``path`` into ``model`` with ``strict=True`` and return it."""
+def map_tensors(tree, fn):
+    """``tree`` (nested dicts) with ``fn`` applied to every tensor."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def to_host(tree):
+    """A copy of ``tree`` with every tensor on the CPU."""
+    return map_tensors(tree, lambda t: t.detach().to("cpu", copy=True))
+
+
+def is_full_state(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, STATE_FILE))
+
+
+def save_checkpoint(path: str, state) -> None:
+    """Write a ``TrainState``'s full state (or such a tree, as
+    ``full_state_dict`` returns it) into the directory ``path``: a
+    temporary file, then ``os.replace``, so a reader sees the old state
+    or the new one, never a torn file."""
+    tree = state if isinstance(state, dict) else state.full_state_dict()
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save({"format": _FORMAT, **to_host(tree)}, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+
+
+def read_checkpoint(path: str) -> dict:
+    """The full-state tree saved in the directory ``path`` (CPU tensors).
+    A directory without one (an Orbax checkpoint of the JAX package)
+    raises ValueError."""
+    if not is_full_state(path):
+        raise ValueError(
+            f"{path} is a directory without the port's {STATE_FILE} (an "
+            f"Orbax checkpoint?): Orbax is a JAX format the port does not "
+            f"read. Export the weights with "
+            f"ddti_tpu.train.checkpoint.save_params_npz or "
+            f"ddti_tpu.train.torch_interop.save_pth")
+    tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                      weights_only=True)
+    if tree.get("format") != _FORMAT:
+        raise ValueError(f"{path}: not a {_FORMAT} file")
+    return tree
+
+
+def restore_checkpoint(path: str, state):
+    """Restore the full state in ``path`` into ``state`` (in place) and
+    return it; any structure mismatch raises ValueError."""
+    state.load_full_state_dict(read_checkpoint(path))
+    return state
+
+
+class ManagedCheckpointer:
+    """Rotating full-state checkpoints (JAX ``ManagedCheckpointer``): one
+    numeric step directory each under ``directory``, the newest
+    ``max_to_keep`` kept, and ``restore_latest`` for resuming. As with the
+    JAX package's Orbax manager, ``save`` copies the state to the host in
+    the caller and, with ``async_save``, writes it on a background thread
+    while training goes on; ``wait``/``close`` raise a failed write."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 async_save: bool = True):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max(int(max_to_keep), 1)
+        os.makedirs(self.directory, exist_ok=True)
+        self._pool = (concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="periodic-saver") if async_save else None)
+        self._pending: list = []
+
+    def steps(self) -> list[int]:
+        return sorted(int(d) for d in os.listdir(self.directory)
+                      if d.isdigit() and is_full_state(
+                          os.path.join(self.directory, d)))
+
+    def latest_step(self) -> int | None:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def _write(self, step: int, tree: dict, metrics: dict | None) -> None:
+        path = os.path.join(self.directory, str(step))
+        save_checkpoint(path, tree)
+        if metrics:
+            with open(os.path.join(path, "metrics.json"), "w") as f:
+                json.dump(metrics, f)
+        for old in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def save(self, step: int, state, metrics: dict | None = None) -> bool:
+        """Save the full state at ``step`` (the JAX Trainer passes the
+        epoch number) and rotate."""
+        tree = to_host(state if isinstance(state, dict)
+                       else state.full_state_dict())
+        if self._pool is None:
+            self._write(int(step), tree, metrics)
+        else:
+            self._pending.append(self._pool.submit(
+                self._write, int(step), tree, metrics))
+        return True
+
+    def restore_latest(self, state):
+        """``(state, step)`` with the newest checkpoint restored into
+        ``state``, or None when there is none."""
+        self.wait()
+        step = self.latest_step()
+        if step is None:
+            return None
+        return restore_checkpoint(os.path.join(self.directory, str(step)),
+                                  state), step
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
+
+
+def load_checkpoint_into(path: str, model_type: str, model: nn.Module,
+                         prefer_ema: bool = True) -> nn.Module:
+    """Load the weights of ``path`` (``.pth``, ``.npz`` or a full-state
+    directory) into ``model`` with ``strict=True`` and return it. For a
+    full state, ``prefer_ema`` (the serving default) takes an --ema_decay
+    run's shadow, the weights its metrics describe; training warm starts
+    pass False and continue from the live weights (JAX's rule)."""
     if path.endswith(".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
     elif path.endswith(".npz"):
         sd = state_dict_from_flax(model_type, load_npz_flat(path))
     elif os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an Orbax checkpoint?): Orbax is a JAX "
-            f"format the port does not read. Export the weights with "
-            f"ddti_tpu.train.checkpoint.save_params_npz or "
-            f"ddti_tpu.train.torch_interop.save_pth")
+        tree = read_checkpoint(path)
+        sd = dict(tree["model"])
+        if prefer_ema and tree.get("ema"):
+            sd.update(tree["ema"])
     else:
         raise ValueError(f"unknown checkpoint format: {path} "
-                         f"(expected .pth or .npz)")
+                         f"(expected .pth, .npz or a full-state directory)")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def save_params_npz(path: str, model_type: str, state_dict: dict) -> None:
+    """``state_dict`` as a ``save_params_npz`` ``.npz`` at ``path``,
+    through a temporary file."""
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat_flax_from_state_dict(model_type, sd))
+    os.replace(tmp, path)
 
 
 def save_weights(base: str, model_type: str, model: nn.Module,
@@ -67,8 +216,6 @@ def save_weights(base: str, model_type: str, model: nn.Module,
     if state_dict is None:
         state_dict = model.state_dict()
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-    tmp = base + ".tmp.npz"
-    np.savez(tmp, **flat_flax_from_state_dict(model_type, sd))
-    os.replace(tmp, base + ".npz")
+    save_params_npz(base + ".npz", model_type, sd)
     torch.save(sd, base + ".tmp.pth")
     os.replace(base + ".tmp.pth", base + ".pth")

@@ -20,10 +20,17 @@ Weights are saved as ``<model_dir>/<Model>_best`` / ``_last`` in two
 formats: ``.npz`` (the JAX package's ``save_params_npz`` layout) and
 ``.pth`` (the reference's ``state_dict``); under ``--ema_decay`` both hold
 the EMA shadow with the live BatchNorm statistics, as the JAX Trainer's
-``_eval_weights``. Still to port (ROADMAP.md): overlay images, Orbax
-full-state checkpoints and resume, periodic checkpoints,
-``--fused_epoch``, the threshold sweep, serving exports, QAT and
-distillation.
+``_eval_weights``. The run lifecycle is the JAX Trainer's: ``_last`` is
+also a full-state directory (``checkpoint.py``) that ``--resume``
+continues from at ``start_epoch``; SIGTERM or SIGINT stops the run at the
+next step (or after validation) with that state saved, and a second signal
+aborts; every ``save_interval`` epochs a rotated full state and the
+confusion plot; best-epoch writes on a background thread from on-device
+copies (``_AsyncBestSaver``), with ``--best_full_state`` the full state
+too; ``--tune_threshold`` picks test()'s threshold on val; test() draws
+the contour-overlay grids. As in JAX, a resumed run starts
+``best_val_iou`` and early stopping afresh. Still to port (ROADMAP.md):
+``--fused_epoch``, serving exports, QAT and distillation.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import csv
 import json
 import math
 import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -48,11 +57,119 @@ from ddti_tpu_torch.eval.metrics import (
     metrics_from_counts,
 )
 from ddti_tpu_torch.eval.surface import surface_metrics_batch
+from ddti_tpu_torch.eval.visualize import save_boundary_grids
 from ddti_tpu_torch.utils.early_stopping import EarlyStopping
 
-from .checkpoint import save_weights
+from .checkpoint import (
+    ManagedCheckpointer,
+    map_tensors,
+    save_checkpoint,
+    save_weights,
+    to_host,
+)
 from .state import TrainState, describe_freeze, parse_freeze
-from .steps import accumulate, make_eval_step, make_infer_step, make_train_step
+from .steps import (
+    accumulate,
+    make_eval_step,
+    make_infer_step,
+    make_threshold_sweep_step,
+    make_train_step,
+)
+
+
+class _DeviceSnapshot:
+    """Copies of a tree of tensors, made on the training stream when
+    constructed: the optimizer updates the parameters in place, so what a
+    background save reads must be copied before the next step is
+    enqueued. ``to_host`` (from any thread) reads the copies on a side
+    stream of its own once they are made, so only that device-to-host
+    copy overlaps training, and frees them (JAX ``_snapshot``)."""
+
+    def __init__(self, tree):
+        self._tree = map_tensors(tree, lambda t: t.detach().clone())
+        self._event = None
+        devices = set()
+        map_tensors(self._tree, lambda t: devices.add(t.device))
+        cuda = [d for d in devices if d.type == "cuda"]
+        if cuda:
+            self._device = cuda[0]
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def to_host(self):
+        tree, self._tree = self._tree, None
+        if self._event is None:  # CPU tensors: the copies are the host's
+            return tree
+        with torch.cuda.device(self._device):
+            side = torch.cuda.Stream()
+            side.wait_event(self._event)
+            with torch.cuda.stream(side):
+                return to_host(tree)  # each copy waits for its stream
+
+
+class _AsyncBestSaver:
+    """Background writer for best-epoch artifacts (JAX ``_AsyncBestSaver``):
+    the device-to-host copy and the file writes overlap the next epochs
+    instead of blocking the step loop. Latest-wins: a newer best that lands
+    while one is being written replaces the pending one. A failed write is
+    logged at once, as in JAX, and raised by ``close()`` once training
+    has ended, so no save error goes unseen."""
+
+    def __init__(self, logger):
+        self._logger = logger
+        self._cond = threading.Condition()
+        self._pending = None
+        self._writing = False
+        self._stop = False
+        self._error = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="best-saver")
+        self._thread.start()
+
+    def submit(self, write_fn, label: str) -> None:
+        with self._cond:
+            if self._pending is not None:
+                self._logger.info(
+                    f"--Best-save superseded before writing ({label} "
+                    f"replaces it)")
+            self._pending = (write_fn, label)
+            self._cond.notify_all()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while self._pending is None and not self._stop:
+                    self._cond.wait()
+                if self._pending is None and self._stop:
+                    return
+                write_fn, label = self._pending
+                self._pending = None
+                self._writing = True
+            try:
+                write_fn()
+                self._logger.info(label)
+            except Exception as e:  # never kill training from the writer
+                self._logger.warning(f"--Best-save failed: {e}")
+                self._error = self._error or e
+            finally:
+                with self._cond:
+                    self._writing = False
+                    self._cond.notify_all()
+
+    def join(self) -> None:
+        """Block until every submitted save has been written."""
+        with self._cond:
+            while self._pending is not None or self._writing:
+                self._cond.wait()
+
+    def close(self) -> None:
+        self.join()
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join(timeout=60)
+        if self._error is not None:
+            raise RuntimeError("a best-epoch save failed") from self._error
 
 
 def aug_config_from(config) -> AugmentConfig:
@@ -76,6 +193,10 @@ class Trainer:
         self.train_src, self.val_src, self.test_src = data
         self.steps_per_epoch = max(
             self.train_src.num_batches(config.batch_size), 1)
+        # the first epoch train() runs; a full --resume sets it to
+        # restored_step // steps_per_epoch, so the run completes the
+        # ORIGINAL --epochs budget instead of training that many more
+        self.start_epoch = 0
         freeze = parse_freeze(config)
         self.state = TrainState(
             model, config.lr, self.steps_per_epoch, config.weight_decay,
@@ -107,6 +228,18 @@ class Trainer:
         self._nan_patience = int(config.nan_guard_patience or 5)
         self._consecutive_skips = 0
         self._diverged = False
+        self._ckpt_manager = None  # lazy ManagedCheckpointer (rotation)
+        self._best_saver = None    # lazy _AsyncBestSaver (async_best_save)
+        self._tuned_threshold = None  # the --tune_threshold sweep's pick
+        self._last_val_counts = None  # for the periodic confusion plot
+        # SIGTERM/SIGINT during train() checkpoints and stops cleanly
+        self._preempted = False
+
+    @property
+    def preempted(self) -> bool:
+        """True when train() stopped on SIGTERM/SIGINT (checkpoints saved;
+        resume with --resume --checkpoint_path <run>/models/<Model>_last)."""
+        return self._preempted
 
     # ------------------------------------------------------------------
 
@@ -183,6 +316,9 @@ class Trainer:
             if self._nan_guard and not self._note_skip(
                     float(m.skipped), epoch, i):
                 break  # patience spent: stop the epoch and the run
+            if self._preempted:
+                # the step just taken is kept; train() saves and stops
+                break
             if log_every and (i + 1) % log_every == 0:
                 ips = n_imgs / max(time.perf_counter() - t0, 1e-9)
                 self.logger.info(f"Epoch {epoch + 1} step {i + 1}: "
@@ -253,45 +389,196 @@ class Trainer:
         em = epoch_metrics_from_counts(total.counts)
         avgs = self._avgs(total)
         self._log_epoch("Validate", epoch, avgs, em)
+        self._last_val_counts = total.counts
         return avgs["loss"], em["iou"]
 
+    def _on_preempt_signal(self, signum, frame):
+        """SIGTERM/SIGINT during train(): finish the step under way, then
+        checkpoint and stop. A second signal aborts at once."""
+        if self._preempted:
+            raise KeyboardInterrupt(f"second signal {signum}: aborting")
+        self._preempted = True
+        self.logger.warning(
+            f"received signal {signum}: will checkpoint and stop at the "
+            f"next step boundary (send again to abort without saving)")
+
+    def _install_preempt_handlers(self):
+        """The graceful handlers; returns the previous ones (None outside
+        the main thread, where signal.signal raises: a Trainer driven from
+        a worker thread installs none)."""
+        prev = {}
+        try:
+            for s in (signal.SIGTERM, signal.SIGINT):
+                prev[s] = signal.signal(s, self._on_preempt_signal)
+        except ValueError:
+            return None
+        return prev
+
     def train(self):
+        prev_handlers = self._install_preempt_handlers()
+        try:
+            self._train_loop(self.config)
+        finally:
+            if prev_handlers is not None:
+                for s, h in prev_handlers.items():
+                    signal.signal(s, h)
+
+    def _log_preempted(self, when: str, epoch: int) -> None:
         cfg = self.config
-        for epoch in range(cfg.epochs):
+        last = os.path.join(cfg.model_dir, f"{cfg.model_type}_last")
+        self.logger.warning(
+            f"preempted {when} epoch {epoch + 1}: saving checkpoints and "
+            f"stopping — resume with --resume --checkpoint_path {last}")
+
+    def _train_loop(self, cfg):
+        if self.start_epoch:
+            self.logger.info(
+                f"Resuming at epoch {self.start_epoch + 1}/{cfg.epochs} "
+                f"(restored step {int(self.state.step)})")
+        for epoch in range(self.start_epoch, cfg.epochs):
             self.train_one_epoch(epoch)
             if self._diverged:  # --nan_guard patience spent; the last
                 break           # weights below are still saved
+            if self._preempted:
+                self._log_preempted("at", epoch)
+                break
             _, val_iou = self.validate(epoch)
+
+            # rotated full states and the confusion plot every
+            # save_interval epochs
+            if cfg.save_interval and (epoch + 1) % cfg.save_interval == 0:
+                if self._ckpt_manager is None:
+                    self._ckpt_manager = ManagedCheckpointer(
+                        os.path.join(cfg.model_dir, "periodic"),
+                        max_to_keep=cfg.max_keep_checkpoints)
+                self._ckpt_manager.save(epoch + 1, self.state,
+                                        metrics={"val_iou": float(val_iou)})
+                try:
+                    from ddti_tpu_torch.eval.confusion import (
+                        save_confusion_matrix,
+                    )
+                    c = self._last_val_counts
+                    save_confusion_matrix(float(c.tp), float(c.fp),
+                                          float(c.fn), float(c.tn),
+                                          cfg.result_dir, epoch)
+                except Exception:
+                    pass
+
             if val_iou > self.best_val_iou:
                 self.best_val_iou = val_iou
-                self._save("best")
-                self.logger.info(f"--Best model saved at epoch {epoch + 1} "
-                                 f"with IoU: {val_iou:.4f}")
+                self._save_best(epoch, val_iou)
             self.early_stopping(-val_iou)
             if self.early_stopping.early_stop:
                 self.logger.info("--Early stopping triggered")
                 break
+            if self._preempted:  # the signal came during validate or saves
+                self._log_preempted("after", epoch)
+                break
+
+        last = os.path.join(cfg.model_dir, f"{cfg.model_type}_last")
+        save_checkpoint(last, self.state)
         self._save("last")
+        if self._best_saver is not None:
+            # every best artifact is on disk before anything reads it
+            self._best_saver.close()
+            self._best_saver = None
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.close()
+            self._ckpt_manager = None
         self.writer.close()
+
+    def _save_best(self, epoch: int, val_iou: float) -> None:
+        """The best-epoch artifacts: ``.npz`` and ``.pth`` of the eval
+        weights, and under --best_full_state the full state in
+        ``<Model>_best/``. By default on a background thread from
+        on-device copies, while training goes on; train() joins it before
+        anything reads the files. --async_best_save false writes them
+        here."""
+        cfg = self.config
+        best = os.path.join(cfg.model_dir, f"{cfg.model_type}_best")
+        label = (f"--Best model saved at epoch {epoch + 1} "
+                 f"with IoU: {val_iou:.4f}")
+        full = bool(cfg.best_full_state)
+        if not cfg.async_best_save:
+            if full:
+                save_checkpoint(best, self.state)
+            self._save("best")
+            self.logger.info(label)
+            return
+        snap = _DeviceSnapshot({
+            "weights": self.state.eval_state_dict(),
+            "full": self.state.full_state_dict() if full else {}})
+
+        def write():
+            host = snap.to_host()
+            if host["full"]:
+                save_checkpoint(best, host["full"])
+            save_weights(best, cfg.model_type, self.model, host["weights"])
+
+        if self._best_saver is None:
+            self._best_saver = _AsyncBestSaver(self.logger)
+        self._best_saver.submit(write, label)
 
     # ------------------------------------------------------------------
 
-    def test(self) -> dict:
+    def tune_threshold(self, grid=None) -> float:
+        """Sweep the binarization threshold over the VAL split, every
+        candidate scored from one forward a batch, and return the
+        argmax-IoU one (JAX ``tune_threshold``; the reference hardcodes
+        0.5)."""
+        grid = (np.round(np.arange(0.05, 0.951, 0.05), 2)
+                if grid is None else np.asarray(grid))
+        sweep = make_threshold_sweep_step(self.config, grid)
+        total = None
+        seen = set()
+        for idx, images, masks in self._batches(self.val_src, False,
+                                                self.rng):
+            # validate()'s per-image accounting (QUIRKS #22)
+            c = sweep(self.state, images, masks,
+                      self._first_occurrence_mask(idx, seen, images.device))
+            total = c if total is None else total + c
+        inter = total.inter.cpu().numpy()
+        union = total.union.cpu().numpy()
+        ious = inter / np.maximum(union, 1e-8)
+        t = float(grid[int(np.argmax(ious))])
+        self.logger.info(
+            "Threshold sweep (val IoU): "
+            + ", ".join(f"{g:.2f}:{i:.4f}" for g, i in zip(grid, ious))
+            + f" -> using {t:.2f}")
+        self._tuned_threshold = t
+        return t
+
+    # ------------------------------------------------------------------
+
+    def test(self, visualize: bool = True) -> dict:
         """Global micro-averaged pixel metrics over the test split (shuffled
         by ``self.rng``, the reference's quirk), per-image audit rows with
-        HD95/ASSD, ``result/test_metrics.json`` and
-        ``result/per_image_metrics.csv``. The contour-overlay grids are not
-        ported yet (ROADMAP.md)."""
+        HD95/ASSD, ``result/test_metrics.json``,
+        ``result/per_image_metrics.csv`` and, with ``visualize``, the
+        contour-overlay grids (``test_boundaries_<k>.png``). Under
+        --tune_threshold at the val split's tuned threshold."""
         self.logger.info(
             "------------------Starting Testing Model------------------")
+        threshold = 0.5
+        if self.config.tune_threshold:
+            threshold = (self._tuned_threshold
+                         if self._tuned_threshold is not None
+                         else self.tune_threshold())
+            if threshold != 0.5:
+                self.infer_step = make_infer_step(self.config, threshold)
         rows, seen = [], set()
+        frames = ([], [], [])  # images, masks, predictions for the grids
         for idx, images, masks in self._batches(self.test_src, True,
                                                 self.rng):
-            _, masks_f, preds, _, per_img = self.infer_step(
+            imgs_f, masks_f, preds, _, per_img = self.infer_step(
                 self.state, images, masks)
             surf = (surface_metrics_batch(preds, masks_f)
                     if self.config.surface_metrics else None)
             self._collect_per_image(rows, seen, idx, per_img, surf)
+            if visualize:
+                for acc, x in zip(frames, (imgs_f, masks_f.to(torch.uint8),
+                                           preds)):
+                    acc.append(x[..., 0].cpu().numpy())
         # wraparound-padded duplicates are dropped, so the global metrics
         # count every image once, as the reference's unpadded loader does
         m = metrics_from_counts(
@@ -325,10 +612,19 @@ class Trainer:
             json.dump({**{k: float(v) for k, v in m.items()},
                        "total_images": total,
                        "model_type": self.config.model_type,
-                       "threshold": 0.5,
+                       "threshold": threshold,
                        "tta": bool(self.config.tta)}, f, indent=1)
         if rows:
             self._write_per_image_csv(rows)
+        if visualize and frames[0]:
+            t0 = time.perf_counter()
+            paths = save_boundary_grids(
+                *(np.concatenate(x) for x in frames), self.config.result_dir)
+            n = sum(len(x) for x in frames[0])
+            self.logger.info(
+                f"Contour grids: {n} frames in "
+                f"{time.perf_counter() - t0:.3f} s -> "
+                + ", ".join(os.path.basename(p) for p in paths))
         return m
 
     def _collect_per_image(self, rows: list, seen: set, idx, per_img,

@@ -12,8 +12,11 @@ rules of ``torch_interop.py``; frozen tensors leave the optimizer: no
 update, no weight decay, no moments) with ``--freeze_bn_stats``, and the
 ``--ema_decay`` shadow. Frozen tensors take no gradient (XLA drops
 theirs as dead code) unless ``--nan_guard``'s check, which counts every
-gradient as JAX's does, needs them. ``train/state.py:flat_fused`` is an
-XLA layout choice and is not ported (ROADMAP.md).
+gradient as JAX's does, needs them. The whole state saves and restores
+as one tree (``full_state_dict`` / ``load_full_state_dict``, the
+counterpart of JAX's checkpointed pytree), AdamW's moments keyed by
+parameter name. ``train/state.py:flat_fused`` is an XLA layout choice and
+is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -171,6 +174,79 @@ class TrainState:
         if self.ema is not None:
             sd.update({k: v.detach() for k, v in self.ema.items()})
         return sd
+
+    def _trainable_names(self) -> list[str]:
+        return [k for k, _ in self.model.named_parameters()
+                if k not in self.frozen]
+
+    def full_state_dict(self) -> dict:
+        """The whole train state (JAX ``checkpoint._tree_dict``): ``model``
+        (parameters and BatchNorm statistics), ``adam`` (AdamW's state of
+        each trainable parameter keyed by its name: ``exp_avg``,
+        ``exp_avg_sq`` and its ``step``; empty before its first update),
+        ``step`` and, under --ema_decay, ``ema``. The tensors are the live
+        ones: a caller that lets training go on copies them first."""
+        params = dict(self.model.named_parameters())
+        out = {"model": self.model.state_dict(), "step": int(self.step),
+               "adam": {k: dict(self.optimizer.state.get(params[k], {}))
+                        for k in self._trainable_names()}}
+        if self.ema is not None:
+            out["ema"] = {k: v.detach() for k, v in self.ema.items()}
+        return out
+
+    @torch.no_grad()
+    def load_full_state_dict(self, full: dict) -> None:
+        """Restore ``full_state_dict()``'s tree into this state, checked
+        whole before anything changes (JAX ``restore_checkpoint``).
+        AdamW's moments go to the parameters of the same name: a checkpoint
+        whose trainable names or shapes differ from this state's (another
+        --freeze) raises ValueError. A checkpoint without a shadow seeds
+        this state's EMA from the restored parameters; with EMA off a saved
+        shadow is dropped (JAX ``_merge_restored_ema``)."""
+        _check_like(full["model"], self.model.state_dict(), "model tensor")
+        params = dict(self.model.named_parameters())
+        names = self._trainable_names()
+        saved = full["adam"]
+        if set(saved) != set(names):
+            only_ck = sorted(set(saved) - set(names))
+            only_run = sorted(set(names) - set(saved))
+            raise ValueError(
+                f"the optimizer's parameters differ: {len(only_ck)} only in "
+                f"the checkpoint {only_ck[:3]}, {len(only_run)} only in this "
+                f"run {only_run[:3]}")
+        for k in names:
+            _check_like({m: v for m, v in saved[k].items() if m != "step"},
+                        {m: params[k] for m in saved[k] if m != "step"},
+                        f"AdamW state of {k}")
+        ema = None
+        if self.ema is not None:
+            ema = full.get("ema") or {k: full["model"][k] for k in self.ema}
+            _check_like(ema, self.ema, "EMA tensor")
+        self.model.load_state_dict(full["model"], strict=True)
+        for k in names:
+            p = params[k]
+            # the step stays where AdamW keeps it (a CPU scalar); the
+            # moments go to the parameter's device and dtype
+            self.optimizer.state[p] = {
+                m: (v.clone() if m == "step"
+                    else v.to(device=p.device, dtype=p.dtype, copy=True))
+                for m, v in saved[k].items()}
+        self.step = int(full["step"])
+        if ema is not None:
+            for k, v in self.ema.items():
+                v.copy_(ema[k])
+
+
+def _check_like(saved: dict, live: dict, what: str) -> None:
+    """ValueError unless ``saved`` has ``live``'s keys and shapes."""
+    if set(saved) != set(live):
+        diff = sorted(set(saved) ^ set(live))
+        raise ValueError(f"{what}s differ: {len(diff)} keys in one side "
+                         f"only, e.g. {diff[:3]}")
+    for k, v in live.items():
+        if tuple(saved[k].shape) != tuple(v.shape):
+            raise ValueError(f"{what} {k}: shape {tuple(saved[k].shape)} "
+                             f"in the checkpoint, {tuple(v.shape)} here")
 
 
 def count_params(model: nn.Module) -> int:

@@ -313,6 +313,49 @@ def make_infer_step(config, threshold: float = 0.5):
     return step
 
 
+def make_threshold_sweep_step(config, thresholds):
+    """``step(state, images, masks, valid=None) -> ConfusionCounts`` whose
+    counts have a leading thresholds axis (JAX
+    ``make_threshold_sweep_step``, --tune_threshold): one forward scores
+    every candidate, compared at once on the device. The logits are the
+    test path's (the EMA shadow under --ema_decay, the flip ensemble
+    under --tta); ``valid`` (B,) {0, 1} weights out wraparound-padded
+    duplicates, as validate() does (QUIRKS #22)."""
+    _check_ported(config)
+    amp = bool(config.use_amp_autocast)
+    size = (config.image_size, config.image_size)
+    use_tta = bool(getattr(config, "tta", False))
+    use_ema = _ema_decay(config) > 0
+    grid = torch.as_tensor(thresholds, dtype=torch.float32)
+
+    @torch.no_grad()
+    def step(state: TrainState, images_u8, masks_u8, valid=None):
+        images, masks = _to_float(images_u8, masks_u8)
+        images, masks = eval_preprocess(images, masks, size)
+        weights = _eval_weights(state, use_ema)
+
+        def fwd(x):
+            return _main_logits(_forward(state.model, x, amp, weights))
+
+        logits = tta_logits(fwd, images) if use_tta else fwd(images)
+        n = logits.shape[0]
+        prob = torch.sigmoid(logits.to(torch.float32)).reshape(1, n, -1)
+        ts = grid.to(prob.device).reshape(-1, 1, 1)
+        pred = prob > ts                                  # (T, B, pixels)
+        t = masks.to(torch.float32).reshape(1, n, -1)
+        pos_i, pos_b = t >= 1.0, t > 0.0  # confusion_counts' conventions
+
+        def count(x):  # (T, B): per image, summed with the valid weights
+            c = x.sum(dim=2, dtype=torch.float64)
+            return c.sum(dim=1) if valid is None else (c * valid).sum(dim=1)
+
+        return ConfusionCounts(
+            count(pred & pos_i), count(pred & ~pos_i), count(~pred & pos_i),
+            count(~pred & ~pos_i), count(pred & pos_b), count(pred | pos_b))
+
+    return step
+
+
 def accumulate(total: StepMetrics | None, m: StepMetrics) -> StepMetrics:
     """Running sums of per-batch metrics, weighted by n (on the device);
     ``skipped`` is an unweighted step count."""

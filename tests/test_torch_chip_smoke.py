@@ -306,3 +306,87 @@ def test_recipe_cli_flags_are_test_sh():
                                       "mixup", "elastic"}
     assert C.RECIPE_OPTIONS[C.RECIPE_OPTIONS.index("--grad_accum") + 1] \
         == "2"
+
+
+LIFECYCLE_LOG = """\
+2026-10-18 01:30:21,100 - INFO - Resuming at epoch 2/3 (restored step 6)
+2026-10-18 01:30:22,100 - INFO - Train Epoch: 2, Avg Loss: 1.4223
+2026-10-18 01:30:23,100 - INFO - Train Epoch: 3, Avg Loss: 1.4233
+2026-10-18 01:30:24,100 - INFO - Threshold sweep (val IoU): 0.05:0.0645, \
+0.10:0.0700, 0.15:0.0612 -> using 0.10
+2026-10-18 01:30:25,100 - INFO - Contour grids: 16 frames in 12.500 s -> \
+test_boundaries_0.png
+[KERNELS] edt_minplus=11 flash_fwd=0 flash_bwd_dkdv=0 flash_bwd_dq=0
+"""
+
+
+def test_parse_lifecycle_log():
+    got = C.parse_lifecycle_log(LIFECYCLE_LOG)
+    assert got == {"epochs": [2, 3], "threshold": 0.10,
+                   "grid_frames": 16, "grid_s": 12.5,
+                   "resumed_epoch": 2, "resumed_step": 6,
+                   "kernels": {"edt_minplus": 11, "flash_fwd": 0,
+                               "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}}
+    assert C.parse_lifecycle_log("") == {"epochs": []}
+
+
+def test_lifecycle_cmd_is_the_flagship_with_the_lifecycle_flags():
+    cmd = C.lifecycle_cmd("/b", "--resume")
+    assert cmd[1:3] == ["-m", "ddti_tpu_torch.cli.main"]
+    for flag in ("--base_filters=64", "--depth=5", "--image_size=512",
+                 "--batch_size=16", "--epochs=3", "--save_interval=1",
+                 "--max_keep_checkpoints=2", "--tune_threshold",
+                 "--best_full_state", "--synthetic"):
+        assert flag in cmd, flag
+    assert cmd[cmd.index("--device") + 1] == "cuda"
+    assert cmd[-1] == "--resume"
+    # the CLI parses every flag of the command
+    from ddti_tpu_torch.cli.main import get_parser
+
+    args = get_parser().parse_args(cmd[3:])
+    assert args.save_interval == 1 and args.max_keep_checkpoints == 2
+    assert args.ema_decay == 0.999 and args.resume
+
+
+def test_lifecycle_flag_needs_the_card(tmp_path):
+    """``chip_smoke.py --lifecycle`` without a card (nor nvidia-smi) exits
+    non-zero and prints no result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--lifecycle"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"lifecycle"' not in r.stdout and '"ok"' not in r.stdout
+
+
+def test_lifecycle_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The whole lifecycle phase with the CPU as the card and a tiny
+    ResUNet (base 4, depth 2, 32^2): its three CLI runs, the restore held
+    bit for bit, the best-save timings, the average and the infer CLI; no
+    kernel launches here."""
+    monkeypatch.setattr(C, "DEVICE", "cpu")
+    monkeypatch.setattr(C, "TRAIN", dict(
+        model_type="ResUNet", base_filters=4, depth=2, image_size=32,
+        batch_size=16, epochs=2))
+    monkeypatch.setattr(C, "INFER_FRAMES", ((64, 48, 3), (96, 64, 1)))
+    monkeypatch.setattr(C, "LIFECYCLE_RECALIB", 4)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = C.run_lifecycle(str(tmp_path))
+    finally:
+        torch.set_num_threads(n)
+    assert got["launches"] == {"uninterrupted": 0, "resumed": 0}
+    assert got["restore"]["step"] // 4 == 1
+    assert got["restore"]["tensors"] > 0 and got["restore"]["bytes"] > 0
+    assert len(got["best_saves"]["rows"]) == 4
+    assert all(0.05 <= t <= 0.95 for t in got["threshold"])
+    out = capsys.readouterr().out
+    assert "preempted: exit 75, test phase skipped" in out
+    assert "bit-equal True" in out

@@ -948,3 +948,76 @@ def test_tta_logits_on_card_match_cpu(cuda, model_type, kw, size):
     assert got.is_cuda and torch.isfinite(got).all()
     rel = float((got.cpu() - want).abs().max() / want.abs().max())
     assert rel < ZOO_RTOL, rel
+
+
+# ---------------------------------------------------------------- lifecycle
+
+def _cuda_state(cuda, seed, ema=True):
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    m = init_like_flax(create_model("UNet", base_filters=8, depth=3),
+                       seed).to(cuda)
+    return TrainState(m, 1e-3, 4, model_type="UNet", ema=ema)
+
+
+def _step_all(state, seed):
+    g = torch.Generator().manual_seed(seed)
+    for p in state.trainable:
+        p.grad = torch.randn(p.shape, generator=g).to(p.device)
+    state.apply_gradients()
+    state.update_ema(0.9)
+
+
+def _tensors(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tensors(v, f"{prefix}/{k}")
+        elif isinstance(v, torch.Tensor):
+            yield f"{prefix}/{k}", v
+
+
+@pytest.mark.parametrize("ema", [False, True])
+def test_full_state_roundtrip_on_cuda(cuda, tmp_path, ema):
+    """A train state on the card saved and restored into another: every
+    parameter, statistic, AdamW moment, step and EMA tensor bit-equal,
+    the moments and the shadow on the card, AdamW's step where torch keeps
+    it (the CPU); one more update equal on both."""
+    from ddti_tpu_torch.train import checkpoint as ck
+
+    st = _cuda_state(cuda, 0, ema)
+    for i in range(3):
+        _step_all(st, i)
+    ck.save_checkpoint(str(tmp_path / "s"), st)
+    fresh = ck.restore_checkpoint(str(tmp_path / "s"),
+                                  _cuda_state(cuda, 1, ema))
+    want = dict(_tensors(st.full_state_dict()))
+    got = dict(_tensors(fresh.full_state_dict()))
+    assert want.keys() == got.keys() and fresh.step == st.step == 3
+    for k, v in want.items():
+        assert got[k].device == v.device, k
+        assert torch.equal(got[k], v), k
+    assert any(k.endswith("/exp_avg") and v.is_cuda for k, v in got.items())
+    _step_all(st, 9)
+    _step_all(fresh, 9)
+    for k, v in dict(_tensors(st.full_state_dict())).items():
+        assert torch.equal(dict(_tensors(fresh.full_state_dict()))[k], v), k
+
+
+def test_best_save_snapshot_on_cuda():
+    """The async best saver's copies are made on the training stream before
+    the next in-place update and read back on a side stream: the values at
+    the save, not after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ddti_tpu_torch.train.engine import _DeviceSnapshot
+
+    x = torch.arange(1 << 20, device="cuda", dtype=torch.float32)
+    snap = _DeviceSnapshot({"w": x, "nested": {"v": x * 2}})
+    torch.cuda._sleep(10_000_000)  # the stream still busy at the update
+    x.add_(1.0)
+    host = snap.to_host()
+    assert not host["w"].is_cuda
+    assert torch.equal(host["w"], torch.arange(1 << 20, dtype=torch.float32))
+    assert torch.equal(host["nested"]["v"], 2 * host["w"])
