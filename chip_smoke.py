@@ -15,7 +15,8 @@ chip_smoke.py --zoo`` runs the zoo phases alone and profiles every zoo
 model at both sizes; ``python3 chip_smoke.py --infer`` runs the infer phase
 alone (the AttentionUNet trained first, as the zoo phase trains it);
 ``python3 chip_smoke.py --recipe`` runs the recipe phase alone;
-``python3 chip_smoke.py --lifecycle`` the lifecycle phase alone.
+``python3 chip_smoke.py --lifecycle`` the lifecycle phase alone;
+``python3 chip_smoke.py --legacy`` the legacy phase alone.
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -89,7 +90,7 @@ and a non-zero exit:
               breakdown of the kernel path with the device's busy share.
 7. train    — the training CLI (python -m ddti_tpu_torch.cli.main --mode
               both --synthetic) with the flagship ResUNet (base_filters 64,
-              depth 5) at 512^2, batch 16, bf16, 2 epochs, in a subprocess:
+              depth 5) at 512^2, batch 16, bf16, 1 epoch, in a subprocess:
               exit 0, the parameter count, the JAX CLI's run tree, finite
               loss terms with a nonzero boundary term, val IoU and test
               metrics with HD95/ASSD, a best .pth that loads strictly and an
@@ -97,8 +98,8 @@ and a non-zero exit:
               number of EDT kernel launches.
 8. ttrain   — the same CLI training the serving slice's TransUNet
               (base_filters 64, depth 4, 512^2 -> 1024 tokens) from a model
-              YAML with dropout_rate 0.0 and --tta, batch 16, bf16, 2
-              epochs: the same checks, "tta": true in test_metrics.json, and
+              YAML with dropout_rate 0.0 and --tta, batch 16, bf16, 1
+              epoch: the same checks, "tta": true in test_metrics.json, and
               exactly the expected launches of the flash forward (four
               forwards a test batch), both backward kernels and the EDT.
 9. step     — one float32 train step from one state and batch with the
@@ -123,14 +124,14 @@ and a non-zero exit:
               ASPPUNet, AttentionUNet, VNet2D and ImprovedVNet with
               deep_supervision and --alpha 2) from a one-entry model YAML of
               configs/config.yaml's base_filters 64, depth 5 entries, 512^2,
-              batch 16, bf16, 1 epoch, two runs at a time: run_cli's
+              batch 16, bf16, 1 epoch, three runs at a time: run_cli's
               checks with the JAX
               package's key set of each model, its parameter count, and
               exactly the expected EDT launches (the heads' loss runs none);
               then zoo serve: each best .pth through cli/serve.py's
               load_predictor on the card (a bf16 batch of 16, uint8 masks,
               their agreement with float32 masks) and float32 logits on the
-              card against the CPU's at batch 2, within 1e-3.
+              card against the CPU's at batch 1, within 1e-3.
     infer   — the inference CLI (python -m ddti_tpu_torch.cli.infer
               --device cuda) over synthetic JPEG frames (600x480 and
               1024x768, the latter 6 tiles at window 512, stride 256), on
@@ -166,7 +167,7 @@ and a non-zero exit:
               remap's coordinates) but there; CLAHE bit for bit on the same uint8 frames, whose values differ
               only within 1e-5 of a rounding boundary; the Paeth warp bit
               for bit where its shifts agree); test.sh's six ablation commands through the CLI (256^2,
-              batch 16, bf16, 1 epoch, four at a time) and one run with
+              batch 16, bf16, 1 epoch, all seven at once) and one run with
               --grad_accum 2 --clip_grad_norm 1.0 --ema_decay 0.999
               --nan_guard --freeze encoders_0 --freeze_bn_stats --remat 0,1:
               run_cli's checks, exactly the expected EDT launches (2 a
@@ -197,10 +198,27 @@ and a non-zero exit:
               cli/average.py over the resumed run's periodic states with
               the BatchNorm pass on 32 frames (the JAX layout's keys), and
               cli/infer.py predicting the infer phase's frames from it.
-17. result  — the total wall time, a JSON line of the kernels (the flash
-              forward's with the infer phase's launches; the EDT's with the
-              recipe and lifecycle phases' launches and numbers), then the
-              device line.
+17. legacy  — the nine fixed-architecture models (models/legacy.py,
+              models/mores.py; LEGACY): python -m ddti_tpu_torch.cli.params
+              printing the JAX tool's 14 counts; run.sh's path with the
+              port's tools: a nine-entry model matrix split by
+              cli/split_config.py and swept by cli/sweep.py --config_dir,
+              3 jobs at a time, at run.sh's extras with 1 epoch and bf16
+              (256^2, batch 16): every job exit 0 with JAX's parameter
+              count, check_run's checks with the JAX key set of each model,
+              exactly the expected EDT launches in each run's log; then
+              cli/aggregate.py's nine ranked rows and CSV; MoresTransUNet's
+              best .pth served by load_predictor at 512^2, bf16, batch 16
+              (1024 bottleneck tokens: 4 flash_fwd launches a batch), its
+              float32 logits kernel path on the card vs plain path on the
+              CPU within 1e-3 and the bf16 batch's device time on both
+              paths; LegacyUNet's float32 step, kernel vs plain EDT
+              (bit-equal boundary, parameters to 1e-6); the nine bf16 train
+              steps at 512^2 / batch 16 (median of 5) and their peaks.
+18. result  — the total wall time, a JSON line of the kernels (the flash
+              forward's with the infer and legacy phases' launches; the
+              EDT's with the recipe, lifecycle and legacy phases' launches
+              and numbers), then the device line.
 """
 
 import concurrent.futures
@@ -255,7 +273,7 @@ EDT_TIMED = 2
 EDT_OPS_PER_PIXEL = 26
 # the training slice: the CLI's flagship ResUNet at its defaults
 TRAIN = dict(model_type="ResUNet", base_filters=64, depth=5, image_size=512,
-             batch_size=16, epochs=2)
+             batch_size=16, epochs=1)
 SYNTHETIC = (64, 16, 16)  # the CLI's --synthetic train/val/test frames
 TRAIN_TIMEOUT_S = 600
 STEP_PARAM_RTOL = 1e-6
@@ -305,7 +323,7 @@ SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 TSLICE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
               dropout_rate=0.0)
 TSLICE_PARAMS = 19511873
-TTRAIN = dict(image_size=512, batch_size=16, epochs=2)
+TTRAIN = dict(image_size=512, batch_size=16, epochs=1)
 # float32 step, flash kernels vs their plain versions: loss terms (relative)
 # and gradients and updated parameters (normwise over all of them). The
 # attention gradients' float32 summation-order differences (~3e-7 relative)
@@ -356,7 +374,7 @@ ZOO_TRAIN = dict(image_size=512, batch_size=16, epochs=1)
 # the zoo's CLI runs, this many at a time: each holds its model, optimizer
 # state and 512^2 / batch 16 activations on the card, and most of its wall
 # time is process start, initialisation and weight files
-ZOO_TRAIN_PARALLEL = 2
+ZOO_TRAIN_PARALLEL = 3
 ZOO_STEP_BATCH = 4     # the float32 step, kernel EDT vs plain
 ZOO_CPU_BATCH = 2      # float32 logits on the card vs on the CPU
 ZOO_LOGIT_RTOL = 1e-3  # max |card - CPU| / max |CPU|, the serving limit
@@ -396,7 +414,7 @@ RECIPE_OPTIONS = ["--grad_accum", "2", "--clip_grad_norm", "1.0",
                   "--ema_decay", "0.999", "--nan_guard", "--freeze",
                   "encoders_0", "--freeze_bn_stats", "--remat", "0,1"]
 RECIPE_TRAIN = dict(image_size=256, store_size=256, batch_size=16, epochs=1)
-RECIPE_PARALLEL = 4
+RECIPE_PARALLEL = 7
 CLI_SEED = 42          # the CLI's --seed default: its initial weights
 RECIPE_BRANCHES = {"crop": dict(p_crop=0.5), "elastic": dict(use_elastic=True),
                    "exact warp": dict(fast_warp=False),
@@ -426,6 +444,41 @@ LIFECYCLE_FLAGS = ["--save_interval=1", "--max_keep_checkpoints=2",
                    "--tune_threshold", "--best_full_state",
                    "--ema_decay=0.999", "--log_every=1"]
 LIFECYCLE_RECALIB = 32
+
+# the legacy phase: the nine fixed-architecture models of
+# models/legacy.py and models/mores.py, run.sh's sweep path at 1 epoch in
+# bf16, aggregate, MoresTransUNet served, LegacyUNet's step, nine profiles
+LEGACY = ("LegacyUNet", "TripleBranchImprovedVNet", "MoresUNet",
+          "MoresVNet2D", "MoresAttentionUNet", "MoresResUNet",
+          "MoresASPPUNet", "MoresTransUNet", "MoresImprovedVNet")
+# what the JAX package's cli/params.py prints (its two sections)
+PARAMS_JAX = {
+    "reference": {"UNet": 31_042_369, "VNet2D": 8_127_031,
+                  "ImprovedVNet": 160_435_681, "TransUNet": 20_560_449,
+                  "ResUNet": 32_429_185, "ASPPUNet": 39_947_329,
+                  "AttentionUNet": 31_388_013},
+    "active": {"UNet": 124_373_057, "ResUNet": 129_960_065,
+               "ASPPUNet": 160_020_545, "AttentionUNet": 125_776_752,
+               "TransUNet": 67_297_345, "VNet2D": 8_127_031,
+               "ImprovedVNet": 8_216_056}}
+# the default ctors' counts as JAX counts them (the reference set's, and
+# MoresUNet's and MoresImprovedVNet's from jax.eval_shape)
+LEGACY_JAX_PARAMS = {
+    "LegacyUNet": 31_042_369, "TripleBranchImprovedVNet": 160_435_681,
+    "MoresUNet": 31_042_369, "MoresVNet2D": 8_127_031,
+    "MoresAttentionUNet": 31_388_013, "MoresResUNet": 32_429_185,
+    "MoresASPPUNet": 39_947_329, "MoresTransUNet": 20_560_449,
+    "MoresImprovedVNet": 160_435_681}
+LEGACY_KW = dict(in_channels=1, out_channels=1)  # each entry's kwargs
+# run.sh:12-13's extras at 1 epoch in place of 2, in bf16
+LEGACY_EXTRA = ("--mode both --synthetic --epochs 1 --image_size 256 "
+                "--store_size 256 --batch_size 16 --use_amp_autocast true")
+LEGACY_JOBS = 3
+LEGACY_SWEEP_TIMEOUT_S = 900
+LEGACY_SERVE = dict(image_size=512, batch=16, batches=2)
+LEGACY_STEP_BATCH = 4
+LEGACY_PROFILE = (512, 16)
+LEGACY_PROFILE_RUNS = 5
 
 
 def phase(name, msg):
@@ -1941,21 +1994,102 @@ def jax_zoo_keys(model_type, depth, use_attention=True,
             | _bn_keys("aspp/project_bn"))
 
 
+def _biased_block_keys(block, convs, bns):
+    """A block of biased convs and their BatchNorms."""
+    keys = set()
+    for c in convs:
+        keys |= _kernel_keys(f"{block}/{c}")
+    for b in bns:
+        keys |= _bn_keys(f"{block}/{b}")
+    return keys
+
+
+def jax_legacy_keys(model_type, levels=None, layers=4):
+    """The key set ddti_tpu.train.checkpoint.save_params_npz writes for one
+    of the nine fixed-architecture models (LEGACY), written out from the
+    flax module tree (ddti_tpu/models/legacy.py, models/mores.py);
+    ``levels`` is len(features) of a Mores* model (its default when None),
+    ``layers`` MoresTransUNet's encoder layers."""
+    if model_type in ("LegacyUNet", "MoresUNet"):
+        keys = _kernel_keys("final_conv")
+        for b in ("encoder1", "encoder2", "encoder3", "encoder4",
+                  "middle_block", "decoder3_block", "decoder2_block",
+                  "decoder1_block", "final_block"):
+            keys |= _biased_block_keys(b, ("conv1", "conv2"), ("bn1", "bn2"))
+        for up in ("middle_up", "decoder3_up", "decoder2_up", "decoder1_up"):
+            keys |= _kernel_keys(up)
+        return keys
+    if model_type in ("TripleBranchImprovedVNet", "MoresImprovedVNet"):
+        first = 1 if model_type == "TripleBranchImprovedVNet" else 0
+        dec = "dec_block" if first else "dec"
+
+        def block(name, n, project):
+            keys = _biased_block_keys(
+                name, [f"conv{first + i}" for i in range(n)],
+                [f"bn{first + i}" for i in range(n)])
+            return keys | (_kernel_keys(f"{name}/res_proj") if project
+                           else set())
+
+        keys = _kernel_keys("final_conv")
+        keys |= _kernel_keys("dec_se_final/fc1") | _kernel_keys(
+            "dec_se_final/fc2")
+        for b in range(3):
+            for i, n in enumerate((2, 2, 3, 3, 3)):
+                keys |= block(f"enc_b{b}_l{i}", n, i == 0)
+                keys |= _kernel_keys(f"se_b{b}_l{i}/fc1") | _kernel_keys(
+                    f"se_b{b}_l{i}/fc2")
+                if i < 4:
+                    keys |= _kernel_keys(f"down_b{b}_l{i}")
+        for j, n in enumerate((3, 3, 2, 2)):
+            keys |= _kernel_keys(f"up{6 + j}") | block(f"{dec}{6 + j}", n,
+                                                       True)
+        return keys
+    if model_type == "MoresVNet2D":
+        keys = _kernel_keys("final_conv")
+        keys |= _conv_bn_keys("bottleneck", prelu=True)
+        for i in range(5 if levels is None else levels):
+            keys |= _conv_bn_keys(f"enc{i}", prelu=True)
+            keys |= _conv_bn_keys(f"dec{i}", prelu=True)
+            keys |= _kernel_keys(f"down{i}", bias=False)
+            keys |= _kernel_keys(f"up{i}", bias=False)
+        return keys
+    n = 4 if levels is None else levels
+    keys = _kernel_keys("final_conv")
+    res = model_type == "MoresResUNet"
+    convs = ("conv1", "conv2", "skip") if res else ("conv1", "conv2")
+    for i in range(n):
+        keys |= _conv_bn_keys(f"enc{i}", convs) | _conv_bn_keys(f"dec{i}",
+                                                                convs)
+        keys |= _kernel_keys(f"up{i}")
+        if model_type == "MoresAttentionUNet":
+            keys |= _gate_keys(f"att{i}")
+    if model_type == "MoresTransUNet":
+        keys |= {"params/patchify/kernel", "params/pos_emb"}
+        keys |= _kernel_keys("trans_proj")
+        for j in range(layers):
+            for dense in ("qkv", "out_proj", "fc1", "fc2"):
+                keys |= _kernel_keys(f"trans{j}/{dense}")
+            for ln in ("ln1", "ln2"):
+                keys |= {f"params/trans{j}/{ln}/scale",
+                         f"params/trans{j}/{ln}/bias"}
+        return keys
+    if model_type == "MoresASPPUNet":
+        for k in range(4):
+            keys |= _kernel_keys(f"bottleneck/branch{k}", bias=False)
+        return (keys | _kernel_keys("bottleneck/project", bias=False)
+                | _bn_keys("bottleneck/project_bn"))
+    return keys | _conv_bn_keys("bottleneck", convs)
+
+
 def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
-    """The training CLI (--mode both --synthetic, 2 epochs, bf16) end to end
+    """The training CLI (--mode both --synthetic, bf16) end to end
     in its own process: exit 0, the parameter count of ``model_kw``, the
     run tree, finite loss terms with a nonzero boundary term, val IoU and
     test metrics with HD95/ASSD, a best .pth that loads strictly and an .npz
     with the key set ``keys`` and the same tensors. Returns the launch count
     of each kernel in that run and the best weights' path without its
     suffix."""
-    import math
-
-    import numpy as np
-    import torch
-
     from ddti_tpu_torch.models import create_model
-    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
     from ddti_tpu_torch.train.state import count_params
 
     base = os.path.join(tmp, f"runs_{name}")
@@ -1981,7 +2115,26 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
     launches = {k: int(v) for k, v in launches.items()}
 
     (run,) = os.listdir(base)
-    run = os.path.join(base, run)
+    best = check_run(name, os.path.join(base, run), model_type, model_kw,
+                     keys, epochs, "--tta" in flags)
+    return launches, best
+
+
+def check_run(name, run, model_type, model_kw, keys, epochs, tta=False):
+    """run_cli's checks of one CLI run's tree ``run``: the run tree, finite
+    loss terms with a nonzero boundary term, val IoU and test metrics with
+    HD95/ASSD, a best .pth that loads strictly and an .npz with the key set
+    ``keys`` and the same tensors. Returns the best weights' path without
+    its suffix."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+
+    model = create_model(model_type, **model_kw)
     for sub in ("models", "log/train_log.log", "result", "config.yaml"):
         assert os.path.exists(os.path.join(run, sub)), sub
     with open(os.path.join(run, "log", "train_log.log")) as f:
@@ -2004,7 +2157,7 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
     for k in ("iou", "f1", "hd95_mean", "assd_mean"):
         assert math.isfinite(test[k]), k
     assert test["total_images"] == SYNTHETIC[2]
-    assert test["tta"] is ("--tta" in flags), test["tta"]
+    assert test["tta"] is tta, test["tta"]
 
     best = os.path.join(run, "models", f"{model_type}_best")
     load_checkpoint_into(best + ".pth", model_type, model)  # strict
@@ -2017,7 +2170,7 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
         assert torch.equal(v, twin.state_dict()[k]), k
     phase(name, f"best .pth loads strictly; .npz holds the JAX layout's "
           f"{len(keys)} keys and the same tensors")
-    return launches, best
+    return best
 
 
 def _cli_batches(batch):
@@ -3834,6 +3987,330 @@ def run_lifecycle(tmp):
             "best_saves": best}
 
 
+def legacy_params():
+    """``python -m ddti_tpu_torch.cli.params``: its two sections' 14 counts
+    equal what the JAX package's cli/params.py prints (PARAMS_JAX)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "ddti_tpu_torch.cli.params"],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    got, section = {}, None
+    for line in res.stdout.splitlines():
+        if line.startswith("# reference"):
+            section = got.setdefault("reference", {})
+        elif line.startswith("# active"):
+            section = got.setdefault("active", {})
+        elif ": " in line:
+            name, n = line.split(": ")
+            section[name] = int(n)
+    phase("legacy", f"cli/params.py in {time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{k} " + ", ".join(f"{m} {n}" for m, n in v.items())
+                      for k, v in got.items()))
+    assert got == PARAMS_JAX, got
+    phase("legacy", "the 14 counts equal the JAX package's cli/params.py")
+    return got
+
+
+def legacy_extra_args():
+    """LEGACY_EXTRA as the port's training CLI parses it."""
+    import shlex
+
+    from ddti_tpu_torch.cli.main import get_parser
+
+    return get_parser().parse_args(shlex.split(LEGACY_EXTRA))
+
+
+def _legacy_keys(model_type):
+    feats = LEGACY_KW.get("features")
+    return jax_legacy_keys(model_type, len(feats) if feats else None,
+                           LEGACY_KW.get("num_layers", 4))
+
+
+def legacy_sweep(tmp):
+    """run.sh's path with the port's tools: a nine-entry model matrix
+    (LEGACY, LEGACY_KW each) split by cli/split_config.py and swept by
+    cli/sweep.py --config_dir, LEGACY_JOBS at a time, with LEGACY_EXTRA:
+    every job exits 0 with its parameter count as JAX counts it; each run's
+    tree passes check_run (finite terms, test metrics, a best .pth that
+    loads strictly and an .npz with the JAX key set) and its log's
+    [KERNELS] line has exactly the expected EDT launches and no flash
+    launch. Returns ({model: EDT launches}, {model: (best, YAML)},
+    experiments dir, sweep wall seconds)."""
+    import re
+
+    import yaml
+
+    matrix = os.path.join(tmp, "legacy_matrix.yaml")
+    with open(matrix, "w") as f:
+        yaml.safe_dump([{"model": {"model_type": m, "kwargs": LEGACY_KW}}
+                        for m in LEGACY], f)
+    cfg_dir = os.path.join(tmp, "legacy_sweep")
+    res = subprocess.run([sys.executable, "-m",
+                          "ddti_tpu_torch.cli.split_config", matrix, cfg_dir],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
+    cfgs = {m: os.path.join(cfg_dir, m, "config1.yaml") for m in LEGACY}
+    assert sorted(os.listdir(cfg_dir)) == sorted(LEGACY)
+    assert all(os.path.exists(c) for c in cfgs.values())
+    exp = os.path.join(tmp, "legacy_exp")
+    cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.sweep", "--config_dir",
+           cfg_dir, "--max_jobs", str(LEGACY_JOBS), "--min_gap", "1",
+           "--extra", f"{LEGACY_EXTRA} --device {DEVICE} --base_dir {exp}"]
+    phase("legacy", " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=LEGACY_SWEEP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    phase("legacy", f"cli/sweep.py exit {res.returncode} in {wall:.1f} s "
+          f"({len(LEGACY)} jobs, {LEGACY_JOBS} at a time)")
+    if res.returncode != 0:
+        print(res.stdout[-6000:], res.stderr[-8000:], sep="\n",
+              file=sys.stderr)
+    assert res.returncode == 0, "a sweep job failed"
+    assert "All jobs finished." in res.stdout
+    params = dict(l.split()[1].split(",") for l in res.stdout.splitlines()
+                  if l.startswith("[PARAMS]"))
+    assert {m: int(n) for m, n in params.items()} == {
+        m: LEGACY_JAX_PARAMS[m] for m in LEGACY}, params
+    runs = {r.rsplit("_", 2)[0]: os.path.join(exp, r)
+            for r in os.listdir(exp)}
+    assert sorted(runs) == sorted(LEGACY), sorted(runs)
+    extra = legacy_extra_args()
+    steps, val, test_b = _cli_batches(extra.batch_size)
+    epochs = extra.epochs
+    # none on the CPU, where the plain versions run
+    expected = (epochs * (steps + val) + test_b) if DEVICE == "cuda" else 0
+    launches, ckpts = {}, {}
+    for m in LEGACY:
+        with open(os.path.join(runs[m], "log", "train_log.log")) as f:
+            k = re.findall(r"\[KERNELS\] (.*)$", f.read(), re.M)
+        got = {a: int(b) for a, b in (kv.split("=") for kv in k[-1].split())}
+        phase("legacy", f"{m}: {params[m]} parameters; [KERNELS] {k[-1]} "
+              f"(edt_minplus expected {epochs} epoch x ({steps} train + "
+              f"{val} val steps) + {test_b} test batches = {expected})")
+        assert got["edt_minplus"] == expected, got
+        assert got["flash_fwd"] == got["flash_bwd_dkdv"] == 0, got
+        best = check_run(f"legacy {m}", runs[m], m, LEGACY_KW,
+                         _legacy_keys(m), epochs)
+        launches[m], ckpts[m] = got["edt_minplus"], (best, cfgs[m])
+    return launches, ckpts, exp, wall
+
+
+def legacy_aggregate(exp, tmp):
+    """cli/aggregate.py over the sweep's experiments tree: one ranked row
+    with a finite test IoU per model, in the table and in the CSV."""
+    import csv
+    import math
+
+    out = os.path.join(tmp, "legacy_summary.csv")
+    res = subprocess.run([sys.executable, "-m", "ddti_tpu_torch.cli.aggregate",
+                          "--experiments_dir", exp, "--output", out],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = res.stdout.splitlines()
+    table = lines[2:2 + len(LEGACY)]
+    assert lines[0].split()[:2] == ["run", "model_type"]
+    assert sorted(l.split()[0].rsplit("_", 2)[0] for l in table) \
+        == sorted(LEGACY), table
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == len(LEGACY)
+    ious = [float(r["iou"]) for r in rows]
+    assert all(math.isfinite(v) for v in ious)
+    assert ious == sorted(ious, reverse=True), "not ranked by IoU"
+    phase("legacy", f"cli/aggregate.py: {len(rows)} ranked rows and a CSV; "
+          + ", ".join(f"{r['model_type']} {r['iou']}" for r in rows))
+    return {r["model_type"]: float(r["iou"]) for r in rows}
+
+
+def legacy_serve(best, cfg):
+    """MoresTransUNet's best .pth served with load_predictor at
+    LEGACY_SERVE's size, bf16, its batch: uint8 {0, 1} masks and exactly 4
+    flash_fwd launches a batch (its 1024-token bottleneck at 512^2 takes
+    the gate); float32 logits, the kernel path on the card against the
+    plain path on the CPU, within ZOO_LOGIT_RTOL of the largest; the bf16
+    batch's device time on the kernel and the plain attention path, each
+    the median of 20 CUDA-event runs."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.cli import serve
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.export import make_serve_fn
+
+    m, size = "MoresTransUNet", LEGACY_SERVE["image_size"]
+    batch, batches = LEGACY_SERVE["batch"], LEGACY_SERVE["batches"]
+    args = serve.get_parser().parse_args(
+        ["--checkpoint", best + ".pth", "--config_path", cfg,
+         "--image_size", str(size), "--batch_size", str(batch), "--bf16",
+         "--device", DEVICE])
+    predict, batch_n, got_size, info = serve.load_predictor(args)
+    assert info["model"] == m and (batch_n, got_size) == (batch, size)
+    kw = yaml_kwargs(cfg)
+    x = np.stack(make_frames(batch * batches, size, SEED + 5))[..., None]
+    on_card = DEVICE == "cuda"
+    # one launch a layer; none on the CPU, where the plain versions run
+    per_batch = kw.get("num_layers", 4) if on_card else 0
+    A.flash_forward_cuda.launches = 0
+    masks = [predict(x[i * batch:(i + 1) * batch]) for i in range(batches)]
+    launches = A.flash_forward_cuda.launches
+    tokens = (size // 2 ** len(kw.get("features", range(4)))) ** 2
+    phase("legacy serve", f"{m} load_predictor bf16 {batches} batches of "
+          f"{batch} at {size}^2 ({tokens} bottleneck tokens): flash_fwd "
+          f"launches {launches} (expected {per_batch} a batch)")
+    assert launches == per_batch * batches
+    for mk in masks:
+        assert mk.dtype == np.uint8 and mk.shape == (batch, size, size, 1)
+        assert set(np.unique(mk)) <= {0, 1}
+    del predict
+    cpu = load_checkpoint_into(best + ".pth", m, create_model(
+        m, use_flash_attention=False, **kw)).eval()
+    card = load_checkpoint_into(best + ".pth", m, create_model(m, **kw)
+                                ).to(DEVICE).eval()
+    xf = torch.from_numpy(x[:ZOO_CPU_BATCH]).permute(0, 3, 1, 2) / 255.0
+    A.flash_forward_cuda.launches = 0
+    with torch.inference_mode():
+        got = card(xf.to(DEVICE)).cpu()
+        want = cpu(xf)
+    f32_launches = A.flash_forward_cuda.launches
+    rel = float((got - want).abs().max() / want.abs().max())
+    phase("legacy serve", f"float32 logits, kernel path on {DEVICE} vs the "
+          f"plain path on the CPU at batch {ZOO_CPU_BATCH}: max|d| / "
+          f"max|logit| {rel:.3e} (limit {ZOO_LOGIT_RTOL:g}); flash_fwd "
+          f"launches {f32_launches}")
+    assert torch.isfinite(got).all() and rel <= ZOO_LOGIT_RTOL
+    assert f32_launches == per_batch
+    out = dict(launches=launches, batches=batches, rel=rel)
+    if on_card:
+        xb = torch.from_numpy(x[:batch]).cuda()
+        plain = load_checkpoint_into(best + ".pth", m, create_model(
+            m, use_flash_attention=False, **kw)).cuda().eval()
+        fns = {"kernel": make_serve_fn(card, compute_dtype=torch.bfloat16),
+               "plain": make_serve_fn(plain, compute_dtype=torch.bfloat16)}
+        order = ("plain", "kernel", "kernel", "plain")
+        ms = [median_ms(lambda: fns[p](xb)) for p in order]
+        out["ms"] = dict(zip(("plain", "kernel"), (
+            [ms[0], ms[3]], [ms[1], ms[2]])))
+        phase("legacy serve", f"device time per bf16 batch of {batch} at "
+              f"{size}^2 (CUDA events, median of 20), order "
+              f"{', '.join(order)}: {', '.join(f'{t:.3f}' for t in ms)} ms")
+        del plain, fns
+    else:
+        phase("legacy serve", "device times: not measured (no card)")
+    del card
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def yaml_kwargs(cfg):
+    """The model kwargs of a one-entry model YAML."""
+    import yaml
+
+    with open(cfg) as f:
+        return dict(yaml.safe_load(f)["model"]["kwargs"])
+
+
+def legacy_profile():
+    """Each of the nine models' bf16 train step at LEGACY_PROFILE (CUDA
+    events, the median of LEGACY_PROFILE_RUNS) and its memory peak
+    (``max_memory_allocated``); a model that does not fit is profiled at
+    the largest halved batch that does. No flash launch (MoresTransUNet
+    trains at its fixed dropout 0.1 on the plain path)."""
+    import torch
+
+    from ddti_tpu_torch.ops import attention as A
+
+    size, batch0 = LEGACY_PROFILE
+    rows = []
+    for m in LEGACY:
+        batch = batch0
+        while True:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                _, state, step, (images, masks, draws) = _train_setup(
+                    size, batch, True, model_type=m, model_kw={})
+                before = A.flash_forward_cuda.launches
+
+                def one():
+                    step(state, images, masks, draws, None)
+
+                ms = median_ms(one, runs=LEGACY_PROFILE_RUNS, warmup=2)
+                torch.cuda.synchronize()
+                break
+            except torch.cuda.OutOfMemoryError:
+                state = step = images = masks = draws = None
+                phase("legacy profile", f"{m}: batch {batch} does not fit")
+                batch //= 2
+                assert batch, f"{m} does not fit at batch 1"
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        flash = A.flash_forward_cuda.launches - before
+        phase("legacy profile", f"{m} bf16 train step {size}^2 batch "
+              f"{batch}: {ms:.3f} ms device time (CUDA events, median of "
+              f"{LEGACY_PROFILE_RUNS}), {batch / ms * 1e3:.1f} img/s; peak "
+              f"{peak:.2f} GiB allocated; flash_fwd launches {flash}")
+        assert flash == 0
+        rows.append(dict(model=m, size=size, batch=batch, ms=ms,
+                         peak_gib=peak))
+        del state, step, images, masks, draws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_legacy(tmp):
+    """The legacy phase: the params tool, the sweep, the aggregate,
+    MoresTransUNet served, LegacyUNet's float32 step with the kernel EDT
+    and the plain one, and the nine bf16 step profiles (the last two on
+    the card only)."""
+    t0 = time.perf_counter()
+    # the params tool's process starts beside the sweep's, off its path
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        counted = pool.submit(legacy_params)
+        launches, ckpts, exp, sweep_wall = legacy_sweep(tmp)
+        counted.result()
+    ious = legacy_aggregate(exp, tmp)
+    served = legacy_serve(*ckpts["MoresTransUNet"])
+    out = dict(launches=launches, sweep_s=sweep_wall, test_iou=ious,
+               serve=served)
+    if DEVICE == "cuda":
+        step_kernel_vs_plain("LegacyUNet", {}, LEGACY_STEP_BATCH,
+                             "legacy step")
+        out["train_steps"] = legacy_profile()
+    else:
+        phase("legacy", "the step and the profiles: not run (no card)")
+    out["phase_s"] = time.perf_counter() - t0
+    phase("legacy", f"phase wall time {out['phase_s']:.1f} s (sweep "
+          f"{sweep_wall:.1f} s)")
+    return out
+
+
+def legacy_only():
+    """The legacy phase alone: ``python3 chip_smoke.py --legacy``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the CLI processes load it
+    with tempfile.TemporaryDirectory() as tmp:
+        legacy = run_legacy(tmp)
+    print(json.dumps({"legacy": legacy}))
+    return 0
+
+
 def lifecycle_only():
     """The lifecycle phase alone: ``python3 chip_smoke.py --lifecycle``."""
     import torch
@@ -3996,6 +4473,8 @@ def main():
         recipe = run_recipe(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         lifecycle = run_lifecycle(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        legacy = run_legacy(tmp)
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
@@ -4028,6 +4507,7 @@ def main():
         "train_launches": t_launches["flash_fwd"],
         "infer_launches": infer["launches"],
         "infer": infer,
+        "legacy_serve_launches": legacy["serve"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4120,6 +4600,7 @@ def main():
         "zoo_train_steps": zoo_rows,
         "recipe": recipe,
         "lifecycle": lifecycle,
+        "legacy": legacy,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -4218,4 +4699,6 @@ if __name__ == "__main__":
         sys.exit(recipe_only())
     if sys.argv[1:2] == ["--lifecycle"]:
         sys.exit(lifecycle_only())
+    if sys.argv[1:2] == ["--legacy"]:
+        sys.exit(legacy_only())
     sys.exit(main())

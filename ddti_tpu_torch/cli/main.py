@@ -388,10 +388,14 @@ def main(argv=None) -> int:
         trainer.test()
     # the hand-written kernels this run launched (0 on the CPU, where the
     # plain versions run): the shell-capture proof of the kernel path
+    # (also in the run's log, where a sweep's interleaved jobs keep it apart)
     bwd = attention.flash_backward_cuda
-    print(f"[KERNELS] edt_minplus={edt.edt_cuda.launches} "
-          f"flash_fwd={attention.flash_forward_cuda.launches} "
-          f"flash_bwd_dkdv={bwd.launches_dkdv} flash_bwd_dq={bwd.launches_dq}")
+    kernels = (f"[KERNELS] edt_minplus={edt.edt_cuda.launches} "
+               f"flash_fwd={attention.flash_forward_cuda.launches} "
+               f"flash_bwd_dkdv={bwd.launches_dkdv} "
+               f"flash_bwd_dq={bwd.launches_dq}")
+    logger.info(kernels)
+    print(kernels)
     return rc
 
 

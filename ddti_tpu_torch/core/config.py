@@ -135,7 +135,7 @@ class Config:
             raise ValueError(
                 f"{path} is not a single-run config (got "
                 f"{type(doc).__name__}); split the sweep matrix first: "
-                f"python -m ddti_tpu.cli.split_config <matrix.yaml> <dir>")
+                f"python -m ddti_tpu_torch.cli.split_config <matrix.yaml> <dir>")
         model = doc.get("model", {})
         if "model_type" in model:
             self.model_type = model["model_type"]

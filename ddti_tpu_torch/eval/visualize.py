@@ -75,36 +75,50 @@ def _figure_matplotlib(images, masks, preds, nrows, ncols, path):
     plt.close(fig)
 
 
+def paste_panel(canvas, pen, img, fields, x0: int, y0: int,
+                panel_px: int = PANEL_PX, margin_px: int = MARGIN_PX,
+                vrange=None) -> None:
+    """Draw one frame into the ``panel_px`` square at (x0, y0) of a Pillow
+    ``canvas``: the (H, W) frame scaled (bilinear) to fit inside
+    ``margin_px`` of the border, its gray levels over ``vrange`` (lo, hi)
+    or else its own min..max as ``imshow`` stretches them, and the 0.5
+    contour of each ``(field, rgb)`` of ``fields`` in one-pixel lines."""
+    from PIL import Image
+
+    img = np.asarray(img, np.float64)
+    h, w = img.shape
+    lo, hi = vrange if vrange else (float(img.min()), float(img.max()))
+    gray = (np.clip((img - lo) / (hi - lo), 0.0, 1.0) * 255.0 if hi > lo
+            else np.zeros_like(img))
+    scale = (panel_px - 2 * margin_px) / max(h, w)
+    ph, pw = max(round(h * scale), 1), max(round(w * scale), 1)
+    x0 += (panel_px - pw) // 2
+    y0 += (panel_px - ph) // 2
+    panel = Image.fromarray(np.round(gray).astype(np.uint8), "L")
+    canvas.paste(panel.resize((pw, ph), Image.BILINEAR).convert("RGB"),
+                 (x0, y0))
+    sy, sx = ph / h, pw / w
+    for field, color in fields:
+        contours = find_contours(np.asarray(field), 0.5)
+        if not contours:
+            continue
+        rc = np.concatenate(contours)
+        # pixel centres at +0.5 of a pixel, as imshow places them; (x, y)
+        # pairs flattened, each contour a slice of them
+        xy = np.stack([x0 + (rc[:, 1] + 0.5) * sx,
+                       y0 + (rc[:, 0] + 0.5) * sy], -1).ravel().tolist()
+        end = np.cumsum([2 * len(c) for c in contours]).tolist()
+        for a, b in zip([0] + end[:-1], end):
+            pen.line(xy[a:b], fill=color, width=1)
+
+
 def _figure_pillow(images, masks, preds, nrows, ncols, path):
     from PIL import Image, ImageDraw
 
     canvas = Image.new("RGB", (ncols * PANEL_PX, nrows * PANEL_PX), "white")
     pen = ImageDraw.Draw(canvas)
     for i in range(len(images)):
-        img = np.asarray(images[i], np.float64)
-        h, w = img.shape
-        lo, hi = float(img.min()), float(img.max())
-        gray = ((img - lo) / (hi - lo) * 255.0 if hi > lo
-                else np.zeros_like(img))
-        scale = (PANEL_PX - 2 * MARGIN_PX) / max(h, w)
-        ph, pw = max(round(h * scale), 1), max(round(w * scale), 1)
-        x0 = (i % ncols) * PANEL_PX + (PANEL_PX - pw) // 2
-        y0 = (i // ncols) * PANEL_PX + (PANEL_PX - ph) // 2
-        panel = Image.fromarray(np.round(gray).astype(np.uint8), "L")
-        canvas.paste(panel.resize((pw, ph), Image.BILINEAR).convert("RGB"),
-                     (x0, y0))
-        sy, sx = ph / h, pw / w
-        for field, color in ((masks[i], (0, 0, 255)),
-                             (preds[i], (255, 0, 0))):
-            contours = find_contours(field, 0.5)
-            if not contours:
-                continue
-            rc = np.concatenate(contours)
-            # pixel centres at +0.5 of a pixel, as imshow places them;
-            # (x, y) pairs flattened, each contour a slice of them
-            xy = np.stack([x0 + (rc[:, 1] + 0.5) * sx,
-                           y0 + (rc[:, 0] + 0.5) * sy], -1).ravel().tolist()
-            end = np.cumsum([2 * len(c) for c in contours]).tolist()
-            for lo, hi in zip([0] + end[:-1], end):
-                pen.line(xy[lo:hi], fill=color, width=1)
+        paste_panel(canvas, pen, images[i],
+                    ((masks[i], (0, 0, 255)), (preds[i], (255, 0, 0))),
+                    (i % ncols) * PANEL_PX, (i // ncols) * PANEL_PX)
     canvas.save(path)

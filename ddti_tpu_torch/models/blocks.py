@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -119,78 +120,118 @@ def _act(act: str) -> nn.Module:
     raise ValueError(f"act {act!r}: expected 'relu' or 'prelu'")
 
 
-class ConvBNAct(nn.Sequential):
-    """(3x3 conv without bias -> BatchNorm -> activation) twice; indices 0,
-    1, 3, 4 hold the weights, as in the reference's ``nn.Sequential``, and
-    with ``act="prelu"`` (VNet2D) indices 2 and 5 the PReLU slopes."""
+def attach(owner: nn.Module, path: str, child: nn.Module) -> None:
+    """Register ``child`` at the dotted ``path`` under ``owner``, making
+    ``nn.Sequential`` containers on the way (``"W_g.0"``). The blocks below
+    take their children's paths as ``names``: one block's arithmetic then
+    carries either the reference's key layout (the default) or the flax
+    names of the JAX package's export (``models/mores.py``)."""
+    *parents, leaf = path.split(".")
+    for p in parents:
+        if p not in owner._modules:
+            owner.add_module(p, nn.Sequential())
+        owner = owner._modules[p]
+    owner.add_module(leaf, child)
 
-    def __init__(self, in_channels: int, features: int, act: str = "relu"):
-        super().__init__(
+
+# (conv, BN, act, conv, BN, act): the reference's nn.Sequential indices,
+# and flax's child names
+SEQ_NAMES = ("0", "1", "2", "3", "4", "5")
+FLAX_NAMES = ("conv1", "bn1", "act1", "conv2", "bn2", "act2")
+
+
+class ConvBNAct(nn.Sequential):
+    """(3x3 conv without bias -> BatchNorm -> activation) twice under
+    ``names``; by default indices 0, 1, 3, 4 hold the weights, as in the
+    reference's ``nn.Sequential``, and with ``act="prelu"`` (VNet2D)
+    indices 2 and 5 the PReLU slopes."""
+
+    def __init__(self, in_channels: int, features: int, act: str = "relu",
+                 names=SEQ_NAMES):
+        super().__init__(OrderedDict(zip(names, (
             nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
             BatchNorm2d(features), _act(act),
             nn.Conv2d(features, features, 3, padding=1, bias=False),
-            BatchNorm2d(features), _act(act))
+            BatchNorm2d(features), _act(act)))))
 
 
 class ResidualBlock(nn.Module):
     """(3x3 conv -> BN -> ReLU -> 3x3 conv -> BN) + 1x1-conv shortcut, ReLU
-    after the add; the reference's ``conv`` Sequential (indices 0, 1, 3, 4
-    hold the weights) and ``skip`` names."""
+    after the add. ``names`` are the six children's paths; by default the
+    reference's ``conv`` Sequential (indices 0, 1, 3, 4 hold the weights)
+    and ``skip``."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int,
+                 names=tuple(f"conv.{i}" for i in range(5)) + ("skip",)):
         super().__init__()
-        self.conv = nn.Sequential(
-            nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
-            BatchNorm2d(features), nn.ReLU(inplace=True),
-            nn.Conv2d(features, features, 3, padding=1, bias=False),
-            BatchNorm2d(features))
-        self.skip = nn.Conv2d(in_channels, features, 1, bias=False)
+        self.names = names
+        for path, m in zip(names, (
+                nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
+                BatchNorm2d(features), nn.ReLU(inplace=True),
+                nn.Conv2d(features, features, 3, padding=1, bias=False),
+                BatchNorm2d(features),
+                nn.Conv2d(in_channels, features, 1, bias=False))):
+            attach(self, path, m)
 
     def forward(self, x):
-        return F.relu(self.conv(x) + self.skip(x))
+        y = x
+        for path in self.names[:5]:
+            y = self.get_submodule(path)(y)
+        return F.relu(y + self.get_submodule(self.names[5])(x))
 
 
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling bottleneck: parallel dilated 3x3 convs
-    without bias (``branches``, padding = dilation), concatenated, then
-    ``project`` = (1x1 conv without bias, BatchNorm) and ReLU. Every tap is
-    kept, also those of a dilation wider than the map, which read only
-    padding (cuDNN and XLA both keep them)."""
+    without bias (padding = dilation), concatenated, then a 1x1 conv
+    without bias, BatchNorm and ReLU. ``names`` are the branches' path
+    pattern and the projection's and its BatchNorm's paths; by default
+    ``branches.{k}``, ``project.0`` and ``project.1``. Every tap is kept,
+    also those of a dilation wider than the map, which read only padding
+    (cuDNN and XLA both keep them)."""
 
     def __init__(self, in_channels: int, features: int,
-                 dilations=(1, 6, 12, 18)):
+                 dilations=(1, 6, 12, 18),
+                 names=("branches.{}", "project.0", "project.1")):
         super().__init__()
-        self.branches = nn.ModuleList(
-            nn.Conv2d(in_channels, features, 3, padding=d, dilation=d,
-                      bias=False) for d in dilations)
-        self.project = nn.Sequential(
-            nn.Conv2d(len(self.branches) * features, features, 1,
-                      bias=False),
-            BatchNorm2d(features))
+        self.names = (tuple(names[0].format(k)
+                            for k in range(len(dilations))),) + names[1:]
+        for path, d in zip(self.names[0], dilations):
+            attach(self, path, nn.Conv2d(in_channels, features, 3,
+                                         padding=d, dilation=d, bias=False))
+        attach(self, names[1], nn.Conv2d(len(dilations) * features, features,
+                                         1, bias=False))
+        attach(self, names[2], BatchNorm2d(features))
 
     def forward(self, x):
-        return F.relu(self.project(torch.cat([b(x) for b in self.branches],
-                                             dim=1)))
+        branches, project, bn = self.names
+        y = torch.cat([self.get_submodule(b)(x) for b in branches], dim=1)
+        return F.relu(self.get_submodule(bn)(self.get_submodule(project)(y)))
 
 
 class AttentionGate(nn.Module):
     """Additive attention gate on a skip connection: psi = sigmoid(BN(conv(
     relu(W_g g + W_x x)))), returns x * psi. ``W_g``, ``W_x`` and ``psi``
-    are each (biased 1x1 conv, BatchNorm); the sigmoid and the product run
+    are each (biased 1x1 conv, BatchNorm), at the six paths of ``names``
+    (by default ``W_g.0``, ``W_g.1``, ...); the sigmoid and the product run
     in the compute dtype (bf16 under autocast), as in JAX. ``g`` and ``x``
     must share their spatial size: the sum broadcasts nothing."""
 
-    def __init__(self, g_channels: int, x_channels: int, inter: int):
+    def __init__(self, g_channels: int, x_channels: int, inter: int,
+                 names=("W_g.0", "W_g.1", "W_x.0", "W_x.1", "psi.0",
+                        "psi.1")):
         super().__init__()
-        self.W_g = nn.Sequential(nn.Conv2d(g_channels, inter, 1),
-                                 BatchNorm2d(inter))
-        self.W_x = nn.Sequential(nn.Conv2d(x_channels, inter, 1),
-                                 BatchNorm2d(inter))
-        self.psi = nn.Sequential(nn.Conv2d(inter, 1, 1), BatchNorm2d(1))
+        self.names = names
+        for path, m in zip(names, (
+                nn.Conv2d(g_channels, inter, 1), BatchNorm2d(inter),
+                nn.Conv2d(x_channels, inter, 1), BatchNorm2d(inter),
+                nn.Conv2d(inter, 1, 1), BatchNorm2d(1))):
+            attach(self, path, m)
 
     def forward(self, g, x):
-        psi = self.psi(F.relu(self.W_g(g) + self.W_x(x)))
-        return x * torch.sigmoid(psi)
+        w_g, w_g_bn, w_x, w_x_bn, psi, psi_bn = map(self.get_submodule,
+                                                    self.names)
+        a = psi_bn(psi(F.relu(w_g_bn(w_g(g)) + w_x_bn(w_x(x)))))
+        return x * torch.sigmoid(a)
 
 
 class DownConv2x2(nn.Conv2d):
@@ -251,10 +292,36 @@ def attention_dropout(q, k, v, p: float):
         return (a.float() @ v.float()).to(q.dtype)
 
 
+def self_attention(x, weight, bias, out_proj, num_heads: int, *,
+                   dropout: float, training: bool, use_flash: bool | None):
+    """Multi-head self-attention of (b, s, e) tokens: the packed q | k | v
+    projection (``weight``, ``bias``), the heads' attention through
+    ``flash_attention`` or the plain path, then ``out_proj``.
+    ``use_flash=None`` is the JAX gate (blocks.py:291) as it is: flash
+    never drops attention probabilities, so a training step with dropout
+    stays on the plain path."""
+    b, s, e = x.shape
+    hd = e // num_heads
+    qkv = F.linear(x, weight, bias)
+    # (b, s, h, hd) -> (b, h, s, hd)
+    q, k, v = (t.reshape(b, s, num_heads, hd).transpose(1, 2).contiguous()
+               for t in qkv.chunk(3, dim=-1))
+    if use_flash is None:
+        use_flash = (s >= 1024 and s % 256 == 0 and hd % 8 == 0
+                     and (not training or dropout == 0.0))
+    if use_flash:
+        y = flash_attention(q, k, v)
+    elif training and dropout:
+        y = attention_dropout(q, k, v, dropout)
+    else:
+        y = attention_reference(q, k, v)
+    return out_proj(y.transpose(1, 2).reshape(b, s, e))
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with torch MHA's parameter names (packed
     ``in_proj_weight``/``in_proj_bias`` and ``out_proj``), whose attention
-    goes through ``flash_attention`` or the plain path."""
+    goes through ``self_attention``."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float,
                  use_flash_attention: bool | None):
@@ -269,57 +336,69 @@ class SelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, x):
-        b, s, e = x.shape
-        h = self.num_heads
-        hd = e // h
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
-        # q | k | v, then (b, s, h, hd) -> (b, h, s, hd)
-        q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
-                   for t in qkv.chunk(3, dim=-1))
-        use_flash = self.use_flash_attention
-        if use_flash is None:
-            # the JAX gate (blocks.py:291) as it is: flash never drops
-            # attention probabilities, so a training step with dropout stays
-            # on the plain path
-            use_flash = (s >= 1024 and s % 256 == 0 and hd % 8 == 0
-                         and (not self.training or self.dropout == 0.0))
-        if use_flash:
-            y = flash_attention(q, k, v)
-        elif self.training and self.dropout:
-            y = attention_dropout(q, k, v, self.dropout)
-        else:
-            y = attention_reference(q, k, v)
-        y = y.transpose(1, 2).reshape(b, s, e)
-        return self.out_proj(y)
+        return self_attention(x, self.in_proj_weight, self.in_proj_bias,
+                              self.out_proj, self.num_heads,
+                              dropout=self.dropout, training=self.training,
+                              use_flash=self.use_flash_attention)
+
+
+# (packed projection's weight and bias, out_proj, linear1, linear2, norm1,
+# norm2): torch nn.TransformerEncoderLayer's names, and flax's
+TORCH_LAYER_NAMES = ("self_attn.in_proj_weight", "self_attn.in_proj_bias",
+                     "self_attn.out_proj", "linear1", "linear2", "norm1",
+                     "norm2")
+FLAX_LAYER_NAMES = ("qkv.weight", "qkv.bias", "out_proj", "fc1", "fc2",
+                    "ln1", "ln2")
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN encoder layer with torch ``nn.TransformerEncoderLayer``'s
-    parameter names: x = norm1(x + drop(attn(x))); x = norm2(x +
-    drop(linear2(drop(relu(linear1(x)))))).
+    """Post-LN encoder layer: x = norm1(x + drop(attn(x))); x = norm2(x +
+    drop(linear2(drop(relu(linear1(x)))))), dropout on the attention
+    probabilities too (the plain path). ``names`` are the parameters'
+    paths: by default torch ``nn.TransformerEncoderLayer``'s (a
+    ``SelfAttention`` under ``self_attn``), or ``FLAX_LAYER_NAMES`` (a
+    packed ``qkv`` Linear and ``out_proj`` on the layer).
 
     ``attend_batch_axis`` reproduces the reference quirk of attending over
     the batch axis (see the JAX counterpart)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.1,
                  attend_batch_axis: bool = False,
-                 use_flash_attention: bool | None = None):
+                 use_flash_attention: bool | None = None,
+                 names=TORCH_LAYER_NAMES):
         super().__init__()
         self.attend_batch_axis = attend_batch_axis
-        self.self_attn = SelfAttention(embed_dim, num_heads, dropout,
-                                       use_flash_attention)
-        self.linear1 = nn.Linear(embed_dim, 4 * embed_dim)
-        self.linear2 = nn.Linear(4 * embed_dim, embed_dim)
-        self.norm1 = nn.LayerNorm(embed_dim, eps=1e-5)
-        self.norm2 = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.num_heads = num_heads
+        self.attn_dropout = dropout
+        self.use_flash_attention = use_flash_attention
+        self.names = names
+        if names == TORCH_LAYER_NAMES:
+            self.self_attn = SelfAttention(embed_dim, num_heads, dropout,
+                                           use_flash_attention)
+        else:
+            attach(self, names[0].rpartition(".")[0],
+                   nn.Linear(embed_dim, 3 * embed_dim))
+            attach(self, names[2], nn.Linear(embed_dim, embed_dim))
+        for path, m in zip(names[3:], (
+                nn.Linear(embed_dim, 4 * embed_dim),
+                nn.Linear(4 * embed_dim, embed_dim),
+                nn.LayerNorm(embed_dim, eps=1e-5),
+                nn.LayerNorm(embed_dim, eps=1e-5))):
+            attach(self, path, m)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x):
+        w, b, out_proj, linear1, linear2, norm1, norm2 = self.names
+        m = self.get_submodule
         if self.attend_batch_axis:
             x = x.transpose(0, 1)
-        x = self.norm1(x + self.dropout(self.self_attn(x)))
-        y = self.linear2(self.dropout(F.relu(self.linear1(x))))
-        x = self.norm2(x + self.dropout(y))
+        y = self_attention(x, self.get_parameter(w), self.get_parameter(b),
+                           m(out_proj), self.num_heads,
+                           dropout=self.attn_dropout, training=self.training,
+                           use_flash=self.use_flash_attention)
+        x = m(norm1)(x + self.dropout(y))
+        y = m(linear2)(self.dropout(F.relu(m(linear1)(x))))
+        x = m(norm2)(x + self.dropout(y))
         if self.attend_batch_axis:
             x = x.transpose(0, 1)
         return x

@@ -9,8 +9,8 @@ serving boundary); ImprovedVNet with ``deep_supervision=True`` returns
 ``(logits, [head logits, deepest first])``, as in JAX. Attribute names are
 the JAX modules' (``encoders``, ``enc_blocks``, ``attn_gates``, ``aspp``,
 ``ds_heads``, ...), so ``train/torch_interop.py`` maps every flax path onto
-a ``state_dict`` key. The fixed-architecture models of ``models/legacy.py``
-and ``models/mores.py`` are still to port (ROADMAP.md Queue 1).
+a ``state_dict`` key. ``create_model`` also builds the fixed-architecture
+models of ``models/legacy.py`` and ``models/mores.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ from .blocks import (
     recompute_context,
     up_conv,
 )
+from .legacy import LegacyUNet, TripleBranchImprovedVNet
+from .mores import MORES_REGISTRY
 
 
 def remat_levels(remat, depth: int) -> frozenset:
@@ -349,32 +351,39 @@ MODEL_REGISTRY = {
     "VNet2D": VNet2D,
     "ImprovedVNet": ImprovedVNet,
 }
-# the JAX package's fixed-architecture models, still to port
-_UNPORTED = ("LegacyUNet", "TripleBranchImprovedVNet", "MoresUNet",
-             "MoresVNet2D", "MoresResUNet", "MoresASPPUNet",
-             "MoresAttentionUNet", "MoresTransUNet", "MoresImprovedVNet")
+# every name create_model resolves: the active zoo and the fixed
+# architectures of models/legacy.py and models/mores.py
+ALL_MODELS = {**MODEL_REGISTRY, "LegacyUNet": LegacyUNet,
+              "TripleBranchImprovedVNet": TripleBranchImprovedVNet,
+              **MORES_REGISTRY}
 
 
 def create_model(model_type: str, **kwargs) -> nn.Module:
-    """Instantiate a zoo model by name, with the JAX package's rules
-    (``ddti_tpu/models/zoo.py:create_model``): a ``features=[...]`` doubling
-    schedule maps onto (base_filters = features[0], depth = len(features));
-    the reference's ctor aliases ``num_classes`` / ``base_num_filters`` name
-    ``out_channels`` / ``base_filters``; unknown kwargs are dropped with a
-    warning."""
-    if model_type in _UNPORTED:
-        raise NotImplementedError(
-            f"model_type {model_type!r} (models/legacy.py, models/mores.py) "
-            f"is not ported to ddti_tpu_torch yet; ROADMAP.md Queue 1 lists "
-            f"it")
-    if model_type not in MODEL_REGISTRY:
+    """Instantiate a model by name, with the JAX package's rules
+    (``ddti_tpu/models/zoo.py:create_model``): the active zoo, the legacy
+    models and the ``Mores*`` zoo all resolve.
+
+    A ``features=[...]`` kwarg passes through as a tuple to a ``Mores*``
+    model; for the other names it is the adapter onto the parametric zoo
+    (a doubling schedule -> base_filters = features[0], depth =
+    len(features)). The reference's ctor aliases ``num_classes`` /
+    ``base_num_filters`` become ``out_channels`` / ``base_filters`` only
+    where the class has no field of the alias's name and has the canonical
+    one: ``TripleBranchImprovedVNet``'s own fields are ``num_classes`` and
+    ``base_num_filters``. Kwargs the class does not take are dropped with
+    a warning: a fixed architecture ignores ``base_filters``, ``depth``
+    and ``remat``, so ``--remat`` on one trains without recomputation, as
+    the JAX CLI does."""
+    try:
+        cls = ALL_MODELS[model_type]
+    except KeyError:
         raise NotImplementedError(
             f"Unknown model_type {model_type!r}; choose from "
-            f"{sorted(MODEL_REGISTRY)} (ROADMAP.md Queue 1 lists the models "
-            f"still to port)")
-    cls = MODEL_REGISTRY[model_type]
+            f"{sorted(ALL_MODELS)}") from None
     features = kwargs.pop("features", None)
-    if features is not None:
+    if model_type in MORES_REGISTRY and features is not None:
+        kwargs["features"] = tuple(features)
+    elif features is not None:
         feats = list(features)
         if any(feats[i + 1] != feats[i] * 2 for i in range(len(feats) - 1)):
             raise ValueError(
@@ -385,9 +394,10 @@ def create_model(model_type: str, **kwargs) -> nn.Module:
     valid = set(inspect.signature(cls).parameters)
     for alias, canon in (("num_classes", "out_channels"),
                          ("base_num_filters", "base_filters")):
-        if alias in kwargs:
+        if alias in kwargs and alias not in valid and canon in valid:
             kwargs.setdefault(canon, kwargs.pop(alias))
     dropped = sorted(k for k in kwargs if k not in valid)
     if dropped:
-        warnings.warn(f"{model_type} ignores kwargs {dropped}", stacklevel=2)
+        warnings.warn(f"{model_type} ignores kwargs {dropped} "
+                      f"(fixed architecture)", stacklevel=2)
     return cls(**{k: v for k, v in kwargs.items() if k in valid})

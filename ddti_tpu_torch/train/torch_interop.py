@@ -1,12 +1,19 @@
 """Flax parameters -> the port's ``state_dict``, in numpy alone.
 
 The key rules of ``ddti_tpu/train/torch_interop.py`` (flax module path ->
-the torch reference's key) for the seven models of ``models/zoo.py``:
-encoder, decoder and bottleneck blocks through each model's block map
-(``ConvBNAct``, its PReLU form for VNet2D, ``ResidualBlock``), transposed
-convs (``upconvs``, ``up_convs``), plain convs (``down_convs``,
-``ds_heads``, ``final_conv``), attention gates, the ASPP bottleneck and the
-transformer bottleneck. ``state_dict_from_flax`` applies them to a flat
+the torch reference's key) for every model ``models/zoo.py:create_model``
+builds. The seven active models: encoder, decoder and bottleneck blocks
+through each model's block map (``ConvBNAct``, its PReLU form for VNet2D,
+``ResidualBlock``), transposed convs (``upconvs``, ``up_convs``), plain
+convs (``down_convs``, ``ds_heads``, ``final_conv``), attention gates, the
+ASPP bottleneck and the transformer bottleneck. The fixed architectures:
+LegacyUNet and MoresUNet by the reference's ``nn.Sequential`` layout
+(``_legacy_unet_key``), MoresVNet2D by its ModuleLists
+(``_mores_vnet_key``), the other five by the generic rule, which joins
+the flax names with dots but for a ``bottleneck`` block's indices and the
+``trans.`` prefix of ``patchify``. A transposed conv is any module named
+``upconvs_i``, ``up_convs_i``, ``middle_up``, ``decoderN_up`` or
+``up{i}``. ``state_dict_from_flax`` applies them to a flat
 ``{"params/..." | "batch_stats/...": array}`` dict, which is what
 ``np.load`` of a ``ddti_tpu.train.checkpoint.save_params_npz`` file
 yields; ``flat_flax_from_state_dict`` is its inverse, for the ``.npz`` the
@@ -22,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ddti_tpu_torch.models.zoo import MODEL_REGISTRY
+from ddti_tpu_torch.models.zoo import ALL_MODELS
 
 # flax child name -> torch suffix, per block kind: ConvBNAct's
 # nn.Sequential indices (with the PReLU slopes at 2 and 5 in VNet2D),
@@ -37,6 +44,10 @@ _ASPP_PROJECT = {"project": "project.0", "project_bn": "project.1"}
 _TRANS_LAYER = {"qkv": "self_attn.in_proj", "out_proj": "self_attn.out_proj",
                 "fc1": "linear1", "fc2": "linear2",
                 "ln1": "norm1", "ln2": "norm2"}
+# the reference's legacy conv_block: Conv(0) ReLU(1) BN(2) Conv(3) ReLU(4)
+# BN(5)
+_CONV_RELU_BN = {"conv1": "0", "bn1": "2", "conv2": "3", "bn2": "5"}
+_LEGACY_UNETS = ("LegacyUNet", "MoresUNet")
 _BLOCK_STEMS = ("encoders", "decoders", "enc_blocks", "dec_blocks")
 _INDEXED = _BLOCK_STEMS + ("upconvs", "up_convs", "down_convs", "ds_heads")
 
@@ -49,9 +60,50 @@ def _block_map(model_type: str) -> dict:
                                                           _CONVBN)
 
 
+def _legacy_unet_key(path: tuple[str, ...]) -> str:
+    """LegacyUNet / MoresUNet: ``encoderN`` blocks; ``middle`` = (pool 0,
+    block 1, transposed conv 2); ``decoderN`` = (block 0, transposed conv
+    1); ``final`` = (block 0, 1x1 conv 1)."""
+    p, child = path[0], path[1:]
+    inner = [_CONV_RELU_BN[c] for c in child]
+    if p.startswith("encoder"):
+        out = [p]
+    elif p == "middle_block":
+        out = ["middle", "1"]
+    elif p == "middle_up":
+        out = ["middle", "2"]
+    elif p.startswith("decoder"):
+        stem, _, part = p.rpartition("_")
+        out = [stem, "0" if part == "block" else "1"]
+    elif p == "final_block":
+        out = ["final", "0"]
+    elif p == "final_conv":
+        out = ["final", "1"]
+    else:
+        out = [p]
+    return ".".join(out + inner)
+
+
+def _mores_vnet_key(path: tuple[str, ...]) -> str:
+    """MoresVNet2D: ``enc{i}`` / ``dec{i}`` / ``down{i}`` / ``up{i}`` onto
+    its ModuleLists, the blocks (and ``bottleneck``) through the PReLU
+    block map."""
+    p, child = path[0], path[1:]
+    stem = p.rstrip("0123456789")
+    idx = p[len(stem):]
+    lists = {"enc": "enc_blocks", "dec": "dec_blocks", "down": "down_convs",
+             "up": "up_convs"}
+    out = [lists[stem], idx] if idx and stem in lists else [p]
+    return ".".join(out + [_CONVBN_PRELU[c] for c in child])
+
+
 def _torch_key(model_type: str, path: tuple[str, ...]) -> str:
     """Translate a flax module path to the torch key prefix (without the
     .weight/.bias leaf suffix)."""
+    if model_type in _LEGACY_UNETS:
+        return _legacy_unet_key(path)
+    if model_type == "MoresVNet2D":
+        return _mores_vnet_key(path)
     block = _block_map(model_type)
     out: list[str] = []
     i = 0
@@ -93,7 +145,15 @@ def _is_layernorm(path) -> bool:
 
 
 def _is_transpose_conv(path) -> bool:
-    return any(p.startswith(("upconvs_", "up_convs_")) for p in path)
+    def is_up(p: str) -> bool:
+        if p.startswith(("upconvs_", "up_convs_")) or p == "middle_up":
+            return True
+        if p.startswith("decoder") and p.endswith("_up"):
+            return True
+        stem = p.rstrip("0123456789")
+        return stem == "up" and len(p) > len(stem)
+
+    return any(is_up(p) for p in path)
 
 
 def _leaf_suffix(leaf: str, kind: str) -> str:
@@ -123,6 +183,30 @@ def flax_to_torch_key(model_type: str, path: tuple[str, ...]) -> str:
     return f"{prefix}.{suffix}"
 
 
+def _legacy_unet_mods(parts: list) -> list:
+    """The inverse of ``_legacy_unet_key``."""
+    inv = {v: k for k, v in _CONV_RELU_BN.items()}
+    p = parts[0]
+    if p.startswith("encoder"):
+        return [p, inv[parts[1]]]
+    stage = {"middle": ("middle_block", "middle_up"),
+             "final": ("final_block", "final_conv")}.get(
+        p, (f"{p}_block", f"{p}_up"))
+    if parts[1] == ("1" if p == "middle" else "0"):
+        return [stage[0], inv[parts[2]]]
+    return [stage[1]]
+
+
+def _mores_vnet_mods(parts: list) -> list:
+    """The inverse of ``_mores_vnet_key``."""
+    inv = {v: k for k, v in _CONVBN_PRELU.items()}
+    lists = {"enc_blocks": "enc", "dec_blocks": "dec", "down_convs": "down",
+             "up_convs": "up"}
+    if parts[0] in lists:
+        return [lists[parts[0]] + parts[1], *(inv[c] for c in parts[2:])]
+    return [parts[0], *(inv[c] for c in parts[1:])]
+
+
 def flax_key_from_torch(model_type: str, key: str) -> str:
     """The inverse of ``flax_to_torch_key``: a torch ``state_dict`` key ->
     ``"params/<flax path>"`` or ``"batch_stats/<flax path>"``."""
@@ -130,6 +214,10 @@ def flax_key_from_torch(model_type: str, key: str) -> str:
         return "params/pos_emb"
     parts = key.split(".")
     leaf = parts.pop()
+    if model_type in _LEGACY_UNETS:
+        return _flax_leaf(_legacy_unet_mods(parts), leaf)
+    if model_type == "MoresVNet2D":
+        return _flax_leaf(_mores_vnet_mods(parts), leaf)
     inv_layer = {v: k for k, v in _TRANS_LAYER.items()}
     # the rest of the key after a module with children -> its flax child
     inv_child = {
@@ -164,10 +252,16 @@ def flax_key_from_torch(model_type: str, key: str) -> str:
                 mods.append(inv_child[rest])
             break
         mods.append(p)
-        if p == "bottleneck":
-            mods.append(inv_child[".".join(parts[i + 1:])])
+        if p == "bottleneck":  # a block's indices; skip, branch<k>, ...
+            rest = ".".join(parts[i + 1:])
+            mods.append(inv_child.get(rest, rest))
             break
         i += 1
+    return _flax_leaf(mods, leaf)
+
+
+def _flax_leaf(mods: list, leaf: str) -> str:
+    """``"<collection>/<mods>/<flax leaf>"`` for a torch leaf name."""
     if _is_layernorm(mods):
         collection, leaf = "params", {"weight": "scale", "bias": "bias"}[leaf]
     elif _is_bn(mods):
@@ -233,11 +327,10 @@ def flat_flax_from_state_dict(model_type: str, sd: dict) -> dict:
                     a = a.transpose(2, 3, 1, 0)
             elif a.ndim == 2:
                 a = a.T
-        flat[fk] = np.ascontiguousarray(a)
+        flat[fk] = np.array(a, order="C")  # ascontiguousarray makes 0-d 1-d
     return flat
 
 
 def _check_ported(model_type: str) -> None:
-    if model_type not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"no key rules for {model_type!r} yet (ROADMAP.md Queue 1)")
+    if model_type not in ALL_MODELS:
+        raise NotImplementedError(f"no key rules for {model_type!r}")

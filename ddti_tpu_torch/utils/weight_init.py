@@ -16,8 +16,11 @@ the flax default the JAX Trainer's models start from.
   every conv (ASPP's dilated branches, the 1x1 convs of the attention
   gates, projections and heads, the strided down-convs), transposed conv
   and linear, the packed attention projection ``in_proj_weight`` (flax's
-  ``qkv`` Dense) included, and draws TransUNet's ``pos_emb`` from a
-  standard normal (flax ``normal(1.0)``); PReLU slopes keep their 0.25.
+  ``qkv`` Dense) included, and draws TransUNet's and MoresTransUNet's
+  ``pos_emb`` from a standard normal (flax ``normal(1.0)``); PReLU slopes
+  keep their 0.25. The fixed architectures' kinds are among these: the SE
+  gates' biased 1x1 convs, the strided 3x3 and 2x2 down-convs, the
+  transposed convs with and without bias.
 
 Fans follow flax's reading of its own layouts: a conv kernel's receptive
 field times its input (fan_in) or output (fan_out) channels; torch's
@@ -32,6 +35,7 @@ import torch
 from torch import nn
 
 from ddti_tpu_torch.models.blocks import SelfAttention
+from ddti_tpu_torch.models.mores import MoresTrans
 from ddti_tpu_torch.models.zoo import TransEncoder
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling
@@ -83,10 +87,10 @@ def _set_(param: torch.Tensor, value: torch.Tensor) -> None:
 def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
     """Initialise every conv, transposed conv, linear and packed attention
     projection of ``model`` as flax initialises the JAX zoo (lecun-normal
-    kernels, zero biases) and TransUNet's positional embedding as a
-    standard normal, all from one ``torch.Generator`` seeded with ``seed``.
-    BatchNorm and LayerNorm keep (1, 0), PReLU slopes 0.25 (flax
-    ``negative_slope_init``)."""
+    kernels, zero biases) and the positional embedding of TransUNet and
+    MoresTransUNet as a standard normal, all from one ``torch.Generator``
+    seeded with ``seed``. BatchNorm and LayerNorm keep (1, 0), PReLU
+    slopes 0.25 (flax ``negative_slope_init``)."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -95,7 +99,7 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, SelfAttention):
             # (3E, E): fan_in E, as flax's (E, 3E) qkv kernel
             weight, bias, transposed = m.in_proj_weight, m.in_proj_bias, False
-        elif isinstance(m, TransEncoder):
+        elif isinstance(m, (TransEncoder, MoresTrans)):
             _set_(m.pos_emb, torch.randn(m.pos_emb.shape, generator=g))
             continue
         else:

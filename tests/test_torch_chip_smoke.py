@@ -390,3 +390,123 @@ def test_lifecycle_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "preempted: exit 75, test phase skipped" in out
     assert "bit-equal True" in out
+
+
+def test_legacy_flag_needs_the_card():
+    """``chip_smoke.py --legacy`` without a card exits non-zero and prints
+    no result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--legacy"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"legacy"' not in r.stdout and '"ok"' not in r.stdout
+
+
+def test_legacy_sweep_extra_is_run_sh_at_one_epoch_in_bf16():
+    """The legacy sweep's ``--extra`` parses through the port's training
+    CLI: run.sh's extras (256^2, synthetic, both modes) with 1 epoch in
+    place of 2, batch 16 and bf16."""
+    import os
+    import re
+    import shlex
+
+    args = C.legacy_extra_args()
+    assert (args.mode, args.synthetic, args.epochs, args.image_size,
+            args.store_size, args.batch_size) == ("both", True, 1, 256, 256,
+                                                   16)
+    assert args.use_amp_autocast is True
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "run.sh")) as f:
+        run_sh = re.search(r'--extra "([^"]*)"', f.read()).group(1)
+    ours = shlex.split(C.LEGACY_EXTRA)
+    theirs = shlex.split(run_sh)
+    theirs[theirs.index("--epochs") + 1] = "1"
+    assert ours[:len(theirs)] == theirs
+    assert C.LEGACY_JOBS == 3
+
+
+@pytest.mark.parametrize("model_type", C.LEGACY)
+def test_jax_legacy_keys_match_save_params_npz(model_type, tmp_path):
+    """The key sets the legacy phase holds each swept .npz to, written out
+    from the flax module tree, equal the keys JAX's ``save_params_npz``
+    writes (small widths, the default depths and layer counts)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from ddti_tpu.models import create_model
+    from ddti_tpu.train.checkpoint import save_params_npz
+
+    kw = {"TripleBranchImprovedVNet": dict(base_num_filters=4),
+          "MoresImprovedVNet": dict(base_filters=4),
+          "MoresVNet2D": dict(features=(2, 4, 8, 16, 32))}.get(
+        model_type, dict(features=(2, 4, 8, 16)))
+    if model_type == "MoresTransUNet":
+        kw.update(trans_dim=8, num_heads=2, image_size=64)
+    elif model_type in ("LegacyUNet", "MoresUNet"):
+        kw = {}
+    jm = create_model(model_type, **kw)
+    v = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), jax.eval_shape(
+        lambda: jm.init({"params": jax.random.PRNGKey(0)},
+                        jnp.zeros((1, 64, 64, 1)), train=False)))
+    path = str(tmp_path / "w.npz")
+    save_params_npz(path, v["params"], v["batch_stats"])
+    with np.load(path) as z:
+        want = set(z.files)
+    assert C.jax_legacy_keys(model_type) == want
+
+
+def test_legacy_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The legacy phase with the CPU as the card, two of its models at a
+    tiny size (MoresVNet2D and MoresTransUNet, features 4, 8, one encoder
+    layer, 32^2, float32): the params tool's 14 counts, the split and the
+    sweep through the CLIs, every run's checks with the JAX key set, the
+    aggregate's ranked rows and CSV, and MoresTransUNet served; no kernel
+    launches here, and the step and profiles only on the card."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from ddti_tpu.models import create_model
+
+    models = ("MoresVNet2D", "MoresTransUNet")
+    kw = dict(in_channels=1, out_channels=1, features=[4, 8], trans_dim=16,
+              num_heads=2, num_layers=1, image_size=32)
+    counts = {}
+    for m in models:
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            shapes = jax.eval_shape(lambda: create_model(m, **kw).init(
+                {"params": jax.random.PRNGKey(0)},
+                jnp.zeros((1, 32, 32, 1)), train=False))
+        counts[m] = sum(int(np.prod(a.shape))
+                        for a in jax.tree.leaves(shapes["params"]))
+    monkeypatch.setattr(C, "DEVICE", "cpu")
+    monkeypatch.setattr(C, "LEGACY", models)
+    monkeypatch.setattr(C, "LEGACY_KW", kw)
+    monkeypatch.setattr(C, "LEGACY_JAX_PARAMS", counts)
+    monkeypatch.setattr(C, "LEGACY_EXTRA", (
+        "--mode both --synthetic --epochs 1 --image_size 32 --store_size 32 "
+        "--batch_size 16 --log_every 0"))
+    monkeypatch.setattr(C, "LEGACY_SERVE", dict(image_size=32, batch=2,
+                                                batches=2))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = C.run_legacy(str(tmp_path))
+    finally:
+        torch.set_num_threads(n)
+    assert got["launches"] == {m: 0 for m in models}
+    assert sorted(got["test_iou"]) == sorted(models)
+    assert got["serve"]["launches"] == 0 and got["serve"]["rel"] <= 1e-3
+    assert "train_steps" not in got
+    out = capsys.readouterr().out
+    assert "the 14 counts equal the JAX package's cli/params.py" in out
+    assert "cli/aggregate.py: 2 ranked rows and a CSV" in out

@@ -1021,3 +1021,89 @@ def test_best_save_snapshot_on_cuda():
     assert not host["w"].is_cuda
     assert torch.equal(host["w"], torch.arange(1 << 20, dtype=torch.float32))
     assert torch.equal(host["nested"]["v"], 2 * host["w"])
+
+
+# the legacy slice: MoresTransUNet's 1024-token bottleneck through
+# the flash kernel in eval, and LegacyUNet's train step through the EDT
+MORES_TRANS = dict(features=(8, 16), trans_dim=64, num_heads=2, num_layers=2,
+                   image_size=128)
+
+
+def test_mores_transunet_forward_flash_kernel_matches_plain(cuda):
+    """MoresTransUNet at 128^2 with features (8, 16): 32 x 32 = 1024
+    tokens, heads of 32, so its eval forward takes the gate; float32 (TF32
+    off) through the flash kernel, one launch a layer, against the same
+    weights on the plain attention path on the card and on the CPU, within
+    1e-4 of the largest logit (the serving limit is 1e-3)."""
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    m = init_like_flax(create_model("MoresTransUNet", **MORES_TRANS), 0)
+    plain = create_model("MoresTransUNet", use_flash_attention=False,
+                         **MORES_TRANS)
+    plain.load_state_dict(m.state_dict())
+    x = torch.rand(2, 1, 128, 128, generator=torch.Generator().manual_seed(3))
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want_cpu = plain.eval()(x)
+            want = plain.to(cuda)(x.to(cuda))
+            before = A.flash_forward_cuda.launches
+            got = m.eval().to(cuda)(x.to(cuda))
+            launched = A.flash_forward_cuda.launches - before
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    assert launched == MORES_TRANS["num_layers"]
+    for w in (want.cpu(), want_cpu):
+        rel = float((got.cpu() - w).abs().max() / w.abs().max())
+        assert rel < 1e-4, rel
+
+
+def test_legacy_unet_step_edt_kernel_matches_plain(cuda):
+    """One float32 LegacyUNet train step at 64^2, batch 2, from one state
+    and batch with the kernel EDT (one launch) and with the plain EDT:
+    bit-equal boundary terms and updated parameters within 1e-6
+    (deterministic cuDNN, so only the EDT route differs)."""
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.data.augment import AugmentConfig, sample_draws
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.losses import losses
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.train.steps import make_train_step
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    size, batch = 64, 2
+    cfg = Config(image_size=size, store_size=size, batch_size=batch)
+    aug = AugmentConfig(out_size=(size, size))
+    model = init_like_flax(create_model("LegacyUNet"), 0).to(cuda)
+    images, masks = synthetic_source(batch, (size, size), 0,
+                                     device=cuda).gather([0, 1])
+    draws = sample_draws(torch.Generator().manual_seed(0), batch, aug,
+                         (size, size)).to(cuda)
+    step = make_train_step(cfg, aug)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for route in ("kernel", "plain"):
+            model.load_state_dict(sd0)
+            before = E.edt_cuda.launches
+            if route == "plain":
+                losses.edt_batch = E.edt_reference
+            m = step(TrainState(model, 1e-5, 4), images, masks, draws, None)
+            torch.cuda.synchronize()
+            assert E.edt_cuda.launches - before == (route == "kernel")
+            out[route] = (m.boundary.clone(), {
+                k: v.clone() for k, v in model.state_dict().items()})
+    finally:
+        losses.edt_batch = E.edt_batch
+        torch.backends.cudnn.deterministic = det
+    (bk, pk), (bp, pp) = out["kernel"], out["plain"]
+    assert torch.equal(bk, bp) and float(bk) > 0
+    for k in pk:
+        rel = float((pk[k] - pp[k]).abs().max()
+                    / pp[k].abs().max().clamp(min=1e-30))
+        assert rel <= 1e-6, (k, rel)

@@ -172,6 +172,11 @@ def test_port_imports_no_jax():
         for f in (ROOT / "ddti_tpu_torch").rglob("*.py")
         if f.name != "__init__.py")
     assert "ddti_tpu_torch.cli.main" in modules
+    # the legacy zoo and the experiment tools among them
+    assert {f"ddti_tpu_torch.{m}" for m in (
+        "models.legacy", "models.mores", "cli.params", "cli.split_config",
+        "cli.sweep", "cli.aggregate", "cli.split_data", "cli.prepare",
+        "cli.preview")} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ddti_tpu', 'benchmarks')); "

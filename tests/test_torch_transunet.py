@@ -215,8 +215,13 @@ def test_bf16_npz_loads_exactly(ckpt, tmp_path):
 
 
 def test_unported_model_and_orbax_dir_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model("MoresUNet")
+    """An unknown model name and an Orbax directory raise; MoresUNet, once
+    unported, builds with the JAX package's parameter count."""
+    with pytest.raises(NotImplementedError, match="Unknown model_type"):
+        create_model("NoSuchNet")
+    with torch.device("meta"):
+        mores = create_model("MoresUNet")
+    assert sum(p.numel() for p in mores.parameters()) == 31_042_369
     with pytest.raises(ValueError, match="Orbax"):
         load_checkpoint_into(str(tmp_path), "TransUNet",
                              create_model("TransUNet", **SMALL))

@@ -408,8 +408,9 @@ def _jax_count(model_type, **kw):
 
 def test_create_model_rules_match_jax():
     """The ``features=[...]`` doubling adapter, the reference's ctor
-    aliases, the warning for unknown kwargs and the unported
-    fixed-architecture names, on both sides."""
+    aliases, the warning for unknown kwargs, the fixed-architecture names
+    (built with JAX's parameter counts, on the meta device) and an unknown
+    name, on both sides."""
     for kw in (dict(features=[8, 16, 32]),
                dict(num_classes=2, base_num_filters=8, depth=3),
                dict(features=(4, 8), use_attention=False,
@@ -425,9 +426,13 @@ def test_create_model_rules_match_jax():
         with pytest.warns(UserWarning, match="ignores kwargs"):
             make("ASPPUNet", base_filters=8, depth=2, bogus=1)
     for name in ("LegacyUNet", "TripleBranchImprovedVNet", "MoresUNet",
-                 "MoresImprovedVNet", "NoSuchNet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            create_model(name)
+                 "MoresImprovedVNet"):
+        with torch.device("meta"):
+            m = create_model(name)
+        assert count_params(m) == _jax_count(name), name
+    for make in (create_model, jcreate_model):
+        with pytest.raises(NotImplementedError, match="Unknown model_type"):
+            make("NoSuchNet")
     aspp = create_model("ASPPUNet", **SMALL, aspp_dilations=[1, 2, 3])
     assert [b.dilation for b in aspp.aspp.branches] == [(1, 1), (2, 2),
                                                        (3, 3)]
