@@ -16,7 +16,8 @@ model at both sizes; ``python3 chip_smoke.py --infer`` runs the infer phase
 alone (the AttentionUNet trained first, as the zoo phase trains it);
 ``python3 chip_smoke.py --recipe`` runs the recipe phase alone;
 ``python3 chip_smoke.py --lifecycle`` the lifecycle phase alone;
-``python3 chip_smoke.py --legacy`` the legacy phase alone.
+``python3 chip_smoke.py --legacy`` the legacy phase alone;
+``python3 chip_smoke.py --hostdata`` the hostdata phase alone.
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -96,7 +97,8 @@ and a non-zero exit:
               metrics with HD95/ASSD, a best .pth that loads strictly and an
               .npz in the JAX package's key layout, and exactly the expected
               number of EDT kernel launches.
-8. ttrain   — the same CLI training the serving slice's TransUNet
+8. ttrain   — (at the same time as 7) the same CLI training the serving
+              slice's TransUNet
               (base_filters 64, depth 4, 512^2 -> 1024 tokens) from a model
               YAML with dropout_rate 0.0 and --tta, batch 16, bf16, 1
               epoch: the same checks, "tta": true in test_metrics.json, and
@@ -203,7 +205,7 @@ and a non-zero exit:
               printing the JAX tool's 14 counts; run.sh's path with the
               port's tools: a nine-entry model matrix split by
               cli/split_config.py and swept by cli/sweep.py --config_dir,
-              3 jobs at a time, at run.sh's extras with 1 epoch and bf16
+              5 jobs at a time, at run.sh's extras with 1 epoch and bf16
               (256^2, batch 16): every job exit 0 with JAX's parameter
               count, check_run's checks with the JAX key set of each model,
               exactly the expected EDT launches in each run's log; then
@@ -215,10 +217,33 @@ and a non-zero exit:
               paths; LegacyUNet's float32 step, kernel vs plain EDT
               (bit-equal boundary, parameters to 1e-6); the nine bf16 train
               steps at 512^2 / batch 16 (median of 5) and their peaks.
-18. result  — the total wall time, a JSON line of the kernels (the flash
-              forward's with the infer and legacy phases' launches; the
-              EDT's with the recipe, lifecycle and legacy phases' launches
-              and numbers), then the device line.
+18. hostdata — the reference's own data path feeding the flagship ResUNet
+              (bf64, d5, bf16, 512^2 / batch 16) from synthetic JPEG pairs
+              on disk (600x480 and 1024x768; 32 train, 16 val, 16 test):
+              (a) the host loader (runtime/host_loader.cpp) built by g++
+              into build/, whether its libjpeg decode is in it and what the
+              machine has of libjpeg; (b) the train JPEGs decoded to 512^2
+              natively (within one gray level of PIL) and by PIL, host ms a
+              frame; (c) the training CLI with --host_augment and every
+              branch and with --native_loader on, at once, then the native
+              run again, reading the .store_cache (decode seconds saved):
+              run_cli's checks and exactly the expected EDT launches; (d) a
+              float32 make_host_train_step on the card against the CPU on
+              one host batch (terms and parameters normwise), the kernel
+              EDT against the plain one bit-equal; (e) the bf16 step's
+              device and wall ms, img/s and busy share fed by the device
+              store, the native loader and the host chain; (f) the daemon
+              on the serving slice's TransUNet: native vs PIL masks,
+              POST /reload under concurrent clients, --watch, /metrics'
+              series against the JAX daemon's, request decode ms.
+19. result  — the total wall time, a JSON line of the kernels (the flash
+              forward's with the infer, legacy and hostdata phases'
+              launches; the EDT's with the recipe, lifecycle, legacy and
+              hostdata phases' launches and numbers), then the device
+              line. Every busy share is the union of the device intervals
+              of kernels, memcpys and memsets in a record_function window
+              (``device_busy``); the first window of a run also prints
+              the old summed key_averages beside it, once.
 """
 
 import concurrent.futures
@@ -473,12 +498,53 @@ LEGACY_KW = dict(in_channels=1, out_channels=1)  # each entry's kwargs
 # run.sh:12-13's extras at 1 epoch in place of 2, in bf16
 LEGACY_EXTRA = ("--mode both --synthetic --epochs 1 --image_size 256 "
                 "--store_size 256 --batch_size 16 --use_amp_autocast true")
-LEGACY_JOBS = 3
+LEGACY_JOBS = 5  # two rounds of the nine (3 at a time took three)
 LEGACY_SWEEP_TIMEOUT_S = 900
 LEGACY_SERVE = dict(image_size=512, batch=16, batches=2)
 LEGACY_STEP_BATCH = 4
 LEGACY_PROFILE = (512, 16)
 LEGACY_PROFILE_RUNS = 5
+
+# the hostdata phase: the reference's own data path feeding the flagship
+# (TRAIN's ResUNet, bf16, 512^2 / batch 16) from synthetic JPEG pairs on disk
+# (width, height, count a split; the infer phase's two frame sizes), through
+# the host chain (--host_augment with every branch) and through the C++
+# loader over a natively decoded .store_cache (--native_loader on, twice:
+# the second run reads the cache); the daemon's reload surface on the
+# serving slice's TransUNet
+HOSTDATA_SPLITS = {"train": ((600, 480, 16), (1024, 768, 16)),
+                   "val": ((600, 480, 8), (1024, 768, 8)),
+                   "test": ((600, 480, 8), (1024, 768, 8))}
+HOSTDATA_CHAIN = ["--use_elastic", "--use_speckle", "--use_tgc",
+                  "--use_clahe"]
+HOSTDATA_DECODE_TOL = 1  # gray levels, native decode vs PIL
+# (d): the float32 host step on the card against the CPU, the flagship's
+# widths at (size, batch) that the CPU takes in seconds. Loss terms
+# (relative) and BatchNorm statistics (normwise) card vs CPU; gradients
+# and updated parameters (normwise over all of them) against the same step
+# in float64 on the CPU, where the card's error may be at most
+# HOSTDATA_F32_FACTOR times the CPU's own float32 error: the card is as
+# accurate as the CPU. (Bars on card vs CPU directly read past their limits
+# on an H100: parameters 1.645e-05 normwise against 1e-5, gradients
+# 1.214e-04 against 1e-4, updates more than 0.05 lr apart on 0.86% of the
+# parameters against 0.5%: float32's own noise at this depth.)
+HOSTDATA_STEP = (192, 2)
+HOSTDATA_TERM_RTOL = 1e-5
+HOSTDATA_STAT_RTOL = 1e-5
+HOSTDATA_F32_FACTOR = 2.0
+HOSTDATA_TIMED = 5    # (e): steps timed a source, after 2 warm-up steps
+HOSTDATA_AGREE = 0.995  # (f): native vs PIL masks, share of pixels
+HOSTDATA_POSTS = 8
+HOSTDATA_CLIENTS = 8
+HOSTDATA_TIMEOUT_S = 600
+# GET /metrics' series, as the JAX daemon prints them
+# (ddti_tpu/cli/serve.py:_metrics)
+METRICS_JAX = (
+    "ddti_requests_total", "ddti_request_errors_total", "ddti_images_total",
+    "ddti_batches_total", "ddti_rejected_total", "ddti_reloads_total",
+    "ddti_queue_depth", "ddti_uptime_seconds",
+    "ddti_request_latency_seconds_sum", "ddti_request_latency_seconds_count",
+    "ddti_request_latency_seconds", "ddti_program_batches_total")
 
 
 def phase(name, msg):
@@ -1762,26 +1828,131 @@ def profile_slice(ckpt):
     launches0 = A.flash_forward_cuda.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_BATCHES):
-            serve["kernel"](x)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+        with torch.profiler.record_function(BUSY_WINDOW):
+            for _ in range(PROFILE_BATCHES):
+                serve["kernel"](x)
+            torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    kernel_us = sum(e.self_device_time_total for e in kernels)
+    busy = device_busy(prof)
     phase("profile", f"torch.profiler, {PROFILE_BATCHES} kernel-path "
-          f"batches: window {window_us / 1e3:.3f} ms, device kernels "
-          f"{busy_us / 1e3:.3f} ms ({busy_us / window_us:.1%} busy), "
-          f"{A.flash_forward_cuda.launches - launches0} flash_fwd launches")
+          f"batches: device {busy['union_us'] / 1e3:.3f} ms, "
+          f"{busy_text(busy)}; "
+          f"{A.flash_forward_cuda.launches - launches0} flash_fwd launches; "
+          f"shares of the summed kernel time {kernel_us / 1e3:.3f} ms:")
     if not kernels:
         phase("profile", "no device time recorded: breakdown not measured")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[
             :PROFILE_TOP]:
-        phase("profile", f"{e.self_device_time_total / busy_us:6.1%} "
+        phase("profile", f"{e.self_device_time_total / kernel_us:6.1%} "
               f"{e.count:4d} x {e.self_device_time_total / e.count / 1e3:.4f}"
               f" ms  {e.key[:90]}")
+
+
+def interval_union_us(intervals, lo=None, hi=None):
+    """Length of the union of ``(start, end)`` intervals, each clipped to
+    ``[lo, hi]`` first (None: unbounded): time the device was busy at all,
+    however many streams overlapped."""
+    clipped = sorted((max(a, lo) if lo is not None else a,
+                      min(b, hi) if hi is not None else b)
+                     for a, b in intervals)
+    total, cur_a, cur_b = 0.0, None, None
+    for a, b in clipped:
+        if b <= a:
+            continue
+        if cur_b is None or a > cur_b:
+            if cur_b is not None:
+                total += cur_b - cur_a
+            cur_a, cur_b = a, b
+        else:
+            cur_b = max(cur_b, b)
+    if cur_b is not None:
+        total += cur_b - cur_a
+    return total
+
+
+BUSY_WINDOW = "chip_smoke.busy_window"
+_SUMMED_SHOWN = []  # the old summed reading is printed once a run
+
+
+def device_kernels(prof):
+    """key_averages' device entries that took time, without the user
+    annotations: a record_function range (AdamW's ``Optimizer.step``,
+    BUSY_WINDOW itself) shows on the device as one more event that spans
+    the kernels it holds, so a sum over every entry counts them twice."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _device_spans(prof, window):
+    """The ``record_function(window)`` range on the trace's clock and the
+    device intervals of the kernels, memcpys and memsets in the trace."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.events())
+    win = [e for e in events if e.name == window and e.device_type != cuda]
+    assert win, f"no {window} range in the trace"
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == cuda
+             and not getattr(e, "is_user_annotation", False)
+             and e.time_range.end > e.time_range.start]
+    return win[0].time_range.start, win[0].time_range.end, spans
+
+
+def device_busy(prof, window=BUSY_WINDOW):
+    """The device's busy time in a torch.profiler trace, read from its
+    events: the union of the device intervals of kernels, memcpys and
+    memsets, clipped to the ``record_function(window)`` range (the host's
+    span of the measured work). Returns window_us and union_us. The first
+    call of a run also prints, once, what the old reading made of the same
+    window (summed_text)."""
+    lo, hi, spans = _device_spans(prof, window)
+    busy = dict(window_us=hi - lo, union_us=interval_union_us(spans, lo, hi))
+    if not _SUMMED_SHOWN:
+        _SUMMED_SHOWN.append(True)
+        phase("busy", summed_text(prof, busy, window))
+    return busy
+
+
+def summed_text(prof, busy, window=BUSY_WINDOW):
+    """The old busy reading beside the union, for one window: key_averages'
+    self_device_time_total summed over every CUDA entry, the user
+    annotations in that sum (counted twice: once as themselves, once as
+    the kernels they span), and the kernels that overlapped one another."""
+    import torch
+
+    lo, hi, spans = _device_spans(prof, window)
+    inside = sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in spans)
+    avgs = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    annotations = {e.key: e.self_device_time_total for e in avgs
+                   if getattr(e, "is_user_annotation", False)}
+    w = max(busy["window_us"], 1e-9)
+    return (f"the union of {len(spans)} device intervals reads "
+            f"{busy['union_us'] / w:.1%} of a {w / 1e3:.3f} ms window; the "
+            f"old reading, key_averages' device time summed over every CUDA "
+            f"entry, reads "
+            f"{sum(e.self_device_time_total for e in avgs) / w:.1%}, of "
+            f"which {sum(annotations.values()) / w:.1%} are the user "
+            f"annotations ("
+            + ", ".join(f"{k} {v / w:.1%}"
+                        for k, v in sorted(annotations.items()))
+            + f"); kernels overlapping one another "
+            f"{(inside - busy['union_us']) / 1e3:.3f} ms")
+
+
+def busy_text(b):
+    """A busy share as the phases print it: the union's share of the
+    window."""
+    w = max(b["window_us"], 1e-9)
+    return (f"{b['union_us'] / w:.1%} busy (union of the device intervals "
+            f"over a {w / 1e3:.3f} ms window)")
 
 
 def edt_masks(n, h, w, seed):
@@ -2673,14 +2844,21 @@ def run_infer(tmp, trans_ckpt, attn_ckpt):
             "tiled_ms": tiled_ms, "tiles": n_tiles}
 
 
-def _padded_batch(orig, size):
-    """The daemon's batch of one frame: PIL-bilinear resized to size^2,
-    zero-padded to BATCH, uint8 (BATCH, size, size, 1)."""
+def _padded_batch(orig, size, jpeg=None):
+    """The daemon's batch of one frame: PIL-bilinear resized to size^2, or,
+    given the ``jpeg`` bytes the daemon decodes natively, their native
+    decode (as ``/predict`` does without ``?overlay=1``); zero-padded to
+    BATCH, uint8 (BATCH, size, size, 1)."""
     import numpy as np
     from PIL import Image
 
     x = np.zeros((BATCH, size, size, 1), np.uint8)
-    x[0, ..., 0] = np.asarray(orig.resize((size, size), Image.BILINEAR))
+    if jpeg is not None:
+        from ddti_tpu_torch.runtime.native import decode_jpeg_bytes
+
+        x[0] = decode_jpeg_bytes(jpeg, size, size)[0]
+    else:
+        x[0, ..., 0] = np.asarray(orig.resize((size, size), Image.BILINEAR))
     return x
 
 
@@ -2743,6 +2921,18 @@ def infer_daemon(ckpt):
               f"(the median TTA probability of the {len(posts)} frames): "
               f"/healthz {json.dumps(health)}")
         assert health["tta"] is True and health["fold_bn"] is True
+
+        def served(x, orig):
+            """serve_body's mask of the padded batch ``x``, resized to the
+            frame as the daemon resizes it."""
+            with torch.inference_mode():
+                mask = serve_body(
+                    folded, torch.from_numpy(x).cuda(), float(threshold),
+                    compute_dtype=torch.bfloat16,
+                    tta=True)[0, ..., 0].cpu().numpy()
+            return np.asarray(Image.fromarray(mask * 255).resize(
+                orig.size, Image.NEAREST))
+
         batches0 = server.batcher.n_batches
         answers, launches = [], 0
         for i, (body, orig) in enumerate(posts):
@@ -2753,19 +2943,16 @@ def infer_daemon(ckpt):
             assert status == 200, (status, data[:200])
             got = np.frombuffer(data, np.uint8).reshape(
                 int(headers["X-Height"]), int(headers["X-Width"]))
-            with torch.inference_mode():
-                mask = serve_body(
-                    folded, torch.from_numpy(_padded_batch(orig, size)).cuda(),
-                    float(threshold), compute_dtype=torch.bfloat16,
-                    tta=True)[0, ..., 0].cpu().numpy()
-            want = np.asarray(Image.fromarray(mask * 255).resize(
-                orig.size, Image.NEAREST))
+            # the frame as the daemon decoded it: natively where it can
+            want = served(_padded_batch(
+                orig, size, body if server.native_decode else None), orig)
             same = float((got == want).mean())
             fg = float((got > 0).mean())
             phase("infer", f"daemon POST {orig.size[0]}x{orig.size[1]} JPEG "
                   f"-> {got.shape} mask in {dt * 1e3:.1f} ms, equal to "
-                  f"serve_body's on the same padded batch on {same:.6%} of "
-                  f"pixels, foreground {fg:.4f}")
+                  f"serve_body's on the same padded batch (decoded "
+                  f"{'natively' if server.native_decode else 'by PIL'}) on "
+                  f"{same:.6%} of pixels, foreground {fg:.4f}")
             assert got.shape == orig.size[::-1] and same == 1.0
             answers.append((abs(fg - 0.5), i, got))
         n_batches = server.batcher.n_batches - batches0
@@ -2774,7 +2961,9 @@ def infer_daemon(ckpt):
         body, orig = posts[i]
         status, headers, data, _ = post(port, body, "/predict?overlay=1")
         overlay = np.asarray(Image.open(io.BytesIO(data)))
-        want_o = serve._overlay_png(orig, got)
+        # an overlay request decodes with PIL: its mask is the PIL frame's
+        want_o = serve._overlay_png(orig, served(_padded_batch(orig, size),
+                                                 orig))
         red = int((overlay[..., 0] != overlay[..., 1]).sum()) \
             if overlay.ndim == 3 else 0
         phase("infer", f"daemon ?overlay=1 -> HTTP {status} "
@@ -3031,17 +3220,16 @@ def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None,
     before = [E.edt_cuda.launches, *_flash_counts()]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_PROFILE_STEPS):
-            one()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
+        with torch.profiler.record_function(BUSY_WINDOW):
+            for _ in range(TRAIN_PROFILE_STEPS):
+                one()
+            torch.cuda.synchronize()
+    busy = device_busy(prof)
+    window_us = busy["window_us"]
     launched = [a - b for a, b in zip([E.edt_cuda.launches,
                                        *_flash_counts()], before)]
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    kernels = device_kernels(prof)
+    kernel_us = sum(e.self_device_time_total for e in kernels)
     edt_us = sum(e.self_device_time_total for e in kernels
                  if "edt_" in e.key)
     flash_us = sum(e.self_device_time_total for e in kernels
@@ -3049,27 +3237,26 @@ def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None,
     phase("tprofile", f"{label}: {dtype} train step {size}^2 batch {batch}: "
           f"{ms:.3f} ms device time (CUDA events, median of 10), "
           f"{batch / ms * 1e3:.1f} img/s; torch.profiler over "
-          f"{TRAIN_PROFILE_STEPS} steps: window {window_us / 1e3:.3f} ms, "
-          f"device kernels {busy_us / 1e3:.3f} ms "
-          f"({busy_us / max(window_us, 1):.1%} busy), EDT kernels "
-          f"{edt_us / 1e3:.3f} ms ({edt_us / max(busy_us, 1):.2%} of "
-          f"device time), flash kernels {flash_us / 1e3:.3f} ms "
-          f"({flash_us / max(busy_us, 1):.2%}); launches edt/flash_fwd/"
+          f"{TRAIN_PROFILE_STEPS} steps: device kernels "
+          f"{kernel_us / 1e3:.3f} ms, {busy_text(busy)}, EDT kernels "
+          f"{edt_us / 1e3:.3f} ms ({edt_us / max(kernel_us, 1):.2%} of "
+          f"kernel time), flash kernels {flash_us / 1e3:.3f} ms "
+          f"({flash_us / max(kernel_us, 1):.2%}); launches edt/flash_fwd/"
           f"flash_bwd_dkdv/flash_bwd_dq {launched}")
     if not kernels:
         phase("tprofile", "no device time recorded: breakdown not measured")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[
             :PROFILE_TOP]:
-        phase("tprofile", f"{e.self_device_time_total / busy_us:6.1%} "
+        phase("tprofile", f"{e.self_device_time_total / kernel_us:6.1%} "
               f"{e.count:4d} x "
               f"{e.self_device_time_total / e.count / 1e3:.4f} ms  "
               f"{e.key[:90]}")
     del state, step, images, masks, prof
     torch.cuda.empty_cache()
     return dict(model=label, dtype=dtype, size=size, batch=batch, ms=ms,
-                busy=busy_us / max(window_us, 1),
-                edt_share=edt_us / max(busy_us, 1),
-                flash_share=flash_us / max(busy_us, 1))
+                busy=busy["union_us"] / max(window_us, 1),
+                edt_share=edt_us / max(kernel_us, 1),
+                flash_share=flash_us / max(kernel_us, 1))
 
 
 def profile_training():
@@ -3185,8 +3372,7 @@ def ab_serve():
         for _ in range(PROFILE_BATCHES):
             serve(x)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.self_device_time_total > 0]
+    kernels = device_kernels(prof)
     busy = sum(e.self_device_time_total for e in kernels) or 1.0
     top = [[round(e.self_device_time_total / busy, 4), e.key[:90]]
            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
@@ -4401,6 +4587,709 @@ def infer_only():
     return 0
 
 
+def write_hostdata(root, seed=SEED):
+    """HOSTDATA_SPLITS as grayscale JPEG pairs in the reference's layout:
+    ``root/<split>/<split>_NNNN.jpg`` (speckle over a dark field, one
+    brighter ellipse, as make_frames draws them) and
+    ``root/<split>_mask/<split>_NNNN_mask.jpg`` (the ellipse). Returns the
+    frame count a split."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for split, sizes in HOSTDATA_SPLITS.items():
+        imgs, masks = (os.path.join(root, split),
+                       os.path.join(root, f"{split}_mask"))
+        os.makedirs(imgs)
+        os.makedirs(masks)
+        k = 0
+        for w, h, n in sizes:
+            yy, xx = np.mgrid[0:h, 0:w]
+            for _ in range(n):
+                cy, cx, ry, rx = rng.uniform([0.3, 0.3, 0.08, 0.08],
+                                             [0.7, 0.7, 0.25, 0.25])
+                inside = ((yy / h - cy) / ry) ** 2 + ((xx / w - cx) / rx) \
+                    ** 2 < 1
+                img = 60 + 90 * inside + rng.normal(0, 25, (h, w))
+                stem = f"{split}_{k:04d}"
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    os.path.join(imgs, stem + ".jpg"))
+                Image.fromarray(inside.astype(np.uint8) * 255).save(
+                    os.path.join(masks, stem + "_mask.jpg"))
+                k += 1
+        counts[split] = k
+    return counts
+
+
+def hostdata_library():
+    """(a) The host loader's library built with g++ into build/, whether its
+    libjpeg decode is in it, and what the machine has of libjpeg."""
+    from ddti_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    path = native.build_library()
+    secs = time.perf_counter() - t0
+    header = os.path.exists("/usr/include/jpeglib.h")
+    try:
+        libs = sorted({line.split()[0] for line in subprocess.run(
+            ["ldconfig", "-p"], capture_output=True, text=True,
+            timeout=30).stdout.splitlines() if "libjpeg" in line})
+    except (OSError, subprocess.SubprocessError) as e:
+        libs = [f"ldconfig: {e}"]
+    decode = native.decode_available()
+    phase("hostdata", f"g++ {' '.join(native.CXX_FLAGS)} -> "
+          f"{os.path.relpath(path)}: {native.build_seconds:.2f} s compiling "
+          f"({secs:.2f} s with the load); decode "
+          + ("in it" if decode else
+             f"ABSENT ({native.decode_available_reason()})")
+          + f"; /usr/include/jpeglib.h {'present' if header else 'absent'};"
+          f" ldconfig libjpeg: {libs}")
+    assert native.native_available(), "the host loader did not build"
+    return dict(build_s=native.build_seconds, load_s=secs, decode=decode,
+                header=header, libjpeg=libs,
+                reason=native.decode_available_reason())
+
+
+def hostdata_decode(root, size):
+    """(b) The train split's JPEGs decoded to size^2: natively (all threads,
+    and one), within HOSTDATA_DECODE_TOL of PIL, and by PIL; host ms a
+    frame of each."""
+    import numpy as np
+    from PIL import Image
+
+    from ddti_tpu_torch.runtime import native
+
+    d = os.path.join(root, "train")
+    paths = [os.path.join(d, f) for f in sorted(os.listdir(d))]
+    t0 = time.perf_counter()
+    pil = np.stack([np.asarray(Image.open(p).convert("L").resize(
+        (size, size), Image.BILINEAR)) for p in paths])
+    pil_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    if not native.decode_available():
+        phase("hostdata", f"decode: PIL {pil_ms:.3f} ms a frame; native: "
+              f"not measured (decode absent)")
+        return dict(pil_ms=pil_ms, native_ms=None)
+    out = {}
+    for threads in (None, 1):
+        t0 = time.perf_counter()
+        got = native.decode_jpegs(paths, size, size, num_threads=threads)
+        out[threads] = (time.perf_counter() - t0) * 1e3 / len(paths)
+    diff = int(np.abs(got[..., 0].astype(np.int16)
+                      - pil.astype(np.int16)).max())
+    off = float((got[..., 0] != pil).mean())
+    phase("hostdata", f"decode {len(paths)} JPEGs (600x480, 1024x768) to "
+          f"{size}^2: native {out[None]:.3f} ms a frame on "
+          f"{min(16, os.cpu_count() or 1)} threads, {out[1]:.3f} on one; "
+          f"PIL {pil_ms:.3f}; max |native - PIL| {diff} gray level(s) on "
+          f"{off:.4%} of the pixels (limit {HOSTDATA_DECODE_TOL})")
+    assert diff <= HOSTDATA_DECODE_TOL
+    return dict(native_ms=out[None], native_1t_ms=out[1], pil_ms=pil_ms,
+                max_diff=diff, off_share=off)
+
+
+def _data_lines(log):
+    """The CLI's per-split data lines: {split: (source, seconds)}."""
+    import re
+
+    return {m[0]: (m[1], float(m[2])) for m in re.findall(
+        r"Data: (\w+) \d+ frames at \S+ (decoded|from the \.store_cache) "
+        r"in ([\d.]+) s", log)}
+
+
+def hostdata_cli(tmp, root, name, flags, counts):
+    """One training CLI run of the flagship (TRAIN, bf16) from the JPEG
+    dataset at ``root``: run_cli's checks, and exactly the expected EDT
+    launches on the card. Returns (launches, data lines, wall s)."""
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    base = os.path.join(tmp, f"runs_{name}")
+    cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.main", "--mode", "both",
+           "--use_amp_autocast", "true", "--device", DEVICE,
+           "--dataset_path", root, "--base_dir", base,
+           "--model_type", "ResUNet", f"--epochs={TRAIN['epochs']}",
+           *(f"--{k}={v}" for k, v in TRAIN.items()
+             if k not in ("model_type", "epochs")), *flags]
+    phase(name, " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=HOSTDATA_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    phase(name, f"exit {res.returncode} in {wall:.1f} s")
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-8000:], sep="\n",
+              file=sys.stderr)
+    assert res.returncode == 0, "the training CLI failed"
+    kernels = [l for l in res.stdout.splitlines()
+               if l.startswith("[KERNELS]")]
+    launches = {k: int(v) for k, v in (
+        kv.split("=") for kv in kernels[0].split()[1:])}
+    (run,) = os.listdir(base)
+    run = os.path.join(base, run)
+    check_run(name, run, "ResUNet", model_kw,
+              jax_resunet_keys(TRAIN["depth"]), TRAIN["epochs"])
+    with open(os.path.join(run, "log", "train_log.log")) as f:
+        data = _data_lines(f.read())
+    b = TRAIN["batch_size"]
+    steps, val, test_b = (-(-counts[s] // b) for s in ("train", "val",
+                                                       "test"))
+    expected = TRAIN["epochs"] * (steps + val) + test_b
+    phase(name, f"{kernels[0]}; edt_minplus expected {TRAIN['epochs']} "
+          f"epochs x ({steps} train + {val} val steps) + {test_b} test "
+          f"batches = {expected}" + (" (the card only)" if DEVICE != "cuda"
+                                     else "")
+          + (f"; data {data}" if data else ""))
+    assert launches["edt_minplus"] == (expected if DEVICE == "cuda" else 0)
+    return launches["edt_minplus"], data, wall
+
+
+def _store_cached(root):
+    """Every split's .store_cache files are written (atomically, so a
+    reader sees whole files) at the CLI runs' store size (the CLI's
+    default, 512, unless TRAIN sets one)."""
+    from ddti_tpu_torch.data.dataset import MedicalDataset, store_cache_paths
+
+    size = (TRAIN.get("store_size", 512),) * 2
+    return all(os.path.isfile(p) for split in HOSTDATA_SPLITS
+               for p in store_cache_paths(
+                   MedicalDataset(os.path.join(root, split),
+                                  os.path.join(root, f"{split}_mask")),
+                   size, os.path.join(root, ".store_cache")))
+
+
+def hostdata_runs(tmp, root, counts):
+    """(c) The host chain's run and the native loader's first run at once,
+    and the native loader's second run as soon as the first has written
+    the .store_cache, which it then reads."""
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        host = pool.submit(hostdata_cli, tmp, root, "host_augment",
+                           ["--host_augment", *HOSTDATA_CHAIN], counts)
+        native1 = pool.submit(hostdata_cli, tmp, root, "native_loader",
+                              ["--native_loader", "on"], counts)
+        while not _store_cached(root):
+            assert not native1.done(), "the first native run wrote no cache"
+            time.sleep(0.2)
+        native2 = pool.submit(hostdata_cli, tmp, root, "native_cached",
+                              ["--native_loader", "on"], counts)
+        host, native1, native2 = (host.result(), native1.result(),
+                                  native2.result())
+    cold, warm = native1[1], native2[1]
+    assert all(src == "decoded" for src, _ in cold.values()), cold
+    assert all(src == "from the .store_cache" for src, _ in warm.values()), \
+        warm
+    saved = sum(t for _, t in cold.values()) - sum(t for _, t in
+                                                   warm.values())
+    phase("hostdata", f"the .store_cache: first run "
+          f"{sum(t for _, t in cold.values()):.3f} s decoding its three "
+          f"splits, second run {sum(t for _, t in warm.values()):.3f} s "
+          f"reading them: {saved:.3f} s saved; CLI wall times: host chain "
+          f"{host[2]:.1f} s, native {native1[2]:.1f} s, cached "
+          f"{native2[2]:.1f} s")
+    return dict(launches={"host_augment": host[0], "native_loader":
+                          native1[0], "native_cached": native2[0]},
+                decode_s=sum(t for _, t in cold.values()),
+                cached_s=sum(t for _, t in warm.values()), saved_s=saved,
+                wall_s={"host_augment": host[2], "native_loader":
+                        native1[2], "native_cached": native2[2]})
+
+
+def _host_batch(root, size, batch, epoch=0):
+    """The first host-chain batch (every branch, HostBatchIterator at
+    ``epoch``) of the train split at size^2: float32 numpy arrays."""
+    from ddti_tpu_torch.data.dataset import HostBatchIterator, MedicalDataset
+    from ddti_tpu_torch.data.host_transforms import build_train_chain
+
+    ds = MedicalDataset(os.path.join(root, "train"),
+                        os.path.join(root, "train_mask"),
+                        build_train_chain(True, True, True, True,
+                                          (size, size)))
+    it = HostBatchIterator(ds, batch, shuffle=True, seed=SEED)
+    it.set_epoch(epoch)
+    return next(iter(it))
+
+
+def hostdata_step(root):
+    """(d) One float32 make_host_train_step (TF32 off, mixup on) on one host
+    batch, on the card against the CPU from the same weights and draws:
+    loss terms and BatchNorm statistics within the stated limits; the
+    gradients and updated parameters of both against the same step in
+    float64 (on the CPU), the card's error within HOSTDATA_F32_FACTOR of
+    the CPU's; on the card the kernel EDT against the plain one, the
+    boundary terms bit-equal."""
+    import torch
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.data.augment import mixup, sample_mixup
+    from ddti_tpu_torch.data.dataset import to_device
+    from ddti_tpu_torch.losses import losses
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import edt as E
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.train.steps import _loss_kw, make_host_train_step
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    size, batch = HOSTDATA_STEP
+    images, masks = _host_batch(root, size, batch)
+    cfg = Config(image_size=size, batch_size=batch, use_mixup=True,
+                 mixup_prob=1.0)
+    mix = sample_mixup(torch.Generator().manual_seed(SEED), batch,
+                       cfg.mixup_alpha, 1.0)
+    step = make_host_train_step(cfg)
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    sd0 = init_like_flax(create_model("ResUNet", **model_kw),
+                         SEED).state_dict()
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for label, dev, plain in (("card", DEVICE, False),
+                                  ("card, plain EDT", DEVICE, True),
+                                  ("cpu", "cpu", False)):
+            model = create_model("ResUNet", **model_kw)
+            model.load_state_dict(sd0)
+            state = TrainState(model.to(dev), cfg.lr, 4, cfg.weight_decay)
+            if plain:
+                losses.edt_batch = E.edt_reference
+            launched = E.edt_cuda.launches
+            t0 = time.perf_counter()
+            m = step(state, to_device(torch.from_numpy(images), dev),
+                     to_device(torch.from_numpy(masks), dev), mix.to(dev))
+            terms = torch.stack([m.loss, m.bce, m.dice, m.focal,
+                                 m.boundary]).cpu()
+            losses.edt_batch = E.edt_batch
+            out[label] = (terms, {k: v.detach().cpu().double() for k, v in
+                                  model.state_dict().items()
+                                  if v.is_floating_point()},
+                          {k: p.grad.detach().cpu().double() for k, p in
+                           model.named_parameters()},
+                          E.edt_cuda.launches - launched,
+                          time.perf_counter() - t0)
+        # the same step in float64 on the CPU: mixup, forward, the weighted
+        # loss, backward and the AdamW update, as the step body does them
+        t0 = time.perf_counter()
+        model = create_model("ResUNet", **model_kw)
+        model.load_state_dict(sd0)
+        model.double().train()
+        x, y = mixup(torch.from_numpy(images).double(),
+                     torch.from_numpy(masks).double(), mix)
+        logits = model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        losses.weighted_loss(logits, y, **_loss_kw(cfg)).total.backward()
+        TrainState(model, cfg.lr, 4, cfg.weight_decay).apply_gradients()
+        grads64 = {k: p.grad.detach() for k, p in model.named_parameters()}
+        params64 = {k: p.detach() for k, p in model.named_parameters()}
+        s64 = time.perf_counter() - t0
+    finally:
+        losses.edt_batch = E.edt_batch
+        torch.backends.cudnn.deterministic = False
+    (tk, pk, gk, lk, sk), (tp, _, _, lp, _), (tc, pc, gc, _, sc) = (
+        out["card"], out["card, plain EDT"], out["cpu"])
+    term_rel = float(((tk - tc).abs() / tc.abs().clamp(min=1e-30)).max())
+
+    def normwise(a, b, keys):
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in keys)
+        return (num / sum(float((b[k] ** 2).sum()) for k in keys)) ** 0.5
+
+    stat_rel = normwise(pk, pc, [k for k in pc if "running_" in k])
+    err = {side: (normwise(g, grads64, list(grads64)),
+                  normwise(p, params64, list(params64)))
+           for side, g, p in (("card", gk, pk), ("cpu", gc, pc))}
+    card_vs_cpu = (normwise(gk, gc, list(gc)), normwise(pk, pc, list(gc)))
+    phase("hostdata", f"float32 host step, ResUNet bf{TRAIN['base_filters']} "
+          f"d{TRAIN['depth']} at {size}^2 "
+          f"batch {batch} (one host-chain batch, mixup lambda "
+          f"{float(mix.lam):.4f}): card {sk:.2f} s, CPU {sc:.2f} s, CPU "
+          f"float64 {s64:.2f} s; loss card {tk[0].item():.9g} CPU "
+          f"{tc[0].item():.9g}, terms max relative difference "
+          f"{term_rel:.3e} (limit {HOSTDATA_TERM_RTOL:g}); BN statistics "
+          f"normwise {stat_rel:.3e} (limit {HOSTDATA_STAT_RTOL:g}); "
+          f"against float64, gradients / parameters normwise: card "
+          f"{err['card'][0]:.3e} / {err['card'][1]:.3e}, CPU "
+          f"{err['cpu'][0]:.3e} / {err['cpu'][1]:.3e} (the card's within "
+          f"{HOSTDATA_F32_FACTOR:g}x the CPU's); card vs CPU "
+          f"{card_vs_cpu[0]:.3e} / {card_vs_cpu[1]:.3e}; boundary kernel "
+          f"{tk[4].item():.9g} plain {tp[4].item():.9g} (bit-equal "
+          f"{torch.equal(tk[4], tp[4])}; edt launches {lk} / {lp})")
+    assert term_rel <= HOSTDATA_TERM_RTOL and stat_rel <= HOSTDATA_STAT_RTOL
+    for i in (0, 1):
+        assert err["card"][i] <= HOSTDATA_F32_FACTOR * err["cpu"][i] + 1e-12
+    assert torch.equal(tk[4], tp[4])
+    assert (lk, lp) == ((1, 0) if DEVICE == "cuda" else (0, 0))
+    torch.cuda.empty_cache()
+    return dict(term_rel=term_rel, stat_rel=stat_rel,
+                f64_err={k: list(v) for k, v in err.items()},
+                card_vs_cpu=list(card_vs_cpu), card_s=sk, cpu_s=sc,
+                cpu64_s=s64)
+
+
+def hostdata_timing(root):
+    """(e) The bf16 flagship train step at TRAIN's 512^2 / batch 16 fed by
+    the device store, by the native loader (over the train split's
+    .store_cache) and by the host chain (every branch): device ms a step
+    (CUDA events around the copy to the card and the step), wall ms a
+    step over HOSTDATA_TIMED steps with one synchronize at the end, img/s,
+    the host's ms a batch before the step, and the busy share of a
+    profiled window of TRAIN_PROFILE_STEPS more steps (the union of its
+    device intervals)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.data.augment import sample_draws
+    from ddti_tpu_torch.data.dataset import (
+        HostBatchIterator,
+        MedicalDataset,
+        decode_to_store_files,
+        synthetic_source,
+        to_device,
+    )
+    from ddti_tpu_torch.data.host_transforms import build_train_chain
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.runtime import NativeBatchLoader, NativeSource
+    from ddti_tpu_torch.train.engine import aug_config_from
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.train.steps import (
+        make_host_train_step,
+        make_train_step,
+    )
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    size, batch = TRAIN["image_size"], TRAIN["batch_size"]
+    cfg = Config(image_size=size, store_size=size, batch_size=batch,
+                 use_amp_autocast=True)
+    aug = aug_config_from(cfg)
+    model = init_like_flax(create_model(
+        "ResUNet", base_filters=TRAIN["base_filters"],
+        depth=TRAIN["depth"]), SEED).to(DEVICE)
+    state = TrainState(model, cfg.lr, 4, cfg.weight_decay)
+    dev_step, host_step = make_train_step(cfg, aug), make_host_train_step(cfg)
+    g = torch.Generator().manual_seed(SEED)
+    fg = torch.Generator(device=DEVICE).manual_seed(SEED)
+    train = (os.path.join(root, "train"), os.path.join(root, "train_mask"))
+
+    def store():
+        src = synthetic_source(32, (size, size), SEED, device=DEVICE)
+        e = 0
+        while True:
+            for idx in src.epoch_batches(np.random.default_rng((SEED, e)),
+                                         batch):
+                yield src.gather(idx)
+            e += 1
+
+    def loader():
+        ip, mp, n = decode_to_store_files(
+            MedicalDataset(*train), (size, size),
+            os.path.join(root, ".store_cache"))
+        nsrc = NativeSource(NativeBatchLoader(ip, mp, n, size, size, batch,
+                                              seed=SEED))
+        try:
+            while True:
+                for x, y in nsrc:
+                    yield x, y
+        finally:
+            nsrc.loader.close()
+
+    def host():
+        it = HostBatchIterator(
+            MedicalDataset(*train, build_train_chain(
+                True, True, True, True, (size, size))),
+            batch, shuffle=True, seed=SEED)
+        e = 0
+        while True:
+            it.set_epoch(e)
+            for x, y in it:
+                if len(x) == batch:
+                    yield x, y
+            e += 1
+
+    def one(x, y):
+        if isinstance(x, np.ndarray):
+            x, y = (to_device(torch.from_numpy(t), DEVICE) for t in (x, y))
+        if x.dtype == torch.uint8:
+            draws = sample_draws(g, batch, aug, tuple(x.shape[1:3]), fg)
+            dev_step(state, x, y, draws.to(DEVICE), None)
+        else:
+            host_step(state, x, y, None)
+
+    rows = []
+    for label, gen in (("device store", store()), ("native loader",
+                                                    loader()),
+                       ("host chain", host())):
+        one(*next(gen))  # warm-up
+        torch.cuda.synchronize()
+        host_ms, dev_ms = [], []
+        t_all = time.perf_counter()
+        for _ in range(HOSTDATA_TIMED):
+            t0 = time.perf_counter()
+            xy = next(gen)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one(*xy)
+            end.record()
+            dev_ms.append((start, end))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t_all) * 1e3 / HOSTDATA_TIMED
+        dev = statistics.median(s.elapsed_time(e) for s, e in dev_ms)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function(BUSY_WINDOW):
+                for _ in range(TRAIN_PROFILE_STEPS):
+                    one(*next(gen))
+                torch.cuda.synchronize()
+        busy = device_busy(prof)
+        gen.close()
+        row = dict(source=label, device_ms=dev, wall_ms=wall,
+                   img_s=batch / wall * 1e3,
+                   host_ms=statistics.median(host_ms),
+                   busy=busy["union_us"] / max(busy["window_us"], 1e-9))
+        rows.append(row)
+        phase("hostdata", f"bf16 step at {size}^2 batch {batch} fed by the "
+              f"{label}: device {dev:.3f} ms (CUDA events, median of "
+              f"{HOSTDATA_TIMED}), wall {wall:.3f} ms a step, "
+              f"{row['img_s']:.1f} img/s, host {row['host_ms']:.3f} ms a "
+              f"batch before the step; {TRAIN_PROFILE_STEPS} profiled "
+              f"steps: {busy_text(busy)}")
+        assert row["busy"] <= 1.0 + 1e-9
+    del state, model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _metric_series(text):
+    """GET /metrics' series names (labels dropped), each value a float."""
+    names = set()
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            float(value)
+            names.add(name.split("{")[0])
+    return names
+
+
+def hostdata_daemon(tmp, root):
+    """(f) The serving slice's TransUNet (random weights from SEED, an .npz)
+    in the daemon on DEVICE, bf16, --watch 0.2, at a threshold of the
+    frames' median probability (a random model's masks at 0.5 say little):
+    JPEG POSTs decoded natively against the same frames as PNGs (PIL) on
+    >= HOSTDATA_AGREE of the pixels; POST /reload onto a second checkpoint
+    under HOSTDATA_CLIENTS concurrent clients, no error and the masks
+    changed; --watch reloading that path once it is rewritten; /metrics'
+    series equal to METRICS_JAX; the flash forward's launches (the daemon
+    counted alone, its warm-ups included) = N_LAYERS x its batches; the
+    host ms a request's decode takes, native and PIL."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddti_tpu_torch.cli import serve
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.runtime import native
+    from ddti_tpu_torch.train.checkpoint import save_params_npz
+    from ddti_tpu_torch.train.export import nhwc_logits
+
+    size = SLICE["image_size"]
+    model = create_model("TransUNet", **SLICE)
+    ckpts = []
+    for k in range(3):
+        model.load_state_dict(random_state(model, SEED + k))
+        if k < 2:
+            ckpts.append(os.path.join(tmp, f"serve_{k}.npz"))
+            save_params_npz(ckpts[-1], "TransUNet", model.state_dict())
+    third = {k: v.clone() for k, v in model.state_dict().items()}
+    d = os.path.join(root, "val")
+    bodies = [open(os.path.join(d, f), "rb").read()
+              for f in sorted(os.listdir(d))][:HOSTDATA_POSTS]
+    frames = [Image.open(io.BytesIO(b)).convert("L") for b in bodies]
+    model.load_state_dict(random_state(model, SEED))
+    x = torch.from_numpy(np.stack([np.asarray(f.resize(
+        (size, size), Image.BILINEAR)) for f in frames])[..., None])
+    with torch.inference_mode():
+        probs = torch.sigmoid(nhwc_logits(model.to(DEVICE).eval(),
+                                          x.to(DEVICE).float() / 255.0,
+                                          bf16=True))
+    threshold = f"{float(probs.median()):.6f}"
+    del model, probs
+
+    t_dec = {"native": [], "pil": []}
+    for b in bodies:
+        if native.decode_available():
+            t0 = time.perf_counter()
+            native.decode_jpeg_bytes(b, size, size)
+            t_dec["native"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        Image.open(io.BytesIO(b)).convert("L").resize((size, size),
+                                                      Image.BILINEAR)
+        t_dec["pil"].append((time.perf_counter() - t0) * 1e3)
+
+    args = serve.get_parser().parse_args(
+        ["--checkpoint", ckpts[0], "--model_type", "TransUNet",
+         "--base_filters", str(SLICE["base_filters"]),
+         "--depth", str(SLICE["depth"]), "--image_size", str(size),
+         "--batch_size", str(BATCH), "--bf16", "--threshold", threshold,
+         "--watch", "0.2", "--device", DEVICE, "--port", "0"])
+    A.flash_forward_cuda.launches = 0  # the daemon's, warm-ups included
+    server = serve.create_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out = {}
+    try:
+        port = server.server_address[1]
+        health = get_json(port, "/healthz")
+        phase("hostdata", f"daemon --bf16 --watch 0.2 --threshold "
+              f"{threshold}: /healthz {json.dumps(health)}")
+        assert health["native_decode"] is native.decode_available()
+
+        def mask(body):
+            status, headers, data, dt = post(port, body)
+            assert status == 200, (status, data[:200])
+            return np.frombuffer(data, np.uint8).reshape(
+                int(headers["X-Height"]), int(headers["X-Width"])), dt
+
+        agree, fg, lat = [], [], {"jpeg": [], "png": []}
+        for body, frame in zip(bodies, frames):
+            png = io.BytesIO()
+            frame.save(png, "PNG")
+            (mj, tj), (mp, tp) = mask(body), mask(png.getvalue())
+            agree.append(float((mj == mp).mean()))
+            fg.append(float((mj > 0).mean()))
+            lat["jpeg"].append(tj * 1e3)
+            lat["png"].append(tp * 1e3)
+        share = float(np.mean(agree))
+        before, _ = mask(bodies[0])
+
+        statuses = []
+
+        def client():
+            for b in bodies[:4]:
+                statuses.append(post(port, b)[0])
+
+        with concurrent.futures.ThreadPoolExecutor(HOSTDATA_CLIENTS) as pool:
+            jobs = [pool.submit(client) for _ in range(HOSTDATA_CLIENTS)]
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            rs, _, rdata, _ = post(port, json.dumps(
+                {"checkpoint": ckpts[1]}).encode(), "/reload")
+            reload_s = time.perf_counter() - t0
+            for j in jobs:
+                j.result()
+        after, _ = mask(bodies[0])
+        # --watch: the path /reload installed, rewritten
+        model = create_model("TransUNet", **SLICE)
+        model.load_state_dict(third)
+        t0 = time.perf_counter()
+        save_params_npz(ckpts[1], "TransUNet", model.state_dict())
+        deadline = time.perf_counter() + 30
+        while server.n_reloads < 2 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        watch_s = time.perf_counter() - t0
+        watched, _ = mask(bodies[0])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        metrics = resp.read().decode()
+        conn.close()
+        series = _metric_series(metrics)
+        stats = get_json(port, "/stats")
+        batches = server.batcher.n_batches
+        launches = A.flash_forward_cuda.launches
+        warmups = 1 + server.n_reloads
+        phase("hostdata", f"daemon: native (JPEG) vs PIL (PNG) masks agree "
+              f"on {share:.4%} of pixels over {len(bodies)} frames "
+              f"(foreground {np.mean(fg):.3f}; limit {HOSTDATA_AGREE:.1%}); "
+              f"request decode at {size}^2: native "
+              + (f"{statistics.median(t_dec['native']):.3f}"
+                 if t_dec["native"] else "not measured (decode absent)")
+              + f" ms, PIL {statistics.median(t_dec['pil']):.3f} ms "
+              f"(medians); POST latency JPEG "
+              f"{statistics.median(lat['jpeg']):.1f} ms, PNG "
+              f"{statistics.median(lat['png']):.1f} ms")
+        phase("hostdata", f"daemon: POST /reload -> HTTP {rs} in "
+              f"{reload_s:.3f} s under {HOSTDATA_CLIENTS} clients "
+              f"({len(statuses)} requests, statuses "
+              f"{sorted(set(statuses))}); mask changed "
+              f"{not np.array_equal(before, after)}; --watch reloaded the "
+              f"rewritten .npz after {watch_s:.3f} s (reloads "
+              f"{server.n_reloads}), mask changed "
+              f"{not np.array_equal(after, watched)}; /metrics series "
+              f"{sorted(series)} equal JAX's {series == set(METRICS_JAX)}; "
+              f"/stats reloads {stats['reloads']} batches_by_program "
+              f"{stats['batches_by_program']}; flash_fwd launches "
+              f"{launches} for {batches} batches + {warmups} warm-ups "
+              f"(expected {N_LAYERS} each"
+              + (")" if DEVICE == "cuda" else "; the card only)"))
+        assert share >= HOSTDATA_AGREE
+        assert rs == 200, rdata[:300]
+        assert statuses == [200] * (4 * HOSTDATA_CLIENTS)
+        assert not np.array_equal(before, after)
+        assert server.n_reloads == 2 and not np.array_equal(after, watched)
+        assert series == set(METRICS_JAX)
+        assert "ddti_reloads_total 2" in metrics
+        assert stats["reloads"] == 2
+        assert launches == (N_LAYERS * (batches + warmups)
+                            if DEVICE == "cuda" else 0)
+        out = dict(agree=share, reload_s=reload_s, watch_s=watch_s,
+                   launches=launches, batches=batches,
+                   decode_ms={k: statistics.median(v) if v else None
+                              for k, v in t_dec.items()},
+                   post_ms={k: statistics.median(v) for k, v in lat.items()})
+    finally:
+        server.shutdown()
+        server.close()
+        thread.join(timeout=30)
+    return out
+
+
+def run_hostdata(tmp):
+    """The hostdata phase: (a) the library, (b) decode, (c) the CLI runs,
+    (d) the host step card vs CPU, (e) step time by source, (f) the
+    daemon; (e) on the card only."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "hostdata")
+    counts = write_hostdata(root)
+    out = dict(library=hostdata_library(),
+               decode=hostdata_decode(root, TRAIN["image_size"]))
+    # the CLI runs' processes wait on the card most of the time: the host
+    # step's CPU work goes on beside them
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        runs = pool.submit(hostdata_runs, tmp, root, counts)
+        out["step"] = hostdata_step(root)
+        out["runs"] = runs.result()
+    if DEVICE == "cuda":
+        out["steps"] = hostdata_timing(root)
+    else:
+        phase("hostdata", "(e): not run (no card)")
+    out["daemon"] = hostdata_daemon(tmp, root)
+    out["phase_s"] = time.perf_counter() - t0
+    phase("hostdata", f"phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+def hostdata_only():
+    """The hostdata phase alone: ``python3 chip_smoke.py --hostdata``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the CLI processes load it
+    with tempfile.TemporaryDirectory() as tmp:
+        hostdata = run_hostdata(tmp)
+    print(json.dumps({"hostdata": hostdata}))
+    return 0
+
+
 def main():
     import torch
 
@@ -4457,8 +5346,11 @@ def main():
         probe_launches = (E2.exp2_probe_cuda.launches,
                           MS.flash_forward_mskip_cuda.launches)
         profile_slice(ckpt)
-        edt_launches = run_training(tmp)
-        t_launches = run_transunet_training(tmp)
+        # the two training CLIs at once, each its own process and model
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            trained = pool.submit(run_training, tmp)
+            t_launches = run_transunet_training(tmp)
+            edt_launches = trained.result()
         zoo_launches, zoo_ckpts = run_zoo_training(tmp)
         zoo_serve(zoo_ckpts)
         infer = run_infer(tmp, ckpt, zoo_ckpts["AttentionUNet"][0] + ".pth")
@@ -4475,6 +5367,8 @@ def main():
         lifecycle = run_lifecycle(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         legacy = run_legacy(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        hostdata = run_hostdata(tmp)
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
@@ -4508,6 +5402,7 @@ def main():
         "infer_launches": infer["launches"],
         "infer": infer,
         "legacy_serve_launches": legacy["serve"]["launches"],
+        "hostdata_daemon_launches": hostdata["daemon"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4601,6 +5496,7 @@ def main():
         "recipe": recipe,
         "lifecycle": lifecycle,
         "legacy": legacy,
+        "hostdata": hostdata,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -4684,7 +5580,25 @@ def main():
     return 0
 
 
+def cache_bytecode():
+    """Keep compiled bytecode under the checkout's ``build/pycache``, for
+    this process and every process it starts. The card's machine sets
+    PYTHONDONTWRITEBYTECODE and ships torch without ``__pycache__``, so
+    each process compiled torch's sources anew: 8.4 s of 45.3 in a
+    cProfile of one flagship training CLI run (H100 80GB HBM3, 700.00 W),
+    and the smoke starts some forty. Only inside a checkout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "ddti_tpu_torch")):
+        return
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ.setdefault("PYTHONPYCACHEPREFIX",
+                          os.path.join(root, "build", "pycache"))
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+
+
 if __name__ == "__main__":
+    cache_bytecode()
     if sys.argv[1:2] == ["--ab"]:  # python3 chip_smoke.py --ab TREE [probes]
         sys.exit(ab(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ab-side"]:
@@ -4701,4 +5615,6 @@ if __name__ == "__main__":
         sys.exit(lifecycle_only())
     if sys.argv[1:2] == ["--legacy"]:
         sys.exit(legacy_only())
+    if sys.argv[1:2] == ["--hostdata"]:
+        sys.exit(hostdata_only())
     sys.exit(main())

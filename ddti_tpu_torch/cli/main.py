@@ -21,9 +21,18 @@ options (``--grad_accum --nan_guard --nan_guard_patience --clip_grad_norm
 for small runs) is the port's own. A flag of the JAX CLI that is not
 ported yet is absent, so argparse rejects it (ROADMAP.md Queue 1).
 
-Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded to a
-device-resident uint8 store at ``--store_size``, or with ``--synthetic``
-(or when the directories are absent) 64/16/16 generated DDTI-like frames.
+Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded once
+(libjpeg, in C++ threads, for all-JPEG sets) to uint8 stores at
+``--store_size``, memoized under ``<dataset_path>/.store_cache``; val and
+test live on the device, and so does train unless ``--native_loader on``
+(or ``auto`` with a train store above 2 GiB) streams it through the C++
+mmap loader (``runtime/native.py``). With ``--synthetic`` (or when the
+directories are absent) 64/16/16 generated DDTI-like frames.
+``--host_augment`` runs the reference's own data path instead: PIL decode
+and the PIL/cv2 chain per image on the host (``data/host_transforms.py``,
+one process; a synthetic JPEG dataset is written where none is on disk),
+the card taking float32 batches through ``make_host_train_step``.
+``--num_workers`` is kept for parity with the JAX CLI; nothing reads it.
 ``[PARAMS] <model>,<count>`` is printed for shell capture, as the JAX CLI
 does, and at the end ``[KERNELS]`` with the launch count of each
 hand-written kernel.
@@ -128,6 +137,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--focal_ratio", type=float, default=1)
     p.add_argument("--boundary_ratio", type=float, default=0)
     # training
+    p.add_argument("--num_workers", default=4, type=int)
     p.add_argument("--epochs", type=int, default=10000)
     p.add_argument("--batch_size", default=16, type=int)
     p.add_argument("--lr", type=float, default=1e-5)
@@ -201,6 +211,17 @@ def get_parser() -> argparse.ArgumentParser:
                         "(ImprovedVNet with deep_supervision: true)")
     p.add_argument("--use_amp_autocast", type=_str2bool, default=False,
                    help="bf16 autocast for the model's forward and backward")
+    p.add_argument("--native_loader", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="stream train batches through the C++ threaded "
+                        "mmap loader instead of a device-resident store; "
+                        "auto = when the train store exceeds 2 GiB "
+                        "(too large to keep on the card alongside "
+                        "training)")
+    p.add_argument("--host_augment", action="store_true",
+                   help="strict-parity mode: run the PIL/cv2 host "
+                        "augmentation chain (reference oracle) instead of "
+                        "the on-device pipeline")
     p.add_argument("--surface_metrics", default=True, type=_str2bool,
                    help="per-image HD95/ASSD surface distances in test()")
     p.add_argument("--tta", action="store_true",
@@ -233,14 +254,29 @@ def build_config(args: argparse.Namespace):
     return cfg
 
 
-def load_sources(cfg, device, synthetic: bool):
-    """(train, val, test) device-resident stores: the dataset on disk, or
-    64/16/16 synthetic frames (seeds seed, seed + 10000, seed + 20000) when
-    asked for or when the split directories are absent."""
+NATIVE_AUTO_BYTES = 2 << 30  # stores past this stream via the C++ loader
+
+
+def load_sources(cfg, device, synthetic: bool, native: str = "auto",
+                 logger=None):
+    """(train, val, test) sources: the dataset on disk, or 64/16/16
+    synthetic frames (seeds seed, seed + 10000, seed + 20000) when asked
+    for or when the split directories are absent.
+
+    From disk, every split decodes once into ``<dataset_path>/.store_cache``
+    (the JAX package's file names); val and test are device stores. The
+    TRAIN split streams through the native C++ threaded mmap loader
+    (``runtime/host_loader.cpp``) when ``native`` is "on", or "auto" and
+    its store exceeds ``NATIVE_AUTO_BYTES``: the counterpart of the
+    reference's DataLoader worker processes. ``logger`` gets a line a
+    split: decoded or read from the cache, in how many seconds."""
+    import time
     from ddti_tpu_torch.data.dataset import (
         DeviceDataSource,
         MedicalDataset,
         decode_to_store,
+        decode_to_store_files,
+        store_cache_paths,
     )
     from ddti_tpu_torch.data.synthetic import generate_ddti_like
 
@@ -253,12 +289,73 @@ def load_sources(cfg, device, synthetic: bool):
             DeviceDataSource(*generate_ddti_like(n, size, cfg.seed + s),
                              device=device)
             for n, s in ((64, 0), (16, 10_000), (16, 20_000)))
+    cache = os.path.join(root, ".store_cache")
     sources = []
     for split in ("train", "val", "test"):
         ds = MedicalDataset(os.path.join(root, split),
                             os.path.join(root, f"{split}_mask"))
-        sources.append(DeviceDataSource(*decode_to_store(ds, size),
-                                        device=device, names=ds.img_names))
+        use_native = split == "train" and (
+            native == "on"
+            or (native == "auto"
+                and len(ds) * size[0] * size[1] > NATIVE_AUTO_BYTES))
+        hit = all(os.path.isfile(p)
+                  for p in store_cache_paths(ds, size, cache))
+        t0 = time.perf_counter()
+        if use_native:
+            from ddti_tpu_torch.runtime import NativeBatchLoader, NativeSource
+
+            ip, mp, n = decode_to_store_files(ds, size, cache_dir=cache)
+            secs = time.perf_counter() - t0
+            sources.append(NativeSource(NativeBatchLoader(
+                ip, mp, n, size[0], size[1], cfg.batch_size,
+                seed=cfg.seed)))
+        else:
+            images, masks = decode_to_store(ds, size, cache_dir=cache)
+            secs = time.perf_counter() - t0
+            sources.append(DeviceDataSource(images, masks, device=device,
+                                            names=ds.img_names))
+        if logger is not None:
+            logger.info(
+                f"Data: {split} {len(ds)} frames at {size[0]}x{size[1]} "
+                f"{'from the .store_cache' if hit else 'decoded'} in "
+                f"{secs:.3f} s" + (" (native loader)" if use_native else ""))
+    return tuple(sources)
+
+
+def load_host_sources(cfg, synthetic: bool = False):
+    """The strict-parity sources of ``--host_augment``: MedicalDataset and
+    the PIL/cv2 host chain in single-process HostBatchIterators (the
+    reference's data path without its worker processes). Without the split
+    directories (or with ``synthetic``) a synthetic JPEG dataset is written
+    under the temporary directory first, as the JAX CLI does."""
+    import tempfile
+
+    from ddti_tpu_torch.data.dataset import HostBatchIterator, MedicalDataset
+    from ddti_tpu_torch.data.host_transforms import (
+        build_eval_chain,
+        build_train_chain,
+    )
+    from ddti_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    root = cfg.dataset_path
+    if synthetic or not os.path.isdir(os.path.join(root, "train")):
+        root = os.path.join(tempfile.gettempdir(), "ddti_synth_host")
+        if not os.path.isdir(os.path.join(root, "train")):
+            write_synthetic_dataset(root, n_train=64, n_val=16, n_test=16,
+                                    size=(cfg.store_size, cfg.store_size),
+                                    seed=cfg.seed)
+    out = (cfg.image_size, cfg.image_size)
+    train_tf = build_train_chain(cfg.use_elastic, cfg.use_speckle,
+                                 cfg.use_tgc, cfg.use_clahe, out)
+    eval_tf = build_eval_chain(out)
+    sources = []
+    for split, tf, shuffle in (("train", train_tf, True),
+                               ("val", eval_tf, False),
+                               ("test", eval_tf, True)):
+        ds = MedicalDataset(os.path.join(root, split),
+                            os.path.join(root, f"{split}_mask"), tf)
+        sources.append(HostBatchIterator(ds, cfg.batch_size, shuffle,
+                                         seed=cfg.seed))
     return tuple(sources)
 
 
@@ -364,7 +461,11 @@ def main(argv=None) -> int:
         _warm_start(cfg, args, model, logger)
     model.to(device)
 
-    sources = load_sources(cfg, device, args.synthetic)
+    if args.host_augment:
+        sources = load_host_sources(cfg, synthetic=args.synthetic)
+    else:
+        sources = load_sources(cfg, device, args.synthetic,
+                               native=args.native_loader, logger=logger)
     trainer = Trainer(cfg, sources, logger, model)
     if args.resume and os.path.isdir(cfg.checkpoint_path):
         _resume(cfg, trainer, logger)

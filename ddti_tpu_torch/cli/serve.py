@@ -6,10 +6,19 @@ padded when sparse, so throughput approaches the offline rate while a lone
 request waits at most ``--max_wait_ms`` for batch-mates.
 
 Endpoints:
-  GET  /healthz   liveness + model info (JSON)
+  GET  /healthz   liveness + model info (JSON), ``native_decode`` among it
   GET  /stats     request/image/batch counters, throughput, latency (JSON)
-  POST /predict   body = raw image bytes (JPEG/PNG/BMP, any size, decoded
-                  with PIL); response = PNG mask at the ORIGINAL resolution.
+  GET  /metrics   the same counters in Prometheus exposition format (the
+                  JAX daemon's names)
+  POST /reload    hot-swap the model from the same (rewritten) or a new
+                  ``{"checkpoint": path}``: loaded, warmed, then swapped
+                  into the batcher at once (a batch already running keeps
+                  its model); the train -> serve loop without a restart
+  POST /predict   body = raw image bytes (JPEG/PNG/BMP, any size); JPEGs
+                  decode through the native libjpeg path of
+                  ``runtime/native.py`` where it is built (PIL for the rest,
+                  for ``?overlay=1`` and for a JPEG it refuses);
+                  response = PNG mask at the ORIGINAL resolution.
                   ``?overlay=1`` returns the original frame (RGB) with the
                   mask's contours drawn in red instead. ``?format=raw``
                   returns raw uint8 bytes (X-Width / X-Height / X-Channels
@@ -18,26 +27,32 @@ Endpoints:
 Usage:
   python -m ddti_tpu_torch.cli.serve --checkpoint <.pth|.npz|_last> \
       --model_type TransUNet --base_filters 64 --depth 4 --image_size 512 \
-      --batch_size 16 --bf16 [--tta] [--fold_bn] [--device cuda]
+      --batch_size 16 --bf16 [--tta] [--fold_bn] [--watch SECONDS] \
+      [--device cuda]
 
-Any of the seven models of ``models/zoo.py`` serves; ``--config_path``
+Every model name of ``models.create_model`` serves; ``--config_path``
 takes the model YAML a run was trained from (an ImprovedVNet with
 ``deep_supervision: true`` carries its heads' weights; its main logits
 decide the mask). ``--tta`` thresholds the mean probability of the 4-way
 flip ensemble (four forwards a batch); ``--fold_bn`` folds every Conv ->
 BatchNorm pair into the conv before serving (``train/fold_bn.py``, checked
-against the unfolded model at load). ``/healthz`` reports both.
+against the unfolded model at load). ``/healthz`` reports both. A reload
+keeps all of these, bf16 and the TF32 flags. ``--watch N`` polls the
+checkpoint's mtime every N seconds and reloads when training rewrites it,
+following a path that ``/reload`` installed.
 
-Not ported yet (ROADMAP.md): serving bundles, /reload, --watch, /metrics,
-native JPEG decode.
+Not ported yet (ROADMAP.md): serving bundles (``.stablehlo``, several
+batch programs, ``--weights``).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import io
 import json
+import os
 import queue
 import sys
 import threading
@@ -63,8 +78,8 @@ class Batcher:
 
     def __init__(self, predict, batch_n: int, max_wait_ms: float = 5.0,
                  max_queue: int | None = None):
-        self.predict = predict
         self.batch_n = int(batch_n)
+        self.predict = predict  # the live program; a reload swaps it
         self.max_wait = max_wait_ms / 1000.0
         self.max_queue = int(max_queue) if max_queue else 8 * self.batch_n
         self._q: queue.Queue = queue.Queue()
@@ -94,6 +109,13 @@ class Batcher:
         if "error" in slot:
             raise slot["error"]
         return slot["mask"]
+
+    def swap_program(self, predict) -> None:
+        """Replace the serving program at once (hot reload). A flush
+        already running keeps the predict it took; the next one takes the
+        new program."""
+        with self.lock:
+            self.predict = predict
 
     def close(self):
         self._stop = True
@@ -139,13 +161,15 @@ class Batcher:
     def _flush(self, items):
         import numpy as np
 
+        with self.lock:  # snapshot: a concurrent reload may swap it
+            predict = self.predict
         x = np.stack([a for a, _, _ in items])
         if len(items) < self.batch_n:
             pad = np.zeros((self.batch_n - len(items),) + x.shape[1:],
                            x.dtype)
             x = np.concatenate([x, pad])
         try:
-            masks = np.asarray(self.predict(x))[:len(items)]
+            masks = np.asarray(predict(x))[:len(items)]
         except Exception as e:  # surface device errors to every waiter
             for _, ev, slot in items:
                 slot["error"] = e
@@ -273,8 +297,12 @@ class _Handler(BaseHTTPRequestHandler):
         srv = self.server
         path = urlparse(self.path).path
         if path == "/healthz":
-            self._json(200, {"status": "ok", "batch": srv.batcher.batch_n,
-                             "size": srv.size, **srv.info})
+            health = {"status": "ok", "batch": srv.batcher.batch_n,
+                      "size": srv.size, **srv.info,
+                      "native_decode": srv.native_decode}
+            if not srv.native_decode:
+                health["native_decode_absent"] = srv.native_decode_reason
+            self._json(200, health)
         elif path == "/stats":
             with srv.stats_lock, srv.batcher.lock:
                 n = srv.n_requests
@@ -296,9 +324,82 @@ class _Handler(BaseHTTPRequestHandler):
                        for q, v in _quantiles(srv.recent_latency)},
                     "rejected": srv.batcher.n_rejected,
                     "queue_depth": srv.batcher._q.qsize(),
+                    # one program, of the daemon's batch, for its life
+                    "batches_by_program": {
+                        str(srv.batcher.batch_n): srv.batcher.n_batches},
+                    "reloads": srv.n_reloads,
                 })
+        elif path == "/metrics":
+            self._metrics()
         else:
             self._json(404, {"error": f"unknown path {path}"})
+
+    def _metrics(self):
+        """GET /metrics: the /stats counters in Prometheus exposition
+        format, under the JAX daemon's names."""
+        srv = self.server
+        with srv.stats_lock, srv.batcher.lock:
+            up = time.perf_counter() - srv.t_start
+            n = srv.n_requests
+            lines = [
+                "# TYPE ddti_requests_total counter",
+                f"ddti_requests_total {n}",
+                "# TYPE ddti_request_errors_total counter",
+                f"ddti_request_errors_total {srv.n_errors}",
+                "# TYPE ddti_images_total counter",
+                f"ddti_images_total {srv.batcher.n_images}",
+                "# TYPE ddti_batches_total counter",
+                f"ddti_batches_total {srv.batcher.n_batches}",
+                "# TYPE ddti_rejected_total counter",
+                f"ddti_rejected_total {srv.batcher.n_rejected}",
+                "# TYPE ddti_reloads_total counter",
+                f"ddti_reloads_total {srv.n_reloads}",
+                "# TYPE ddti_queue_depth gauge",
+                f"ddti_queue_depth {srv.batcher._q.qsize()}",
+                "# TYPE ddti_uptime_seconds gauge",
+                f"ddti_uptime_seconds {up:.3f}",
+                "# TYPE ddti_request_latency_seconds_sum counter",
+                f"ddti_request_latency_seconds_sum "
+                f"{srv.total_latency:.6f}",
+                "# TYPE ddti_request_latency_seconds_count counter",
+                f"ddti_request_latency_seconds_count {n}",
+                "# TYPE ddti_request_latency_seconds gauge",
+                *(f'ddti_request_latency_seconds{{quantile="0.{q}"}} '
+                  f"{v:.6f}"
+                  for q, v in _quantiles(srv.recent_latency)),
+                "# TYPE ddti_program_batches_total counter",
+                f'ddti_program_batches_total{{batch="{srv.batcher.batch_n}"}}'
+                f" {srv.batcher.n_batches}",
+            ]
+        body = ("\n".join(lines) + "\n").encode()
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _reload(self):
+        """POST /reload [{"checkpoint": path}]: load the (new) checkpoint,
+        warm it and swap it into the batcher at once."""
+        srv = self.server
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(length) if length else b""
+            req = json.loads(body) if body else {}
+            if not isinstance(req, dict):
+                raise ValueError("body must be a JSON object")
+        except Exception as e:
+            self._json(400, {"error": f"bad reload request: {e}"})
+            return
+        try:
+            info = srv.reload(req.get("checkpoint"))
+        except Exception as e:
+            self._json(500, {"error": f"reload failed: {e}"})
+            return
+        self._json(200, {"status": "reloaded",
+                         "checkpoint": srv.args.checkpoint,
+                         "batch": srv.batcher.batch_n, **info})
 
     def do_POST(self):
         import numpy as np
@@ -306,6 +407,9 @@ class _Handler(BaseHTTPRequestHandler):
 
         srv = self.server
         parsed = urlparse(self.path)
+        if parsed.path == "/reload":
+            self._reload()
+            return
         if parsed.path != "/predict":
             self._json(404, {"error": f"unknown path {parsed.path}"})
             return
@@ -316,10 +420,26 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             length = int(self.headers.get("Content-Length", 0))
             data = self.rfile.read(length)
-            img = Image.open(io.BytesIO(data)).convert("L")
-            orig_size = img.size
-            arr = np.asarray(img.resize((srv.size, srv.size),
-                                        Image.BILINEAR), np.uint8)[..., None]
+            arr = img = None
+            # an overlay is drawn on the ORIGINAL frame, which only the PIL
+            # path keeps
+            if srv.native_decode and not want_overlay \
+                    and data[:2] == b"\xff\xd8":
+                # one C call (libjpeg decode + triangle-filter resize),
+                # within one gray level of PIL's fixed-point resize
+                from ddti_tpu_torch.runtime.native import decode_jpeg_bytes
+
+                try:
+                    arr, orig_size = decode_jpeg_bytes(data, srv.size,
+                                                       srv.size)
+                except ValueError:
+                    pass  # an odd JPEG: PIL below, for this request
+            if arr is None:
+                img = Image.open(io.BytesIO(data)).convert("L")
+                orig_size = img.size
+                arr = np.asarray(img.resize((srv.size, srv.size),
+                                            Image.BILINEAR),
+                                 np.uint8)[..., None]
         except Exception as e:
             with srv.stats_lock:
                 srv.n_errors += 1
@@ -381,11 +501,20 @@ class PredictionServer(ThreadingHTTPServer):
     request_queue_size = 128
 
     def __init__(self, addr, batcher: Batcher, size: int, info: dict,
-                 verbose: bool = False):
+                 verbose: bool = False, args=None):
         self.batcher = batcher
         self.size = size
         self.info = info
         self.verbose = verbose
+        self.args = args  # what POST /reload loads from
+        self.reload_lock = threading.Lock()
+        self.n_reloads = 0
+        self._watch_mtimes = {}  # what the last load read (--watch)
+        # native libjpeg request decode where the library has it, else PIL
+        from ddti_tpu_torch.runtime import native
+
+        self.native_decode = native.decode_available()
+        self.native_decode_reason = native.decode_available_reason()
         self.stats_lock = threading.Lock()
         self.n_requests = 0
         self.n_errors = 0
@@ -395,7 +524,70 @@ class PredictionServer(ThreadingHTTPServer):
         self.t_start = time.perf_counter()
         super().__init__(addr, _Handler)
 
+    def reload(self, checkpoint: str | None = None) -> dict:
+        """Load ``checkpoint`` (default: the current path, read again),
+        warm it, and swap it into the batcher at once. Returns its info.
+        One at a time (``reload_lock``). The batch and image size are the
+        daemon's flags, so they stay what they were."""
+        import numpy as np
+
+        new_args = copy.copy(self.args)
+        new_args.checkpoint = checkpoint or self.args.checkpoint
+        with self.reload_lock:
+            # read before loading: a rewrite during the load is seen next
+            seen = self._mtimes(new_args.checkpoint)
+            predict, batch_n, size, info = load_predictor(new_args)
+            if not new_args.no_warmup:
+                predict(np.zeros((batch_n, size, size, 1), np.uint8))
+            self.batcher.swap_program(predict)
+            self.args = new_args
+            self.info = info
+            self._watch_mtimes = seen
+            with self.stats_lock:
+                self.n_reloads += 1
+        return info
+
+    @staticmethod
+    def _mtimes(checkpoint: str) -> dict:
+        try:
+            return {p: os.path.getmtime(p) for p in checkpoint.split(",")
+                    if os.path.exists(p)}
+        except OSError:  # removed between the two calls
+            return {}
+
+    def start_watcher(self, interval_s: float) -> None:
+        """--watch: poll the checkpoint's mtime and reload when training
+        rewrites it. The path is read from ``self.args.checkpoint`` every
+        tick, so a ``POST /reload`` onto a new path moves the watch with
+        it, and a checkpoint that did not exist when the watch started is
+        loaded once it is written. Every reload records the mtimes it
+        loaded, so the watch does not load again what ``/reload`` just
+        did (JAX's watcher reloads a path newly installed once more)."""
+        self._watch_mtimes = self._mtimes(self.args.checkpoint)
+
+        def _poll():
+            while not self._watch_stop.wait(interval_s):
+                current = self._mtimes(self.args.checkpoint)
+                changed = [p for p, m in current.items()
+                           if self._watch_mtimes.get(p) != m]
+                if not changed:
+                    continue
+                try:
+                    self.reload()
+                    sys.stderr.write(
+                        f"watch: reloaded after {changed} changed\n")
+                except Exception as e:  # the old model keeps serving
+                    sys.stderr.write(f"watch: reload failed: {e}\n")
+
+        self._watch_stop = threading.Event()
+        self._watch_thread = threading.Thread(target=_poll, daemon=True,
+                                              name="ddti-watch")
+        self._watch_thread.start()
+
     def close(self):
+        if getattr(self, "_watch_thread", None) is not None:
+            self._watch_stop.set()
+            self._watch_thread.join(timeout=5)
         self.batcher.close()
         self.server_close()
 
@@ -412,8 +604,11 @@ def create_server(args) -> PredictionServer:
         predict(np.zeros((batch_n, size, size, 1), np.uint8))
     batcher = Batcher(predict, batch_n, max_wait_ms=args.max_wait_ms,
                       max_queue=args.max_queue)
-    return PredictionServer((args.host, args.port), batcher, size, info,
-                            verbose=args.verbose)
+    server = PredictionServer((args.host, args.port), batcher, size, info,
+                              verbose=args.verbose, args=args)
+    if getattr(args, "watch", 0):
+        server.start_watcher(float(args.watch))
+    return server
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -423,6 +618,9 @@ def get_parser() -> argparse.ArgumentParser:
                     help=".pth state_dict (reference format), .npz "
                          "weight export of the JAX package or a full-state "
                          "directory of the port (<Model>_last)")
+    ap.add_argument("--watch", type=float, default=0,
+                    help="poll the checkpoint file(s) every N seconds and "
+                         "hot-reload when they change (0 = off)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--max_wait_ms", type=float, default=5.0,

@@ -59,6 +59,7 @@ class Config:
     alpha: float = 2.0  # weight of the deep-supervision heads' loss
 
     # training
+    num_workers: int = 4          # kept for API parity; host loader only
     epochs: int = 10000
     batch_size: int = 16
     lr: float = 1e-5
@@ -92,6 +93,7 @@ class Config:
     store_size: int = 512
     seed: int = 42
     device: str = "cuda"
+    host_augment: bool = False     # strict host-oracle augmentation path
 
     # run dirs (filled by make_dirs)
     base_dir: str = "experiments"

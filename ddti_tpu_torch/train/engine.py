@@ -4,10 +4,17 @@ last saves, early stopping and the test phase (global and per-image
 metrics, HD95/ASSD surface distances, and with ``config.tta`` the 4-way
 flip ensemble in the test phase, as ``test_metrics.json`` records).
 
-Data are device-resident uint8 stores (``data/dataset.py``); each step
-gathers its batch on the device and returns its metrics there, so the host
-reads scalars once an epoch (and every ``log_every`` steps; every step
-under ``--nan_guard``, whose per-step bookkeeping stops the run, its
+Data come from a device-resident uint8 store (``data/dataset.py``), where
+each step gathers its batch on the device, or from a streaming source, as
+the JAX Trainer takes them: the native C++ loader's uint8 batches
+(``runtime.NativeSource``, ``--native_loader``) go to the device
+augmentation step like a store's, and the host chain's float32 batches
+(``HostBatchIterator``, ``--host_augment``) to ``make_host_train_step``
+(mixup and the update only); streamed batches reach the card through
+pinned memory (``to_device``), and their per-image audit rows carry
+running positions, no file names. Each step returns its metrics on the
+device, so the host reads scalars once an epoch (and every ``log_every``
+steps; every step under ``--nan_guard``, whose per-step bookkeeping stops the run, its
 checkpoints intact, after ``--nan_guard_patience`` consecutive rejected
 steps). Batch order comes from ``numpy.random.default_rng((seed,
 epoch))`` as in the JAX package; the augmentation's per-image draws from a
@@ -52,6 +59,7 @@ from ddti_tpu_torch.data.augment import (
     sample_draws,
     sample_mixup,
 )
+from ddti_tpu_torch.data.dataset import to_device
 from ddti_tpu_torch.eval.metrics import (
     epoch_metrics_from_counts,
     metrics_from_counts,
@@ -71,6 +79,7 @@ from .state import TrainState, describe_freeze, parse_freeze
 from .steps import (
     accumulate,
     make_eval_step,
+    make_host_train_step,
     make_infer_step,
     make_threshold_sweep_step,
     make_train_step,
@@ -183,16 +192,22 @@ def aug_config_from(config) -> AugmentConfig:
 
 
 class Trainer:
-    """Train/validate/test over (train, val, test) ``DeviceDataSource``s
-    that live on the model's device."""
+    """Train/validate/test over (train, val, test) sources:
+    ``DeviceDataSource``s on the model's device, or streaming sources that
+    yield host batches."""
 
     def __init__(self, config, data, logger, model):
         self.config = config
         self.logger = logger
         self.model = model
+        self.device = next(model.parameters()).device
         self.train_src, self.val_src, self.test_src = data
-        self.steps_per_epoch = max(
-            self.train_src.num_batches(config.batch_size), 1)
+        if hasattr(self.train_src, "num_batches"):
+            steps = self.train_src.num_batches(config.batch_size)
+        else:  # a host-streaming source
+            n = len(getattr(self.train_src, "dataset", []) or [])
+            steps = -(-n // config.batch_size)
+        self.steps_per_epoch = max(steps, 1)
         # the first epoch train() runs; a full --resume sets it to
         # restored_step // steps_per_epoch, so the run completes the
         # ORIGINAL --epochs budget instead of training that many more
@@ -212,6 +227,7 @@ class Trainer:
                                    else " (BN stats keep adapting)"))
         self.aug_cfg = aug_config_from(config)
         self.train_step = make_train_step(config, self.aug_cfg)
+        self.host_train_step = make_host_train_step(config)
         self.eval_step = make_eval_step(config)
         self.infer_step = make_infer_step(config)
         self.early_stopping = EarlyStopping(
@@ -221,7 +237,13 @@ class Trainer:
         self.rng = np.random.default_rng(config.seed)
         self.best_val_iou = -np.inf
         self._gen = self._field_gen = None
-        self._frame_hw = tuple(self.train_src.images.shape[1:3])
+        # the stored frames' size, which the device chain's fields take (a
+        # host-chain source feeds no device chain)
+        src = self.train_src
+        self._frame_hw = (
+            tuple(src.images.shape[1:3]) if self._is_device_src(src)
+            else (src.loader.h, src.loader.w) if hasattr(src, "loader")
+            else None)
         # --nan_guard: consecutive rejected steps; the run stops, its
         # checkpoints intact, once the patience is spent
         self._nan_guard = bool(config.nan_guard)
@@ -290,27 +312,53 @@ class Trainer:
         return sample_draws(self._gen, n, self.aug_cfg, self._frame_hw,
                             self._field_gen), mix
 
+    @staticmethod
+    def _is_device_src(src) -> bool:
+        return hasattr(src, "epoch_batches")
+
+    def _mix_draws(self, n: int):
+        """The mixup draws of a host-augmented step (None without
+        --use_mixup), from the epoch's CPU generator."""
+        cfg = self.config
+        return (sample_mixup(self._gen, n, cfg.mixup_alpha, cfg.mixup_prob)
+                if cfg.use_mixup else None)
+
     def _batches(self, src, shuffle: bool, rng: np.random.Generator):
-        for idx in src.epoch_batches(rng, self.config.batch_size,
-                                     shuffle=shuffle):
-            yield (idx, *src.gather(idx))
+        """``(idx, images, masks)`` on the Trainer's device: a store's
+        gathers, or a streaming source's host batches (idx None: they
+        shuffle by themselves and yield the short last batch as it is)."""
+        if self._is_device_src(src):
+            for idx in src.epoch_batches(rng, self.config.batch_size,
+                                         shuffle=shuffle):
+                yield (idx, *src.gather(idx))
+            return
+        for images, masks in src:
+            yield (None, *(to_device(torch.from_numpy(x), self.device)
+                           for x in (images, masks)))
 
     # ------------------------------------------------------------------
 
     def train_one_epoch(self, epoch: int):
         total = None
         self._gen = self._epoch_generator(epoch)
-        self._field_gen = self._epoch_generator(
-            epoch, self.train_src.images.device)
+        self._field_gen = self._epoch_generator(epoch, self.device)
         log_every = int(self.config.log_every or 0)
         t0 = time.perf_counter()
         n_imgs = 0
+        if hasattr(self.train_src, "set_epoch"):  # a host-streaming
+            self.train_src.set_epoch(epoch)       # source: resume-stable
         for i, (_, images, masks) in enumerate(
                 self._batches(self.train_src, True, self._epoch_rng(epoch))):
-            draws, mix = self._draws(epoch, i, images.shape[0])
             dev = images.device
-            m = self.train_step(self.state, images, masks, draws.to(dev),
-                                None if mix is None else mix.to(dev))
+            if images.dtype == torch.uint8:
+                # raw store data: the device augmentation chain
+                draws, mix = self._draws(epoch, i, images.shape[0])
+                m = self.train_step(self.state, images, masks, draws.to(dev),
+                                    None if mix is None else mix.to(dev))
+            else:  # augmented by the host chain: mixup and the update
+                mix = self._mix_draws(images.shape[0])
+                m = self.host_train_step(self.state, images, masks,
+                                         None if mix is None else mix.to(dev))
             total = accumulate(total, m)
             n_imgs += int(images.shape[0])
             if self._nan_guard and not self._note_skip(
@@ -368,9 +416,12 @@ class Trainer:
                      self.state.eval_state_dict())
 
     @staticmethod
-    def _first_occurrence_mask(idx, seen: set, device) -> torch.Tensor:
+    def _first_occurrence_mask(idx, seen: set, device):
         """(B,) float32 {0, 1}: 0 for wraparound-padded duplicates, so
-        metrics count every image once (QUIRKS #22)."""
+        metrics count every image once (QUIRKS #22). None for a streaming
+        source (idx None), whose batches are not padded."""
+        if idx is None:
+            return None
         mask = []
         for i in np.asarray(idx):
             mask.append(0.0 if int(i) in seen else 1.0)
@@ -629,17 +680,23 @@ class Trainer:
 
     def _collect_per_image(self, rows: list, seen: set, idx, per_img,
                            surf=None):
-        """Audit rows of one test batch; padded duplicates are dropped."""
+        """Audit rows of one test batch; padded duplicates are dropped. A
+        streaming source's rows (idx None) carry running positions and no
+        names."""
         c = [v.cpu().numpy() for v in per_img]
         tp_, fp_, fn_, tn_, inter_, union_ = c
         if surf is not None:
             surf = {k: v.cpu().numpy() for k, v in surf.items()}
-        names = getattr(self.test_src, "names", None)
-        for j, i in enumerate(np.asarray(idx)):
+        names = (getattr(self.test_src, "names", None)
+                 if idx is not None else None)
+        ids = (np.asarray(idx) if idx is not None
+               else np.arange(len(rows), len(rows) + len(tp_)))
+        for j, i in enumerate(ids):
             i = int(i)
-            if i in seen:
-                continue
-            seen.add(i)
+            if idx is not None:
+                if i in seen:
+                    continue
+                seen.add(i)
             tp, fp, fn = float(tp_[j]), float(fp_[j]), float(fn_[j])
             inter, union = float(inter_[j]), float(union_[j])
             row = {

@@ -158,12 +158,14 @@ def _finite(loss, model) -> torch.Tensor:
     return ok
 
 
-def make_train_step(config, aug_cfg: AugmentConfig):
+def make_train_step(config, aug_cfg: AugmentConfig | None,
+                    augment: bool = True):
     """Build ``step(state, images, masks, draws, mix_draws) ->
     StepMetrics``: uint8 (or float) NHWC batches, the chain's draws, and
     the mixup draws (ignored unless ``config.use_mixup``). Updates
     ``state`` in place. A batch that ``config.grad_accum`` does not divide
-    raises."""
+    raises. ``augment=False`` skips the device chain (``draws`` unused):
+    ``make_host_train_step``'s body."""
     _check_ported(config)
     loss_kw = _loss_kw(config)
     amp = bool(config.use_amp_autocast)
@@ -190,7 +192,8 @@ def make_train_step(config, aug_cfg: AugmentConfig):
     def step(state: TrainState, images_u8, masks_u8, draws: AugmentDraws,
              mix: MixupDraws | None) -> StepMetrics:
         images, masks = _to_float(images_u8, masks_u8)
-        images, masks = augment_batch(images, masks, draws, aug_cfg)
+        if augment:
+            images, masks = augment_batch(images, masks, draws, aug_cfg)
         if use_mixup:
             images, masks = mixup(images, masks, mix)
         n_img = images.shape[0]
@@ -235,6 +238,23 @@ def make_train_step(config, aug_cfg: AugmentConfig):
             state.update_ema(ema_decay)
         return StepMetrics(*terms, counts, n,
                            images.new_zeros(()) if nan_guard else 0.0)
+
+    return step
+
+
+def make_host_train_step(config):
+    """The train step of ``--host_augment`` (JAX ``make_host_train_step``):
+    ``step(state, images_f, masks_f, mix_draws=None) -> StepMetrics`` on
+    float32 NHWC batches that the host chain already augmented and resized,
+    so the device runs mixup, forward/backward and the update only: the
+    shared step body with the device chain off (grad_accum, deep
+    supervision, clipping, EMA, freeze and nan_guard as in
+    ``make_train_step``)."""
+    body = make_train_step(config, None, augment=False)
+
+    def step(state: TrainState, images, masks,
+             mix: MixupDraws | None = None) -> StepMetrics:
+        return body(state, images, masks, None, mix)
 
     return step
 

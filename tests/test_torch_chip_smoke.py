@@ -426,7 +426,7 @@ def test_legacy_sweep_extra_is_run_sh_at_one_epoch_in_bf16():
     theirs = shlex.split(run_sh)
     theirs[theirs.index("--epochs") + 1] = "1"
     assert ours[:len(theirs)] == theirs
-    assert C.LEGACY_JOBS == 3
+    assert C.LEGACY_JOBS == 5  # the nine jobs in two rounds
 
 
 @pytest.mark.parametrize("model_type", C.LEGACY)
@@ -510,3 +510,124 @@ def test_legacy_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "the 14 counts equal the JAX package's cli/params.py" in out
     assert "cli/aggregate.py: 2 ranked rows and a CSV" in out
+
+
+@pytest.mark.parametrize("intervals, lo, hi, want", [
+    ([(0, 10), (5, 15)], None, None, 15),            # overlapping
+    ([(0, 20), (5, 8), (6, 7)], None, None, 20),     # nested
+    ([(0, 2), (5, 7), (10, 11)], None, None, 5),     # disjoint
+    ([(7, 9), (0, 3), (2, 4)], None, None, 6),       # unsorted, chained
+    ([(-5, 3), (2, 6), (9, 30)], 0, 20, 17),         # clipped to the window
+    ([(-5, -1), (25, 30)], 0, 20, 0),                # wholly outside it
+    ([(3, 3), (4, 2)], None, None, 0),               # empty intervals
+    ([], 0, 10, 0),
+], ids=["overlap", "nested", "disjoint", "unsorted", "clipped", "outside",
+        "empty", "none"])
+def test_interval_union(intervals, lo, hi, want):
+    """The busy time of a profiler window: the union of the device
+    intervals, each clipped to the window (F1: the summed durations read
+    above 100%)."""
+    assert C.interval_union_us(intervals, lo, hi) == pytest.approx(want)
+
+
+def test_device_busy_reads_the_union_inside_the_window(monkeypatch, capsys):
+    """device_busy on a trace of its own making: two overlapping kernels,
+    a memcpy, a kernel outside the window, and device-side user annotations
+    spanning kernels (as AdamW's ``Optimizer.step`` range and the busy
+    window itself show), which the union and the kernel shares leave out
+    and the old sum counted twice; the old reading is printed once."""
+    from types import SimpleNamespace as NS
+
+    import torch
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, a, b, dev=cuda, ann=False):
+        return NS(name=name, device_type=dev, is_user_annotation=ann,
+                  time_range=NS(start=a, end=b))
+
+    events = [ev(C.BUSY_WINDOW, 100, 200, cpu), ev("k1", 110, 140),
+              ev("k2", 130, 150), ev("Memcpy HtoD", 160, 170),
+              ev("k0", 50, 90), ev("Optimizer.step#AdamW.step", 105, 175,
+                                   ann=True),
+              ev(C.BUSY_WINDOW, 108, 172, ann=True)]
+    avgs = [NS(key=e.name, device_type=e.device_type,
+               is_user_annotation=e.is_user_annotation,
+               self_device_time_total=e.time_range.end - e.time_range.start)
+            for e in events if e.device_type == cuda]
+    prof = NS(events=lambda: events, key_averages=lambda: avgs)
+    monkeypatch.setattr(C, "_SUMMED_SHOWN", [])
+    b = C.device_busy(prof)
+    assert b == {"window_us": 100, "union_us": 50}   # 110-150 and 160-170
+    assert C.busy_text(b).startswith("50.0% busy")
+    # the kernel shares' denominator holds no annotation
+    assert sorted(e.key for e in C.device_kernels(prof)) == [
+        "Memcpy HtoD", "k0", "k1", "k2"]
+    text = C.summed_text(prof, b)
+    assert "reads 50.0% of a 0.100 ms window" in text
+    assert "reads 234.0%" in text           # 100 of kernels + 134 annotated
+    assert (f"134.0% are the user annotations (Optimizer.step#AdamW.step "
+            f"70.0%, {C.BUSY_WINDOW} 64.0%)") in text
+    assert "overlapping one another 0.010 ms" in text
+    C.device_busy(prof)
+    out = capsys.readouterr().out
+    assert out.count("[busy] ") == 1 and text in out
+
+
+def test_metrics_names_are_the_jax_daemons():
+    """The hostdata phase holds the card daemon's /metrics to METRICS_JAX,
+    which must be the series the JAX daemon's _metrics prints."""
+    import os
+    import re
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "ddti_tpu", "cli", "serve.py")) as f:
+        src = f.read()
+    body = src[src.index("def _metrics("):src.index("def _reload(")]
+    names = set(re.findall(r"# TYPE (ddti_\w+)", body))
+    assert names == set(C.METRICS_JAX)
+
+
+def test_hostdata_flag_needs_the_card():
+    """``chip_smoke.py --hostdata`` without a card exits non-zero and
+    prints no result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--hostdata"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"hostdata"' not in r.stdout and '"ok"' not in r.stdout
+
+
+def test_cache_bytecode_keeps_it_under_build_inside_a_checkout(
+        monkeypatch, tmp_path):
+    """In a checkout the smoke and its children write bytecode under
+    build/pycache, whatever PYTHONDONTWRITEBYTECODE said; beside nothing
+    of the repository it changes nothing."""
+    import importlib.util
+    import os
+    import shutil
+    import sys
+
+    monkeypatch.setenv("PYTHONDONTWRITEBYTECODE", "1")
+    monkeypatch.delenv("PYTHONPYCACHEPREFIX", raising=False)
+    monkeypatch.setattr(sys, "dont_write_bytecode", True)
+    monkeypatch.setattr(sys, "pycache_prefix", None)
+    shutil.copy(C.__file__, tmp_path / "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location(
+        "lone_chip_smoke", tmp_path / "chip_smoke.py")
+    lone = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lone)
+    lone.cache_bytecode()
+    assert os.environ["PYTHONDONTWRITEBYTECODE"] == "1"
+    assert "PYTHONPYCACHEPREFIX" not in os.environ
+    assert sys.dont_write_bytecode and sys.pycache_prefix is None
+    C.cache_bytecode()
+    want = os.path.join(os.path.dirname(os.path.abspath(C.__file__)),
+                        "build", "pycache")
+    assert os.environ["PYTHONPYCACHEPREFIX"] == want
+    assert "PYTHONDONTWRITEBYTECODE" not in os.environ
+    assert sys.pycache_prefix == want and not sys.dont_write_bytecode

@@ -14,7 +14,9 @@ frames and contours rendered through the same panel code.
 import csv
 import json
 import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -95,9 +97,20 @@ def _stamp_job(log, i, secs=0.3, rc=0):
             f"; sys.exit({rc})"]
 
 
-def test_run_jobs_caps_concurrency_and_keeps_order(tmp_path):
+def test_run_jobs_caps_concurrency_and_keeps_order(tmp_path, monkeypatch):
     """Six jobs at most two at a time: return codes in input order, never
-    more than two running at once, launches at least ``min_gap`` apart."""
+    more than two running at once, launches at least ``min_gap`` apart.
+    The launch times are taken where the runner launches (a job's own
+    clock starts after its interpreter's start-up, which a loaded host
+    stretches unevenly)."""
+    launched = []
+
+    class Recorded(subprocess.Popen):
+        def __init__(self, *args, **kwargs):
+            launched.append(time.time())
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(sweep.subprocess, "Popen", Recorded)
     log = tmp_path / "log"
     codes = sweep.run_jobs([_stamp_job(log, i, rc=i % 3) for i in range(6)],
                            max_jobs=2, min_gap=0.05)
@@ -107,8 +120,8 @@ def test_run_jobs_caps_concurrency_and_keeps_order(tmp_path):
     assert len(spans) == 6
     for t, _ in spans:
         assert sum(s <= t < e for s, e in spans) <= 2
-    starts = [s for s, _ in spans]
-    assert all(b - a >= 0.04 for a, b in zip(starts, starts[1:]))
+    assert len(launched) == 6
+    assert all(b - a >= 0.04 for a, b in zip(launched, launched[1:]))
 
 
 def test_run_jobs_retries_failed_jobs(tmp_path):

@@ -177,6 +177,9 @@ def test_port_imports_no_jax():
         "models.legacy", "models.mores", "cli.params", "cli.split_config",
         "cli.sweep", "cli.aggregate", "cli.split_data", "cli.prepare",
         "cli.preview")} <= set(modules)
+    # the host data path: the PIL/cv2 chain and the native loader's binding
+    assert {"ddti_tpu_torch.data.host_transforms",
+            "ddti_tpu_torch.runtime.native"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ddti_tpu', 'benchmarks')); "
@@ -201,8 +204,10 @@ def test_port_imports_no_jax():
 
 def test_daemon_tta_fold_bn_masks_equal_serve_body(pth):
     """``--tta --fold_bn``: /healthz reports both, and a POSTed JPEG comes
-    back as ``serve_body(fold_batchnorm(model), frame, tta=True)``'s mask,
-    resized to the frame as the daemon resizes it."""
+    back as ``serve_body(fold_batchnorm(model), frame, tta=True)``'s mask
+    of the frame as the daemon decodes and resizes it (natively where the
+    library has libjpeg, as JAX's daemon does), resized back to the
+    frame."""
     from ddti_tpu_torch.train.export import serve_body
     from ddti_tpu_torch.train.fold_bn import fold_batchnorm
 
@@ -222,8 +227,13 @@ def test_daemon_tta_fold_bn_masks_equal_serve_body(pth):
             assert resp.status == 200
             got = np.asarray(Image.open(io.BytesIO(data)))
             frame = Image.open(io.BytesIO(body)).convert("L")
-            x = np.asarray(frame.resize((64, 64), Image.BILINEAR),
-                           np.uint8)[None, ..., None]
+            if srv.native_decode:  # the daemon decodes a JPEG natively
+                from ddti_tpu_torch.runtime.native import decode_jpeg_bytes
+
+                x = decode_jpeg_bytes(body, 64, 64)[0][None]
+            else:
+                x = np.asarray(frame.resize((64, 64), Image.BILINEAR),
+                               np.uint8)[None, ..., None]
             model = fold_batchnorm(load_checkpoint_into(
                 pth, "TransUNet", create_model("TransUNet", **SMALL)))
             with torch.inference_mode():
@@ -252,7 +262,12 @@ def test_overlay_equals_jax_overlay_png(pth):
         buf = io.BytesIO()
         img.resize((80, 48)).save(buf, "JPEG")
         body = buf.getvalue()
-        _, data = _request(srv, "POST", "/predict", body)
+        # an overlay request decodes with PIL, as JAX's daemon does: the
+        # mask to draw is the one of the PIL-decoded frame, which the daemon
+        # gives for that frame sent as a PNG
+        png = io.BytesIO()
+        Image.open(io.BytesIO(body)).convert("L").save(png, "PNG")
+        _, data = _request(srv, "POST", "/predict", png.getvalue())
         mask = np.asarray(Image.open(io.BytesIO(data)))
         assert 0 < mask.mean() < 255  # a contour to draw
         resp, data = _request(srv, "POST", "/predict?overlay=1", body)
