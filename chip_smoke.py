@@ -17,7 +17,8 @@ alone (the AttentionUNet trained first, as the zoo phase trains it);
 ``python3 chip_smoke.py --recipe`` runs the recipe phase alone;
 ``python3 chip_smoke.py --lifecycle`` the lifecycle phase alone;
 ``python3 chip_smoke.py --legacy`` the legacy phase alone;
-``python3 chip_smoke.py --hostdata`` the hostdata phase alone.
+``python3 chip_smoke.py --hostdata`` the hostdata phase alone;
+``python3 chip_smoke.py --trainer`` the trainer phase alone.
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -96,7 +97,9 @@ and a non-zero exit:
               loss terms with a nonzero boundary term, val IoU and test
               metrics with HD95/ASSD, a best .pth that loads strictly and an
               .npz in the JAX package's key layout, and exactly the expected
-              number of EDT kernel launches.
+              number of EDT kernel launches; with --profile 3, whose trace
+              under result/trace must hold the EDT's row kernel 3 times
+              (the trainer phase's (c)).
 8. ttrain   — (at the same time as 7) the same CLI training the serving
               slice's TransUNet
               (base_filters 64, depth 4, 512^2 -> 1024 tokens) from a model
@@ -236,16 +239,40 @@ and a non-zero exit:
               on the serving slice's TransUNet: native vs PIL masks,
               POST /reload under concurrent clients, --watch, /metrics'
               series against the JAX daemon's, request decode ms.
-19. result  — the total wall time, a JSON line of the kernels (the flash
-              forward's with the infer, legacy and hostdata phases'
-              launches; the EDT's with the recipe, lifecycle, legacy and
-              hostdata phases' launches and numbers), then the device
+19. trainer — the rest of single-device training on the flagship ResUNet
+              (bf64, d5, bf16, 512^2 / batch 16): (a) the step with one-pass
+              and with two-pass BatchNorm variance (interleaved medians),
+              the running statistics one step of each leaves, and the
+              one-pass module on the card against float64 on the CPU
+              (statistics, output, input gradient; BN_LIMITS); (b) a
+              stepwise and a --fused_epoch epoch (one eager step, a CUDA
+              graph replayed) from one start on a 128-frame store, cuDNN
+              deterministic: wall times, replays, the parameters and
+              statistics of the stepwise epoch bit for bit, the EDT once
+              a step counted from torch.profiler's exported trace and the
+              wrapper's count (the eager step's and the capture's); (c) at
+              once, the CLI with --batch_size auto --fused_epoch on a
+              192-frame dataset (each candidate's measured peak, the
+              pick's within 0.92 of the budget, its fused epoch's replays,
+              the run's peak, the EDT's launches), --lr_find 30 at 256^2 (finite
+              rows or a stated stop, finite suggestions) and (d) a UNet
+              student (bf32, d4) under the serving slice's TransUNet as
+              teacher (4 flash forwards a train step, run_cli's checks);
+              --profile 3 is phase 7's run (run alone, this phase runs its
+              own); then the student's step with and without the teacher,
+              its launches a step.
+20. result  — the total wall time, a JSON line of the kernels (the flash
+              forward's with the infer, legacy, hostdata and trainer
+              phases' launches; the EDT's with the recipe, lifecycle,
+              legacy, hostdata and trainer phases' launches and numbers),
+              then the device
               line. Every busy share is the union of the device intervals
               of kernels, memcpys and memsets in a record_function window
               (``device_busy``); the first window of a run also prints
               the old summed key_averages beside it, once.
 """
 
+import atexit
 import concurrent.futures
 import copy
 import http.client
@@ -260,6 +287,9 @@ import threading
 import time
 
 SEED = 0
+CLOCK_SAMPLE_MS = 200  # main's device-memory sampling period
+STEP_RUNS = 5          # train-step profiles: CUDA-event median of
+STEP_WARMUP = 2
 DEVICE = "cuda"  # the training phases' device
 SLICE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
              image_size=512)
@@ -403,11 +433,6 @@ ZOO_TRAIN_PARALLEL = 3
 ZOO_STEP_BATCH = 4     # the float32 step, kernel EDT vs plain
 ZOO_CPU_BATCH = 2      # float32 logits on the card vs on the CPU
 ZOO_LOGIT_RTOL = 1e-3  # max |card - CPU| / max |CPU|, the serving limit
-# (model, image size, batch) of the zoo profile: every model at the CLI's
-# default, UNet alone also at bench.py's headline leg (the others' 256^2
-# rows were dropped to keep the smoke's wall time down)
-ZOO_PROFILES = [(m, *TRAIN_PROFILES[0]) for m in ZOO] + [
-    ("UNet", *TRAIN_PROFILES[1])]
 
 # the infer phase (the inference CLI, its modes, the daemon's --tta and
 # --fold_bn): synthetic grayscale JPEG frames (width, height, count), the
@@ -537,6 +562,28 @@ HOSTDATA_AGREE = 0.995  # (f): native vs PIL masks, share of pixels
 HOSTDATA_POSTS = 8
 HOSTDATA_CLIENTS = 8
 HOSTDATA_TIMEOUT_S = 600
+# the trainer phase: the rest of single-device training on the flagship
+# (bf16, 512^2 / batch 16). (a) one-pass against two-pass BatchNorm: the
+# running statistics one step of each leaves (normwise), and the one-pass
+# module on the card against float64 on the CPU: mean and variance over the
+# activations' RMS (and its square), the bf16 output over max|y| (a bf16
+# rounding is 2^-9 of it), the input gradient normwise (bf16 gradients)
+BN_LIMITS = {"running": 1e-3, "stats": 1e-5, "output": 2 ** -7,
+             "grad": 1e-2}
+TRAINER_TIMED = 5      # steps timed a mode, after 2 warm-up steps each
+TRAINER_STORE = 128    # (b): an 8-step epoch at batch 16
+# (c): --batch_size auto's train frames, so that the pick (64 on an H100)
+# leaves a fused epoch of several steps: an eager one, a capture, replays
+TRAINER_AUTO_FRAMES = 192
+TRAINER_LR_FIND = 30   # (c): --lr_find's steps, at 256^2
+PROFILE_STEPS = 3      # (c): --profile's traced steps
+# (d): the student under the serving slice's TransUNet as teacher
+TRAINER_STUDENT = dict(base_filters=32, depth=4)
+# a kernel's name in a profiler trace: the EDT by its row pass (once a
+# call), the flash forward by its bf16 kernel
+TRACE_KERNELS = {"edt_minplus": "edt_row_kernel",
+                 "flash_fwd": "flash_fwd_bf16_kernel"}
+
 # GET /metrics' series, as the JAX daemon prints them
 # (ddti_tpu/cli/serve.py:_metrics)
 METRICS_JAX = (
@@ -549,6 +596,46 @@ METRICS_JAX = (
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+class Clock:
+    """Marks of main's wall time, each with the most device memory in use
+    (every process on the card, as nvidia-smi reads it every
+    CLOCK_SAMPLE_MS; no CUDA call of this process, so that no capture
+    sees one) since the last mark."""
+
+    def __init__(self):
+        self.t0 = self.t_mark = time.perf_counter()
+        self.peak_mib, self.rows = 0, []
+        self._smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader,nounits", "-lms", str(CLOCK_SAMPLE_MS)],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        atexit.register(self.stop)  # a failed check stops the sampler too
+
+        def sample():
+            for line in self._smi.stdout:
+                if line.strip().isdigit():
+                    self.peak_mib = max(self.peak_mib, int(line))
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        row = dict(name=name, at_s=now - self.t0, took_s=now - self.t_mark,
+                   peak_gib=self.peak_mib / 1024)
+        self.rows.append(row)
+        self.peak_mib, self.t_mark = 0, now
+        phase("clock", f"{name}: {row['took_s']:.1f} s, done at "
+              f"{row['at_s']:.1f} s; device memory in use at most "
+              f"{row['peak_gib']:.2f} GiB")
+
+    def stop(self):
+        if self._smi.poll() is None:
+            self._smi.terminate()
+        self._smi.wait()
+        self._thread.join()
 
 
 def median_ms(fn, runs=20, warmup=3):
@@ -2252,6 +2339,20 @@ def jax_legacy_keys(model_type, levels=None, layers=4):
     return keys | _conv_bn_keys("bottleneck", convs)
 
 
+def blank_model(model_type, **model_kw):
+    """``create_model``'s module on the CPU without its initialisation
+    (made on the meta device, storage left unset): for counting parameters
+    and loading a checkpoint strictly, which sets every tensor of its
+    state_dict."""
+    import torch
+
+    from ddti_tpu_torch.models import create_model
+
+    with torch.device("meta"):
+        model = create_model(model_type, **model_kw)
+    return model.to_empty(device="cpu")
+
+
 def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
     """The training CLI (--mode both --synthetic, bf16) end to end
     in its own process: exit 0, the parameter count of ``model_kw``, the
@@ -2260,7 +2361,6 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
     with the key set ``keys`` and the same tensors. Returns the launch count
     of each kernel in that run and the best weights' path without its
     suffix."""
-    from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.state import count_params
 
     base = os.path.join(tmp, f"runs_{name}")
@@ -2280,7 +2380,7 @@ def run_cli(tmp, name, model_type, model_kw, flags, epochs, keys):
     params = [l for l in out.splitlines() if l.startswith("[PARAMS]")]
     kernels = [l for l in out.splitlines() if l.startswith("[KERNELS]")]
     phase(name, f"{params[0]} {kernels[0]}")
-    model = create_model(model_type, **model_kw)
+    model = blank_model(model_type, **model_kw)
     assert params[0] == f"[PARAMS] {model_type},{count_params(model)}"
     launches = dict(kv.split("=") for kv in kernels[0].split()[1:])
     launches = {k: int(v) for k, v in launches.items()}
@@ -2302,10 +2402,9 @@ def check_run(name, run, model_type, model_kw, keys, epochs, tta=False):
     import numpy as np
     import torch
 
-    from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
 
-    model = create_model(model_type, **model_kw)
+    model = blank_model(model_type, **model_kw)
     for sub in ("models", "log/train_log.log", "result", "config.yaml"):
         assert os.path.exists(os.path.join(run, sub)), sub
     with open(os.path.join(run, "log", "train_log.log")) as f:
@@ -2336,7 +2435,7 @@ def check_run(name, run, model_type, model_kw, keys, epochs, tta=False):
         got = set(z.files)
     assert got == keys, sorted(got ^ keys)[:8]
     twin = load_checkpoint_into(best + ".npz", model_type,
-                                create_model(model_type, **model_kw))
+                                blank_model(model_type, **model_kw))
     for k, v in model.state_dict().items():
         assert torch.equal(v, twin.state_dict()[k]), k
     phase(name, f"best .pth loads strictly; .npz holds the JAX layout's "
@@ -2351,19 +2450,22 @@ def _cli_batches(batch):
 
 
 def run_training(tmp):
-    """The ResUNet training CLI; returns the EDT kernel's launch count."""
+    """The ResUNet training CLI, with a torch.profiler trace of its first
+    PROFILE_STEPS steps (the trainer phase's --profile check); returns the
+    EDT kernel's launch count and the trace's check."""
     model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
     flags = [f"--{k}={v}" for k, v in TRAIN.items()
-             if k not in ("model_type", "epochs")]
-    launches, _ = run_cli(tmp, "train", "ResUNet", model_kw, flags,
-                          TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
+             if k not in ("model_type", "epochs")] + [
+                 "--profile", str(PROFILE_STEPS)]
+    launches, best = run_cli(tmp, "train", "ResUNet", model_kw, flags,
+                             TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
     steps, val, test_b = _cli_batches(TRAIN["batch_size"])
     expected = TRAIN["epochs"] * (steps + val) + test_b
     phase("train", f"edt_minplus launches {launches['edt_minplus']}, "
           f"expected {TRAIN['epochs']} epochs x ({steps} train + {val} val "
           f"steps) + {test_b} test batches = {expected}")
     assert launches["edt_minplus"] == expected
-    return launches["edt_minplus"]
+    return launches["edt_minplus"], check_profile_trace(best, "train")
 
 
 def run_transunet_training(tmp):
@@ -2382,10 +2484,9 @@ def run_transunet_training(tmp):
     launches, _ = run_cli(tmp, "ttrain", "TransUNet", model_kw, flags,
                           TTRAIN["epochs"],
                           jax_transunet_keys(TSLICE["depth"], N_LAYERS))
-    from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.state import count_params
 
-    assert count_params(create_model("TransUNet", **model_kw)) \
+    assert count_params(blank_model("TransUNet", **model_kw)) \
         == TSLICE_PARAMS, "not the serving slice's TransUNet"
     steps, val, test_b = _cli_batches(TTRAIN["batch_size"])
     epochs = TTRAIN["epochs"]
@@ -2429,7 +2530,6 @@ def run_zoo_training(tmp, models=tuple(ZOO)):
     none. Returns {model: EDT launches} and {model: (best weights, YAML)}."""
     import yaml
 
-    from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.state import count_params
 
     t0 = time.perf_counter()
@@ -2443,9 +2543,9 @@ def run_zoo_training(tmp, models=tuple(ZOO)):
             yaml.safe_dump({"model": {"model_type": model_type,
                                       "kwargs": kw}}, f)
         plain = {k: v for k, v in kw.items() if k not in ZOO[model_type]}
-        heads = (sum(c + 1 for c in create_model(model_type, **kw).channels)
+        heads = (sum(c + 1 for c in blank_model(model_type, **kw).channels)
                  if kw.get("deep_supervision") else 0)
-        assert count_params(create_model(model_type, **plain)) \
+        assert count_params(blank_model(model_type, **plain)) \
             == ZOO_JAX_PARAMS[model_type], f"{model_type}: not the entry"
         flags = ["--config_path", cfg, "--device", DEVICE, "--alpha", "2",
                  *(f"--{k}={v}" for k, v in ZOO_TRAIN.items()
@@ -2480,7 +2580,6 @@ def zoo_serve(ckpts):
     import torch
 
     from ddti_tpu_torch.cli import serve
-    from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
     from ddti_tpu_torch.train.export import serve_body
 
@@ -2499,7 +2598,7 @@ def zoo_serve(ckpts):
         assert masks.dtype == np.uint8 and masks.shape == x.shape
         assert set(np.unique(masks)) <= {0, 1}
         del predict
-        cpu = load_checkpoint_into(best + ".pth", model_type, create_model(
+        cpu = load_checkpoint_into(best + ".pth", model_type, blank_model(
             model_type, **zoo_entry(model_type))).eval()
         card = copy.deepcopy(cpu).cuda()
         xf = torch.from_numpy(x[:ZOO_CPU_BATCH]).permute(0, 3, 1, 2) / 255.0
@@ -2747,7 +2846,7 @@ def run_infer(tmp, trans_ckpt, attn_ckpt):
     def load(model_type, ck, **kw):
         kw = dict(SLICE, **kw) if model_type == "TransUNet" else \
             dict(INFER_ATTN, **kw)
-        return load_checkpoint_into(ck, model_type, create_model(
+        return load_checkpoint_into(ck, model_type, blank_model(
             model_type, **kw)).cuda().eval()
 
     x_u8 = torch.from_numpy(_resized_batch(imgs, frames, BATCH, size)).cuda()
@@ -2878,7 +2977,6 @@ def infer_daemon(ckpt):
 
     from ddti_tpu_torch.cli import serve
     from ddti_tpu_torch.eval.tta import tta_probs
-    from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.ops import attention as A
     from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
     from ddti_tpu_torch.train.export import nhwc_logits, serve_body
@@ -2895,7 +2993,7 @@ def infer_daemon(ckpt):
         posts.append((buf.getvalue(),
                       Image.open(io.BytesIO(buf.getvalue())).convert("L")))
     folded = fold_batchnorm(load_checkpoint_into(
-        ckpt, "TransUNet", create_model("TransUNet", **SLICE)).cuda().eval())
+        ckpt, "TransUNet", blank_model("TransUNet", **SLICE)).cuda().eval())
     def fwd16(x):
         return nhwc_logits(folded, x, bf16=True)
 
@@ -3029,6 +3127,7 @@ def step_kernel_vs_plain(model_type="ResUNet", model_kw=None, batch=16,
 
     from ddti_tpu_torch.losses import losses
     from ddti_tpu_torch.ops import edt as E
+    from ddti_tpu_torch.train.fold_bn import fold_pairs
     from ddti_tpu_torch.train.state import TrainState
 
     torch.backends.cudnn.deterministic = True
@@ -3055,14 +3154,20 @@ def step_kernel_vs_plain(model_type="ResUNet", model_kw=None, batch=16,
     (bk, lk, pk), (bp, lp, pp) = out["kernel"], out["plain"]
     rel = max(((pk[k] - pp[k]).abs().max()
                / pp[k].abs().max().clamp(min=1e-30)).item() for k in pk)
-    moved = sum(not torch.equal(pk[k], sd0[k]) for k in pk)
+    # a conv's bias that feeds a BatchNorm has no gradient in exact
+    # arithmetic (the batch mean takes it out): its float gradient is
+    # rounding noise or an exact zero, so it may keep its initial zeros
+    still = {f"{conv}.bias" for conv, _ in fold_pairs(model, model_type)}
+    moved = sum(not torch.equal(pk[k], sd0[k]) for k in pk if k not in still)
+    want = len([k for k in pk if k not in still])
     phase(label, f"float32 {model_type} 512^2 batch {batch}: boundary "
           f"kernel {bk.item():.9g} plain {bp.item():.9g} (bit-equal "
           f"{torch.equal(bk, bp)}); loss kernel {lk.item():.9g} plain "
-          f"{lp.item():.9g}; updated tensors {moved}/{len(pk)}, max "
-          f"relative difference {rel:.3e} (limit {STEP_PARAM_RTOL:g})")
+          f"{lp.item():.9g}; updated tensors {moved}/{want} (and "
+          f"{len(pk) - want} biases ahead of a BatchNorm), max relative "
+          f"difference {rel:.3e} (limit {STEP_PARAM_RTOL:g})")
     assert torch.equal(bk, bp), "kernel and plain boundary terms differ"
-    assert rel <= STEP_PARAM_RTOL and moved == len(pk)
+    assert rel <= STEP_PARAM_RTOL and moved == want
     del model, step, images, masks, out, pk, pp, sd0
     torch.cuda.empty_cache()
 
@@ -3215,7 +3320,7 @@ def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None,
     def one():
         step(state, images, masks, draws, None)
 
-    ms = median_ms(one, runs=10, warmup=3)
+    ms = median_ms(one, runs=STEP_RUNS, warmup=STEP_WARMUP)
     torch.cuda.synchronize()
     before = [E.edt_cuda.launches, *_flash_counts()]
     with profile(activities=[ProfilerActivity.CPU,
@@ -3235,8 +3340,8 @@ def _profile_steps(label, size, batch, model_type="ResUNet", model_kw=None,
     flash_us = sum(e.self_device_time_total for e in kernels
                    if "flash_" in e.key)
     phase("tprofile", f"{label}: {dtype} train step {size}^2 batch {batch}: "
-          f"{ms:.3f} ms device time (CUDA events, median of 10), "
-          f"{batch / ms * 1e3:.1f} img/s; torch.profiler over "
+          f"{ms:.3f} ms device time (CUDA events, median of "
+          f"{STEP_RUNS}), {batch / ms * 1e3:.1f} img/s; torch.profiler over "
           f"{TRAIN_PROFILE_STEPS} steps: device kernels "
           f"{kernel_us / 1e3:.3f} ms, {busy_text(busy)}, EDT kernels "
           f"{edt_us / 1e3:.3f} ms ({edt_us / max(kernel_us, 1):.2%} of "
@@ -3265,8 +3370,9 @@ def profile_training():
             for size, batch in TRAIN_PROFILES]
 
 
-def profile_zoo(profiles=ZOO_PROFILES):
-    """Each zoo model's bf16 train step at ``profiles``."""
+def profile_zoo(profiles):
+    """Each zoo model's bf16 train step at ``profiles``, (model, image
+    size, batch) triples (``--zoo`` alone)."""
     t0 = time.perf_counter()
     rows = [_profile_steps(f"{model_type} bf64 d5", size, batch, model_type,
                            zoo_entry(model_type))
@@ -3685,7 +3791,7 @@ def recipe_remat():
 
 
 def profile_recipe():
-    """Device time per bf16 train step (CUDA events, median of 10) at both
+    """Device time per bf16 train step (CUDA events, median of STEP_RUNS) at both
     TRAIN_PROFILES with the default chain, each branch alone, all of them,
     --remat (one model a size, and one with remat), and with the default
     chain --freeze encoders, alone (the frozen tensors out of autograd)
@@ -3735,9 +3841,10 @@ def profile_recipe():
                 ).to(DEVICE)
                 step = make_train_step(cfg, aug)
                 ms = median_ms(lambda: step(state, images, masks, draws,
-                                            None), runs=10, warmup=3)
+                                            None), runs=STEP_RUNS,
+                               warmup=STEP_WARMUP)
                 aug_ms = median_ms(lambda: augment_batch(x, y, draws, aug),
-                                   runs=10, warmup=3)
+                                   runs=STEP_RUNS, warmup=STEP_WARMUP)
                 if nan_guard is not None:  # frozen gradients only for it
                     assert all((p.grad is None) != nan_guard
                                for k, p in model.named_parameters()
@@ -3746,7 +3853,8 @@ def profile_recipe():
                                  augment_ms=aug_ms,
                                  augment_share=aug_ms / ms))
                 phase("recipe", f"bf16 train step {size}^2 batch {batch}, "
-                      f"{label}: {ms:.3f} ms (CUDA events, median of 10), "
+                      f"{label}: {ms:.3f} ms (CUDA events, median of "
+                      f"{STEP_RUNS}), "
                       f"augment_batch alone {aug_ms:.3f} ms "
                       f"({aug_ms / ms:.1%} of the step)")
             del model, state, images, masks, draws, step, x, y
@@ -3754,12 +3862,14 @@ def profile_recipe():
     return rows
 
 
-def run_recipe(tmp):
-    """The recipe phase: card vs CPU, the CLI runs, remat, timings."""
+def run_recipe(tmp, profile=False):
+    """The recipe phase: card vs CPU, the CLI runs, remat, and with
+    ``profile`` (``--recipe`` alone) the step timings."""
     t0 = time.perf_counter()
     out = dict(card_vs_cpu=recipe_card_vs_cpu(),
-               cli_launches=run_recipe_cli(tmp), remat=recipe_remat(),
-               steps=profile_recipe())
+               cli_launches=run_recipe_cli(tmp), remat=recipe_remat())
+    if profile:
+        out["steps"] = profile_recipe()
     phase("recipe", f"phase wall time {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4047,64 +4157,14 @@ def lifecycle_best_saves(tmp):
         TRAIN["batch_size"])[0], "rows": rows}
 
 
-def run_lifecycle(tmp):
-    """The lifecycle phase: the flagship through the CLI uninterrupted and,
-    at the same time, preempted in epoch 2 (exit 75, the resume hint, the
-    saved state); then resumed; the restored state on the card; the best
-    saves' cost; cli/average.py over the resumed run's periodic states and
-    cli/infer.py serving the average."""
-    import shutil
-
+def lifecycle_average(tmp, periodic):
+    """cli/average.py over the periodic states in ``periodic`` (the
+    BatchNorm pass on LIFECYCLE_RECALIB frames), then cli/infer.py serving
+    the average at the frames' sizes. Returns both processes' wall
+    seconds."""
     import numpy as np
     from PIL import Image
 
-    from ddti_tpu_torch.train.checkpoint import is_full_state
-
-    t_phase = time.perf_counter()
-    try:
-        import matplotlib
-        drawn_by = f"matplotlib {matplotlib.__version__}"
-    except ImportError as e:
-        drawn_by = f"Pillow (import matplotlib: {e})"
-    phase("lifecycle", f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free "
-          f"under the temporary directory; the grids are drawn by "
-          f"{drawn_by}")
-    hint = os.path.join(tmp, "resume_hint.json")
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        full_f = pool.submit(_lifecycle_run, os.path.join(tmp, "lc_full"),
-                             "uninterrupted")
-        pre_f = pool.submit(_lifecycle_run, os.path.join(tmp, "lc_pre"),
-                            "preempted", preempt=True,
-                            env={"DDTI_RESUME_HINT": hint})
-        rc, out, full_wall, run = full_f.result()
-        p_rc, p_out, pre_wall, p_run = pre_f.result()
-    full = _check_full_run("uninterrupted", rc, out, run, [1, 2, 3])
-    shutil.rmtree(os.path.join(run, "models"))  # the disk, for what follows
-
-    assert p_rc == 75, f"preempted: exit {p_rc}"
-    assert "test phase skipped" in p_out.lower() and "Test Metrics" \
-        not in p_out
-    with open(hint) as f:
-        h = json.load(f)
-    last = os.path.join(p_run, "models", "ResUNet_last")
-    assert h == {"checkpoint_path": last, "epochs": LIFECYCLE_EPOCHS}, h
-    assert is_full_state(last)
-    for suffix in (".npz", ".pth"):
-        assert os.path.exists(last + suffix), suffix
-    phase("lifecycle", f"preempted: exit 75, test phase skipped, resume "
-          f"hint {h}, ResUNet_last/ .npz .pth on disk")
-
-    rc, out, res_wall, r_run = _lifecycle_run(
-        os.path.join(tmp, "lc_resumed"), "resumed", "--resume",
-        "--checkpoint_path", h["checkpoint_path"])
-    resumed = _check_full_run("resumed", rc, out, r_run, [2, 3])
-    assert resumed["resumed_epoch"] == 2, resumed
-    restore = lifecycle_restore(last, tmp)
-    assert resumed["resumed_step"] == restore["step"]
-    shutil.rmtree(os.path.join(p_run, "models"))
-    best = lifecycle_best_saves(tmp)
-
-    periodic = os.path.join(r_run, "models", "periodic")
     avg = os.path.join(tmp, "lc_avg.npz")
     cmd = [sys.executable, "-m", "ddti_tpu_torch.cli.average",
            "--checkpoints", periodic, "--output", avg, "--model_type",
@@ -4156,6 +4216,68 @@ def run_lifecycle(tmp):
     phase("lifecycle", f"cli/infer.py on the average: {n} masks at the "
           f"frames' sizes, {secs:.1f} s ({ips:.1f} img/s), {infer_wall:.1f} "
           f"s of process")
+    return avg_wall, infer_wall
+
+
+def run_lifecycle(tmp):
+    """The lifecycle phase: the flagship through the CLI uninterrupted and,
+    at the same time, preempted in epoch 2 (exit 75, the resume hint, the
+    saved state); then resumed, and at the same time cli/average.py over
+    the uninterrupted run's periodic states and cli/infer.py serving the
+    average; the restored state on the card; the best saves' cost."""
+    import shutil
+
+    from ddti_tpu_torch.train.checkpoint import is_full_state
+
+    t_phase = time.perf_counter()
+    try:
+        import matplotlib
+        drawn_by = f"matplotlib {matplotlib.__version__}"
+    except ImportError as e:
+        drawn_by = f"Pillow (import matplotlib: {e})"
+    phase("lifecycle", f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free "
+          f"under the temporary directory; the grids are drawn by "
+          f"{drawn_by}")
+    hint = os.path.join(tmp, "resume_hint.json")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        full_f = pool.submit(_lifecycle_run, os.path.join(tmp, "lc_full"),
+                             "uninterrupted")
+        pre_f = pool.submit(_lifecycle_run, os.path.join(tmp, "lc_pre"),
+                            "preempted", preempt=True,
+                            env={"DDTI_RESUME_HINT": hint})
+        rc, out, full_wall, run = full_f.result()
+        p_rc, p_out, pre_wall, p_run = pre_f.result()
+    full = _check_full_run("uninterrupted", rc, out, run, [1, 2, 3])
+
+    assert p_rc == 75, f"preempted: exit {p_rc}"
+    assert "test phase skipped" in p_out.lower() and "Test Metrics" \
+        not in p_out
+    with open(hint) as f:
+        h = json.load(f)
+    last = os.path.join(p_run, "models", "ResUNet_last")
+    assert h == {"checkpoint_path": last, "epochs": LIFECYCLE_EPOCHS}, h
+    assert is_full_state(last)
+    for suffix in (".npz", ".pth"):
+        assert os.path.exists(last + suffix), suffix
+    phase("lifecycle", f"preempted: exit 75, test phase skipped, resume "
+          f"hint {h}, ResUNet_last/ .npz .pth on disk")
+
+    # the resumed run, and at the same time cli/average.py over the
+    # uninterrupted run's periodic states and cli/infer.py on the average
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        avg_f = pool.submit(lifecycle_average, tmp,
+                            os.path.join(run, "models", "periodic"))
+        rc, out, res_wall, r_run = _lifecycle_run(
+            os.path.join(tmp, "lc_resumed"), "resumed", "--resume",
+            "--checkpoint_path", h["checkpoint_path"])
+        avg_wall, infer_wall = avg_f.result()
+    shutil.rmtree(os.path.join(run, "models"))  # the disk, for what follows
+    resumed = _check_full_run("resumed", rc, out, r_run, [2, 3])
+    assert resumed["resumed_epoch"] == 2, resumed
+    restore = lifecycle_restore(last, tmp)
+    assert resumed["resumed_step"] == restore["step"]
+    shutil.rmtree(os.path.join(p_run, "models"))
+    best = lifecycle_best_saves(tmp)
     wall = time.perf_counter() - t_phase
     phase("lifecycle", f"CLI wall times: uninterrupted {full_wall:.1f} s, "
           f"preempted {pre_wall:.1f} s (the two at once), resumed "
@@ -4321,7 +4443,6 @@ def legacy_serve(best, cfg):
     import torch
 
     from ddti_tpu_torch.cli import serve
-    from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.ops import attention as A
     from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
     from ddti_tpu_torch.train.export import make_serve_fn
@@ -4351,9 +4472,9 @@ def legacy_serve(best, cfg):
         assert mk.dtype == np.uint8 and mk.shape == (batch, size, size, 1)
         assert set(np.unique(mk)) <= {0, 1}
     del predict
-    cpu = load_checkpoint_into(best + ".pth", m, create_model(
+    cpu = load_checkpoint_into(best + ".pth", m, blank_model(
         m, use_flash_attention=False, **kw)).eval()
-    card = load_checkpoint_into(best + ".pth", m, create_model(m, **kw)
+    card = load_checkpoint_into(best + ".pth", m, blank_model(m, **kw)
                                 ).to(DEVICE).eval()
     xf = torch.from_numpy(x[:ZOO_CPU_BATCH]).permute(0, 3, 1, 2) / 255.0
     A.flash_forward_cuda.launches = 0
@@ -4371,7 +4492,7 @@ def legacy_serve(best, cfg):
     out = dict(launches=launches, batches=batches, rel=rel)
     if on_card:
         xb = torch.from_numpy(x[:batch]).cuda()
-        plain = load_checkpoint_into(best + ".pth", m, create_model(
+        plain = load_checkpoint_into(best + ".pth", m, blank_model(
             m, use_flash_attention=False, **kw)).cuda().eval()
         fns = {"kernel": make_serve_fn(card, compute_dtype=torch.bfloat16),
                "plain": make_serve_fn(plain, compute_dtype=torch.bfloat16)}
@@ -4446,11 +4567,11 @@ def legacy_profile():
     return rows
 
 
-def run_legacy(tmp):
+def run_legacy(tmp, profile=False):
     """The legacy phase: the params tool, the sweep, the aggregate,
     MoresTransUNet served, LegacyUNet's float32 step with the kernel EDT
-    and the plain one, and the nine bf16 step profiles (the last two on
-    the card only)."""
+    and the plain one (on the card only), and with ``profile`` (``--legacy``
+    alone) the nine bf16 step profiles."""
     t0 = time.perf_counter()
     # the params tool's process starts beside the sweep's, off its path
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -4464,7 +4585,8 @@ def run_legacy(tmp):
     if DEVICE == "cuda":
         step_kernel_vs_plain("LegacyUNet", {}, LEGACY_STEP_BATCH,
                              "legacy step")
-        out["train_steps"] = legacy_profile()
+        if profile:
+            out["train_steps"] = legacy_profile()
     else:
         phase("legacy", "the step and the profiles: not run (no card)")
     out["phase_s"] = time.perf_counter() - t0
@@ -4492,7 +4614,7 @@ def legacy_only():
     os.environ["DDTI_POLY_EXP2"] = "0"
     _build.build()  # once, before the CLI processes load it
     with tempfile.TemporaryDirectory() as tmp:
-        legacy = run_legacy(tmp)
+        legacy = run_legacy(tmp, profile=True)
     print(json.dumps({"legacy": legacy}))
     return 0
 
@@ -4532,7 +4654,7 @@ def recipe_only():
     os.environ["DDTI_POLY_EXP2"] = "0"
     _build.build()  # once, before the CLI processes load it
     with tempfile.TemporaryDirectory() as tmp:
-        recipe = run_recipe(tmp)
+        recipe = run_recipe(tmp, profile=True)
     print(json.dumps({"recipe": recipe}))
     return 0
 
@@ -5290,6 +5412,677 @@ def hostdata_only():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the trainer phase: the rest of single-device training on the flagship
+
+
+def kernel_launches(names, kernel):
+    """Launches of one hand-written kernel among a profiler's kernel names
+    (``(anonymous namespace)::edt_row_kernel(float*, ...)``, ``void
+    flash_fwd_bf16_kernel<32, false>(...)`` or the bare name): the EDT's by
+    its row pass, which runs once a call, the flash forward's by its bf16
+    kernel (TRACE_KERNELS)."""
+    import re
+
+    pat = re.compile(rf"(^|[\s:]){TRACE_KERNELS[kernel]}\b")
+    return sum(1 for n in names if pat.search(n))
+
+
+def trace_kernel_names(path):
+    """The names of the kernel events (``"cat": "kernel"``) of a Chrome
+    trace that torch.profiler exported: every launch, a CUDA graph's
+    replayed kernels among them."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events
+            if str(e.get("cat", "")).lower() == "kernel"]
+
+
+def _trace_summary(path):
+    """What a trace holds, for a count that came out wrong: its event
+    categories and the names that mention the EDT."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    cats = collections.Counter(str(e.get("cat")) for e in events)
+    edt = sorted({e.get("name", "")[:80] for e in events
+                  if "edt" in str(e.get("name", "")).lower()})
+    return f"categories {dict(cats)}, EDT names {edt[:4]}"
+
+
+def parse_autobatch(text):
+    """``--batch_size auto``'s log lines: ([(batch, peak bytes, cap bytes,
+    fits)], the selected batch or None; a candidate refused by the card or
+    extrapolated over the budget, not run, is (batch, None, None,
+    False))."""
+    import re
+
+    rows, picked = [], None
+    for line in text.splitlines():
+        m = re.search(r"\[autobatch\] batch (\d+)/device: measured peak .*"
+                      r"\((fits|over); (\d+) B, cap (\d+) B\)", line)
+        if m:
+            rows.append((int(m[1]), int(m[3]), int(m[4]), m[2] == "fits"))
+            continue
+        m = re.search(r"\[autobatch\] batch (\d+)/device: (out of memory"
+                      r"|.* extrapolated)", line)
+        if m:
+            rows.append((int(m[1]), None, None, False))
+            continue
+        m = re.search(r"\[autobatch\] selected --batch_size (\d+)", line)
+        if m:
+            picked = int(m[1])
+    return rows, picked
+
+
+def parse_fused_run(text):
+    """A CLI run's log: each fused epoch's graph replays (``Fused epoch:
+    ... N graph replays``) and ``--batch_size auto``'s peak of the run,
+    (allocated, reserved) bytes, or None."""
+    import re
+
+    replays = [int(m) for m in re.findall(
+        r"Fused epoch: step 0 eager, 1 step captured, (\d+) graph replays",
+        text)]
+    m = re.search(r"\[autobatch\] the run's peak: .*\((\d+) B, (\d+) B\)",
+                  text)
+    return replays, ((int(m[1]), int(m[2])) if m else None)
+
+
+def _timed_ms(fn):
+    import torch
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def trainer_bn():
+    """(a) The flagship's bf16 step with one-pass and with two-pass
+    BatchNorm variance, interleaved (CUDA-event medians of TRAINER_TIMED
+    after 2 warm-up steps each), and the running statistics one step of
+    each leaves from one start; then the one-pass module on the card
+    against its plain float64 formula on the CPU, on the bottleneck's first
+    BatchNorm input of that step: statistics, output and input gradient
+    within BN_LIMITS. Returns the results and the start's weights (SEED's,
+    on the card), which (b) starts from too."""
+    import torch
+
+    from ddti_tpu_torch.models import blocks
+    from ddti_tpu_torch.train.state import TrainState
+
+    size, batch = TRAIN["image_size"], TRAIN["batch_size"]
+    model, state, step, (images, masks, draws) = _train_setup(size, batch,
+                                                              True)
+    sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+    bns = [m for m in model.modules() if isinstance(m, blocks.BatchNorm2d)]
+    probe = max(bns, key=lambda m: m.weight.numel())
+    seen = {}
+    hook = probe.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("x", args[0].detach().clone()))
+    stats = {}
+    for label, exact in (("one_pass", False), ("two_pass", True)):
+        model.load_state_dict(sd0)
+        blocks.set_bn_exact_variance(model, exact)
+        step(TrainState(model, 1e-5, 4), images, masks, draws, None)
+        _sync()
+        stats[label] = {k: v.clone() for k, v in model.named_buffers()}
+        hook.remove()
+    diff = _normwise(stats["one_pass"], stats["two_pass"])
+    var_rel = max(float(((stats["one_pass"][k] - stats["two_pass"][k]).abs()
+                         / stats["two_pass"][k].abs().clamp_min(1e-12)).max())
+                  for k in stats["two_pass"] if k.endswith("running_var"))
+    phase("trainer", f"(a) running statistics after one step, one-pass vs "
+          f"two-pass: {diff:.3e} normwise, running_var {var_rel:.3e} "
+          f"relative at most")
+    assert diff < BN_LIMITS["running"], diff
+
+    # the step with each BatchNorm mode, and one-pass with the AdamW that
+    # CUDA runs took before the capturable one (a float lr, its step on the
+    # host): what making every CUDA AdamW capturable costs the stepwise loop
+    model.load_state_dict(sd0)
+    state = TrainState(model, 1e-5, 4)
+    host_adamw = TrainState(model, 1e-5, 4)
+    host_adamw.optimizer = torch.optim.AdamW(
+        host_adamw.trainable, lr=1e-5, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=1e-2)
+    host_adamw.capturable = False
+    modes = (("one_pass", False, state), ("two_pass", True, state),
+             ("one_pass_host_adamw", False, host_adamw))
+    times = {label: [] for label, _, _ in modes}
+    for r in range(2 + TRAINER_TIMED):
+        for label, exact, st in modes:
+            blocks.set_bn_exact_variance(model, exact)
+            ms = _timed_ms(lambda: step(st, images, masks, draws, None))
+            if r >= 2:
+                times[label].append(ms)
+    del host_adamw
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    phase("trainer", f"(a) bf16 step at {size}^2 / batch {batch}: one-pass "
+          f"{ms['one_pass']:.2f} ms, two-pass {ms['two_pass']:.2f} ms; "
+          f"one-pass with the host-scalar AdamW "
+          f"{ms['one_pass_host_adamw']:.2f} ms (medians of {TRAINER_TIMED},"
+          f" interleaved)")
+    top = {}
+    for label, exact in (("one_pass", False), ("two_pass", True)):
+        blocks.set_bn_exact_variance(model, exact)
+        top[label] = _step_kernels(
+            f"(a) {label}", lambda: step(state, images, masks, draws, None))
+    return dict(step_ms=ms, running_normwise=diff, running_var_rel=var_rel,
+                top_kernels=top, probe=_bn_vs_float64(probe, seen["x"])), sd0
+
+
+def _step_kernels(label, one, steps=1):
+    """A torch.profiler window over ``steps`` calls of ``one``: the
+    kernels' summed device time a call and the top PROFILE_TOP kernels'
+    (share, ms a call, name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    total = sum(e.self_device_time_total for e in kernels)
+    rows = [(e.self_device_time_total / max(total, 1),
+             e.self_device_time_total / steps / 1e3, e.key[:90])
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+            [:PROFILE_TOP]]
+    phase("trainer", f"{label}: kernels {total / steps / 1e3:.3f} ms a step")
+    for share, ms, name in rows:
+        phase("trainer", f"  {share:6.1%} {ms:8.3f} ms  {name}")
+    return dict(kernel_ms=total / steps / 1e3, top=rows)
+
+
+def _bn_vs_float64(bn, x):
+    """The one-pass BatchNorm (train mode, a copy) on the card against its
+    formula in float64 on the CPU, on activations ``x`` (bf16): mean and
+    variance relative to the float64 ones' scale, the bf16 output within
+    BN_LIMITS["output"] of max|y|, the input gradient of sum(y * r)
+    normwise."""
+    import torch
+
+    from ddti_tpu_torch.models import blocks
+
+    bn = copy.deepcopy(bn).train()
+    bn.exact_variance = False
+    r = torch.randn(x.shape, generator=torch.Generator(device=x.device)
+                    .manual_seed(SEED), device=x.device)
+    xg = x.clone().requires_grad_()
+    y = bn(xg)
+    (y.float() * r).sum().backward()
+    mean, var = blocks.one_pass_stats(x)
+
+    xd = x.detach().double().cpu().requires_grad_()
+    w, b = (t.detach().double().cpu()[None, :, None, None]
+            for t in (bn.weight, bn.bias))
+    md = xd.mean(dim=(0, 2, 3), keepdim=True)
+    vd = (xd * xd).mean(dim=(0, 2, 3), keepdim=True) - md * md
+    yd = (xd - md) / torch.sqrt(vd + blocks.BN_EPS) * w + b
+    (yd * r.double().cpu()).sum().backward()
+    scale = float((xd * xd).mean().sqrt())
+    out = dict(
+        shape=list(x.shape), dtype=str(x.dtype).replace("torch.", ""),
+        mean_err=float((mean.double().cpu() - md.flatten()).abs().max())
+        / scale,
+        var_err=float((var.double().cpu() - vd.flatten()).abs().max())
+        / scale ** 2,
+        out_err=float((y.detach().double().cpu() - yd.detach()).abs().max())
+        / float(yd.detach().abs().max()),
+        grad_err=float((xg.grad.double().cpu() - xd.grad).norm()
+                       / xd.grad.norm()))
+    phase("trainer", "(a) one-pass BatchNorm " + ", ".join(
+        f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in out.items()) + f" (limits {BN_LIMITS})")
+    assert out["mean_err"] < BN_LIMITS["stats"], out
+    assert out["var_err"] < BN_LIMITS["stats"], out
+    assert out["out_err"] < BN_LIMITS["output"], out
+    assert out["grad_err"] < BN_LIMITS["grad"], out
+    return out
+
+
+def _fused_trainers(tmp, store, sd0, n):
+    """``n`` Trainers from the weights ``sd0``, the flagship at 512^2 /
+    batch 16 in bf16 on ``store``; each (label, fused) in turn."""
+    import dataclasses
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.core.logging import create_logger
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.engine import Trainer
+
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    cfg = Config(model_type="ResUNet", image_size=TRAIN["image_size"],
+                 store_size=TRAIN["image_size"],
+                 batch_size=TRAIN["batch_size"], use_amp_autocast=True,
+                 epochs=1, log_every=0, base_dir=os.path.join(tmp, "fused"))
+    for label, fused in n:
+        c = dataclasses.replace(cfg, fused_epoch=fused)
+        c.make_dirs()
+        model = create_model("ResUNet", **model_kw).to(DEVICE)
+        model.load_state_dict(sd0)
+        yield label, Trainer(c, (store, store, store), create_logger(
+            os.path.join(c.log_dir, f"{label}.log"), console=False), model)
+
+
+def trainer_fused(tmp, sd0):
+    """(b) Two stepwise and two fused epochs of the flagship (bf16, 512^2
+    / batch 16) from one start state on a TRAINER_STORE-frame store, cuDNN
+    deterministic, the second epoch timed and its EDT launches counted by
+    the wrapper (a fused epoch's: the eager step's and the capture's);
+    then two fused epochs again, the second under torch.profiler. The
+    fused epoch's replays; its parameters and statistics equal to the
+    stepwise epoch's and to the second fused run's, bit for bit; the EDT's
+    launches in the profiled epoch from the exported trace's kernel names,
+    against the eager step's plus the captured step's times the replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.ops import edt as E
+
+    size = TRAIN["image_size"]
+    store = synthetic_source(TRAINER_STORE, (size, size), SEED,
+                             device=DEVICE)
+    steps = TRAINER_STORE // TRAIN["batch_size"]
+    torch.backends.cudnn.deterministic = True
+    ends, out, wrapper, counted = {}, {}, {}, None
+    try:
+        for label, tr in _fused_trainers(tmp, store, sd0, (
+                ("stepwise", False), ("fused", True),
+                ("fused_profiled", True))):
+            # epoch 1 warms the deterministic algorithms' plans up, which
+            # the first timed epoch would pay alone; epoch 2 is measured
+            tr.train_one_epoch(0)
+            _sync()
+            if label == "fused_profiled":
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    tr.train_one_epoch(1)
+                    _sync()
+                trace = os.path.join(tmp, f"{label}.json")
+                prof.export_chrome_trace(trace)
+                counted = kernel_launches(trace_kernel_names(trace),
+                                          "edt_minplus")
+                if counted != steps:
+                    phase("trainer", f"(b) {label}: {_trace_summary(trace)}")
+            else:
+                e0 = E.edt_cuda.launches
+                t0 = time.perf_counter()
+                tr.train_one_epoch(1)
+                _sync()
+                out[f"{label}_s"] = time.perf_counter() - t0
+                wrapper[label] = E.edt_cuda.launches - e0
+            ends[label] = {k: v.detach().clone() for k, v in
+                           tr.model.state_dict().items()}
+            if tr.fused:
+                assert tr.fused_stats == {"captured": 1,
+                                          "replays": steps - 1}, (
+                    tr.fused_stats)
+                out["replays"] = tr.fused_stats["replays"]
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # the EDT's launches a fused epoch: the eager step's (a stepwise
+    # step's), the captured step's (the wrapper's count less the eager
+    # step's) at every replay
+    eager = wrapper["stepwise"] // steps
+    captured = wrapper["fused"] - eager
+    start = {k: v.to(DEVICE) for k, v in sd0.items()}
+    diffs, equal = {}, {}
+    for what, keys in (("parameters", [k for k in start
+                                       if "running_" not in k]),
+                       ("statistics", [k for k in start
+                                       if "running_" in k])):
+        def sub(d):
+            return {k: d[k] for k in keys}
+
+        diffs[what] = dict(
+            update=_normwise(sub(ends["stepwise"]), sub(start)),
+            fused=_normwise(sub(ends["fused"]), sub(ends["stepwise"])),
+            fused_again=_normwise(sub(ends["fused_profiled"]),
+                                  sub(ends["fused"])))
+        equal[what] = all(
+            torch.equal(ends["fused"][k], ends[other][k])
+            for k in keys for other in ("stepwise", "fused_profiled"))
+    out.update(steps=steps, diffs=diffs, bit_equal=equal,
+               edt_wrapper=wrapper, edt_profiled=counted,
+               edt_total=eager + captured * out["replays"])
+    phase("trainer", f"(b) {steps} steps, epoch 2 timed: stepwise epoch "
+          f"{out['stepwise_s']:.3f} s, fused {out['fused_s']:.3f} s (1 eager "
+          f"step + {out['replays']} replays); "
+          + "; ".join(f"{w}: fused vs stepwise {d['fused']:.3e} normwise, "
+                      f"fused vs fused {d['fused_again']:.3e}, bit for bit "
+                      f"{equal[w]}, the epoch's change {d['update']:.3e}"
+                      for w, d in diffs.items())
+          + f"; EDT launches: by the wrapper {wrapper} (fused: the eager "
+          f"step's {eager} and the capture's {captured}), by the profiler "
+          f"{counted} in the profiled fused epoch, eager + captured x "
+          f"replays = {out['edt_total']}")
+    assert all(equal.values()), diffs
+    assert (eager, captured) == (1, 1), wrapper
+    return out
+
+
+def _trainer_cmd(base, *flags, data=None):
+    """The training CLI in bf16 on its synthetic frames, or on the dataset
+    at ``data``."""
+    src = ["--synthetic"] if data is None else ["--dataset_path", data]
+    return [sys.executable, "-m", "ddti_tpu_torch.cli.main", *src,
+            "--use_amp_autocast", "true", "--base_dir", base,
+            "--log_every", "0", *flags]
+
+
+def trainer_auto_data(tmp):
+    """(c)'s dataset: TRAINER_AUTO_FRAMES train frames, 16 val, 16 test at
+    TRAIN's size, as JPEGs in the reference's layout."""
+    from ddti_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    data = os.path.join(tmp, "trainer_auto_data")
+    size = TRAIN["image_size"]
+    write_synthetic_dataset(data, TRAINER_AUTO_FRAMES, 16, 16, (size, size),
+                            SEED)
+    return data
+
+
+def trainer_autobatch(tmp, data):
+    """(c) ``--batch_size auto --fused_epoch --epochs 1 --mode train`` on
+    the flagship at 512^2 on ``data`` (``trainer_auto_data``), alone on
+    the card (its budget is what is free when it probes): each
+    candidate's measured peak (the eager step's, or the probe's state and
+    its captured step's graph pool), the pick's within 0.92 of the
+    budget; at the pick a fused epoch of an eager step and graph replays,
+    and the run's peak, allocated and reserved, within the budget; the
+    EDT's wrapper launches: the eager train step's, the capture's and a
+    val step's, plus at most two a probe (its eager step and, fused, its
+    capture)."""
+    import glob
+
+    size = TRAIN["image_size"]
+    base = os.path.join(tmp, "trainer_auto")
+    cmd = _trainer_cmd(base, "--mode", "train", "--model_type", "ResUNet",
+                       "--base_filters", str(TRAIN["base_filters"]),
+                       "--depth", str(TRAIN["depth"]),
+                       "--image_size", str(size), "--store_size", str(size),
+                       "--epochs", "1", "--batch_size", "auto",
+                       "--fused_epoch", data=data)
+    phase("trainer", "(c) " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=TRAIN_TIMEOUT_S)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-8000:], sep="\n",
+              file=sys.stderr)
+    assert res.returncode == 0, "the --batch_size auto run failed"
+    (log,) = glob.glob(os.path.join(base, "*", "log", "train_log.log"))
+    text = open(log).read()
+    rows, picked = parse_autobatch(text)
+    fit = [r for r in rows if r[0] == picked]
+    assert picked and fit and fit[0][3], (rows, picked)
+    _, peak, cap, _ = fit[0]
+    assert peak <= cap, (peak, cap)
+    replays, run_peak = parse_fused_run(text)
+    train_b = -(-TRAINER_AUTO_FRAMES // picked)
+    val = -(-16 // picked)
+    assert replays == [train_b - 1] and train_b >= 2, (replays, picked)
+    assert run_peak is not None and max(run_peak) <= cap / 0.92, (run_peak,
+                                                                   cap)
+    kernels = [l for l in res.stdout.splitlines()
+               if l.startswith("[KERNELS]")][0]
+    edt = int(kernels.split()[1].split("=")[1])
+    low = 2 + val  # the eager step, the capture, the val steps
+    probes = sum(1 for r in rows if r[1] is not None)
+    wall = time.perf_counter() - t0
+    phase("trainer", "(c) autobatch: " + ", ".join(
+        f"{b}: {'not run' if p is None else f'{p / 2**30:.2f} GiB'}"
+        for b, p, _, _ in rows) + f"; picked {picked} (peak "
+        f"{peak / 2**30:.2f} GiB <= cap {cap / 2**30:.2f} GiB = 0.92 of the "
+        f"budget); fused epoch of {train_b} steps: 1 eager + {replays[0]} "
+        f"replays; the run's peak {run_peak[0] / 2**30:.2f} GiB allocated, "
+        f"{run_peak[1] / 2**30:.2f} GiB reserved ({run_peak[1] / cap:.1%} "
+        f"of the cap); EDT wrapper launches {edt}, "
+        f"{low} for the eager step, the capture and {val} val steps, and "
+        f"up to 2 for each of {probes} probes; run {wall:.1f} s")
+    assert low <= edt <= low + 2 * probes, (edt, low, rows)
+    return dict(candidates=[dict(batch=b, peak_bytes=p, cap_bytes=c,
+                                 fits=f) for b, p, c, f in rows],
+                picked=picked, train_steps=train_b, replays=replays[0],
+                run_peak_bytes=dict(zip(("allocated", "reserved"), run_peak)),
+                edt_launches=edt, wall_s=wall)
+
+
+def check_profile_trace(best, label="trainer"):
+    """(c) ``--profile PROFILE_STEPS``' trace of the CLI run whose best
+    weights are ``best``: under result/trace, the EDT's row kernel once a
+    traced train step."""
+    import glob
+
+    run = os.path.dirname(os.path.dirname(best))
+    traces = glob.glob(os.path.join(run, "result", "trace", "*.json"))
+    assert len(traces) == 1, f"no trace under {run}/result/trace"
+    edt = kernel_launches(trace_kernel_names(traces[0]), "edt_minplus")
+    phase(label, f"(c) --profile {PROFILE_STEPS}: "
+          f"{os.path.basename(traces[0])}, {os.path.getsize(traces[0])} "
+          f"bytes, {edt} EDT row-kernel events")
+    assert edt == PROFILE_STEPS, edt
+    return dict(trace_bytes=os.path.getsize(traces[0]), edt_events=edt)
+
+
+def trainer_profile_run(tmp):
+    """(c) ``--profile PROFILE_STEPS`` on the flagship (512^2 / batch 16, 1
+    epoch) when the phase runs alone (the whole smoke traces the train
+    phase's run): run_cli's checks and ``check_profile_trace``."""
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    flags = [f"--{k}={v}" for k, v in TRAIN.items()
+             if k not in ("model_type", "epochs")] + [
+                 "--profile", str(PROFILE_STEPS)]
+    _, best = run_cli(tmp, "trainer_profile", "ResUNet", model_kw, flags, 1,
+                      jax_resunet_keys(TRAIN["depth"]))
+    return check_profile_trace(best)
+
+
+def trainer_lr_find(tmp):
+    """(c) ``--lr_find TRAINER_LR_FIND`` on the flagship at 256^2: that
+    many finite rows in lr_find.csv or a stated stop, finite
+    suggestions."""
+    import glob
+    import math
+
+    base = os.path.join(tmp, "trainer_lr_find")
+    cmd = _trainer_cmd(base, "--mode", "train", "--model_type", "ResUNet",
+                       "--base_filters", str(TRAIN["base_filters"]),
+                       "--depth", str(TRAIN["depth"]), "--image_size", "256",
+                       "--store_size", "256", "--batch_size", "16",
+                       "--lr_find", str(TRAINER_LR_FIND))
+    phase("trainer", "(c) " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=TRAIN_TIMEOUT_S)
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-8000:], sep="\n",
+              file=sys.stderr)
+    assert res.returncode == 0, "the --lr_find run failed"
+    line = [l for l in res.stdout.splitlines() if l.startswith("[LR_FIND]")]
+    sugg = dict(kv.split("=") for kv in line[0].split()[1:])
+    sugg = {k: float(v) for k, v in sugg.items()}
+    (csv,) = glob.glob(os.path.join(base, "*", "result", "lr_find.csv"))
+    rows = [[float(x) for x in r.split(",")]
+            for r in open(csv).read().splitlines()[1:]]
+    (log,) = glob.glob(os.path.join(base, "*", "log", "train_log.log"))
+    said = [l for l in open(log).read().splitlines()
+            if "LR range test:" in l][0]
+    stop = said.split("(", 1)[1].split(")", 1)[0]
+    phase("trainer", f"(c) --lr_find {TRAINER_LR_FIND}: {line[0]}, "
+          f"{len(rows)} rows ({stop}) in {time.perf_counter() - t0:.1f} s")
+    assert all(math.isfinite(v) for r in rows for v in r)
+    assert len(rows) == TRAINER_LR_FIND or stop != "completed", (rows, stop)
+    assert all(math.isfinite(v) and v > 0 for v in sugg.values()), sugg
+    return dict(rows=len(rows), stop=stop, **sugg)
+
+
+def trainer_distill_run(tmp, ckpt):
+    """(d) One epoch of a UNet student (TRAINER_STUDENT, 512^2 / batch 16,
+    bf16) under the TransUNet checkpoint ``ckpt`` as teacher, through the
+    CLI: run_cli's checks, the flash forward launched 4 times (one a
+    teacher layer) a train step and the EDT once a train and val step and
+    test batch."""
+    flags = [f"--base_filters={TRAINER_STUDENT['base_filters']}",
+             f"--depth={TRAINER_STUDENT['depth']}",
+             f"--image_size={TRAIN['image_size']}",
+             f"--batch_size={TRAIN['batch_size']}",
+             "--distill_checkpoint", ckpt, "--distill_model_type",
+             "TransUNet", f"--distill_base_filters={SLICE['base_filters']}",
+             f"--distill_depth={SLICE['depth']}"]
+    launches, _ = run_cli(tmp, "trainer_distill", "UNet", TRAINER_STUDENT,
+                          flags, 1, jax_zoo_keys("UNet",
+                                                 TRAINER_STUDENT["depth"]))
+    steps, val, test_b = _cli_batches(TRAIN["batch_size"])
+    phase("trainer", f"(d) distillation CLI: flash_fwd "
+          f"{launches['flash_fwd']} = {N_LAYERS} x {steps} train steps, "
+          f"edt_minplus {launches['edt_minplus']} = {steps} + {val} + "
+          f"{test_b}")
+    assert launches["flash_fwd"] == N_LAYERS * steps, launches
+    assert launches["edt_minplus"] == steps + val + test_b, launches
+    return launches
+
+
+def trainer_distill_step(ckpt):
+    """(d) The UNet student's bf16 step at 512^2 / batch 16 with and
+    without the teacher (CUDA-event medians of TRAINER_TIMED, interleaved)
+    and the kernels each step launches."""
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.ops import edt as E
+    from ddti_tpu_torch.train.distill import teacher_from_config
+    from ddti_tpu_torch.train.steps import make_train_step
+
+    size, batch = TRAIN["image_size"], TRAIN["batch_size"]
+    model, state, plain, (images, masks, draws) = _train_setup(
+        size, batch, True, model_type="UNet", model_kw=TRAINER_STUDENT)
+    cfg = Config(model_type="UNet", image_size=size, batch_size=batch,
+                 use_amp_autocast=True, model_kwargs=dict(TRAINER_STUDENT),
+                 distill_checkpoint=ckpt, distill_model_type="TransUNet",
+                 distill_base_filters=SLICE["base_filters"],
+                 distill_depth=SLICE["depth"])
+    teacher = teacher_from_config(cfg, DEVICE)
+    kd = make_train_step(cfg, _aug_of(size), teacher=teacher)
+    times = {"student": [], "with_teacher": []}
+    per_step = {}
+    for r in range(2 + TRAINER_TIMED):
+        for label, fn in (("student", plain), ("with_teacher", kd)):
+            f0, e0 = A.flash_forward_cuda.launches, E.edt_cuda.launches
+            ms = _timed_ms(lambda: fn(state, images, masks, draws, None))
+            per_step[label] = dict(
+                flash_fwd=A.flash_forward_cuda.launches - f0,
+                edt_minplus=E.edt_cuda.launches - e0)
+            if r >= 2:
+                times[label].append(ms)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    phase("trainer", f"(d) UNet student step: {ms['student']:.2f} ms alone, "
+          f"{ms['with_teacher']:.2f} ms with the TransUNet teacher "
+          f"(medians of {TRAINER_TIMED}); launches a step {per_step}")
+    assert per_step["with_teacher"] == dict(flash_fwd=N_LAYERS,
+                                            edt_minplus=1), per_step
+    assert per_step["student"] == dict(flash_fwd=0, edt_minplus=1), per_step
+    return dict(step_ms=ms, launches_per_step=per_step)
+
+
+def _aug_of(size):
+    from ddti_tpu_torch.data.augment import AugmentConfig
+
+    return AugmentConfig(out_size=(size, size))
+
+
+def teacher_checkpoint(tmp):
+    """The serving slice's TransUNet (SLICE) with run_slice's seeded random
+    weights, as a .pth: the teacher of (d) when the phase runs alone."""
+    import torch
+
+    from ddti_tpu_torch.models import create_model
+
+    ckpt = os.path.join(tmp, "teacher_transunet_bf64_d4_512.pth")
+    torch.save(random_state(create_model("TransUNet", **SLICE), SEED), ckpt)
+    return ckpt
+
+
+def run_trainer(tmp, ckpt, profile=None):
+    """The trainer phase: (a) and (b) in this process, then (c)'s and
+    (d)'s CLI runs at once: --lr_find, the distillation run, and --profile
+    unless the train phase's run traced (``profile``, its check), while
+    (c)'s dataset is written; then --batch_size auto alone (a fused
+    epoch's graph pool beside another run's memory would not fit what it
+    measured free); then (d)'s step times. Each part's wall time is
+    printed."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    out["bn"], sd0 = trainer_bn()
+    t1 = time.perf_counter()
+    out["fused"] = trainer_fused(tmp, sd0)
+    t2 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the card's memory to the CLI runs
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        prof = (pool.submit(trainer_profile_run, tmp) if profile is None
+                else None)
+        data = pool.submit(trainer_auto_data, tmp)
+        lrf = pool.submit(trainer_lr_find, tmp)
+        dist = pool.submit(trainer_distill_run, tmp, ckpt)
+        out["lr_find"], out["distill_cli"] = lrf.result(), dist.result()
+        out["profile"] = profile if prof is None else prof.result()
+        data = data.result()
+    t_auto = time.perf_counter()
+    out["autobatch"] = trainer_autobatch(tmp, data)
+    t3 = time.perf_counter()
+    out["distill_step"] = trainer_distill_step(ckpt)
+    out["phase_s"] = time.perf_counter() - t0
+    out["part_s"] = dict(bn=t1 - t0, fused=t2 - t1, cli=t_auto - t2,
+                         autobatch=t3 - t_auto,
+                         distill_step=out["phase_s"] - (t3 - t0))
+    phase("trainer", f"phase wall time {out['phase_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["part_s"].items())
+          + ")")
+    # (b)'s launches by the profiler, checked once every part has printed
+    steps = out["fused"]["steps"]
+    assert out["fused"]["edt_profiled"] == out["fused"]["edt_total"] \
+        == steps, out["fused"]
+    return out
+
+
+def trainer_only():
+    """The trainer phase alone: ``python3 chip_smoke.py --trainer``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the CLI processes load it
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = run_trainer(tmp, teacher_checkpoint(tmp))
+    print(json.dumps({"trainer": trainer}))
+    return 0
+
+
 def main():
     import torch
 
@@ -5315,6 +6108,7 @@ def main():
     from ddti_tpu_torch.probes import exp2_probe as E2
     from ddti_tpu_torch.probes import flash_mskip_ab as MS
 
+    clock = Clock()
     # the DDTI_POLY_EXP2=1 library, built at the same time by a process of
     # its own (the flag is read once, at import)
     poly_build = subprocess.Popen(
@@ -5323,52 +6117,72 @@ def main():
         stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, DDTI_POLY_EXP2="1"))
     path, secs = _build.build()
+    phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}, one process per "
+          f"source: {f'{secs:.2f} s' if secs else 'already built'} -> "
+          f"{os.path.relpath(path)}")
+    _build.load_library()
+    _, default_ops = kernel_report(path)  # while the poly build runs on
     poly_out, poly_err = poly_build.communicate()
     assert poly_build.returncode == 0, f"the poly build failed:\n{poly_err}"
     poly_path = poly_out.split()[-1]
-    _build.load_library()
-    phase("build", f"nvcc {' '.join(_build.NVCC_FLAGS)}, one process per "
-          f"source: {f'{secs:.2f} s' if secs else 'already built'} -> "
-          f"{os.path.relpath(path)}; with -DDDTI_POLY_EXP2=1 at the same "
-          f"time -> {os.path.relpath(poly_path)}")
-    _, default_ops = kernel_report(path)
+    phase("build", f"with -DDDTI_POLY_EXP2=1 at the same time -> "
+          f"{os.path.relpath(poly_path)}")
     check_poly_build(poly_path, default_ops)
+    clock.mark("build")
 
     rows, bwd_rows, ratios = kernel_phases()
+    clock.mark("flash kernels")
     edt_rows = check_edt()
+    clock.mark("edt")
     t_probes = time.perf_counter()
     probes = check_probes()
     cg = check_conv_gather()
     phase("probes", f"phase wall time {time.perf_counter() - t_probes:.1f} s")
+    clock.mark("probes")
     E2.exp2_probe_cuda.launches = MS.flash_forward_mskip_cuda.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         launches, ckpt = run_slice(tmp)
         probe_launches = (E2.exp2_probe_cuda.launches,
                           MS.flash_forward_mskip_cuda.launches)
+        clock.mark("slice")
         profile_slice(ckpt)
+        clock.mark("slice profile")
         # the two training CLIs at once, each its own process and model
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             trained = pool.submit(run_training, tmp)
             t_launches = run_transunet_training(tmp)
-            edt_launches = trained.result()
+            edt_launches, profiled = trained.result()
+        clock.mark("train CLIs")
         zoo_launches, zoo_ckpts = run_zoo_training(tmp)
+        clock.mark("zoo train")
         zoo_serve(zoo_ckpts)
+        clock.mark("zoo serve")
         infer = run_infer(tmp, ckpt, zoo_ckpts["AttentionUNet"][0] + ".pth")
         infer["daemon_launches"] = infer_daemon(ckpt)
+        clock.mark("infer")
     step_kernel_vs_plain()
     zoo_steps()
     tstep_kernel_vs_plain()
+    clock.mark("steps")
     train_rows = profile_training()
     ttrain_rows = profile_transunet()
-    zoo_rows = profile_zoo()
+    clock.mark("train profiles")
     with tempfile.TemporaryDirectory() as tmp:
         recipe = run_recipe(tmp)
+    clock.mark("recipe")
     with tempfile.TemporaryDirectory() as tmp:
         lifecycle = run_lifecycle(tmp)
+    clock.mark("lifecycle")
     with tempfile.TemporaryDirectory() as tmp:
         legacy = run_legacy(tmp)
+    clock.mark("legacy")
     with tempfile.TemporaryDirectory() as tmp:
         hostdata = run_hostdata(tmp)
+    clock.mark("hostdata")
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = run_trainer(tmp, teacher_checkpoint(tmp), profiled)
+    clock.mark("trainer")
+    clock.stop()
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
@@ -5403,6 +6217,8 @@ def main():
         "infer": infer,
         "legacy_serve_launches": legacy["serve"]["launches"],
         "hostdata_daemon_launches": hostdata["daemon"]["launches"],
+        "trainer_distill_launches": trainer["distill_cli"]["flash_fwd"],
+        "trainer_distill_step": trainer["distill_step"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5492,11 +6308,11 @@ def main():
         "shapes": edt_rows,
         "train_steps": train_rows,
         "zoo_launches": zoo_launches,
-        "zoo_train_steps": zoo_rows,
         "recipe": recipe,
         "lifecycle": lifecycle,
         "legacy": legacy,
         "hostdata": hostdata,
+        "trainer": trainer,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -5617,4 +6433,6 @@ if __name__ == "__main__":
         sys.exit(legacy_only())
     if sys.argv[1:2] == ["--hostdata"]:
         sys.exit(hostdata_only())
+    if sys.argv[1:2] == ["--trainer"]:
+        sys.exit(trainer_only())
     sys.exit(main())

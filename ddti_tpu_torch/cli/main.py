@@ -21,6 +21,18 @@ options (``--grad_accum --nan_guard --nan_guard_patience --clip_grad_norm
 for small runs) is the port's own. A flag of the JAX CLI that is not
 ported yet is absent, so argparse rejects it (ROADMAP.md Queue 1).
 
+The rest of single-device training takes the JAX flags too:
+``--bn_exact_variance`` (two-pass BatchNorm variance; flax's one pass is
+the default), ``--fused_epoch`` (each train epoch one CUDA graph of a
+step, replayed), ``--profile N`` (a ``torch.profiler`` trace of epoch 1's
+first N steps in ``result/trace``), ``--lr_find N`` with
+``--lr_find_min``/``--lr_find_max`` (the range test instead of training;
+prints ``[LR_FIND] steepest=... min_over_10=...`` and exits 0),
+``--batch_size auto`` (the largest candidate whose measured step peak
+fits the card; refused on the CPU, which has no peak meter) and the
+``--distill_*`` flags (a frozen teacher's tempered probabilities blended
+into the loss).
+
 Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded once
 (libjpeg, in C++ threads, for all-JPEG sets) to uint8 stores at
 ``--store_size``, memoized under ``<dataset_path>/.store_cache``; val and
@@ -69,6 +81,20 @@ def _str2bool(v: str) -> bool:
     if v.lower() in ("false", "0", "no", "n", "f"):
         return False
     raise argparse.ArgumentTypeError(f"expected a boolean, got {v!r}")
+
+
+def _batch_size_arg(v: str):
+    """int, or the literal 'auto' (resolved in main() once the model is
+    built, by train/autobatch.pick_batch_size)."""
+    if isinstance(v, int):
+        return v
+    if v.strip().lower() == "auto":
+        return "auto"
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {v!r}")
 
 
 def parse_remat_arg(v):
@@ -139,7 +165,11 @@ def get_parser() -> argparse.ArgumentParser:
     # training
     p.add_argument("--num_workers", default=4, type=int)
     p.add_argument("--epochs", type=int, default=10000)
-    p.add_argument("--batch_size", default=16, type=int)
+    p.add_argument("--batch_size", default=16, type=_batch_size_arg,
+                   help="per-step batch, or 'auto': measure one train "
+                        "step's peak memory on the card at each candidate "
+                        "and pick the largest that fits "
+                        "(train/autobatch.py; CUDA only)")
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--weight_decay", type=float, default=1e-2)
     p.add_argument("--grad_accum", default=1, type=int,
@@ -205,6 +235,50 @@ def get_parser() -> argparse.ArgumentParser:
                         "unlike the reference's weights-only warm start")
     p.add_argument("--log_every", default=20, type=int,
                    help="in-epoch progress interval in steps; 0 disables")
+    p.add_argument("--profile", dest="profile_steps", default=0, type=int,
+                   help="capture a torch.profiler trace of the first N "
+                        "train steps into <result_dir>/trace (Chrome or "
+                        "TensorBoard); 0 disables")
+    p.add_argument("--bn_exact_variance", action="store_true",
+                   help="compute BatchNorm batch variance two-pass "
+                        "(E[(x-mu)^2], torch numerics) instead of flax's "
+                        "one-pass E[x^2]-E[x]^2")
+    p.add_argument("--fused_epoch", action="store_true",
+                   help="run each training epoch as one CUDA graph of a "
+                        "train step, replayed per step (a device store "
+                        "only). Caveats: --profile is ignored and "
+                        "--nan_guard degrades to epoch granularity (both "
+                        "warned at epoch 0)")
+    p.add_argument("--lr_find", type=int, default=0, metavar="N",
+                   help="run an N-step learning-rate range test instead "
+                        "of training (geometric ramp --lr_find_min.."
+                        "--lr_find_max on the real train step; curve + "
+                        "suggestions into result/, then exit)")
+    p.add_argument("--lr_find_min", type=float, default=1e-7)
+    p.add_argument("--lr_find_max", type=float, default=1.0)
+    p.add_argument("--distill_checkpoint", default="", type=str,
+                   help="knowledge distillation (train/distill.py): a "
+                        "trained teacher checkpoint (.npz, .pth or a "
+                        "full-state directory; a comma list is an "
+                        "ensemble) whose frozen forward supervises the "
+                        "student through a tempered per-pixel BCE, inside "
+                        "the train step")
+    p.add_argument("--distill_model_type", default="", type=str,
+                   help="teacher architecture (default: --model_type)")
+    p.add_argument("--distill_base_filters", default=0, type=int,
+                   help="teacher base_filters (default: --base_filters)")
+    p.add_argument("--distill_depth", default=0, type=int,
+                   help="teacher depth (default: --depth)")
+    p.add_argument("--distill_kwargs", default="", type=str,
+                   help="JSON dict of extra teacher create_model kwargs "
+                        "(e.g. '{\"num_heads\": 4}'), required when the "
+                        "teacher trained with non-default behaviour-only "
+                        "kwargs")
+    p.add_argument("--distill_weight", default=0.5, type=float,
+                   help="KD share of the total loss: total = (1-w)*ground"
+                        "-truth composite + w*KD (1.0 = teacher only)")
+    p.add_argument("--distill_temperature", default=2.0, type=float,
+                   help="sigmoid softening temperature for the KD term")
     p.add_argument("--early_stop_patience", default=50, type=int)
     p.add_argument("--alpha", type=float, default=2,
                    help="weight of the deep-supervision heads' loss "
@@ -428,6 +502,8 @@ def _write_resume_hint(cfg, logger) -> None:
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
 
+    import torch
+
     from ddti_tpu_torch.cli.serve import resolve_device
     from ddti_tpu_torch.core.logging import create_logger
     from ddti_tpu_torch.core.prng import set_seed
@@ -461,6 +537,17 @@ def main(argv=None) -> int:
         _warm_start(cfg, args, model, logger)
     model.to(device)
 
+    held = None  # under --batch_size auto: the bytes held before the pick
+    if cfg.batch_size == "auto":
+        # measured before the sources exist (they batch at this size)
+        from ddti_tpu_torch.train.autobatch import pick_batch_size
+
+        held = torch.cuda.memory_allocated(device)
+        cfg.batch_size = pick_batch_size(
+            cfg, model, host_augment=bool(args.host_augment), logger=logger)
+        logger.info(f"[autobatch] selected --batch_size {cfg.batch_size}")
+        torch.cuda.reset_peak_memory_stats(device)
+
     if args.host_augment:
         sources = load_host_sources(cfg, synthetic=args.synthetic)
     else:
@@ -475,9 +562,27 @@ def main(argv=None) -> int:
                 f"{n_params / 1e6:.2f}M ({n_params:,}) | device {device}")
     print(f"[PARAMS] {cfg.model_type},{n_params}")  # shell-capture hook
 
+    if args.lr_find:
+        # the range test instead of training; the curve and suggestions
+        # land in result/ (train/lr_finder.py). Rerun with --lr <pick>.
+        from ddti_tpu_torch.train.lr_finder import run_lr_finder
+
+        r = run_lr_finder(trainer, num_steps=args.lr_find,
+                          min_lr=args.lr_find_min, max_lr=args.lr_find_max)
+        print(f"[LR_FIND] steepest={r['lr_steepest']:.4g} "
+              f"min_over_10={r['lr_min_over_10']:.4g}")
+        return 0
+
     rc = 0
     if args.mode in ("train", "both"):
         trainer.train()
+        if held is not None:  # what the picked batch took in the run
+            peak = torch.cuda.max_memory_allocated(device) - held
+            kept = torch.cuda.max_memory_reserved(device) - held
+            logger.info(f"[autobatch] the run's peak: {peak / 2**30:.2f} "
+                        f"GiB allocated, {kept / 2**30:.2f} GiB reserved "
+                        f"above what the model held before the pick "
+                        f"({peak} B, {kept} B)")
         if trainer.preempted:
             # checkpoints are saved; EX_TEMPFAIL tells a scheduler or the
             # sweep runner to relaunch with --resume

@@ -78,6 +78,20 @@ class Config:
     tta: bool = False  # 4-way flip test-time augmentation in test()
     tune_threshold: bool = False  # test() at the val split's argmax-IoU
     # threshold of a 19-point sweep instead of 0.5
+    bn_exact_variance: bool = False  # two-pass BatchNorm variance (torch
+    # numerics); the default is flax's one pass, E[x^2] - E[x]^2
+    fused_epoch: bool = False  # the train epoch as one captured CUDA graph
+    # step replayed (a device store only)
+    profile_steps: int = 0  # torch.profiler trace of epoch 1's first N steps
+
+    # knowledge distillation (train/distill.py): a frozen teacher
+    distill_checkpoint: str = ""   # .npz / .pth, or a comma list of them
+    distill_model_type: str = ""   # teacher arch ("" = the student's)
+    distill_base_filters: int = 0  # teacher width (0 = the student's)
+    distill_depth: int = 0         # teacher depth (0 = the student's)
+    distill_kwargs: str = ""  # JSON dict of extra teacher create_model kwargs
+    distill_weight: float = 0.5    # KD share of the total loss [0, 1]
+    distill_temperature: float = 2.0  # sigmoid softening temperature
 
     # run lifecycle
     save_interval: int = 20  # epochs between rotated full-state saves

@@ -79,7 +79,10 @@ class AugmentDraws(NamedTuple):
     """Per-image draws of the chain. The default chain's are (N,) each;
     a branch's are None while the branch is off. ``*_idx`` (K,) int64 are
     the images whose gate is on, and the fields hold those K images
-    alone."""
+    alone; or, in the dense form (``dense_draws``: the fixed shapes a CUDA
+    graph replays), ``*_idx`` is the (N,) bool gate itself, the fields
+    hold every image, and the branch runs on all N and keeps the gated
+    ones."""
 
     flip_h: torch.Tensor   # bool
     flip_v: torch.Tensor   # bool
@@ -112,6 +115,29 @@ class MixupDraws(NamedTuple):
 
     def to(self, device) -> "MixupDraws":
         return MixupDraws(*(to_device(t, device) for t in self))
+
+
+_GATED = (("elastic_idx", ("elastic_dx", "elastic_dy")),
+          ("speckle_idx", ("speckle_noise",)), ("clahe_idx", ()))
+
+
+def dense_draws(draws: AugmentDraws, n: int) -> AugmentDraws:
+    """``draws`` with every gated branch in the dense form: ``*_idx`` the
+    (N,) bool gate, each field (N, H, W), zeros where the gate is off.
+    ``augment_batch`` gives each image the same values from either form,
+    bit for bit: every op of those branches is per image."""
+    out = {}
+    for name, fields in _GATED:
+        idx = getattr(draws, name)
+        if idx is None or idx.dtype == torch.bool:
+            continue
+        out[name] = torch.zeros(n, dtype=torch.bool,
+                                device=idx.device).index_fill_(0, idx, True)
+        for f in fields:
+            k = getattr(draws, f)
+            out[f] = k.new_zeros((n, *k.shape[1:])).index_copy_(
+                0, idx.to(k.device), k)
+    return draws._replace(**out)
 
 
 def _uniform(g, n, lo, hi):
@@ -240,16 +266,27 @@ def _elastic(img, mask, draws: AugmentDraws):
     idx, alpha, sigma, fdx, fdy = _need(
         draws, "elastic_idx", "elastic_alpha", "elastic_sigma", "elastic_dx",
         "elastic_dy")
-    if not len(idx):
+    dense = idx.dtype == torch.bool
+    if not dense and not len(idx):
         return img, mask
+    if not dense:
+        alpha, sigma = alpha[idx], sigma[idx]
     h, w = img.shape[-2:]
-    a = alpha[idx][:, None, None]
-    dx = gaussian_blur_17(fdx, sigma[idx]) * a
-    dy = gaussian_blur_17(fdy, sigma[idx]) * a
+    a = alpha[:, None, None]
+    dx = gaussian_blur_17(fdx, sigma) * a
+    dy = gaussian_blur_17(fdy, sigma) * a
     yy = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
+    if dense:
+        i2, m2 = remap_pair(img, mask, yy + dy, xx + dx)
+        return _keep(idx, i2, img), _keep(idx, m2, mask)
     i2, m2 = remap_pair(img[idx], mask[idx], yy + dy, xx + dx)
     return img.index_copy(0, idx, i2), mask.index_copy(0, idx, m2)
+
+
+def _keep(on, new, old):
+    """The dense form's select: ``new`` where the (N,) gate is on."""
+    return torch.where(on[:, None, None], new, old)
 
 
 def _speckle(img, draws: AugmentDraws):
@@ -257,6 +294,9 @@ def _speckle(img, draws: AugmentDraws):
     sigma) on the gated images."""
     idx, sigma, field = _need(draws, "speckle_idx", "speckle_sigma",
                               "speckle_noise")
+    if idx.dtype == torch.bool:
+        noise = field * sigma[:, None, None]
+        return _keep(idx, torch.clamp(img + img * noise, 0.0, 1.0), img)
     if not len(idx):
         return img
     x = img[idx]
@@ -302,7 +342,10 @@ def augment_batch(images: torch.Tensor, masks: torch.Tensor,
         img = _tgc(img, draws, cfg.tgc_bins)
     if cfg.use_clahe:
         (idx,) = _need(draws, "clahe_idx")
-        if len(idx):
+        if idx.dtype == torch.bool:
+            img = _keep(idx, clahe_float(img, cfg.clahe_clip,
+                                         tuple(cfg.clahe_grid)), img)
+        elif len(idx):
             img = img.index_copy(0, idx, clahe_float(
                 img[idx], cfg.clahe_clip, tuple(cfg.clahe_grid)))
     oh, ow = cfg.out_size

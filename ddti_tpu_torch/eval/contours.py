@@ -9,11 +9,12 @@ dependency). Used by the infer CLI's ``--overlay`` and the daemon's
 ``?overlay=1``.
 
 Implementation: vectorized numpy cell classification + segment generation,
-then a walk to chain segments into polylines: through integer successor
-links where every crossing lies strictly inside its grid edge and no
-point starts or ends two segments (binary masks always), else through
-dicts of the points themselves; both give the JAX copy's contours, in its
-order, bit for bit. Ambiguous saddle cells are resolved like skimage's
+then the segments chained into polylines: where every crossing lies
+strictly inside its grid edge and no point starts or ends two segments
+(binary masks always), by list ranking over the integer successor links
+(numpy, no Python loop a segment), else by a walk through dicts of the
+points themselves; both give the JAX copy's contours, in its order, bit
+for bit. Ambiguous saddle cells are resolved like skimage's
 default ('low' connectivity for vertices above the level). Also used by
 the Trainer's test-phase grids (``eval/visualize.py``).
 """
@@ -94,41 +95,67 @@ def _segments(a: np.ndarray, level: float):
                                   and inside[e_e, cells].all()))
 
 
-def _chains_by_edge(start_edges, end_edges):
-    """The dict walk's chains, where every point is a distinct edge's and
-    starts and ends at most one segment each: from the first unused
-    segment, forward through the segment starting where the chain ends,
-    then backward through the one ending where it starts. Returns (head
-    segments, nearest first, [segment, forward segments...]) pairs; None
-    where a point starts or ends two segments."""
+def _ranks(pred):
+    """List ranking by pointer doubling over ``pred`` links (-1 ends a
+    list): each node's list head and its distance from it. Meaningless on
+    a cycle, whose nodes never reach a head."""
+    idx = np.arange(len(pred))
+    nxt = np.where(pred >= 0, pred, idx)
+    dist = (pred >= 0).astype(np.int64)
+    for _ in range(max(int(len(pred)).bit_length(), 1)):
+        dist = dist + dist[nxt]
+        nxt = nxt[nxt]
+    return nxt, dist
+
+
+def _table_by_edge(start_edges, end_edges):
+    """The dict walk's point table where every point is a distinct edge's
+    and starts and ends at most one segment each, so that the segments
+    form paths and cycles. The walk takes them in the order of their
+    smallest segment index i: a path from its first segment, with the
+    starts of its segments up to i, then the ends of i and those after it;
+    a cycle from i round to i, the start of i, then every end. Computed
+    without the walk, by list ranking. Returns (indices into the starts
+    followed by the ends, each chain's length); None where a point starts
+    or ends two segments."""
     n_ids = int(max(start_edges.max(), end_edges.max())) + 1
     if (np.bincount(start_edges, minlength=n_ids).max() > 1
             or np.bincount(end_edges, minlength=n_ids).max() > 1):
         return None
+    n = len(start_edges)
+    idx = np.arange(n)
     start_of = np.full(n_ids, -1)
     end_of = np.full(n_ids, -1)
-    start_of[start_edges] = np.arange(len(start_edges))
-    end_of[end_edges] = np.arange(len(end_edges))
-    succ = start_of[end_edges].tolist()
-    pred = end_of[start_edges].tolist()
-    used = [False] * len(succ)
-    out = []
-    for i in range(len(succ)):
-        if used[i]:
-            continue
-        used[i] = True
-        fwd, j = [i], succ[i]
-        while j >= 0 and not used[j]:
-            used[j] = True
-            fwd.append(j)
-            j = succ[j]
-        head, j = [], pred[i]
-        while j >= 0 and not used[j]:
-            used[j] = True
-            head.append(j)
-            j = pred[j]
-        out.append((head, fwd))
-    return out
+    start_of[start_edges] = idx
+    end_of[end_edges] = idx
+    succ = start_of[end_edges]
+    pred = end_of[start_edges]
+    head, rank = _ranks(pred)
+    cyc = pred[head] >= 0
+    if cyc.any():
+        # each cycle opened before its smallest index
+        least, nxt = idx.copy(), np.where(succ >= 0, succ, idx)
+        for _ in range(max(n.bit_length(), 1)):
+            least = np.minimum(least, least[nxt])
+            nxt = nxt[nxt]
+        pred = np.where(cyc & (least == idx), -1, pred)
+        head, rank = _ranks(pred)
+    # the chains as blocks in list order, then the blocks by smallest index
+    order = np.argsort(head * n + rank)
+    first = np.r_[True, head[order][1:] != head[order][:-1]]
+    block = np.cumsum(first) - 1
+    at = np.flatnonzero(first)
+    least = np.minimum.reduceat(order, at)
+    by_least = np.argsort(least)
+    lens = np.diff(np.r_[at, n])[by_least] + 1
+    off = np.empty_like(lens)
+    off[by_least] = np.cumsum(lens) - lens
+    r, i = rank[order], rank[least][block]
+    off = off[block]
+    out = np.empty(n + len(lens), np.int64)
+    out[(off + r)[r <= i]] = order[r <= i]
+    out[(off + r + 1)[r >= i]] = n + order[r >= i]
+    return out, lens
 
 
 def _chains_by_point(starts, ends):
@@ -168,39 +195,52 @@ def _chains_by_point(starts, ends):
     return out
 
 
-def find_contours(array: np.ndarray, level: float = 0.5) -> list[np.ndarray]:
-    """Iso-contours of ``array`` at ``level`` as a list of (K, 2) float64
-    arrays of (row, col) coordinates."""
+def contour_table(array: np.ndarray, level: float = 0.5):
+    """``find_contours``' contours as one table: their (row, col) points
+    one after another, (P, 2) float64, and each contour's length."""
     a = np.asarray(array, np.float64)
     h, w = a.shape
+    none = np.zeros((0, 2)), np.zeros(0, np.int64)
     if h < 2 or w < 2:
-        return []
+        return none
     starts, ends, s_edges, e_edges, inside = _segments(a, float(level))
     # drop degenerate zero-length segments (contour passing exactly through
     # a grid vertex produces them) — they would break the chain walk
     keep = np.any(starts != ends, axis=1)
     starts, ends = starts[keep], ends[keep]
     if not len(starts):
-        return []
-    chains = (_chains_by_edge(s_edges[keep], e_edges[keep]) if inside
-              else None)
-    if chains is None:
-        chains = _chains_by_point(starts, ends)
-    # each chain's points: its head's starts (farthest first), its first
-    # segment's start, then every forward segment's end; all chains at once
-    # in a table of the starts followed by the ends
-    n = len(starts)
-    idx, lens = [], []
-    for head, fwd in chains:
-        part = head[::-1] + fwd[:1] + [n + j for j in fwd]
-        idx.extend(part)
-        lens.append(len(part))
-    pts = np.concatenate([starts, ends])[np.asarray(idx)]
+        return none
+    table = (_table_by_edge(s_edges[keep], e_edges[keep]) if inside
+             else None)
+    if table is None:
+        # each chain's points: its head's starts (farthest first), its
+        # first segment's start, then every forward segment's end; all
+        # chains at once in a table of the starts followed by the ends
+        n = len(starts)
+        idx, lens = [], []
+        for head, fwd in _chains_by_point(starts, ends):
+            part = head[::-1] + fwd[:1] + [n + j for j in fwd]
+            idx.extend(part)
+            lens.append(len(part))
+        table = np.asarray(idx), np.asarray(lens)
+    idx, lens = table
+    pts = np.concatenate([starts, ends])[idx]
     first = np.zeros(len(pts), bool)
-    first[np.cumsum([0] + lens[:-1])] = True
+    first[np.cumsum(lens) - lens] = True
     # collapse consecutive duplicate vertices within a chain
     keep = first.copy()
     keep[1:] |= np.any(pts[1:] != pts[:-1], axis=1)
     sizes = np.add.reduceat(keep, np.flatnonzero(first))
     pts = pts[keep]
-    return [c for c in np.split(pts, np.cumsum(sizes)[:-1]) if len(c) >= 2]
+    # contours of one point dropped
+    short = np.repeat(sizes < 2, sizes)
+    return pts[~short], sizes[sizes >= 2]
+
+
+def find_contours(array: np.ndarray, level: float = 0.5) -> list[np.ndarray]:
+    """Iso-contours of ``array`` at ``level`` as a list of (K, 2) float64
+    arrays of (row, col) coordinates."""
+    pts, sizes = contour_table(array, level)
+    if not len(sizes):
+        return []
+    return np.split(pts, np.cumsum(sizes)[:-1])

@@ -59,6 +59,53 @@ def recompute_context():
     return contextlib.nullcontext(), _recomputation()
 
 
+def one_pass_stats(x):
+    """flax's ``use_fast_variance=True`` statistics of NCHW ``x`` over (N,
+    H, W), reduced in at least float32 whatever the dtype of ``x`` (flax
+    promotes to float32; float64 stays): ``mean = E[x]`` and ``var = max(0,
+    E[x^2] - E[x]^2)``, the biased variance. Two reductions that read ``x``
+    as it is (on CUDA a bf16 ``x`` is widened in the reduction, not
+    copied); ``E[x^2]`` as the squared 2-norm over the count."""
+    dims = (0, 2, 3)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    with torch.no_grad():
+        mean = torch.mean(x, dim=dims, dtype=dt)
+        sq = torch.linalg.vector_norm(x, 2, dim=dims, dtype=dt)
+        var = torch.clamp_min(sq * sq / (x.numel() // x.shape[1])
+                              - mean * mean, 0.0)
+    return mean, var
+
+
+class _OnePassNorm(torch.autograd.Function):
+    """Train-mode normalisation by given batch statistics (``mean``,
+    ``var`` of ``x`` itself): the forward is the eval-mode kernel with
+    them, the backward ATen's train-mode BatchNorm backward with
+    ``save_mean = mean`` and ``save_invstd = rsqrt(var + eps)``, which is
+    the gradient of the one-pass formula in exact arithmetic (both
+    variances are the same function of ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var):
+        invstd = torch.rsqrt(var + BN_EPS)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, BN_EPS)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        # the gradient in the input's layout: channels-last activations
+        # (cuDNN's bf16 convolutions) take ATen's channels-last kernels only
+        # when both are
+        fmt = (torch.channels_last
+               if x.dim() == 4 and not x.is_contiguous()
+               and x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
+            gy.contiguous(memory_format=fmt), x, weight, None, None, mean,
+            invstd, True, BN_EPS, list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None, None
+
+
 class BatchNorm2d(nn.Module):
     """BatchNorm with the JAX package's numerics and without the
     ``num_batches_tracked`` buffer, which the JAX package's export does not
@@ -66,13 +113,21 @@ class BatchNorm2d(nn.Module):
     ``.pth`` files that do carry it load all the same: the entry is dropped
     on load.
 
-    Train mode normalises with the batch's statistics (two-pass variance,
-    flax's ``use_fast_variance=False``) and updates the running statistics
-    as flax ``nn.BatchNorm`` does: ``new = 0.9 old + 0.1 batch`` with the
-    **biased** batch variance. torch's own train-mode update would store
-    the unbiased n/(n-1) variance instead. The statistics are reduced in
-    float32 whatever the autocast dtype of ``x``. A recomputation under
-    ``--remat`` normalises alike and leaves the statistics alone."""
+    Train mode normalises with the batch's statistics and updates the
+    running statistics as flax ``nn.BatchNorm`` does: ``new = 0.9 old +
+    0.1 batch`` with the **biased** batch variance. torch's own train-mode
+    update would store the unbiased n/(n-1) variance instead. The
+    statistics are reduced in float32 whatever the autocast dtype of
+    ``x``. By default in one pass, flax's ``use_fast_variance=True`` (the
+    JAX package's default, ``one_pass_stats``); with ``exact_variance``
+    in two passes, ``E[(x - mean)^2]`` (``--bn_exact_variance``, torch's
+    numerics). ``exact_variance`` is a per-module attribute: the Trainer
+    sets it on every BatchNorm of its model (``set_bn_exact_variance``);
+    a module nobody set follows the class attribute, False. A
+    recomputation under ``--remat`` normalises alike and leaves the
+    statistics alone."""
+
+    exact_variance = False
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -85,22 +140,41 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
-        if recomputing():
+        if self.exact_variance:
+            if recomputing():
+                return F.batch_norm(x, None, None, self.weight, self.bias,
+                                    True, 0.0, BN_EPS)
+            with torch.no_grad():
+                var, mean = torch.var_mean(
+                    x.to(torch.promote_types(x.dtype, torch.float32)),
+                    dim=(0, 2, 3), correction=0)
+                self._update_running(mean, var)
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, BN_EPS)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(
-                mean, alpha=BN_MOMENTUM)
-            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(
-                var, alpha=BN_MOMENTUM)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            BN_EPS)
+        mean, var = one_pass_stats(x)
+        if not recomputing():
+            self._update_running(mean, var)
+        return _OnePassNorm.apply(x, self.weight, self.bias, mean, var)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean,
+                                                       alpha=BN_MOMENTUM)
+        self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def set_bn_exact_variance(model: nn.Module, exact: bool) -> int:
+    """Set ``exact_variance`` on every ``BatchNorm2d`` of ``model`` (the
+    JAX Trainer's ``set_bn_fast_variance(not exact)``, per module here);
+    returns how many it set."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.exact_variance = bool(exact)
+    return len(bns)
 
 
 class PReLU(nn.PReLU):

@@ -77,7 +77,10 @@ class _EncoderDecoderBase(nn.Module):
         """``block(x)``, recomputed in the backward pass where ``level`` is
         rematerialised and a gradient is being recorded."""
         if level in self._remat and torch.is_grad_enabled():
+            # the blocks draw no random numbers, so there is no generator
+            # state to keep (and a CUDA graph capture cannot read it)
             return checkpoint(block, x, use_reentrant=False,
+                              preserve_rng_state=False,
                               context_fn=recompute_context)
         return block(x)
 

@@ -36,8 +36,16 @@ confusion plot; best-epoch writes on a background thread from on-device
 copies (``_AsyncBestSaver``), with ``--best_full_state`` the full state
 too; ``--tune_threshold`` picks test()'s threshold on val; test() draws
 the contour-overlay grids. As in JAX, a resumed run starts
-``best_val_iou`` and early stopping afresh. Still to port (ROADMAP.md):
-``--fused_epoch``, serving exports, QAT and distillation.
+``best_val_iou`` and early stopping afresh.
+
+The Trainer also sets its model's BatchNorm variance (flax's one pass by
+default, two with ``--bn_exact_variance``: ``models/blocks.py``), builds
+the ``--distill_checkpoint`` teacher (``distill.py``) into every train
+step, traces the first ``--profile N`` steps of epoch 1 with
+``torch.profiler`` into ``<result_dir>/trace`` and, with ``--fused_epoch``
+and a device store, runs each train epoch as one CUDA graph
+(``_train_one_epoch_fused``). Still to port (ROADMAP.md): serving exports,
+QAT and the mesh.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import torch
 from ddti_tpu_torch.core.logging import ScalarWriter
 from ddti_tpu_torch.data.augment import (
     AugmentConfig,
+    dense_draws,
     sample_draws,
     sample_mixup,
 )
@@ -65,7 +74,9 @@ from ddti_tpu_torch.eval.metrics import (
     metrics_from_counts,
 )
 from ddti_tpu_torch.eval.surface import surface_metrics_batch
+from ddti_tpu_torch.eval.metrics import ConfusionCounts
 from ddti_tpu_torch.eval.visualize import save_boundary_grids
+from ddti_tpu_torch.models.blocks import set_bn_exact_variance
 from ddti_tpu_torch.utils.early_stopping import EarlyStopping
 
 from .checkpoint import (
@@ -75,8 +86,10 @@ from .checkpoint import (
     save_weights,
     to_host,
 )
+from .distill import describe_teacher, teacher_from_config
 from .state import TrainState, describe_freeze, parse_freeze
 from .steps import (
+    StepMetrics,
     accumulate,
     make_eval_step,
     make_host_train_step,
@@ -181,6 +194,29 @@ class _AsyncBestSaver:
             raise RuntimeError("a best-epoch save failed") from self._error
 
 
+def zero_metrics(device) -> StepMetrics:
+    """A ``StepMetrics`` of zeros to sum steps into in place
+    (``accumulate_``)."""
+    def z(dtype=torch.float32):
+        return torch.zeros((), dtype=dtype, device=device)
+
+    return StepMetrics(z(), z(), z(), z(), z(),
+                       ConfusionCounts(*(z(torch.float64) for _ in range(6))),
+                       z(), z())
+
+
+def accumulate_(total: StepMetrics, m: StepMetrics) -> None:
+    """``accumulate`` in place, into ``zero_metrics``' tensors (a captured
+    step adds to the same tensors at every replay); the same values as
+    ``accumulate``'s, bit for bit."""
+    for name in ("loss", "bce", "dice", "focal", "boundary"):
+        getattr(total, name).add_(getattr(m, name) * m.n)
+    for a, b in zip(total.counts, m.counts):
+        a.add_(b)
+    total.n.add_(m.n)
+    total.skipped.add_(m.skipped)
+
+
 def aug_config_from(config) -> AugmentConfig:
     return AugmentConfig(
         use_elastic=bool(config.use_elastic),
@@ -212,6 +248,17 @@ class Trainer:
         # restored_step // steps_per_epoch, so the run completes the
         # ORIGINAL --epochs budget instead of training that many more
         self.start_epoch = 0
+        # the BatchNorm variance, set both ways on this model's modules, as
+        # the JAX Trainer sets its process-wide one
+        exact = bool(getattr(config, "bn_exact_variance", False))
+        set_bn_exact_variance(model, exact)
+        if exact:
+            logger.info("--bn_exact_variance: two-pass BatchNorm variance "
+                        "(torch numerics)")
+        # --fused_epoch applies to a device store; a streaming source keeps
+        # the stepwise loop, as in JAX
+        self.fused = (bool(getattr(config, "fused_epoch", False))
+                      and self._is_device_src(self.train_src))
         freeze = parse_freeze(config)
         self.state = TrainState(
             model, config.lr, self.steps_per_epoch, config.weight_decay,
@@ -225,9 +272,22 @@ class Trainer:
                 f"params fixed" + (", BN stats pinned too"
                                    if config.freeze_bn_stats
                                    else " (BN stats keep adapting)"))
+        # --distill_checkpoint: the frozen teacher inside every train step
+        self.teacher = teacher_from_config(config, self.device)
+        if self.teacher is not None:
+            logger.info(describe_teacher(config, self.teacher))
         self.aug_cfg = aug_config_from(config)
-        self.train_step = make_train_step(config, self.aug_cfg)
-        self.host_train_step = make_host_train_step(config)
+        # under --fused_epoch the nan_guard decides on the device, so that
+        # the step can be captured
+        device_guard = self.fused and bool(config.nan_guard)
+        if device_guard:
+            self.state.init_optimizer_state()
+        self.train_step = make_train_step(config, self.aug_cfg,
+                                          teacher=self.teacher,
+                                          device_guard=device_guard)
+        self.host_train_step = make_host_train_step(config, self.teacher)
+        # the last fused epoch: the steps captured and the graph replays
+        self.fused_stats = None
         self.eval_step = make_eval_step(config)
         self.infer_step = make_infer_step(config)
         self.early_stopping = EarlyStopping(
@@ -339,16 +399,40 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def train_one_epoch(self, epoch: int):
+        if self.fused:
+            if epoch == 0 and getattr(self.config, "profile_steps", 0):
+                self.logger.warning(
+                    "--profile is ignored under --fused_epoch (the epoch "
+                    "is one CUDA graph replayed: there are no per-step "
+                    "trace boundaries); rerun without --fused_epoch to "
+                    "trace")
+            if epoch == 0 and self._nan_guard:
+                self.logger.warning(
+                    "--nan_guard under --fused_epoch degrades to EPOCH "
+                    "granularity: rejected steps are still skipped on the "
+                    "device, but the patience counter only sees the "
+                    "per-epoch skip total (training stops when a whole "
+                    "epoch is rejected, not after %s bad steps)",
+                    self._nan_patience)
+            return self._train_one_epoch_fused(epoch)
         total = None
         self._gen = self._epoch_generator(epoch)
         self._field_gen = self._epoch_generator(epoch, self.device)
         log_every = int(self.config.log_every or 0)
+        # --profile N: a torch.profiler trace of epoch 1's first N steps;
+        # a tracing failure never fails the run
+        prof_n = (int(getattr(self.config, "profile_steps", 0) or 0)
+                  if epoch == 0 else 0)
+        prof = None
         t0 = time.perf_counter()
         n_imgs = 0
         if hasattr(self.train_src, "set_epoch"):  # a host-streaming
             self.train_src.set_epoch(epoch)       # source: resume-stable
         for i, (_, images, masks) in enumerate(
                 self._batches(self.train_src, True, self._epoch_rng(epoch))):
+            if prof_n and i == 0:
+                prof = self._start_trace()
+                prof_n = prof_n if prof is not None else 0
             dev = images.device
             if images.dtype == torch.uint8:
                 # raw store data: the device augmentation chain
@@ -367,6 +451,9 @@ class Trainer:
             if self._preempted:
                 # the step just taken is kept; train() saves and stops
                 break
+            if prof_n and i + 1 == prof_n:
+                self._stop_trace(prof, f"--Trace of {prof_n} steps written")
+                prof_n = 0
             if log_every and (i + 1) % log_every == 0:
                 ips = n_imgs / max(time.perf_counter() - t0, 1e-9)
                 self.logger.info(f"Epoch {epoch + 1} step {i + 1}: "
@@ -375,9 +462,139 @@ class Trainer:
             else:
                 self.logger.debug(f"Epoch {epoch + 1} step {i + 1} done "
                                   f"({n_imgs} imgs)")
+        if prof_n:  # the epoch ended before step prof_n: close the trace
+            self._stop_trace(prof, "--Trace written")
         em = epoch_metrics_from_counts(total.counts)
         self._log_epoch("Train", epoch, self._avgs(total), em)
         self._log_skips(epoch, float(total.skipped))
+
+    def _trace_dir(self) -> str:
+        return os.path.join(self.config.result_dir, "trace")
+
+    def _start_trace(self):
+        """A started ``torch.profiler`` (CPU, and the card's kernels on
+        CUDA) writing a Chrome/TensorBoard trace into ``result/trace``
+        when stopped; None, with JAX's warning, where it cannot start."""
+        from torch.profiler import (
+            ProfilerActivity,
+            profile,
+            tensorboard_trace_handler,
+        )
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        try:
+            prof = profile(activities=acts,
+                           on_trace_ready=tensorboard_trace_handler(
+                               self._trace_dir()))
+            prof.start()
+            return prof
+        except Exception as e:
+            self.logger.warning(f"trace capture unavailable: {e}")
+            return None
+
+    def _stop_trace(self, prof, said: str) -> None:
+        try:
+            if self.device.type == "cuda":  # the steps' kernels into the
+                torch.cuda.synchronize(self.device)  # trace window
+            prof.stop()
+            self.logger.info(f"{said} to {self._trace_dir()}")
+        except Exception as e:
+            self.logger.warning(f"trace capture failed: {e}")
+
+    def _train_one_epoch_fused(self, epoch: int):
+        """The epoch's batch indices and every step's draws made up front
+        (the stepwise loop's generators, in its order, so both modes draw
+        the same) and put on the device before the first step, each step's
+        in the fixed-shape form a graph replays (``dense_draws``); the
+        metrics summed on the device, read once. On CUDA, step 0 runs
+        eagerly (the kernels' attributes, cuDNN's plans, AdamW's state, the
+        epoch's learning rate), one step is captured as a CUDA graph and
+        replayed for each later step after a device-side copy of that
+        step's slice into its inputs; a failed capture raises. On the CPU
+        the same loop runs without a graph. ``--nan_guard`` decides on the
+        device and stops the run only when a whole epoch was rejected
+        (JAX's fused rule)."""
+        src, cfg = self.train_src, self.config
+        idx = np.stack(list(src.epoch_batches(self._epoch_rng(epoch),
+                                              cfg.batch_size)))
+        steps, batch = idx.shape
+        self._gen = self._epoch_generator(epoch)
+        self._field_gen = self._epoch_generator(epoch, self.device)
+        dev = self.device
+        draws = []
+        for i in range(steps):
+            aug, mix = self._draws(epoch, i, batch)
+            draws.append((aug.to(dev), None if mix is None else mix.to(dev)))
+        idx = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        total = zero_metrics(dev)
+        start_step = self.state.step
+        if dev.type == "cuda":
+            self._replay_epoch(src, idx, draws, total)
+        else:
+            for i, (aug, mix) in enumerate(draws):
+                accumulate_(total, self.train_step(
+                    self.state, src.images[idx[i]], src.masks[idx[i]],
+                    dense_draws(aug, batch), mix))
+        skipped = float(total.skipped)
+        # the schedule's position counts the applied steps, as stepwise
+        self.state.step = start_step + steps - int(skipped)
+        em = epoch_metrics_from_counts(total.counts)
+        self._log_epoch("Train", epoch, self._avgs(total), em)
+        self._log_skips(epoch, skipped)
+        if self._nan_guard and skipped >= steps:
+            self.logger.error("--nan_guard: every step of the fused epoch "
+                              "was non-finite — stopping")
+            self._diverged = True
+
+    def _replay_epoch(self, src, idx, draws, total) -> None:
+        """The CUDA side of ``_train_one_epoch_fused``: step 0 eagerly, a
+        capture of one step into a graph, a replay for each later step.
+        ``fused_stats`` records the steps captured and the replays; a
+        kernel wrapper counts the launches made in Python, the eager
+        step's and the capture's, not a replay's."""
+        steps, batch = idx.shape
+
+        def inputs(i):
+            aug, mix = draws[i]
+            return [idx[i]] + [t for t in dense_draws(aug, batch)
+                               if t is not None] + list(mix or ())
+
+        static = [t.clone() for t in inputs(0)]
+        s_idx = static[0]
+        it = iter(static[1:])
+        aug0, mix0 = dense_draws(draws[0][0], batch), draws[0][1]
+        s_aug = type(aug0)(*(None if t is None else next(it) for t in aug0))
+        s_mix = None if mix0 is None else type(mix0)(*it)
+
+        def step():
+            accumulate_(total, self.train_step(
+                self.state, src.images[s_idx], src.masks[s_idx], s_aug,
+                s_mix))
+
+        step()  # step 0, eagerly
+        if steps == 1:
+            self.fused_stats = {"captured": 0, "replays": 0}
+            return
+        # the eager step's cached blocks are released, so the graph's
+        # private memory pool can take them
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        for i in range(1, steps):
+            for a, b in zip(static, inputs(i)):
+                a.copy_(b)
+            graph.replay()
+        # the graph's private pool back to the card before validation
+        del graph
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        self.fused_stats = {"captured": 1, "replays": steps - 1}
+        self.logger.info(f"Fused epoch: step 0 eager, 1 step captured, "
+                         f"{steps - 1} graph replays")
 
     def _note_skip(self, skipped: float, epoch: int, step: int) -> bool:
         """Per-step --nan_guard accounting; False once the consecutive

@@ -31,10 +31,22 @@ from .torch_interop import flax_key_from_torch
 
 def make_optimizer(params, lr: float, weight_decay: float = 1e-2,
                    t_0: int = 20, t_mult: int = 2):
-    """Returns (AdamW, schedule: epoch -> lr)."""
+    """Returns (AdamW, schedule: epoch -> lr). On a CUDA device the AdamW
+    is the one a CUDA graph can capture (``--fused_epoch``):
+    ``capturable=True`` with PyTorch's single-kernel ``fused`` update, its
+    learning rate a 0-d tensor on that device, which the step fills
+    outside the graph, and its step counts there too; every CUDA run
+    takes it, so a fused epoch and a stepwise one do the same
+    arithmetic."""
+    params = list(params)
     sched = cosine_warm_restarts(lr, t_0, t_mult)
-    opt = torch.optim.AdamW(params, lr=sched(0), betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=weight_decay)
+    lr0, kw = sched(0), {}
+    dev = params[0].device if params else torch.device("cpu")
+    if dev.type == "cuda":
+        lr0 = torch.tensor(lr0, dtype=torch.float32, device=dev)
+        kw = dict(capturable=True, fused=True)
+    opt = torch.optim.AdamW(params, lr=lr0, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=weight_decay, **kw)
     return opt, sched
 
 
@@ -97,7 +109,10 @@ class TrainState:
     optimizer and, unless ``nan_guard`` (whose finiteness check counts
     every gradient), out of autograd; ``clip_norm`` > 0 clips the trainable gradients to that
     global L2 norm (optax ``clip_by_global_norm``); ``ema`` keeps a
-    float32 shadow of every parameter, seeded with their values here."""
+    float32 shadow of every parameter, seeded with their values here.
+    On a CUDA device the AdamW is capturable (``make_optimizer``): its
+    learning rate is filled at each step taken outside a capture, so a
+    graph replays the rate of the epoch its eager step set."""
 
     def __init__(self, model: nn.Module, lr: float, steps_per_epoch: int,
                  weight_decay: float = 1e-2, *, model_type: str = "",
@@ -121,6 +136,8 @@ class TrainState:
                           if k not in frozen]
         self.optimizer, self.schedule = make_optimizer(
             self.trainable, lr, weight_decay)
+        self.capturable = bool(
+            self.optimizer.defaults.get("capturable", False))
         self.clip_norm = float(clip_norm or 0.0)
         self.steps_per_epoch = steps_per_epoch
         self.step = 0
@@ -141,13 +158,45 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One AdamW update from the parameters' ``.grad`` at this step's
-        scheduled learning rate (after clipping); advances the step."""
+        scheduled learning rate (after clipping); advances the step. Under
+        a CUDA graph capture the capturable optimizer's rate stays what
+        the last eager step filled in."""
         self.clip_gradients()
         lr = self.schedule(self.step // self.steps_per_epoch)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if not self.capturable:
+                group["lr"] = lr
+            elif not torch.cuda.is_current_stream_capturing():
+                group["lr"].fill_(lr)
         self.optimizer.step()
         self.step += 1
+
+    def init_optimizer_state(self) -> None:
+        """AdamW's state of every trainable parameter made now, as its
+        first ``step()`` would make it (zero moments, step 0), so that a
+        step can snapshot and restore the whole state on the device
+        (``--nan_guard`` under ``--fused_epoch``)."""
+        for p in self.trainable:
+            if self.optimizer.state.get(p):
+                continue
+            self.optimizer.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32,
+                                    device=p.device if self.capturable
+                                    else "cpu"),
+                "exp_avg": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(
+                    p, memory_format=torch.preserve_format)}
+
+    def state_tensors(self) -> list:
+        """Every tensor a step changes: the trainable parameters, the
+        BatchNorm statistics, AdamW's state and the EMA shadow."""
+        out = list(self.trainable) + list(self.model.buffers())
+        for p in self.trainable:
+            out += list(self.optimizer.state.get(p, {}).values())
+        if self.ema is not None:
+            out += list(self.ema.values())
+        return out
 
     @torch.no_grad()
     def update_ema(self, decay: float) -> None:
@@ -225,10 +274,12 @@ class TrainState:
         self.model.load_state_dict(full["model"], strict=True)
         for k in names:
             p = params[k]
-            # the step stays where AdamW keeps it (a CPU scalar); the
-            # moments go to the parameter's device and dtype
+            # the step goes where AdamW keeps it (a CPU scalar, on the
+            # device for the capturable AdamW), the moments to the
+            # parameter's device and dtype
+            step_dev = p.device if self.capturable else "cpu"
             self.optimizer.state[p] = {
-                m: (v.clone() if m == "step"
+                m: (v.to(device=step_dev, copy=True) if m == "step"
                     else v.to(device=p.device, dtype=p.dtype, copy=True))
                 for m, v in saved[k].items()}
         self.step = int(full["step"])

@@ -21,7 +21,13 @@ option that reads the device every step), ``clip_grad_norm`` and
 ``freeze`` (``state.py``), ``freeze_bn_stats`` (the frozen modules'
 running statistics keep their values from the start of the step) and
 ``ema_decay`` (the shadow updated after every applied step; eval and
-inference use it). QAT and distillation raise (ROADMAP.md Queue 1 item
+inference use it) and a distillation ``teacher`` (``distill.py``: the
+frozen teacher's tempered probabilities of the post-mixup batch, per
+microbatch, blended into the loss as ``(1 - w) total + w kd_bce``). With
+``device_guard`` the nan_guard decides on the device, as JAX's does: the
+step snapshots the whole state first and keeps the snapshot where the
+loss or a gradient is not finite, reading nothing back, so a CUDA graph
+can capture it (``--fused_epoch``). QAT raises (ROADMAP.md Queue 1 item
 11).
 """
 
@@ -45,6 +51,7 @@ from ddti_tpu_torch.eval.tta import tta_logits
 from ddti_tpu_torch.losses.losses import weighted_loss
 from ddti_tpu_torch.ops.resample import resize_bilinear_hw
 
+from .distill import kd_bce, soft_targets
 from .state import TrainState
 
 
@@ -122,13 +129,9 @@ def _ds_aux_loss(out, masks, loss_kw: dict, ds_weight: float):
 
 
 def _check_ported(config) -> None:
-    unported = [name for name, on in (
-        ("qat", bool(getattr(config, "qat", False))),
-        ("distill_checkpoint", bool(getattr(config, "distill_checkpoint",
-                                            "")))) if on]
-    if unported:
+    if bool(getattr(config, "qat", False)):
         raise NotImplementedError(
-            f"{', '.join(unported)} is not ported yet (ROADMAP.md Queue 1)")
+            "qat is not ported yet (ROADMAP.md Queue 1)")
 
 
 def _ema_decay(config) -> float:
@@ -159,13 +162,17 @@ def _finite(loss, model) -> torch.Tensor:
 
 
 def make_train_step(config, aug_cfg: AugmentConfig | None,
-                    augment: bool = True):
+                    augment: bool = True, teacher=None,
+                    device_guard: bool = False):
     """Build ``step(state, images, masks, draws, mix_draws) ->
     StepMetrics``: uint8 (or float) NHWC batches, the chain's draws, and
     the mixup draws (ignored unless ``config.use_mixup``). Updates
     ``state`` in place. A batch that ``config.grad_accum`` does not divide
     raises. ``augment=False`` skips the device chain (``draws`` unused):
-    ``make_host_train_step``'s body."""
+    ``make_host_train_step``'s body. ``teacher`` (``distill.Teacher``)
+    turns distillation on; ``device_guard`` makes ``config.nan_guard``'s
+    decision on the device (the state's optimizer moments must exist:
+    ``TrainState.init_optimizer_state``)."""
     _check_ported(config)
     loss_kw = _loss_kw(config)
     amp = bool(config.use_amp_autocast)
@@ -175,15 +182,24 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
     ema_decay = _ema_decay(config)
     nan_guard = bool(getattr(config, "nan_guard", False))
     pin_bn = bool(getattr(config, "freeze_bn_stats", False))
+    # 0.0 is a valid weight: no `or` (JAX's rule)
+    kd_w = (float(getattr(config, "distill_weight", 0.5))
+            if teacher is not None else 0.0)
+    kd_t = float(getattr(config, "distill_temperature", 2.0) or 2.0)
 
     def forward_backward(model, images, masks):
         """Loss terms, counts and (accumulated) gradients of one batch."""
+        soft = (soft_targets(teacher, images, kd_t) if teacher is not None
+                else None)
         out = _forward(model, images, amp)
         logits = _main_logits(out)
         terms = weighted_loss(logits, masks, **loss_kw)
         if isinstance(out, tuple) and ds_weight > 0:
             terms = terms._replace(total=terms.total + _ds_aux_loss(
                 out, masks, loss_kw, ds_weight))
+        if soft is not None:
+            terms = terms._replace(total=(1.0 - kd_w) * terms.total
+                                   + kd_w * kd_bce(logits, soft, kd_t))
         terms.total.backward()
         with torch.no_grad():
             counts = confusion_counts(logits, masks)
@@ -204,7 +220,10 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
         model.train()
         pinned = _bn_buffers(model, state.frozen_buffers if pin_bn else ())
         kept = _snapshot(pinned)
-        if nan_guard:  # the forward moves them; a rejected step restores
+        if nan_guard and device_guard:  # the whole state, kept on device
+            live = state.state_tensors()
+            start = [t.detach().clone() for t in live]
+        elif nan_guard:  # the forward moves them; a rejected step restores
             bn_all = dict(model.named_buffers())
             bn_start = _snapshot(bn_all)
         model.zero_grad(set_to_none=True)
@@ -226,6 +245,9 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
             terms = [t * inv for t in terms]
         _restore(pinned, kept)
         n = images.new_full((), float(n_img))
+        if nan_guard and device_guard:
+            return _guarded_update(state, model, terms, counts, n, live,
+                                   start, ema_decay)
         if nan_guard and not bool(_finite(terms[0], model)):
             _restore(bn_all, bn_start)
             zero = images.new_zeros(())
@@ -242,15 +264,36 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
     return step
 
 
-def make_host_train_step(config):
+@torch.no_grad()
+def _guarded_update(state: TrainState, model, terms, counts, n, live, start,
+                    ema_decay: float) -> StepMetrics:
+    """The update of JAX's ``guarded_update``, decided on the device: the
+    AdamW update and the EMA are applied, then every state tensor takes
+    its snapshot ``start`` back unless the loss and every gradient are
+    finite; a rejected step's metrics are zeros and ``skipped`` 1."""
+    ok = _finite(terms[0], model)
+    state.apply_gradients()
+    if ema_decay:
+        state.update_ema(ema_decay)
+    for t, s in zip(live, start):
+        t.copy_(torch.where(ok, t, s))
+
+    def kept(t):  # zeros where rejected: a NaN loss times 0 stays NaN
+        return torch.where(ok, t, torch.zeros_like(t))
+
+    return StepMetrics(*map(kept, terms), ConfusionCounts(*map(kept, counts)),
+                       kept(n), 1.0 - ok.to(torch.float32))
+
+
+def make_host_train_step(config, teacher=None):
     """The train step of ``--host_augment`` (JAX ``make_host_train_step``):
     ``step(state, images_f, masks_f, mix_draws=None) -> StepMetrics`` on
     float32 NHWC batches that the host chain already augmented and resized,
     so the device runs mixup, forward/backward and the update only: the
     shared step body with the device chain off (grad_accum, deep
-    supervision, clipping, EMA, freeze and nan_guard as in
+    supervision, clipping, EMA, freeze, nan_guard and the teacher as in
     ``make_train_step``)."""
-    body = make_train_step(config, None, augment=False)
+    body = make_train_step(config, None, augment=False, teacher=teacher)
 
     def step(state: TrainState, images, masks,
              mix: MixupDraws | None = None) -> StepMetrics:

@@ -24,7 +24,7 @@ from ddti_tpu.models import create_model as jcreate_model
 from ddti_tpu.train.checkpoint import load_params_npz, save_params_npz
 from ddti_tpu_torch.cli import main as tmain
 from ddti_tpu_torch.cli.average import _expand_managed, main as average
-from ddti_tpu_torch.models import create_model
+from ddti_tpu_torch.models import blocks, create_model
 from ddti_tpu_torch.train import checkpoint as ck
 from ddti_tpu_torch.train.state import TrainState
 from ddti_tpu_torch.utils.weight_init import init_like_flax
@@ -163,8 +163,12 @@ def test_recalibration_matches_jax(tmp_path, shared):
                         + JAX_ARGS + flags) == 0
     finally:
         jblocks.set_bn_fast_variance(True)
-    assert average(["--checkpoints", *shared, "--output", tout]
-                   + PORT_ARGS + flags) == 0
+    blocks.BatchNorm2d.exact_variance = True  # the port's two passes too
+    try:
+        assert average(["--checkpoints", *shared, "--output", tout]
+                       + PORT_ARGS + flags) == 0
+    finally:
+        blocks.BatchNorm2d.exact_variance = False
     want, got = _npz(jout), _npz(tout)
     for k in want:
         if k.startswith("batch_stats/"):

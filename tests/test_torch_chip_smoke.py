@@ -631,3 +631,173 @@ def test_cache_bytecode_keeps_it_under_build_inside_a_checkout(
     assert os.environ["PYTHONPYCACHEPREFIX"] == want
     assert "PYTHONDONTWRITEBYTECODE" not in os.environ
     assert sys.pycache_prefix == want and not sys.dont_write_bytecode
+
+
+@pytest.mark.parametrize("names, kernel, want", [
+    # the EDT's row pass, once a call, as the profiler demangles it (an
+    # anonymous namespace), beside its column pass and other kernels
+    (["(anonymous namespace)::edt_row_kernel(float*, long long, int, int)",
+      "void (anonymous namespace)::edt_column_kernel<4, unsigned int>(...)",
+      "edt_row_kernel", "void edt_row_kernel(float*)", "my_edt_row_kernel",
+      "edt_row_kernel_v2(float*)"], "edt_minplus", 3),
+    (["void flash_fwd_bf16_kernel<32, false>(CUtensorMap, CUtensorMap)",
+      "void flash_fwd_f32_kernel<32>(CUtensorMap)",
+      "flash_fwd_split_f32_kernel(float const*)",
+      "void flash_fwd_bf16_kernel<64, true>(CUtensorMap)"], "flash_fwd", 2),
+    ([], "edt_minplus", 0),
+])
+def test_kernel_launches_from_profiler_names(names, kernel, want):
+    assert C.kernel_launches(names, kernel) == want
+
+
+def test_trace_kernel_names_reads_the_kernel_events(tmp_path):
+    import json
+
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "(anonymous namespace)::edt_row_kernel()"},
+        {"cat": "Kernel", "name": "edt_row_kernel"},
+        {"cat": "cpu_op", "name": "edt_row_kernel"},
+        {"cat": "cuda_runtime", "name": "cudaGraphLaunch"},
+        {"ph": "M", "name": "process_name"}]}))
+    names = C.trace_kernel_names(str(path))
+    assert C.kernel_launches(names, "edt_minplus") == 2
+    assert "categories" in C._trace_summary(str(path))
+
+
+def test_parse_autobatch_reads_each_candidate_and_the_pick():
+    log = "\n".join([
+        "2026-10-18 - INFO - [autobatch] batch 8/device: measured peak "
+        "5.10 GiB vs budget 72.68 GiB (fits; 5476083302 B, cap "
+        "78040000000 B)",
+        "2026-10-18 - INFO - [autobatch] batch 16/device: measured peak "
+        "9.90 GiB vs budget 72.68 GiB (fits; 10630044057 B, cap "
+        "78040000000 B)",
+        "2026-10-18 - INFO - [autobatch] batch 32/device: measured peak "
+        "80.00 GiB vs budget 72.68 GiB (over; 85899345920 B, cap "
+        "78040000000 B)",
+        "2026-10-18 - INFO - [autobatch] selected --batch_size 16"])
+    rows, picked = C.parse_autobatch(log)
+    assert picked == 16
+    assert rows == [(8, 5476083302, 78040000000, True),
+                    (16, 10630044057, 78040000000, True),
+                    (32, 85899345920, 78040000000, False)]
+    rows, picked = C.parse_autobatch(
+        "[autobatch] batch 8/device: measured peak 1.00 GiB vs budget 2.00 "
+        "GiB (fits; 1 B, cap 2 B)\n[autobatch] batch 16/device: out of "
+        "memory (over budget): CUDA out of memory\n[autobatch] selected "
+        "--batch_size 8")
+    assert rows == [(8, 1, 2, True), (16, None, None, False)] and picked == 8
+
+
+def test_parse_autobatch_reads_the_ports_own_log_lines(caplog):
+    """The lines train/autobatch.py writes are the lines the smoke reads."""
+    import logging
+    import types
+
+    from ddti_tpu_torch.train import autobatch
+
+    def peak(config, model, batch, host_augment=False):
+        if batch >= 64:
+            import torch
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory. x")
+        return batch * 2 ** 28
+
+    lg = logging.getLogger("smoke_autobatch")
+    with caplog.at_level(logging.INFO, logger="smoke_autobatch"):
+        b = autobatch.pick_batch_size(types.SimpleNamespace(grad_accum=1),
+                                      None, budget_bytes=2 ** 34,
+                                      peak_fn=peak, logger=lg)
+        lg.info(f"[autobatch] selected --batch_size {b}")
+    rows, picked = C.parse_autobatch("\n".join(
+        r.getMessage() for r in caplog.records))
+    assert picked == b == 32
+    assert [r[0] for r in rows] == [8, 16, 32, 64]
+    assert rows[-1] == (64, None, None, False)
+    assert rows[2] == (32, 32 * 2 ** 28, int(2 ** 34 * 0.92), True)
+
+
+def test_trainer_flag_needs_the_card():
+    """``chip_smoke.py --trainer`` without a card exits non-zero and
+    prints no result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--trainer"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"trainer"' not in r.stdout and '"ok"' not in r.stdout
+
+
+def test_trainer_phase_constants():
+    """(b)'s store is whole steps of the flagship batch; (c)'s dataset
+    leaves a fused epoch of several steps at batch 64 and at least two at
+    128; the student is narrower than the teacher; the CLI's --lr_find
+    runs the stated steps, on the synthetic frames or a dataset."""
+    assert C.TRAINER_STORE % C.TRAIN["batch_size"] == 0
+    assert C.TRAINER_STORE // C.TRAIN["batch_size"] == 8
+    assert -(-C.TRAINER_AUTO_FRAMES // 128) >= 2
+    assert C.TRAINER_AUTO_FRAMES // 64 >= 3
+    assert C.TRAINER_STUDENT["base_filters"] < C.SLICE["base_filters"]
+    cmd = C._trainer_cmd("b", "--lr_find", "30")
+    assert cmd[1:3] == ["-m", "ddti_tpu_torch.cli.main"]
+    assert cmd[-2:] == ["--lr_find", "30"] and "--synthetic" in cmd
+    cmd = C._trainer_cmd("b", "--epochs", "1", data="d")
+    assert "--synthetic" not in cmd
+    assert cmd[cmd.index("--dataset_path") + 1] == "d"
+
+
+def test_parse_fused_run_reads_the_ports_own_log_lines():
+    """The fused epoch's replays and --batch_size auto's run peak, from
+    the lines engine.py and cli/main.py write (the CPU run's log has the
+    fused epoch's loop but no graph, so no replay line)."""
+    text = "\n".join([
+        "2026-10-18 - INFO - Fused epoch: step 0 eager, 1 step captured, "
+        "2 graph replays",
+        "2026-10-18 - INFO - Fused epoch: step 0 eager, 1 step captured, "
+        "7 graph replays",
+        "2026-10-18 - INFO - [autobatch] the run's peak: 30.10 GiB "
+        "allocated, 40.00 GiB reserved above what the model held before "
+        "the pick (32319628902 B, 42949672960 B)"])
+    assert C.parse_fused_run(text) == ([2, 7], (32319628902, 42949672960))
+    assert C.parse_fused_run("Train Epoch: 1") == ([], None)
+    import inspect
+
+    from ddti_tpu_torch.cli import main as tmain
+    from ddti_tpu_torch.train import engine
+
+    assert "graph replays" in inspect.getsource(engine.Trainer._replay_epoch)
+    assert "the run's peak: " in inspect.getsource(tmain.main)
+
+
+def test_clock_marks_the_peak_of_each_interval_and_stops_its_sampler(
+        tmp_path, monkeypatch, capsys):
+    """The smoke's Clock reads device memory from ``nvidia-smi -lms`` (here
+    a stand-in printing 100, 300, 900 MiB, then 50 until stopped): each
+    mark prints the largest reading since the last one, and stop() ends
+    the sampling process."""
+    import os
+    import time
+
+    fake = tmp_path / "nvidia-smi"
+    fake.write_text("#!/bin/sh\nfor m in 100 300 900; do echo $m; done\n"
+                    "while true; do echo 50; sleep 0.05; done\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    clock = C.Clock()
+    deadline = time.time() + 10
+    while clock.peak_mib < 900 and time.time() < deadline:
+        time.sleep(0.05)
+    clock.mark("first")
+    time.sleep(0.3)
+    clock.mark("second")
+    clock.stop()
+    assert clock._smi.poll() is not None
+    first, second = clock.rows
+    assert first["name"] == "first" and first["peak_gib"] == 900 / 1024
+    assert second["peak_gib"] == 50 / 1024
+    assert second["at_s"] >= first["at_s"] + 0.3
+    out = capsys.readouterr().out
+    assert "[clock] first: " in out and "at most 0.88 GiB" in out

@@ -1107,3 +1107,110 @@ def test_legacy_unet_step_edt_kernel_matches_plain(cuda):
         rel = float((pk[k] - pp[k]).abs().max()
                     / pp[k].abs().max().clamp(min=1e-30))
         assert rel <= 1e-6, (k, rel)
+
+
+def _tiny_trainer(tmp_path, name, sd0, remat=False, **kw):
+    """A ResUNet (base 4, depth 2; ``remat`` its kwarg) Trainer on the
+    card over a 12-frame 32^2 store: 3 steps of 4 an epoch."""
+    import os
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.core.logging import create_logger
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.engine import Trainer
+
+    cfg = Config(model_type="ResUNet", image_size=32, store_size=32,
+                 batch_size=4, epochs=2, log_every=0, lr=1e-3,
+                 base_dir=str(tmp_path / name), **kw)
+    cfg.make_dirs()
+    src = synthetic_source(12, (32, 32), 3, device="cuda")
+    model = create_model("ResUNet", base_filters=4, depth=2, remat=remat)
+    model.load_state_dict(sd0)
+    return Trainer(cfg, (src, src, src), create_logger(
+        os.path.join(cfg.log_dir, "log.txt"), console=False),
+        model.to("cuda"))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(grad_accum=2, ema_decay=0.9, clip_grad_norm=0.5, nan_guard=True,
+             use_mixup=True, mixup_prob=1.0, p_crop=0.5, use_tgc=True),
+    dict(remat=True, freeze="encoders_0", freeze_bn_stats=True),
+    dict(use_elastic=True, use_speckle=True, use_clahe=True)],
+    ids=["default", "options", "remat", "gated branches"])
+def test_fused_epoch_is_the_stepwise_loop_on_the_card(cuda, tmp_path, kw):
+    """Two epochs as CUDA graphs (an eager step, then replays) against the
+    stepwise loop, cuDNN deterministic: every parameter and statistic bit
+    for bit, the replays counted; the EDT's wrapper counts the eager
+    step's launch and the capture's, a replay none."""
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    sd0 = init_like_flax(create_model("ResUNet", base_filters=4, depth=2),
+                         0).state_dict()
+    torch.backends.cudnn.deterministic = True
+    try:
+        ends = []
+        for name, fused in (("fused", True), ("loop", False)):
+            tr = _tiny_trainer(tmp_path, name, sd0, fused_epoch=fused, **kw)
+            assert tr.fused == fused and tr.state.capturable
+            before = E.edt_cuda.launches
+            for epoch in range(2):
+                tr.train_one_epoch(epoch)
+            torch.cuda.synchronize()
+            assert E.edt_cuda.launches - before == (4 if fused else 6) * int(
+                kw.get("grad_accum", 1))
+            if fused:
+                assert tr.fused_stats == {"captured": 1, "replays": 2}
+            ends.append({k: v.clone() for k, v in
+                         tr.model.state_dict().items()})
+            assert tr.state.step == 6
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for k in ends[0]:
+        assert torch.equal(ends[0][k], ends[1][k]), k
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_batchnorm_on_card_matches_cpu(cuda, exact):
+    """Train-mode BatchNorm of a channels-last bf16 activation (as cuDNN's
+    convolutions leave it) on the card against the CPU's float32 input:
+    output, running statistics and input gradient."""
+    from ddti_tpu_torch.models import blocks
+
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(4, 16, 12, 12, generator=g) * 2 + 1).bfloat16()
+    r = torch.randn(4, 16, 12, 12, generator=g)
+    outs = []
+    for dev, xin in (("cuda", x.to("cuda").contiguous(
+            memory_format=torch.channels_last)), ("cpu", x.float())):
+        bn = blocks.BatchNorm2d(16).to(dev)
+        bn.exact_variance = exact
+        xin = xin.detach().requires_grad_()
+        y = bn.train()(xin)
+        (y.float() * r.to(dev)).sum().backward()
+        outs.append([t.detach().float().cpu() for t in (
+            y, bn.running_mean, bn.running_var, xin.grad)])
+    (yc, mc, vc, gc), (y0, m0, v0, g0) = outs
+    assert (yc - y0).abs().max() <= 2 ** -7 * y0.abs().max()
+    torch.testing.assert_close(mc, m0, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(vc, v0, rtol=1e-5, atol=1e-6)
+    assert (gc - g0).norm() <= 1e-2 * g0.norm()
+
+
+def test_autobatch_probe_counts_the_fused_graph_pool(cuda):
+    """Under --fused_epoch the probe also captures its step: its peak is
+    at least the eager step's, which the stepwise probe reports."""
+    import dataclasses
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.autobatch import measured_step_peak_bytes
+
+    model = create_model("ResUNet", base_filters=4, depth=2).to("cuda")
+    cfg = Config(model_type="ResUNet", image_size=32, store_size=32,
+                 batch_size=8, use_elastic=True)
+    eager = measured_step_peak_bytes(cfg, model, 8)
+    fused = measured_step_peak_bytes(
+        dataclasses.replace(cfg, fused_epoch=True), model, 8)
+    assert 0 < eager <= fused

@@ -33,7 +33,7 @@ from ddti_tpu_torch.data.synthetic import (
     generate_ddti_like,
     write_synthetic_dataset,
 )
-from ddti_tpu_torch.models import create_model
+from ddti_tpu_torch.models import blocks, create_model
 from ddti_tpu_torch.runtime import NativeSource
 from ddti_tpu_torch.train import engine
 from ddti_tpu_torch.train.state import TrainState
@@ -138,9 +138,13 @@ def test_host_batch_iterator_matches_jax(root):
 
 @pytest.fixture(scope="module")
 def two_pass_bn():
+    # both packages in two passes: flax's use_fast_variance=False and
+    # the port's BatchNorm2d.exact_variance (--bn_exact_variance)
     jblocks.set_bn_fast_variance(False)
+    blocks.BatchNorm2d.exact_variance = True
     yield
     jblocks.set_bn_fast_variance(True)
+    blocks.BatchNorm2d.exact_variance = False
 
 
 def test_host_train_step_matches_jax(two_pass_bn):

@@ -85,9 +85,13 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def two_pass_bn():
+    # both packages in two passes: flax's use_fast_variance=False and
+    # the port's BatchNorm2d.exact_variance (--bn_exact_variance)
     jblocks.set_bn_fast_variance(False)
+    blocks.BatchNorm2d.exact_variance = True
     yield
     jblocks.set_bn_fast_variance(True)
+    blocks.BatchNorm2d.exact_variance = False
 
 
 def _draw_stats(stats, seed=0):

@@ -180,6 +180,10 @@ def test_port_imports_no_jax():
     # the host data path: the PIL/cv2 chain and the native loader's binding
     assert {"ddti_tpu_torch.data.host_transforms",
             "ddti_tpu_torch.runtime.native"} <= set(modules)
+    # the rest of single-device training: distillation, the range test,
+    # the measured batch pick
+    assert {f"ddti_tpu_torch.train.{m}" for m in (
+        "distill", "lr_finder", "autobatch")} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ddti_tpu', 'benchmarks')); "

@@ -51,9 +51,13 @@ SIZE, BATCH, LR = 64, 4, 1e-5  # the CLI's default learning rate
 
 @pytest.fixture(scope="module")
 def two_pass_bn():
+    # both packages in two passes: flax's use_fast_variance=False and
+    # the port's BatchNorm2d.exact_variance (--bn_exact_variance)
     jblocks.set_bn_fast_variance(False)
+    blocks.BatchNorm2d.exact_variance = True
     yield
     jblocks.set_bn_fast_variance(True)
+    blocks.BatchNorm2d.exact_variance = False
 
 
 def test_bn_running_stats_match_flax_two_pass(two_pass_bn):
@@ -335,7 +339,7 @@ def test_two_epoch_cli_runs_agree(tmp_path, monkeypatch, jax_init):
         return jax_draws(jax.random.split(k, 3)[0], n, acfg), None
 
     monkeypatch.setattr(engine.Trainer, "_draws", draws)
-    assert tmain.main(common + ["--device", "cpu",
+    assert tmain.main(common + ["--device", "cpu", "--bn_exact_variance",
                                 "--base_dir", str(tmp_path / "port")]) == 0
 
     runs = {}

@@ -55,9 +55,13 @@ GRAD_TOL = 3e-5     # gradients (first moments), normwise over all
 
 @pytest.fixture(scope="module")
 def two_pass_bn():
+    # both packages in two passes: flax's use_fast_variance=False and
+    # the port's BatchNorm2d.exact_variance (--bn_exact_variance)
     jblocks.set_bn_fast_variance(False)
+    blocks.BatchNorm2d.exact_variance = True
     yield
     jblocks.set_bn_fast_variance(True)
+    blocks.BatchNorm2d.exact_variance = False
 
 
 @pytest.fixture(scope="module")
@@ -506,10 +510,12 @@ def test_parse_remat_arg_as_jax(arg, want):
 
 
 def test_only_qat_and_distillation_still_raise():
+    """QAT still raises; distillation is ported since (a config naming a
+    teacher checkpoint builds its step; tests/test_torch_distill.py holds
+    it against JAX)."""
     with pytest.raises(NotImplementedError, match="qat"):
         make_train_step(_jcfg(qat=True), AugmentConfig())
-    with pytest.raises(NotImplementedError, match="distill_checkpoint"):
-        make_train_step(_jcfg(distill_checkpoint="t.npz"), AugmentConfig())
+    make_train_step(_jcfg(distill_checkpoint="t.npz"), AugmentConfig())
     make_train_step(_jcfg(grad_accum=2, nan_guard=True, ema_decay=0.9,
                           clip_grad_norm=1.0), AugmentConfig())
 

@@ -92,9 +92,13 @@ def test_init_like_flax_covers_attention_projection_and_pos_emb():
 
 @pytest.fixture(scope="module")
 def two_pass_bn():
+    # both packages in two passes: flax's use_fast_variance=False and
+    # the port's BatchNorm2d.exact_variance (--bn_exact_variance)
     jblocks.set_bn_fast_variance(False)
+    blocks.BatchNorm2d.exact_variance = True
     yield
     jblocks.set_bn_fast_variance(True)
+    blocks.BatchNorm2d.exact_variance = False
 
 
 @pytest.fixture(scope="module")

@@ -117,6 +117,58 @@ def test_contours_of_a_speckled_frame_equal_jax():
         assert np.array_equal(g, w)
 
 
+def _shapes(kind, seed, h=48, w=56):
+    """Binary fields whose contours are all closed (nested rings inside the
+    frame) or mostly open (discs centred off the frame, cut by its
+    border)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    f = np.zeros((h, w), bool)
+    for _ in range(rng.integers(1, 5)):
+        if kind == "rings":
+            cy, cx = rng.uniform(12, h - 12), rng.uniform(12, w - 12)
+            r = np.hypot(yy - cy, xx - cx)
+            f ^= (r < rng.uniform(6, 11)) & (r > rng.uniform(1, 5))
+        else:
+            cy, cx = rng.choice([-4.0, h + 3.0]), rng.uniform(0, w)
+            f ^= np.hypot(yy - cy, xx - cx) < rng.uniform(8, 30)
+    return f.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["rings", "border cuts"])
+def test_contour_chains_equal_jax_on_closed_and_open_contours(kind):
+    """find_contours orders its chains by list ranking (a closed contour
+    opened at its smallest segment, an open one from its first): JAX's
+    walk's contours, in its order, bit for bit, 30 fields each."""
+    from ddti_tpu.eval.contours import find_contours as jfind
+    from ddti_tpu_torch.eval.contours import find_contours
+
+    closed = n = 0
+    for seed in range(30):
+        a = _shapes(kind, seed)
+        want, got = jfind(a, 0.5), find_contours(a, 0.5)
+        assert len(got) == len(want), seed
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w), seed
+            closed += bool(np.array_equal(g[0], g[-1]))
+        n += len(got)
+    assert n > 30 and (closed == n if kind == "rings" else closed < n)
+
+
+def test_contour_table_is_the_contours_end_to_end():
+    """contour_table, which the Pillow grid draws from, holds
+    find_contours' contours one after another, with their lengths."""
+    from ddti_tpu_torch.eval.contours import contour_table, find_contours
+
+    m = (np.random.default_rng(5).random((96, 80)) < 0.5).astype(np.uint8)
+    pts, sizes = contour_table(m, 0.5)
+    want = find_contours(m, 0.5)
+    assert sizes.tolist() == [len(c) for c in want] and min(sizes) >= 2
+    assert np.array_equal(pts, np.concatenate(want))
+    pts, sizes = contour_table(np.zeros((8, 8)), 0.5)
+    assert pts.shape == (0, 2) and sizes.shape == (0,)
+
+
 def test_pillow_grid_layout_and_colours(tmp_path, monkeypatch):
     """The Pillow composition: 4 x 400 by 5 x 400 pixels at per_fig 20,
     the frame in gray, ground-truth contours blue, predictions red."""
