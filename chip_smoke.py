@@ -18,7 +18,10 @@ alone (the AttentionUNet trained first, as the zoo phase trains it);
 ``python3 chip_smoke.py --lifecycle`` the lifecycle phase alone;
 ``python3 chip_smoke.py --legacy`` the legacy phase alone;
 ``python3 chip_smoke.py --hostdata`` the hostdata phase alone;
-``python3 chip_smoke.py --trainer`` the trainer phase alone.
+``python3 chip_smoke.py --trainer`` the trainer phase alone;
+``python3 chip_smoke.py --deploy`` the deploy phase alone;
+``python3 chip_smoke.py --profiles`` the ResUNet and TransUNet train-step
+profiles (phase 11) alone.
 
 Phases, one or more lines each; any failure ends the run with a traceback
 and a non-zero exit:
@@ -117,14 +120,14 @@ and a non-zero exit:
               bf16 step at the default dropout 0.1, which the gate sends to
               the plain attention: no flash launch, finite terms.
 11. tprofile — device time per train step (CUDA events), bf16 first:
-              ResUNet at 512^2 / batch 16 and 256^2 / batch 128, with the
-              EDT kernels' share; the TransUNet at 512^2 / batch 16 (S = 1024) on the
-              kernel path and the plain path, and the S = 4096 TransUNet
-              (base_filters 32, depth 3) at the largest batch <= 16 whose
-              plain path fits; then the TransUNet in float32 (the training
-              CLI's default dtype, TF32 off): S = 1024 on both paths and
-              S = 4096 on the kernel path; torch.profiler top-8, busy share
-              and the flash kernels' share.
+              the S = 4096 TransUNet (base_filters 32, depth 3) at the
+              largest batch <= 16 whose plain path fits, on the kernel and
+              the plain path, then in float32 (the training CLI's default
+              dtype, TF32 off) on the kernel path; torch.profiler top-8,
+              busy share, the flash and EDT kernels' shares. Under
+              --profiles also the ResUNet at 512^2 / batch 16 and 256^2 /
+              batch 128 and the TransUNet at 512^2 / batch 16 (S = 1024)
+              on both paths in bf16 and float32.
 12. zoo train — the same CLI training each of the rest of the zoo (UNet,
               ASPPUNet, AttentionUNet, VNet2D and ImprovedVNet with
               deep_supervision and --alpha 2) from a one-entry model YAML of
@@ -199,7 +202,8 @@ and a non-zero exit:
               bytes and save time; one float32 step from it with the kernel
               EDT and with the plain EDT, bit-equal boundary terms. An
               improving epoch's cost: _save_best and the next train epoch,
-              blocking and async, with and without the full state. Then
+              blocking with the full state (under --lifecycle also async,
+              and both without the full state). Then
               cli/average.py over the resumed run's periodic states with
               the BatchNorm pass on 32 frames (the JAX layout's keys), and
               cli/infer.py predicting the infer phase's frames from it.
@@ -261,10 +265,32 @@ and a non-zero exit:
               --profile 3 is phase 7's run (run alone, this phase runs its
               own); then the student's step with and without the teacher,
               its launches a step.
-20. result  — the total wall time, a JSON line of the kernels (the flash
+20. deploy  — (run after the infer phase, on the flagship checkpoint that
+              phase 7 wrote) the int8 conv (csrc/conv_s8.cu) bit for bit
+              against its plain version at every zoo geometry
+              (ops/conv_s8.py:ZOO_GEOMETRIES; s32 sums, float32 and bf16
+              outputs, two calls equal), timed at the flagship's 3x3 conv
+              (one call, queued) beside its bound and cuDNN's bf16
+              F.conv2d; at once, the serving TransUNet trained by the CLI
+              with --qat --export_serving --serving_dtype int8
+              --serving_batches 1,16 (run_cli's checks, exact launches),
+              cli/export (f32) and cli/quantize (--min_channels 128) on the
+              flagship, and this process exporting its bf16 and int8
+              (min_channels 0) bundles; one serving batch of 16 at 512^2
+              of each of the four, and at the same time cli/infer on the
+              QAT run's int8 batch-16 bundle (its launches); the int8
+              (min_channels 0) batch traced by torch.profiler (conv_s8's
+              and the elementwise kernels' shares, busy); the daemon on
+              the QAT run's two-program
+              int8 set, masks against serve_body's int8 graph, the conv_s8
+              and flash launches of its requests. ``--deploy`` runs the
+              phase alone (training its own flagship first) with every
+              flagship level's conv row.
+21. result  — the total wall time, a JSON line of the kernels (the flash
               forward's with the infer, legacy, hostdata and trainer
               phases' launches; the EDT's with the recipe, lifecycle,
-              legacy, hostdata and trainer phases' launches and numbers),
+              legacy, hostdata and trainer phases' launches and numbers;
+              conv_s8's with the deploy phase's),
               then the device
               line. Every busy share is the union of the device intervals
               of kernels, memcpys and memsets in a record_function window
@@ -494,6 +520,11 @@ LIFECYCLE_FLAGS = ["--save_interval=1", "--max_keep_checkpoints=2",
                    "--tune_threshold", "--best_full_state",
                    "--ema_decay=0.999", "--log_every=1"]
 LIFECYCLE_RECALIB = 32
+# the best saves timed, (--best_full_state, --async_best_save): all four
+# under --lifecycle; the whole run times the blocking full-state save only
+# (the CLI runs write theirs in the background)
+BEST_SAVE_MODES = ((False, False), (False, True), (True, False), (True, True))
+WHOLE_RUN_BEST_SAVES = ((True, False),)
 
 # the legacy phase: the nine fixed-architecture models of
 # models/legacy.py and models/mores.py, run.sh's sweep path at 1 epoch in
@@ -523,7 +554,7 @@ LEGACY_KW = dict(in_channels=1, out_channels=1)  # each entry's kwargs
 # run.sh:12-13's extras at 1 epoch in place of 2, in bf16
 LEGACY_EXTRA = ("--mode both --synthetic --epochs 1 --image_size 256 "
                 "--store_size 256 --batch_size 16 --use_amp_autocast true")
-LEGACY_JOBS = 5  # two rounds of the nine (3 at a time took three)
+LEGACY_JOBS = 9  # the nine at once (5 at a time took two rounds)
 LEGACY_SWEEP_TIMEOUT_S = 900
 LEGACY_SERVE = dict(image_size=512, batch=16, batches=2)
 LEGACY_STEP_BATCH = 4
@@ -2465,7 +2496,7 @@ def run_training(tmp):
           f"expected {TRAIN['epochs']} epochs x ({steps} train + {val} val "
           f"steps) + {test_b} test batches = {expected}")
     assert launches["edt_minplus"] == expected
-    return launches["edt_minplus"], check_profile_trace(best, "train")
+    return launches["edt_minplus"], check_profile_trace(best, "train"), best
 
 
 def run_transunet_training(tmp):
@@ -2684,7 +2715,7 @@ def parse_infer_output(text):
 
     m = re.search(r"^predicted (\d+) images in ([\d.]+)s \(([\d.]+) img/s\)",
                   text, re.M)
-    k = re.search(r"^\[KERNELS\] flash_fwd=(\d+)$", text, re.M)
+    k = re.search(r"^\[KERNELS\] flash_fwd=(\d+)\b", text, re.M)
     assert m and k, text[-2000:]
     return int(m.group(1)), float(m.group(2)), float(m.group(3)), \
         int(k.group(1))
@@ -3381,19 +3412,21 @@ def profile_zoo(profiles):
     return rows
 
 
-def profile_transunet():
+def profile_transunet(full=True):
     """The TransUNet train step on the kernel and the plain attention path:
     the slice's model at S = 1024, and the S = 4096 one at the largest
     batch of TLONG_BATCHES whose plain path fits in device memory, in bf16;
     then in float32 (the training CLI's default dtype) the slice's model on
-    both paths and the S = 4096 one on the kernel path at that batch."""
+    both paths and the S = 4096 one on the kernel path at that batch.
+    Without ``full`` (the whole run) only the S = 4096 model's three rows:
+    the S = 1024 model's steps are the tstep phase's and the CLI's."""
     import gc
 
     import torch
 
     size, batch = TTRAIN["image_size"], TTRAIN["batch_size"]
     rows = []
-    for path, flash in (("kernel", None), ("plain", False)):
+    for path, flash in (("kernel", None), ("plain", False)) if full else ():
         kw = dict(TSLICE, image_size=size, use_flash_attention=flash)
         rows.append(_profile_steps(f"TransUNet bf64 d4 S=1024 {path}", size,
                                    batch, "TransUNet", kw))
@@ -3412,7 +3445,7 @@ def profile_transunet():
     rows.append(_profile_steps("TransUNet bf32 d3 S=4096 kernel", size,
                                batch, "TransUNet", kw))
     rows.append(plain)
-    for path, flash in (("kernel", None), ("plain", False)):
+    for path, flash in (("kernel", None), ("plain", False)) if full else ():
         rows.append(_profile_steps(
             f"TransUNet bf64 d4 S=1024 {path}", size, TTRAIN["batch_size"],
             "TransUNet", dict(TSLICE, image_size=size,
@@ -4092,12 +4125,12 @@ def lifecycle_restore(last, tmp):
             "save_s": save_s}
 
 
-def lifecycle_best_saves(tmp):
+def lifecycle_best_saves(tmp, modes=BEST_SAVE_MODES):
     """What an improving epoch costs the step loop: a flagship Trainer on
     the card (the CLI's synthetic splits, bf16), the time of one train
     epoch alone (median of 3) and of ``_save_best`` and the next train
-    epoch, with --async_best_save false and true, without and with
-    --best_full_state; the async saver's background write beside."""
+    epoch, for each (--best_full_state, --async_best_save) of ``modes``;
+    the async saver's background write beside."""
     import statistics
 
     import torch
@@ -4128,29 +4161,28 @@ def lifecycle_best_saves(tmp):
     epoch()  # warm-up
     plain = statistics.median(epoch() for _ in range(3))
     rows = []
-    for full in (False, True):
-        for mode in (False, True):
-            cfg.best_full_state, cfg.async_best_save = full, mode
-            _sync()
-            t0 = time.perf_counter()
-            tr._save_best(0, 0.5)
-            save_s = time.perf_counter() - t0
-            ep = epoch()
-            write_s = None
-            if tr._best_saver is not None:
-                tr._best_saver.close()
-                tr._best_saver = None
-                write_s = time.perf_counter() - t0
-            rows.append({"best_full_state": full, "async": mode,
-                         "save_call_s": save_s, "next_epoch_s": ep,
-                         "improving_epoch_s": save_s + ep,
-                         "background_write_s": write_s})
-            phase("lifecycle", f"best save, full state {full}, async "
-                  f"{mode}: the call {save_s:.3f} s, the next epoch "
-                  f"{ep:.3f} s (alone {plain:.3f} s): an improving epoch "
-                  f"{save_s + ep:.3f} s"
-                  + (f"; written in the background by {write_s:.3f} s"
-                     if write_s is not None else ""))
+    for full, mode in modes:
+        cfg.best_full_state, cfg.async_best_save = full, mode
+        _sync()
+        t0 = time.perf_counter()
+        tr._save_best(0, 0.5)
+        save_s = time.perf_counter() - t0
+        ep = epoch()
+        write_s = None
+        if tr._best_saver is not None:
+            tr._best_saver.close()
+            tr._best_saver = None
+            write_s = time.perf_counter() - t0
+        rows.append({"best_full_state": full, "async": mode,
+                     "save_call_s": save_s, "next_epoch_s": ep,
+                     "improving_epoch_s": save_s + ep,
+                     "background_write_s": write_s})
+        phase("lifecycle", f"best save, full state {full}, async "
+              f"{mode}: the call {save_s:.3f} s, the next epoch "
+              f"{ep:.3f} s (alone {plain:.3f} s): an improving epoch "
+              f"{save_s + ep:.3f} s"
+              + (f"; written in the background by {write_s:.3f} s"
+                 if write_s is not None else ""))
     del tr, state
     torch.cuda.empty_cache()
     return {"epoch_s": plain, "steps_an_epoch": _cli_batches(
@@ -4219,12 +4251,13 @@ def lifecycle_average(tmp, periodic):
     return avg_wall, infer_wall
 
 
-def run_lifecycle(tmp):
+def run_lifecycle(tmp, best_saves=BEST_SAVE_MODES):
     """The lifecycle phase: the flagship through the CLI uninterrupted and,
     at the same time, preempted in epoch 2 (exit 75, the resume hint, the
     saved state); then resumed, and at the same time cli/average.py over
     the uninterrupted run's periodic states and cli/infer.py serving the
-    average; the restored state on the card; the best saves' cost."""
+    average; the restored state on the card; the best saves' cost in the
+    modes of ``best_saves``."""
     import shutil
 
     from ddti_tpu_torch.train.checkpoint import is_full_state
@@ -4277,7 +4310,7 @@ def run_lifecycle(tmp):
     restore = lifecycle_restore(last, tmp)
     assert resumed["resumed_step"] == restore["step"]
     shutil.rmtree(os.path.join(p_run, "models"))
-    best = lifecycle_best_saves(tmp)
+    best = lifecycle_best_saves(tmp, best_saves)
     wall = time.perf_counter() - t_phase
     phase("lifecycle", f"CLI wall times: uninterrupted {full_wall:.1f} s, "
           f"preempted {pre_wall:.1f} s (the two at once), resumed "
@@ -4677,6 +4710,26 @@ def zoo_only():
     zoo_steps()
     rows = profile_zoo([(m, *p) for m in ZOO for p in TRAIN_PROFILES])
     print(json.dumps({"zoo_launches": launches, "zoo_train_steps": rows}))
+    return 0
+
+
+def profiles_only():
+    """The ResUNet and TransUNet train-step profiles (phase 11) alone:
+    ``python3 chip_smoke.py --profiles``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps({"train_steps": profile_training(),
+                      "transunet_train_steps": profile_transunet()}))
     return 0
 
 
@@ -6083,6 +6136,503 @@ def trainer_only():
     return 0
 
 
+
+# ---------------------------------------------------------------------------
+# deploy: the int8 conv, QAT, the serving bundles, cli/export, cli/quantize
+# and the daemon on a two-program int8 set
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core operations per second
+# the conv_s8 kernel vs its plain version at every zoo geometry, at a small
+# frame with odd sides: (n, h, w)
+DEPLOY_GEOMETRY_FRAME = (2, 33, 30)
+# the flagship ResUNet's (bf64, d5) first-level 3x3 conv at 512^2, bs16:
+# (n, h, w, cin, cout), the kernels line's row; under --deploy every level
+DEPLOY_CONV = (16, 512, 512, 64, 64)
+DEPLOY_CONV_LEVELS = [(16, 512 >> i, 512 >> i, 64 << i, 64 << i)
+                      for i in range(5)]
+DEPLOY_BATCHES = (1, 16)
+DEPLOY_POSTS = 12
+# the daemon's masks against serve_body's: its flushes batch the frames
+# otherwise (cuBLAS and cuDNN pick their algorithms by shape), so a float
+# op may round an ulp apart and a pixel at the threshold flip
+DEPLOY_MASK_AGREE = 0.999
+
+
+def conv_s8_bound(n, h, w, c, cout, k, stride, dil, pad, bf16):
+    """(bound_ms, bound_by) of one conv_s8 call: int8 x read once, the
+    int8 weights and the float32 scales and bias, the output written once,
+    against 2 * outputs * k^2 * C int8 operations at PEAK_INT8_OPS."""
+    from ddti_tpu_torch.ops.conv_s8 import conv_geometry
+
+    _, _, oh, ow = conv_geometry(h, w, k, stride, dil, pad)
+    taps = 1 if pad == "T" else k * k
+    outs = n * oh * ow * cout
+    nbytes = (n * h * w * c + k * k * c * cout + 8 * cout + 4
+              + outs * (2 if bf16 else 4))
+    ops_ms = 2 * outs * taps * c / PEAK_INT8_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def _conv_s8_inputs(n, h, w, c, cout, k, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c),
+                                      dtype=np.int8)).cuda()
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, c, cout),
+                                       dtype=np.int8)).cuda()
+    sx = torch.tensor(np.float32(0.0137)).cuda()
+    sw = torch.from_numpy(rng.uniform(1e-4, 2e-2, cout).astype(
+        np.float32)).cuda()
+    bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32)).cuda()
+    return x, wq, sx, sw, bias
+
+
+def deploy_conv_row(n, h, w, c, cout, seed=SEED):
+    """The kernel at one flagship 3x3 shape (bf16 out, as a bf16 model's
+    convs): bit-equal to its plain version, the time of one call between
+    CUDA events and queued, the plain version's, the bound, and cuDNN's
+    bf16 F.conv2d at the same shape (channels_last) as the yardstick: no
+    PyTorch call computes an int8 convolution on CUDA."""
+    import torch
+    import torch.nn.functional as F
+
+    from ddti_tpu_torch.ops import conv_s8 as C
+
+    x, wq, sx, sw, bias = _conv_s8_inputs(n, h, w, c, cout, 3, seed)
+    geo = (1, 1, 1, 1, h, w, False, True)
+    got = C.conv_s8(x, wq, sx, sw, bias, *geo)
+    want = C.conv_s8_reference(x, wq, sx, sw, bias, *geo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "conv_s8 differs from its plain version"
+    ms = median_ms(lambda: C.conv_s8(x, wq, sx, sw, bias, *geo), runs=5,
+                   warmup=1)
+    _, queue = queued_ms(lambda: C.conv_s8(x, wq, sx, sw, bias, *geo),
+                         calls=20)
+    plain_ms = median_ms(lambda: C.conv_s8_reference(x, wq, sx, sw, bias,
+                                                     *geo), runs=2, warmup=1)
+    xf = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    wf = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    _, lib = queued_ms(lambda: F.conv2d(xf, wf, None, 1, 1), calls=20)
+    b_ms, b_by = conv_s8_bound(n, h, w, c, cout, 3, 1, 1, 1, True)
+    row = dict(shape=[n, h, w, c, cout], k=3, ms=ms, queue_ms=queue,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib, max_abs_err=0.0)
+    phase("deploy", f"conv_s8 {n}x{h}x{w}x{c}->{cout} 3x3 bf16 out: "
+          f"{ms:.3f} ms a call, {queue:.3f} ms queued, plain {plain_ms:.3f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}), cuDNN bf16 F.conv2d "
+          f"{lib:.3f} ms queued; bit-equal")
+    return row
+
+
+def deploy_conv_s8(levels=False):
+    """conv_s8 against its plain version at every zoo geometry (float32 and
+    bf16 out, s32 sums by unit scales), two calls bit-equal; then the
+    flagship row (every level under --deploy)."""
+    import torch
+
+    from ddti_tpu_torch.ops import conv_s8 as C
+
+    n, h, w = DEPLOY_GEOMETRY_FRAME
+    for i, (name, k, s, d, pad, c, cout) in enumerate(C.ZOO_GEOMETRIES):
+        x, wq, sx, sw, bias = _conv_s8_inputs(n, h, w, c, cout, k, SEED + i)
+        pt, pl, oh, ow = C.conv_geometry(h, w, k, s, d, pad)
+        for bf16 in (False, True):
+            geo = (s, d, pt, pl, oh, ow, pad == "T", bf16)
+            got = C.conv_s8(x, wq, sx, sw, bias, *geo)
+            again = C.conv_s8(x, wq, sx, sw, bias, *geo)
+            want = C.conv_s8_reference(x, wq, sx, sw, bias, *geo)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, bf16)
+            assert torch.equal(got, again), (name, bf16)
+        one = torch.ones((), device="cuda")
+        acc = C.conv_s8(x, wq, one, torch.ones(cout, device="cuda"), None,
+                        s, d, pt, pl, oh, ow, pad == "T", False)
+        assert torch.equal(acc, C.conv_s8_int32(
+            x, wq, s, d, pt, pl, oh, ow, pad == "T").float()), name
+    phase("deploy", f"conv_s8 = its plain version bit for bit (s32 sums, "
+          f"float32 and bf16 outputs, two calls equal) at all "
+          f"{len(C.ZOO_GEOMETRIES)} zoo geometries on {n}x{h}x{w}: "
+          + ", ".join(g[0] for g in C.ZOO_GEOMETRIES))
+    rows = [deploy_conv_row(*shape) for shape in (
+        DEPLOY_CONV_LEVELS if levels else [DEPLOY_CONV])]
+    return rows
+
+
+def deploy_clis(tmp, flagship):
+    """At once, each its own process: the serving slice's TransUNet trained
+    with --qat --export_serving --serving_dtype int8 --serving_batches 1,16
+    (run_cli's checks; the flash and EDT launches counted), cli/export
+    (f32) and cli/quantize (--min_channels 128, batch 1 and 16) on the
+    flagship ResUNet's best weights; meanwhile this process exports the
+    flagship's bf16 and int8 (min_channels 0) bundles
+    (``deploy_exports``). Returns the QAT run's launches and models
+    directory, the two CLIs' outputs and the bundles' paths."""
+    import yaml
+
+    cfg = os.path.join(tmp, "transunet_qat.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"model": {"model_type": "TransUNet",
+                                  "kwargs": TSLICE}}, f)
+    qat_flags = ["--config_path", cfg, "--device", DEVICE, "--qat",
+                 "--export_serving", "--serving_dtype", "int8",
+                 "--serving_batches", ",".join(map(str, DEPLOY_BATCHES)),
+                 *(f"--{k}={v}" for k, v in TTRAIN.items() if k != "epochs")]
+    arch = ["--model_type", "ResUNet", "--base_filters",
+            str(TRAIN["base_filters"]), "--depth", str(TRAIN["depth"]),
+            "--image_size", str(TRAIN["image_size"])]
+    cmds = {
+        "export": [sys.executable, "-m", "ddti_tpu_torch.cli.export",
+                   "--checkpoint", flagship + ".npz", "--output",
+                   os.path.join(tmp, "flag_f32"), "--batch_size", "16",
+                   *arch],
+        "quantize": [sys.executable, "-m", "ddti_tpu_torch.cli.quantize",
+                     "--checkpoint", flagship + ".npz", "--output",
+                     os.path.join(tmp, "flag_int8"), "--batch_size", "1,16",
+                     "--min_channels", "128", "--calib_count", "16",
+                     "--input_dtype", "uint8", "--bf16", *arch]}
+
+    def run(name):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmds[name], capture_output=True, text=True,
+                             timeout=TRAIN_TIMEOUT_S)
+        phase("deploy", f"cli/{name} exit {res.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + " | ".join(res.stdout.strip().splitlines()))
+        if res.returncode:
+            print(res.stderr[-6000:], file=sys.stderr)
+        assert res.returncode == 0, f"cli/{name} failed"
+        return res.stdout
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        outs = {n: pool.submit(run, n) for n in cmds}
+        exports = pool.submit(deploy_exports, tmp, flagship)
+        launches, best = run_cli(tmp, "deploy", "TransUNet",
+                                 dict(TSLICE, image_size=TTRAIN["image_size"]),
+                                 qat_flags, TTRAIN["epochs"],
+                                 jax_transunet_keys(TSLICE["depth"], N_LAYERS)
+                                 | qstats_keys())
+        outs = {n: f.result() for n, f in outs.items()}
+        paths = exports.result()
+    steps, val, test_b = _cli_batches(TTRAIN["batch_size"])
+    # the flash forward also runs in --qat's one eval forward of a zero
+    # frame that finds the tracked convs (qat.tracked_paths) and in the int8
+    # export's BatchNorm folding, which checks the folded model against the
+    # unfolded one on one frame (two forwards, fold_bn.fold_batchnorm)
+    expected = {"flash_fwd": N_LAYERS * (steps + val + test_b + 3),
+                "flash_bwd_dkdv": N_LAYERS * steps,
+                "flash_bwd_dq": N_LAYERS * steps,
+                "edt_minplus": steps + val + test_b, "conv_s8": 0}
+    phase("deploy", "QAT run launches " + ", ".join(
+        f"{k} {launches[k]} (expected {v})" for k, v in expected.items())
+        + ": the flash kernels and the EDT train under --qat (the flash "
+        "forward also in its set-up forward and the export's fold check); "
+        "the int8 export traces the program, launching nothing")
+    assert {k: launches[k] for k in expected} == expected
+    return launches, os.path.dirname(best), outs, paths
+
+
+def qstats_keys():
+    """The ``qstats/<path>`` entries of a --qat run's .npz of the serving
+    slice's TransUNet: every quantizable conv (all run in eval)."""
+    from ddti_tpu_torch.train.quantize import conv_modules
+
+    model = blank_model("TransUNet", **TSLICE,
+                        image_size=TTRAIN["image_size"])
+    return {f"qstats/{p}" for p in conv_modules(model, "TransUNet")}
+
+
+def _bundle_batch_ms(path, trace=False):
+    """One batch of a bundle at its own batch: the median of 5 calls
+    between CUDA events (a whole program's hundreds of launches fill the
+    launch queue, so they cannot wait behind queued_ms's sleep; the host's
+    time up to the first launch is in it). With ``trace``, also where the
+    device time of 2 batches goes (``bundle_trace``)."""
+    import torch
+
+    from ddti_tpu_torch.train.export import load_serving_bundle
+
+    fn, batch, size, dt = load_serving_bundle(path)
+    x = torch.zeros((batch, size, size, 1), dtype=dt, device="cuda")
+    ms = median_ms(lambda: fn(x), runs=5, warmup=2)
+    return ms, batch, (bundle_trace(lambda: fn(x)) if trace else None)
+
+
+DEPLOY_TRACED = 2  # batches in the int8 bundle's torch.profiler window
+
+
+def bundle_trace(one):
+    """torch.profiler over DEPLOY_TRACED calls of ``one`` (a serving
+    batch): the device kernels' time a batch, the conv_s8 kernels' share
+    of it, the elementwise kernels' (the activations' quantize passes and
+    layout copies among them), the busy share of the host's window (the
+    exported graph runs node by node in Python), and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(BUSY_WINDOW):
+            for _ in range(DEPLOY_TRACED):
+                one()
+            torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    if not kernels:
+        phase("deploy", "int8 batch trace: no device time recorded: not "
+              "measured")
+        return None
+    busy = device_busy(prof)
+    total = sum(e.self_device_time_total for e in kernels)
+    conv = sum(e.self_device_time_total for e in kernels
+               if "conv_s8" in e.key)
+    elem = sum(e.self_device_time_total for e in kernels
+               if "elementwise" in e.key.lower())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    out = dict(kernel_ms=total / 1e3 / DEPLOY_TRACED,
+               conv_s8_share=conv / total, elementwise_share=elem / total,
+               busy=busy["union_us"] / max(busy["window_us"], 1),
+               top=[[e.key[:80], e.self_device_time_total / total]
+                    for e in top])
+    phase("deploy", f"int8 batch trace ({DEPLOY_TRACED} batches): device "
+          f"kernels {out['kernel_ms']:.2f} ms a batch, conv_s8 "
+          f"{out['conv_s8_share']:.1%}, elementwise kernels "
+          f"{out['elementwise_share']:.1%}, {busy_text(busy)}; top: "
+          + "; ".join(f"{k} {v:.1%}" for k, v in out["top"]))
+    return out
+
+
+def deploy_exports(tmp, flagship):
+    """The flagship ResUNet's bf16 bundle (bf16 weights and compute) and
+    int8 bundle at min_channels 0 (calibrated on 16 synthetic frames), batch
+    16, uint8 input, exported in this process. Returns {name: path} with
+    the CLIs' f32 and int8 (min_channels 128) bundles."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+    from ddti_tpu_torch.train.export import (
+        PROGRAM_SUFFIX,
+        export_serving_program,
+        save_bundle,
+    )
+    from ddti_tpu_torch.train.quantize import export_serving_int8
+
+    model = load_checkpoint_into(
+        flagship + ".npz", "ResUNet",
+        blank_model("ResUNet", base_filters=TRAIN["base_filters"],
+                    depth=TRAIN["depth"])).cuda().eval()
+    size = TRAIN["image_size"]
+    paths = {"f32": os.path.join(tmp, "flag_f32" + PROGRAM_SUFFIX),
+             "int8_mc128": os.path.join(tmp, "flag_int8_b16" + PROGRAM_SUFFIX),
+             "bf16": os.path.join(tmp, "flag_bf16" + PROGRAM_SUFFIX),
+             "int8_mc0": os.path.join(tmp, "flag_int8_mc0" + PROGRAM_SUFFIX)}
+    save_bundle(paths["bf16"], *export_serving_program(
+        model, 16, size, input_dtype=torch.uint8, bf16=True,
+        weights_dtype=torch.bfloat16))
+    calib = torch.from_numpy(np.stack(make_frames(16, size, SEED + 9))[
+        ..., None]).cuda().float() / 255.0
+    save_bundle(paths["int8_mc0"], *export_serving_int8(
+        model, 16, size, calib_images=calib, input_dtype=torch.uint8,
+        bf16=True, min_channels=0, model_type="ResUNet"))
+    return paths
+
+
+def deploy_timings(paths):
+    """One serving batch of 16 at 512^2 of each flagship bundle: f32
+    (cli/export), bf16, int8 at min_channels 0 and 128 (cli/quantize); the
+    int8 one at min_channels 0 also traced (``bundle_trace``)."""
+    import torch
+
+    out, trace = {}, None
+    for name in ("f32", "bf16", "int8_mc0", "int8_mc128"):
+        ms, batch, traced = _bundle_batch_ms(paths[name],
+                                             trace=name == "int8_mc0")
+        assert batch == 16
+        out[name] = ms
+        trace = trace or traced
+        torch.cuda.empty_cache()
+    phase("deploy", "flagship ResUNet (bf64 d5) one serving batch of 16 at "
+          f"{TRAIN['image_size']}^2, CUDA events, median of 5: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items()))
+    return dict(batch_ms=out, int8_mc0_trace=trace)
+
+
+def deploy_daemon(models_dir):
+    """The daemon on the QAT run's two-program int8 set (batch 1 and 16,
+    one copy of the tensors): one frame alone, then DEPLOY_POSTS at once;
+    /stats counts both programs; the masks against serve_body's with the
+    int8 graph (``quantized_apply``, bf16) on the bundle's own tensors;
+    the conv_s8 and flash launches of these requests."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddti_tpu_torch.cli import serve
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.ops import conv_s8 as C
+    from ddti_tpu_torch.train.export import (
+        PROGRAM_SUFFIX,
+        load_serving_bundle,
+        serve_body,
+    )
+    from ddti_tpu_torch.train.quantize import quantized_apply
+
+    paths = [os.path.join(models_dir, f"TransUNet_b{b}{PROGRAM_SUFFIX}")
+             for b in DEPLOY_BATCHES]
+    args = serve.get_parser().parse_args([
+        "--checkpoint", ",".join(paths), "--port", "0",
+        "--max_wait_ms", "200"])
+    server = serve.create_server(args)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    port = server.server_address[1]
+    size = server.size
+    frames = make_frames(DEPLOY_POSTS + 1, size, SEED + 11)
+    bodies = []
+    for f in frames:
+        buf = io.BytesIO()
+        Image.fromarray(f, "L").save(buf, "PNG")
+        bodies.append(buf.getvalue())
+    C.conv_s8_cuda.launches = A.flash_forward_cuda.launches = 0
+    try:
+        results = [post(port, bodies[0])]
+        with concurrent.futures.ThreadPoolExecutor(DEPLOY_POSTS) as pool:
+            results += list(pool.map(lambda b: post(port, b), bodies[1:]))
+        torch.cuda.synchronize()
+        launches = {"conv_s8": C.conv_s8_cuda.launches,
+                    "flash_fwd": A.flash_forward_cuda.launches}
+        stats = get_json(port, "/stats")
+        health = get_json(port, "/healthz")
+    finally:
+        server.shutdown()
+        server.close()
+    assert all(r[0] == 200 for r in results)
+    got = np.stack([np.frombuffer(r[2], np.uint8).reshape(size, size) > 0
+                    for r in results])
+    # serve_body on the set's own tensors, the int8 graph live, fed the
+    # float32 [0, 1] frames the Trainer's programs take
+    fn, *_ = load_serving_bundle(paths[-1])
+    variables = fn.variables
+    model = blank_model("TransUNet", **TSLICE, image_size=size).cuda().eval()
+    x = torch.from_numpy(np.stack(frames)[..., None]).cuda().float() / 255.0
+    with torch.inference_mode():
+        want = torch.cat([serve_body(
+            model, x[i:i + 16], compute_dtype=torch.bfloat16,
+            apply_fn=lambda t: quantized_apply(model, variables, t,
+                                               model_type="TransUNet"))
+            for i in range(0, len(x), 16)])[..., 0].cpu().numpy() > 0
+    agree = float((got == want).mean())
+    by_program = stats["batches_by_program"]
+    phase("deploy", f"daemon on {health['artifact']} (programs "
+          f"{health['program_batches']}): {len(results)} POSTs in "
+          f"{stats['batches']} batches, by program {by_program}; masks agree "
+          f"with serve_body's int8 graph on {agree:.6%} of pixels; launches "
+          f"conv_s8 {launches['conv_s8']}, flash_fwd {launches['flash_fwd']}")
+    assert health["program_batches"] == list(DEPLOY_BATCHES)
+    assert by_program["1"] >= 1 and sum(by_program.values()) \
+        == stats["batches"]
+    assert agree >= DEPLOY_MASK_AGREE
+    assert launches["conv_s8"] > 0 and launches["flash_fwd"] \
+        == N_LAYERS * stats["batches"]
+    return dict(launches=launches, batches_by_program=by_program,
+                mask_agree=agree)
+
+
+DEPLOY_INFER_FRAMES = 20  # a full batch of 16 and a zero-padded one
+
+
+def deploy_infer(tmp, models_dir):
+    """cli/infer on the QAT run's int8 batch-16 bundle, in its own process:
+    DEPLOY_INFER_FRAMES masks written, the flash forward N_LAYERS times a
+    batch and conv_s8 the same number of times each batch."""
+    from PIL import Image
+
+    from ddti_tpu_torch.train.export import PROGRAM_SUFFIX
+
+    imgs, out = os.path.join(tmp, "deploy_imgs"), os.path.join(tmp,
+                                                               "deploy_out")
+    os.makedirs(imgs)
+    for i, f in enumerate(make_frames(DEPLOY_INFER_FRAMES, 512, SEED + 13)):
+        Image.fromarray(f, "L").save(os.path.join(imgs, f"f{i:02d}.png"))
+    bundle = os.path.join(models_dir, f"TransUNet_b16{PROGRAM_SUFFIX}")
+    res = subprocess.run(
+        [sys.executable, "-m", "ddti_tpu_torch.cli.infer", "--checkpoint",
+         bundle, "--input_dir", imgs, "--output_dir", out],
+        capture_output=True, text=True, timeout=TRAIN_TIMEOUT_S)
+    if res.returncode:
+        print(res.stderr[-6000:], file=sys.stderr)
+    assert res.returncode == 0, "cli/infer on the int8 bundle failed"
+    lines = res.stdout.strip().splitlines()
+    kernels = dict(kv.split("=") for kv in lines[-1].split()[1:])
+    kernels = {k: int(v) for k, v in kernels.items()}
+    batches = -(-DEPLOY_INFER_FRAMES // 16)
+    preds = [n for n in os.listdir(out) if n.endswith("_pred.png")]
+    phase("deploy", f"cli/infer on {os.path.basename(bundle)}: "
+          f"{lines[-2]}; {lines[-1]} for {batches} batches")
+    assert len(preds) == DEPLOY_INFER_FRAMES
+    assert kernels["flash_fwd"] == N_LAYERS * batches
+    assert kernels["conv_s8"] > 0 and kernels["conv_s8"] % batches == 0
+    return kernels
+
+
+def run_deploy(tmp, flagship, levels=False):
+    """The deploy phase: the int8 conv's checks and row, the CLIs at once,
+    the flagship bundles' serving batch times beside cli/infer on the int8
+    set's batch-16 bundle, the daemon on the set. Its wall time is
+    printed."""
+    t0 = time.perf_counter()
+    out = {"conv_rows": deploy_conv_s8(levels)}
+    launches, models_dir, outs, paths = deploy_clis(tmp, flagship)
+    out["qat_launches"] = launches
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        infer = pool.submit(deploy_infer, tmp, models_dir)
+        out["timings"] = deploy_timings(paths)
+        out["infer_launches"] = infer.result()
+    out["daemon"] = deploy_daemon(models_dir)
+    out["phase_s"] = time.perf_counter() - t0
+    phase("deploy", f"phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+def deploy_only():
+    """The deploy phase alone, with every flagship level's conv_s8 row and
+    its own flagship checkpoint (1 epoch): ``python3 chip_smoke.py
+    --deploy``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        model_kw = dict(base_filters=TRAIN["base_filters"],
+                        depth=TRAIN["depth"])
+        flags = [f"--{k}={v}" for k, v in TRAIN.items()
+                 if k not in ("model_type", "epochs")]
+        _, best = run_cli(tmp, "train", "ResUNet", model_kw, flags,
+                          TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
+        deploy = run_deploy(tmp, best, levels=True)
+    print(json.dumps({"deploy": deploy}))
+    return 0
+
+
 def main():
     import torch
 
@@ -6151,7 +6701,7 @@ def main():
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             trained = pool.submit(run_training, tmp)
             t_launches = run_transunet_training(tmp)
-            edt_launches, profiled = trained.result()
+            edt_launches, profiled, flagship = trained.result()
         clock.mark("train CLIs")
         zoo_launches, zoo_ckpts = run_zoo_training(tmp)
         clock.mark("zoo train")
@@ -6160,18 +6710,19 @@ def main():
         infer = run_infer(tmp, ckpt, zoo_ckpts["AttentionUNet"][0] + ".pth")
         infer["daemon_launches"] = infer_daemon(ckpt)
         clock.mark("infer")
+        deploy = run_deploy(tmp, flagship)
+        clock.mark("deploy")
     step_kernel_vs_plain()
     zoo_steps()
     tstep_kernel_vs_plain()
     clock.mark("steps")
-    train_rows = profile_training()
-    ttrain_rows = profile_transunet()
+    ttrain_rows = profile_transunet(full=False)
     clock.mark("train profiles")
     with tempfile.TemporaryDirectory() as tmp:
         recipe = run_recipe(tmp)
     clock.mark("recipe")
     with tempfile.TemporaryDirectory() as tmp:
-        lifecycle = run_lifecycle(tmp)
+        lifecycle = run_lifecycle(tmp, WHOLE_RUN_BEST_SAVES)
     clock.mark("lifecycle")
     with tempfile.TemporaryDirectory() as tmp:
         legacy = run_legacy(tmp)
@@ -6306,7 +6857,7 @@ def main():
         "row_ms": edt_rows[0]["row_ms"],
         "library_ms": None,  # no PyTorch call computes an EDT
         "shapes": edt_rows,
-        "train_steps": train_rows,
+        "train_steps": "the ResUNet's under --profiles",
         "zoo_launches": zoo_launches,
         "recipe": recipe,
         "lifecycle": lifecycle,
@@ -6389,6 +6940,27 @@ def main():
         "builder": "A: flat take, (128, 256, 256) float32, shared index",
         "builders": cg["gather"],
         "edges": cg["gather_edges"],
+    }, {
+        "name": "conv_s8",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/conv_s8.cu",
+        "replaces": "ddti_tpu/train/quantize.py:267",
+        "also_replaces": "ddti_tpu/train/quantize.py:262",
+        "replaces_note": "XLA's s8 x s8 -> s32 convs of the JAX int8 "
+                         "serving graph (lax.conv_general_dilated, "
+                         "lax.conv_transpose); no Pallas kernel",
+        "launches": deploy["daemon"]["launches"]["conv_s8"],
+        "max_abs_err": 0.0,  # bit for bit at every zoo geometry
+        "ms": deploy["conv_rows"][0]["ms"],
+        "queue_ms": deploy["conv_rows"][0]["queue_ms"],
+        "plain_ms": deploy["conv_rows"][0]["plain_ms"],
+        "bound_ms": deploy["conv_rows"][0]["bound_ms"],
+        "bound_by": deploy["conv_rows"][0]["bound_by"],
+        "library_ms": deploy["conv_rows"][0]["library_ms"],
+        "library": "F.conv2d bf16 (cuDNN, channels_last), queued: no "
+                   "PyTorch call computes an int8 conv on CUDA",
+        "shape": deploy["conv_rows"][0]["shape"],
+        "deploy": deploy,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6435,4 +7007,8 @@ if __name__ == "__main__":
         sys.exit(hostdata_only())
     if sys.argv[1:2] == ["--trainer"]:
         sys.exit(trainer_only())
+    if sys.argv[1:2] == ["--deploy"]:
+        sys.exit(deploy_only())
+    if sys.argv[1:2] == ["--profiles"]:
+        sys.exit(profiles_only())
     sys.exit(main())

@@ -19,7 +19,8 @@ times, at the port's BatchNorm momentum (the JAX package's 0.9 retention).
 The output is a ``.npz`` in ``save_params_npz`` layout that the train
 CLI (``--checkpoint_path``), the infer CLI and the daemon load, and the
 JAX package too. ``--device`` (default ``cuda``) runs the recalibration;
-``cpu`` for small runs. QAT ranges are not merged: the port has no QAT.
+``cpu`` for small runs. The members' QAT ranges (``qstats/``) merge by
+their maximum into the output, as in JAX.
 """
 
 from __future__ import annotations
@@ -130,10 +131,11 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from ddti_tpu_torch.cli.serve import resolve_device
+    from ddti_tpu_torch.core.device import resolve_device
     from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.checkpoint import (
         load_checkpoint_into,
+        load_qstats,
         save_params_npz,
     )
 
@@ -167,10 +169,20 @@ def main(argv=None) -> int:
     # coexist
     acc = {k: np.zeros(v.shape, np.float64)
            for k, v in model.state_dict().items()}
+    # QAT activation ranges (train --qat) merge by their MAX over the
+    # members: a range covering every member's activations keeps an int8
+    # export of the averaged weights saturation-free
+    qstats: dict = {}
     for path, wi in zip(paths, w):
         load_checkpoint_into(path, args.model_type, model)
         for k, v in model.state_dict().items():
             acc[k] += wi * v.numpy().astype(np.float64)
+        try:
+            qs = load_qstats(path) or {}
+        except Exception:
+            qs = {}
+        for k, v in qs.items():
+            qstats[k] = max(qstats.get(k, 0.0), float(v))
         print(f"averaged {path} (weight {wi:.3f})")
     sd = model.state_dict()
     model.load_state_dict({k: torch.from_numpy(acc[k]).to(sd[k].dtype)
@@ -190,9 +202,11 @@ def main(argv=None) -> int:
 
     os.makedirs(os.path.dirname(os.path.abspath(args.output)),
                 exist_ok=True)
-    save_params_npz(args.output, args.model_type, model.state_dict())
-    print(f"wrote averaged weights ({len(paths)} checkpoints) -> "
-          f"{args.output}")
+    save_params_npz(args.output, args.model_type, model.state_dict(),
+                    qstats=qstats or None)
+    print(f"wrote averaged weights ({len(paths)} checkpoints"
+          + (f", {len(qstats)} QAT ranges max-merged" if qstats else "")
+          + f") -> {args.output}")
     return 0
 
 

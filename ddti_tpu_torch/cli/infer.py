@@ -21,9 +21,14 @@ Usage:
 the last, short batch as it is (JAX zero-pads it to its compiled batch
 shape; eval BatchNorm is per sample, so the masks are the same).
 
-Not ported yet (ROADMAP.md Queue 1 item 5): ``.stablehlo`` serving bundles
-(such a checkpoint raises), with their ``--weights`` and the XLA
-``--compilation_cache``, which are not offered.
+A ``.pt2`` serving bundle (``--export_serving``, ``cli/export.py``,
+``cli/quantize.py``; ``train/export.py``) predicts with no model code: its
+fixed batch (a short tail zero-padded), its size and its baked threshold,
+TTA and precision; ``--weights`` names its tensors (default: the sibling
+``.npz``). With ``--sliding_window`` its binarized tiles are blended by a
+Hann-weighted vote. A JAX ``.stablehlo`` raises: export the checkpoint
+with ``python -m ddti_tpu_torch.cli.export`` instead. The XLA
+``--compilation_cache`` is not offered.
 """
 
 from __future__ import annotations
@@ -115,12 +120,26 @@ def get_parser() -> argparse.ArgumentParser:
                          "cpu")
     ap.add_argument("--cpu", dest="device", action="store_const",
                     const="cpu", help="the same as --device cpu")
+    ap.add_argument("--weights", default=None,
+                    help="tensor bundle (.npz) of a weights-as-arguments "
+                         ".pt2 program; default: the program path with "
+                         ".pt2 -> .npz")
     ap.add_argument("--mask_dir", default=None,
                     help="ground-truth <stem>_mask.* directory: after "
                          "predicting, score the predictions (IoU/F1 + "
                          "HD95/ASSD) and write eval_metrics.json + "
                          "per_image_metrics.csv into --output_dir")
     return ap
+
+
+def check_not_stablehlo(paths) -> None:
+    """A JAX StableHLO bundle raises, naming the port's own export."""
+    if any(p.endswith(".stablehlo") for p in paths):
+        raise NotImplementedError(
+            ".stablehlo serving bundles are JAX programs the port does not "
+            "run (ROADMAP.md, Known divergences); export the checkpoint as "
+            "a .pt2 bundle with python -m ddti_tpu_torch.cli.export (or "
+            "cli.quantize for int8), or pass its .pth / .npz weights")
 
 
 def build_apply_fn(args, device):
@@ -137,11 +156,7 @@ def build_apply_fn(args, device):
     from ddti_tpu_torch.train.fold_bn import fold_batchnorm
 
     ck_paths = [p for p in args.checkpoint.split(",") if p]
-    if any(p.endswith(".stablehlo") for p in ck_paths):
-        raise NotImplementedError(
-            ".stablehlo serving bundles are a JAX format the port does not "
-            "run yet (ROADMAP.md Queue 1 item 5); pass the .pth or .npz "
-            "weights")
+    check_not_stablehlo(ck_paths)
     kwargs = dict(in_channels=1, out_channels=1,
                   base_filters=args.base_filters, depth=args.depth)
     if args.model_type == "TransUNet":
@@ -177,10 +192,27 @@ def main(argv=None) -> int:
     import torch
     from PIL import Image
 
-    from ddti_tpu_torch.cli.serve import resolve_device
-    from ddti_tpu_torch.ops import attention
+    from ddti_tpu_torch.core.device import resolve_device
 
     device = resolve_device(args.device)
+    ck_paths = [p for p in args.checkpoint.split(",") if p]
+    check_not_stablehlo(ck_paths)
+    if any(p.endswith(".pt2") for p in ck_paths):
+        if len(ck_paths) > 1:
+            print("error: checkpoint ensembles need live checkpoints (a "
+                  ".pt2 bundle bakes its binarization in); export one "
+                  "ensemble bundle with cli.export --checkpoint a,b,c")
+            return 1
+        if args.prob:
+            print("warning: --prob is unavailable for .pt2 bundles "
+                  "(binarization is baked into the program); writing "
+                  "binary masks")
+            args.prob = False
+        rc = _infer_serving_bundle(args, device)
+        if rc == 0:
+            _maybe_eval(args)
+        print(_kernels_line())
+        return rc
     apply_fn = build_apply_fn(args, device)
 
     os.makedirs(args.output_dir, exist_ok=True)
@@ -242,8 +274,127 @@ def main(argv=None) -> int:
     print(f"predicted {n_done} images in {dt:.1f}s "
           f"({n_done / max(dt, 1e-9):.1f} img/s)")
     _maybe_eval(args)
-    # the hand-written kernel this run launched (0 on the CPU)
-    print(f"[KERNELS] flash_fwd={attention.flash_forward_cuda.launches}")
+    print(_kernels_line())
+    return 0
+
+
+def _kernels_line() -> str:
+    """The hand-written kernels this run launched (0 on the CPU)."""
+    from ddti_tpu_torch.ops import attention, conv_s8
+
+    return (f"[KERNELS] flash_fwd={attention.flash_forward_cuda.launches} "
+            f"conv_s8={conv_s8.conv_s8_cuda.launches}")
+
+
+def _infer_serving_bundle(args, device) -> int:
+    """Predict from a ``.pt2`` bundle (JAX ``_infer_serving_bundle``): no
+    model code, the program's fixed batch and size, a short tail
+    zero-padded."""
+    import numpy as np
+    from PIL import Image
+
+    from ddti_tpu_torch.train.export import load_serving_bundle
+
+    serve, batch_n, size, _ = load_serving_bundle(
+        args.checkpoint, args.weights, device=device)
+    names = sorted(n for n in os.listdir(args.input_dir)
+                   if n.lower().endswith(IMAGE_EXTS))
+    if not names:
+        print(f"no images in {args.input_dir}")
+        return 1
+    os.makedirs(args.output_dir, exist_ok=True)
+    if args.sliding_window:
+        return _serve_bundle_tiled(args, serve, batch_n, size, names)
+
+    t0 = time.perf_counter()
+    n_done = 0
+    for start in range(0, len(names), batch_n):
+        chunk = names[start:start + batch_n]
+        arrs, metas = [], []
+        for name in chunk:
+            img = Image.open(os.path.join(args.input_dir, name)).convert("L")
+            metas.append((name, img.size))
+            img = img.resize((size, size), Image.BILINEAR)
+            arrs.append(np.asarray(img, np.uint8)[..., None])
+        x = np.stack(arrs)
+        if len(chunk) < batch_n:  # pad the tail to the program's batch
+            x = np.concatenate([x, np.zeros((batch_n - len(chunk),)
+                                            + x.shape[1:], x.dtype)])
+        preds = _bundle_predict(serve, x)[:len(chunk)]
+        for p, (name, orig_size) in zip(preds, metas):
+            m = Image.fromarray((p[..., 0] * 255).astype(np.uint8))
+            m = m.resize(orig_size, Image.NEAREST)
+            m.save(os.path.join(args.output_dir,
+                                os.path.splitext(name)[0] + "_pred.png"))
+            _maybe_overlay(args, name, m)
+            n_done += 1
+    dt = time.perf_counter() - t0
+    print(f"served {n_done} images in {dt:.1f}s "
+          f"({n_done / max(dt, 1e-9):.1f} img/s) "
+          f"[artifact batch={batch_n} size={size}]")
+    return 0
+
+
+def _bundle_predict(serve, x_u8):
+    """uint8 NHWC frames through a bundle -> uint8 numpy masks (a float
+    program's fn scales the frames to [0, 1] itself)."""
+    return serve(x_u8).cpu().numpy()
+
+
+def _serve_bundle_tiled(args, serve, batch_n, window, names) -> int:
+    """Sliding-window serving from a fixed-shape bundle (JAX
+    ``_serve_bundle_tiled``): each frame reflect-padded and cut into the
+    program's window, tiles batched to its batch, the binarized tile
+    masks blended by a Hann-weighted vote."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ddti_tpu_torch.eval.sliding_window import (
+        _importance,
+        _tile_positions,
+        reflect_pad_2d,
+    )
+
+    stride = min(args.stride, window)
+    weight = _importance(window)
+    t0 = time.perf_counter()
+    n_done = 0
+    for name in names:
+        img = Image.open(os.path.join(args.input_dir, name)).convert("L")
+        frame = np.asarray(img, np.uint8)
+        h, w = frame.shape
+        pad_h = max(window - h, (-h) % stride if h > window else 0)
+        pad_w = max(window - w, (-w) % stride if w > window else 0)
+        padded = reflect_pad_2d(torch.from_numpy(frame.copy()).float(), pad_h,
+                                pad_w).numpy().astype(np.uint8)
+        ph, pw = padded.shape
+        coords = [(y, x) for y in _tile_positions(ph, window, stride)
+                  for x in _tile_positions(pw, window, stride)]
+        tiles = np.stack([padded[y:y + window, x:x + window]
+                          for y, x in coords])[..., None]
+        n_tiles = len(coords)
+        pad_t = (-n_tiles) % batch_n
+        if pad_t:
+            tiles = np.concatenate(
+                [tiles, np.zeros((pad_t,) + tiles.shape[1:], tiles.dtype)])
+        preds = np.concatenate(
+            [_bundle_predict(serve, tiles[i:i + batch_n])
+             for i in range(0, len(tiles), batch_n)])[:n_tiles]
+        acc = np.zeros((ph, pw), np.float32)
+        norm = np.zeros((ph, pw), np.float32)
+        for (y, x), p in zip(coords, preds):
+            acc[y:y + window, x:x + window] += p[..., 0] * weight
+            norm[y:y + window, x:x + window] += weight
+        mask = ((acc / norm)[:h, :w] > 0.5).astype(np.uint8) * 255
+        Image.fromarray(mask).save(os.path.join(
+            args.output_dir, os.path.splitext(name)[0] + "_pred.png"))
+        _maybe_overlay(args, name, mask)
+        n_done += 1
+    dt = time.perf_counter() - t0
+    print(f"served {n_done} frames tiled in {dt:.1f}s "
+          f"({n_done / max(dt, 1e-9):.1f} img/s) "
+          f"[artifact batch={batch_n} window={window} stride={stride}]")
     return 0
 
 

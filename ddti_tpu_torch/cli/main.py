@@ -18,8 +18,7 @@ augmentation branches (``--p_crop --use_elastic --use_speckle --use_tgc
 options (``--grad_accum --nan_guard --nan_guard_patience --clip_grad_norm
 --ema_decay --freeze --freeze_bn_stats --remat [LEVELS]``) among them.
 ``--device`` (default ``cuda``, which raises where CUDA is absent; ``cpu``
-for small runs) is the port's own. A flag of the JAX CLI that is not
-ported yet is absent, so argparse rejects it (ROADMAP.md Queue 1).
+for small runs) is the port's own.
 
 The rest of single-device training takes the JAX flags too:
 ``--bn_exact_variance`` (two-pass BatchNorm variance; flax's one pass is
@@ -32,6 +31,16 @@ prints ``[LR_FIND] steepest=... min_over_10=...`` and exits 0),
 fits the card; refused on the CPU, which has no peak meter) and the
 ``--distill_*`` flags (a frozen teacher's tempered probabilities blended
 into the loss).
+
+Deployment takes them too: ``--qat`` (every conv trains fake-quantized,
+with ``--qat_ema_decay``'s activation-range EMA and
+``--quant_min_channels``), and ``--export_serving`` with
+``--serving_dtype {f32,bf16,int8}`` and ``--serving_batches 1,16``: after
+training, ``<Model>[_b<N>]_serving_program.pt2`` + ``.npz`` and the baked
+``<Model>_serving.pt2`` in ``models/`` (``train/export.py``; int8 from the
+QAT ranges, else one validation batch, on the hand-written int8 conv).
+The ``[KERNELS]`` line counts ``conv_s8`` too. The mesh flags are not
+ported (ROADMAP.md Queue 1 item 12), so argparse rejects them.
 
 Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded once
 (libjpeg, in C++ threads, for all-JPEG sets) to uint8 stores at
@@ -298,6 +307,33 @@ def get_parser() -> argparse.ArgumentParser:
                         "the on-device pipeline")
     p.add_argument("--surface_metrics", default=True, type=_str2bool,
                    help="per-image HD95/ASSD surface distances in test()")
+    p.add_argument("--export_serving", action="store_true",
+                   help="after training, write the serving bundles: "
+                        "<Model>_serving_program.pt2 + .npz (weights as "
+                        "arguments, one a --serving_batches entry) and the "
+                        "baked <Model>_serving.pt2 (train/export.py)")
+    p.add_argument("--serving_batches", default=None, type=str,
+                   help="comma list of batch shapes for --export_serving "
+                        "(e.g. 1,8,128): one bundle per shape, servable "
+                        "together by cli/serve as a multi-program set")
+    p.add_argument("--serving_dtype", choices=["f32", "bf16", "int8"],
+                   default="f32",
+                   help="exported bundle precision: bf16 halves the .npz; "
+                        "int8 runs every conv as s8 x s8 -> s32 on the "
+                        "hand-written kernel (per-channel weights, "
+                        "activation ranges from --qat or one calibration "
+                        "batch; train/quantize.py)")
+    p.add_argument("--quant_min_channels", type=int, default=0,
+                   help="int8 serving and --qat: only convs with "
+                        "max(cin, cout) >= this (mixed precision)")
+    p.add_argument("--qat", action="store_true",
+                   help="quantization-aware training: fake-quantized conv "
+                        "forwards (per-channel int8 weights, per-tensor "
+                        "activations, STE gradients) and an activation-range "
+                        "EMA that --serving_dtype int8 exports take "
+                        "(train/qat.py; respects --quant_min_channels)")
+    p.add_argument("--qat_ema_decay", type=float, default=0.99,
+                   help="per-step decay of the QAT activation-range EMA")
     p.add_argument("--tta", action="store_true",
                    help="4-way flip test-time augmentation in test(): the "
                         "sigmoid probabilities averaged over {identity, h, "
@@ -504,11 +540,11 @@ def main(argv=None) -> int:
 
     import torch
 
-    from ddti_tpu_torch.cli.serve import resolve_device
+    from ddti_tpu_torch.core.device import resolve_device
     from ddti_tpu_torch.core.logging import create_logger
     from ddti_tpu_torch.core.prng import set_seed
     from ddti_tpu_torch.models import create_model
-    from ddti_tpu_torch.ops import attention, edt
+    from ddti_tpu_torch.ops import attention, conv_s8, edt
     from ddti_tpu_torch.train.engine import Trainer
     from ddti_tpu_torch.train.state import count_params
     from ddti_tpu_torch.utils.weight_init import init_like_flax
@@ -599,7 +635,8 @@ def main(argv=None) -> int:
     kernels = (f"[KERNELS] edt_minplus={edt.edt_cuda.launches} "
                f"flash_fwd={attention.flash_forward_cuda.launches} "
                f"flash_bwd_dkdv={bwd.launches_dkdv} "
-               f"flash_bwd_dq={bwd.launches_dq}")
+               f"flash_bwd_dq={bwd.launches_dq} "
+               f"conv_s8={conv_s8.conv_s8_cuda.launches}")
     logger.info(kernels)
     print(kernels)
     return rc

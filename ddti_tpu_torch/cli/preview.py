@@ -152,7 +152,7 @@ def draw_grid(images, masks, draws, path: str) -> tuple[int, int]:
 
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
-    from ddti_tpu_torch.cli.serve import resolve_device
+    from ddti_tpu_torch.core.device import resolve_device
 
     device = resolve_device(args.device)
     images, masks = source_frames(args)

@@ -1,5 +1,6 @@
-"""Online HTTP model server, ported from ``ddti_tpu/cli/serve.py``: the
-live-checkpoint path on one CUDA device (or, when asked for, the CPU).
+"""Online HTTP model server, ported from ``ddti_tpu/cli/serve.py``: a live
+checkpoint or ``.pt2`` serving bundles on one CUDA device (or, when asked
+for, the CPU).
 
 Concurrent requests coalesce into fixed ``(batch, size, size, 1)`` batches,
 padded when sparse, so throughput approaches the offline rate while a lone
@@ -10,10 +11,11 @@ Endpoints:
   GET  /stats     request/image/batch counters, throughput, latency (JSON)
   GET  /metrics   the same counters in Prometheus exposition format (the
                   JAX daemon's names)
-  POST /reload    hot-swap the model from the same (rewritten) or a new
-                  ``{"checkpoint": path}``: loaded, warmed, then swapped
-                  into the batcher at once (a batch already running keeps
-                  its model); the train -> serve loop without a restart
+  POST /reload    hot-swap the model or bundle set from the same
+                  (rewritten) or a new ``{"checkpoint": path}``: loaded,
+                  warmed, then swapped into the batcher at once (a batch
+                  already running keeps its program); the train -> serve
+                  loop without a restart
   POST /predict   body = raw image bytes (JPEG/PNG/BMP, any size); JPEGs
                   decode through the native libjpeg path of
                   ``runtime/native.py`` where it is built (PIL for the rest,
@@ -41,8 +43,13 @@ keeps all of these, bf16 and the TF32 flags. ``--watch N`` polls the
 checkpoint's mtime every N seconds and reloads when training rewrites it,
 following a path that ``/reload`` installed.
 
-Not ported yet (ROADMAP.md): serving bundles (``.stablehlo``, several
-batch programs, ``--weights``).
+``--checkpoint`` may name ``.pt2`` serving bundles (``train/export.py``):
+no model code runs, the programs bake their batch, size, threshold, TTA
+and precision (f32, bf16 or int8). A comma list of bundles of one model
+at several batch sizes is served as one set: each flush runs through the
+smallest program that holds it (``/stats`` counts ``batches_by_program``),
+and the set holds one copy of the weights on the device. ``--weights``
+names a single bundle's tensors (default: its sibling ``.npz``).
 """
 
 from __future__ import annotations
@@ -77,9 +84,14 @@ class Batcher:
     one blocked handler thread per request — grow without bound."""
 
     def __init__(self, predict, batch_n: int, max_wait_ms: float = 5.0,
-                 max_queue: int | None = None):
+                 max_queue: int | None = None, small_programs=None):
         self.batch_n = int(batch_n)
-        self.predict = predict  # the live program; a reload swaps it
+        # programs ascending by batch: a sparse flush runs through the
+        # smallest that holds it (latency), a full one through the main
+        # program (throughput); a reload swaps the set
+        self.programs = sorted(
+            [(int(bn), fn) for bn, fn in (small_programs or [])
+             if int(bn) < self.batch_n]) + [(self.batch_n, predict)]
         self.max_wait = max_wait_ms / 1000.0
         self.max_queue = int(max_queue) if max_queue else 8 * self.batch_n
         self._q: queue.Queue = queue.Queue()
@@ -88,6 +100,7 @@ class Batcher:
         self.n_batches = 0
         self.n_images = 0
         self.n_rejected = 0
+        self.batches_by_program = {bn: 0 for bn, _ in self.programs}
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="ddti-batcher")
         self._thread.start()
@@ -110,12 +123,20 @@ class Batcher:
             raise slot["error"]
         return slot["mask"]
 
-    def swap_program(self, predict) -> None:
-        """Replace the serving program at once (hot reload). A flush
-        already running keeps the predict it took; the next one takes the
-        new program."""
+    def swap_programs(self, predict, batch_n: int | None = None,
+                      small_programs=None) -> None:
+        """Replace the serving programs at once (hot reload). A flush
+        already running keeps the program it took; the next one takes the
+        new set."""
+        batch_n = self.batch_n if batch_n is None else int(batch_n)
+        programs = sorted(
+            [(int(bn), fn) for bn, fn in (small_programs or [])
+             if int(bn) < batch_n]) + [(batch_n, predict)]
         with self.lock:
-            self.predict = predict
+            self.batch_n = batch_n
+            self.programs = programs
+            for bn, _ in programs:
+                self.batches_by_program.setdefault(bn, 0)
 
     def close(self):
         self._stop = True
@@ -161,12 +182,19 @@ class Batcher:
     def _flush(self, items):
         import numpy as np
 
-        with self.lock:  # snapshot: a concurrent reload may swap it
-            predict = self.predict
+        with self.lock:  # snapshot: a concurrent reload may swap the set
+            programs = list(self.programs)
+        largest = programs[-1][0]
+        if len(items) > largest:
+            # the set shrank while this flush collected (a reload to
+            # smaller batches): split it
+            for i in range(0, len(items), largest):
+                self._flush(items[i:i + largest])
+            return
+        bn, predict = next(p for p in programs if p[0] >= len(items))
         x = np.stack([a for a, _, _ in items])
-        if len(items) < self.batch_n:
-            pad = np.zeros((self.batch_n - len(items),) + x.shape[1:],
-                           x.dtype)
+        if len(items) < bn:
+            pad = np.zeros((bn - len(items),) + x.shape[1:], x.dtype)
             x = np.concatenate([x, pad])
         try:
             masks = np.asarray(predict(x))[:len(items)]
@@ -178,44 +206,80 @@ class Batcher:
         with self.lock:
             self.n_batches += 1
             self.n_images += len(items)
+            self.batches_by_program[bn] += 1
         for m, (_, ev, slot) in zip(masks, items):
             slot["mask"] = m
             ev.set()
 
 
-def resolve_device(name: str):
-    """``--device`` -> ``torch.device``. A CUDA device that is not there
-    raises: the server never falls back to the CPU on its own."""
-    import torch
-
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"--device {name}: CUDA is not available. Pass --device cpu "
-                f"to serve on the CPU deliberately")
-        # float32 serving means float32: no TF32 in convolutions or matmuls
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif device.type != "cpu":
-        raise ValueError(f"--device {name}: expected cuda[:N] or cpu")
-    return device
-
-
 def load_predictor(args):
-    """Build the live model from ``--checkpoint`` on ``--device``.
+    """Build the predictor of ``--checkpoint`` on ``--device``.
 
     Returns ``(predict, batch_n, size, info)`` where ``predict`` maps a
     uint8 ``(batch_n, size, size, 1)`` numpy array to uint8 {0,1} masks of
-    the same shape."""
+    the same shape: the largest program of a bundle set."""
+    return load_programs(args)[:4]
+
+
+def load_bundles(args, device):
+    """``.pt2`` bundles (a comma list: one model at several batch sizes)
+    -> ``(predict, batch_n, size, info, small)`` with ``small`` the
+    smaller programs ascending, ``(batch, predict)`` each. The set shares
+    one copy of the weights where the programs' tensors match."""
+    from ddti_tpu_torch.train.export import load_serving_bundle
+
+    paths = [p for p in args.checkpoint.split(",") if p]
+    weights = getattr(args, "weights", None)
+    if len(paths) > 1 and weights:
+        raise ValueError(
+            "--weights applies to a single bundle; with a bundle list each "
+            "program loads its sibling .npz")
+    loaded = []
+    shared = None  # one device copy of the weights across the set
+    for p in paths:
+        fn, batch_n, size, in_dtype = load_serving_bundle(
+            p, weights if len(paths) == 1 else None,
+            shared_variables=shared, device=device)
+        shared = fn.variables or shared
+
+        def predict(x, _fn=fn):  # a float program's fn scales uint8 itself
+            return _fn(x).cpu().numpy()
+
+        loaded.append((batch_n, predict, size, in_dtype))
+    loaded.sort(key=lambda t: t[0])
+    sizes = {t[2] for t in loaded}
+    if len(sizes) != 1:
+        raise ValueError(f"bundle image sizes differ: {sorted(sizes)}")
+    batches = [t[0] for t in loaded]
+    if len(set(batches)) != len(batches):
+        raise ValueError(f"duplicate bundle batch sizes: {batches}")
+    batch_n, predict, size, in_dtype = loaded[-1]
+    info = {"artifact": ",".join(os.path.basename(p) for p in paths),
+            "input_dtype": str(in_dtype).replace("torch.", ""),
+            "program_batches": batches, "device": str(device)}
+    return predict, batch_n, size, info, [(bn, fn) for bn, fn, _, _
+                                          in loaded[:-1]]
+
+
+def load_programs(args):
+    """``(predict, batch_n, size, info, small)``: ``.pt2`` bundles through
+    ``load_bundles``, anything else the live model (``small`` empty)."""
     import numpy as np
     import torch
+
+    from ddti_tpu_torch.cli.infer import check_not_stablehlo
+    from ddti_tpu_torch.core.device import resolve_device
+
+    device = resolve_device(args.device)
+    paths = [p for p in args.checkpoint.split(",") if p]
+    check_not_stablehlo(paths)
+    if all(p.endswith(".pt2") for p in paths):
+        return load_bundles(args, device)
 
     from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
     from ddti_tpu_torch.train.export import make_serve_fn
 
-    device = resolve_device(args.device)
     model_type = args.model_type
     kwargs = dict(in_channels=1, out_channels=1,
                   base_filters=args.base_filters, depth=args.depth)
@@ -246,7 +310,7 @@ def load_predictor(args):
     info = {"model": model_type, **{k: kwargs[k] for k in (
         "base_filters", "depth") if k in kwargs}, "device": str(device),
         "tta": bool(args.tta), "fold_bn": bool(args.fold_bn)}
-    return predict, args.batch_size, args.image_size, info
+    return predict, args.batch_size, args.image_size, info, []
 
 
 def _overlay_png(orig_gray, mask_2d):
@@ -324,9 +388,9 @@ class _Handler(BaseHTTPRequestHandler):
                        for q, v in _quantiles(srv.recent_latency)},
                     "rejected": srv.batcher.n_rejected,
                     "queue_depth": srv.batcher._q.qsize(),
-                    # one program, of the daemon's batch, for its life
                     "batches_by_program": {
-                        str(srv.batcher.batch_n): srv.batcher.n_batches},
+                        str(bn): n for bn, n in sorted(
+                            srv.batcher.batches_by_program.items())},
                     "reloads": srv.n_reloads,
                 })
         elif path == "/metrics":
@@ -527,8 +591,8 @@ class PredictionServer(ThreadingHTTPServer):
     def reload(self, checkpoint: str | None = None) -> dict:
         """Load ``checkpoint`` (default: the current path, read again),
         warm it, and swap it into the batcher at once. Returns its info.
-        One at a time (``reload_lock``). The batch and image size are the
-        daemon's flags, so they stay what they were."""
+        One at a time (``reload_lock``). A bundle set may bring other
+        batch sizes; its image size must stay the daemon's."""
         import numpy as np
 
         new_args = copy.copy(self.args)
@@ -536,10 +600,15 @@ class PredictionServer(ThreadingHTTPServer):
         with self.reload_lock:
             # read before loading: a rewrite during the load is seen next
             seen = self._mtimes(new_args.checkpoint)
-            predict, batch_n, size, info = load_predictor(new_args)
+            predict, batch_n, size, info, small = load_programs(new_args)
+            if size != self.size:
+                raise ValueError(
+                    f"artifact image size {size} != serving size "
+                    f"{self.size}; restart the daemon to change sizes")
             if not new_args.no_warmup:
-                predict(np.zeros((batch_n, size, size, 1), np.uint8))
-            self.batcher.swap_program(predict)
+                for bn, fn in small + [(batch_n, predict)]:
+                    fn(np.zeros((bn, size, size, 1), np.uint8))
+            self.batcher.swap_programs(predict, batch_n, small)
             self.args = new_args
             self.info = info
             self._watch_mtimes = seen
@@ -599,11 +668,12 @@ def create_server(args) -> PredictionServer:
     (``server.server_address[1]`` reveals it)."""
     import numpy as np
 
-    predict, batch_n, size, info = load_predictor(args)
+    predict, batch_n, size, info, small = load_programs(args)
     if not args.no_warmup:
-        predict(np.zeros((batch_n, size, size, 1), np.uint8))
+        for bn, fn in small + [(batch_n, predict)]:
+            fn(np.zeros((bn, size, size, 1), np.uint8))
     batcher = Batcher(predict, batch_n, max_wait_ms=args.max_wait_ms,
-                      max_queue=args.max_queue)
+                      max_queue=args.max_queue, small_programs=small)
     server = PredictionServer((args.host, args.port), batcher, size, info,
                               verbose=args.verbose, args=args)
     if getattr(args, "watch", 0):
@@ -616,8 +686,13 @@ def get_parser() -> argparse.ArgumentParser:
         description="HTTP nodule-segmentation server (PyTorch/CUDA)")
     ap.add_argument("--checkpoint", required=True,
                     help=".pth state_dict (reference format), .npz "
-                         "weight export of the JAX package or a full-state "
-                         "directory of the port (<Model>_last)")
+                         "weight export of the JAX package, a full-state "
+                         "directory of the port (<Model>_last), or .pt2 "
+                         "serving bundles: a comma list of one model's "
+                         "bundles at several batch sizes serves as one set")
+    ap.add_argument("--weights", default=None,
+                    help=".npz tensors of a single weights-as-arguments "
+                         ".pt2 bundle (default: its sibling .npz)")
     ap.add_argument("--watch", type=float, default=0,
                     help="poll the checkpoint file(s) every N seconds and "
                          "hot-reload when they change (0 = off)")

@@ -84,6 +84,18 @@ class Config:
     # step replayed (a device store only)
     profile_steps: int = 0  # torch.profiler trace of epoch 1's first N steps
 
+    # deployment (train/export.py, train/quantize.py, train/qat.py)
+    export_serving: bool = False  # write the serving bundles after training
+    # comma list of batch shapes, one bundle each (a multi-program serving
+    # set); None = batch_size
+    serving_batches: str | None = None
+    serving_dtype: str = "f32"  # exported bundle precision (f32|bf16|int8)
+    quant_min_channels: int = 0  # int8 / QAT: only convs with
+    # max(cin, cout) >= this
+    qat: bool = False  # quantization-aware training: fake-quantized convs
+    # (STE) and an activation-range EMA the int8 export takes
+    qat_ema_decay: float = 0.99  # amax EMA decay per step under --qat
+
     # knowledge distillation (train/distill.py): a frozen teacher
     distill_checkpoint: str = ""   # .npz / .pth, or a comma list of them
     distill_model_type: str = ""   # teacher arch ("" = the student's)

@@ -392,6 +392,12 @@ def self_attention(x, weight, bias, out_proj, num_heads: int, *,
     return out_proj(y.transpose(1, 2).reshape(b, s, e))
 
 
+def _attr(module: nn.Module, target: str):
+    """The tensor at dotted ``target`` under ``module``."""
+    owner, _, name = target.rpartition(".")
+    return getattr(module.get_submodule(owner) if owner else module, name)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with torch MHA's parameter names (packed
     ``in_proj_weight``/``in_proj_bias`` and ``out_proj``), whose attention
@@ -466,7 +472,9 @@ class TransformerEncoderLayer(nn.Module):
         m = self.get_submodule
         if self.attend_batch_axis:
             x = x.transpose(0, 1)
-        y = self_attention(x, self.get_parameter(w), self.get_parameter(b),
+        # getattr, not get_parameter: under functional_call (a serving
+        # program's weights) the projection is a plain tensor
+        y = self_attention(x, _attr(self, w), _attr(self, b),
                            m(out_proj), self.num_heads,
                            dropout=self.attn_dropout, training=self.training,
                            use_flash=self.use_flash_attention)

@@ -313,15 +313,35 @@ class _FlashAttention(torch.autograd.Function):
         return bwd(q, k, v, o, lse, do)
 
 
+@torch.library.custom_op("ddti::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as ``torch.ops.ddti.flash_fwd``: (o, lse2), the
+    plain version for CPU tensors, the kernel for any other device. An
+    exported serving program (``train/export.py``) holds it."""
+    fwd = (flash_forward_reference if q.device.type == "cpu"
+           else flash_forward_cuda)
+    return fwd(q, k, v)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
 def flash_attention(q, k, v):
     """Flash attention on (B, H, S, D) q/k/v; returns o. Where a backward
-    may follow (grad enabled, an input requiring grad) on a non-CPU device,
-    a head width the backward kernels do not take raises here, before the
-    forward runs, rather than in the middle of ``backward()``."""
+    may follow (grad enabled, an input requiring grad) it runs through
+    ``_FlashAttention``, and on a non-CPU device a head width the backward
+    kernels do not take raises here, before the forward runs, rather than
+    in the middle of ``backward()``; otherwise through the registered
+    forward ``flash_fwd``, which ``torch.export`` can trace."""
     d = q.shape[-1]
-    if (d > MAX_BWD_HEAD_DIM and q.device.type != "cpu"
-            and torch.is_grad_enabled()
+    if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
+        return flash_fwd(q, k, v)[0]
+    if d > MAX_BWD_HEAD_DIM and q.device.type != "cpu":
         raise ValueError(f"head dim {d}: the flash backward kernels take "
                          f"multiples of 8 up to {MAX_BWD_HEAD_DIM} (wider "
                          f"heads are a ROADMAP.md Queue 2 item); run it "

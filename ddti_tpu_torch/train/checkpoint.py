@@ -14,8 +14,19 @@ EMA shadow) is the port's own format, where the JAX package writes Orbax:
 a directory (``<Model>_last``, ``<Model>_best`` under --best_full_state,
 ``periodic/<epoch>``) holding one ``train_state.pt`` written by
 ``torch.save`` through a temporary file and ``os.replace``, read with
-``weights_only=True``. Orbax directories are refused: neither a JAX
-full state nor its weights load here (ROADMAP.md).
+``weights_only=True``; under ``--qat`` it carries the activation ranges.
+
+Orbax is not read: it needs tensorstore and JAX. The JAX Trainer writes an
+``.npz`` (with its ``qstats/`` ranges) beside every best and last Orbax
+checkpoint, and that file loads here; for a lone Orbax directory, JAX's
+own ``python -m ddti_tpu.cli.average --checkpoints <dir> --output w.npz``,
+run where JAX is installed, writes one. A JAX optimizer state does not
+resume in the port, nor the port's in JAX (ROADMAP.md).
+
+Also the serving bundles' tensors (``save_variables_npz`` /
+``load_variables_npz``: any flat dict of tensors, bf16 as raw bits under
+JAX's ``::bf16`` marker) and QAT ranges (``qstats/<path>`` entries of an
+``.npz``, ``load_qstats``), in the layouts the JAX package reads.
 """
 
 from __future__ import annotations
@@ -28,8 +39,6 @@ import shutil
 import numpy as np
 import torch
 from torch import nn
-
-from .torch_interop import flat_flax_from_state_dict, state_dict_from_flax
 
 _BF16_MARKER = "::bf16"
 STATE_FILE = "train_state.pt"
@@ -88,9 +97,10 @@ def read_checkpoint(path: str) -> dict:
         raise ValueError(
             f"{path} is a directory without the port's {STATE_FILE} (an "
             f"Orbax checkpoint?): Orbax is a JAX format the port does not "
-            f"read. Export the weights with "
-            f"ddti_tpu.train.checkpoint.save_params_npz or "
-            f"ddti_tpu.train.torch_interop.save_pth")
+            f"read. Load the .npz the JAX Trainer writes beside it "
+            f"(<Model>_best.npz / <Model>_last.npz, QAT ranges included), "
+            f"or write one where JAX is installed: python -m "
+            f"ddti_tpu.cli.average --checkpoints {path} --output w.npz")
     tree = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                       weights_only=True)
     if tree.get("format") != _FORMAT:
@@ -185,6 +195,8 @@ def load_checkpoint_into(path: str, model_type: str, model: nn.Module,
     if path.endswith(".pth"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
     elif path.endswith(".npz"):
+        from .torch_interop import state_dict_from_flax
+
         sd = state_dict_from_flax(model_type, load_npz_flat(path))
     elif os.path.isdir(path):
         tree = read_checkpoint(path)
@@ -198,24 +210,87 @@ def load_checkpoint_into(path: str, model_type: str, model: nn.Module,
     return model
 
 
-def save_params_npz(path: str, model_type: str, state_dict: dict) -> None:
-    """``state_dict`` as a ``save_params_npz`` ``.npz`` at ``path``,
-    through a temporary file."""
+def _qstats_entries(qstats: dict | None) -> dict:
+    """``{"qstats/<path>": float32 ()}`` of QAT ranges (JAX's layout)."""
+    return {f"qstats/{p}": np.asarray(
+        v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+        np.float32).reshape(()) for p, v in (qstats or {}).items()}
+
+
+def save_params_npz(path: str, model_type: str, state_dict: dict,
+                    qstats: dict | None = None) -> None:
+    """``state_dict`` as a ``save_params_npz`` ``.npz`` at ``path``, with
+    the QAT ranges ``qstats`` ({path: float}) as ``qstats/<path>`` entries
+    where given, through a temporary file."""
+    from .torch_interop import flat_flax_from_state_dict
+
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **flat_flax_from_state_dict(model_type, sd))
+    np.savez(tmp, **flat_flax_from_state_dict(model_type, sd),
+             **_qstats_entries(qstats))
     os.replace(tmp, path)
 
 
+def load_qstats(path: str) -> dict | None:
+    """QAT activation ranges a checkpoint carries (JAX ``load_qstats``):
+    ``qstats/<path>`` entries of an ``.npz`` (either package's) or the
+    ``qstats`` of the port's full state. ``{"module/path": float}``, or
+    None (a ``.pth`` never carries them)."""
+    if path.endswith(".npz"):
+        with np.load(path) as data:
+            out = {k.split("/", 1)[1]: float(data[k]) for k in data.files
+                   if k.startswith("qstats/")}
+        return out or None
+    if os.path.isdir(path) and is_full_state(path):
+        q = read_checkpoint(path).get("qstats") or {}
+        return {p: float(v) for p, v in q.items()} or None
+    return None
+
+
+def save_variables_npz(path: str, variables: dict) -> None:
+    """A flat dict of tensors as an ``.npz`` keyed by name (JAX
+    ``save_variables_npz``): bf16 tensors as their raw bits (uint16) under
+    ``<name>::bf16``, which numpy cannot hold otherwise."""
+    flat = {}
+    for k, v in variables.items():
+        t = v.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            flat[k + _BF16_MARKER] = t.view(torch.int16).numpy().view(
+                np.uint16)
+        else:
+            flat[k] = t.numpy()
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+
+
+def load_variables_npz(path: str) -> dict:
+    """``save_variables_npz``'s file (or JAX's) -> ``{name: CPU tensor}``,
+    bf16 entries restored bit for bit."""
+    out = {}
+    with np.load(path) as data:
+        for k in data.files:
+            a = data[k]
+            if k.endswith(_BF16_MARKER):
+                out[k[:-len(_BF16_MARKER)]] = torch.from_numpy(
+                    a.astype(np.uint16).view(np.int16).copy()).view(
+                        torch.bfloat16)
+            else:
+                out[k] = torch.from_numpy(np.array(a))
+    return out
+
+
 def save_weights(base: str, model_type: str, model: nn.Module,
-                 state_dict: dict | None = None) -> None:
-    """Write ``base + ".npz"`` (``save_params_npz`` layout) and
-    ``base + ".pth"`` (the reference's ``state_dict``) of ``model``, or of
-    ``state_dict`` where given (the Trainer's EMA weights), each through a
-    temporary file so a reader never sees a torn one."""
+                 state_dict: dict | None = None,
+                 qstats: dict | None = None) -> None:
+    """Write ``base + ".npz"`` (``save_params_npz`` layout, with the QAT
+    ranges ``qstats`` where given) and ``base + ".pth"`` (the reference's
+    ``state_dict``) of ``model``, or of ``state_dict`` where given (the
+    Trainer's EMA weights), each through a temporary file so a reader
+    never sees a torn one."""
     if state_dict is None:
         state_dict = model.state_dict()
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-    save_params_npz(base + ".npz", model_type, sd)
+    save_params_npz(base + ".npz", model_type, sd, qstats)
     torch.save(sd, base + ".tmp.pth")
     os.replace(base + ".tmp.pth", base + ".pth")

@@ -44,12 +44,20 @@ the ``--distill_checkpoint`` teacher (``distill.py``) into every train
 step, traces the first ``--profile N`` steps of epoch 1 with
 ``torch.profiler`` into ``<result_dir>/trace`` and, with ``--fused_epoch``
 and a device store, runs each train epoch as one CUDA graph
-(``_train_one_epoch_fused``). Still to port (ROADMAP.md): serving exports,
-QAT and the mesh.
+(``_train_one_epoch_fused``). With ``--qat`` every tracked conv trains
+fake-quantized (``qat.py``) and the activation ranges ride the state, the
+full-state checkpoints and the best and last ``.npz`` (``qstats/``).
+``--export_serving`` writes the serving bundles after training
+(``_export_serving_artifacts``, skipped after a preemption): f32, bf16 or
+int8 (``--serving_dtype``; int8 from the QAT ranges, else one calibration
+batch), one program per ``--serving_batches`` entry, and the baked
+program. Still to port (ROADMAP.md Queue 1 item 12): the mesh and its
+sharded exports.
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import math
@@ -265,6 +273,17 @@ class Trainer:
             model_type=config.model_type, freeze=freeze,
             clip_norm=config.clip_grad_norm, ema=config.ema_decay > 0,
             nan_guard=bool(config.nan_guard))
+        if bool(getattr(config, "qat", False)):
+            from .qat import init_qstats
+
+            side = int(config.image_size)
+            self.state.qstats = init_qstats(
+                model, (1, int(getattr(model, "in_channels", 1)), side, side),
+                int(getattr(config, "quant_min_channels", 0) or 0),
+                config.model_type)
+            logger.info(f"--qat: {len(self.state.qstats)} convs "
+                        f"fake-quantized, activation-range EMA decay "
+                        f"{float(getattr(config, 'qat_ema_decay', 0.99))}")
         if freeze:
             logger.info(
                 f"Freezing {','.join(freeze)}: "
@@ -630,7 +649,7 @@ class Trainer:
         save_weights(os.path.join(cfg.model_dir,
                                   f"{cfg.model_type}_{suffix}"),
                      cfg.model_type, self.model,
-                     self.state.eval_state_dict())
+                     self.state.eval_state_dict(), self.state.qstats)
 
     @staticmethod
     def _first_occurrence_mask(idx, seen: set, device):
@@ -750,6 +769,15 @@ class Trainer:
             # every best artifact is on disk before anything reads it
             self._best_saver.close()
             self._best_saver = None
+        if getattr(cfg, "export_serving", False):
+            if self._preempted:
+                # the grace window is for checkpoints; the resumed run
+                # exports when it completes (JAX's rule)
+                self.logger.warning(
+                    "preempted: --export_serving skipped (runs when the "
+                    "resumed job completes)")
+            else:
+                self._export_serving_artifacts()
         if self._ckpt_manager is not None:
             self._ckpt_manager.close()
             self._ckpt_manager = None
@@ -775,19 +803,137 @@ class Trainer:
             return
         snap = _DeviceSnapshot({
             "weights": self.state.eval_state_dict(),
+            "qstats": self.state.qstats or {},
             "full": self.state.full_state_dict() if full else {}})
 
         def write():
             host = snap.to_host()
             if host["full"]:
                 save_checkpoint(best, host["full"])
-            save_weights(best, cfg.model_type, self.model, host["weights"])
+            save_weights(best, cfg.model_type, self.model, host["weights"],
+                         host["qstats"] or None)
 
         if self._best_saver is None:
             self._best_saver = _AsyncBestSaver(self.logger)
         self._best_saver.submit(write, label)
 
     # ------------------------------------------------------------------
+
+    def _serving_model(self):
+        """A copy of the model holding the eval weights (the EMA shadow
+        under --ema_decay), in eval mode: what the serving exports
+        trace."""
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(self.state.eval_state_dict())
+        return model.eval()
+
+    def _calibration_batch(self) -> torch.Tensor:
+        """One validation batch in serving-input form (NHWC float32 [0, 1]
+        at image_size): the int8 activation calibration's input."""
+        from ddti_tpu_torch.data.augment import eval_preprocess
+
+        size = self.config.image_size
+        for _, images, _ in self._batches(self.val_src, False, self.rng):
+            if images.dtype == torch.uint8:
+                images = images.to(torch.float32) / 255.0
+            images, _ = eval_preprocess(images, images, (size, size))
+            return images
+        raise ValueError("empty validation source; cannot calibrate int8")
+
+    def _serving_threshold(self) -> float:
+        """The threshold baked into serving exports: the val-tuned one
+        under --tune_threshold (the sweep test() reuses), else 0.5; a
+        failed sweep exports at 0.5 (the export never fails the run)."""
+        if not getattr(self.config, "tune_threshold", False):
+            return 0.5
+        if self._tuned_threshold is None:
+            try:
+                self.tune_threshold()
+            except Exception as e:
+                self.logger.warning(
+                    f"threshold sweep failed ({e}); exporting at 0.5")
+                return 0.5
+        return self._tuned_threshold
+
+    def _export_serving_artifacts(self) -> None:
+        """Write the serving bundles (JAX ``_export_serving_artifacts``
+        without its mesh branch): one weights-as-arguments program a
+        ``--serving_batches`` entry (``<Model>_serving_program.pt2`` + .npz,
+        ``<Model>_b<N>_serving_program.pt2`` when several) in
+        ``--serving_dtype``, then the baked ``<Model>_serving.pt2``. An int8
+        export quantizes once, from the QAT ranges under --qat, else from
+        one validation batch, honouring --quant_min_channels. Each artifact
+        is guarded on its own: an export never fails the run."""
+        from .export import (
+            PROGRAM_SUFFIX,
+            export_program,
+            export_serving_program,
+            save_bundle,
+            save_serving,
+        )
+
+        cfg = self.config
+        sd = getattr(cfg, "serving_dtype", "f32") or "f32"
+        tta = bool(getattr(cfg, "tta", False))
+        bf16 = bool(cfg.use_amp_autocast)
+        thr = self._serving_threshold()
+        mt = cfg.model_type
+        model = self._serving_model()
+        batches = [int(b) for b in str(
+            getattr(cfg, "serving_batches", "") or cfg.batch_size
+        ).split(",") if b]
+        variables_q = None
+        if sd == "int8":
+            try:
+                from .quantize import quantize_serving
+
+                mc = int(getattr(cfg, "quant_min_channels", 0) or 0)
+                if self.state.qstats:
+                    from .qat import qstats_amax
+
+                    variables_q = quantize_serving(
+                        model, amax=qstats_amax(self.state.qstats),
+                        min_channels=mc, model_type=mt, bf16=bf16)
+                else:
+                    variables_q = quantize_serving(
+                        model, self._calibration_batch(), min_channels=mc,
+                        model_type=mt, bf16=bf16)
+            except Exception as e:
+                self.logger.warning(f"serving quantization failed: {e}")
+        written = []
+        for bn in (batches if sd != "int8" or variables_q is not None
+                   else []):
+            out = os.path.join(cfg.model_dir, f"{mt}{PROGRAM_SUFFIX}"
+                               if len(batches) == 1
+                               else f"{mt}_b{bn}{PROGRAM_SUFFIX}")
+            try:
+                if sd == "int8":
+                    variables = variables_q
+                    program = export_program(
+                        model, variables_q, bn, cfg.image_size,
+                        threshold=thr, tta=tta, bf16=bf16, quantized=True,
+                        model_type=mt)
+                else:
+                    program, variables = export_serving_program(
+                        model, bn, cfg.image_size, threshold=thr,
+                        weights_dtype=(torch.bfloat16 if sd == "bf16"
+                                       else None),
+                        tta=tta, bf16=bf16, model_type=mt)
+                save_bundle(out, program, variables)
+                written.append(out)
+            except Exception as e:
+                self.logger.warning(
+                    f"serving export failed at batch {bn}: {e}")
+        if written:
+            self.logger.info("--Serving artifacts exported to "
+                             + ",".join(written))
+        try:
+            path = os.path.join(cfg.model_dir, f"{mt}_serving.pt2")
+            save_serving(path, model, cfg.batch_size, cfg.image_size,
+                         threshold=thr, tta=tta, bf16=bf16, model_type=mt)
+            self.logger.info(f"--Baked serving artifact: {path}")
+        except Exception as e:
+            self.logger.warning(f"baked serving export failed: {e}")
 
     def tune_threshold(self, grid=None) -> float:
         """Sweep the binarization threshold over the VAL split, every

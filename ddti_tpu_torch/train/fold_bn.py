@@ -101,7 +101,11 @@ def _fold(model: nn.Module, pairs: list, eps: float) -> None:
     for conv_name, bn_name in pairs:
         conv = model.get_submodule(conv_name)
         bn = model.get_submodule(bn_name)
-        factor = bn.weight.float() / torch.sqrt(bn.running_var.float() + eps)
+        # the correctly rounded float32 square root, as XLA's: torch's
+        # vectorised CPU sqrt is an ulp off on some inputs, which would move
+        # a folded kernel off JAX's bits (and its int8 rounding with it)
+        root = torch.sqrt((bn.running_var.float() + eps).double()).float()
+        factor = bn.weight.float() / root
         # the output channel: dim 0 of a Conv2d weight (O, I, kH, kW), dim 1
         # of a ConvTranspose2d weight (I, O, kH, kW)
         shape = [1] * conv.weight.dim()

@@ -10,7 +10,8 @@ over the trainable gradients alone), ``--freeze`` (the JAX package's
 parameter-path prefixes, mapped onto the port's tensors through the key
 rules of ``torch_interop.py``; frozen tensors leave the optimizer: no
 update, no weight decay, no moments) with ``--freeze_bn_stats``, and the
-``--ema_decay`` shadow. Frozen tensors take no gradient (XLA drops
+``--ema_decay`` shadow and, under ``--qat``, the activation ranges
+(``qstats``, ``qat.py``). Frozen tensors take no gradient (XLA drops
 theirs as dead code) unless ``--nan_guard``'s check, which counts every
 gradient as JAX's does, needs them. The whole state saves and restores
 as one tree (``full_state_dict`` / ``load_full_state_dict``, the
@@ -143,6 +144,8 @@ class TrainState:
         self.step = 0
         self.ema = ({k: p.detach().clone()
                      for k, p in model.named_parameters()} if ema else None)
+        # --qat: {flax path: float32 0-d amax EMA} (qat.init_qstats)
+        self.qstats = None
 
     def clip_gradients(self) -> None:
         """optax ``clip_by_global_norm`` on the trainable gradients: where
@@ -196,6 +199,8 @@ class TrainState:
             out += list(self.optimizer.state.get(p, {}).values())
         if self.ema is not None:
             out += list(self.ema.values())
+        if self.qstats is not None:
+            out += list(self.qstats.values())
         return out
 
     @torch.no_grad()
@@ -233,14 +238,17 @@ class TrainState:
         (parameters and BatchNorm statistics), ``adam`` (AdamW's state of
         each trainable parameter keyed by its name: ``exp_avg``,
         ``exp_avg_sq`` and its ``step``; empty before its first update),
-        ``step`` and, under --ema_decay, ``ema``. The tensors are the live
-        ones: a caller that lets training go on copies them first."""
+        ``step``, under --ema_decay ``ema`` and under --qat ``qstats``. The
+        tensors are the live ones: a caller that lets training go on
+        copies them first."""
         params = dict(self.model.named_parameters())
         out = {"model": self.model.state_dict(), "step": int(self.step),
                "adam": {k: dict(self.optimizer.state.get(params[k], {}))
                         for k in self._trainable_names()}}
         if self.ema is not None:
             out["ema"] = {k: v.detach() for k, v in self.ema.items()}
+        if self.qstats is not None:
+            out["qstats"] = {k: v.detach() for k, v in self.qstats.items()}
         return out
 
     @torch.no_grad()
@@ -251,7 +259,10 @@ class TrainState:
         whose trainable names or shapes differ from this state's (another
         --freeze) raises ValueError. A checkpoint without a shadow seeds
         this state's EMA from the restored parameters; with EMA off a saved
-        shadow is dropped (JAX ``_merge_restored_ema``)."""
+        shadow is dropped (JAX ``_merge_restored_ema``). QAT ranges are
+        restored where both sides track the conv, new paths stay
+        unobserved, and with --qat off saved ranges are dropped (JAX
+        ``_merge_restored_qstats``)."""
         _check_like(full["model"], self.model.state_dict(), "model tensor")
         params = dict(self.model.named_parameters())
         names = self._trainable_names()
@@ -286,6 +297,10 @@ class TrainState:
         if ema is not None:
             for k, v in self.ema.items():
                 v.copy_(ema[k])
+        saved_q = full.get("qstats") or {}
+        for k, v in (self.qstats or {}).items():
+            if k in saved_q:
+                v.copy_(saved_q[k])
 
 
 def _check_like(saved: dict, live: dict, what: str) -> None:

@@ -27,8 +27,11 @@ microbatch, blended into the loss as ``(1 - w) total + w kd_bce``). With
 ``device_guard`` the nan_guard decides on the device, as JAX's does: the
 step snapshots the whole state first and keeps the snapshot where the
 loss or a gradient is not finite, reading nothing back, so a CUDA graph
-can capture it (``--fused_epoch``). QAT raises (ROADMAP.md Queue 1 item
-11).
+can capture it (``--fused_epoch``). ``qat`` (``qat.py``) runs every
+tracked conv fake-quantized in the forward and its recomputation, collects
+the batch ranges (maxed over the microbatches) and folds them into
+``state.qstats``' EMA after an applied update, on the device; a rejected
+step leaves the ranges as they were; a teacher is never fake-quantized.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ from ddti_tpu_torch.losses.losses import weighted_loss
 from ddti_tpu_torch.ops.resample import resize_bilinear_hw
 
 from .distill import kd_bce, soft_targets
+from .qat import qat_forwards, update_qstats
+from .quantize import swapped_forwards
 from .state import TrainState
 
 
@@ -128,12 +133,6 @@ def _ds_aux_loss(out, masks, loss_kw: dict, ds_weight: float):
     return ds_weight * total / max(len(heads), 1)
 
 
-def _check_ported(config) -> None:
-    if bool(getattr(config, "qat", False)):
-        raise NotImplementedError(
-            "qat is not ported yet (ROADMAP.md Queue 1)")
-
-
 def _ema_decay(config) -> float:
     return float(getattr(config, "ema_decay", 0.0) or 0.0)
 
@@ -172,8 +171,8 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
     ``make_host_train_step``'s body. ``teacher`` (``distill.Teacher``)
     turns distillation on; ``device_guard`` makes ``config.nan_guard``'s
     decision on the device (the state's optimizer moments must exist:
-    ``TrainState.init_optimizer_state``)."""
-    _check_ported(config)
+    ``TrainState.init_optimizer_state``). ``config.qat`` needs
+    ``state.qstats`` (``qat.init_qstats``)."""
     loss_kw = _loss_kw(config)
     amp = bool(config.use_amp_autocast)
     use_mixup = bool(config.use_mixup)
@@ -186,21 +185,28 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
     kd_w = (float(getattr(config, "distill_weight", 0.5))
             if teacher is not None else 0.0)
     kd_t = float(getattr(config, "distill_temperature", 2.0) or 2.0)
+    qat = bool(getattr(config, "qat", False))
+    # 0.0 is a valid decay (the latest batch's range only): no `or`
+    qat_decay = float(getattr(config, "qat_ema_decay", 0.99))
 
-    def forward_backward(model, images, masks):
-        """Loss terms, counts and (accumulated) gradients of one batch."""
+    def forward_backward(model, images, masks, qstats=None, observed=None):
+        """Loss terms, counts and (accumulated) gradients of one batch;
+        with ``qstats`` the forward, and the backward's recomputation, are
+        QAT's (``observed`` collects the ranges)."""
         soft = (soft_targets(teacher, images, kd_t) if teacher is not None
                 else None)
-        out = _forward(model, images, amp)
-        logits = _main_logits(out)
-        terms = weighted_loss(logits, masks, **loss_kw)
-        if isinstance(out, tuple) and ds_weight > 0:
-            terms = terms._replace(total=terms.total + _ds_aux_loss(
-                out, masks, loss_kw, ds_weight))
-        if soft is not None:
-            terms = terms._replace(total=(1.0 - kd_w) * terms.total
-                                   + kd_w * kd_bce(logits, soft, kd_t))
-        terms.total.backward()
+        with swapped_forwards(qat_forwards(model, qstats, observed)
+                              if qstats is not None else {}):
+            out = _forward(model, images, amp)
+            logits = _main_logits(out)
+            terms = weighted_loss(logits, masks, **loss_kw)
+            if isinstance(out, tuple) and ds_weight > 0:
+                terms = terms._replace(total=terms.total + _ds_aux_loss(
+                    out, masks, loss_kw, ds_weight))
+            if soft is not None:
+                terms = terms._replace(total=(1.0 - kd_w) * terms.total
+                                       + kd_w * kd_bce(logits, soft, kd_t))
+            terms.total.backward()
         with torch.no_grad():
             counts = confusion_counts(logits, masks)
         return [t.detach() for t in terms], counts
@@ -227,13 +233,19 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
             bn_all = dict(model.named_buffers())
             bn_start = _snapshot(bn_all)
         model.zero_grad(set_to_none=True)
+        qstats = state.qstats if qat else None
+        observed = None
+        if qat:  # JAX's scan starts every range at 0 and maxes them
+            observed = ({} if grad_accum == 1 else
+                        {p: torch.zeros_like(v) for p, v in qstats.items()})
         # microbatches of the augmented, mixed batch: BatchNorm normalises
         # each alone and chains its statistics; .grad sums their gradients
         micro = n_img // grad_accum
         terms = counts = None
         for i in range(grad_accum):
             sl = slice(i * micro, (i + 1) * micro)
-            t, c = forward_backward(model, images[sl], masks[sl])
+            t, c = forward_backward(model, images[sl], masks[sl], qstats,
+                                    observed)
             terms = t if terms is None else [a + b for a, b in zip(terms, t)]
             counts = c if counts is None else counts + c
         if grad_accum > 1:
@@ -247,7 +259,7 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
         n = images.new_full((), float(n_img))
         if nan_guard and device_guard:
             return _guarded_update(state, model, terms, counts, n, live,
-                                   start, ema_decay)
+                                   start, ema_decay, observed, qat_decay)
         if nan_guard and not bool(_finite(terms[0], model)):
             _restore(bn_all, bn_start)
             zero = images.new_zeros(())
@@ -258,6 +270,8 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
         state.apply_gradients()
         if ema_decay:
             state.update_ema(ema_decay)
+        if qat:
+            update_qstats(state.qstats, observed, qat_decay)
         return StepMetrics(*terms, counts, n,
                            images.new_zeros(()) if nan_guard else 0.0)
 
@@ -266,15 +280,19 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
 
 @torch.no_grad()
 def _guarded_update(state: TrainState, model, terms, counts, n, live, start,
-                    ema_decay: float) -> StepMetrics:
+                    ema_decay: float, observed=None,
+                    qat_decay: float = 0.99) -> StepMetrics:
     """The update of JAX's ``guarded_update``, decided on the device: the
-    AdamW update and the EMA are applied, then every state tensor takes
-    its snapshot ``start`` back unless the loss and every gradient are
-    finite; a rejected step's metrics are zeros and ``skipped`` 1."""
+    AdamW update, the EMA and the QAT ranges are applied, then every state
+    tensor takes its snapshot ``start`` back unless the loss and every
+    gradient are finite; a rejected step's metrics are zeros and
+    ``skipped`` 1."""
     ok = _finite(terms[0], model)
     state.apply_gradients()
     if ema_decay:
         state.update_ema(ema_decay)
+    if observed is not None:
+        update_qstats(state.qstats, observed, qat_decay)
     for t, s in zip(live, start):
         t.copy_(torch.where(ok, t, s))
 
@@ -316,7 +334,6 @@ def make_eval_step(config):
     wraparound padding: the counts weight each image by it and ``n`` is
     its sum, so val metrics count every image once; the loss terms stay
     means over the padded batch (QUIRKS #22)."""
-    _check_ported(config)
     loss_kw = _loss_kw(config)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
@@ -349,7 +366,6 @@ def make_infer_step(config, threshold: float = 0.5):
     4-way flip ensemble (``eval/tta.py``: four forwards, logit of the mean
     probability); validation stays without it, as in JAX. The eval weights
     (the EMA shadow under --ema_decay) predict."""
-    _check_ported(config)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
     use_tta = bool(getattr(config, "tta", False))
@@ -384,7 +400,6 @@ def make_threshold_sweep_step(config, thresholds):
     test path's (the EMA shadow under --ema_decay, the flip ensemble
     under --tta); ``valid`` (B,) {0, 1} weights out wraparound-padded
     duplicates, as validate() does (QUIRKS #22)."""
-    _check_ported(config)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
     use_tta = bool(getattr(config, "tta", False))

@@ -426,7 +426,7 @@ def test_legacy_sweep_extra_is_run_sh_at_one_epoch_in_bf16():
     theirs = shlex.split(run_sh)
     theirs[theirs.index("--epochs") + 1] = "1"
     assert ours[:len(theirs)] == theirs
-    assert C.LEGACY_JOBS == 5  # the nine jobs in two rounds
+    assert C.LEGACY_JOBS == len(C.LEGACY)  # the nine jobs at once
 
 
 @pytest.mark.parametrize("model_type", C.LEGACY)
@@ -801,3 +801,58 @@ def test_clock_marks_the_peak_of_each_interval_and_stops_its_sampler(
     assert second["at_s"] >= first["at_s"] + 0.3
     out = capsys.readouterr().out
     assert "[clock] first: " in out and "at most 0.88 GiB" in out
+
+
+@pytest.mark.parametrize("flag, key", [("--deploy", '"deploy"'),
+                                       ("--profiles", '"train_steps"')])
+def test_deploy_and_profiles_flags_need_the_card(flag, key):
+    """``chip_smoke.py --deploy`` and ``--profiles`` without a card exit
+    non-zero and print no result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", flag],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert key not in r.stdout and '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("shape, k, pad, bf16, nbytes, ops", [
+    # the flagship's first-level 3x3 conv: x (int8) in, y (bf16) out
+    ((16, 512, 512, 64, 64), 3, 1, True,
+     16 * 512 * 512 * 64 * 3 + 9 * 64 * 64 + 8 * 64 + 4,
+     2 * 16 * 512 * 512 * 64 * 9 * 64),
+    # the decoders' transposed conv: one tap an output pixel
+    ((2, 16, 16, 64, 32), 2, "T", False,
+     2 * 16 * 16 * 64 + 4 * 64 * 32 + 8 * 32 + 4 + 2 * 32 * 32 * 32 * 4,
+     2 * 2 * 32 * 32 * 32 * 64),
+])
+def test_conv_s8_bound_counts(shape, k, pad, bf16, nbytes, ops):
+    n, h, w, c, cout = shape
+    ms, by = C.conv_s8_bound(n, h, w, c, cout, k, 1 if pad != "T" else 2,
+                             1, pad, bf16)
+    want = max(ops / C.PEAK_INT8_OPS, nbytes / C.PEAK_BYTES) * 1e3
+    assert ms == pytest.approx(want)
+    assert by == ("operations" if ops / C.PEAK_INT8_OPS
+                  >= nbytes / C.PEAK_BYTES else "bytes")
+
+
+def test_deploy_constants_and_qstats_keys():
+    """The flagship row is DEPLOY_CONV_LEVELS' first; the QAT run's .npz
+    ranges are JAX's init_qstats of the slice's TransUNet."""
+    import jax
+    import jax.numpy as jnp
+
+    from ddti_tpu.models import create_model as jcreate_model
+    from ddti_tpu.train.qat import init_qstats
+
+    assert C.DEPLOY_CONV == C.DEPLOY_CONV_LEVELS[0]
+    assert C.DEPLOY_BATCHES[-1] == C.TTRAIN["batch_size"]
+    size = C.TTRAIN["image_size"]
+    jm = jcreate_model("TransUNet", **C.TSLICE, image_size=size)
+    v = jax.eval_shape(lambda k: jm.init({"params": k}, jnp.zeros(
+        (1, size, size, 1)), train=False), jax.random.PRNGKey(0))
+    want = init_qstats(jm, v, (1, size, size, 1))
+    assert C.qstats_keys() == {f"qstats/{p}" for p in want}

@@ -1214,3 +1214,45 @@ def test_autobatch_probe_counts_the_fused_graph_pool(cuda):
     fused = measured_step_peak_bytes(
         dataclasses.replace(cfg, fused_epoch=True), model, 8)
     assert 0 < eager <= fused
+
+
+# ---------------------------------------------------------------------------
+# the int8 serving conv (csrc/conv_s8.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("geo", [g[0] for g in __import__(
+    "ddti_tpu_torch.ops.conv_s8", fromlist=["x"]).ZOO_GEOMETRIES])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("hw", [(17, 16), (32, 32)])
+def test_conv_s8_kernel_is_its_plain_version(cuda, geo, bf16, hw):
+    """Every zoo geometry, odd and even sides: s32 sums and the dequantized
+    output bit for bit, two calls bit-equal."""
+    from ddti_tpu_torch.ops import conv_s8 as Q
+
+    name, k, s, d, pad, c, cout = next(g for g in Q.ZOO_GEOMETRIES
+                                       if g[0] == geo)
+    rng = np.random.default_rng(sum(map(ord, geo)))
+    h, w = hw
+    x = torch.from_numpy(rng.integers(-127, 128, (2, h, w, c)
+                                      ).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, c, cout)
+                                       ).astype(np.int8))
+    sx = torch.tensor(np.float32(0.0137))
+    sw = torch.from_numpy(rng.uniform(1e-4, 2e-2, cout).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32))
+    pt, pl, oh, ow = Q.conv_geometry(h, w, k, s, d, pad)
+    geo_args = (s, d, pt, pl, oh, ow, pad == "T", bf16)
+    want = Q.conv_s8_reference(x, wq, sx, sw, bias, *geo_args)
+    dev = [t.to(cuda) for t in (x, wq, sx, sw, bias)]
+    got = Q.conv_s8(*dev, *geo_args)
+    again = Q.conv_s8(*dev, *geo_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+    # the exact sums: unit scales, no bias, float32 out
+    one = torch.ones((), device=cuda)
+    acc = Q.conv_s8(dev[0], dev[1], one, torch.ones(cout, device=cuda), None,
+                    s, d, pt, pl, oh, ow, pad == "T", False)
+    ref = Q.conv_s8_int32(x, wq, s, d, pt, pl, oh, ow, pad == "T")
+    assert torch.equal(acc.cpu(), ref.to(torch.float32))

@@ -510,11 +510,13 @@ def test_parse_remat_arg_as_jax(arg, want):
 
 
 def test_only_qat_and_distillation_still_raise():
-    """QAT still raises; distillation is ported since (a config naming a
-    teacher checkpoint builds its step; tests/test_torch_distill.py holds
-    it against JAX)."""
-    with pytest.raises(NotImplementedError, match="qat"):
-        make_train_step(_jcfg(qat=True), AugmentConfig())
+    """Neither raises any more: QAT and distillation are ported (a config
+    with qat or naming a teacher checkpoint builds its step;
+    tests/test_torch_qat.py and tests/test_torch_distill.py hold them
+    against JAX)."""
+    make_train_step(_jcfg(qat=True), AugmentConfig())
+    make_train_step(_jcfg(qat=True, grad_accum=2, nan_guard=True),
+                    AugmentConfig())
     make_train_step(_jcfg(distill_checkpoint="t.npz"), AugmentConfig())
     make_train_step(_jcfg(grad_accum=2, nan_guard=True, ema_decay=0.9,
                           clip_grad_norm=1.0), AugmentConfig())
