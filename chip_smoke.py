@@ -20,6 +20,7 @@ alone (the AttentionUNet trained first, as the zoo phase trains it);
 ``python3 chip_smoke.py --hostdata`` the hostdata phase alone;
 ``python3 chip_smoke.py --trainer`` the trainer phase alone;
 ``python3 chip_smoke.py --deploy`` the deploy phase alone;
+``python3 chip_smoke.py --parallel`` the parallel phase alone;
 ``python3 chip_smoke.py --profiles`` the ResUNet and TransUNet train-step
 profiles (phase 11) alone.
 
@@ -100,7 +101,9 @@ and a non-zero exit:
               loss terms with a nonzero boundary term, val IoU and test
               metrics with HD95/ASSD, a best .pth that loads strictly and an
               .npz in the JAX package's key layout, and exactly the expected
-              number of EDT kernel launches; with --profile 3, whose trace
+              number of EDT kernel launches; joined through --multihost as
+              a world of one on NCCL (the parallel phase's CLI check, the
+              log naming the mesh); with --profile 3, whose trace
               under result/trace must hold the EDT's row kernel 3 times
               (the trainer phase's (c)).
 8. ttrain   — (at the same time as 7) the same CLI training the serving
@@ -286,11 +289,26 @@ and a non-zero exit:
               and flash launches of its requests. ``--deploy`` runs the
               phase alone (training its own flagship first) with every
               flagship level's conv row.
-21. result  — the total wall time, a JSON line of the kernels (the flash
+21. parallel — data parallelism (ddti_tpu_torch/parallel), after the
+              trainer phase: the training CLI joined through --multihost
+              as a world of one on NCCL (the flagship, 512^2, bf16, 1
+              epoch: run_cli's checks, the mesh's log line, EDT launches
+              = epochs x (steps + val) + test; in the whole run the train
+              phase's run, 7), then two gloo ranks on the
+              one card (NCCL refuses two ranks on one GPU) take one float32
+              data-parallel step of the flagship on a global batch of 16,
+              held against the single-device step on the same batch and
+              draws (loss, counts, gradients, SGD parameters, BatchNorm
+              statistics; one EDT launch a rank); then a data=2 sharded
+              bundle, which one GPU refuses with JAX's message.
+              ``--parallel`` runs the phase alone, the CLI first and then
+              the ranks, which also time their bf16 steps and gradient
+              all-reduces (printed with the card's name and power limit).
+22. result  — the total wall time, a JSON line of the kernels (the flash
               forward's with the infer, legacy, hostdata and trainer
               phases' launches; the EDT's with the recipe, lifecycle,
-              legacy, hostdata and trainer phases' launches and numbers;
-              conv_s8's with the deploy phase's),
+              legacy, hostdata, trainer and parallel phases' launches and
+              numbers; conv_s8's with the deploy phase's),
               then the device
               line. Every busy share is the union of the device intervals
               of kernels, memcpys and memsets in a record_function window
@@ -2482,12 +2500,14 @@ def _cli_batches(batch):
 
 def run_training(tmp):
     """The ResUNet training CLI, with a torch.profiler trace of its first
-    PROFILE_STEPS steps (the trainer phase's --profile check); returns the
-    EDT kernel's launch count and the trace's check."""
+    PROFILE_STEPS steps (the trainer phase's --profile check), joined
+    through --multihost as a world of one on NCCL (the parallel phase's
+    CLI check, ``world_of_one``); returns the EDT kernel's launch count and
+    the trace's check."""
     model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
     flags = [f"--{k}={v}" for k, v in TRAIN.items()
              if k not in ("model_type", "epochs")] + [
-                 "--profile", str(PROFILE_STEPS)]
+                 "--profile", str(PROFILE_STEPS)] + world_of_one_flags()
     launches, best = run_cli(tmp, "train", "ResUNet", model_kw, flags,
                              TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
     steps, val, test_b = _cli_batches(TRAIN["batch_size"])
@@ -2496,6 +2516,7 @@ def run_training(tmp):
           f"expected {TRAIN['epochs']} epochs x ({steps} train + {val} val "
           f"steps) + {test_b} test batches = {expected}")
     assert launches["edt_minplus"] == expected
+    world_of_one(best, "train")
     return launches["edt_minplus"], check_profile_trace(best, "train"), best
 
 
@@ -6633,6 +6654,421 @@ def deploy_only():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# parallel: data parallelism (ddti_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_TIMED = 3      # bf16 steps timed a rank, after one warm-up step
+PARALLEL_TIMEOUT_S = 600
+# the 2-rank float32 step vs the single-device step (TF32 off, cuDNN
+# deterministic): the loss within JAX's rel 2e-5; the counts may differ
+# where a pixel's probability sits on the threshold (at most this share
+# of the batch's pixels); the parameters after one SGD step and the
+# BatchNorm running statistics normwise. The gradients move by up to
+# 9.2e-3 normwise when only the summation order changes (a ReLU or
+# max-pool kink flips: the CPU tests' finding), so they are held to 1e-2
+# and their float64 agreement is the CPU tests'.
+PARALLEL_LOSS_RTOL = 2e-5
+PARALLEL_COUNT_SHARE = 1e-5
+PARALLEL_GRAD_NORMWISE = 1e-2
+PARALLEL_PARAM_NORMWISE = 1e-6
+PARALLEL_STAT_NORMWISE = 1e-6
+PARALLEL_SGD_LR = 1e-2
+
+
+def _parallel_spec() -> dict:
+    """What the ranks train, from this process's constants (the spawned
+    ranks import the module anew): the flagship at TRAIN's size and batch
+    on DEVICE."""
+    return dict(device=DEVICE, size=TRAIN["image_size"],
+                batch=TRAIN["batch_size"], base_filters=TRAIN["base_filters"],
+                depth=TRAIN["depth"])
+
+
+def _parallel_step(spec, mesh, amp=False):
+    """``spec``'s ResUNet (the flagship at 512^2 on the card), its state
+    and one train step: the same seeded weights, global batch and draws
+    on every rank; ``mesh`` None for the single-device step. SGD, so the
+    parameter delta is the gradient."""
+    import torch
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.data.augment import (
+        AugmentConfig,
+        sample_draws,
+        shard_draws,
+    )
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.models import blocks, create_model
+    from ddti_tpu_torch.parallel import local_rows
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.train.steps import make_train_step
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    size, batch, dev = spec["size"], spec["batch"], spec["device"]
+    cfg = Config(image_size=size, store_size=size, batch_size=batch,
+                 use_amp_autocast=amp, lr=PARALLEL_SGD_LR)
+    model = init_like_flax(create_model(
+        "ResUNet", base_filters=spec["base_filters"], depth=spec["depth"]),
+        SEED).to(dev)
+    blocks.set_bn_mesh(model, mesh)
+    state = TrainState(model, cfg.lr, 4, 0.0)
+    state.optimizer = torch.optim.SGD(state.trainable, lr=PARALLEL_SGD_LR)
+    state.capturable = False  # its rate is a float, filled every step
+    images, masks = synthetic_source(batch, (size, size), SEED,
+                                     device=dev).gather(list(range(batch)))
+    aug = AugmentConfig(out_size=(size, size))
+    draws = sample_draws(torch.Generator().manual_seed(SEED), batch, aug,
+                         (size, size))
+    if mesh is not None:
+        keep, draws, _ = shard_draws(draws, None, local_rows(batch, mesh))
+        keep = keep.to(dev)
+        images, masks = images[keep], masks[keep]
+    step = make_train_step(cfg, aug, mesh=mesh)
+    return model, state, lambda: step(state, images, masks, draws.to(dev),
+                                      None)
+
+
+def _normwise_of(a: dict, b: dict) -> float:
+    import torch
+
+    num = torch.sqrt(sum(((a[k].double() - b[k].double()) ** 2).sum()
+                         for k in b))
+    den = torch.sqrt(sum((b[k].double() ** 2).sum() for k in b))
+    return float(num / den)
+
+
+def parallel_rank(rank, port, out_path, timed, spec):
+    """One of the two gloo ranks on the one card (NCCL refuses two ranks
+    on one GPU): the float32 data-parallel step with its EDT launch, then
+    with ``timed`` PARALLEL_TIMED bf16 steps and gradient all-reduces
+    timed; rank 0 then runs the single-device float32 step on the whole
+    batch and holds the two against each other. ``out_path`` gets rank
+    0's JSON."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from ddti_tpu_torch.ops import _build, edt
+    from ddti_tpu_torch.parallel.mesh import (
+        host_reduce,
+        init_process_group,
+        make_mesh,
+        mean_gradients_,
+    )
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gib():  # "not measured" on the CPU
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cuda = spec["device"] == "cuda"
+    if cuda:
+        _build.load_library()
+    else:  # a CPU rehearsal: the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    init_process_group(rank, PARALLEL_RANKS, f"127.0.0.1:{port}", "gloo")
+    mesh = make_mesh({"data": PARALLEL_RANKS}, spec["device"])
+    out = {"rank": rank, "backend": "gloo", "device": spec["device"]}
+    model, state, step = _parallel_step(spec, mesh)
+    edt.edt_cuda.launches = 0
+    m = step()
+    sync()
+    out["edt_launches"] = edt.edt_cuda.launches
+    dp = dict(terms=[float(getattr(m, k)) for k in (
+        "loss", "bce", "dice", "focal", "boundary")],
+        counts=[float(c) for c in m.counts], n=float(m.n),
+        grads={k: p.grad.detach().clone()
+               for k, p in model.named_parameters()},
+        state={k: v.detach().clone() for k, v in model.state_dict().items()})
+    del model, state, step, m
+    out["peak_gib"] = peak_gib()
+    if timed:  # bf16: each rank's step time and the all-reduce's alone
+        model, state, step = _parallel_step(spec, mesh, amp=True)
+        times, reduce_ms = [], []
+        for i in range(PARALLEL_TIMED + 1):
+            sync()
+            t0 = time.perf_counter()
+            step()
+            sync()
+            t1 = time.perf_counter()
+            mean_gradients_(model.parameters(), mesh)
+            sync()
+            t2 = time.perf_counter()
+            if i:
+                times.append((t1 - t0) * 1e3)
+                reduce_ms.append((t2 - t1) * 1e3)
+        out["bf16_step_ms"] = times
+        out["allreduce_ms"] = reduce_ms
+        out["grad_bytes"] = sum(p.numel() * 4 for p in model.parameters())
+        del model, state, step
+    if rank:
+        dp = None
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    host_reduce(0.0, mesh)  # rank 1's memory is back before the next
+    if rank == 0:
+        model, state, step = _parallel_step(spec, None)
+        m = step()
+        sync()
+        one = dict(terms=[float(getattr(m, k)) for k in (
+            "loss", "bce", "dice", "focal", "boundary")],
+            counts=[float(c) for c in m.counts], n=float(m.n),
+            grads={k: p.grad.detach() for k, p in model.named_parameters()},
+            state=model.state_dict())
+        running = [k for k in one["state"] if "running_" in k]
+        params = [k for k in one["state"] if k not in running]
+        out.update(
+            loss=dp["terms"][0], single_loss=one["terms"][0],
+            terms=dp["terms"], single_terms=one["terms"],
+            counts=dp["counts"], single_counts=one["counts"],
+            n=dp["n"], single_n=one["n"],
+            grad_normwise=_normwise_of(dp["grads"], one["grads"]),
+            param_normwise=_normwise_of(
+                {k: dp["state"][k] for k in params},
+                {k: one["state"][k] for k in params}),
+            stat_normwise=_normwise_of(
+                {k: dp["state"][k] for k in running},
+                {k: one["state"][k] for k in running}),
+            single_peak_gib=peak_gib())
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    host_reduce(0.0, mesh)
+    dist.destroy_process_group()
+
+
+def parallel_two_ranks(tmp, timed=False):
+    """The two gloo ranks on the card (``parallel_rank``), spawned, each
+    bounded by PARALLEL_TIMEOUT_S; rank 0's comparison, checked, and with
+    ``timed`` each rank's bf16 step and all-reduce times."""
+    import multiprocessing
+
+    from ddti_tpu_torch.parallel.multihost import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    out_path = os.path.join(tmp, "parallel_rank.json")
+    spec = _parallel_spec()
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, port, f"{out_path}.{r}", timed, spec))
+             for r in range(PARALLEL_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.exitcode not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+    wall = time.perf_counter() - t0
+    assert all(p.exitcode == 0 for p in procs), \
+        [p.exitcode for p in procs]
+    with open(f"{out_path}.0") as f:
+        r = json.load(f)
+    with open(f"{out_path}.1") as f:
+        r["rank1"] = json.load(f)
+    r["wall_s"] = wall
+    pixels = spec["batch"] * spec["size"] ** 2
+    count_gap = max(abs(a - b) for a, b in zip(r["counts"],
+                                                r["single_counts"]))
+    loss_rel = abs(r["loss"] / r["single_loss"] - 1)
+    phase("parallel", f"2 gloo ranks on {spec['device']}, ResUNet base "
+          f"{spec['base_filters']} depth {spec['depth']} {spec['size']}^2, "
+          f"global batch {spec['batch']}, float32: loss {r['loss']:.9g} vs "
+          f"single-device {r['single_loss']:.9g} (rel {loss_rel:.3e}, "
+          f"limit {PARALLEL_LOSS_RTOL:g}); counts {r['counts'][:4]} vs "
+          f"{r['single_counts'][:4]} (largest gap {count_gap:g} of "
+          f"{pixels} pixels); gradients normwise {r['grad_normwise']:.3e} "
+          f"(limit {PARALLEL_GRAD_NORMWISE:g}); SGD parameters normwise "
+          f"{r['param_normwise']:.3e} (limit {PARALLEL_PARAM_NORMWISE:g}); "
+          f"BatchNorm running statistics normwise {r['stat_normwise']:.3e} "
+          f"(limit {PARALLEL_STAT_NORMWISE:g}); EDT launches on rank 0: "
+          f"{r['edt_launches']}; wall {wall:.1f} s")
+    assert loss_rel <= PARALLEL_LOSS_RTOL
+    assert count_gap <= PARALLEL_COUNT_SHARE * pixels
+    assert r["n"] == r["single_n"] == spec["batch"]
+    assert r["grad_normwise"] <= PARALLEL_GRAD_NORMWISE
+    assert r["param_normwise"] <= PARALLEL_PARAM_NORMWISE
+    assert r["stat_normwise"] <= PARALLEL_STAT_NORMWISE
+    # one EDT launch a rank's step (none on the CPU: the plain version)
+    assert r["edt_launches"] == (spec["device"] == "cuda")
+    return r
+
+
+def world_of_one_flags():
+    """The training CLI's flags that join it through --multihost as a
+    world of one (NCCL on the card's one GPU, gloo on the CPU)."""
+    from ddti_tpu_torch.parallel.multihost import free_port
+
+    return ["--multihost", "--coordinator", f"127.0.0.1:{free_port()}",
+            "--num_processes", "1", "--process_id", "0", "--mesh", "data=1",
+            "--device", DEVICE]
+
+
+def world_of_one(best, label):
+    """A world-of-one run's log names its mesh and backend."""
+    with open(os.path.join(os.path.dirname(os.path.dirname(best)), "log",
+                           "train_log.log")) as f:
+        log = f.read()
+    said = ("Using explicit mesh {'data': 1} over 1 devices (1 processes, "
+            + ("nccl" if DEVICE == "cuda" else "gloo"))
+    phase(label, f"joined through --multihost as a world of 1; the log "
+          f"names the mesh: {said in log}")
+    assert said in log
+
+
+def parallel_cli(tmp):
+    """The training CLI joined through --multihost as a world of one on
+    NCCL (the card's one GPU): the flagship at 512^2, bf16, 1 epoch;
+    run_cli's checks, the mesh's log line and the EDT's launches. The
+    whole run's train phase is this run (``run_training``)."""
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    flags = [f"--{k}={v}" for k, v in TRAIN.items()
+             if k not in ("model_type", "epochs")] + world_of_one_flags()
+    launches, best = run_cli(tmp, "parallel", "ResUNet", model_kw, flags,
+                             TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
+    steps, val, test_b = _cli_batches(TRAIN["batch_size"])
+    expected = (TRAIN["epochs"] * (steps + val) + test_b
+                if DEVICE == "cuda" else 0)
+    phase("parallel", f"CLI joined as a world of 1: edt_minplus launches "
+          f"{launches['edt_minplus']}, expected {expected}")
+    world_of_one(best, "parallel")
+    assert launches["edt_minplus"] == expected
+    return launches["edt_minplus"]
+
+
+def parallel_sharded_bundle(tmp):
+    """A data=2 sharded bundle (a UNet at 32^2, exported on the card):
+    on a card with one GPU loading it raises JAX's 'needs 2 devices';
+    with two or more it serves over them, masks equal to the single
+    bundle's."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train import export as E
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    model = init_like_flax(create_model("UNet", base_filters=8, depth=3),
+                           SEED).to(DEVICE).eval()
+    prog, svars = E.export_serving_sharded(model, 2, 8, 32)
+    path = os.path.join(tmp, "UNet_serving_sharded.pt2")
+    E.save_bundle(path, prog, svars, nr_devices=2)
+    if DEVICE == "cuda" and torch.cuda.device_count() < 2:
+        try:
+            E.load_serving_bundle(path, device=DEVICE)
+        except ValueError as e:
+            said = str(e)
+        else:
+            raise AssertionError("a data=2 bundle loaded on one GPU")
+        phase("parallel", f"sharded bundle (nr_devices 2) on "
+              f"{torch.cuda.device_count()} GPU: {said}")
+        assert "needs 2 devices; only 1 available" in said
+        return said
+    fn, batch, _, _ = E.load_serving_bundle(path, device=DEVICE)
+    x = np.random.default_rng(SEED).integers(0, 256, (8, 32, 32, 1),
+                                             dtype=np.uint8)
+    one, ovars = E.export_serving_program(model, 8, 32)
+    E.save_bundle(os.path.join(tmp, "one.pt2"), one, ovars)
+    want, _, _, _ = E.load_serving_bundle(os.path.join(tmp, "one.pt2"),
+                                          device=DEVICE)
+    same = torch.equal(fn(x).cpu(), want(x).cpu())
+    phase("parallel", f"sharded bundle served over 2 {DEVICE} devices: "
+          f"batch {batch}, "
+          f"masks equal to the single bundle's: {same}")
+    assert same
+    return "served"
+
+
+def run_parallel(tmp, smi, cli_launches=None):
+    """The parallel phase. ``--parallel`` (``cli_launches`` None): the NCCL
+    world-1 CLI run, then the two gloo ranks alone, which also time their
+    bf16 steps and gradient all-reduces (lines with the card's name and
+    power limit). In the whole run the train phase's CLI was that world-1
+    run (``cli_launches``, its EDT launches) and the ranks take their
+    float32 check only: beside a CLI run they do not fit the card's 80 GB
+    (out of memory on an H100 80GB HBM3). Then a data=2 sharded bundle's
+    refusal."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # this process's cache to the ranks and CLI
+    timed = cli_launches is None
+    if timed:
+        cli_launches = parallel_cli(tmp)
+    t_cli = time.perf_counter() - t0
+    ranks = parallel_two_ranks(tmp, timed=timed)
+    if timed:
+        for r in (ranks, ranks["rank1"]):
+            phase("parallel", f"{smi}: rank {r['rank']}'s bf16 step "
+                  f"{statistics.median(r['bf16_step_ms']):.1f} ms (median "
+                  f"of {r['bf16_step_ms']}; global batch "
+                  f"{TRAIN['batch_size']} over 2 gloo ranks on one card, "
+                  f"{TRAIN['batch_size'] // PARALLEL_RANKS} rows each)")
+            phase("parallel", f"{smi}: rank {r['rank']}'s gradient "
+                  f"all-reduce {statistics.median(r['allreduce_ms']):.1f} "
+                  f"ms (median of {r['allreduce_ms']}) for "
+                  f"{r['grad_bytes']} B of float32 gradients (gloo, both "
+                  f"ranks on one card: through host memory)")
+    phase("parallel", f"peaks (GiB, torch.cuda.max_memory_allocated of "
+          f"each process; None: not measured on the CPU): rank 0 "
+          f"{ranks['peak_gib']}, rank 1 {ranks['rank1']['peak_gib']} (the "
+          f"float32 data-parallel step), the single-device step "
+          f"{ranks['single_peak_gib']}")
+    refused = parallel_sharded_bundle(tmp)
+    wall = time.perf_counter() - t0
+    phase("parallel", f"phase wall time {wall:.1f} s"
+          + (f" (the CLI {t_cli:.1f} s, then the ranks)" if timed else ""))
+    return dict(ranks=ranks, cli_edt_launches=cli_launches,
+                sharded_bundle=refused, phase_s=wall,
+                cli_s=t_cli if timed else None)
+
+
+def parallel_only():
+    """The parallel phase alone: ``python3 chip_smoke.py --parallel``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the ranks and the CLI load it
+    clock = Clock()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_parallel(tmp, smi)
+    clock.mark("parallel")
+    clock.stop()
+    print(json.dumps({"parallel": out}))
+    return 0
+
+
 def main():
     import torch
 
@@ -6733,6 +7169,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         trainer = run_trainer(tmp, teacher_checkpoint(tmp), profiled)
     clock.mark("trainer")
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = run_parallel(tmp, smi, edt_launches)
+    clock.mark("parallel")
     clock.stop()
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
@@ -6864,6 +7303,7 @@ def main():
         "legacy": legacy,
         "hostdata": hostdata,
         "trainer": trainer,
+        "parallel": parallel,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -7011,4 +7451,6 @@ if __name__ == "__main__":
         sys.exit(deploy_only())
     if sys.argv[1:2] == ["--profiles"]:
         sys.exit(profiles_only())
+    if sys.argv[1:2] == ["--parallel"]:
+        sys.exit(parallel_only())
     sys.exit(main())

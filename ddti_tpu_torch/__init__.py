@@ -21,6 +21,8 @@ what is still to port.
                Trainer, the serving body.
 - ``core``, ``utils`` — config, logging, seeding, early stopping, weight
                initialisers.
+- ``parallel`` — data parallelism: the mesh and its collectives, one
+               process a device over ``torch.distributed``.
 - ``cli``    — the training CLI and the HTTP serving daemon.
 """
 

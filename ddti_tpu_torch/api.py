@@ -17,8 +17,9 @@ Arrays in, arrays out: numpy or torch, uint8 [0, 255] or float [0, 1],
 field, as the training CLI's flags are (``use_mixup=True``, ``qat=True``,
 ``distill_checkpoint=...``, ``freeze="encoders"``, ...). ``device``
 is the card (``"cuda"``, which raises where there is none) unless the
-caller passes ``device="cpu"``. ``fit(mesh=...)`` raises: the mesh is
-ROADMAP.md Queue 1 item 12.
+caller passes ``device="cpu"``. ``fit(mesh="data=N")`` trains
+data-parallel over N ranks (``parallel/``) and returns rank 0's weights;
+the spatial ``model`` axis waits for ROADMAP.md Queue 1 item 12b.
 """
 
 from __future__ import annotations
@@ -207,22 +208,15 @@ def fit(images, masks, *, val_images=None, val_masks=None,
     """Train a model on arrays (N, H, W[, 1]), uint8 or float [0, 1].
     Without a val set the last ``val_fraction`` of the shuffled data
     validates. Further keywords are Config fields. Returns the
-    best-val-IoU weights (with their QAT ranges under ``qat=True``)."""
-    if mesh:
-        raise NotImplementedError(
-            "fit(mesh=...): data-parallel and spatial meshes are not ported "
-            "yet (ROADMAP.md Queue 1 item 12)")
+    best-val-IoU weights (with their QAT ranges under ``qat=True``).
+
+    ``mesh`` (``"data=N"``, the CLI's ``--mesh``) trains data-parallel:
+    N ranks spawned on this host (the first N GPUs; N gloo ranks on the
+    CPU with ``device="cpu"``), ``batch_size`` the global batch; rank 0's
+    weights come back. As in JAX, a mesh smaller than the host takes its
+    first devices. A ``model`` axis > 1 raises (ROADMAP.md item 12b)."""
     from ddti_tpu_torch.core.config import Config
     from ddti_tpu_torch.core.device import resolve_device
-    from ddti_tpu_torch.core.logging import create_logger
-    from ddti_tpu_torch.core.prng import set_seed
-    from ddti_tpu_torch.data.dataset import DeviceDataSource
-    from ddti_tpu_torch.train.checkpoint import (
-        load_checkpoint_into,
-        load_qstats,
-    )
-    from ddti_tpu_torch.train.engine import Trainer
-    from ddti_tpu_torch.utils.weight_init import init_like_flax
 
     dev = resolve_device(str(device))
     x = _as_nhwc_u8(images, "images")
@@ -246,22 +240,73 @@ def fit(images, masks, *, val_images=None, val_masks=None,
     if bad:
         raise TypeError(f"unknown fit() keyword(s): {bad} "
                         "(must be Config fields)")
-    cfg = Config(model_type=model_type, epochs=epochs,
-                 batch_size=min(batch_size, len(x)), lr=lr,
-                 image_size=size, store_size=x.shape[1],
-                 use_amp_autocast=bf16, base_dir=base_dir, seed=seed,
-                 **config_overrides)
-    cfg.model_kwargs = dict(base_filters=base_filters, depth=depth)
-    set_seed(seed)
-    cfg.make_dirs()
-    logger = create_logger(os.path.join(cfg.log_dir, "train_log.log"),
-                           console=verbose)
-    module = init_like_flax(_make_model(model_type, size,
-                                        base_filters=base_filters,
-                                        depth=depth), seed).to(dev)
+    opts = dict(model_type=model_type, base_filters=base_filters,
+                depth=depth, size=size, epochs=epochs,
+                batch_size=min(batch_size, len(x)), lr=lr, bf16=bf16,
+                base_dir=base_dir, verbose=verbose, seed=seed,
+                overrides=config_overrides)
+    if mesh:
+        result = _fit_on_mesh(mesh, dev, (x, y, xv, yv), opts)
+    else:
+        result = _fit(None, dev, (x, y, xv, yv), opts)
+    if own_tmp and not verbose:
+        import shutil
+
+        shutil.rmtree(base_dir, ignore_errors=True)
+    return result
+
+
+def _fit_config(opts: dict, store_size: int):
+    """``fit``'s Config from its options (``opts``)."""
+    from ddti_tpu_torch.core.config import Config
+
+    cfg = Config(model_type=opts["model_type"], epochs=opts["epochs"],
+                 batch_size=opts["batch_size"], lr=opts["lr"],
+                 image_size=opts["size"], store_size=store_size,
+                 use_amp_autocast=opts["bf16"], base_dir=opts["base_dir"],
+                 seed=opts["seed"], **opts["overrides"])
+    cfg.model_kwargs = dict(base_filters=opts["base_filters"],
+                            depth=opts["depth"])
+    return cfg
+
+
+def _fit(mesh, dev, data, opts) -> Model:
+    """The training of ``fit`` in this process (one rank of a mesh, or
+    alone): the Trainer over device stores of ``data`` (x, y, xv, yv),
+    then the best-val-IoU weights, or the live eval weights where no epoch
+    improved."""
+    from ddti_tpu_torch.core.logging import create_logger, rank_logger
+    from ddti_tpu_torch.core.prng import set_seed
+    from ddti_tpu_torch.data.dataset import DeviceDataSource
+    from ddti_tpu_torch.parallel.mesh import broadcast_object
+    from ddti_tpu_torch.train.checkpoint import (
+        load_checkpoint_into,
+        load_qstats,
+    )
+    from ddti_tpu_torch.train.engine import Trainer
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    x, y, xv, yv = data
+    model_type = opts["model_type"]
+    cfg = _fit_config(opts, x.shape[1])
+    set_seed(opts["seed"])
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        cfg.make_dirs()
+    (cfg.cfg_dir, cfg.model_dir, cfg.log_dir, cfg.result_dir) = (
+        broadcast_object([cfg.cfg_dir, cfg.model_dir, cfg.log_dir,
+                          cfg.result_dir], mesh))
+    logger = (create_logger(os.path.join(cfg.log_dir, "train_log.log"),
+                            console=opts["verbose"])
+              if writer else rank_logger(mesh.rank))
+    module = init_like_flax(_make_model(model_type, opts["size"],
+                                        base_filters=opts["base_filters"],
+                                        depth=opts["depth"]),
+                            opts["seed"]).to(dev)
     trainer = Trainer(cfg, (DeviceDataSource(x, y, dev),
                             DeviceDataSource(xv, yv, dev),
-                            DeviceDataSource(xv, yv, dev)), logger, module)
+                            DeviceDataSource(xv, yv, dev)), logger, module,
+                      mesh=mesh)
     trainer.train()
 
     # the best-val-IoU weights (saved at every improvement); the live
@@ -276,12 +321,65 @@ def fit(images, masks, *, val_images=None, val_masks=None,
         module.to(dev)
         if qstats is not None:
             qstats = load_qstats(best) or qstats
-    result = Model(module, cfg, qstats=qstats)
-    if own_tmp and not verbose:
-        import shutil
+    return Model(module, cfg, qstats=qstats)
 
-        shutil.rmtree(base_dir, ignore_errors=True)
-    return result
+
+def _fit_rank(mesh, data_path: str, opts: dict) -> int:
+    """A spawned rank of ``fit(mesh=...)``: the arrays from
+    ``data_path``; rank 0 writes its result beside them
+    (``fit_result.npz`` and the run directory in ``fit_result.json``)."""
+    import json
+
+    with np.load(data_path) as z:
+        data = tuple(z[k] for k in ("x", "y", "xv", "yv"))
+    result = _fit(mesh, mesh.device, data, opts)
+    if mesh.rank == 0:
+        out = os.path.join(os.path.dirname(data_path), "fit_result")
+        result.save(out)
+        with open(out + ".json", "w") as f:
+            json.dump({"cfg_dir": result.config.cfg_dir}, f)
+    return 0
+
+
+def _fit_on_mesh(spec: str, dev, data, opts) -> Model:
+    """``fit(mesh=...)``: the ranks of ``launch_local`` train on the first
+    N devices; rank 0's weights (and QAT ranges) are loaded back."""
+    import json
+
+    import torch
+
+    from ddti_tpu_torch.parallel import (
+        check_mesh_shape,
+        launch_local,
+        parse_mesh_spec,
+    )
+    from ddti_tpu_torch.train.checkpoint import (
+        load_checkpoint_into,
+        load_qstats,
+    )
+
+    shape = parse_mesh_spec(spec)
+    n = shape.get("data", 1)
+    check_mesh_shape(shape, n)  # a 'model' axis raises (item 12b)
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        check_mesh_shape(shape, torch.cuda.device_count())
+    os.makedirs(opts["base_dir"], exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fit_mesh_", dir=opts["base_dir"])
+    data_path = os.path.join(work, "data.npz")
+    np.savez(data_path, **dict(zip(("x", "y", "xv", "yv"), data)))
+    rc = launch_local(_fit_rank, n, dev.type, (data_path, opts))
+    if rc != 0:
+        raise RuntimeError(f"fit(mesh={spec!r}): a rank exited with {rc}")
+    result = os.path.join(work, "fit_result")
+    module = _make_model(opts["model_type"], opts["size"],
+                         base_filters=opts["base_filters"],
+                         depth=opts["depth"])
+    load_checkpoint_into(result + ".npz", opts["model_type"], module)
+    cfg = _fit_config(opts, data[0].shape[1])
+    with open(result + ".json") as f:
+        cfg.cfg_dir = json.load(f)["cfg_dir"]
+    qstats = load_qstats(result + ".npz") if cfg.qat else None
+    return Model(module.to(dev), cfg, qstats=qstats or None)
 
 
 def load(checkpoint: str, *, model_type: str = "ResUNet",

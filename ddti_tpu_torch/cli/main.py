@@ -39,8 +39,25 @@ with ``--qat_ema_decay``'s activation-range EMA and
 training, ``<Model>[_b<N>]_serving_program.pt2`` + ``.npz`` and the baked
 ``<Model>_serving.pt2`` in ``models/`` (``train/export.py``; int8 from the
 QAT ranges, else one validation batch, on the hand-written int8 conv).
-The ``[KERNELS]`` line counts ``conv_s8`` too. The mesh flags are not
-ported (ROADMAP.md Queue 1 item 12), so argparse rejects them.
+The ``[KERNELS]`` line counts ``conv_s8`` too.
+
+Data parallelism takes the JAX CLI's six flags (``parallel/``): one
+process a device, joined by ``torch.distributed``. ``--mesh data=N``
+launches N ranks on this host (cuda:0..N-1 with NCCL; with ``--device
+cpu`` N gloo ranks on the CPU, as JAX's tests fake devices);
+``--use_data_parallel true``, the default, launches one rank per visible
+GPU where there is more than one, as JAX meshes every local device;
+``--multihost`` (with ``--coordinator``, ``--num_processes`` and
+``--process_id``, or their JAX environment variables, or a torch
+launcher's) joins an external group, one process per device, and
+``--mesh`` then names the mesh over it. Every rank trains the same state
+on its rows of each global batch (BatchNorm, the Focal-Tversky index,
+gradients and metrics are global); rank 0 alone writes the run directory
+and prints ``[PARAMS]``, and ``[KERNELS]`` with every rank's launches
+summed. After training with data > 1, ``--export_serving`` also writes
+``<Model>_serving_sharded.pt2``. Not ported yet (ROADMAP.md Queue 1 item
+12b), and refused: a ``model`` axis > 1 and ``--fused_epoch`` with
+data > 1.
 
 Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded once
 (libjpeg, in C++ threads, for all-JPEG sets) to uint8 stores at
@@ -294,6 +311,29 @@ def get_parser() -> argparse.ArgumentParser:
                         "(ImprovedVNet with deep_supervision: true)")
     p.add_argument("--use_amp_autocast", type=_str2bool, default=False,
                    help="bf16 autocast for the model's forward and backward")
+    # the reference declares use_data_parallel type=bool, so
+    # `--use_data_parallel False` parses truthy; the JAX CLI takes real
+    # booleans instead (QUIRKS #19), and so does the port
+    p.add_argument("--use_data_parallel", type=_str2bool, default=True,
+                   help="shard the batch over all local devices (one rank "
+                        "per visible GPU, where there is more than one)")
+    p.add_argument("--mesh", default=None, type=str,
+                   help="explicit device mesh, e.g. 'data=4' — 'data' "
+                        "shards the batch (one rank per device); a 'model' "
+                        "axis > 1 is not ported (ROADMAP.md item 12b); "
+                        "overrides --use_data_parallel")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-host run via "
+                        "torch.distributed.init_process_group before device "
+                        "use (one process per device)")
+    p.add_argument("--coordinator", default=None,
+                   help="coordinator host:port (env "
+                        "JAX_COORDINATOR_ADDRESS, or a torch launcher's "
+                        "MASTER_ADDR/MASTER_PORT)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total process count (env JAX_NUM_PROCESSES)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank (env JAX_PROCESS_ID)")
     p.add_argument("--native_loader", default="auto",
                    choices=["auto", "on", "off"],
                    help="stream train batches through the C++ threaded "
@@ -535,21 +575,121 @@ def _write_resume_hint(cfg, logger) -> None:
         logger.warning(f"could not write resume hint {hint}: {e}")
 
 
-def main(argv=None) -> int:
-    args = get_parser().parse_args(argv)
-
+def _multihost_device(args, spec):
+    """A joined process's device: ``--device`` where it names one (cuda:N
+    or cpu), else cuda:LOCAL_RANK (a torch launcher's), else the process
+    id modulo the visible GPUs."""
     import torch
 
     from ddti_tpu_torch.core.device import resolve_device
-    from ddti_tpu_torch.core.logging import create_logger
+
+    device = resolve_device(args.device)
+    if device.type != "cuda" or device.index is not None:
+        return device
+    local = os.environ.get("LOCAL_RANK")
+    index = (int(local) if local not in (None, "")
+             else spec.process_id % max(torch.cuda.device_count(), 1))
+    return resolve_device(f"cuda:{index}")
+
+
+def _launch(args, argv) -> int:
+    """Decide how the run is laid out and start it: joined to an external
+    group (``--multihost``), N local ranks (``--mesh data=N``, or one per
+    visible GPU under ``--use_data_parallel``), or one process."""
+    import torch
+
+    from ddti_tpu_torch.core.device import resolve_device
+    from ddti_tpu_torch.parallel import (
+        ITEM_12B,
+        check_mesh_shape,
+        initialize_multihost,
+        launch_local,
+        make_mesh,
+        parse_mesh_spec,
+        spec_from,
+    )
+    from ddti_tpu_torch.parallel.mesh import backend_for, init_process_group
+    from ddti_tpu_torch.parallel.multihost import free_port
+
+    shape = parse_mesh_spec(args.mesh) if args.mesh else None
+    if shape and shape.get("model", 1) > 1:
+        check_mesh_shape(shape, 0)  # raises, naming item 12b
+    if args.fused_epoch and shape and shape.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"--fused_epoch with --mesh {args.mesh}: not ported yet "
+            f"({ITEM_12B})")
+    if args.multihost:
+        spec = spec_from(args.coordinator, args.num_processes,
+                         args.process_id)
+        device = _multihost_device(args, spec)
+        if initialize_multihost(spec, device):
+            import torch.distributed as dist
+
+            try:
+                return _run(args, make_mesh(shape, device, multihost=True))
+            finally:
+                dist.destroy_process_group()
+    device = resolve_device(args.device)
+    if shape:
+        n = (torch.cuda.device_count() if device.type == "cuda"
+             else shape["data"])
+        check_mesh_shape(shape, n)
+    elif (args.use_data_parallel and device.type == "cuda"
+          and torch.cuda.device_count() > 1):
+        shape = {"data": torch.cuda.device_count()}
+    if not shape:
+        return _run(args, None)
+    if shape["data"] > 1:
+        return launch_local(_rank_main, shape["data"], device.type,
+                            (argv,))
+    import torch.distributed as dist
+
+    init_process_group(0, 1, f"127.0.0.1:{free_port()}",
+                       backend_for(device))
+    try:
+        return _run(args, make_mesh(shape, device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(mesh, argv) -> int:
+    """A spawned rank of ``launch_local``: the same command line, on its
+    mesh."""
+    return _run(get_parser().parse_args(argv), mesh)
+
+
+def _rank0_first(mesh, fn):
+    """``fn()`` on rank 0 first, then on the others (a barrier between):
+    what it writes (a decode cache, a synthetic dataset) is made once."""
+    from ddti_tpu_torch.parallel.mesh import host_reduce
+
+    out = fn() if mesh is None or mesh.rank == 0 else None
+    host_reduce(0.0, mesh)
+    return fn() if out is None else out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return _launch(get_parser().parse_args(argv), argv)
+
+
+def _run(args, mesh) -> int:
+    """The run itself, in this process: single-device without a mesh,
+    else one data-parallel rank of it."""
+    import torch
+
+    from ddti_tpu_torch.core.device import resolve_device
+    from ddti_tpu_torch.core.logging import create_logger, rank_logger
     from ddti_tpu_torch.core.prng import set_seed
     from ddti_tpu_torch.models import create_model
     from ddti_tpu_torch.ops import attention, conv_s8, edt
+    from ddti_tpu_torch.parallel.mesh import broadcast_object, host_reduce
     from ddti_tpu_torch.train.engine import Trainer
     from ddti_tpu_torch.train.state import count_params
     from ddti_tpu_torch.utils.weight_init import init_like_flax
 
-    device = resolve_device(args.device)
+    device = resolve_device(str(mesh.device if mesh else args.device))
+    writer = mesh is None or mesh.rank == 0
     cfg = build_config(args)
     if ((args.resume or cfg.checkpoint_path)
             and not os.path.exists(cfg.checkpoint_path or "")):
@@ -559,8 +699,21 @@ def main(argv=None) -> int:
             f"--checkpoint_path {cfg.checkpoint_path!r} does not exist"
             + (" (required by --resume)" if args.resume else ""))
     set_seed(cfg.seed)
-    cfg.make_dirs()
-    logger = create_logger(os.path.join(cfg.log_dir, "train_log.log"))
+    if mesh is not None:
+        cfg.mesh_shape = dict(mesh.shape)
+    if writer:
+        cfg.make_dirs()
+    # one run directory: rank 0 names it (a timestamp), the others take it
+    dirs = broadcast_object([cfg.cfg_dir, cfg.model_dir, cfg.log_dir,
+                             cfg.result_dir], mesh)
+    cfg.cfg_dir, cfg.model_dir, cfg.log_dir, cfg.result_dir = dirs
+    logger = (create_logger(os.path.join(cfg.log_dir, "train_log.log"))
+              if writer else rank_logger(mesh.rank))
+    if mesh is not None:
+        logger.info(f"Using explicit mesh {mesh.shape} over {mesh.world} "
+                    f"devices ({mesh.world} processes, "
+                    f"{'gloo' if device.type == 'cpu' else 'nccl'}; this "
+                    f"rank {mesh.rank} on {device})")
 
     model_kwargs = dict(cfg.model_kwargs)
     if args.remat:
@@ -579,24 +732,32 @@ def main(argv=None) -> int:
         from ddti_tpu_torch.train.autobatch import pick_batch_size
 
         held = torch.cuda.memory_allocated(device)
+        dp = mesh.data if mesh is not None else 1
         cfg.batch_size = pick_batch_size(
-            cfg, model, host_augment=bool(args.host_augment), logger=logger)
-        logger.info(f"[autobatch] selected --batch_size {cfg.batch_size}")
+            cfg, model, data_parallel=dp,
+            host_augment=bool(args.host_augment), logger=logger)
+        # every rank measured its own card: the smallest pick fits all
+        cfg.batch_size = int(host_reduce(cfg.batch_size, mesh, "min"))
+        logger.info(f"[autobatch] selected --batch_size {cfg.batch_size}"
+                    + (f" (global over data={dp})" if dp > 1 else ""))
         torch.cuda.reset_peak_memory_stats(device)
 
     if args.host_augment:
-        sources = load_host_sources(cfg, synthetic=args.synthetic)
+        sources = _rank0_first(mesh, lambda: load_host_sources(
+            cfg, synthetic=args.synthetic))
     else:
-        sources = load_sources(cfg, device, args.synthetic,
-                               native=args.native_loader, logger=logger)
-    trainer = Trainer(cfg, sources, logger, model)
+        sources = _rank0_first(mesh, lambda: load_sources(
+            cfg, device, args.synthetic, native=args.native_loader,
+            logger=logger))
+    trainer = Trainer(cfg, sources, logger, model, mesh=mesh)
     if args.resume and os.path.isdir(cfg.checkpoint_path):
         _resume(cfg, trainer, logger)
 
     n_params = count_params(model)
     logger.info(f"Model: {cfg.model_type} | Trainable params: "
                 f"{n_params / 1e6:.2f}M ({n_params:,}) | device {device}")
-    print(f"[PARAMS] {cfg.model_type},{n_params}")  # shell-capture hook
+    if writer:
+        print(f"[PARAMS] {cfg.model_type},{n_params}")  # shell capture
 
     if args.lr_find:
         # the range test instead of training; the curve and suggestions
@@ -605,8 +766,9 @@ def main(argv=None) -> int:
 
         r = run_lr_finder(trainer, num_steps=args.lr_find,
                           min_lr=args.lr_find_min, max_lr=args.lr_find_max)
-        print(f"[LR_FIND] steepest={r['lr_steepest']:.4g} "
-              f"min_over_10={r['lr_min_over_10']:.4g}")
+        if writer:
+            print(f"[LR_FIND] steepest={r['lr_steepest']:.4g} "
+                  f"min_over_10={r['lr_min_over_10']:.4g}")
         return 0
 
     rc = 0
@@ -622,7 +784,8 @@ def main(argv=None) -> int:
         if trainer.preempted:
             # checkpoints are saved; EX_TEMPFAIL tells a scheduler or the
             # sweep runner to relaunch with --resume
-            _write_resume_hint(cfg, logger)
+            if writer:
+                _write_resume_hint(cfg, logger)
             logger.info("Run preempted — test phase skipped "
                         "(exit code 75, checkpoints saved)")
             rc = 75
@@ -631,14 +794,18 @@ def main(argv=None) -> int:
     # the hand-written kernels this run launched (0 on the CPU, where the
     # plain versions run): the shell-capture proof of the kernel path
     # (also in the run's log, where a sweep's interleaved jobs keep it apart)
+    # under a mesh every rank's launches, summed
     bwd = attention.flash_backward_cuda
-    kernels = (f"[KERNELS] edt_minplus={edt.edt_cuda.launches} "
-               f"flash_fwd={attention.flash_forward_cuda.launches} "
-               f"flash_bwd_dkdv={bwd.launches_dkdv} "
-               f"flash_bwd_dq={bwd.launches_dq} "
-               f"conv_s8={conv_s8.conv_s8_cuda.launches}")
-    logger.info(kernels)
-    print(kernels)
+    counts = {name: int(host_reduce(n, mesh)) for name, n in (
+        ("edt_minplus", edt.edt_cuda.launches),
+        ("flash_fwd", attention.flash_forward_cuda.launches),
+        ("flash_bwd_dkdv", bwd.launches_dkdv),
+        ("flash_bwd_dq", bwd.launches_dq),
+        ("conv_s8", conv_s8.conv_s8_cuda.launches))}
+    kernels = "[KERNELS] " + " ".join(f"{k}={v}" for k, v in counts.items())
+    if writer:
+        logger.info(kernels)
+        print(kernels)
     return rc
 
 

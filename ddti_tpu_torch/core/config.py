@@ -113,7 +113,9 @@ class Config:
     best_full_state: bool = False  # also the full train state at every
     # best-IoU epoch (<Model>_last always carries one)
 
-    # precision / data / device
+    # parallel / precision / data / device
+    use_data_parallel: bool = True  # one rank a GPU where there are several
+    mesh_shape: Optional[dict] = None  # a data-parallel run's, {"data": N}
     use_amp_autocast: bool = False  # bf16 autocast
     image_size: int = 512
     store_size: int = 512

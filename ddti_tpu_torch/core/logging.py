@@ -35,12 +35,31 @@ def create_logger(filename: str, console: bool = True) -> logging.Logger:
     return logger
 
 
+def rank_logger(rank: int) -> logging.Logger:
+    """The logger of a data-parallel rank other than 0, which writes
+    nothing into the run directory: its warnings go to stderr, tagged with
+    the rank."""
+    logger = logging.getLogger(f"ddti_tpu_torch.rank{rank}")
+    logger.setLevel(logging.DEBUG)
+    logger.propagate = False
+    if not logger.handlers:
+        h = logging.StreamHandler()
+        h.setLevel(logging.WARNING)
+        h.setFormatter(logging.Formatter(
+            f"rank {rank} - %(levelname)s - %(message)s"))
+        logger.addHandler(h)
+    return logger
+
+
 class ScalarWriter:
     """TensorBoard scalar writer; silently no-ops if tensorboardX is
-    unavailable."""
+    unavailable, or where ``log_dir`` is None (a data-parallel rank other
+    than 0, which writes nothing)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str | None):
         self._w = None
+        if log_dir is None:
+            return
         try:
             from tensorboardX import SummaryWriter
             self._w = SummaryWriter(log_dir)

@@ -140,6 +140,70 @@ def dense_draws(draws: AugmentDraws, n: int) -> AugmentDraws:
     return draws._replace(**out)
 
 
+def take_rows(draws: AugmentDraws, rows: torch.Tensor) -> AugmentDraws:
+    """The draws of the images at positions ``rows`` (int64, a subset of
+    the batch in any order), in that order: a data-parallel rank's part of
+    the global batch's draws. Per-image tensors are indexed; a gated
+    branch keeps its gated images among ``rows``, renumbered (the sparse
+    form) or its gate and fields indexed (the dense form)."""
+    rows = rows.to(torch.int64).cpu()
+    gated = {name for name, _ in _GATED} | {
+        f for _, fields in _GATED for f in fields}
+    out = {}
+    for name, t in zip(AugmentDraws._fields, draws):
+        if t is not None and name not in gated:
+            out[name] = t[rows.to(t.device)]
+    pos = {int(r): i for i, r in enumerate(rows)}
+    for name, fields in _GATED:
+        idx = getattr(draws, name)
+        if idx is None:
+            continue
+        if idx.dtype == torch.bool:
+            out[name] = idx[rows.to(idx.device)]
+            for f in fields:
+                t = getattr(draws, f)
+                out[f] = t[rows.to(t.device)]
+            continue
+        hit = sorted((pos[int(g)], j) for j, g in enumerate(idx)
+                     if int(g) in pos)
+        out[name] = torch.tensor([p for p, _ in hit], dtype=torch.int64,
+                                 device=idx.device)
+        which = torch.tensor([j for _, j in hit], dtype=torch.int64)
+        for f in fields:
+            t = getattr(draws, f)
+            out[f] = t[which.to(t.device)]
+    return AugmentDraws(**out)
+
+
+def shard_draws(draws: AugmentDraws | None, mix: MixupDraws | None,
+                rows: torch.Tensor):
+    """A data-parallel rank's share of one global train step: ``rows`` are
+    its images of the global batch (``parallel.mesh.local_rows``), in the
+    order its microbatches take them. Returns ``(keep, draws, mix)``:
+    ``keep`` the global positions whose frames the rank augments, ``rows``
+    first, then the mixup partners of ``rows`` held by other ranks (mixup
+    permutes across the global batch, and augmenting a frame is per image,
+    so the rank augments those partners itself instead of fetching them);
+    the chain's draws of ``keep`` (None where ``draws`` is); and mixup's
+    draws with ``perm`` giving each of ``rows`` its partner's position in
+    ``keep``, so ``mixup`` returns the rank's ``len(rows)`` images (None
+    where ``mix`` is)."""
+    rows = rows.to(torch.int64).cpu()
+    keep = [int(r) for r in rows]
+    if mix is not None:
+        pos = {g: i for i, g in enumerate(keep)}
+        partners = []
+        for p in mix.perm.cpu()[rows].tolist():
+            if p not in pos:
+                pos[p] = len(keep)
+                keep.append(p)
+            partners.append(pos[p])
+        mix = MixupDraws(mix.lam, torch.tensor(partners, dtype=torch.int64,
+                                               device=mix.perm.device))
+    keep = torch.tensor(keep, dtype=torch.int64)
+    return keep, None if draws is None else take_rows(draws, keep), mix
+
+
 def _uniform(g, n, lo, hi):
     return lo + (hi - lo) * torch.rand(n, generator=g)
 
@@ -367,7 +431,10 @@ def eval_preprocess(images: torch.Tensor, masks: torch.Tensor,
 
 def mixup(images: torch.Tensor, masks: torch.Tensor, draws: MixupDraws):
     """Blend the batch with a permutation of itself, images AND masks
-    (soft labels), as the reference Trainer applies mixup."""
+    (soft labels), as the reference Trainer applies mixup. A ``perm``
+    shorter than the batch (``shard_draws``) blends its first
+    ``len(perm)`` images with the ones it names and returns those."""
     lam, perm = draws
-    return (lam * images + (1.0 - lam) * images[perm],
-            lam * masks + (1.0 - lam) * masks[perm])
+    n = perm.shape[0]
+    return (lam * images[:n] + (1.0 - lam) * images[perm],
+            lam * masks[:n] + (1.0 - lam) * masks[perm])

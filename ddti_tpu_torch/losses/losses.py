@@ -6,6 +6,13 @@ returns a float32 scalar; computation is promoted to float32 so bf16
 activations keep their reductions. ``boundary_loss``'s distance map comes
 from ``ops/edt.py`` (the CUDA kernel for CUDA tensors) and carries no
 gradient, like the reference's detached numpy map.
+
+Under a data-parallel mesh (``mesh``, ``parallel/mesh.py``) each rank
+holds its rows of the global batch. BCE's pixel mean and Dice's and
+Boundary's per-image means split into equal per-rank parts, which the
+gradient average combines; the Focal-Tversky index does not, so its TP,
+FP and FN sums are summed over the ranks first, with their gradients, as
+JAX's GSPMD sums them over the whole batch.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ddti_tpu_torch.ops.edt import edt_batch
+from ddti_tpu_torch.parallel.mesh import sum_over_ranks
 
 
 def _f32(x):
@@ -44,13 +52,16 @@ def bce_with_logits_loss(logits, targets):
 
 def focal_tversky_loss(logits, targets, alpha: float = 0.4,
                        beta: float = 0.6, gamma: float = 2.0,
-                       smooth: float = 1e-6):
-    """(1 - TI)^gamma on the globally flattened Tversky index."""
+                       smooth: float = 1e-6, mesh=None):
+    """(1 - TI)^gamma on the globally flattened Tversky index; under a
+    ``mesh`` over every rank's rows."""
     probs = torch.sigmoid(_f32(logits)).reshape(-1)
     t = _f32(targets).reshape(-1)
     tp = (probs * t).sum()
     fp = (probs * (1.0 - t)).sum()
     fn = ((1.0 - probs) * t).sum()
+    if mesh is not None:
+        tp, fp, fn = sum_over_ranks(torch.stack([tp, fp, fn]), mesh)
     ti = (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)
     return (1.0 - ti) ** gamma
 
@@ -97,17 +108,18 @@ class LossTerms(NamedTuple):
 def weighted_loss(logits, targets, *, bce_ratio: float = 1.0,
                   dice_ratio: float = 0.0, focal_ratio: float = 1.0,
                   boundary_ratio: float = 0.0,
-                  compute_unused: bool = True) -> LossTerms:
+                  compute_unused: bool = True, mesh=None) -> LossTerms:
     """The Trainer's 4-term weighted sum, returning every component for
     logging. With ``compute_unused=False`` zero-weighted terms are skipped
     (the reference always computes all four, the boundary term's EDT
-    included)."""
+    included). Under a ``mesh`` these are this rank's terms: their mean
+    over the ranks is the global batch's."""
     zero = torch.zeros((), dtype=torch.float32, device=logits.device)
     bce = (bce_with_logits_loss(logits, targets)
            if compute_unused or bce_ratio else zero)
     dce = (dice_loss(logits, targets)
            if compute_unused or dice_ratio else zero)
-    foc = (focal_tversky_loss(logits, targets)
+    foc = (focal_tversky_loss(logits, targets, mesh=mesh)
            if compute_unused or focal_ratio else zero)
     bnd = (boundary_loss(logits, targets)
            if compute_unused or boundary_ratio else zero)

@@ -106,6 +106,86 @@ class _OnePassNorm(torch.autograd.Function):
         return gx, gw, gb, None, None
 
 
+def global_stats(x, mesh, exact: bool = False):
+    """The batch statistics of NCHW ``x`` over every rank's rows (JAX's
+    BatchNorm under a ``data`` mesh: GSPMD reduces the batch axis across
+    replicas): the sums of the ranks' rows all-reduced, in float32 or
+    wider as ``one_pass_stats``. One pass: ``sum x``, ``sum x^2`` and the
+    count in one collective, ``var = max(0, E[x^2] - E[x]^2)``; with
+    ``exact`` two: the global mean first, then ``sum (x - mean)^2``."""
+    from ddti_tpu_torch.parallel.mesh import all_reduce_
+
+    dims = (0, 2, 3)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    with torch.no_grad():
+        count = x.new_full((1,), x.numel() // x.shape[1], dtype=dt)
+        s = torch.sum(x, dim=dims, dtype=dt)
+        if exact:
+            buf = torch.cat([s, count])
+            all_reduce_([buf], mesh)
+            n = buf[-1]
+            mean = buf[:-1] / n
+            dev = torch.linalg.vector_norm(
+                x.to(dt) - mean[None, :, None, None], 2, dim=dims)
+            sq = dev * dev
+            all_reduce_([sq], mesh)
+            return mean, sq / n
+        norm = torch.linalg.vector_norm(x, 2, dim=dims, dtype=dt)
+        buf = torch.cat([s, norm * norm, count])
+        all_reduce_([buf], mesh)
+        c = x.shape[1]
+        n = buf[-1]
+        mean = buf[:c] / n
+        var = torch.clamp_min(buf[c:2 * c] / n - mean * mean, 0.0)
+    return mean, var
+
+
+class _GlobalNorm(torch.autograd.Function):
+    """Train-mode normalisation by the global statistics ``mean``, ``var``
+    (``global_stats``) under a mesh. The forward is ``_OnePassNorm``'s;
+    the backward is BatchNorm's with the batch sums taken over every rank:
+    ``gx = w invstd (gy - sum(gy) / n - xhat sum(gy xhat) / n)`` with both
+    sums and the count all-reduced in one collective, while ``gw`` and
+    ``gb`` stay this rank's sums (the gradient average adds the ranks'
+    parts)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, mesh):
+        invstd = torch.rsqrt(var + BN_EPS)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mesh = mesh
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, BN_EPS)
+
+    @staticmethod
+    def backward(ctx, gy):
+        from ddti_tpu_torch.parallel.mesh import all_reduce_
+
+        x, weight, mean, invstd = ctx.saved_tensors
+        dims = (0, 2, 3)
+        dt = mean.dtype
+
+        def per_channel(t):
+            return t[None, :, None, None]
+
+        xhat = (x.to(dt) - per_channel(mean)) * per_channel(invstd)
+        g = gy.to(dt)
+        sum_g = g.sum(dim=dims)
+        sum_gx = (g * xhat).sum(dim=dims)
+        count = sum_g.new_full((1,), x.numel() // x.shape[1])
+        buf = torch.cat([sum_g, sum_gx, count])
+        all_reduce_([buf], ctx.mesh)
+        c = x.shape[1]
+        n = buf[-1]
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = ((g - per_channel(buf[:c] / n)
+                   - xhat * per_channel(buf[c:2 * c] / n))
+                  * per_channel(weight.to(dt) * invstd)).to(x.dtype)
+        gw = sum_gx.to(weight.dtype) if ctx.needs_input_grad[1] else None
+        gb = sum_g.to(weight.dtype) if ctx.needs_input_grad[2] else None
+        return gx, gw, gb, None, None, None
+
+
 class BatchNorm2d(nn.Module):
     """BatchNorm with the JAX package's numerics and without the
     ``num_batches_tracked`` buffer, which the JAX package's export does not
@@ -125,9 +205,14 @@ class BatchNorm2d(nn.Module):
     sets it on every BatchNorm of its model (``set_bn_exact_variance``);
     a module nobody set follows the class attribute, False. A
     recomputation under ``--remat`` normalises alike and leaves the
-    statistics alone."""
+    statistics alone. ``mesh`` (``set_bn_mesh``, the Trainer's
+    data-parallel mesh) makes train-mode statistics those of the global
+    batch, every rank's rows, in either mode, and the backward's batch
+    sums global too (``global_stats``, ``_GlobalNorm``): the statistics
+    and gradients of one device on the same global batch."""
 
     exact_variance = False
+    mesh = None
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -140,6 +225,12 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
+        if self.mesh is not None:
+            mean, var = global_stats(x, self.mesh, self.exact_variance)
+            if not recomputing():
+                self._update_running(mean, var)
+            return _GlobalNorm.apply(x, self.weight, self.bias, mean, var,
+                                     self.mesh)
         if self.exact_variance:
             if recomputing():
                 return F.batch_norm(x, None, None, self.weight, self.bias,
@@ -174,6 +265,15 @@ def set_bn_exact_variance(model: nn.Module, exact: bool) -> int:
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     for m in bns:
         m.exact_variance = bool(exact)
+    return len(bns)
+
+
+def set_bn_mesh(model: nn.Module, mesh) -> int:
+    """Set ``mesh`` on every ``BatchNorm2d`` of ``model`` (None: local
+    statistics again); returns how many it set."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.mesh = mesh
     return len(bns)
 
 

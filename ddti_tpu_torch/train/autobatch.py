@@ -138,12 +138,16 @@ def pick_batch_size(config, model, *,
                     candidates: Sequence[int] = DEFAULT_CANDIDATES,
                     budget_bytes: Optional[int] = None,
                     safety: float = 0.92,
+                    data_parallel: int = 1,
                     host_augment: bool = False,
                     logger=None,
                     peak_fn: Optional[Callable] = None) -> int:
     """The largest candidate whose measured step peak fits ``safety`` of
-    the budget (JAX ``pick_batch_size`` on one device). Candidates are
-    probed ascending. ``peak_fn(config, model, batch, host_augment=...)``
+    the budget (JAX ``pick_batch_size``). Candidates are PER-DEVICE
+    batches, probed ascending; the return value is the GLOBAL batch, the
+    pick times ``data_parallel`` (each rank of a mesh holds the whole
+    state and its share of the batch, so one device's step is the right
+    proxy). ``peak_fn(config, model, batch, host_augment=...)``
     replaces the measurement (the tests' fake peaks); by default a real
     step on the card (``measured_step_peak_bytes``, with the run's teacher
     built from the config, random weights: its memory is what counts)."""
@@ -211,4 +215,4 @@ def pick_batch_size(config, model, *,
             f"smallest candidate batch {usable[0]} is measured to exceed "
             f"{cap / 2**30:.2f} GiB on this device; lower the resolution, "
             f"enable --grad_accum, or pass an explicit --batch_size")
-    return best
+    return best * max(int(data_parallel), 1)

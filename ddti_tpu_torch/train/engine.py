@@ -51,8 +51,25 @@ full-state checkpoints and the best and last ``.npz`` (``qstats/``).
 (``_export_serving_artifacts``, skipped after a preemption): f32, bf16 or
 int8 (``--serving_dtype``; int8 from the QAT ranges, else one calibration
 batch), one program per ``--serving_batches`` entry, and the baked
-program. Still to port (ROADMAP.md Queue 1 item 12): the mesh and its
-sharded exports.
+program. Still to port (ROADMAP.md Queue 1 item 12b): the spatial ``model``
+axis and ``--fused_epoch`` on a mesh with data > 1; both raise.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``) is one process a device:
+every rank runs this Trainer on its device with the whole state and the
+stores replicated, draws the global batch's order and augmentation draws
+from the same generators and keeps its rows (with ``--grad_accum`` its
+piece of every microbatch, and the mixup partners it augments itself:
+``data/augment.py:shard_draws``); a streaming source yields the global
+batch on every rank and each keeps its rows. The steps make BatchNorm,
+the Focal-Tversky index, gradients and metrics global, so every rank holds
+the same state after every step. Validation and the threshold sweep sum
+their counts over the ranks (padded duplicates weighted out over the
+global indices); test() gathers the per-image rows, surface metrics and
+grids to every rank, or in a multi-host run keeps the global counts alone,
+as JAX does. Rank 0 alone writes the run directory (logs, weights, full
+states, CSVs, grids, bundles; after training with data > 1 also the
+sharded bundle ``<Model>_serving_sharded.pt2``), and a SIGTERM to any rank
+stops every rank at the same step boundary.
 """
 
 from __future__ import annotations
@@ -75,6 +92,7 @@ from ddti_tpu_torch.data.augment import (
     dense_draws,
     sample_draws,
     sample_mixup,
+    shard_draws,
 )
 from ddti_tpu_torch.data.dataset import to_device
 from ddti_tpu_torch.eval.metrics import (
@@ -84,7 +102,14 @@ from ddti_tpu_torch.eval.metrics import (
 from ddti_tpu_torch.eval.surface import surface_metrics_batch
 from ddti_tpu_torch.eval.metrics import ConfusionCounts
 from ddti_tpu_torch.eval.visualize import save_boundary_grids
-from ddti_tpu_torch.models.blocks import set_bn_exact_variance
+from ddti_tpu_torch.models.blocks import set_bn_exact_variance, set_bn_mesh
+from ddti_tpu_torch.parallel.mesh import (
+    ITEM_12B,
+    all_reduce_,
+    any_rank,
+    gather_rows,
+    local_rows,
+)
 from ddti_tpu_torch.utils.early_stopping import EarlyStopping
 
 from .checkpoint import (
@@ -238,12 +263,16 @@ def aug_config_from(config) -> AugmentConfig:
 class Trainer:
     """Train/validate/test over (train, val, test) sources:
     ``DeviceDataSource``s on the model's device, or streaming sources that
-    yield host batches."""
+    yield host batches. ``mesh`` makes this process one data-parallel rank
+    (the sources hold the whole data on every rank)."""
 
-    def __init__(self, config, data, logger, model):
+    def __init__(self, config, data, logger, model, mesh=None):
         self.config = config
         self.logger = logger
         self.model = model
+        self.mesh = mesh
+        # rank 0 alone writes the run directory
+        self.is_writer = mesh is None or mesh.rank == 0
         self.device = next(model.parameters()).device
         self.train_src, self.val_src, self.test_src = data
         if hasattr(self.train_src, "num_batches"):
@@ -267,6 +296,16 @@ class Trainer:
         # the stepwise loop, as in JAX
         self.fused = (bool(getattr(config, "fused_epoch", False))
                       and self._is_device_src(self.train_src))
+        if self.fused and mesh is not None and mesh.data > 1:
+            raise NotImplementedError(
+                f"--fused_epoch on a mesh with data={mesh.data}: its CUDA "
+                f"graph would capture the collectives; not ported yet "
+                f"({ITEM_12B})")
+        # the mesh the steps and BatchNorm reduce over: none in a fused
+        # epoch (data 1 there: one rank holds the whole batch)
+        self.dp = None if self.fused else mesh
+        self._grad_accum = int(getattr(config, "grad_accum", 1) or 1)
+        set_bn_mesh(model, self.dp)
         freeze = parse_freeze(config)
         self.state = TrainState(
             model, config.lr, self.steps_per_epoch, config.weight_decay,
@@ -303,15 +342,18 @@ class Trainer:
             self.state.init_optimizer_state()
         self.train_step = make_train_step(config, self.aug_cfg,
                                           teacher=self.teacher,
-                                          device_guard=device_guard)
-        self.host_train_step = make_host_train_step(config, self.teacher)
+                                          device_guard=device_guard,
+                                          mesh=self.dp)
+        self.host_train_step = make_host_train_step(config, self.teacher,
+                                                    mesh=self.dp)
         # the last fused epoch: the steps captured and the graph replays
         self.fused_stats = None
-        self.eval_step = make_eval_step(config)
+        self.eval_step = make_eval_step(config, mesh=self.dp)
         self.infer_step = make_infer_step(config)
         self.early_stopping = EarlyStopping(
             logger=logger, patience=config.early_stop_patience, delta=0)
-        self.writer = ScalarWriter(config.result_dir)
+        self.writer = ScalarWriter(config.result_dir if self.is_writer
+                                   else None)
         # drives the test split's shuffle (the reference's quirk #10)
         self.rng = np.random.default_rng(config.seed)
         self.best_val_iou = -np.inf
@@ -415,6 +457,49 @@ class Trainer:
             yield (None, *(to_device(torch.from_numpy(x), self.device)
                            for x in (images, masks)))
 
+    def _local(self, *tensors):
+        """This rank's rows (``local_rows``, no grad_accum) of tensors of
+        one global batch (None passes); all of them without a mesh."""
+        if self.dp is None:
+            return tensors
+        n = next(t for t in tensors if t is not None).shape[0]
+        rows = local_rows(n, self.dp)
+        return tuple(None if t is None else t[rows.to(t.device)]
+                     for t in tensors)
+
+    def _train_on(self, epoch: int, i: int, images, masks, state=None):
+        """One train step on the global batch (``images``, ``masks``) of
+        step ``i``: uint8 store frames through the device chain, or float32
+        frames the host chain augmented through mixup and the update.
+        Under a mesh the rank takes its rows of the batch and of the
+        draws, with its mixup partners (``shard_draws``). ``state``
+        (default the run's) is what the step updates."""
+        state = self.state if state is None else state
+        dev = images.device
+        n = images.shape[0]
+        host = images.dtype != torch.uint8
+        if host:  # augmented by the host chain: mixup and the update
+            draws, mix = None, self._mix_draws(n)
+        else:
+            draws, mix = self._draws(epoch, i, n)
+        if self.dp is not None:
+            keep, draws, mix = shard_draws(
+                draws, mix, local_rows(n, self.dp, self._grad_accum))
+            keep = keep.to(dev)
+            images, masks = images[keep], masks[keep]
+        mix = None if mix is None else mix.to(dev)
+        if host:
+            return self.host_train_step(state, images, masks, mix)
+        return self.train_step(state, images, masks, draws.to(dev), mix)
+
+    def _preempt_agreed(self) -> bool:
+        """Whether to stop for a preemption signal: under a mesh, true on
+        every rank once any rank received one (a host-side collective at
+        the same point on every rank), so all stop at the same step."""
+        if self.mesh is not None:
+            self._preempted = any_rank(self._preempted, self.mesh)
+        return self._preempted
+
     # ------------------------------------------------------------------
 
     def train_one_epoch(self, epoch: int):
@@ -438,10 +523,10 @@ class Trainer:
         self._gen = self._epoch_generator(epoch)
         self._field_gen = self._epoch_generator(epoch, self.device)
         log_every = int(self.config.log_every or 0)
-        # --profile N: a torch.profiler trace of epoch 1's first N steps;
-        # a tracing failure never fails the run
+        # --profile N: a torch.profiler trace of epoch 1's first N steps
+        # (rank 0's under a mesh); a tracing failure never fails the run
         prof_n = (int(getattr(self.config, "profile_steps", 0) or 0)
-                  if epoch == 0 else 0)
+                  if epoch == 0 and self.is_writer else 0)
         prof = None
         t0 = time.perf_counter()
         n_imgs = 0
@@ -452,22 +537,13 @@ class Trainer:
             if prof_n and i == 0:
                 prof = self._start_trace()
                 prof_n = prof_n if prof is not None else 0
-            dev = images.device
-            if images.dtype == torch.uint8:
-                # raw store data: the device augmentation chain
-                draws, mix = self._draws(epoch, i, images.shape[0])
-                m = self.train_step(self.state, images, masks, draws.to(dev),
-                                    None if mix is None else mix.to(dev))
-            else:  # augmented by the host chain: mixup and the update
-                mix = self._mix_draws(images.shape[0])
-                m = self.host_train_step(self.state, images, masks,
-                                         None if mix is None else mix.to(dev))
+            m = self._train_on(epoch, i, images, masks)
             total = accumulate(total, m)
             n_imgs += int(images.shape[0])
             if self._nan_guard and not self._note_skip(
                     float(m.skipped), epoch, i):
                 break  # patience spent: stop the epoch and the run
-            if self._preempted:
+            if self._preempt_agreed():
                 # the step just taken is kept; train() saves and stops
                 break
             if prof_n and i + 1 == prof_n:
@@ -644,7 +720,9 @@ class Trainer:
 
     def _save(self, suffix: str) -> None:
         """``<Model>_<suffix>.{npz,pth}`` of the eval weights (the EMA
-        shadow under --ema_decay)."""
+        shadow under --ema_decay); rank 0's alone under a mesh."""
+        if not self.is_writer:
+            return
         cfg = self.config
         save_weights(os.path.join(cfg.model_dir,
                                   f"{cfg.model_type}_{suffix}"),
@@ -655,7 +733,8 @@ class Trainer:
     def _first_occurrence_mask(idx, seen: set, device):
         """(B,) float32 {0, 1}: 0 for wraparound-padded duplicates, so
         metrics count every image once (QUIRKS #22). None for a streaming
-        source (idx None), whose batches are not padded."""
+        source (idx None), whose batches are not padded. Over the global
+        indices: a mesh's rank takes its rows of it (``_local``)."""
         if idx is None:
             return None
         mask = []
@@ -669,9 +748,9 @@ class Trainer:
         seen = set()
         for idx, images, masks in self._batches(self.val_src, False,
                                                 self.rng):
-            m = self.eval_step(self.state, images, masks,
-                               self._first_occurrence_mask(idx, seen,
-                                                           images.device))
+            valid = self._first_occurrence_mask(idx, seen, images.device)
+            m = self.eval_step(self.state, *self._local(images, masks,
+                                                        valid))
             total = accumulate(total, m)
         em = epoch_metrics_from_counts(total.counts)
         avgs = self._avgs(total)
@@ -726,14 +805,15 @@ class Trainer:
             self.train_one_epoch(epoch)
             if self._diverged:  # --nan_guard patience spent; the last
                 break           # weights below are still saved
-            if self._preempted:
+            if self._preempt_agreed():
                 self._log_preempted("at", epoch)
                 break
             _, val_iou = self.validate(epoch)
 
             # rotated full states and the confusion plot every
             # save_interval epochs
-            if cfg.save_interval and (epoch + 1) % cfg.save_interval == 0:
+            if (cfg.save_interval and (epoch + 1) % cfg.save_interval == 0
+                    and self.is_writer):
                 if self._ckpt_manager is None:
                     self._ckpt_manager = ManagedCheckpointer(
                         os.path.join(cfg.model_dir, "periodic"),
@@ -758,25 +838,32 @@ class Trainer:
             if self.early_stopping.early_stop:
                 self.logger.info("--Early stopping triggered")
                 break
-            if self._preempted:  # the signal came during validate or saves
-                self._log_preempted("after", epoch)
+            if self._preempt_agreed():  # the signal came during validate
+                self._log_preempted("after", epoch)  # or saves
                 break
 
+        preempted = self._preempt_agreed()
+        export = bool(getattr(cfg, "export_serving", False)) and not preempted
+        if export and self.mesh is not None:
+            # the threshold sweep is a collective: every rank runs it
+            # before rank 0 exports alone
+            self._serving_threshold()
         last = os.path.join(cfg.model_dir, f"{cfg.model_type}_last")
-        save_checkpoint(last, self.state)
+        if self.is_writer:
+            save_checkpoint(last, self.state)
         self._save("last")
         if self._best_saver is not None:
             # every best artifact is on disk before anything reads it
             self._best_saver.close()
             self._best_saver = None
         if getattr(cfg, "export_serving", False):
-            if self._preempted:
+            if preempted:
                 # the grace window is for checkpoints; the resumed run
                 # exports when it completes (JAX's rule)
                 self.logger.warning(
                     "preempted: --export_serving skipped (runs when the "
                     "resumed job completes)")
-            else:
+            elif self.is_writer:
                 self._export_serving_artifacts()
         if self._ckpt_manager is not None:
             self._ckpt_manager.close()
@@ -791,6 +878,8 @@ class Trainer:
         anything reads the files. --async_best_save false writes them
         here."""
         cfg = self.config
+        if not self.is_writer:
+            return
         best = os.path.join(cfg.model_dir, f"{cfg.model_type}_best")
         label = (f"--Best model saved at epoch {epoch + 1} "
                  f"with IoU: {val_iou:.4f}")
@@ -856,18 +945,23 @@ class Trainer:
         return self._tuned_threshold
 
     def _export_serving_artifacts(self) -> None:
-        """Write the serving bundles (JAX ``_export_serving_artifacts``
-        without its mesh branch): one weights-as-arguments program a
+        """Write the serving bundles (JAX ``_export_serving_artifacts``):
+        one weights-as-arguments program a
         ``--serving_batches`` entry (``<Model>_serving_program.pt2`` + .npz,
         ``<Model>_b<N>_serving_program.pt2`` when several) in
         ``--serving_dtype``, then the baked ``<Model>_serving.pt2``. An int8
         export quantizes once, from the QAT ranges under --qat, else from
         one validation batch, honouring --quant_min_channels. Each artifact
-        is guarded on its own: an export never fails the run."""
+        is guarded on its own: an export never fails the run. After
+        training on a mesh with data > 1 also the sharded bundle
+        ``<Model>_serving_sharded.pt2`` + .npz (the global --batch_size
+        over the mesh's devices, int8 from the same tables)."""
         from .export import (
             PROGRAM_SUFFIX,
             export_program,
             export_serving_program,
+            export_serving_sharded,
+            per_device_batch,
             save_bundle,
             save_serving,
         )
@@ -927,6 +1021,30 @@ class Trainer:
         if written:
             self.logger.info("--Serving artifacts exported to "
                              + ",".join(written))
+        if self.mesh is not None and self.mesh.data > 1:
+            # the run trained on a mesh: also the scale-out bundle, the
+            # weights replicated and the batch split over the devices
+            nr = self.mesh.data
+            spath = os.path.join(cfg.model_dir, f"{mt}_serving_sharded.pt2")
+            try:
+                if sd == "int8" and variables_q is not None:
+                    svars = variables_q
+                    program = export_program(
+                        model, variables_q,
+                        per_device_batch(cfg.batch_size, nr),
+                        cfg.image_size, threshold=thr, tta=tta, bf16=bf16,
+                        quantized=True, model_type=mt)
+                else:
+                    program, svars = export_serving_sharded(
+                        model, nr, cfg.batch_size, cfg.image_size,
+                        threshold=thr,
+                        weights_dtype=(torch.bfloat16 if sd == "bf16"
+                                       else None),
+                        tta=tta, bf16=bf16, model_type=mt)
+                save_bundle(spath, program, svars, nr_devices=nr)
+                self.logger.info(f"--Sharded serving artifact: {spath}")
+            except Exception as e:
+                self.logger.warning(f"sharded serving export failed: {e}")
         try:
             path = os.path.join(cfg.model_dir, f"{mt}_serving.pt2")
             save_serving(path, model, cfg.batch_size, cfg.image_size,
@@ -942,14 +1060,14 @@ class Trainer:
         0.5)."""
         grid = (np.round(np.arange(0.05, 0.951, 0.05), 2)
                 if grid is None else np.asarray(grid))
-        sweep = make_threshold_sweep_step(self.config, grid)
+        sweep = make_threshold_sweep_step(self.config, grid, mesh=self.dp)
         total = None
         seen = set()
         for idx, images, masks in self._batches(self.val_src, False,
                                                 self.rng):
             # validate()'s per-image accounting (QUIRKS #22)
-            c = sweep(self.state, images, masks,
-                      self._first_occurrence_mask(idx, seen, images.device))
+            valid = self._first_occurrence_mask(idx, seen, images.device)
+            c = sweep(self.state, *self._local(images, masks, valid))
             total = c if total is None else total + c
         inter = total.inter.cpu().numpy()
         union = total.union.cpu().numpy()
@@ -970,7 +1088,12 @@ class Trainer:
         HD95/ASSD, ``result/test_metrics.json``,
         ``result/per_image_metrics.csv`` and, with ``visualize``, the
         contour-overlay grids (``test_boundaries_<k>.png``). Under
-        --tune_threshold at the val split's tuned threshold."""
+        --tune_threshold at the val split's tuned threshold. Under a mesh
+        each rank predicts its rows and the outputs are gathered, so every
+        rank holds the global rows and rank 0 writes them; in a
+        multi-host run (JAX's rule) the rows, surface metrics and grids
+        are skipped and the metrics are the ranks' summed counts, padded
+        duplicates weighted out."""
         self.logger.info(
             "------------------Starting Testing Model------------------")
         threshold = 0.5
@@ -980,25 +1103,57 @@ class Trainer:
                          else self.tune_threshold())
             if threshold != 0.5:
                 self.infer_step = make_infer_step(self.config, threshold)
+        audit = self.mesh is not None and self.mesh.multihost
+        if visualize and audit:
+            self.logger.info("visualization skipped in multi-host runs "
+                             "(outputs span non-addressable devices)")
+            visualize = False
         rows, seen = [], set()
         frames = ([], [], [])  # images, masks, predictions for the grids
+        counts_total = None  # a multi-host run's summed counts
         for idx, images, masks in self._batches(self.test_src, True,
                                                 self.rng):
-            imgs_f, masks_f, preds, _, per_img = self.infer_step(
+            valid = (self._first_occurrence_mask(idx, seen, images.device)
+                     if audit else None)
+            images, masks, valid = self._local(images, masks, valid)
+            imgs_f, masks_f, preds, counts, per_img = self.infer_step(
                 self.state, images, masks)
+            if audit:  # per-image rows stay on their ranks
+                if valid is not None:
+                    counts = ConfusionCounts(
+                        *((v * valid).sum() for v in per_img))
+                counts_total = (counts if counts_total is None
+                                else counts_total + counts)
+                continue
             surf = (surface_metrics_batch(preds, masks_f)
                     if self.config.surface_metrics else None)
+            if self.dp is not None:  # the global batch's outputs
+                per_img = [gather_rows(v, self.dp) for v in per_img]
+                surf = (None if surf is None else
+                        {k: gather_rows(v, self.dp) for k, v in surf.items()})
+                imgs_f, masks_f, preds = (gather_rows(x, self.dp) for x in (
+                    imgs_f, masks_f, preds))
             self._collect_per_image(rows, seen, idx, per_img, surf)
             if visualize:
                 for acc, x in zip(frames, (imgs_f, masks_f.to(torch.uint8),
                                            preds)):
                     acc.append(x[..., 0].cpu().numpy())
-        # wraparound-padded duplicates are dropped, so the global metrics
-        # count every image once, as the reference's unpadded loader does
-        m = metrics_from_counts(
-            sum(r["tp"] for r in rows), sum(r["fp"] for r in rows),
-            sum(r["fn"] for r in rows), sum(r["tn"] for r in rows))
-        total = len(rows)
+        if audit:
+            # JAX's multi-host path: the device totals, padded duplicates
+            # already weighted out, summed over the ranks
+            c = torch.stack(list(counts_total))
+            all_reduce_([c], self.mesh)
+            m = metrics_from_counts(*(float(v) for v in c[:4]))
+            total = int(m["tp"] + m["fp"] + m["fn"] + m["tn"]) // (
+                self.config.image_size ** 2)
+        else:
+            # wraparound-padded duplicates are dropped, so the global
+            # metrics count every image once, as the reference's unpadded
+            # loader does
+            m = metrics_from_counts(
+                sum(r["tp"] for r in rows), sum(r["fp"] for r in rows),
+                sum(r["fn"] for r in rows), sum(r["tn"] for r in rows))
+            total = len(rows)
         if rows and "hd95" in rows[0]:
             sd = [(r["hd95"], r["assd"]) for r in rows
                   if not math.isnan(r["hd95"])]
@@ -1019,6 +1174,8 @@ class Trainer:
                     f"HD95 mean={m['hd95_mean']:.2f} "
                     f"median={m['hd95_median']:.2f}, "
                     f"ASSD mean={m['assd_mean']:.2f}")
+        if not self.is_writer:
+            return m
         print(msg)
         self.logger.info(msg)
         with open(os.path.join(self.config.result_dir,

@@ -20,6 +20,14 @@ weights inside the program. A K-member ensemble (``export_serving_ensemble``)
 takes each tensor stacked on a leading member axis and loops over the
 members inside the program: probability mean, then threshold.
 
+A sharded bundle (``export_serving_sharded``, and
+``quantize.export_serving_int8_sharded``), JAX's scale-out form, is the
+same program traced at the per-device batch B / N with ``nr_devices`` N
+recorded in the ``.pt2`` (an extra file): the loader splits a global batch
+of B over the first N local devices, the weights replicated on each, and
+joins the masks. JAX's artifact is one GSPMD-sharded StableHLO program;
+torch has no such program, so the split is the loader's.
+
 Loading (``load_serving_bundle``) needs no model code: it imports the
 custom ops of ``ddti_tpu_torch.ops`` (building the kernels at first use on
 the card) and runs the graph. A program is traced on one device type
@@ -206,6 +214,15 @@ def export_program(model: nn.Module, variables: dict, batch: int,
     return _export(prog, (variables, images))
 
 
+def per_device_batch(batch: int, nr_devices: int) -> int:
+    """A sharded bundle's program batch: the global ``batch`` over
+    ``nr_devices``, which must divide it."""
+    if nr_devices < 1 or batch % nr_devices:
+        raise ValueError(f"a sharded serving batch of {batch} must divide "
+                         f"evenly by its {nr_devices} devices")
+    return batch // nr_devices
+
+
 def serving_variables(model: nn.Module, fold_bn: bool = False,
                       weights_dtype=None, model_type: str | None = None
                       ) -> dict:
@@ -234,6 +251,24 @@ def export_serving_program(model: nn.Module, batch: int, size: int,
     return export_program(model, variables, batch, size, in_channels,
                           threshold, input_dtype, tta=tta, bf16=bf16,
                           model_type=model_type), variables
+
+
+def export_serving_sharded(model: nn.Module, nr_devices: int, batch: int,
+                           size: int, in_channels: int = 1,
+                           threshold: float = 0.5, fold_bn: bool = False,
+                           input_dtype=torch.float32, weights_dtype=None,
+                           tta: bool = False, bf16: bool = False,
+                           model_type: str | None = None):
+    """The scale-out serving export (JAX ``export_serving_sharded``):
+    ``batch`` is the GLOBAL batch, which ``nr_devices`` must divide; the
+    program is traced at the per-device batch. Returns ``(program,
+    variables)``; write the pair with ``save_bundle(...,
+    nr_devices=nr_devices)`` and load it with ``load_serving_bundle``,
+    which serves a global batch over that many devices."""
+    return export_serving_program(
+        model, per_device_batch(batch, nr_devices), size, in_channels,
+        threshold, fold_bn, input_dtype, weights_dtype, tta, bf16,
+        model_type)
 
 
 def export_serving_ensemble(model: nn.Module, members: list, batch: int,
@@ -290,12 +325,18 @@ def weights_path_for(program_path: str) -> str:
     return os.path.splitext(program_path)[0] + ".npz"
 
 
-def save_bundle(program_path: str, program, variables: dict) -> None:
+NR_DEVICES = "nr_devices"  # the .pt2 extra file of a sharded bundle
+
+
+def save_bundle(program_path: str, program, variables: dict,
+                nr_devices: int = 1) -> None:
     """Write a weights-as-arguments bundle: the program at
-    ``program_path`` and its tensors beside it (``.npz``)."""
+    ``program_path`` and its tensors beside it (``.npz``); a sharded
+    bundle's program records ``nr_devices``."""
     from .checkpoint import save_variables_npz
 
-    torch.export.save(program, program_path)
+    extra = {NR_DEVICES: str(int(nr_devices))} if nr_devices > 1 else None
+    torch.export.save(program, program_path, extra_files=extra)
     save_variables_npz(weights_path_for(program_path), variables)
 
 
@@ -333,9 +374,28 @@ def _matches(template: dict, variables: dict | None) -> bool:
                     for k, t in template.items()))
 
 
+def serving_devices(nr_devices: int, device, devices=None) -> list:
+    """The devices a sharded bundle of ``nr_devices`` runs on: the first
+    ``nr_devices`` of ``devices``, else of this host's devices of
+    ``device``'s type (the card's GPUs; the CPU stands for as many devices
+    as asked, as JAX's tests fake CPU devices). Fewer raise JAX's
+    message."""
+    if devices is None:
+        device = torch.device(device)
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device] * nr_devices)
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < nr_devices:
+        raise ValueError(
+            f"sharded serving artifact needs {nr_devices} devices; only "
+            f"{len(devices)} available")
+    return devices[:nr_devices]
+
+
 def load_serving_bundle(program_path: str, weights_path: str | None = None,
                         shared_variables: dict | None = None,
-                        device="cuda"):
+                        device="cuda", devices=None):
     """Rehydrate a serving bundle (JAX ``load_serving_bundle``) into
     ``(fn, batch, size, in_dtype)``: ``fn(images[batch, size, size, C])``
     (numpy or torch; uint8 frames given to a float program are scaled to
@@ -347,12 +407,20 @@ def load_serving_bundle(program_path: str, weights_path: str | None = None,
     ``shared_variables``, the ``fn.variables`` of a bundle loaded before,
     is used instead where its names, shapes and dtypes match this
     program's, so a multi-batch set holds one copy of the weights.
-    ``fn.variables`` is None for a baked program."""
+    ``fn.variables`` is None for a baked program.
+
+    A SHARDED bundle (``nr_devices`` N > 1) serves a global batch of N
+    times the program's over ``serving_devices(N, device, devices)``: its
+    weights replicated on each, the batch split in N, the masks joined on
+    ``device``; the returned batch is the global one."""
     from ddti_tpu_torch.core.device import resolve_device
 
     _register_ops()
     device = resolve_device(str(device))
-    program = torch.export.load(program_path)
+    extra = {NR_DEVICES: ""}
+    program = torch.export.load(program_path, extra_files=extra)
+    nr = int(extra[NR_DEVICES] or 1)
+    shards = serving_devices(nr, device, devices) if nr > 1 else [device]
     template, image = program_inputs(program)
     if image.device.type != device.type:
         raise ValueError(
@@ -390,10 +458,29 @@ def load_serving_bundle(program_path: str, weights_path: str | None = None,
                     f"not hold the tensors {program_path} takes (names, "
                     f"shapes or dtypes differ)")
             variables = {k: v.to(device) for k, v in loaded.items()}
+        if nr == 1:
+            @torch.inference_mode()
+            def fn(images):
+                return module(variables, as_input(images))
+        else:
+            from torch.export.passes import move_to_device_pass
 
-        @torch.inference_mode()
-        def fn(images):
-            return module(variables, as_input(images))
+            # the graph names the device it was traced on (cuda:0): each
+            # other device runs its own copy, moved there
+            traced = str(image.device)
+            modules = [module if str(d) == traced else move_to_device_pass(
+                torch.export.load(program_path), {traced: str(d)}).module()
+                for d in shards]
+            replicas = [variables if d == device else
+                        {k: v.to(d) for k, v in variables.items()}
+                        for d in shards]
+
+            @torch.inference_mode()
+            def fn(images):
+                parts = as_input(images).chunk(nr)
+                return torch.cat([
+                    m(w, x.to(d)).to(device)
+                    for m, w, x, d in zip(modules, replicas, parts, shards)])
 
         fn.variables = variables
-    return fn, int(image.shape[0]), int(image.shape[1]), in_dtype
+    return fn, nr * int(image.shape[0]), int(image.shape[1]), in_dtype

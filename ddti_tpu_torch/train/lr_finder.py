@@ -75,17 +75,7 @@ def run_lr_finder(trainer, num_steps: int = 100, min_lr: float = 1e-7,
             for _, images, masks in trainer._batches(trainer.train_src, True,
                                                      rng):
                 made_progress = True
-                dev = images.device
-                if images.dtype == torch.uint8:
-                    draws, mix = trainer._draws(-1, i, images.shape[0])
-                    m = trainer.train_step(
-                        state, images, masks, draws.to(dev),
-                        None if mix is None else mix.to(dev))
-                else:
-                    mix = trainer._mix_draws(images.shape[0])
-                    m = trainer.host_train_step(
-                        state, images, masks,
-                        None if mix is None else mix.to(dev))
+                m = trainer._train_on(-1, i, images, masks, state=state)
                 loss = float(m.loss)
                 lr = min_lr * ratio ** (i / (num_steps - 1))
                 if not math.isfinite(loss):
@@ -127,14 +117,19 @@ def _report(trainer, history: list, stop_reason: str) -> dict:
     lr_min_over_10 = float(lrs[np.argmin(sms)] / 10.0)
 
     rd = trainer.config.result_dir or "."
-    os.makedirs(rd, exist_ok=True)
     csv_path = os.path.join(rd, "lr_find.csv")
+    png_path = os.path.join(rd, "lr_find.png")
+    out = {"lr_steepest": lr_steepest, "lr_min_over_10": lr_min_over_10,
+           "history": history, "stop_reason": stop_reason,
+           "csv": csv_path, "png": png_path}
+    if not trainer.is_writer:  # a data-parallel rank other than 0
+        return out
+    os.makedirs(rd, exist_ok=True)
     with open(csv_path, "w") as f:
         f.write("step,lr,loss,smoothed\n")
         for j, (lr, loss, sm) in enumerate(history):
             f.write(f"{j},{lr:.6g},{loss:.6g},{sm:.6g}\n")
 
-    png_path = os.path.join(rd, "lr_find.png")
     try:
         import matplotlib
         matplotlib.use("Agg")
@@ -156,12 +151,10 @@ def _report(trainer, history: list, stop_reason: str) -> dict:
         plt.close(fig)
     except Exception as e:  # the plot must never sink the sweep
         trainer.logger.warning(f"lr_find plot skipped: {e}")
-        png_path = None
+        out["png"] = None
 
     trainer.logger.info(
         f"LR range test: {len(history)} steps ({stop_reason}); "
         f"suggested --lr {lr_steepest:.3g} (steepest descent) or "
         f"{lr_min_over_10:.3g} (min-loss/10) — curve in {csv_path}")
-    return {"lr_steepest": lr_steepest, "lr_min_over_10": lr_min_over_10,
-            "history": history, "stop_reason": stop_reason,
-            "csv": csv_path, "png": png_path}
+    return out

@@ -138,11 +138,15 @@ def init_qstats(model: nn.Module, input_shape, min_channels: int = 0,
 
 
 def qat_forwards(model: nn.Module, qstats: dict, observed: dict,
-                 model_type: str | None = None) -> dict:
+                 model_type: str | None = None, mesh=None) -> dict:
     """``{module: forward}`` for ``swapped_forwards``: every conv tracked
     in ``qstats`` fake-quantized, its batch amax maxed into
     ``observed[path]``; an unobserved entry (0.0) scales by the batch's
-    own amax. Convs not in ``qstats`` run their float forward."""
+    own amax. Convs not in ``qstats`` run their float forward. Under a
+    data-parallel ``mesh`` the batch amax is the global batch's, maxed
+    over the ranks (one collective a conv), as JAX's GSPMD reduces it."""
+    from ddti_tpu_torch.parallel.mesh import all_reduce_
+
     mods = conv_modules(model, model_type)
     swaps = {}
     for path, ema in qstats.items():
@@ -152,6 +156,7 @@ def qat_forwards(model: nn.Module, qstats: dict, observed: dict,
 
         def forward(x, m=m, path=path, ema=ema):
             fresh = x.detach().to(torch.float32).abs().amax()
+            all_reduce_([fresh], mesh, "max")
             if not recomputing():  # a recomputation observes nothing
                 prev = observed.get(path)
                 observed[path] = (fresh if prev is None

@@ -359,3 +359,26 @@ def export_serving_int8(model: nn.Module, batch: int, size: int,
                                        tta=tta, bf16=bf16,
                                        model_type=model_type)
     return program, variables
+
+
+def export_serving_int8_sharded(model: nn.Module, nr_devices: int,
+                                batch: int, size: int, calib_images=None,
+                                in_channels: int = 1,
+                                threshold: float = 0.5,
+                                input_dtype=torch.float32,
+                                min_channels: int = 0, tta: bool = False,
+                                amax: dict | None = None, bf16: bool = False,
+                                model_type: str | None = None):
+    """Int8 quantization and the scale-out form in one artifact (JAX
+    ``export_serving_int8_sharded``): ``batch`` is the GLOBAL batch, the
+    program traced at the per-device batch (``export.per_device_batch``).
+    Returns ``(program, variables)``; ``save_bundle(...,
+    nr_devices=nr_devices)`` writes the pair. A caller that writes the
+    plain and the sharded bundle quantizes once and passes the tables to
+    ``export_quantized_program`` twice, as the Trainer does."""
+    from .export import per_device_batch
+
+    return export_serving_int8(
+        model, per_device_batch(batch, nr_devices), size, calib_images,
+        in_channels, threshold, input_dtype, min_channels, tta, amax, bf16,
+        model_type)

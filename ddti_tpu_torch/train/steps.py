@@ -32,6 +32,19 @@ tracked conv fake-quantized in the forward and its recomputation, collects
 the batch ranges (maxed over the microbatches) and folds them into
 ``state.qstats``' EMA after an applied update, on the device; a rejected
 step leaves the ranges as they were; a teacher is never fake-quantized.
+
+Under a data-parallel ``mesh`` (``parallel/mesh.py``) each rank's step
+takes its rows of the global batch (the engine hands it them, with the
+mixup partners it augments itself: ``data/augment.py:shard_draws``) and
+computes what the single-device step computes on the whole batch:
+BatchNorm's statistics are global (``models/blocks.py``, set on the model
+by the Trainer), so is the Focal-Tversky index (``losses.py``); after the
+backward the gradients are averaged over the ranks (one bucketed
+all-reduce), the loss terms too, the confusion counts and the image count
+summed (a QAT conv's batch range is maxed over the ranks in its forward),
+so the nan_guard's decision, the update and the metrics are the same on
+every rank. The eval and threshold-sweep steps sum their counts over the
+ranks likewise.
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ from ddti_tpu_torch.eval.metrics import ConfusionCounts, confusion_counts
 from ddti_tpu_torch.eval.tta import tta_logits
 from ddti_tpu_torch.losses.losses import weighted_loss
 from ddti_tpu_torch.ops.resample import resize_bilinear_hw
+from ddti_tpu_torch.parallel.mesh import all_reduce_, mean_gradients_
 
 from .distill import kd_bce, soft_targets
 from .qat import qat_forwards, update_qstats
@@ -84,11 +98,21 @@ def _to_float(images, masks):
     return f(images), f(masks)
 
 
-def _loss_kw(config) -> dict:
+def _loss_kw(config, mesh=None) -> dict:
     return dict(bce_ratio=config.bce_ratio, dice_ratio=config.dice_ratio,
                 focal_ratio=config.focal_ratio,
                 boundary_ratio=config.boundary_ratio,
-                compute_unused=config.compute_unused_losses)
+                compute_unused=config.compute_unused_losses, mesh=mesh)
+
+
+def _global_metrics(terms, counts, mesh):
+    """The loss terms averaged and the counts summed over the ranks (each
+    rank's terms are its rows' equal share of the global batch's)."""
+    t = torch.stack([x.to(torch.float32) for x in terms])
+    c = torch.stack(list(counts))
+    all_reduce_([t, c], mesh)
+    t = t / mesh.world
+    return list(t.unbind()), ConfusionCounts(*c.unbind())
 
 
 def _nhwc(t):
@@ -162,7 +186,7 @@ def _finite(loss, model) -> torch.Tensor:
 
 def make_train_step(config, aug_cfg: AugmentConfig | None,
                     augment: bool = True, teacher=None,
-                    device_guard: bool = False):
+                    device_guard: bool = False, mesh=None):
     """Build ``step(state, images, masks, draws, mix_draws) ->
     StepMetrics``: uint8 (or float) NHWC batches, the chain's draws, and
     the mixup draws (ignored unless ``config.use_mixup``). Updates
@@ -172,8 +196,14 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
     turns distillation on; ``device_guard`` makes ``config.nan_guard``'s
     decision on the device (the state's optimizer moments must exist:
     ``TrainState.init_optimizer_state``). ``config.qat`` needs
-    ``state.qstats`` (``qat.init_qstats``)."""
-    loss_kw = _loss_kw(config)
+    ``state.qstats`` (``qat.init_qstats``). ``mesh`` makes it a
+    data-parallel rank's step (the model's BatchNorms must hold the same
+    mesh: ``models.blocks.set_bn_mesh``); the returned metrics are the
+    global batch's. ``device_guard`` is not taken with a mesh."""
+    if mesh is not None and device_guard:
+        raise ValueError("the device-side nan_guard (--fused_epoch) is not "
+                         "ported to a mesh")
+    loss_kw = _loss_kw(config, mesh)
     amp = bool(config.use_amp_autocast)
     use_mixup = bool(config.use_mixup)
     ds_weight = float(getattr(config, "alpha", 0.0) or 0.0)
@@ -195,7 +225,8 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
         QAT's (``observed`` collects the ranges)."""
         soft = (soft_targets(teacher, images, kd_t) if teacher is not None
                 else None)
-        with swapped_forwards(qat_forwards(model, qstats, observed)
+        with swapped_forwards(qat_forwards(model, qstats, observed,
+                                           mesh=mesh)
                               if qstats is not None else {}):
             out = _forward(model, images, amp)
             logits = _main_logits(out)
@@ -257,6 +288,10 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
             terms = [t * inv for t in terms]
         _restore(pinned, kept)
         n = images.new_full((), float(n_img))
+        if mesh is not None:
+            terms, counts = _global_metrics(terms, counts, mesh)
+            mean_gradients_(model.parameters(), mesh)
+            n = n * mesh.world
         if nan_guard and device_guard:
             return _guarded_update(state, model, terms, counts, n, live,
                                    start, ema_decay, observed, qat_decay)
@@ -303,15 +338,16 @@ def _guarded_update(state: TrainState, model, terms, counts, n, live, start,
                        kept(n), 1.0 - ok.to(torch.float32))
 
 
-def make_host_train_step(config, teacher=None):
+def make_host_train_step(config, teacher=None, mesh=None):
     """The train step of ``--host_augment`` (JAX ``make_host_train_step``):
     ``step(state, images_f, masks_f, mix_draws=None) -> StepMetrics`` on
     float32 NHWC batches that the host chain already augmented and resized,
     so the device runs mixup, forward/backward and the update only: the
     shared step body with the device chain off (grad_accum, deep
-    supervision, clipping, EMA, freeze, nan_guard and the teacher as in
-    ``make_train_step``)."""
-    body = make_train_step(config, None, augment=False, teacher=teacher)
+    supervision, clipping, EMA, freeze, nan_guard, the teacher and the
+    ``mesh`` as in ``make_train_step``)."""
+    body = make_train_step(config, None, augment=False, teacher=teacher,
+                           mesh=mesh)
 
     def step(state: TrainState, images, masks,
              mix: MixupDraws | None = None) -> StepMetrics:
@@ -328,13 +364,14 @@ def _eval_weights(state: TrainState, use_ema: bool):
     return state.ema if use_ema else None
 
 
-def make_eval_step(config):
+def make_eval_step(config, mesh=None):
     """``step(state, images, masks, valid=None) -> StepMetrics`` (no
     update). ``valid`` (B,) {0, 1} marks the images that are not
     wraparound padding: the counts weight each image by it and ``n`` is
     its sum, so val metrics count every image once; the loss terms stay
-    means over the padded batch (QUIRKS #22)."""
-    loss_kw = _loss_kw(config)
+    means over the padded batch (QUIRKS #22). Under a ``mesh`` the rank's
+    rows in, the global batch's metrics out."""
+    loss_kw = _loss_kw(config, mesh)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
     use_ema = _ema_decay(config) > 0
@@ -353,6 +390,11 @@ def make_eval_step(config):
             per_img = confusion_counts(logits, masks, per_image=True)
             counts = ConfusionCounts(*((v * valid).sum() for v in per_img))
             n = valid.sum()
+        if mesh is not None:
+            terms, counts = _global_metrics(terms, counts, mesh)
+            n = n.reshape(1).clone()
+            all_reduce_([n], mesh)
+            n = n[0]
         return StepMetrics(*terms, counts, n)
 
     return step
@@ -392,14 +434,15 @@ def make_infer_step(config, threshold: float = 0.5):
     return step
 
 
-def make_threshold_sweep_step(config, thresholds):
+def make_threshold_sweep_step(config, thresholds, mesh=None):
     """``step(state, images, masks, valid=None) -> ConfusionCounts`` whose
     counts have a leading thresholds axis (JAX
     ``make_threshold_sweep_step``, --tune_threshold): one forward scores
     every candidate, compared at once on the device. The logits are the
     test path's (the EMA shadow under --ema_decay, the flip ensemble
     under --tta); ``valid`` (B,) {0, 1} weights out wraparound-padded
-    duplicates, as validate() does (QUIRKS #22)."""
+    duplicates, as validate() does (QUIRKS #22). Under a ``mesh`` the
+    counts are summed over the ranks' rows."""
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
     use_tta = bool(getattr(config, "tta", False))
@@ -427,9 +470,11 @@ def make_threshold_sweep_step(config, thresholds):
             c = x.sum(dim=2, dtype=torch.float64)
             return c.sum(dim=1) if valid is None else (c * valid).sum(dim=1)
 
-        return ConfusionCounts(
+        out = ConfusionCounts(
             count(pred & pos_i), count(pred & ~pos_i), count(~pred & pos_i),
             count(~pred & ~pos_i), count(pred & pos_b), count(pred | pos_b))
+        all_reduce_(out, mesh)
+        return out
 
     return step
 

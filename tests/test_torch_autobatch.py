@@ -1,10 +1,10 @@
 """``--batch_size auto``: the port's selection rule against JAX's
 ``pick_batch_size`` with the same injected peaks (JAX's predicted, the
 port's measured: here both are the test's numbers), the grad_accum filter,
-the stop rule, a refusal after a fitting candidate and on the first
-(on one device: JAX's data-parallel multiple waits for the port's mesh);
-the CPU's refusal (no peak meter) and the flag's
-parsing, as JAX's."""
+the stop rule, a refusal after a fitting candidate and on the first,
+the data-parallel multiple (the per-device pick times the mesh's data
+axis); the CPU's refusal (no peak meter) and the flag's parsing, as
+JAX's."""
 
 import argparse
 import types
@@ -65,6 +65,16 @@ def test_selection_matches_jax(monkeypatch, per_image, grad_accum, want):
         assert port_pick == want
     else:
         assert isinstance(port_pick, tuple)
+
+
+@pytest.mark.parametrize("data_parallel", [1, 2, 8])
+def test_the_pick_is_global_over_the_data_axis(monkeypatch, data_parallel):
+    """Candidates are per device; the pick is the global batch, the
+    per-device one times --mesh data=N, as JAX's."""
+    peak = _peaks(0.2)
+    jax_pick, port_pick = _both(monkeypatch, peak, peak,
+                                data_parallel=data_parallel)
+    assert port_pick == jax_pick == 128 * data_parallel
 
 
 def test_a_refusal_after_a_fitting_candidate_means_over_budget(monkeypatch):

@@ -769,7 +769,7 @@ def test_parse_fused_run_reads_the_ports_own_log_lines():
     from ddti_tpu_torch.train import engine
 
     assert "graph replays" in inspect.getsource(engine.Trainer._replay_epoch)
-    assert "the run's peak: " in inspect.getsource(tmain.main)
+    assert "the run's peak: " in inspect.getsource(tmain._run)
 
 
 def test_clock_marks_the_peak_of_each_interval_and_stops_its_sampler(
@@ -856,3 +856,51 @@ def test_deploy_constants_and_qstats_keys():
         (1, size, size, 1)), train=False), jax.random.PRNGKey(0))
     want = init_qstats(jm, v, (1, size, size, 1))
     assert C.qstats_keys() == {f"qstats/{p}" for p in want}
+
+
+def test_parallel_flag_needs_the_card():
+    """``chip_smoke.py --parallel`` without a card exits non-zero and
+    prints no result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--parallel"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"parallel"' not in r.stdout and '"ok"' not in r.stdout
+
+
+def test_parallel_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The parallel phase with the CPU as the card and a tiny ResUNet
+    (base 4, depth 2, 32^2, batch 16): the CLI joined through --multihost
+    as a world of one (gloo here, NCCL on the card), then the two ranks'
+    float32 step held against the single-device step at the phase's
+    limits and their timed bf16 steps, and a data=2 sharded bundle served
+    over two CPU devices; the lines the phase prints, parsed back."""
+    import json
+    import re
+
+    monkeypatch.setattr(C, "DEVICE", "cpu")
+    monkeypatch.setattr(C, "TRAIN", dict(
+        model_type="ResUNet", base_filters=4, depth=2, image_size=32,
+        batch_size=16, epochs=1))
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    got = C.run_parallel(str(tmp_path), "cpu")
+    r = got["ranks"]
+    assert got["cli_edt_launches"] == 0 and r["edt_launches"] == 0
+    assert got["sharded_bundle"] == "served"
+    assert len(r["bf16_step_ms"]) == len(r["rank1"]["allreduce_ms"]) \
+        == C.PARALLEL_TIMED
+    assert r["grad_bytes"] == r["rank1"]["grad_bytes"] > 0
+    assert r["n"] == r["single_n"] == 16
+    json.dumps(got)  # the result line's part
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines()
+                if "gradients normwise" in ln)
+    grad = float(re.search(r"gradients normwise ([\d.e+-]+)", line)[1])
+    assert grad == pytest.approx(r["grad_normwise"], rel=1e-3)
+    assert "CLI joined as a world of 1: edt_minplus launches 0" in out
+    assert out.count("'s bf16 step ") == 2
+    assert out.count("'s gradient all-reduce ") == 2

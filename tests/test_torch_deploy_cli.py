@@ -31,6 +31,7 @@ from ddti_tpu_torch.train import checkpoint as ck
 from ddti_tpu_torch.train import export as E
 from ddti_tpu_torch.train.qat import init_qstats
 from ddti_tpu_torch.utils.weight_init import init_like_flax
+from torch_parallel_workers import bounded
 
 SIZE = 32
 ARCH = ["--model_type", "ResUNet", "--base_filters", "4", "--depth", "2",
@@ -280,8 +281,17 @@ def test_api_fit_save_export_load(tmp_path):
         masks = fn(torch.from_numpy(im[:4])).numpy()[..., 0]
         if dtype == "f32":  # BN folded: a pixel at the threshold may flip
             assert (masks == pred[:4]).mean() >= 0.999
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ddti.fit(im, mk, mesh="data=2", device="cpu")
+    # data-parallel over two gloo ranks: rank 0's best weights come back
+    dp = bounded(ddti.fit, im, mk, base_filters=4, depth=2, epochs=1,
+                 batch_size=4, bf16=False, verbose=False, device="cpu",
+                 mesh="data=2", run_dir=str(tmp_path / "dp"))
+    assert dp.predict(im).shape == (20, SIZE, SIZE)
+    best = os.path.join(dp.config.cfg_dir, "models", "ResUNet_best.npz")
+    want = ck.load_checkpoint_into(best, "ResUNet", _model(0)).state_dict()
+    for k, v in dp.module.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        ddti.fit(im, mk, mesh="data=1,model=2", device="cpu")
     if not torch.cuda.is_available():  # the card unless the caller says cpu
         for call in (lambda: ddti.fit(im, mk, epochs=1),
                      lambda: ddti.load(str(tmp_path / "w.npz"))):

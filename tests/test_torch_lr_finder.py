@@ -90,16 +90,19 @@ def _port_trainer(losses, per_pass, result_dir):
     model = torch.nn.Linear(3, 1)
     for p in model.parameters():
         p.grad = torch.zeros_like(p)
-    return types.SimpleNamespace(
+    tr = types.SimpleNamespace(
         config=_config(result_dir), device=torch.device("cpu"),
         state=TrainState(model, 1e-3, 1), train_src=None, train_step=step,
-        _gen=None, _field_gen=None,
+        _gen=None, _field_gen=None, dp=None, is_writer=True,
         _draws=lambda epoch, i, n: (types.SimpleNamespace(
             to=lambda dev: None), None),
         _batches=lambda src, shuffle, rng: iter(
             [(None, torch.zeros(1, dtype=torch.uint8),
               torch.zeros(1, dtype=torch.uint8))] * per_pass),
         logger=_logger("port"))
+    # the Trainer's own step dispatch (one process: no mesh)
+    tr._train_on = types.MethodType(Trainer._train_on, tr)
+    return tr
 
 
 def _smooth_then(n, tail):

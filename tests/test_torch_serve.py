@@ -184,6 +184,9 @@ def test_port_imports_no_jax():
     # the measured batch pick
     assert {f"ddti_tpu_torch.train.{m}" for m in (
         "distill", "lr_finder", "autobatch")} <= set(modules)
+    # data parallelism: the mesh, its collectives and the launch
+    assert {"ddti_tpu_torch.parallel.mesh",
+            "ddti_tpu_torch.parallel.multihost"} <= set(modules)
     code = (f"import sys, {', '.join(modules)}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ddti_tpu', 'benchmarks')); "
