@@ -5722,10 +5722,13 @@ def _bn_vs_float64(bn, x):
     return out
 
 
-def _fused_trainers(tmp, store, sd0, n):
+def _fused_trainers(tmp, store, sd0, n, mesh=None):
     """``n`` Trainers from the weights ``sd0``, the flagship at 512^2 /
-    batch 16 in bf16 on ``store``; each (label, fused) in turn."""
+    batch 16 in bf16 on ``store`` (on ``mesh`` where given); each (label,
+    fused) in turn."""
     import dataclasses
+
+    import torch
 
     from ddti_tpu_torch.core.config import Config
     from ddti_tpu_torch.core.logging import create_logger
@@ -5740,10 +5743,12 @@ def _fused_trainers(tmp, store, sd0, n):
     for label, fused in n:
         c = dataclasses.replace(cfg, fused_epoch=fused)
         c.make_dirs()
-        model = create_model("ResUNet", **model_kw).to(DEVICE)
+        with torch.device(DEVICE):  # no host init to throw away
+            model = create_model("ResUNet", **model_kw)
         model.load_state_dict(sd0)
         yield label, Trainer(c, (store, store, store), create_logger(
-            os.path.join(c.log_dir, f"{label}.log"), console=False), model)
+            os.path.join(c.log_dir, f"{label}.log"), console=False), model,
+            mesh=mesh)
 
 
 def trainer_fused(tmp, sd0):
@@ -7069,6 +7074,547 @@ def parallel_only():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# spatial: the model axis (ddti_tpu_torch/parallel/spatial.py) and
+# --fused_epoch on a mesh
+# ---------------------------------------------------------------------------
+
+SPATIAL_MESH = {"data": 1, "model": 2}
+SPATIAL_TIMEOUT_S = 600
+# (a) the flagship, (b) the TransUNet of configs/config.yaml:337-343 at
+# 512^2 (a 32 x 32 = 1024-token bottleneck: the flash kernels' gate) with
+# dropout 0: (label, model type, model kwargs, global batch)
+SPATIAL_MODELS = (
+    ("resunet", "ResUNet", dict(base_filters=64, depth=5), 8),
+    ("transunet", "TransUNet", dict(base_filters=64, depth=4, image_size=512,
+                                    dropout_rate=0.0), 4))
+SPATIAL_SIZE = 512
+# a rank's float32 peak on its band against the single-device step's
+SPATIAL_PEAK_SHARE = 0.65
+SPATIAL_FUSED_FRAMES = 32  # (c): a 2-step epoch at batch 16: eager, 1 replay
+
+
+def _spatial_spec() -> dict:
+    """What the ranks train, from this process's constants (the spawned
+    ranks import the module anew)."""
+    return dict(device=DEVICE, size=SPATIAL_SIZE, models=SPATIAL_MODELS)
+
+
+def _spatial_step(spec, model_type, model_kw, batch, mesh, amp=False):
+    """``model_type`` at ``spec``'s size on its device (512^2 on the card),
+    its weights drawn there from SEED (the same on every rank and for
+    the single-device model), and one train step of a seeded global batch
+    and draws: under ``mesh`` on this rank's band of every frame (the
+    model's BatchNorms and band modules hold the mesh), else the
+    single-device step. SGD, so the parameter delta is the gradient."""
+    import torch
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.data.augment import AugmentConfig, sample_draws
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.models import blocks, create_model
+    from ddti_tpu_torch.parallel.spatial import set_spatial_mesh
+    from ddti_tpu_torch.train.state import TrainState
+    from ddti_tpu_torch.train.steps import make_train_step
+
+    size, dev = spec["size"], spec["device"]
+    if model_type == "TransUNet":
+        model_kw = dict(model_kw, image_size=size)
+    cfg = Config(image_size=size, store_size=size, batch_size=batch,
+                 use_amp_autocast=amp, lr=PARALLEL_SGD_LR,
+                 model_type=model_type)
+    torch.manual_seed(SEED)
+    with torch.device(dev):  # drawn on the card: seconds less a model
+        model = create_model(model_type, **model_kw)
+    blocks.set_bn_mesh(model, mesh)
+    set_spatial_mesh(model, mesh)
+    state = TrainState(model, cfg.lr, 4, 0.0, model_type=model_type)
+    state.optimizer = torch.optim.SGD(state.trainable, lr=PARALLEL_SGD_LR)
+    state.capturable = False  # its rate is a float, filled every step
+    images, masks = synthetic_source(batch, (size, size), SEED,
+                                     device=dev).gather(list(range(batch)))
+    aug = AugmentConfig(out_size=(size, size))
+    draws = sample_draws(torch.Generator().manual_seed(SEED), batch, aug,
+                         (size, size)).to(dev)
+    step = make_train_step(cfg, aug, mesh=mesh)
+    return model, lambda: step(state, images, masks, draws, None)
+
+
+def _spatial_launches():
+    from ddti_tpu_torch.ops import attention, edt
+
+    bwd = attention.flash_backward_cuda
+    return dict(edt=edt.edt_cuda.launches,
+                flash_fwd=attention.flash_forward_cuda.launches,
+                flash_bwd_dkdv=bwd.launches_dkdv, flash_bwd_dq=bwd.launches_dq)
+
+
+def _spatial_zero_launches():
+    from ddti_tpu_torch.ops import attention, edt
+
+    bwd = attention.flash_backward_cuda
+    edt.edt_cuda.launches = attention.flash_forward_cuda.launches = 0
+    bwd.launches_dkdv = bwd.launches_dq = 0
+
+
+def _step_record(model, m):
+    """A step's metrics, averaged gradients and state (on the device)."""
+    return dict(terms=[float(getattr(m, k)) for k in (
+        "loss", "bce", "dice", "focal", "boundary")],
+        counts=[float(c) for c in m.counts], n=float(m.n),
+        grads={k: p.grad.detach() for k, p in model.named_parameters()},
+        state={k: v.detach().clone() for k, v in model.state_dict().items()})
+
+
+def _timed_exchanges(run, sync):
+    """``run()`` with every band exchange (``spatial.all_gather``: the
+    halos, their gradients, the gathers) synchronised and timed: (its
+    result, the exchanges' count and their ms)."""
+    from ddti_tpu_torch.parallel import spatial
+
+    real, spent = spatial.all_gather, []
+
+    def timed(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        sync()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    spatial.all_gather = timed
+    try:
+        out = run()
+    finally:
+        spatial.all_gather = real
+    return out, len(spent), sum(spent)
+
+
+def spatial_rank(rank, port, out_path, timed, spec):
+    """One of the two gloo ranks on the one card (NCCL refuses two ranks
+    on one GPU) at data=1, model=2: for each of ``spec``'s models the
+    float32 step on its band of the rows, with its kernels' launches and
+    its peak memory; with ``timed`` the flagship's bf16 steps and their
+    exchanges timed. Then rank i % 2 runs model i's single-device step
+    and holds it against its band step (every rank holds the same state
+    after a step: the CPU tests' check), both ranks at once. A peak is
+    the most a step allocated above what the process held before it.
+    ``out_path`` gets each rank's JSON; on the CPU (a rehearsal at a toy
+    size) peaks and times are None."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from ddti_tpu_torch.ops import _build
+    from ddti_tpu_torch.parallel.mesh import (
+        host_reduce,
+        init_process_group,
+        make_mesh,
+    )
+
+    cuda = spec["device"] == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fresh():  # the cache back to the card, the peak counter reset;
+        gc.collect()  # returns the bytes held
+        if not cuda:
+            return 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak_gib(held):  # None: not measured on the CPU
+        return ((torch.cuda.max_memory_allocated() - held) / 2**30 if cuda
+                else None)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    if cuda:
+        _build.load_library()
+    else:  # a CPU rehearsal: the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    init_process_group(rank, 2, f"127.0.0.1:{port}", "gloo")
+    mesh = make_mesh(dict(SPATIAL_MESH), spec["device"])
+    out = {"rank": rank, "mesh": dict(mesh.shape), "backend": mesh.backend}
+    band = {}
+    t_start = time.perf_counter()
+    mine = {label: i % 2 == rank
+            for i, (label, *_) in enumerate(spec["models"])}
+    for label, mt, kw, batch in spec["models"]:
+        held = fresh()
+        model, step = _spatial_step(spec, mt, kw, batch, mesh)
+        _spatial_zero_launches()
+        t0 = time.perf_counter()
+        m = step()
+        sync()
+        out[f"{label}_band_step_s"] = time.perf_counter() - t0
+        out[f"{label}_launches"] = _spatial_launches()
+        out[f"{label}_peak_gib"] = peak_gib(held)
+        if mine[label]:
+            band[label] = _step_record(model, m)
+        del model, step, m
+    if timed:  # bf16: the flagship's step and its band exchanges
+        model, step = _spatial_step(spec, *spec["models"][0][1:], mesh,
+                                    amp=True)
+        times = []
+        for i in range(PARALLEL_TIMED + 1):
+            sync()
+            t0 = time.perf_counter()
+            step()
+            sync()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        _, n_x, x_ms = _timed_exchanges(step, sync)
+        out.update(bf16_step_ms=times, exchanges=n_x, exchange_ms=x_ms)
+        del model, step
+    out["band_s"] = time.perf_counter() - t_start
+    out["fused_refused"] = _gloo_fused_refusal(mesh, spec)
+    for label, mt, kw, batch in spec["models"]:
+        if not mine[label]:
+            continue
+        held = fresh()
+        model, step = _spatial_step(spec, mt, kw, batch, None)
+        t0 = time.perf_counter()
+        m = step()
+        sync()
+        out[f"{label}_single_step_s"] = time.perf_counter() - t0
+        out[f"{label}_single_peak_gib"] = peak_gib(held)
+        one, sp = _step_record(model, m), band.pop(label)
+        del model, step, m
+        running = [k for k in one["state"] if "running_" in k]
+        params = [k for k in one["state"] if k not in running]
+        out[label] = dict(
+            loss=sp["terms"][0], single_loss=one["terms"][0],
+            terms=sp["terms"], single_terms=one["terms"],
+            counts=sp["counts"], single_counts=one["counts"],
+            n=sp["n"], single_n=one["n"],
+            grad_normwise=_normwise_of(sp["grads"], one["grads"]),
+            param_normwise=_normwise_of({k: sp["state"][k] for k in params},
+                                        {k: one["state"][k] for k in params}),
+            stat_normwise=_normwise_of({k: sp["state"][k] for k in running},
+                                       {k: one["state"][k] for k in running}))
+    out["rank_s"] = time.perf_counter() - t_start
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(out, f)
+    host_reduce(0.0, mesh)
+    dist.destroy_process_group()
+
+
+def _gloo_fused_refusal(mesh, spec):
+    """A Trainer under --fused_epoch on this gloo mesh: on CUDA devices
+    its message (a CUDA graph cannot capture gloo's collectives), on the
+    CPU None (the fused loop runs there without a graph)."""
+    import tempfile
+
+    from ddti_tpu_torch.core.config import Config
+    from ddti_tpu_torch.core.logging import rank_logger
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.train.engine import Trainer
+
+    if spec["device"] != "cuda":
+        return None
+    src = synthetic_source(8, (32, 32), SEED, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(image_size=32, store_size=32, batch_size=4,
+                     fused_epoch=True, base_dir=tmp)
+        try:
+            Trainer(cfg, (src, src, src), rank_logger(mesh.rank),
+                    create_model("UNet", base_filters=4, depth=2).cuda(),
+                    mesh=mesh)
+        except ValueError as e:
+            return str(e)
+    return "not refused"
+
+
+def spatial_two_ranks(tmp, timed=False):
+    """(a) and (b): the two gloo ranks on the card (``spatial_rank``),
+    spawned and bounded by SPATIAL_TIMEOUT_S; rank 0's comparisons and
+    both ranks' launches and peaks, checked."""
+    import multiprocessing
+
+    from ddti_tpu_torch.parallel.multihost import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    out_path = os.path.join(tmp, "spatial_rank.json")
+    spec = _spatial_spec()
+    procs = [ctx.Process(target=spatial_rank,
+                         args=(r, port, out_path, timed, spec))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SPATIAL_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.exitcode not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+    wall = time.perf_counter() - t0
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    ranks = []
+    for r in range(2):
+        with open(f"{out_path}.{r}") as f:
+            ranks.append(json.load(f))
+    cuda = spec["device"] == "cuda"
+    # the kernels' launches a rank's step: none on the CPU (plain versions)
+    flash = {"resunet": 0, "transunet": N_LAYERS * cuda}
+    for i, (label, mt, kw, batch) in enumerate(spec["models"]):
+        r0 = ranks[i % 2]  # the rank that compared it
+        c = r0[label]
+        pixels = batch * spec["size"] ** 2
+        count_gap = max(abs(a - b) for a, b in zip(c["counts"],
+                                                    c["single_counts"]))
+        loss_rel = abs(c["loss"] / c["single_loss"] - 1)
+        share = ([r[f"{label}_peak_gib"] / r0[f"{label}_single_peak_gib"]
+                  for r in ranks] if cuda else [])
+        phase("spatial", f"{label}: 2 gloo ranks at {SPATIAL_MESH} on "
+              f"{spec['device']}, {mt} {kw} {spec['size']}^2, global batch "
+              f"{batch}, "
+              f"float32: loss {c['loss']:.9g} vs single-device "
+              f"{c['single_loss']:.9g} (rel {loss_rel:.3e}, limit "
+              f"{PARALLEL_LOSS_RTOL:g}); counts {c['counts'][:4]} vs "
+              f"{c['single_counts'][:4]} (largest gap {count_gap:g} of "
+              f"{pixels} pixels); gradients normwise {c['grad_normwise']:.3e} "
+              f"(limit {PARALLEL_GRAD_NORMWISE:g}); SGD parameters normwise "
+              f"{c['param_normwise']:.3e} (limit {PARALLEL_PARAM_NORMWISE:g}); "
+              f"BatchNorm running statistics normwise "
+              f"{c['stat_normwise']:.3e} (limit {PARALLEL_STAT_NORMWISE:g}); "
+              f"launches per rank {[r[f'{label}_launches'] for r in ranks]}; "
+              f"peaks (GiB, max_memory_allocated above what the process "
+              f"held; None: not measured on the CPU) rank 0 "
+              f"{ranks[0][f'{label}_peak_gib']}, rank 1 "
+              f"{ranks[1][f'{label}_peak_gib']}, single-device (on rank "
+              f"{i % 2}) {r0[f'{label}_single_peak_gib']} (shares {share}, "
+              f"limit {SPATIAL_PEAK_SHARE})")
+        assert loss_rel <= PARALLEL_LOSS_RTOL
+        assert count_gap <= PARALLEL_COUNT_SHARE * pixels
+        assert c["n"] == c["single_n"] == batch
+        assert c["grad_normwise"] <= PARALLEL_GRAD_NORMWISE
+        assert c["param_normwise"] <= PARALLEL_PARAM_NORMWISE
+        assert c["stat_normwise"] <= PARALLEL_STAT_NORMWISE
+        for r in ranks:  # one EDT a step; the flash pair once a layer
+            assert r[f"{label}_launches"] == dict(
+                edt=int(cuda), flash_fwd=flash[label],
+                flash_bwd_dkdv=flash[label], flash_bwd_dq=flash[label]), \
+                r[f"{label}_launches"]
+        if label == "resunet" and cuda:
+            assert max(share) <= SPATIAL_PEAK_SHARE, share
+    said = [r["fused_refused"] for r in ranks]
+    phase("spatial", f"--fused_epoch on the gloo ranks: {said}")
+    assert all(m is None if not cuda else "cannot capture gloo" in m
+               for m in said), said
+    phase("spatial", f"(a), (b): wall {wall:.1f} s (from each rank's "
+          f"process group on: the band steps "
+          f"{[round(r['band_s'], 1) for r in ranks]} s, all "
+          f"{[round(r['rank_s'], 1) for r in ranks]} s; first steps, s: "
+          + ", ".join(f"{k} {v:.2f}" for r in ranks for k, v in r.items()
+                      if k.endswith("_step_s")) + ")")
+    return dict(ranks=ranks, wall_s=wall)
+
+
+def spatial_fused(tmp, profiled=False):
+    """(c) The trainer phase's fused-vs-stepwise epoch (the flagship, bf16,
+    512^2 / batch 16, cuDNN deterministic) on an NCCL world of one joined
+    in this process: the fused epoch's graph captures the step with its
+    all-reduces (the collectives issued in its capture, counted, equal a
+    stepwise step's); its parameters and statistics equal the stepwise
+    epoch's bit for bit. ``profiled`` (``--spatial``): a second fused
+    epoch under torch.profiler, its NCCL kernels counted from the trace
+    (an in-place all-reduce over one rank moves nothing: NCCL launches no
+    kernel for it)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddti_tpu_torch.data.dataset import synthetic_source
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.parallel import mesh as M
+    from ddti_tpu_torch.parallel.mesh import (
+        backend_for,
+        init_process_group,
+        make_mesh,
+    )
+    from ddti_tpu_torch.parallel.multihost import free_port
+
+    t0 = time.perf_counter()
+    size = TRAIN["image_size"]
+    store = synthetic_source(SPATIAL_FUSED_FRAMES, (size, size), SEED,
+                             device=DEVICE)
+    steps = SPATIAL_FUSED_FRAMES // TRAIN["batch_size"]
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):  # drawn on the card
+        sd0 = create_model("ResUNet", base_filters=TRAIN["base_filters"],
+                           depth=TRAIN["depth"]).state_dict()
+    backend = backend_for(DEVICE)  # NCCL on the card
+    init_process_group(0, 1, f"127.0.0.1:{free_port()}", backend)
+    torch.backends.cudnn.deterministic = True
+    real, host, ends, out = dist.all_reduce, M.host_reduce, {}, {}
+    calls, agreeing = [], []
+
+    def counted(*args, **kw):  # the step's, not the host's agreement
+        if not agreeing:
+            calls.append(1)
+        return real(*args, **kw)
+
+    def host_reduce(*args, **kw):
+        agreeing.append(1)
+        try:
+            return host(*args, **kw)
+        finally:
+            agreeing.pop()
+
+    try:
+        mesh = make_mesh({"data": 1}, DEVICE)
+        for label, tr in _fused_trainers(tmp, store, sd0, (
+                ("stepwise", False), ("fused", True)), mesh):
+            del calls[:]
+            dist.all_reduce, M.host_reduce = counted, host_reduce
+            try:
+                tr.train_one_epoch(0)
+                _sync()
+            finally:
+                dist.all_reduce, M.host_reduce = real, host
+            out[f"{label}_collectives"] = len(calls)
+            ends[label] = {k: v.detach().clone() for k, v in
+                           tr.model.state_dict().items()}
+            if tr.fused:
+                out["fused_stats"] = tr.fused_stats
+            if tr.fused and profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    tr.train_one_epoch(1)
+                    _sync()
+                trace = os.path.join(tmp, "spatial_fused.json")
+                prof.export_chrome_trace(trace)
+                names = trace_kernel_names(trace)
+                out["profiled_nccl_kernels"] = sum(
+                    1 for n in names if "nccl" in n.lower())
+                out["profiled_kernels"] = len(names)
+            del tr
+    finally:
+        dist.all_reduce, M.host_reduce = real, host
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    equal = all(torch.equal(ends["fused"][k], ends["stepwise"][k])
+                for k in ends["stepwise"])
+    per_step = out["stepwise_collectives"] / steps
+    out.update(steps=steps, bit_equal=equal, backend=backend,
+               wall_s=time.perf_counter() - t0)
+    phase("spatial", f"(c) a {backend} world of 1 in this process, the "
+          f"flagship's {steps}-step epoch: fused {out.get('fused_stats')}; "
+          f"collectives issued: stepwise {out['stepwise_collectives']} "
+          f"({per_step:g} a step), fused {out['fused_collectives']} (the "
+          f"eager step's and the capture's); its parameters and statistics "
+          f"equal to the stepwise epoch's bit for bit: {equal}"
+          + (f"; a profiled fused epoch: {out['profiled_nccl_kernels']} "
+             f"NCCL kernels of {out['profiled_kernels']}" if profiled
+             else "") + f"; wall {out['wall_s']:.1f} s")
+    if DEVICE == "cuda":  # the CPU's fused loop captures nothing
+        assert out["fused_stats"] == {"captured": 1, "replays": steps - 1}
+        assert out["fused_collectives"] == 2 * per_step > 0, out
+    assert equal
+    return out
+
+
+def spatial_cli(tmp):
+    """Under --spatial: the training CLI at --mesh data=1,model=2 on the
+    card, one rank a GPU (NCCL) as the CLI lays a mesh out: it trains the
+    flagship for an epoch (run_cli's checks) where the host has two GPUs
+    (or on the CPU, two gloo ranks), and refuses the mesh with JAX's
+    message where it has one."""
+    import torch
+
+    flags = [f"--{k}={v}" for k, v in TRAIN.items()
+             if k not in ("model_type", "epochs")] + [
+        "--mesh", "data=1,model=2", "--device", DEVICE]
+    if DEVICE == "cuda" and torch.cuda.device_count() < 2:
+        proc = subprocess.run(
+            [sys.executable, "-m", "ddti_tpu_torch.cli.main", "--synthetic",
+             "--epochs", "1", "--base_dir", os.path.join(tmp, "cli"),
+             *flags], capture_output=True, text=True, timeout=TRAIN_TIMEOUT_S)
+        said = (proc.stderr.strip().splitlines() or [""])[-1]
+        phase("spatial", f"CLI --mesh data=1,model=2 on "
+              f"{torch.cuda.device_count()} GPU: exit {proc.returncode}, "
+              f"{said}")
+        assert proc.returncode != 0 and "needs 2 devices, have 1" in said
+        return dict(refused=said)
+    model_kw = dict(base_filters=TRAIN["base_filters"], depth=TRAIN["depth"])
+    launches, best = run_cli(tmp, "spatial", "ResUNet", model_kw, flags,
+                             TRAIN["epochs"], jax_resunet_keys(TRAIN["depth"]))
+    return dict(launches=launches)
+
+
+def run_spatial(tmp, smi, alone=False):
+    """The spatial phase: (a) and (b) on two gloo ranks of the card, then
+    (c) in this process. ``alone`` (``--spatial``) also times a rank's
+    bf16 step and its band exchanges (lines with the card's name and power
+    limit) and runs the CLI at --mesh data=1,model=2."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # this process's cache to the ranks
+    out = spatial_two_ranks(tmp, timed=alone)
+    out["fused"] = spatial_fused(tmp, profiled=alone)
+    if alone:
+        for r in out["ranks"]:
+            phase("spatial", f"{smi}: rank {r['rank']}'s bf16 step "
+                  f"{statistics.median(r['bf16_step_ms']):.1f} ms (median "
+                  f"of {r['bf16_step_ms']}; the flagship at "
+                  f"{SPATIAL_SIZE}^2, global batch {SPATIAL_MODELS[0][3]} "
+                  f"over {SPATIAL_MESH}: 2 gloo ranks on one card, each on "
+                  f"its band of {SPATIAL_SIZE // 2} rows); its "
+                  f"{r['exchanges']} band exchanges (halos, their gradients, "
+                  f"the EDT's gather) {r['exchange_ms']:.1f} ms in one "
+                  f"step, each synchronised (gloo: through host memory)")
+        out["cli"] = spatial_cli(tmp)
+    out["phase_s"] = time.perf_counter() - t0
+    phase("spatial", f"phase wall time {out['phase_s']:.1f} s")
+    return out
+
+
+def spatial_only():
+    """The spatial phase alone: ``python3 chip_smoke.py --spatial``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the ranks and the CLI load it
+    _build.load_library()
+    clock = Clock()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_spatial(tmp, smi, alone=True)
+    clock.mark("spatial")
+    clock.stop()
+    print(json.dumps({"spatial": out}))
+    return 0
+
+
 def main():
     import torch
 
@@ -7172,7 +7718,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         parallel = run_parallel(tmp, smi, edt_launches)
     clock.mark("parallel")
+    with tempfile.TemporaryDirectory() as tmp:
+        spatial = run_spatial(tmp, smi)
+    clock.mark("spatial")
     clock.stop()
+    # each kernel's launches in a rank's band steps of (a) and (b)
+    sp_launches = {k: sum(spatial["ranks"][0][f"{label}_launches"][k]
+                          for label, *_ in SPATIAL_MODELS)
+                   for k in spatial["ranks"][0]["resunet_launches"]}
 
     phase("result", f"total wall time {time.perf_counter() - t_start:.1f} s")
     main_row, bwd_row = rows[0], bwd_rows[0]
@@ -7209,6 +7762,7 @@ def main():
         "hostdata_daemon_launches": hostdata["daemon"]["launches"],
         "trainer_distill_launches": trainer["distill_cli"]["flash_fwd"],
         "trainer_distill_step": trainer["distill_step"],
+        "spatial_launches": sp_launches["flash_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -7236,6 +7790,7 @@ def main():
         "replaces": "ddti_tpu/ops/attention.py:405",
         "also_replaces": "ddti_tpu/ops/attention.py:180",
         "launches": t_launches["flash_bwd_dkdv"],
+        "spatial_launches": sp_launches["flash_bwd_dkdv"],
         "max_abs_err": max(max(r["abs_err"]["dk"], r["abs_err"]["dv"])
                            for r in bwd_rows),
         "max_rel_err": max(max(r["rel_err"]["dk"], r["rel_err"]["dv"])
@@ -7269,6 +7824,7 @@ def main():
         "replaces": "ddti_tpu/ops/attention.py:450",
         "also_replaces": "ddti_tpu/ops/attention.py:222",
         "launches": t_launches["flash_bwd_dq"],
+        "spatial_launches": sp_launches["flash_bwd_dq"],
         "max_abs_err": max(r["abs_err"]["dq"] for r in bwd_rows),
         "max_rel_err": max(r["rel_err"]["dq"] for r in bwd_rows),
         "ms": bwd_row["ms_dq"],
@@ -7286,6 +7842,7 @@ def main():
         "source": "ddti_tpu_torch/csrc/edt.cu",
         "replaces": "ddti_tpu/ops/edt.py:81",
         "launches": edt_launches,
+        "spatial_launches": sp_launches["edt"],
         "max_abs_err": max(r["max_abs_err"] for r in edt_rows),
         "ms": edt_rows[0]["ms"],
         "plain_ms": edt_rows[0]["plain_ms"],
@@ -7304,6 +7861,7 @@ def main():
         "hostdata": hostdata,
         "trainer": trainer,
         "parallel": parallel,
+        "spatial": spatial,
     }, {
         "name": "exp2_probe",
         "route": "cuda",
@@ -7453,4 +8011,6 @@ if __name__ == "__main__":
         sys.exit(profiles_only())
     if sys.argv[1:2] == ["--parallel"]:
         sys.exit(parallel_only())
+    if sys.argv[1:2] == ["--spatial"]:
+        sys.exit(spatial_only())
     sys.exit(main())

@@ -18,12 +18,14 @@ field, as the training CLI's flags are (``use_mixup=True``, ``qat=True``,
 ``distill_checkpoint=...``, ``freeze="encoders"``, ...). ``device``
 is the card (``"cuda"``, which raises where there is none) unless the
 caller passes ``device="cpu"``. ``fit(mesh="data=N")`` trains
-data-parallel over N ranks (``parallel/``) and returns rank 0's weights;
-the spatial ``model`` axis waits for ROADMAP.md Queue 1 item 12b.
+data-parallel over N ranks (``parallel/``), ``fit(mesh="data=N,model=M")``
+over N x M ranks with each frame's rows in M bands, and returns rank 0's
+weights.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import tempfile
 from dataclasses import fields as _dc_fields
@@ -210,11 +212,13 @@ def fit(images, masks, *, val_images=None, val_masks=None,
     validates. Further keywords are Config fields. Returns the
     best-val-IoU weights (with their QAT ranges under ``qat=True``).
 
-    ``mesh`` (``"data=N"``, the CLI's ``--mesh``) trains data-parallel:
-    N ranks spawned on this host (the first N GPUs; N gloo ranks on the
-    CPU with ``device="cpu"``), ``batch_size`` the global batch; rank 0's
-    weights come back. As in JAX, a mesh smaller than the host takes its
-    first devices. A ``model`` axis > 1 raises (ROADMAP.md item 12b)."""
+    ``mesh`` (``"data=N[,model=M]"``, the CLI's ``--mesh``) trains over N
+    x M ranks spawned on this host (the first N x M GPUs; gloo ranks on
+    the CPU with ``device="cpu"``), ``batch_size`` the global batch, each
+    data group's frames in M bands of rows (an image size that does not
+    give equal, even bands at every level raises before any rank starts);
+    rank 0's weights come back. As in JAX, a mesh smaller than the host
+    takes its first devices."""
     from ddti_tpu_torch.core.config import Config
     from ddti_tpu_torch.core.device import resolve_device
 
@@ -353,21 +357,26 @@ def _fit_on_mesh(spec: str, dev, data, opts) -> Model:
         launch_local,
         parse_mesh_spec,
     )
+    from ddti_tpu_torch.parallel.spatial import check_bands, pooling_levels
     from ddti_tpu_torch.train.checkpoint import (
         load_checkpoint_into,
         load_qstats,
     )
 
     shape = parse_mesh_spec(spec)
-    n = shape.get("data", 1)
-    check_mesh_shape(shape, n)  # a 'model' axis raises (item 12b)
+    n = math.prod(shape.values())
+    check_mesh_shape(shape, n)
     if dev.type == "cuda" and n > torch.cuda.device_count():
         check_mesh_shape(shape, torch.cuda.device_count())
+    if shape.get("model", 1) > 1:
+        check_bands(opts["size"], shape["model"], pooling_levels(_make_model(
+            opts["model_type"], opts["size"],
+            base_filters=opts["base_filters"], depth=opts["depth"])))
     os.makedirs(opts["base_dir"], exist_ok=True)
     work = tempfile.mkdtemp(prefix="fit_mesh_", dir=opts["base_dir"])
     data_path = os.path.join(work, "data.npz")
     np.savez(data_path, **dict(zip(("x", "y", "xv", "yv"), data)))
-    rc = launch_local(_fit_rank, n, dev.type, (data_path, opts))
+    rc = launch_local(_fit_rank, n, dev.type, (data_path, opts), shape)
     if rc != 0:
         raise RuntimeError(f"fit(mesh={spec!r}): a rank exited with {rc}")
     result = os.path.join(work, "fit_result")

@@ -44,7 +44,9 @@ The ``[KERNELS]`` line counts ``conv_s8`` too.
 Data parallelism takes the JAX CLI's six flags (``parallel/``): one
 process a device, joined by ``torch.distributed``. ``--mesh data=N``
 launches N ranks on this host (cuda:0..N-1 with NCCL; with ``--device
-cpu`` N gloo ranks on the CPU, as JAX's tests fake devices);
+cpu`` N gloo ranks on the CPU, as JAX's tests fake devices), and
+``--mesh data=N,model=M`` N x M ranks, each of a data group's M ranks
+holding a band of H / M rows of its frames (``parallel/spatial.py``);
 ``--use_data_parallel true``, the default, launches one rank per visible
 GPU where there is more than one, as JAX meshes every local device;
 ``--multihost`` (with ``--coordinator``, ``--num_processes`` and
@@ -55,9 +57,7 @@ on its rows of each global batch (BatchNorm, the Focal-Tversky index,
 gradients and metrics are global); rank 0 alone writes the run directory
 and prints ``[PARAMS]``, and ``[KERNELS]`` with every rank's launches
 summed. After training with data > 1, ``--export_serving`` also writes
-``<Model>_serving_sharded.pt2``. Not ported yet (ROADMAP.md Queue 1 item
-12b), and refused: a ``model`` axis > 1 and ``--fused_epoch`` with
-data > 1.
+``<Model>_serving_sharded.pt2``.
 
 Data: ``<dataset_path>/{train,val,test}`` (+ ``_mask``) decoded once
 (libjpeg, in C++ threads, for all-JPEG sets) to uint8 stores at
@@ -95,6 +95,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 
@@ -318,9 +319,9 @@ def get_parser() -> argparse.ArgumentParser:
                    help="shard the batch over all local devices (one rank "
                         "per visible GPU, where there is more than one)")
     p.add_argument("--mesh", default=None, type=str,
-                   help="explicit device mesh, e.g. 'data=4' — 'data' "
-                        "shards the batch (one rank per device); a 'model' "
-                        "axis > 1 is not ported (ROADMAP.md item 12b); "
+                   help="explicit device mesh, e.g. 'data=4' or "
+                        "'data=2,model=2' — 'data' shards the batch, "
+                        "'model' the frames' rows (one rank per device); "
                         "overrides --use_data_parallel")
     p.add_argument("--multihost", action="store_true",
                    help="join a multi-host run via "
@@ -600,7 +601,6 @@ def _launch(args, argv) -> int:
 
     from ddti_tpu_torch.core.device import resolve_device
     from ddti_tpu_torch.parallel import (
-        ITEM_12B,
         check_mesh_shape,
         initialize_multihost,
         launch_local,
@@ -612,12 +612,6 @@ def _launch(args, argv) -> int:
     from ddti_tpu_torch.parallel.multihost import free_port
 
     shape = parse_mesh_spec(args.mesh) if args.mesh else None
-    if shape and shape.get("model", 1) > 1:
-        check_mesh_shape(shape, 0)  # raises, naming item 12b
-    if args.fused_epoch and shape and shape.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"--fused_epoch with --mesh {args.mesh}: not ported yet "
-            f"({ITEM_12B})")
     if args.multihost:
         spec = spec_from(args.coordinator, args.num_processes,
                          args.process_id)
@@ -631,17 +625,17 @@ def _launch(args, argv) -> int:
                 dist.destroy_process_group()
     device = resolve_device(args.device)
     if shape:
-        n = (torch.cuda.device_count() if device.type == "cuda"
-             else shape["data"])
-        check_mesh_shape(shape, n)
+        world = math.prod(shape.values())
+        check_mesh_shape(shape, torch.cuda.device_count()
+                         if device.type == "cuda" else world)
     elif (args.use_data_parallel and device.type == "cuda"
           and torch.cuda.device_count() > 1):
         shape = {"data": torch.cuda.device_count()}
     if not shape:
         return _run(args, None)
-    if shape["data"] > 1:
-        return launch_local(_rank_main, shape["data"], device.type,
-                            (argv,))
+    world = math.prod(shape.values())
+    if world > 1:
+        return launch_local(_rank_main, world, device.type, (argv,), shape)
     import torch.distributed as dist
 
     init_process_group(0, 1, f"127.0.0.1:{free_port()}",
@@ -735,7 +729,8 @@ def _run(args, mesh) -> int:
         dp = mesh.data if mesh is not None else 1
         cfg.batch_size = pick_batch_size(
             cfg, model, data_parallel=dp,
-            host_augment=bool(args.host_augment), logger=logger)
+            host_augment=bool(args.host_augment), logger=logger,
+            mesh=mesh if mesh is not None and mesh.model > 1 else None)
         # every rank measured its own card: the smallest pick fits all
         cfg.batch_size = int(host_reduce(cfg.batch_size, mesh, "min"))
         logger.info(f"[autobatch] selected --batch_size {cfg.batch_size}"

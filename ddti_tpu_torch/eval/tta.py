@@ -24,17 +24,18 @@ PROB_EPS = 1e-7
 
 
 def tta_probs(forward: Callable[[torch.Tensor], torch.Tensor],
-              images: torch.Tensor) -> torch.Tensor:
+              images: torch.Tensor, flip=torch.flip) -> torch.Tensor:
     """Mean sigmoid probability over the 4 flip variants.
 
     ``forward(images_nhwc) -> logits_nhwc`` is the model's logit map;
     outputs are un-flipped back to the input frame before averaging.
+    ``flip(x, axes)`` flips (``parallel.spatial.flip`` on bands of rows).
     Returns float32 probabilities in [0, 1]."""
     total = None
     for axes in FLIP_AXES:
-        x = torch.flip(images, axes) if axes else images
+        x = flip(images, axes) if axes else images
         p = torch.sigmoid(forward(x).to(torch.float32))
-        p = torch.flip(p, axes) if axes else p
+        p = flip(p, axes) if axes else p
         total = p if total is None else total + p
     return total / len(FLIP_AXES)
 
@@ -49,11 +50,11 @@ def logit_of_mean(p: torch.Tensor) -> torch.Tensor:
 
 
 def tta_logits(forward: Callable[[torch.Tensor], torch.Tensor],
-               images: torch.Tensor) -> torch.Tensor:
+               images: torch.Tensor, flip=torch.flip) -> torch.Tensor:
     """The flip ensemble as a logit map, logit(mean probability).
 
     ``sigmoid(tta_logits(...)) == tta_probs(...)`` up to the clamp, so any
     consumer that thresholds ``sigmoid(logits)`` (confusion counts,
     ``serve_body``, the sliding-window blend) gets the ensembled
     prediction unchanged."""
-    return logit_of_mean(tta_probs(forward, images))
+    return logit_of_mean(tta_probs(forward, images, flip))

@@ -7,12 +7,17 @@ activations keep their reductions. ``boundary_loss``'s distance map comes
 from ``ops/edt.py`` (the CUDA kernel for CUDA tensors) and carries no
 gradient, like the reference's detached numpy map.
 
-Under a data-parallel mesh (``mesh``, ``parallel/mesh.py``) each rank
-holds its rows of the global batch. BCE's pixel mean and Dice's and
-Boundary's per-image means split into equal per-rank parts, which the
-gradient average combines; the Focal-Tversky index does not, so its TP,
-FP and FN sums are summed over the ranks first, with their gradients, as
-JAX's GSPMD sums them over the whole batch.
+Under a mesh (``mesh``, ``parallel/mesh.py``) each rank holds its rows
+of the global batch, and on a ``model`` axis its band of their rows
+(``parallel/spatial.py``). BCE's pixel mean and Boundary's per-image
+means split into equal per-rank parts, which the gradient average
+combines; Dice's per-image sums are summed over the model group first
+(each image's dice is of the whole frame); the Focal-Tversky index is
+not a mean of parts, so its TP, FP and FN sums are summed over every
+rank first, with their gradients, as JAX's GSPMD sums them over the whole
+batch. Boundary's distance map is of the whole target: on bands the
+uint8 targets are gathered over the model group, the EDT runs on whole
+frames and each rank keeps its band of the map.
 """
 
 from __future__ import annotations
@@ -24,20 +29,25 @@ import torch.nn.functional as F
 
 from ddti_tpu_torch.ops.edt import edt_batch
 from ddti_tpu_torch.parallel.mesh import sum_over_ranks
+from ddti_tpu_torch.parallel.spatial import band, banded, gather_frames
 
 
 def _f32(x):
     return x.to(torch.float32)
 
 
-def dice_loss(logits, targets, smooth: float = 1.0):
-    """1 - mean per-sample soft dice on sigmoid probabilities."""
+def dice_loss(logits, targets, smooth: float = 1.0, mesh=None):
+    """1 - mean per-sample soft dice on sigmoid probabilities; on bands of
+    rows each image's sums are the model group's."""
     probs = torch.sigmoid(_f32(logits))
     n = probs.shape[0]
     p = probs.reshape(n, -1)
     t = _f32(targets).reshape(n, -1)
     inter = (p * t).sum(1)
     union = p.sum(1) + t.sum(1)
+    if banded(mesh):
+        inter, union = sum_over_ranks(torch.stack([inter, union]), mesh,
+                                      "model")
     dice = (2.0 * inter + smooth) / (union + smooth)
     return 1.0 - dice.mean()
 
@@ -66,17 +76,22 @@ def focal_tversky_loss(logits, targets, alpha: float = 0.4,
     return (1.0 - ti) ** gamma
 
 
-def boundary_loss(logits, targets):
+def boundary_loss(logits, targets, mesh=None):
     """mean(|p - t| * EDT(1 - t)) averaged over the batch. The distance map
     comes from the target cast to uint8 exactly as the reference casts to
-    np.uint8 (soft mixup targets truncate toward 0)."""
+    np.uint8 (soft mixup targets truncate toward 0); on bands of rows from
+    the whole target, of which each rank keeps its band."""
     probs = torch.sigmoid(_f32(logits))
     t = _f32(targets)
     gt = t.to(torch.uint8)  # truncation, same as .numpy().astype(uint8)
+    if banded(mesh):
+        gt = gather_frames(gt, mesh, 1)
     if gt.dim() == 4:
         dist = edt_batch(1 - gt[..., 0])[..., None]
     else:
         dist = edt_batch(1 - gt)
+    if banded(mesh):
+        dist = band(dist, mesh, 1)
     per_sample = ((probs - t).abs() * dist).mean(
         dim=tuple(range(1, probs.dim())))
     return per_sample.mean()
@@ -117,11 +132,11 @@ def weighted_loss(logits, targets, *, bce_ratio: float = 1.0,
     zero = torch.zeros((), dtype=torch.float32, device=logits.device)
     bce = (bce_with_logits_loss(logits, targets)
            if compute_unused or bce_ratio else zero)
-    dce = (dice_loss(logits, targets)
+    dce = (dice_loss(logits, targets, mesh=mesh)
            if compute_unused or dice_ratio else zero)
     foc = (focal_tversky_loss(logits, targets, mesh=mesh)
            if compute_unused or focal_ratio else zero)
-    bnd = (boundary_loss(logits, targets)
+    bnd = (boundary_loss(logits, targets, mesh)
            if compute_unused or boundary_ratio else zero)
     total = (bce_ratio * bce + dice_ratio * dce + focal_ratio * foc
              + boundary_ratio * bnd)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddti_tpu_torch.ops.attention import attention_reference, flash_attention
+from ddti_tpu_torch.parallel.spatial import edges, halo
 
 # torch BatchNorm2d defaults (the JAX package's flax momentum 0.9 is the
 # retention factor of the same update)
@@ -308,6 +309,77 @@ def attach(owner: nn.Module, path: str, child: nn.Module) -> None:
     owner.add_module(leaf, child)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that also runs on bands of rows (``band_mesh``,
+    ``parallel/spatial.py``). The conv runs on the band with its own
+    padding, and its first and last output rows, which read rows of the
+    bands above and below, are computed again from thin windows of the
+    band's edge rows and the neighbours' (``edges``): the band is kept
+    for the backward once, as on one device, where a conv of the haloed
+    band would keep a second copy of it. At an even band height a stride-2
+    3x3 conv reads one row above its band and none below; a band thinner
+    than its kernel's reach takes the haloed band (``band_input``)."""
+
+    band_mesh = None
+
+    def forward(self, x):
+        if self.band_mesh is None:
+            return super().forward(x)
+        split = self._band_split(x.shape[2])
+        if split is None:
+            x, padding = self.band_input(x)
+            return F.conv2d(x, self.weight, self.bias, self.stride, padding,
+                            self.dilation, self.groups)
+        top, bottom, jt, nt, jb, r0 = split
+        above, below = edges(x, top, bottom, self.band_mesh)
+        y = super().forward(x)  # zero rows beyond the band's edges
+
+        def window(rows):
+            return F.conv2d(rows, self.weight, self.bias, self.stride,
+                            (0, self.padding[1]), self.dilation, self.groups)
+
+        parts = [y[:, :, jt:jb]]
+        if jt:
+            parts.insert(0, window(torch.cat([above, x[:, :, :nt]], 2)))
+        if jb < y.shape[2]:
+            parts.append(window(torch.cat([x[:, :, r0:], below], 2)))
+        return torch.cat(parts, 2)
+
+    def _geometry(self, hb: int):
+        """(halo rows above, below) of a band of ``hb`` rows."""
+        (kh, _), (sh, _), (dh, _) = self.kernel_size, self.stride, \
+            self.dilation
+        ph = self.padding[0]
+        bottom = (kh - 1) * dh - ph - sh + 1
+        if hb % sh or bottom < 0:
+            raise ValueError(f"conv k {self.kernel_size} s {self.stride} p "
+                             f"{self.padding} on a band of {hb} rows: not a "
+                             f"band-local geometry")
+        return ph, bottom
+
+    def _band_split(self, hb: int):
+        """(top, bottom, jt, nt, jb, r0): output rows [0, jt) read the
+        ``top`` rows above and band rows [0, nt), rows [jb, hb / s) band
+        rows [r0, hb) and the ``bottom`` rows below; None where those
+        windows overlap or outreach the band."""
+        top, bottom = self._geometry(hb)
+        reach = (self.kernel_size[0] - 1) * self.dilation[0]
+        s = self.stride[0]
+        jt = -(-top // s)
+        nt = (jt - 1) * s - top + reach + 1 if jt else 0
+        jb = max(jt, -(-(hb - reach + top) // s))
+        r0 = jb * s - top
+        if (top > hb or bottom > hb or nt > hb or r0 < 0
+                or jb > hb // s):
+            return None
+        return top, bottom, jt, nt, jb, r0
+
+    def band_input(self, x):
+        """(the band ``x`` with its halo rows, the conv's padding on it)."""
+        top, bottom = self._geometry(x.shape[2])
+        return halo(x, top, bottom, self.band_mesh), (0, self.padding[1])
+
+
 # (conv, BN, act, conv, BN, act): the reference's nn.Sequential indices,
 # and flax's child names
 SEQ_NAMES = ("0", "1", "2", "3", "4", "5")
@@ -323,9 +395,9 @@ class ConvBNAct(nn.Sequential):
     def __init__(self, in_channels: int, features: int, act: str = "relu",
                  names=SEQ_NAMES):
         super().__init__(OrderedDict(zip(names, (
-            nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
+            Conv2d(in_channels, features, 3, padding=1, bias=False),
             BatchNorm2d(features), _act(act),
-            nn.Conv2d(features, features, 3, padding=1, bias=False),
+            Conv2d(features, features, 3, padding=1, bias=False),
             BatchNorm2d(features), _act(act)))))
 
 
@@ -340,9 +412,9 @@ class ResidualBlock(nn.Module):
         super().__init__()
         self.names = names
         for path, m in zip(names, (
-                nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
+                Conv2d(in_channels, features, 3, padding=1, bias=False),
                 BatchNorm2d(features), nn.ReLU(inplace=True),
-                nn.Conv2d(features, features, 3, padding=1, bias=False),
+                Conv2d(features, features, 3, padding=1, bias=False),
                 BatchNorm2d(features),
                 nn.Conv2d(in_channels, features, 1, bias=False))):
             attach(self, path, m)
@@ -370,8 +442,8 @@ class ASPP(nn.Module):
         self.names = (tuple(names[0].format(k)
                             for k in range(len(dilations))),) + names[1:]
         for path, d in zip(self.names[0], dilations):
-            attach(self, path, nn.Conv2d(in_channels, features, 3,
-                                         padding=d, dilation=d, bias=False))
+            attach(self, path, Conv2d(in_channels, features, 3, padding=d,
+                                      dilation=d, bias=False))
         attach(self, names[1], nn.Conv2d(len(dilations) * features, features,
                                          1, bias=False))
         attach(self, names[2], BatchNorm2d(features))

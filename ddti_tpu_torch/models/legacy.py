@@ -26,16 +26,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import BatchNorm2d, max_pool_2x2, up_conv
+from ddti_tpu_torch.parallel.mesh import sum_over_ranks
+
+from .blocks import BatchNorm2d, Conv2d, max_pool_2x2, up_conv
 
 
 def conv_relu_bn(in_channels: int, features: int) -> nn.Sequential:
     """(3x3 conv with bias -> ReLU -> BatchNorm) twice: indices 0 and 3 hold
     the convs, 2 and 5 the BatchNorms (the reference's ``conv_block``)."""
     return nn.Sequential(
-        nn.Conv2d(in_channels, features, 3, padding=1), nn.ReLU(),
+        Conv2d(in_channels, features, 3, padding=1), nn.ReLU(),
         BatchNorm2d(features),
-        nn.Conv2d(features, features, 3, padding=1), nn.ReLU(),
+        Conv2d(features, features, 3, padding=1), nn.ReLU(),
         BatchNorm2d(features))
 
 
@@ -78,7 +80,11 @@ class LegacyUNet(nn.Module):
 class SEConv(nn.Module):
     """Squeeze-and-excitation with 1x1-conv excitation (``fc1`` to
     features // reduction, ReLU, ``fc2``, sigmoid), both biased: the
-    reference's SE block of vnet.py and of mores.py alike."""
+    reference's SE block of vnet.py and of mores.py alike. On bands of
+    rows (``band_mesh``) the frame's mean is the model group's sum over
+    the whole frame's pixels."""
+
+    band_mesh = None
 
     def __init__(self, features: int, reduction: int = 4):
         super().__init__()
@@ -86,7 +92,14 @@ class SEConv(nn.Module):
         self.fc2 = nn.Conv2d(features // reduction, features, 1)
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
+        mesh = self.band_mesh
+        if mesh is None:
+            s = x.mean(dim=(2, 3), keepdim=True)
+        else:
+            h, w = x.shape[2] * mesh.model, x.shape[3]
+            dt = torch.promote_types(x.dtype, torch.float32)
+            s = (sum_over_ranks(x.sum(dim=(2, 3), keepdim=True, dtype=dt),
+                                mesh, "model") / (h * w)).to(x.dtype)
         return x * torch.sigmoid(self.fc2(F.relu(self.fc1(s))))
 
 
@@ -102,9 +115,9 @@ class DropConvBlock(nn.Module):
         self.names = [(f"conv{first + i}", f"bn{first + i}")
                       for i in range(num_convs)]
         for i, (conv, bn) in enumerate(self.names):
-            self.add_module(conv, nn.Conv2d(in_channels if i == 0
-                                            else features, features, 3,
-                                            padding=1))
+            self.add_module(conv, Conv2d(in_channels if i == 0
+                                         else features, features, 3,
+                                         padding=1))
             self.add_module(bn, BatchNorm2d(features))
         self.dropout = nn.Dropout(dropout_rate)
         if project:
@@ -148,7 +161,7 @@ class TripleBranchEncoderFusion(nn.Module):
                     self.first_conv))
                 self.add_module(f"se_b{b}_l{i}", SEConv(f[i], se_reduction))
                 if i < 4:
-                    self.add_module(f"down_b{b}_l{i}", nn.Conv2d(
+                    self.add_module(f"down_b{b}_l{i}", Conv2d(
                         f[i], f[i + 1], 3, stride=2, padding=1))
                     cin = f[i + 1]
         cin = num_branches * f[4]

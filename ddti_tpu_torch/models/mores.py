@@ -49,6 +49,8 @@ from .blocks import (
     max_pool_2x2,
     up_conv,
 )
+from ddti_tpu_torch.parallel.spatial import band, gather_band
+
 from .legacy import LegacyUNet, TripleBranchEncoderFusion
 
 # a residual block's children under flax's names, and under the torch
@@ -191,9 +193,11 @@ class MoresTransUNet(nn.Module):
     ``trans_proj``), the repaired concatenation with the pooled map, then
     ``up{i}`` (biased) / ``cat([skip, x])`` / ``dec{i}``.
     ``use_flash_attention`` (None: the gate) is the port's switch, as
-    TransUNet's is."""
+    TransUNet's is. On bands of rows (``band_mesh``) the token path runs
+    on the gathered bottleneck, as TransUNet's does."""
 
     DROPOUT = 0.1  # fixed in the reference and in JAX
+    band_mesh = None
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  features=(64, 128, 256, 512), trans_dim: int = 256,
@@ -230,6 +234,9 @@ class MoresTransUNet(nn.Module):
             skips.append(x)
             x = max_pool_2x2(x)
         trans_in = x
+        mesh = self.band_mesh
+        if mesh is not None:
+            x = gather_band(x, mesh)
         n, _, h, w = x.shape
         # row-major token order over (h, w), as the JAX NHWC reshape
         t = self.trans.patchify(x).flatten(2).transpose(1, 2)
@@ -237,6 +244,8 @@ class MoresTransUNet(nn.Module):
         for i in range(self.num_layers):
             t = m[f"trans{i}"](t)
         t = self.trans_proj(t).transpose(1, 2).reshape(n, -1, h, w)
+        if mesh is not None:
+            t = band(t, mesh, 2)
         x = torch.cat([t, trans_in], dim=1)
         for i, skip in enumerate(reversed(skips)):
             x = m[f"dec{i}"](torch.cat([skip, m[f"up{i}"](x)], dim=1))

@@ -34,6 +34,8 @@ from .blocks import (
     recompute_context,
     up_conv,
 )
+from ddti_tpu_torch.parallel.spatial import band, gather_band
+
 from .legacy import LegacyUNet, TripleBranchImprovedVNet
 from .mores import MORES_REGISTRY
 
@@ -202,7 +204,13 @@ class TransEncoder(nn.Module):
 
 class TransUNet(_EncoderDecoderBase):
     """CNN encoder + transformer bottleneck + UNet decoder (see the JAX
-    counterpart). ``image_size`` fixes the positional embedding's length."""
+    counterpart). ``image_size`` fixes the positional embedding's length.
+    On bands of rows (``band_mesh``) the token path takes the whole
+    bottleneck (``gather_band``): every model rank runs the encoder layers
+    on the frame's whole sequence, then keeps its band after
+    ``trans_proj``."""
+
+    band_mesh = None
 
     def __init__(self, in_channels: int = 1, out_channels: int = 1,
                  base_filters: int = 64, depth: int = 5,
@@ -237,6 +245,9 @@ class TransUNet(_EncoderDecoderBase):
             x = self._block(enc, level, x)
             skips.append(x)
             x = max_pool_2x2(x)
+        mesh = self.band_mesh
+        if mesh is not None:
+            x = gather_band(x, mesh)
         n, _, h, w = x.shape
         # row-major token order over (h, w), as the JAX NHWC reshape
         x = self.trans.patchify(x).flatten(2).transpose(1, 2)
@@ -244,6 +255,8 @@ class TransUNet(_EncoderDecoderBase):
         for layer in self.trans.layers:
             x = layer(x)
         x = self.trans_proj(x).transpose(1, 2).reshape(n, -1, h, w)
+        if mesh is not None:
+            x = band(x, mesh, 2)
         for i, (up, dec, skip) in enumerate(zip(self.upconvs, self.decoders,
                                                 reversed(skips))):
             x = match_spatial(up(x), skip)

@@ -1,8 +1,8 @@
-"""Data parallelism of the port: the mesh and its collectives
-(``mesh.py``) and the multi-process launch (``multihost.py``)."""
+"""Data and spatial parallelism of the port: the mesh and its collectives
+(``mesh.py``), the band ops of the ``model`` axis (``spatial.py``) and
+the multi-process launch (``multihost.py``)."""
 
 from .mesh import (  # noqa: F401
-    ITEM_12B,
     Mesh,
     check_mesh_shape,
     local_rows,

@@ -16,7 +16,8 @@ or with ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/
 the three is set, the variables a torch launcher sets (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``, as ``torchrun`` does)
 take the part of JAX's TPU-pod autodetection. On one host,
-``launch_local`` starts the ranks itself (``--mesh data=N``).
+``launch_local`` starts the ranks itself (``--mesh data=N[,model=M]``:
+N x M ranks).
 """
 
 from __future__ import annotations
@@ -113,16 +114,26 @@ def initialize_multihost(spec: Optional[MultihostSpec] = None,
 
 
 def process_local_batch(global_arrays, mesh):
-    """This process's rows of a global batch that every process holds
+    """This process's part of a global batch that every process holds
     whole (the same seed gives every process the same batch): a tuple or
     list of (N, ...) arrays -> their rows ``local_rows`` gives, or one
-    array -> its rows. An N the ranks do not divide raises."""
+    array -> its rows; on a ``model`` axis, of (N, H, ...) arrays, the
+    band of H that the rank's model index holds (``spatial.band``). An N
+    the data groups, or an H the model ranks, do not divide raises."""
     from .mesh import local_rows
 
     one = not isinstance(global_arrays, (tuple, list))
     arrays = [global_arrays] if one else list(global_arrays)
     rows = local_rows(len(arrays[0]), mesh).numpy()
     out = [a[rows] for a in arrays]
+    if mesh.model > 1:
+        h = arrays[0].shape[1]
+        if h % mesh.model:
+            raise ValueError(f"{h} rows do not divide evenly by the "
+                             f"{mesh.model} ranks of the 'model' axis")
+        hb = h // mesh.model
+        out = [a[:, mesh.model_rank * hb:(mesh.model_rank + 1) * hb]
+               for a in out]
     return out[0] if one else type(global_arrays)(out)
 
 
@@ -134,10 +145,12 @@ def free_port() -> int:
 
 
 def _rank_entry(rank: int, world: int, coordinator: str, device_type: str,
-                target, args: tuple) -> None:
-    """A spawned rank: join the group, build its mesh on its device (rank
-    r on cuda:r, or the CPU) and run ``target(mesh, *args)``; the exit
-    code is what ``target`` returns."""
+                target, args: tuple, shape: dict | None = None) -> None:
+    """A spawned rank: join the group, build its mesh of ``shape`` (all
+    ranks on ``data`` by default) on its device (rank r on cuda:r, or the
+    CPU, with its share of the host's cores unless OMP_NUM_THREADS says
+    otherwise) and run ``target(mesh, *args)``; the exit code is what
+    ``target`` returns."""
     import sys
 
     import torch
@@ -150,11 +163,13 @@ def _rank_entry(rank: int, world: int, coordinator: str, device_type: str,
         device = torch.device("cuda", rank)
     else:
         device = torch.device("cpu")
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        if not os.environ.get("OMP_NUM_THREADS"):  # else torch's, from it
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     init_process_group(rank, world, coordinator, backend_for(device))
     rc = 1
     try:
-        rc = int(target(make_mesh({"data": world}, device), *args) or 0)
+        rc = int(target(make_mesh(shape or {"data": world}, device),
+                        *args) or 0)
     finally:
         try:
             dist.destroy_process_group()
@@ -165,10 +180,11 @@ def _rank_entry(rank: int, world: int, coordinator: str, device_type: str,
 
 
 def launch_local(target, world: int, device_type: str,
-                 args: tuple = ()) -> int:
+                 args: tuple = (), shape: dict | None = None) -> int:
     """Run ``target(mesh, *args)`` in ``world`` spawned processes on this
     host, one rank each (cuda:r, or the CPU for gloo), joined at a free
-    localhost port; ``target`` must be importable by name. Returns 0 when
+    localhost port, on a mesh of ``shape`` (by default all ``world``
+    ranks on ``data``); ``target`` must be importable by name. Returns 0 when
     every rank returned 0, else the first nonzero exit code (75, a
     preempted run, where that is what the ranks gave). A rank that fails
     takes the others down after GRACE_S (a rank that hangs in a collective
@@ -180,7 +196,7 @@ def launch_local(target, world: int, device_type: str,
     ctx = multiprocessing.get_context("spawn")
     coordinator = f"127.0.0.1:{free_port()}"
     procs = [ctx.Process(target=_rank_entry, name=f"ddti-rank{r}", args=(
-        r, world, coordinator, device_type, target, tuple(args)))
+        r, world, coordinator, device_type, target, tuple(args), shape))
         for r in range(world)]
     prev = {}
 

@@ -17,6 +17,9 @@ candidate extrapolated over the budget stops the probe without running
 ``torch.cuda.OutOfMemoryError`` after a fitting candidate is "over budget"; on
 the first it is a real error. The CPU has no peak meter, so there
 ``--batch_size auto`` raises (a documented divergence: README, ROADMAP).
+On a ``model`` axis a rank's step runs on its band of every frame, so the
+probe is that step itself: the ranks of the mesh measure it together, a
+candidate's peak the largest of theirs.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ def _tensor_bytes(tensors) -> int:
 
 def measured_step_peak_bytes(config, model, batch: int,
                              host_augment: bool = False,
-                             teacher=None) -> int:
+                             teacher=None, mesh=None) -> int:
     """Peak bytes of one train step at ``batch``: the step the run will
     take (uint8 store frames at ``store_size``, or with ``host_augment``
     float32 frames at ``image_size``), on a copy of ``model`` with a fresh
@@ -65,12 +68,18 @@ def measured_step_peak_bytes(config, model, batch: int,
     count. Under ``--fused_epoch`` the step is also captured as the run
     captures it, and the peak is the larger of the eager step's and what
     the probe holds plus the memory the graph's private pool reserves,
-    which is more than the step's own peak."""
+    which is more than the step's own peak. On a ``mesh`` with a
+    ``model`` axis it is a rank's step, ``batch`` its data group's whole
+    frames and the network on its band of them, run with the mesh's
+    collectives on every rank at once."""
     from ddti_tpu_torch.data.augment import (
         dense_draws,
         sample_draws,
         sample_mixup,
     )
+
+    from ddti_tpu_torch.models.blocks import set_bn_mesh
+    from ddti_tpu_torch.parallel.spatial import set_spatial_mesh
 
     from .engine import aug_config_from
     from .state import TrainState, parse_freeze
@@ -78,8 +87,12 @@ def measured_step_peak_bytes(config, model, batch: int,
 
     dev = _cuda_device(next(model.parameters()).device)
     cfg = dataclasses.replace(config, batch_size=batch)
+    probe = copy.deepcopy(model)
+    if mesh is not None:
+        set_bn_mesh(probe, mesh)
+        set_spatial_mesh(probe, mesh)
     state = TrainState(
-        copy.deepcopy(model), cfg.lr, 100, cfg.weight_decay,
+        probe, cfg.lr, 100, cfg.weight_decay,
         model_type=cfg.model_type, freeze=parse_freeze(cfg),
         clip_norm=float(getattr(cfg, "clip_grad_norm", 0.0) or 0.0),
         ema=float(getattr(cfg, "ema_decay", 0.0) or 0.0) > 0,
@@ -106,14 +119,15 @@ def measured_step_peak_bytes(config, model, batch: int,
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         if host_augment:
-            make_host_train_step(cfg, teacher)(state, images, masks, mix)
+            make_host_train_step(cfg, teacher, mesh)(state, images, masks,
+                                                     mix)
         else:
             draws = sample_draws(g, batch, aug, (side, side),
                                  torch.Generator(device=dev).manual_seed(0))
             if fused:
                 draws = dense_draws(draws.to(dev), batch)
             step = make_train_step(cfg, aug, teacher=teacher,
-                                   device_guard=guard)
+                                   device_guard=guard, mesh=mesh)
             step(state, images, masks, draws.to(dev), mix)
         torch.cuda.synchronize(dev)
         peak = int(torch.cuda.max_memory_allocated(dev)) - own
@@ -122,7 +136,8 @@ def measured_step_peak_bytes(config, model, batch: int,
             held = int(torch.cuda.memory_allocated(dev)) - own
             before = int(torch.cuda.memory_reserved(dev))
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=(
+                    "thread_local" if mesh is not None else "global")):
                 step(state, images, masks, draws, mix)
             pool = int(torch.cuda.memory_reserved(dev)) - before
             del graph
@@ -141,7 +156,8 @@ def pick_batch_size(config, model, *,
                     data_parallel: int = 1,
                     host_augment: bool = False,
                     logger=None,
-                    peak_fn: Optional[Callable] = None) -> int:
+                    peak_fn: Optional[Callable] = None,
+                    mesh=None) -> int:
     """The largest candidate whose measured step peak fits ``safety`` of
     the budget (JAX ``pick_batch_size``). Candidates are PER-DEVICE
     batches, probed ascending; the return value is the GLOBAL batch, the
@@ -150,7 +166,10 @@ def pick_batch_size(config, model, *,
     proxy). ``peak_fn(config, model, batch, host_augment=...)``
     replaces the measurement (the tests' fake peaks); by default a real
     step on the card (``measured_step_peak_bytes``, with the run's teacher
-    built from the config, random weights: its memory is what counts)."""
+    built from the config, random weights: its memory is what counts).
+    ``mesh`` (one with a ``model`` axis, on every rank at once) makes it a
+    rank's step at its band, each peak the ranks' largest, so that every
+    rank takes the same decisions."""
     grad_accum = max(int(getattr(config, "grad_accum", 1) or 1), 1)
     usable = [b for b in sorted(set(candidates)) if b % grad_accum == 0]
     if not usable:
@@ -163,9 +182,16 @@ def pick_batch_size(config, model, *,
         dev = next(model.parameters()).device
         teacher = teacher_from_config(config, dev, load=False)
 
+        if mesh is not None and teacher is not None:
+            from ddti_tpu_torch.parallel.spatial import set_spatial_mesh
+
+            set_spatial_mesh(teacher, mesh)
+
         def peak_fn(cfg, m, b, host_augment=False):
-            return measured_step_peak_bytes(cfg, m, b, host_augment,
-                                            teacher)
+            from ddti_tpu_torch.parallel.mesh import host_reduce
+
+            return int(host_reduce(measured_step_peak_bytes(
+                cfg, m, b, host_augment, teacher, mesh), mesh, "max"))
     budget = budget_bytes if budget_bytes is not None else (
         device_budget_bytes(next(model.parameters()).device))
     cap = int(budget * safety)

@@ -51,8 +51,7 @@ full-state checkpoints and the best and last ``.npz`` (``qstats/``).
 (``_export_serving_artifacts``, skipped after a preemption): f32, bf16 or
 int8 (``--serving_dtype``; int8 from the QAT ranges, else one calibration
 batch), one program per ``--serving_batches`` entry, and the baked
-program. Still to port (ROADMAP.md Queue 1 item 12b): the spatial ``model``
-axis and ``--fused_epoch`` on a mesh with data > 1; both raise.
+program.
 
 Data parallelism (``mesh``, ``parallel/mesh.py``) is one process a device:
 every rank runs this Trainer on its device with the whole state and the
@@ -70,6 +69,18 @@ as JAX does. Rank 0 alone writes the run directory (logs, weights, full
 states, CSVs, grids, bundles; after training with data > 1 also the
 sharded bundle ``<Model>_serving_sharded.pt2``), and a SIGTERM to any rank
 stops every rank at the same step boundary.
+
+On a ``model`` axis (``parallel/spatial.py``) the ranks of a data group
+share its rows and each runs the network on its band of their rows (the
+Trainer gives its model, and the teacher's, the mesh:
+``set_spatial_mesh``); test() gathers the bands of the predictions before
+the rows, so HD95/ASSD, the per-image rows and the grids are of whole
+frames. ``--fused_epoch`` on a mesh captures the step with its
+collectives: NCCL's (every communicator already used by the eager step 0)
+can be captured, gloo's cannot, so gloo ranks on CUDA refuse it; on the
+CPU the fused loop runs the same collectives without a graph. Each step
+of a fused epoch takes a fixed number of frames: a rank's rows and, under
+--use_mixup, its partners, padded to twice its rows.
 """
 
 from __future__ import annotations
@@ -93,6 +104,7 @@ from ddti_tpu_torch.data.augment import (
     sample_draws,
     sample_mixup,
     shard_draws,
+    take_rows,
 )
 from ddti_tpu_torch.data.dataset import to_device
 from ddti_tpu_torch.eval.metrics import (
@@ -104,11 +116,15 @@ from ddti_tpu_torch.eval.metrics import ConfusionCounts
 from ddti_tpu_torch.eval.visualize import save_boundary_grids
 from ddti_tpu_torch.models.blocks import set_bn_exact_variance, set_bn_mesh
 from ddti_tpu_torch.parallel.mesh import (
-    ITEM_12B,
     all_reduce_,
     any_rank,
     gather_rows,
     local_rows,
+)
+from ddti_tpu_torch.parallel.spatial import (
+    check_bands,
+    pooling_levels,
+    set_spatial_mesh,
 )
 from ddti_tpu_torch.utils.early_stopping import EarlyStopping
 
@@ -263,8 +279,8 @@ def aug_config_from(config) -> AugmentConfig:
 class Trainer:
     """Train/validate/test over (train, val, test) sources:
     ``DeviceDataSource``s on the model's device, or streaming sources that
-    yield host batches. ``mesh`` makes this process one data-parallel rank
-    (the sources hold the whole data on every rank)."""
+    yield host batches. ``mesh`` makes this process one rank of a data
+    and model mesh (the sources hold the whole data on every rank)."""
 
     def __init__(self, config, data, logger, model, mesh=None):
         self.config = config
@@ -296,14 +312,15 @@ class Trainer:
         # the stepwise loop, as in JAX
         self.fused = (bool(getattr(config, "fused_epoch", False))
                       and self._is_device_src(self.train_src))
-        if self.fused and mesh is not None and mesh.data > 1:
-            raise NotImplementedError(
-                f"--fused_epoch on a mesh with data={mesh.data}: its CUDA "
-                f"graph would capture the collectives; not ported yet "
-                f"({ITEM_12B})")
-        # the mesh the steps and BatchNorm reduce over: none in a fused
-        # epoch (data 1 there: one rank holds the whole batch)
-        self.dp = None if self.fused else mesh
+        if (self.fused and mesh is not None and mesh.backend == "gloo"
+                and self.device.type == "cuda"):
+            raise ValueError(
+                f"--fused_epoch on gloo ranks of CUDA devices (mesh "
+                f"{mesh.shape}): a CUDA graph cannot capture gloo's "
+                f"collectives; run NCCL ranks (one GPU each) or drop "
+                f"--fused_epoch")
+        # the mesh the steps and BatchNorm reduce over
+        self.dp = mesh
         self._grad_accum = int(getattr(config, "grad_accum", 1) or 1)
         set_bn_mesh(model, self.dp)
         freeze = parse_freeze(config)
@@ -323,6 +340,12 @@ class Trainer:
             logger.info(f"--qat: {len(self.state.qstats)} convs "
                         f"fake-quantized, activation-range EMA decay "
                         f"{float(getattr(config, 'qat_ema_decay', 0.99))}")
+        # on a model axis the network runs on bands of rows (after the QAT
+        # probe above, which runs it on a whole frame)
+        set_spatial_mesh(model, mesh)
+        if mesh is not None and mesh.model > 1:
+            check_bands(int(config.image_size), mesh.model,
+                        pooling_levels(model))
         if freeze:
             logger.info(
                 f"Freezing {','.join(freeze)}: "
@@ -333,6 +356,7 @@ class Trainer:
         # --distill_checkpoint: the frozen teacher inside every train step
         self.teacher = teacher_from_config(config, self.device)
         if self.teacher is not None:
+            set_spatial_mesh(self.teacher, mesh)
             logger.info(describe_teacher(config, self.teacher))
         self.aug_cfg = aug_config_from(config)
         # under --fused_epoch the nan_guard decides on the device, so that
@@ -349,7 +373,7 @@ class Trainer:
         # the last fused epoch: the steps captured and the graph replays
         self.fused_stats = None
         self.eval_step = make_eval_step(config, mesh=self.dp)
-        self.infer_step = make_infer_step(config)
+        self.infer_step = make_infer_step(config, mesh=self.dp)
         self.early_stopping = EarlyStopping(
             logger=logger, patience=config.early_stop_patience, delta=0)
         self.writer = ScalarWriter(config.result_dir if self.is_writer
@@ -610,7 +634,8 @@ class Trainer:
         step's slice into its inputs; a failed capture raises. On the CPU
         the same loop runs without a graph. ``--nan_guard`` decides on the
         device and stops the run only when a whole epoch was rejected
-        (JAX's fused rule)."""
+        (JAX's fused rule). On a mesh with data > 1 each step takes the
+        rank's share (``_fused_share``)."""
         src, cfg = self.train_src, self.config
         idx = np.stack(list(src.epoch_batches(self._epoch_rng(epoch),
                                               cfg.batch_size)))
@@ -621,17 +646,20 @@ class Trainer:
         draws = []
         for i in range(steps):
             aug, mix = self._draws(epoch, i, batch)
-            draws.append((aug.to(dev), None if mix is None else mix.to(dev)))
-        idx = torch.from_numpy(idx.astype(np.int64)).to(dev)
+            rows, aug = torch.from_numpy(idx[i].astype(np.int64)), \
+                dense_draws(aug, batch)
+            if self.dp is not None and self.dp.data > 1:
+                rows, aug, mix = self._fused_share(rows, aug, mix)
+            draws.append((rows.to(dev), aug.to(dev),
+                          None if mix is None else mix.to(dev)))
         total = zero_metrics(dev)
         start_step = self.state.step
         if dev.type == "cuda":
-            self._replay_epoch(src, idx, draws, total)
+            self._replay_epoch(src, draws, total)
         else:
-            for i, (aug, mix) in enumerate(draws):
+            for rows, aug, mix in draws:
                 accumulate_(total, self.train_step(
-                    self.state, src.images[idx[i]], src.masks[idx[i]],
-                    dense_draws(aug, batch), mix))
+                    self.state, src.images[rows], src.masks[rows], aug, mix))
         skipped = float(total.skipped)
         # the schedule's position counts the applied steps, as stepwise
         self.state.step = start_step + steps - int(skipped)
@@ -643,23 +671,40 @@ class Trainer:
                               "was non-finite — stopping")
             self._diverged = True
 
-    def _replay_epoch(self, src, idx, draws, total) -> None:
+    def _fused_share(self, rows, aug, mix):
+        """A data rank's share of one fused step of the global batch (store
+        indices ``rows``, dense draws ``aug``, mixup's ``mix``) in the
+        fixed shapes a graph replays: its rows, and under mixup its
+        partners (``shard_draws``), padded with its first row to twice its
+        rows (at most the batch), with the draws of those frames."""
+        mine = local_rows(len(rows), self.dp, self._grad_accum)
+        keep, _, mix = shard_draws(None, mix, mine)
+        if mix is not None:
+            pad = min(2 * len(mine), len(rows)) - len(keep)
+            keep = torch.cat([keep, keep[:1].repeat(pad)])
+        return rows[keep], take_rows(aug, keep), mix
+
+    def _replay_epoch(self, src, draws, total) -> None:
         """The CUDA side of ``_train_one_epoch_fused``: step 0 eagerly, a
         capture of one step into a graph, a replay for each later step.
         ``fused_stats`` records the steps captured and the replays; a
         kernel wrapper counts the launches made in Python, the eager
-        step's and the capture's, not a replay's."""
-        steps, batch = idx.shape
+        step's and the capture's, not a replay's. On a mesh the eager step
+        has used every communicator the captured one takes (NCCL's first
+        call on one cannot be captured), and the capture is this thread's
+        alone, so the process group's watchdog thread may go on querying
+        its own events meanwhile."""
+        steps = len(draws)
 
         def inputs(i):
-            aug, mix = draws[i]
-            return [idx[i]] + [t for t in dense_draws(aug, batch)
-                               if t is not None] + list(mix or ())
+            rows, aug, mix = draws[i]
+            return [rows] + [t for t in aug if t is not None] + list(
+                mix or ())
 
         static = [t.clone() for t in inputs(0)]
         s_idx = static[0]
         it = iter(static[1:])
-        aug0, mix0 = dense_draws(draws[0][0], batch), draws[0][1]
+        aug0, mix0 = draws[0][1], draws[0][2]
         s_aug = type(aug0)(*(None if t is None else next(it) for t in aug0))
         s_mix = None if mix0 is None else type(mix0)(*it)
 
@@ -677,7 +722,9 @@ class Trainer:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        mode = ("thread_local" if self.dp is not None
+                and self.dp.distributed else "global")
+        with torch.cuda.graph(graph, capture_error_mode=mode):
             step()
         for i in range(1, steps):
             for a, b in zip(static, inputs(i)):
@@ -914,6 +961,7 @@ class Trainer:
         trace."""
         model = copy.deepcopy(self.model)
         model.load_state_dict(self.state.eval_state_dict())
+        set_spatial_mesh(model, None)  # a program of whole frames
         return model.eval()
 
     def _calibration_batch(self) -> torch.Tensor:
@@ -1102,7 +1150,8 @@ class Trainer:
                          if self._tuned_threshold is not None
                          else self.tune_threshold())
             if threshold != 0.5:
-                self.infer_step = make_infer_step(self.config, threshold)
+                self.infer_step = make_infer_step(self.config, threshold,
+                                                  mesh=self.dp)
         audit = self.mesh is not None and self.mesh.multihost
         if visualize and audit:
             self.logger.info("visualization skipped in multi-host runs "
@@ -1142,7 +1191,7 @@ class Trainer:
             # JAX's multi-host path: the device totals, padded duplicates
             # already weighted out, summed over the ranks
             c = torch.stack(list(counts_total))
-            all_reduce_([c], self.mesh)
+            all_reduce_([c], self.mesh, axis="data")  # whole images
             m = metrics_from_counts(*(float(v) for v in c[:4]))
             total = int(m["tp"] + m["fp"] + m["fn"] + m["tn"]) // (
                 self.config.image_size ** 2)

@@ -91,8 +91,11 @@ def _fq_conv(mod: nn.Module, x: torch.Tensor,
                 h, wd = xq.shape[-2:]
                 if h % 2 or wd % 2:
                     xq = F.pad(xq, (0, wd % 2, 0, h % 2))
-            y = F.conv2d(xq, wq, None, mod.stride, mod.padding,
-                         mod.dilation, mod.groups)
+            padding = mod.padding
+            if getattr(mod, "band_mesh", None) is not None:
+                xq, padding = mod.band_input(xq)  # bands of rows
+            y = F.conv2d(xq, wq, None, mod.stride, padding, mod.dilation,
+                         mod.groups)
         if mod.bias is not None:
             y = y + mod.bias.to(cd).view(1, -1, 1, 1)
     return y

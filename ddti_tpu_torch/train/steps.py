@@ -45,6 +45,15 @@ summed (a QAT conv's batch range is maxed over the ranks in its forward),
 so the nan_guard's decision, the update and the metrics are the same on
 every rank. The eval and threshold-sweep steps sum their counts over the
 ranks likewise.
+
+On a ``model`` axis (``parallel/spatial.py``) a rank's step takes its
+data group's whole frames, augments and mixes them with the group's draws
+(every model rank alike), then keeps its band of rows: the network, the
+loss terms and the counts run on bands (the deep-supervision heads'
+targets are resized from the whole masks, then banded), and the sums over
+every rank are those of the global batch. The test path's infer step
+gathers the bands of its predictions and sums each image's counts over
+the model group.
 """
 
 from __future__ import annotations
@@ -67,6 +76,14 @@ from ddti_tpu_torch.eval.tta import tta_logits
 from ddti_tpu_torch.losses.losses import weighted_loss
 from ddti_tpu_torch.ops.resample import resize_bilinear_hw
 from ddti_tpu_torch.parallel.mesh import all_reduce_, mean_gradients_
+from ddti_tpu_torch.parallel.spatial import (
+    band,
+    banded,
+    check_bands,
+    gather_frames,
+    pooling_levels,
+)
+from ddti_tpu_torch.parallel.spatial import flip as band_flip
 
 from .distill import kd_bce, soft_targets
 from .qat import qat_forwards, update_qstats
@@ -139,20 +156,42 @@ def _main_logits(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-def _ds_aux_loss(out, masks, loss_kw: dict, ds_weight: float):
+def _bands(mesh, model, *frames):
+    """This rank's bands of whole NHWC ``frames`` on a ``model`` axis
+    (refused where the model's levels do not give equal, even bands);
+    the frames themselves elsewhere."""
+    if not banded(mesh):
+        return frames
+    check_bands(frames[0].shape[1], mesh.model, pooling_levels(model))
+    return tuple(band(f, mesh, 1) for f in frames)
+
+
+def _band_flip(mesh):
+    """The flip ensemble's flip: the whole frame's on bands of rows."""
+    if not banded(mesh):
+        return torch.flip
+    return lambda x, axes: band_flip(x, axes, mesh)
+
+
+def _ds_aux_loss(out, masks, loss_kw: dict, ds_weight: float, mesh=None):
     """Deep-supervision auxiliary loss (JAX ``_ds_aux_loss``): the same
     weighted loss on each head against the target downscaled to the head's
     size (bilinear, antialiased), the boundary term and the unused terms
     off, so the heads launch no EDT; averaged over the heads and scaled by
-    ``ds_weight`` (``--alpha``)."""
+    ``ds_weight`` (``--alpha``). On bands of rows ``masks`` are the whole
+    frames: each head's target is resized from them to the head's whole
+    size, then banded."""
     _, heads = out
     kw = dict(loss_kw, boundary_ratio=0.0, compute_unused=False)
     total = masks.new_zeros((), dtype=torch.float32)
+    rows = mesh.model if banded(mesh) else 1
     for head in heads:
         m = masks
-        if head.shape[1:3] != masks.shape[1:3]:
-            m = resize_bilinear_hw(masks[..., 0], head.shape[1],
-                                   head.shape[2])[..., None]
+        h = head.shape[1] * rows
+        if (h, head.shape[2]) != tuple(masks.shape[1:3]):
+            m = resize_bilinear_hw(masks[..., 0], h, head.shape[2])[..., None]
+        if rows > 1:
+            m = band(m, mesh, 1)
         total = total + weighted_loss(head, m, **kw).total
     return ds_weight * total / max(len(heads), 1)
 
@@ -198,11 +237,10 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
     ``TrainState.init_optimizer_state``). ``config.qat`` needs
     ``state.qstats`` (``qat.init_qstats``). ``mesh`` makes it a
     data-parallel rank's step (the model's BatchNorms must hold the same
-    mesh: ``models.blocks.set_bn_mesh``); the returned metrics are the
-    global batch's. ``device_guard`` is not taken with a mesh."""
-    if mesh is not None and device_guard:
-        raise ValueError("the device-side nan_guard (--fused_epoch) is not "
-                         "ported to a mesh")
+    mesh: ``models.blocks.set_bn_mesh``, and on a ``model`` axis its
+    band modules: ``parallel.spatial.set_spatial_mesh``); the returned
+    metrics are the global batch's, and ``device_guard``'s decision is
+    every rank's (the finite flag's minimum over the ranks)."""
     loss_kw = _loss_kw(config, mesh)
     amp = bool(config.use_amp_autocast)
     use_mixup = bool(config.use_mixup)
@@ -223,6 +261,8 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
         """Loss terms, counts and (accumulated) gradients of one batch;
         with ``qstats`` the forward, and the backward's recomputation, are
         QAT's (``observed`` collects the ranges)."""
+        whole = masks  # the deep-supervision targets' source
+        images, masks = _bands(mesh, model, images, masks)
         soft = (soft_targets(teacher, images, kd_t) if teacher is not None
                 else None)
         with swapped_forwards(qat_forwards(model, qstats, observed,
@@ -233,7 +273,7 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
             terms = weighted_loss(logits, masks, **loss_kw)
             if isinstance(out, tuple) and ds_weight > 0:
                 terms = terms._replace(total=terms.total + _ds_aux_loss(
-                    out, masks, loss_kw, ds_weight))
+                    out, whole, loss_kw, ds_weight, mesh))
             if soft is not None:
                 terms = terms._replace(total=(1.0 - kd_w) * terms.total
                                        + kd_w * kd_bce(logits, soft, kd_t))
@@ -291,10 +331,11 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
         if mesh is not None:
             terms, counts = _global_metrics(terms, counts, mesh)
             mean_gradients_(model.parameters(), mesh)
-            n = n * mesh.world
+            n = n * (mesh.world // mesh.model)  # the data groups' images
         if nan_guard and device_guard:
             return _guarded_update(state, model, terms, counts, n, live,
-                                   start, ema_decay, observed, qat_decay)
+                                   start, ema_decay, observed, qat_decay,
+                                   mesh)
         if nan_guard and not bool(_finite(terms[0], model)):
             _restore(bn_all, bn_start)
             zero = images.new_zeros(())
@@ -316,13 +357,18 @@ def make_train_step(config, aug_cfg: AugmentConfig | None,
 @torch.no_grad()
 def _guarded_update(state: TrainState, model, terms, counts, n, live, start,
                     ema_decay: float, observed=None,
-                    qat_decay: float = 0.99) -> StepMetrics:
+                    qat_decay: float = 0.99, mesh=None) -> StepMetrics:
     """The update of JAX's ``guarded_update``, decided on the device: the
     AdamW update, the EMA and the QAT ranges are applied, then every state
     tensor takes its snapshot ``start`` back unless the loss and every
-    gradient are finite; a rejected step's metrics are zeros and
-    ``skipped`` 1."""
+    gradient are finite (on every rank of a ``mesh``: the flag's minimum
+    over the ranks); a rejected step's metrics are zeros and ``skipped``
+    1."""
     ok = _finite(terms[0], model)
+    if mesh is not None:
+        flag = ok.to(torch.float32).reshape(1)
+        all_reduce_([flag], mesh, "min")
+        ok = flag[0] > 0
     state.apply_gradients()
     if ema_decay:
         state.update_ema(ema_decay)
@@ -370,7 +416,8 @@ def make_eval_step(config, mesh=None):
     wraparound padding: the counts weight each image by it and ``n`` is
     its sum, so val metrics count every image once; the loss terms stay
     means over the padded batch (QUIRKS #22). Under a ``mesh`` the rank's
-    rows in, the global batch's metrics out."""
+    rows in (whole frames, banded here on a ``model`` axis), the global
+    batch's metrics out."""
     loss_kw = _loss_kw(config, mesh)
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
@@ -380,6 +427,7 @@ def make_eval_step(config, mesh=None):
     def step(state: TrainState, images_u8, masks_u8, valid=None):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
+        images, masks = _bands(mesh, state.model, images, masks)
         logits = _main_logits(_forward(state.model, images, amp,
                                        _eval_weights(state, use_ema)))
         terms = weighted_loss(logits, masks, **loss_kw)
@@ -393,21 +441,24 @@ def make_eval_step(config, mesh=None):
         if mesh is not None:
             terms, counts = _global_metrics(terms, counts, mesh)
             n = n.reshape(1).clone()
-            all_reduce_([n], mesh)
+            all_reduce_([n], mesh, axis="data")  # each data group's once
             n = n[0]
         return StepMetrics(*terms, counts, n)
 
     return step
 
 
-def make_infer_step(config, threshold: float = 0.5):
+def make_infer_step(config, threshold: float = 0.5, mesh=None):
     """``step(state, images, masks) -> (images_f, masks_f, preds_u8,
     counts, per_img)`` for the test routine: NHWC float images and masks at
     ``image_size``, uint8 {0, 1} predictions, the global confusion counts
     and their per-image vectors. With ``config.tta`` the logits are the
     4-way flip ensemble (``eval/tta.py``: four forwards, logit of the mean
     probability); validation stays without it, as in JAX. The eval weights
-    (the EMA shadow under --ema_decay) predict."""
+    (the EMA shadow under --ema_decay) predict. On a ``mesh``'s ``model``
+    axis the network runs on bands, the predictions' bands are gathered
+    into whole frames and each image's counts summed over the model group,
+    so every model rank returns its data group's whole outputs."""
     amp = bool(config.use_amp_autocast)
     size = (config.image_size, config.image_size)
     use_tta = bool(getattr(config, "tta", False))
@@ -417,17 +468,24 @@ def make_infer_step(config, threshold: float = 0.5):
     def step(state: TrainState, images_u8, masks_u8):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
+        x, y = _bands(mesh, state.model, images, masks)
 
         weights = _eval_weights(state, use_ema)
 
         def fwd(x):
             return _main_logits(_forward(state.model, x, amp, weights))
 
-        logits = tta_logits(fwd, images) if use_tta else fwd(images)
+        logits = (tta_logits(fwd, x, _band_flip(mesh)) if use_tta
+                  else fwd(x))
         preds = (torch.sigmoid(logits.to(torch.float32)) > threshold
                  ).to(torch.uint8)
-        per_img = confusion_counts(logits, masks, threshold=threshold,
+        per_img = confusion_counts(logits, y, threshold=threshold,
                                    per_image=True)
+        if banded(mesh):
+            preds = gather_frames(preds, mesh, 1)
+            stacked = torch.stack(list(per_img))
+            all_reduce_([stacked], mesh, axis="model")
+            per_img = ConfusionCounts(*stacked.unbind())
         counts = ConfusionCounts(*(x.sum() for x in per_img))
         return images, masks, preds, counts, per_img
 
@@ -453,12 +511,14 @@ def make_threshold_sweep_step(config, thresholds, mesh=None):
     def step(state: TrainState, images_u8, masks_u8, valid=None):
         images, masks = _to_float(images_u8, masks_u8)
         images, masks = eval_preprocess(images, masks, size)
+        images, masks = _bands(mesh, state.model, images, masks)
         weights = _eval_weights(state, use_ema)
 
         def fwd(x):
             return _main_logits(_forward(state.model, x, amp, weights))
 
-        logits = tta_logits(fwd, images) if use_tta else fwd(images)
+        logits = (tta_logits(fwd, images, _band_flip(mesh)) if use_tta
+                  else fwd(images))
         n = logits.shape[0]
         prob = torch.sigmoid(logits.to(torch.float32)).reshape(1, n, -1)
         ts = grid.to(prob.device).reshape(-1, 1, 1)

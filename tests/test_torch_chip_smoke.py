@@ -904,3 +904,61 @@ def test_parallel_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert "CLI joined as a world of 1: edt_minplus launches 0" in out
     assert out.count("'s bf16 step ") == 2
     assert out.count("'s gradient all-reduce ") == 2
+
+
+def test_spatial_flag_needs_the_card():
+    """``chip_smoke.py --spatial`` without a card exits non-zero and
+    prints no result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--spatial"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"spatial"' not in r.stdout and '"ok"' not in r.stdout
+
+
+def test_spatial_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """The spatial phase with the CPU as the card at a toy size: (a) a
+    ResUNet (base 4, depth 3) and (b) a TransUNet (base 4, depth 2, one
+    layer) at 32^2, batch 4, on two gloo ranks at data=1, model=2, each
+    float32 step held against the single-device step at the phase's
+    limits; (c) the fused and the stepwise epoch of a world of one (gloo
+    here, NCCL on the card) bit for bit; the lines the phase prints,
+    parsed back."""
+    import json
+    import re
+
+    monkeypatch.setattr(C, "DEVICE", "cpu")
+    monkeypatch.setattr(C, "SPATIAL_SIZE", 32)
+    monkeypatch.setattr(C, "SPATIAL_MODELS", (
+        ("resunet", "ResUNet", dict(base_filters=4, depth=3), 4),
+        ("transunet", "TransUNet", dict(
+            base_filters=4, depth=2, embed_dim=16, num_heads=2,
+            num_transformer_layers=1, dropout_rate=0.0), 4)))
+    monkeypatch.setattr(C, "TRAIN", dict(
+        model_type="ResUNet", base_filters=4, depth=3, image_size=32,
+        batch_size=4, epochs=1))
+    monkeypatch.setattr(C, "SPATIAL_FUSED_FRAMES", 12)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    got = C.run_spatial(str(tmp_path), "cpu")
+    r0, r1 = got["ranks"]
+    for i, (label, *_) in enumerate(C.SPATIAL_MODELS):
+        assert r0[f"{label}_launches"] == r1[f"{label}_launches"] == dict(
+            edt=0, flash_fwd=0, flash_bwd_dkdv=0, flash_bwd_dq=0)
+        c = got["ranks"][i % 2][label]  # model i's single-device step ran
+        assert c["n"] == c["single_n"] == 4  # on rank i % 2
+        assert c["counts"] == c["single_counts"]
+    fused = got["fused"]
+    assert fused["bit_equal"] and fused["steps"] == 3
+    # the CPU's fused loop runs every step eagerly: three steps' collectives
+    assert fused["fused_collectives"] == fused["stepwise_collectives"] > 0
+    json.dumps(got)  # the result line's part
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("[spatial] resunet:"))
+    grad = float(re.search(r"gradients normwise ([\d.e+-]+)", line)[1])
+    assert grad == pytest.approx(r0["resunet"]["grad_normwise"], rel=1e-3)
+    assert "phase wall time" in out

@@ -46,7 +46,6 @@ from ddti_tpu.train.steps import _build_train_step_impl
 from ddti_tpu.train.torch_interop import export_state_dict
 from ddti_tpu_torch.data.augment import MixupDraws
 from ddti_tpu_torch.parallel import (
-    ITEM_12B,
     Mesh,
     check_mesh_shape,
     launch_local,
@@ -275,49 +274,6 @@ def test_mesh_wrong_count_raises():
         make_mesh({"data": 2})  # no process group: a world of one
     m = make_mesh({"data": 1}, "cpu")
     assert (m.world, m.rank, m.distributed) == (1, 0, False)
-
-
-@pytest.mark.parametrize("how", ["mesh", "cli", "fit"])
-def test_model_axis_raises_naming_item_12b(how, tmp_path):
-    from ddti_tpu_torch import api
-    from ddti_tpu_torch.cli import main as tmain
-
-    calls = {
-        "mesh": lambda: check_mesh_shape({"data": 2, "model": 2}, 4),
-        "cli": lambda: tmain.main(["--device", "cpu", "--mesh",
-                                   "data=2,model=2", "--synthetic",
-                                   "--base_dir", str(tmp_path)]),
-        "fit": lambda: api.fit(np.zeros((4, 8, 8), np.uint8),
-                               np.zeros((4, 8, 8), np.uint8),
-                               mesh="data=1,model=2", device="cpu"),
-    }
-    with pytest.raises(NotImplementedError, match="item 12b") as e:
-        calls[how]()
-    assert ITEM_12B in str(e.value)
-
-
-def test_fused_epoch_on_data_2_raises_naming_item_12b(tmp_path):
-    from ddti_tpu_torch.cli import main as tmain
-    from ddti_tpu_torch.core.config import Config
-    from ddti_tpu_torch.core.logging import create_logger
-    from ddti_tpu_torch.data.dataset import DeviceDataSource
-    from ddti_tpu_torch.models import create_model
-    from ddti_tpu_torch.train.engine import Trainer
-
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tmain.main(["--device", "cpu", "--mesh", "data=2", "--fused_epoch",
-                    "--synthetic", "--base_dir", str(tmp_path)])
-    cfg = Config(epochs=1, batch_size=8, image_size=SIZE, store_size=SIZE,
-                 model_type="UNet", fused_epoch=True,
-                 base_dir=str(tmp_path))
-    cfg.make_dirs()
-    src = DeviceDataSource(*generate_ddti_like(8, (SIZE, SIZE), 0),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        Trainer(cfg, (src, src, src),
-                create_logger(os.path.join(cfg.log_dir, "log.log")),
-                create_model("UNet", **W.SMALL),
-                mesh=Mesh({"data": 2}, 0, 2))
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
