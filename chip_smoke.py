@@ -1082,10 +1082,10 @@ def kernel_report(lib, quiet=False):
     and the SASS opcodes that show how it runs (cuobjdump -sass): HGMMA
     (wgmma), UTMALDG (TMA loads), SYNCS (mbarriers), HMMA (mma.sync),
     atomics, and the exp2 unit's MUFU.EX2 beside FRND and F2I (which issue
-    at its rate). The bf16 flash kernels (the forward, dK/dV and dQ) and the
-    float32 ones (the forward but its FMA loop for heads above 128, dK/dV
-    and dQ) must run on wgmma and TMA loads, and no flash kernel may use an
-    atomic. Prints a line a kernel (none where ``quiet``) and every line in
+    at its rate). The bf16 flash kernels (the forward, dK/dV and dQ, and
+    the wide ones) and the float32 ones (the forward but its FMA loop for
+    heads above 128, dK/dV and dQ, and the wide ones) must run on wgmma and
+    TMA loads, and no flash kernel may use an atomic. Prints a line a kernel (none where ``quiet``) and every line in
     which ptxas reports a performance loss. Returns ({kernel: registers,
     spills}, {kernel: opcode counts}); the m-skip forward is named
     ``flash_fwd_bf16_kernel<DP,mskip>``."""
@@ -1146,9 +1146,11 @@ def kernel_report(lib, quiet=False):
         if name.startswith("flash_"):
             assert o["atomic"] == 0, f"{name} uses atomics"
         if name.startswith(("flash_fwd_bf16", "flash_fwd_f32",
-                            "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
-                            "flash_bwd_dkdv_f32", "flash_bwd_dq_f32")) \
-                and name != "flash_fwd_f32_fma_kernel<256>":
+                            "flash_fwd_wide", "flash_bwd_dkdv_bf16",
+                            "flash_bwd_dq_bf16", "flash_bwd_dkdv_f32",
+                            "flash_bwd_dq_f32", "flash_bwd_dkdv_wide",
+                            "flash_bwd_dq_wide")) \
+                and not name.startswith("flash_fwd_f32_fma"):
             assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"], \
                 f"{name} issues no wgmma or TMA load"
         if name.startswith("conv3x3_relu_kernel"):
@@ -7615,6 +7617,352 @@ def spatial_only():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# wide: the kernels' shapes past one tile (heads wider than 128 or 256,
+# widths not a multiple of 8, B*H past 65535) and EDT sides past 2048
+# ---------------------------------------------------------------------------
+
+# (B, H, S) of the wide flash shapes, their head widths, the padded width
+WIDE_BHS = (2, 2, 1024)
+WIDE_HEADS = (12, 136, 256, 264, 512)
+# B*H past gridDim.y's 65535, at a small S
+WIDE_MANY_HEADS = (1, 65600, 64, 8)
+WIDE_CALLS = 20  # queued calls a timing (HOST_CALLS would take 10 s more)
+# EDT frames past 2048 a side, bit-equal to the plain version; and a frame
+# whose squared distances pass 2^24, bit-equal to scipy as float32
+WIDE_EDT_SHAPES = [(5, 64, 4100), (5, 4100, 64)]
+WIDE_EDT_SCIPY = (4096, 4096)
+# the TransUNet of configs/config.yaml:337-343 with one head a layer:
+# trained at D = 256 (dropout 0), and served with embed_dim 512 (D = 512)
+WIDE_TRAIN = dict(TSLICE, num_heads=1)
+WIDE_SERVE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
+                  embed_dim=512, num_heads=1)
+WIDE_SERVE_FRAMES = 8
+
+
+def wide_masks(n, h, w, seed):
+    """EDT frames past 2048 a side (nonzero = foreground): all foreground
+    (the cap h + w), foreground but for four zero pixels (distances of
+    thousands of pixels, squared past 2^24 where h + w > 4096), then salt
+    and a disc as edt_masks draws them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    m = np.ones((n, h, w), np.uint8)
+    yy, xx = np.ogrid[0:h, 0:w]
+    for i in range(1, n):
+        if i == 1:
+            m[i, rng.integers(0, h, 4), rng.integers(0, w, 4)] = 0
+            continue
+        m[i] = rng.random((h, w)) < 0.01
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        r = rng.uniform(1, max(h, w) / 3)
+        m[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+    return torch.from_numpy(m)
+
+
+def wide_flash():
+    """Every flash kernel at the wide head widths, in both dtypes, against
+    its plain version (o and lse2 to O_LIMIT and LSE_LIMIT, the gradients
+    to G_LIMIT of their max), then timed: the forward and the backward pair
+    queued, each backward entry point by CUDA events at its launch, the
+    plain versions, SDPA's queued forward and backward where a backend
+    takes the shape, and the bounds. Returns the rows."""
+    import torch
+
+    from ddti_tpu_torch.ops import attention as A
+
+    b, h, s = WIDE_BHS
+    rows = []
+    for d in WIDE_HEADS:
+        for dt in ("bfloat16", "float32"):
+            shape = (b, h, s, d)
+            g = torch.Generator(device="cuda").manual_seed(SEED + d)
+            q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                           .to(getattr(torch, dt)) for _ in range(4))
+            o, lse = A.flash_forward_cuda(q, k, v)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            assert torch.isfinite(o.float()).all(), "non-finite o"
+            assert err_o <= O_LIMIT[dt] and err_lse <= LSE_LIMIT, \
+                f"flash_fwd {shape} {dt} disagrees with its plain version"
+            args = (q, k, v, o, lse, do)
+            got = A.flash_backward_cuda(*args)
+            want = A.flash_backward_reference(*args)
+            rel = {}
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                assert torch.isfinite(a.float()).all(), f"non-finite {name}"
+                rel[name] = ((a.float() - w.float()).abs().max().item()
+                             / max(w.float().abs().max().item(), 1e-30))
+            assert max(rel.values()) <= G_LIMIT[dt], \
+                f"flash_bwd {shape} {dt} disagrees with its plain version"
+            del got, want
+            fwd_ms = queued_ms(lambda: A.flash_forward_cuda(q, k, v),
+                               WIDE_CALLS)[1]
+            pair_ms = queued_ms(lambda: A.flash_backward_cuda(*args),
+                                WIDE_CALLS)[1]
+            split = launch_ms(lambda: A.flash_backward_cuda(*args),
+                              WIDE_CALLS)
+            plain_fwd = median_ms(lambda: A.flash_forward_reference(q, k, v),
+                                  runs=5)
+            plain_bwd = median_ms(lambda: A.flash_backward_reference(*args),
+                                  runs=5)
+            sdpa_fwd = sdpa_yardstick(q, k, v)
+            sdpa_bwd = sdpa_yardstick(q, k, v, do)
+            row = dict(
+                shape=list(shape), dtype=dt, max_abs_err=err_o,
+                max_abs_err_lse2=err_lse, rel_err=rel, ms=fwd_ms,
+                plain_ms=plain_fwd,
+                bound_ms=bound("flash_fwd", shape, dt)[0],
+                library_queue_ms=sdpa_fwd[2], library=sdpa_fwd[1],
+                pair_ms=pair_ms, ms_dkdv=split["flash_bwd_dkdv"],
+                ms_dq=split["flash_bwd_dq"], plain_pair_ms=plain_bwd,
+                pair_bound_ms=bound("flash_bwd", shape, dt)[0],
+                bound_ms_dkdv=bound("flash_bwd_dkdv", shape, dt)[0],
+                bound_ms_dq=bound("flash_bwd_dq", shape, dt)[0],
+                pair_library_queue_ms=sdpa_bwd[2], pair_library=sdpa_bwd[1])
+            rows.append(row)
+            phase("wide", f"flash {shape} {dt}: max|do| {err_o:.3e} "
+                  f"max|dlse2| {err_lse:.3e}, max|d|/max|g| "
+                  + " ".join(f"{n} {e:.3e}" for n, e in rel.items())
+                  + f"; forward queued {fwd_ms:.4f} ms (plain "
+                  f"{plain_fwd:.4f}, SDPA {sdpa_fwd[2]} {sdpa_fwd[1]}, bound "
+                  f"{row['bound_ms']:.4f}); backward pair queued "
+                  f"{pair_ms:.4f} ms (dK/dV {row['ms_dkdv']:.4f}, dQ "
+                  f"{row['ms_dq']:.4f}; plain {plain_bwd:.4f}, SDPA "
+                  f"{sdpa_bwd[2]} {sdpa_bwd[1]}, bound "
+                  f"{row['pair_bound_ms']:.4f})")
+    return rows
+
+
+def wide_many_heads():
+    """One forward and one backward with B*H past 65535 in each dtype,
+    against the plain versions."""
+    import torch
+
+    from ddti_tpu_torch.ops import attention as A
+
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v, do = (torch.randn(WIDE_MANY_HEADS, generator=g,
+                                   device="cuda").to(getattr(torch, dt))
+                       for _ in range(4))
+        o, lse = A.flash_forward_cuda(q, k, v)
+        got = A.flash_backward_cuda(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        o_ref, _ = A.flash_forward_reference(q, k, v)
+        want = A.flash_backward_reference(q, k, v, o, lse, do)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        rel = max((a.float() - w.float()).abs().max().item()
+                  / w.float().abs().max().item() for a, w in zip(got, want))
+        phase("wide", f"B*H = {WIDE_MANY_HEADS[1]} {WIDE_MANY_HEADS} {dt}: "
+              f"max|do| {err_o:.3e}, gradients max|d|/max|g| {rel:.3e}")
+        assert err_o <= O_LIMIT[dt] and rel <= G_LIMIT[dt], \
+            "the kernels disagree with their plain versions past 65535 heads"
+        out[dt] = dict(max_abs_err=err_o, rel_err=rel)
+        del q, k, v, do, o, lse, got, want
+    return out
+
+
+def wide_edt():
+    """The EDT kernel past 2048 a side: bit-equal to its plain version on
+    WIDE_EDT_SHAPES, and on a 4096 x 4096 frame whose squared distances
+    pass 2^24 to the plain version and to scipy's float64 EDT as float32;
+    queued device times beside the bound."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from ddti_tpu_torch.ops import edt as E
+
+    rows = []
+    frames = [wide_masks(*shape, SEED + i)
+              for i, shape in enumerate(WIDE_EDT_SHAPES)]
+    frames.append(wide_masks(2, *WIDE_EDT_SCIPY, SEED)[1:])
+    for i, m in enumerate(frames):
+        m = m.to(DEVICE)
+        got = E.edt_cuda(m)
+        torch.cuda.synchronize()
+        want = E.edt_reference(m)
+        equal = torch.equal(got, want)
+        shape = tuple(m.shape)
+        row = dict(shape=list(shape), bit_equal=equal,
+                   max_abs_err=(got - want).abs().max().item(),
+                   max_d2=float(want.double().max() ** 2),
+                   queued_ms=queued_ms(lambda: E.edt_cuda(m), WIDE_CALLS)[1],
+                   bound_ms=bound("edt", shape)[0])
+        text = ""
+        if i == len(frames) - 1:
+            ref = ndimage.distance_transform_edt(m[0].cpu().numpy())
+            row["scipy_equal"] = bool(np.array_equal(
+                got[0].cpu().numpy(), ref.astype(np.float32)))
+            text = f", bit-equal to scipy {row['scipy_equal']}"
+            assert row["scipy_equal"], "the EDT kernel disagrees with scipy"
+        phase("wide", f"edt {shape}: bit-equal to plain {equal}{text}; "
+              f"largest d^2 {row['max_d2']:.0f}; queued "
+              f"{row['queued_ms']:.4f} ms (bound {row['bound_ms']:.5f})")
+        assert equal, "the EDT kernel disagrees with its plain version"
+        rows.append(row)
+    return rows
+
+
+def wide_serve(tmp):
+    """The daemon (cli/serve.py with --config_path) serving the D = 512
+    TransUNet in bf16 on random weights: WIDE_SERVE_FRAMES concurrent
+    POSTs, masks of the frames' size, N_LAYERS flash launches a batch; and
+    float32 logits of the flash path against the plain path on two
+    frames."""
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from ddti_tpu_torch.cli import serve
+    from ddti_tpu_torch.models import create_model
+    from ddti_tpu_torch.ops import attention as A
+    from ddti_tpu_torch.train.checkpoint import load_checkpoint_into
+
+    size = SLICE["image_size"]
+    cfg = os.path.join(tmp, "transunet_e512_h1.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"model": {"model_type": "TransUNet",
+                                  "kwargs": WIDE_SERVE}}, f)
+    model = create_model("TransUNet", **WIDE_SERVE, image_size=size)
+    ckpt = os.path.join(tmp, "transunet_e512_h1.pth")
+    torch.save(random_state(model, SEED), ckpt)
+    args = serve.get_parser().parse_args(
+        ["--checkpoint", ckpt, "--config_path", cfg, "--image_size",
+         str(size), "--batch_size", "4", "--bf16", "--device", "cuda",
+         "--port", "0"])
+    server = serve.create_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        frames = make_frames(WIDE_SERVE_FRAMES, size, SEED)
+        bodies = []
+        for fr in frames:
+            buf = io.BytesIO()
+            Image.fromarray(fr, "L").save(buf, "PNG")
+            bodies.append(buf.getvalue())
+        A.flash_forward_cuda.launches = 0
+        batches0 = server.batcher.n_batches
+        with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+            answers = list(pool.map(lambda b: post(port, b), bodies))
+        launches = A.flash_forward_cuda.launches
+        n_batches = server.batcher.n_batches - batches0
+    finally:
+        server.shutdown()
+        server.close()
+        thread.join(timeout=30)
+    masks = []
+    for status, headers, data, _ in answers:
+        assert status == 200, (status, data[:200])
+        masks.append(np.frombuffer(data, np.uint8).reshape(size, size))
+    fg = float(np.mean(np.stack(masks) > 0))
+    assert launches == N_LAYERS * n_batches, \
+        f"{launches} flash launches for {n_batches} batches"
+    flash = load_checkpoint_into(
+        ckpt, "TransUNet", create_model("TransUNet", **WIDE_SERVE,
+                                        image_size=size)).cuda().eval()
+    plain = load_checkpoint_into(
+        ckpt, "TransUNet", create_model("TransUNet", **WIDE_SERVE,
+                                        image_size=size,
+                                        use_flash_attention=False))
+    plain = plain.cuda().eval()
+    x = torch.from_numpy(np.stack(frames[:2])[:, None]).cuda().float() / 255
+    with torch.inference_mode():
+        lf, lp = flash(x), plain(x)
+    torch.cuda.synchronize()
+    dlogit = (lf - lp).abs().max().item()
+    phase("wide", f"served the D = 512 TransUNet: {len(answers)} POSTs in "
+          f"{n_batches} bf16 batches, {launches} flash_fwd launches, "
+          f"foreground {fg:.3f}; float32 logits flash vs plain path max|d| "
+          f"{dlogit:.3e} (limit {F32_LOGIT_LIMIT:g})")
+    assert torch.isfinite(lf).all() and dlogit <= F32_LOGIT_LIMIT
+    return dict(launches=launches, batches=n_batches, frames=len(answers),
+                foreground=fg, f32_logit_max_abs_diff=dlogit)
+
+
+def wide_train(tmp):
+    """The training CLI on the TransUNet of configs/config.yaml:337-343
+    with one head a layer (D = 256) and dropout 0, for one epoch: the
+    launches of each kernel against what its steps imply."""
+    import yaml
+
+    cfg = os.path.join(tmp, "transunet_h1_dropout0.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"model": {"model_type": "TransUNet",
+                                  "kwargs": WIDE_TRAIN}}, f)
+    flags = ["--config_path", cfg, "--device", DEVICE,
+             *(f"--{k}={v}" for k, v in TTRAIN.items() if k != "epochs")]
+    model_kw = dict(WIDE_TRAIN, image_size=TTRAIN["image_size"])
+    launches, _ = run_cli(tmp, "wide", "TransUNet", model_kw, flags,
+                          TTRAIN["epochs"],
+                          jax_transunet_keys(TSLICE["depth"], N_LAYERS))
+    steps, val, test_b = _cli_batches(TTRAIN["batch_size"])
+    epochs = TTRAIN["epochs"]
+    expected = {
+        "flash_fwd": N_LAYERS * (epochs * (steps + val) + test_b),
+        "flash_bwd_dkdv": N_LAYERS * epochs * steps,
+        "flash_bwd_dq": N_LAYERS * epochs * steps,
+        "edt_minplus": epochs * (steps + val) + test_b,
+    }
+    phase("wide", "D = 256 training CLI launches " + ", ".join(
+        f"{k} {launches[k]} (expected {v})" for k, v in expected.items()))
+    assert {k: launches[k] for k in expected} == expected
+    return launches
+
+
+def run_wide(tmp):
+    """The wide phase: the D = 256 training CLI in its own process while
+    this one holds every wide shape of the kernels against their plain
+    versions and serves the D = 512 model. Returns what the kernels line
+    reports."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        trained = pool.submit(wide_train, tmp)
+        flash = wide_flash()
+        many = wide_many_heads()
+        edt = wide_edt()
+        served = wide_serve(tmp)
+        train = trained.result()
+    return dict(flash=flash, many_heads=many, edt=edt, serve=served,
+                train=train)
+
+
+def wide_only():
+    """The wide phase alone: ``python3 chip_smoke.py --wide``."""
+    import torch
+
+    from ddti_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this phase "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["DDTI_POLY_EXP2"] = "0"
+    _build.build()  # once, before the CLI loads it
+    _build.load_library()
+    clock = Clock()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_wide(tmp)
+    clock.mark("wide")
+    clock.stop()
+    print(json.dumps({"wide": out}))
+    return 0
+
+
 def main():
     import torch
 
@@ -7666,6 +8014,9 @@ def main():
     clock.mark("flash kernels")
     edt_rows = check_edt()
     clock.mark("edt")
+    with tempfile.TemporaryDirectory() as tmp:
+        wide = run_wide(tmp)
+    clock.mark("wide")
     t_probes = time.perf_counter()
     probes = check_probes()
     cg = check_conv_gather()
@@ -7783,6 +8134,13 @@ def main():
         "poly_ab": [{k: r[k] for k in ("poly", "fwd_ms", "fwdbwd_ms",
                                        "fwd_err")} for r in ab_rows],
         "shapes": rows,
+        "wide_train_launches": wide["train"]["flash_fwd"],
+        "wide_serve": wide["serve"],
+        "wide_many_heads": wide["many_heads"],
+        "wide_shapes": [{k: r[k] for k in (
+            "shape", "dtype", "max_abs_err", "max_abs_err_lse2", "ms",
+            "plain_ms", "bound_ms", "library_queue_ms", "library")}
+            for r in wide["flash"]],
     }, {
         "name": "flash_bwd_dkdv",
         "route": "cuda",
@@ -7817,6 +8175,12 @@ def main():
         "poly_pair_queue_ms": poly_pair,
         "shapes": bwd_rows,
         "train_steps": ttrain_rows,
+        "wide_train_launches": wide["train"]["flash_bwd_dkdv"],
+        "wide_shapes": [{k: r[k] for k in (
+            "shape", "dtype", "rel_err", "pair_ms", "ms_dkdv", "ms_dq",
+            "plain_pair_ms", "pair_bound_ms", "bound_ms_dkdv", "bound_ms_dq",
+            "pair_library_queue_ms", "pair_library")}
+            for r in wide["flash"]],
     }, {
         "name": "flash_bwd_dq",
         "route": "cuda",
@@ -7836,6 +8200,7 @@ def main():
         "library": f"scaled_dot_product_attention ({bwd_row['library']})",
         "library_covers": library_covers,
         "poly_ms": {dt: r["dq_ms"] for dt, r in poly.items()},
+        "wide_train_launches": wide["train"]["flash_bwd_dq"],
     }, {
         "name": "edt_minplus",
         "route": "cuda",
@@ -7853,6 +8218,8 @@ def main():
         "row_ms": edt_rows[0]["row_ms"],
         "library_ms": None,  # no PyTorch call computes an EDT
         "shapes": edt_rows,
+        "wide_shapes": wide["edt"],
+        "wide_train_launches": wide["train"]["edt_minplus"],
         "train_steps": "the ResUNet's under --profiles",
         "zoo_launches": zoo_launches,
         "recipe": recipe,
@@ -8013,4 +8380,6 @@ if __name__ == "__main__":
         sys.exit(parallel_only())
     if sys.argv[1:2] == ["--spatial"]:
         sys.exit(spatial_only())
+    if sys.argv[1:2] == ["--wide"]:
+        sys.exit(wide_only())
     sys.exit(main())

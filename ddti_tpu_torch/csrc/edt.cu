@@ -30,7 +30,10 @@
 // bits (the next zero below a row is the lowest set bit of the word
 // shifted to it), coalesced. That is n h w / (V s) threads (131,072 at
 // 16 x 512 x 512, V = 2) where the first form had n w, each with its loads
-// independent of each other.
+// independent of each other. Past h = 2048 a segment outgrows a 64-bit
+// word: edt_column_long_kernel keeps the blocks, segments and scan, and a
+// thread reads its rows three times instead (first and last zero; g
+// downward from the last zero above; upward, min'd, from the first below).
 //
 // Row pass. D^2[j] = min_k g[k]^2 + (j - k)^2 is the lower envelope of the
 // parabolas of the row's sites k, evaluated at each column. A warp takes
@@ -49,6 +52,8 @@
 //   3. each lane finds the lowest parabola at its first column by a walk
 //      from the nearest site on its left, then walks forward column by
 //      column and writes sqrtf(min(D^2, (h + w)^2)) to its columns.
+// A block holds up to four warps, as many as their shared memory (about
+// 4 x 32 x w / 16 bytes a warp) allows: one past w = 8192.
 // A column with no zero in its column (g = h + w) is no site: its parabola
 // lies at or above (h + w)^2, where the result is clamped anyway. That
 // leaves rows above and below a nodule with the few columns that cross it.
@@ -63,18 +68,24 @@
 // is ~w / 32 sites long, where one thread a row (Meijster's scans, the
 // first redesign measured) ran a chain of w.
 //
-// Exactness. g <= h + w <= 4096 and the row pass takes only g < h + w, so
-// g^2 < 2^22, j^2 < 2^22, every parabola's value is below 2^23 and every
-// separator's numerator within +-2^23: exact in int32, and their cross
-// products (below 2^35) exact in int64. So the row pass gives the exact
-// integer minimum. The plain version (ops/edt.py) computes min(min_k
-// fl(g_k^2 + d^2), (h + w)^2) in float32. Every candidate at or below
-// (h + w)^2 <= 2^24 is exact in float32, and any candidate above it rounds
-// to at least (h + w)^2 (rounding is monotone and (h + w)^2 is
-// representable). So the exact minimum clamped to (h + w)^2 is bit-equal
-// to the plain value, and so is its correctly rounded sqrtf. Ties between
-// sites do not matter: only the value is written. The JAX package's Pallas
-// kernel and scipy agree with the plain version bit for bit.
+// Exactness. The row pass takes only sites with g < h + w, so g <= h - 1;
+// with j, k < w every parabola's value (j - k)^2 + g^2 and every
+// separator's numerator lies within +-(h + w)^2 < 2^31 while h + w <=
+// kMaxSum = 46340: exact in int32, and their cross products (below 2^46)
+// exact in int64; within one band of a frame with h + w <= 4096 (band <=
+// 64) the products stay below 2^30 and int32 holds them (hidden_near). So
+// the row pass gives the exact integer minimum D^2 <= (h + w)^2. Its root:
+// where h + w <= 4096, D^2 <= 2^24 is exact in float32 and sqrtf rounds it
+// correctly; above, the double root of the exact integer rounded to float32
+// (sqrt in double is correctly rounded, and 53 >= 2 x 24 + 2 makes the
+// double rounding innocuous where D^2 < 2^24): scipy's float64 EDT cast to
+// float32, bit for bit. The plain version (ops/edt.py) computes min(min_k
+// g_k^2 + d^2, (h + w)^2) in float32 where h + w <= 4096 (every candidate at
+// or below the clamp exact, any above it rounding to at least the clamp)
+// and in float64 above, then the same root. Ties between sites do not
+// matter: only the value is written. The JAX package's Pallas kernel and
+// plain path agree bit for bit where h + w <= 4096; above, its float32 sums
+// round.
 //
 // Bound: uint8 in, float32 out, 5 bytes a pixel (21 MB, 0.0063 ms at
 // 3.35 TB/s, at the training slice's 16 x 512 x 512), against ~26 integer
@@ -91,7 +102,9 @@
 
 namespace {
 
-constexpr int kMaxSide = 2048;         // the wrapper's bound
+// h + w at most: every d^2 and separator numerator below 2^31 (int32)
+constexpr int kMaxSum = 46340;
+constexpr int kMaxSmem = 232448;       // shared memory a block may hold
 constexpr int kSegs = 32;              // row segments of a strip: warps
 constexpr int kRowWarps = 4;           // row-pass warps a block
 constexpr int kMinBand = 32;           // row-pass columns a lane, at least
@@ -122,6 +135,59 @@ __device__ __forceinline__ int highest_bit(uint64_t x) {
   return 63 - __clzll((long long)x);
 }
 
+// A block's segments' first and last zeros, [segment][v][lane] in shared
+// memory, turned by a thread a column into the last zero above each
+// segment (a running max down the segments) and the first zero below it (a
+// running min up)
+template <int V>
+__device__ __forceinline__ void scan_segments(int* first_zero,
+                                              int* last_zero) {
+  if (threadIdx.x < 32 * V) {
+    const int col = threadIdx.x;  // v * 32 + lane
+    int run = -kFar;
+    for (int k0 = 0; k0 < kSegs; k0 += 8) {
+      int x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = last_zero[(k0 + k) * V * 32 + col];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        last_zero[(k0 + k) * V * 32 + col] = run;
+        run = max(run, x[k]);
+      }
+    }
+    run = kFar;
+    for (int k0 = kSegs - 8; k0 >= 0; k0 -= 8) {
+      int x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) x[k] = first_zero[(k0 + k) * V * 32 + col];
+#pragma unroll
+      for (int k = 7; k >= 0; --k) {
+        first_zero[(k0 + k) * V * 32 + col] = run;
+        run = min(run, x[k]);
+      }
+    }
+  }
+}
+
+// V mask bytes as one load, and V uint16 g values
+template <int V>
+using MaskWord = std::conditional_t<
+    V == 4, uint32_t, std::conditional_t<V == 2, uint16_t, uint8_t>>;
+
+template <int V>
+__device__ __forceinline__ void load_g(const uint16_t* p, uint32_t (&g)[V]) {
+  if constexpr (V == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    g[0] = x.x & 0xffff, g[1] = x.x >> 16, g[2] = x.y & 0xffff,
+    g[3] = x.y >> 16;
+  } else if constexpr (V == 2) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+    g[0] = x & 0xffff, g[1] = x >> 16;
+  } else {
+    g[0] = *p;
+  }
+}
+
 // A block: one strip of 32 V columns of one image; warp s the rows
 // [s seg, s seg + seg) of it, lane l the V columns from 32 V strip + V l.
 // Word holds a bit a row of the segment.
@@ -140,9 +206,7 @@ edt_column_kernel(const uint8_t* __restrict__ fg, float* __restrict__ out,
   const int r0 = sg * seg, r1 = min(h, r0 + seg);
   const uint8_t* src = fg + img * h * w + c;
   uint16_t* dst = reinterpret_cast<uint16_t*>(out + img * h * w) + c;
-  // V mask bytes, one load
-  using T = std::conditional_t<V == 4, uint32_t,
-                               std::conditional_t<V == 2, uint16_t, uint8_t>>;
+  using T = MaskWord<V>;  // V mask bytes, one load
 
   // the thread's rows, a bit a zero: coalesced V-byte loads, eight rows
   // in flight
@@ -173,34 +237,7 @@ edt_column_kernel(const uint8_t* __restrict__ fg, float* __restrict__ out,
     last_zero[at] = bits[v] ? r0 + highest_bit(bits[v]) : -kFar;
   }
   __syncthreads();
-
-  // a thread a column: the last zero above each segment (a running max
-  // down the segments) and the first zero below it (a running min up)
-  if (threadIdx.x < 32 * V) {
-    const int col = threadIdx.x;  // v * 32 + lane
-    int run = -kFar;
-    for (int k0 = 0; k0 < kSegs; k0 += 8) {
-      int x[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) x[k] = last_zero[(k0 + k) * V * 32 + col];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        last_zero[(k0 + k) * V * 32 + col] = run;
-        run = max(run, x[k]);
-      }
-    }
-    run = kFar;
-    for (int k0 = kSegs - 8; k0 >= 0; k0 -= 8) {
-      int x[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) x[k] = first_zero[(k0 + k) * V * 32 + col];
-#pragma unroll
-      for (int k = 7; k >= 0; --k) {
-        first_zero[(k0 + k) * V * 32 + col] = run;
-        run = min(run, x[k]);
-      }
-    }
-  }
+  scan_segments<V>(first_zero, last_zero);
   __syncthreads();
   if (!on) return;
 
@@ -225,6 +262,84 @@ edt_column_kernel(const uint8_t* __restrict__ fg, float* __restrict__ out,
   }
 }
 
+
+// The column pass where h > 32 x 64, so that a segment of ceil(h / 32)
+// rows no longer fits one 64-bit word: the same blocks, segments and scan,
+// but a thread reads its rows three times instead of keeping their bits:
+// for its segment's first and last zero, then downward writing the
+// distance to the last zero at or above, then upward taking the min with
+// the distance to the first zero at or below (g reread from `out`).
+template <int V>
+__global__ void __launch_bounds__(32 * kSegs)
+edt_column_long_kernel(const uint8_t* __restrict__ fg, float* __restrict__ out,
+                       int h, int w, int strips) {
+  __shared__ int first_zero[kSegs * V * 32], last_zero[kSegs * V * 32];
+  const long long img = blockIdx.x / strips;
+  const int strip = blockIdx.x - (int)img * strips;
+  const int lane = threadIdx.x % 32, sg = threadIdx.x / 32;
+  const int c = (strip * 32 + lane) * V;
+  const bool on = c < w;  // w % V == 0
+  const int seg = (h + kSegs - 1) / kSegs;
+  const int r0 = sg * seg, r1 = min(h, r0 + seg);
+  const uint8_t* src = fg + img * h * w + c;
+  uint16_t* dst = reinterpret_cast<uint16_t*>(out + img * h * w) + c;
+  using T = MaskWord<V>;
+  auto zero = [&](T b, int v) { return ((b >> (8 * v)) & 0xff) == 0; };
+
+  int first[V], last[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) first[v] = kFar, last[v] = -kFar;
+  if (on)
+    for (int r = r0; r < r1; ++r) {
+      const T b = __ldg(reinterpret_cast<const T*>(src + (long long)r * w));
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (zero(b, v)) {
+          first[v] = min(first[v], r);
+          last[v] = r;
+        }
+    }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int at = (sg * V + v) * 32 + lane;
+    first_zero[at] = first[v];
+    last_zero[at] = last[v];
+  }
+  __syncthreads();
+  scan_segments<V>(first_zero, last_zero);
+  __syncthreads();
+  if (!on) return;
+
+  int above[V], below[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    above[v] = last_zero[(sg * V + v) * 32 + lane];
+    below[v] = first_zero[(sg * V + v) * 32 + lane];
+  }
+  const int cap = h + w;
+  for (int r = r0; r < r1; ++r) {
+    const T b = __ldg(reinterpret_cast<const T*>(src + (long long)r * w));
+    uint32_t g[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (zero(b, v)) above[v] = r;
+      g[v] = (uint32_t)min(r - above[v], cap);
+    }
+    store_g<V>(dst + 2ll * r * w, g);
+  }
+  for (int r = r1 - 1; r >= r0; --r) {
+    const T b = __ldg(reinterpret_cast<const T*>(src + (long long)r * w));
+    uint32_t g[V];
+    load_g<V>(dst + 2ll * r * w, g);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (zero(b, v)) below[v] = r;
+      g[v] = (uint32_t)min((int)g[v], min(below[v] - r, cap));
+    }
+    store_g<V>(dst + 2ll * r * w, g);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // row pass
 
@@ -242,8 +357,9 @@ __device__ __forceinline__ bool hidden(int a, int ga, int b, int gb, int c,
   return ab * (c - b) >= bc * (b - a);
 }
 
-// hidden() for three sites of one band (c - a < band <= 64): the cross
-// products stay below 2^23 * 2^6, and int32 holds them
+// hidden() for three sites of one band (c - a < band <= 64) of a frame
+// with h + w <= 4096: the cross products stay below 2^24 * 2^6, and int32
+// holds them
 __device__ __forceinline__ bool hidden_near(int a, int ga, int b, int gb,
                                             int c, int gc) {
   const int ab = b * b - a * a + gb - ga, bc = c * c - b * b + gc - gb;
@@ -303,6 +419,8 @@ __device__ __forceinline__ void step_prev(int& b, int& i, const int* lo,
   if (b >= 0) i = hi[b] - 1;
 }
 
+// A block is 1 to kRowWarps warps (blockDim.x / 32): as many as the
+// warps' shared memory allows, one at w > 8192.
 __global__ void __launch_bounds__(32 * kRowWarps)
 edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -310,6 +428,9 @@ edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
   const int band = shape.band, nl = shape.lanes, bp = row_bp(band);
   const int shift = __ffs(band) - 1;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  // int32 separators within a band while h + w <= 4096 and band <= 64
+  const bool narrow = cap <= 4096 && band <= 64;
   const int sub = lane / nl, l = lane % nl;  // the warp's row, its band
   unsigned char* mine = smem + warp * row_smem(w);
   uint16_t* gs = reinterpret_cast<uint16_t*>(mine);          // [32][bp]
@@ -317,7 +438,7 @@ edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
   int* lo = reinterpret_cast<int*>(st + 32 * bp);
   int* hi = lo + 32;
   const long long row =
-      ((long long)blockIdx.x * kRowWarps + warp) * (32 / nl) + sub;
+      ((long long)blockIdx.x * warps + warp) * (32 / nl) + sub;
   const bool on = row < rows;
   float* out = buf + (on ? row : 0) * w;
   // band b of the row holds columns [(b - b0) band, ...); its g at
@@ -357,7 +478,8 @@ edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
     const int gk = k < j1 ? gb[k - j0] : cap;
     if (gk < cap) {
       const int g2 = gk * gk;
-      while (cnt >= 2 && hidden_near(s0, g0, s1, g1, k, g2)) {
+      while (cnt >= 2 && (narrow ? hidden_near(s0, g0, s1, g1, k, g2)
+                               : hidden(s0, g0, s1, g1, k, g2))) {
         --cnt;
         s1 = s0;
         g1 = g0;
@@ -436,6 +558,12 @@ edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
   const unsigned full =
       __ballot_sync(0xffffffffu, hi[lane] > lo[lane]) & rows_bands;
   const int cap2 = cap * cap;
+  // d^2 <= cap^2: exact in float32 while cap <= 4096, where sqrtf of it
+  // is correctly rounded; above, the correctly rounded double root of the
+  // exact integer, rounded to float32 (scipy's float64 EDT as float32;
+  // below 2^24 the two agree, since 53 >= 2 x 24 + 2 makes the double
+  // rounding innocuous)
+  const bool f32_root = cap <= 4096;
   const bool vec = w % 4 == 0 && (uintptr_t)buf % 16 == 0;
   const bool walks = j0 < j1 && full;  // columns, and sites to walk
   int cb = 0, ci = 0, cs = 0, cg = 0, nb = -1, ni = 0, ns = 0, ng = 0;
@@ -464,7 +592,7 @@ edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
   }
   __syncwarp();
   auto distance = [&](int j) {
-    if (!walks) return (float)cap;
+    if (!walks) return (float)cap;  // exact: cap < 2^24
     while (nb >= 0 && parabola(j, ns, ng) <= parabola(j, cs, cg)) {
       cb = nb, ci = ni, cs = ns, cg = ng;
       step_next(nb, ni, lo, hi, full);
@@ -474,7 +602,9 @@ edt_row_kernel(float* __restrict__ buf, long long rows, int w, int cap) {
         ng *= ng;
       }
     }
-    return sqrtf((float)min(parabola(j, cs, cg), cap2));
+    const int d2 = min(parabola(j, cs, cg), cap2);
+    return f32_root ? sqrtf((float)d2)
+                    : __double2float_rn(__dsqrt_rn((double)d2));
   };
   // as in step 1, the lanes take `band` columns in step
   if (vec) {  // j0 and j1 are multiples of 4
@@ -502,8 +632,11 @@ cudaError_t launch_columns(const uint8_t* fg, float* out, long long n, int h,
   const int strips = (w + 32 * V - 1) / (32 * V);
   const long long blocks = n * strips;
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
-  // segments past 32 rows take 64-bit words
-  if (h > 32 * kSegs)
+  // segments past 32 rows take 64-bit words, past 64 three reads a row
+  if (h > 64 * kSegs)
+    edt_column_long_kernel<V><<<(unsigned)blocks, 32 * kSegs, 0, s>>>(
+        fg, out, h, w, strips);
+  else if (h > 32 * kSegs)
     edt_column_kernel<V, uint64_t><<<(unsigned)blocks, 32 * kSegs, 0, s>>>(
         fg, out, h, w, strips);
   else
@@ -521,6 +654,9 @@ int configure(int dev, cudaError_t& err) {
   if (dev >= 0 && dev < 64 && sms[dev]) return sms[dev];
   const void* kernels[] = {
       (const void*)edt_row_kernel,
+      (const void*)edt_column_long_kernel<4>,
+      (const void*)edt_column_long_kernel<2>,
+      (const void*)edt_column_long_kernel<1>,
       (const void*)edt_column_kernel<4, uint32_t>,
       (const void*)edt_column_kernel<4, uint64_t>,
       (const void*)edt_column_kernel<2, uint32_t>,
@@ -533,6 +669,11 @@ int configure(int dev, cudaError_t& err) {
              k, cudaFuncAttributePreferredSharedMemoryCarveout,
              cudaSharedmemCarveoutMaxShared)))
       return 0;
+  // rows wider than 2048 stage more than the 48 KB a block gets unasked
+  if ((err = cudaFuncSetAttribute(
+           (const void*)edt_row_kernel,
+           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem)))
+    return 0;
   if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)))
     return 0;
   if (dev >= 0 && dev < 64) sms[dev] = n;
@@ -557,11 +698,13 @@ int column_bytes(const void* fg, const void* out, long long n, int w,
 
 }  // namespace
 
-// fg: (n, h, w) uint8, nonzero = foreground; out: (n, h, w) float32.
-// Returns the CUDA error of the launches (0 on success).
+// fg: (n, h, w) uint8, nonzero = foreground; out: (n, h, w) float32;
+// h + w <= 46340 and w <= 32768 (a row warp's shared memory). Returns the
+// CUDA error of the launches (0 on success).
 extern "C" int ddti_edt(const void* fg, void* out, long long n, int h, int w,
                         void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || h > kMaxSide || w > kMaxSide)
+  if (n <= 0 || h <= 0 || w <= 0 || (long long)h + w > kMaxSum ||
+      row_smem(w) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const uint8_t* in = (const uint8_t*)fg;
@@ -578,13 +721,14 @@ extern "C" int ddti_edt(const void* fg, void* out, long long n, int h, int w,
   if (err != cudaSuccess) return (int)err;
 
   const long long rows = n * h;
-  const int per_block = kRowWarps * (32 / row_shape(w).lanes);
+  // 4 x 8,704 bytes at w = 2048; one warp of 131,584 at w = 32768
+  const int fit = kMaxSmem / row_smem(w);
+  const int warps = fit < kRowWarps ? fit : kRowWarps;
+  const int per_block = warps * (32 / row_shape(w).lanes);
   const long long blocks = (rows + per_block - 1) / per_block;
   if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  // at most 4 x 8,704 bytes (w = 2048): below the 48 KB that needs an
-  // opt-in
-  edt_row_kernel<<<(unsigned)blocks, 32 * kRowWarps,
-                   kRowWarps * row_smem(w), s>>>(o, rows, w, h + w);
+  edt_row_kernel<<<(unsigned)blocks, 32 * warps, warps * row_smem(w), s>>>(
+      o, rows, w, h + w);
   return (int)cudaGetLastError();
 }
 

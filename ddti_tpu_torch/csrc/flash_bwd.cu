@@ -21,12 +21,15 @@
 // summed by one thread in a fixed order, so the result does not depend on
 // block scheduling.
 //
-// Head widths: every D with D % 8 == 0 and 8 <= D <= 128, instantiated for
-// the padded widths DP = 32, 64, 128 with the actual D at run time (columns
-// D..DP-1 of the staged tiles are zeros and are not written back). Wider
-// heads are refused: the dK and dV accumulators live in registers (DP / 2
-// float32 of each per consumer thread, beside those of S^T and dP^T), which
-// run out past 128.
+// Head widths: every D with D % 8 == 0 (the wrapper pads any other D with
+// zero columns and passes the true width, scale_d, for the scales). Up to
+// 128, kernels instantiated for the padded widths DP = 32, 64, 128 with the
+// actual D at run time (columns D..DP-1 of the staged tiles are zeros and
+// are not written back). The dK and dV accumulators live in registers (DP
+// / 2 float32 of each per consumer thread, beside those of S^T and dP^T),
+// which run out past 128: wider heads run the wide kernels ("D > 128"
+// below), each block of which owns 128 of the outputs' columns. B*H: any;
+// blocks run over (row block, slice) on gridDim.x alone.
 //
 // What bounds it on an H100 (dense peaks 989 TFLOP/s bf16 and 495 TF32,
 // 3.35 TB/s, 16 exp2 per clock per SM at the 1980 MHz boost clock): at the
@@ -188,12 +191,14 @@ struct BwdSmem {
 };
 
 // Rows row0 + 16 warp + g + 8 r (r = 0, 1) of a wgmma accumulator times
-// `mul`, as bf16 rows of `out` (the rows before S, the columns below D).
+// `mul`, as bf16 rows of `out` (row stride D; the rows before S, the
+// columns below min(D, cols): a wide kernel's slice ends at cols).
 template <int DP>
 __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
                                            bf16* out, int row0, int S,
                                            int D, float mul, int warp, int g,
-                                           int t) {
+                                           int t, int cols = 1 << 30) {
+  const int end = min(D, cols);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + warp * 16 + g + 8 * r;
@@ -201,10 +206,102 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
     bf16* orow = out + (size_t)row * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n)
-      if (n * 8 < D)
+      if (n * 8 < end)
         *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(
             acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
   }
+}
+
+// One streamed tile of the bf16 dK/dV kernels, from S^T (p) and dP^T (ds)
+// of 64 keys x 64 queries: P^T = exp2(S^T c - lse2) and dV += P^T dO (P
+// rounded to bf16), then, while dV runs, dS^T = P^T (dP^T - delta) and
+// dK += dS^T q (dS rounded to bf16; the scale comes once, at the end).
+// lse_s, delta_s: the tile's queries' rows; do_tile, q_tile: its dO and q
+// tiles (or their slices), read with their rows as k. Waits for both.
+template <int DP>
+__device__ __forceinline__ void dkdv_tile(float (&p)[32], float (&ds)[32],
+                                          float (&dk_acc)[DP / 2],
+                                          float (&dv_acc)[DP / 2],
+                                          const float* lse_s,
+                                          const float* delta_s,
+                                          uint32_t do_tile, uint32_t q_tile,
+                                          float scale_log2, int t) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[4 * n + e] = flash_exp2(
+          fmaf(p[4 * n + e], scale_log2, -(e & 1 ? l2.y : l2.x)));
+  }
+  uint32_t pa[4][4];
+  to_a_fragments(p, pa);
+  fence_acc(dv_acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs_mn<DP>(dv_acc, pa[j], desc_mn_major<DP>(do_tile, j));
+  wgmma_commit();
+
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ds[4 * n + e] = p[4 * n + e] * (ds[4 * n + e] - (e & 1 ? d2.y : d2.x));
+  }
+  uint32_t dsa[4][4];
+  to_a_fragments(ds, dsa);
+  fence_acc(dk_acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs_mn<DP>(dk_acc, dsa[j], desc_mn_major<DP>(q_tile, j));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dv_acc);
+  fence_acc(dk_acc);
+}
+
+// The dQ kernels' dS of one streamed tile, in place of dP (ds): P =
+// exp2(S c - lse2), 0 for keys past S (TMA's zero rows there would give
+// exp2(-lse2)), dS = P (dP - delta), in float32; N accumulator elements a
+// thread over the 2N keys from k0; lse_r, delta_r: the thread's two query
+// rows'.
+template <int N>
+__device__ __forceinline__ void dq_scores(const float (&p)[N],
+                                          float (&ds)[N],
+                                          const float (&lse_r)[2],
+                                          const float (&delta_r)[2], int k0,
+                                          int S, float scale_log2, int t) {
+  const bool ragged = k0 + 2 * N > S;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    float pi = flash_exp2(fmaf(p[i], scale_log2, -lse_r[r]));
+    if (ragged && k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) pi = 0.f;
+    ds[i] = pi * (ds[i] - delta_r[r]);
+  }
+}
+
+// dQ += dS K over one tile of 64 keys, bf16: dS rounded to bf16 as the A
+// fragments, K's tile (or slice) read with its rows (keys) as k; waits for
+// the product
+template <int DP>
+__device__ __forceinline__ void dq_product(const float (&ds)[32],
+                                           float (&dq_acc)[DP / 2],
+                                           uint32_t k_tile) {
+  uint32_t dsa[4][4];
+  to_a_fragments(ds, dsa);
+  fence_acc(dq_acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    wgmma_rs_mn<DP>(dq_acc, dsa[j], desc_mn_major<DP>(k_tile, j));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dq_acc);
 }
 
 template <int DP>
@@ -223,8 +320,12 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + L::kStages;
   uint64_t* kv_full = empty + L::kStages;
-  const int slice = blockIdx.y;
-  const int k0 = blockIdx.x * L::kConsumers * kTileRows;
+  // blocks run over (key block, slice) on gridDim.x alone, so B*H has no
+  // 65535 bound
+  constexpr int kRows = L::kConsumers * kTileRows;
+  const int n_blocks = (S + kRows - 1) / kRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int k0 = (blockIdx.x % n_blocks) * kRows;
   const int n_tiles = (S + kBlockQ - 1) / kBlockQ;
   const int wg = threadIdx.x / 128;
   init_ring<L>(full);
@@ -291,47 +392,8 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_acc(p);
       fence_acc(ds);
 
-      // P^T = exp2(S^T c - lse2); dV += P^T dO, P rounded to bf16
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 l2 =
-            *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[4 * n + e] = flash_exp2(
-              fmaf(p[4 * n + e], scale_log2, -(e & 1 ? l2.y : l2.x)));
-      }
-      uint32_t pa[4][4];
-      to_a_fragments(p, pa);
-      fence_acc(dv_acc);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wgmma_rs_mn<DP>(dv_acc, pa[j], desc_mn_major<DP>(do_tile, j));
-      wgmma_commit();
-
-      // dS^T = P^T (dP^T - delta) while dV runs; dK += dS^T q, dS rounded
-      // to bf16 (the scale comes once, at the end)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 d2 =
-            *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[4 * n + e] =
-              p[4 * n + e] * (ds[4 * n + e] - (e & 1 ? d2.y : d2.x));
-      }
-      uint32_t dsa[4][4];
-      to_a_fragments(ds, dsa);
-      fence_acc(dk_acc);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wgmma_rs_mn<DP>(dk_acc, dsa[j], desc_mn_major<DP>(q_tile, j));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(dv_acc);
-      fence_acc(dk_acc);
+      dkdv_tile<DP>(p, ds, dk_acc, dv_acc, lse_s, delta_s, do_tile, q_tile,
+                    scale_log2, t);
       mbar_arrive(empty + st);
     }
 
@@ -359,8 +421,10 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + L::kStages;
   uint64_t* qdo_full = empty + L::kStages;
-  const int slice = blockIdx.y;
-  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  constexpr int kRows = L::kConsumers * kTileRows;
+  const int n_blocks = (S + kRows - 1) / kRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int q0 = (blockIdx.x % n_blocks) * kRows;
   const int n_tiles = (S + kBlockK - 1) / kBlockK;
   const int wg = threadIdx.x / 128;
   init_ring<L>(full);
@@ -432,28 +496,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_acc(p);
       fence_acc(ds);
 
-      // P = exp2(S c - lse2), 0 for keys past S (TMA's zero rows there
-      // would give exp2(-lse2)); dS = P (dP - delta)
-      const int k0 = it * kBlockK;
-      const bool ragged = k0 + kBlockK > S;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i >> 1) & 1;
-        float pi = flash_exp2(fmaf(p[i], scale_log2, -lse_r[r]));
-        if (ragged && k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) pi = 0.f;
-        ds[i] = pi * (ds[i] - delta_r[r]);
-      }
-      // dQ += dS K, dS rounded to bf16, K read with its rows (keys) as k
-      uint32_t dsa[4][4];
-      to_a_fragments(ds, dsa);
-      fence_acc(dq_acc);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wgmma_rs_mn<DP>(dq_acc, dsa[j], desc_mn_major<DP>(k_tile, j));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(dq_acc);
+      dq_scores(p, ds, lse_r, delta_r, it * kBlockK, S, scale_log2, t);
+      dq_product<DP>(ds, dq_acc, k_tile);
       mbar_arrive(empty + st);
     }
 
@@ -474,7 +518,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 //   positions of each group of 8 in the order {0, 2, 4, 6, 1, 3, 5, 7}
 //   that split_fragments expects of a B operand met by an accumulator.
 // Four threads a row for delta, 16 bytes at a time; the transposes pass
-// through shared memory.
+// through shared memory, kMaxD columns at a time (any D).
 __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_rows_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -486,7 +530,9 @@ flash_bwd_rows_f32_kernel(const float* __restrict__ q,
                           float* __restrict__ split, float* __restrict__ trans,
                           int bh, int s, int sp, int D) {
   __shared__ float tile[kTileRows][kMaxD + 1];
-  const int slice = blockIdx.y, r0 = blockIdx.x * kTileRows;
+  const int n_blocks = sp / kTileRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int r0 = blockIdx.x % n_blocks * kTileRows;
   const int tid = threadIdx.x, D4 = D / 4;  // 16-byte chunks of a row
   {
     const int r = tid / 4, part = tid % 4, row = r0 + r;
@@ -515,31 +561,37 @@ flash_bwd_rows_f32_kernel(const float* __restrict__ q,
   for (int x = 0; x < 4; ++x) {
     const float* in = src[x] + (size_t)slice * plane;
     float* out = split + ((size_t)x * bh + slice) * 2 * plane;
-    for (int i = tid; i < kTileRows * D4; i += kDeltaThreads) {
-      const int r = i / D4, c = 4 * (i - r * D4), row = r0 + r;
-      float val[4] = {0.f, 0.f, 0.f, 0.f};
-      if (row < s) {
-        const float4 f =
-            *reinterpret_cast<const float4*>(in + (size_t)row * D + c);
-        val[0] = f.x, val[1] = f.y, val[2] = f.z, val[3] = f.w;
-        uint32_t hi[4], lo[4];
+    for (int c0 = 0; c0 < D; c0 += kMaxD) {
+      const int C4 = min(kMaxD, D - c0) / 4;  // 16-byte chunks of the chunk
+      for (int i = tid; i < kTileRows * C4; i += kDeltaThreads) {
+        const int r = i / C4, cc = 4 * (i - r * C4), c = c0 + cc;
+        const int row = r0 + r;
+        float val[4] = {0.f, 0.f, 0.f, 0.f};
+        if (row < s) {
+          const float4 f =
+              *reinterpret_cast<const float4*>(in + (size_t)row * D + c);
+          val[0] = f.x, val[1] = f.y, val[2] = f.z, val[3] = f.w;
+          uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) split_tf32(val[j], hi[j], lo[j]);
-        *reinterpret_cast<uint4*>(out + (size_t)row * D + c) =
-            make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(out + plane + (size_t)row * D + c) =
-            make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          for (int j = 0; j < 4; ++j) split_tf32(val[j], hi[j], lo[j]);
+          *reinterpret_cast<uint4*>(out + (size_t)row * D + c) =
+              make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(out + plane + (size_t)row * D + c) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+        if (to_trans[x] >= 0)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tile[r][cc + j] = val[j];
       }
-      if (to_trans[x] >= 0)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) tile[r][c + j] = val[j];
+      if (to_trans[x] < 0) continue;
+      __syncthreads();
+      store_trans_split<kDeltaThreads>(
+          tile,
+          trans + ((size_t)to_trans[x] * bh + slice) * 2 * tplane +
+              (size_t)c0 * sp,
+          tplane, sp, r0, 4 * C4);
+      __syncthreads();
     }
-    if (to_trans[x] < 0) continue;
-    __syncthreads();
-    store_trans_split<kDeltaThreads>(
-        tile, trans + ((size_t)to_trans[x] * bh + slice) * 2 * tplane, tplane,
-        sp, r0, D);
-    __syncthreads();
   }
 }
 
@@ -581,7 +633,9 @@ template <int DP>
 __device__ __forceinline__ void store_rows_f32(const float (&acc)[DP / 2],
                                                float* out, int row0, int S,
                                                int D, float mul, int warp,
-                                               int g, int t) {
+                                               int g, int t,
+                                               int cols = 1 << 30) {
+  const int end = min(D, cols);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + warp * 16 + g + 8 * r;
@@ -589,9 +643,32 @@ __device__ __forceinline__ void store_rows_f32(const float (&acc)[DP / 2],
     float* orow = out + (size_t)row * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n)
-      if (n * 8 < D)
+      if (n * 8 < end)
         *reinterpret_cast<float2*>(orow + n * 8) = make_float2(
             acc[4 * n + 2 * r] * mul, acc[4 * n + 2 * r + 1] * mul);
+  }
+}
+
+// The float32 dK/dV kernels' P^T = exp2(S^T c - lse2) and dS^T = P^T (dP^T
+// - delta), in place of S^T (p) and dP^T (dp), of 64 keys x B queries;
+// lse_s, delta_s: the tile's queries' rows
+template <int B>
+__device__ __forceinline__ void dkdv_scores_f32(float (&p)[B / 2],
+                                                float (&dp)[B / 2],
+                                                const float* lse_s,
+                                                const float* delta_s,
+                                                float scale_log2, int t) {
+#pragma unroll
+  for (int j = 0; j < B / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      p[i] = flash_exp2(fmaf(p[i], scale_log2, -(e & 1 ? l2.y : l2.x)));
+      dp[i] = p[i] * (dp[i] - (e & 1 ? d2.y : d2.x));
+    }
   }
 }
 
@@ -613,8 +690,10 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + L::kStages;
   uint64_t* kv_full = empty + L::kStages;
-  const int slice = blockIdx.y;
-  const int k0 = blockIdx.x * L::kConsumers * kTileRows;
+  constexpr int kRows = L::kConsumers * kTileRows;
+  const int n_blocks = (S + kRows - 1) / kRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int k0 = (blockIdx.x % n_blocks) * kRows;
   const int n_tiles = (S + B - 1) / B;
   const int wg = threadIdx.x / 128;
   init_ring<L>(full);
@@ -678,23 +757,9 @@ flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap k_map,
       fence_acc(p);
       fence_acc(dp);
 
-      // P^T = exp2(S^T c - lse2) and dS^T = P^T (dP^T - delta) in float32
       const float* lse_s = reinterpret_cast<const float*>(
           smem + L::rows + (n % L::kStages) * L::kRowBytes);
-      const float* delta_s = lse_s + B;
-#pragma unroll
-      for (int j = 0; j < B / 8; ++j) {
-        const float2 l2 =
-            *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
-        const float2 d2 =
-            *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * j + e;
-          p[i] = flash_exp2(fmaf(p[i], scale_log2, -(e & 1 ? l2.y : l2.x)));
-          dp[i] = p[i] * (dp[i] - (e & 1 ? d2.y : d2.x));
-        }
-      }
+      dkdv_scores_f32<B>(p, dp, lse_s, lse_s + B, scale_log2, t);
       mbar_arrive(empty + n % L::kStages);
       mbar_arrive(empty + (n + 1) % L::kStages);
 
@@ -737,8 +802,10 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + L::kStages;
   uint64_t* qdo_full = empty + L::kStages;
-  const int slice = blockIdx.y;
-  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  constexpr int kRows = L::kConsumers * kTileRows;
+  const int n_blocks = (S + kRows - 1) / kRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int q0 = (blockIdx.x % n_blocks) * kRows;
   const int n_tiles = (S + B - 1) / B;
   const int wg = threadIdx.x / 128;
   init_ring<L>(full);
@@ -809,17 +876,7 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_arrive(empty + n % L::kStages);
       mbar_arrive(empty + (n + 1) % L::kStages);
 
-      // P = exp2(S c - lse2), 0 for keys past S (TMA's zero rows there
-      // would give exp2(-lse2)); dS = P (dP - delta) in float32
-      const int kb = it * B;
-      const bool ragged = kb + B > S;
-#pragma unroll
-      for (int i = 0; i < B / 2; ++i) {
-        const int r = (i >> 1) & 1;
-        float pi = flash_exp2(fmaf(p[i], scale_log2, -lse_r[r]));
-        if (ragged && kb + (i / 4) * 8 + 2 * t + (i & 1) >= S) pi = 0.f;
-        ds[i] = pi * (ds[i] - delta_r[r]);
-      }
+      dq_scores(p, ds, lse_r, delta_r, it * B, S, scale_log2, t);
       // dQ += dS K (K^T's rows), each tile's product summed apart
       uint32_t sh[B / 8][4], sl[B / 8][4];
       split_fragments<B>(ds, sh, sl);
@@ -830,6 +887,435 @@ flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap q_map,
 
     store_rows_f32<DP>(dq_acc, dq + (size_t)slice * S * D, row0, S, D, scale,
                        warp, g, t);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D > 128: the wide kernels, TMA + wgmma over D-chunks, nothing resident
+//
+// A block is one consumer warpgroup of 64 rows (dK/dV: keys; dQ: queries)
+// and the output columns [128 j, 128 j + 128) (slice j of ceil(D / 128)),
+// and a producer warpgroup whose one thread streams everything a tile of
+// the other side needs through a ring: the D-chunks of the two score
+// products (a chunk's two operands a slot), then the slice's operands of
+// the output products. Each block recomputes P and dS over the whole of D
+// for its slice, so the scores' products run once per slice: with n
+// slices the pair does (2 + 2n) (dK/dV) and (2 + n) (dQ) units of an
+// (S, S, D) product where one pass would do 4 and 3. Nothing is resident,
+// so D has no bound but that of the grid.
+
+struct WideBwdSmem {
+  using T = Tile<128>;
+  static constexpr int kConsumers = 1;
+  static constexpr int kThreads = 256;
+  static constexpr int kStages = 6;
+  static constexpr uint32_t kPart = 2 * T::kBytes;
+  static constexpr uint32_t kRowBytes = 2 * kTileRows * 4;
+  static constexpr uint32_t stages = 0;
+  static constexpr uint32_t rows = kStages * kPart;
+  static constexpr uint32_t bars = rows + kStages * kRowBytes;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+__global__ void __launch_bounds__(WideBwdSmem::kThreads, 1)
+flash_bwd_dkdv_wide_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap do_map,
+                                const __grid_constant__ CUtensorMap rows_map,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int S, int D, float scale_log2, float scale) {
+  using T = Tile<128>;
+  using L = WideBwdSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  const int n_blocks = (S + kTileRows - 1) / kTileRows;
+  const int n_chunks = (D + 127) / 128;
+  const int rest = blockIdx.x / n_blocks;
+  const int k0 = blockIdx.x % n_blocks * kTileRows;
+  const int j = rest % n_chunks, slice = rest / n_chunks;
+  const int n_tiles = (S + kBlockQ - 1) / kBlockQ;
+  const int parts = 2 * n_chunks + 1;  // ring slots a query tile
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
+
+  if (wg == 1) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      for (int n = 0; n < n_tiles * parts; ++n) {
+        const int it = n / parts, c = n % parts, st = n % L::kStages;
+        const int q0 = it * kBlockQ;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        unsigned char* dst = smem + st * L::kPart;
+        if (c < 2 * n_chunks) {
+          // S^T's chunks (K_c, q_c), then dP^T's (V_c, dO_c)
+          const bool s_part = c < n_chunks;
+          const int col = 128 * (c % n_chunks);
+          mbar_expect_tx(full + st, 2 * T::kBytes);
+          tma_load_tile<128>(dst, s_part ? &k_map : &v_map, full + st, k0,
+                             slice, col);
+          tma_load_tile<128>(dst + T::kBytes, s_part ? &q_map : &do_map,
+                             full + st, q0, slice, col);
+        } else {
+          // the slice's dO and q, with the tile's lse2 and delta rows
+          mbar_expect_tx(full + st, 2 * T::kBytes + L::kRowBytes);
+          tma_load_tile<128>(dst, &do_map, full + st, q0, slice, 128 * j);
+          tma_load_tile<128>(dst + T::kBytes, &q_map, full + st, q0, slice,
+                             128 * j);
+          tma_load(smem + L::rows + st * L::kRowBytes, &rows_map, full + st,
+                   q0, 2 * slice);
+        }
+      }
+    }
+  } else {  // the consumer: keys k0 .. k0 + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    float dk_acc[64], dv_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      // S^T = K q^T and dP^T = V dO^T over every chunk: element 4n + e is
+      // key g + 8 (e >> 1), query it * 64 + 8n + 2t + (e & 1)
+      const int n0 = it * parts;
+      float p[32], ds[32];
+      chunk_scores<L>(p, full, smem, n0, n_chunks);
+      chunk_scores<L>(ds, full, smem, n0 + n_chunks, n_chunks);
+      const int n = n0 + 2 * n_chunks, st = n % L::kStages;
+      // the slice's dO and q tiles, with the tile's rows
+      const uint32_t do_tile = wait_part<L>(full, smem, n);
+      const float* lse_s =
+          reinterpret_cast<const float*>(smem + L::rows + st * L::kRowBytes);
+      dkdv_tile<128>(p, ds, dk_acc, dv_acc, lse_s, lse_s + kTileRows,
+                     do_tile, do_tile + T::kBytes, scale_log2, t);
+      mbar_arrive(empty + st);
+    }
+
+    const size_t base = (size_t)slice * S * D + 128 * j;
+    store_rows<128>(dk_acc, dk + base, k0, S, D, scale, warp, g, t,
+                    D - 128 * j);
+    store_rows<128>(dv_acc, dv + base, k0, S, D, 1.f, warp, g, t,
+                    D - 128 * j);
+  }
+}
+
+__global__ void __launch_bounds__(WideBwdSmem::kThreads, 1)
+flash_bwd_dq_wide_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              bf16* __restrict__ dq, int S, int D,
+                              float scale_log2, float scale) {
+  using T = Tile<128>;
+  using L = WideBwdSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  const int n_blocks = (S + kTileRows - 1) / kTileRows;
+  const int n_chunks = (D + 127) / 128;
+  const int rest = blockIdx.x / n_blocks;
+  const int q0 = blockIdx.x % n_blocks * kTileRows;
+  const int j = rest % n_chunks, slice = rest / n_chunks;
+  const int n_tiles = (S + kBlockK - 1) / kBlockK;
+  const int parts = 2 * n_chunks + 1;  // ring slots a key tile
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
+
+  if (wg == 1) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      for (int n = 0; n < n_tiles * parts; ++n) {
+        const int it = n / parts, c = n % parts, st = n % L::kStages;
+        const int kt = it * kBlockK;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        unsigned char* dst = smem + st * L::kPart;
+        if (c < 2 * n_chunks) {
+          // S's chunks (q_c, K_c), then dP's (dO_c, V_c)
+          const bool s_part = c < n_chunks;
+          const int col = 128 * (c % n_chunks);
+          mbar_expect_tx(full + st, 2 * T::kBytes);
+          tma_load_tile<128>(dst, s_part ? &q_map : &do_map, full + st, q0,
+                             slice, col);
+          tma_load_tile<128>(dst + T::kBytes, s_part ? &k_map : &v_map,
+                             full + st, kt, slice, col);
+        } else {  // K's slice
+          mbar_expect_tx(full + st, T::kBytes);
+          tma_load_tile<128>(dst, &k_map, full + st, kt, slice, 128 * j);
+        }
+      }
+    }
+  } else {  // the consumer: queries q0 .. q0 + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      lse_r[r] = row < S ? lse[(size_t)slice * S + row] : INFINITY;
+      delta_r[r] = row < S ? delta[(size_t)slice * S + row] : 0.f;
+    }
+    float dq_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      // S = q K^T and dP = dO V^T over every chunk: element 4n + e is
+      // query g + 8 (e >> 1), key it * 64 + 8n + 2t + (e & 1)
+      const int n0 = it * parts;
+      float p[32], ds[32];
+      chunk_scores<L>(p, full, smem, n0, n_chunks);
+      chunk_scores<L>(ds, full, smem, n0 + n_chunks, n_chunks);
+
+      dq_scores(p, ds, lse_r, delta_r, it * kBlockK, S, scale_log2, t);
+      // dQ += dS K over K's slice
+      const int n = n0 + 2 * n_chunks;
+      dq_product<128>(ds, dq_acc, wait_part<L>(full, smem, n));
+      mbar_arrive(empty + n % L::kStages);
+    }
+
+    store_rows<128>(dq_acc, dq + (size_t)slice * S * D + 128 * j, q0, S, D,
+                    scale, warp, g, t, D - 128 * j);
+  }
+}
+
+// float32: the same blocks on the 3xTF32 planes of the pre-pass. A score
+// chunk is 64 columns: the block's own 64 rows (dK/dV: K or V; dQ: q or
+// dO) and kBlk = 32 rows of the streamed side, hi and lo planes each, one
+// slot; each chunk's product is summed in a fresh accumulator and added on
+// the CUDA cores (as acc_tile does); the output products read the slice's
+// 128 rows of the transposed planes (dO^T and q^T; K^T), one slot each.
+struct WideBwdSmemF32 {
+  static constexpr int kConsumers = 1;
+  static constexpr int kThreads = 256;
+  static constexpr int kW = 64;    // columns of a score chunk
+  static constexpr int kBlk = 32;  // streamed rows a tile
+  static constexpr uint32_t kOwnPlane = kTileRows * kW * 4;  // 16 KB
+  static constexpr uint32_t kStrPlane = kBlk * kW * 4;       // 8 KB
+  static constexpr uint32_t kOutPlane = 128 * kBlk * 4;      // 16 KB
+  static constexpr uint32_t kPart = 2 * kOwnPlane + 2 * kStrPlane;
+  static_assert(2 * kOutPlane <= kPart, "slot");
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kRowBytes = 2 * kBlk * 4;
+  static constexpr uint32_t stages = 0;
+  static constexpr uint32_t rows = kStages * kPart;
+  static constexpr uint32_t bars = rows + kStages * kRowBytes;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+// d (64 x kBlk) = sum over `chunks` score chunks at ring positions n0 ..,
+// each the block's rows A_c and the streamed rows B_c, split hi / lo
+__device__ __forceinline__ void chunk_scores_f32(float (&d)[16],
+                                                 uint64_t* full,
+                                                 unsigned char* smem, int n0,
+                                                 int chunks) {
+  using L = WideBwdSmemF32;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) d[i] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const uint32_t a = wait_part<L>(full, smem, n0 + c);
+    const uint32_t b = a + 2 * L::kOwnPlane;
+    float tmp[16];
+    wgmma_fence();
+    product3_ss<L::kBlk, kTileRows, L::kW / 8>(tmp, a, a + L::kOwnPlane, b,
+                                               b + L::kStrPlane);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(tmp);
+    mbar_arrive(full + L::kStages + (n0 + c) % L::kStages);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) d[i] += tmp[i];
+  }
+}
+
+__global__ void __launch_bounds__(WideBwdSmemF32::kThreads, 1)
+flash_bwd_dkdv_wide_f32_kernel(const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const __grid_constant__ CUtensorMap dot_map,
+                               const __grid_constant__ CUtensorMap qt_map,
+                               const __grid_constant__ CUtensorMap rows_map,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int S, int D, float scale_log2, float scale) {
+  using L = WideBwdSmemF32;
+  constexpr int B = L::kBlk;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  const int n_blocks = (S + kTileRows - 1) / kTileRows;
+  const int n_chunks = (D + L::kW - 1) / L::kW;
+  const int n_slices = (D + 127) / 128;
+  const int rest = blockIdx.x / n_blocks;
+  const int k0 = blockIdx.x % n_blocks * kTileRows;
+  const int j = rest % n_slices, slice = rest / n_slices;
+  const int n_tiles = (S + B - 1) / B;
+  const int parts = 2 * n_chunks + 2;  // ring slots a query tile
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
+
+  if (wg == 1) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      for (int n = 0; n < n_tiles * parts; ++n) {
+        const int it = n / parts, c = n % parts, st = n % L::kStages;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        unsigned char* dst = smem + st * L::kPart;
+        if (c < 2 * n_chunks) {
+          // S^T's chunks (K_c, q_c), then dP^T's (V_c, dO_c)
+          const bool s_part = c < n_chunks;
+          const int col = L::kW * (c % n_chunks);
+          mbar_expect_tx(full + st, L::kPart);
+          tma_load_split<L::kW, kTileRows>(dst, s_part ? &k_map : &v_map,
+                                           full + st, k0, slice, col);
+          tma_load_split<L::kW, B>(dst + 2 * L::kOwnPlane,
+                                   s_part ? &q_map : &do_map, full + st,
+                                   it * B, slice, col);
+        } else if (c == 2 * n_chunks) {  // dO^T's slice, lse2 and delta
+          mbar_expect_tx(full + st, 2 * L::kOutPlane + L::kRowBytes);
+          tma_load_trans<128, B>(dst, &dot_map, full + st, it * B, slice,
+                                 128 * j);
+          tma_load(smem + L::rows + st * L::kRowBytes, &rows_map, full + st,
+                   it * B, 2 * slice);
+        } else {  // q^T's slice
+          mbar_expect_tx(full + st, 2 * L::kOutPlane);
+          tma_load_trans<128, B>(dst, &qt_map, full + st, it * B, slice,
+                                 128 * j);
+        }
+      }
+    }
+  } else {  // the consumer: keys k0 .. k0 + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    float dk_acc[64], dv_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n0 = it * parts;
+      float p[B / 2], dp[B / 2];
+      chunk_scores_f32(p, full, smem, n0, n_chunks);
+      chunk_scores_f32(dp, full, smem, n0 + n_chunks, n_chunks);
+      const int n = n0 + 2 * n_chunks;
+      const uint32_t dot_hi = wait_part<L>(full, smem, n);
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem + L::rows + (n % L::kStages) * L::kRowBytes);
+      dkdv_scores_f32<B>(p, dp, lse_s, lse_s + B, scale_log2, t);
+      // dV += P^T dO (dO^T's rows), then dK += dS^T q (q^T's rows)
+      uint32_t ph[B / 8][4], pl[B / 8][4];
+      split_fragments<B>(p, ph, pl);
+      acc_tile<128, B>(dv_acc, ph, pl, dot_hi, dot_hi + L::kOutPlane);
+      mbar_arrive(empty + n % L::kStages);
+      uint32_t sh[B / 8][4], sl[B / 8][4];
+      split_fragments<B>(dp, sh, sl);
+      const uint32_t qt_hi = wait_part<L>(full, smem, n + 1);
+      acc_tile<128, B>(dk_acc, sh, sl, qt_hi, qt_hi + L::kOutPlane);
+      mbar_arrive(empty + (n + 1) % L::kStages);
+    }
+
+    const size_t base = (size_t)slice * S * D + 128 * j;
+    store_rows_f32<128>(dk_acc, dk + base, k0, S, D, scale, warp, g, t,
+                        D - 128 * j);
+    store_rows_f32<128>(dv_acc, dv + base, k0, S, D, 1.f, warp, g, t,
+                        D - 128 * j);
+  }
+}
+
+__global__ void __launch_bounds__(WideBwdSmemF32::kThreads, 1)
+flash_bwd_dq_wide_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap kt_map,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq, int S, int D,
+                             float scale_log2, float scale) {
+  using L = WideBwdSmemF32;
+  constexpr int B = L::kBlk;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  const int n_blocks = (S + kTileRows - 1) / kTileRows;
+  const int n_chunks = (D + L::kW - 1) / L::kW;
+  const int n_slices = (D + 127) / 128;
+  const int rest = blockIdx.x / n_blocks;
+  const int q0 = blockIdx.x % n_blocks * kTileRows;
+  const int j = rest % n_slices, slice = rest / n_slices;
+  const int n_tiles = (S + B - 1) / B;
+  const int parts = 2 * n_chunks + 1;  // ring slots a key tile
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
+
+  if (wg == 1) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      for (int n = 0; n < n_tiles * parts; ++n) {
+        const int it = n / parts, c = n % parts, st = n % L::kStages;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        unsigned char* dst = smem + st * L::kPart;
+        if (c < 2 * n_chunks) {
+          // S's chunks (q_c, K_c), then dP's (dO_c, V_c)
+          const bool s_part = c < n_chunks;
+          const int col = L::kW * (c % n_chunks);
+          mbar_expect_tx(full + st, L::kPart);
+          tma_load_split<L::kW, kTileRows>(dst, s_part ? &q_map : &do_map,
+                                           full + st, q0, slice, col);
+          tma_load_split<L::kW, B>(dst + 2 * L::kOwnPlane,
+                                   s_part ? &k_map : &v_map, full + st,
+                                   it * B, slice, col);
+        } else {  // K^T's slice
+          mbar_expect_tx(full + st, 2 * L::kOutPlane);
+          tma_load_trans<128, B>(dst, &kt_map, full + st, it * B, slice,
+                                 128 * j);
+        }
+      }
+    }
+  } else {  // the consumer: queries q0 .. q0 + 63
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      lse_r[r] = row < S ? lse[(size_t)slice * S + row] : INFINITY;
+      delta_r[r] = row < S ? delta[(size_t)slice * S + row] : 0.f;
+    }
+    float dq_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n0 = it * parts;
+      float p[B / 2], ds[B / 2];
+      chunk_scores_f32(p, full, smem, n0, n_chunks);
+      chunk_scores_f32(ds, full, smem, n0 + n_chunks, n_chunks);
+      dq_scores(p, ds, lse_r, delta_r, it * B, S, scale_log2, t);
+      // dQ += dS K (K^T's rows)
+      uint32_t sh[B / 8][4], sl[B / 8][4];
+      split_fragments<B>(ds, sh, sl);
+      const int n = n0 + 2 * n_chunks;
+      const uint32_t kt_hi = wait_part<L>(full, smem, n);
+      acc_tile<128, B>(dq_acc, sh, sl, kt_hi, kt_hi + L::kOutPlane);
+      mbar_arrive(empty + n % L::kStages);
+    }
+
+    store_rows_f32<128>(dq_acc, dq + (size_t)slice * S * D + 128 * j, q0, S,
+                        D, scale, warp, g, t, D - 128 * j);
   }
 }
 
@@ -867,31 +1353,65 @@ struct F32Planes {
   const float* kt() const { return trans + 2 * tplane; }
 };
 
+// a one-dimensional grid of row blocks times `bh` slices times `slices`
+// output slices, or 0 where it exceeds gridDim.x's 2^31 - 1
+unsigned grid_of(int s, int rows, int bh, int slices = 1) {
+  const long long n = (long long)((s + rows - 1) / rows) * bh * slices;
+  return n <= 0x7fffffffll ? (unsigned)n : 0u;
+}
+
+// The pre-pass: delta, the padded rows, and in float32 the operand planes.
+// LPR (bf16): threads a row, 8 columns each at a time.
+template <int LPR>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, float* rows, void* scratch, int bh,
+                        int s, int d, bool use_bf16, cudaStream_t st) {
+  const int sp = round_up_tile(s);
+  if (use_bf16) {
+    const size_t threads = (size_t)bh * sp * LPR;
+    const size_t blocks = (threads + kDeltaThreads - 1) / kDeltaThreads;
+    if (blocks > 0x7fffffffull) return cudaErrorInvalidValue;
+    flash_bwd_rows_bf16_kernel<LPR><<<(unsigned)blocks, kDeltaThreads, 0,
+                                      st>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+        delta, rows, bh, s, sp, d);
+  } else {
+    const F32Planes f(scratch, bh, s, sp, d);
+    const unsigned grid = grid_of(sp, kTileRows, bh);
+    if (!grid) return cudaErrorInvalidValue;
+    flash_bwd_rows_f32_kernel<<<grid, kDeltaThreads, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(dout), lse, delta, rows, f.split, f.trans,
+        bh, s, sp, d);
+  }
+  return cudaGetLastError();
+}
+
+// the scores' scales D^-1/2 and D^-1/2 log2(e) of the head width `d`
+struct Scales {
+  float scale, scale_log2;
+  explicit Scales(int d)
+      : scale((float)(1.0 / sqrt((double)d))),
+        scale_log2((float)(kLog2e / sqrt((double)d))) {}
+};
+
 template <int DP>
 cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, const float* lse,
-                        float* delta, float* rows, void* scratch, void* dk,
-                        void* dv, int bh, int s, int d, bool use_bf16,
-                        cudaStream_t st) {
-  const float scale = (float)(1.0 / sqrt((double)d));
-  const float scale_log2 = (float)(kLog2e / sqrt((double)d));
+                        const void* dout, void* rows, void* scratch, void* dk,
+                        void* dv, int bh, int s, int d, Scales sc,
+                        bool use_bf16, cudaStream_t st) {
+  const float scale = sc.scale, scale_log2 = sc.scale_log2;
   const int sp = round_up_tile(s);
   cudaError_t err;
   if (use_bf16) {
-    constexpr int kLpr = DP / 8;  // threads per row, 8 columns each
-    const size_t threads = (size_t)bh * sp * kLpr;
-    flash_bwd_rows_bf16_kernel<kLpr>
-        <<<(unsigned)((threads + kDeltaThreads - 1) / kDeltaThreads),
-           kDeltaThreads, 0, st>>>(static_cast<const bf16*>(o),
-                                   static_cast<const bf16*>(dout), lse,
-                                   delta, rows, bh, s, sp, d);
-    if ((err = cudaGetLastError())) return err;
     CUtensorMap qm, km, vm, dom, rm;
     if ((err = tile_map<DP>(&qm, q, bh, s, d)) ||
         (err = tile_map<DP>(&km, k, bh, s, d)) ||
         (err = tile_map<DP>(&vm, v, bh, s, d)) ||
         (err = tile_map<DP>(&dom, dout, bh, s, d)) ||
-        (err = rows_map(&rm, rows, bh, sp)))
+        (err = rows_map(&rm, static_cast<float*>(rows), bh, sp)))
       return err;
     using L = BwdSmem<DP, true>;
     static std::atomic<uint64_t> smem_set{0};
@@ -901,20 +1421,13 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
     static const cudaError_t pool = check_register_pool(
         flash_bwd_dkdv_bf16_kernel<DP>, L::kConsumers);
     if (pool != cudaSuccess) return pool;
-    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
-    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    const unsigned grid = grid_of(s, L::kConsumers * kTileRows, bh);
+    if (!grid) return cudaErrorInvalidValue;
     flash_bwd_dkdv_bf16_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
         qm, km, vm, dom, rm, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
         s, d, scale_log2, scale);
   } else {
     const F32Planes f(scratch, bh, s, sp, d);
-    flash_bwd_rows_f32_kernel<<<dim3(sp / kTileRows, bh), kDeltaThreads, 0,
-                                st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(o),
-        static_cast<const float*>(dout), lse, delta, rows,
-        f.split, f.trans, bh, s, sp, d);
-    if ((err = cudaGetLastError())) return err;
     using L = BwdSmemF32<DP, 4>;
     CUtensorMap km, vm, qm, dom, dotm, qtm, rm;
     if ((err = split_map(&km, f.k(), bh, s, d, kTileRows)) ||
@@ -923,7 +1436,7 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
         (err = split_map(&dom, f.dout(), bh, s, d, L::kBlk)) ||
         (err = trans_map(&dotm, f.dot(), bh, d, sp, DP)) ||
         (err = trans_map(&qtm, f.qt(), bh, d, sp, DP)) ||
-        (err = rows_map(&rm, rows, bh, sp, L::kBlk)))
+        (err = rows_map(&rm, static_cast<float*>(rows), bh, sp, L::kBlk)))
       return err;
     static std::atomic<uint64_t> smem_set{0};
     if ((err = set_smem_once(flash_bwd_dkdv_f32_kernel<DP>, L::bytes,
@@ -932,9 +1445,66 @@ cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
     static const cudaError_t pool = check_register_pool(
         flash_bwd_dkdv_f32_kernel<DP>, L::kConsumers);
     if (pool != cudaSuccess) return pool;
-    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
-    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    const unsigned grid = grid_of(s, L::kConsumers * kTileRows, bh);
+    if (!grid) return cudaErrorInvalidValue;
     flash_bwd_dkdv_f32_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
+        km, vm, qm, dom, dotm, qtm, rm, static_cast<float*>(dk),
+        static_cast<float*>(dv), s, d, scale_log2, scale);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkdv_wide(const void* q, const void* k, const void* v,
+                             const void* dout, void* rows, void* scratch,
+                             void* dk, void* dv, int bh, int s, int d,
+                             Scales sc, bool use_bf16, cudaStream_t st) {
+  const float scale = sc.scale, scale_log2 = sc.scale_log2;
+  const int sp = round_up_tile(s);
+  const int slices = (d + 127) / 128;
+  cudaError_t err;
+  if (use_bf16) {
+    using L = WideBwdSmem;
+    CUtensorMap qm, km, vm, dom, rm;
+    if ((err = tile_map<128>(&qm, q, bh, s, d)) ||
+        (err = tile_map<128>(&km, k, bh, s, d)) ||
+        (err = tile_map<128>(&vm, v, bh, s, d)) ||
+        (err = tile_map<128>(&dom, dout, bh, s, d)) ||
+        (err = rows_map(&rm, static_cast<float*>(rows), bh, sp)))
+      return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dkdv_wide_bf16_kernel, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool =
+        check_register_pool(flash_bwd_dkdv_wide_bf16_kernel, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    const unsigned grid = grid_of(s, kTileRows, bh, slices);
+    if (!grid) return cudaErrorInvalidValue;
+    flash_bwd_dkdv_wide_bf16_kernel<<<grid, L::kThreads, L::bytes, st>>>(
+        qm, km, vm, dom, rm, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        s, d, scale_log2, scale);
+  } else {
+    using L = WideBwdSmemF32;
+    const F32Planes f(scratch, bh, s, sp, d);
+    CUtensorMap km, vm, qm, dom, dotm, qtm, rm;
+    if ((err = split_map(&km, f.k(), bh, s, d, kTileRows)) ||
+        (err = split_map(&vm, f.v(), bh, s, d, kTileRows)) ||
+        (err = split_map(&qm, f.q(), bh, s, d, L::kBlk)) ||
+        (err = split_map(&dom, f.dout(), bh, s, d, L::kBlk)) ||
+        (err = trans_map(&dotm, f.dot(), bh, d, sp, 128)) ||
+        (err = trans_map(&qtm, f.qt(), bh, d, sp, 128)) ||
+        (err = rows_map(&rm, static_cast<float*>(rows), bh, sp, L::kBlk)))
+      return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dkdv_wide_f32_kernel, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool =
+        check_register_pool(flash_bwd_dkdv_wide_f32_kernel, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    const unsigned grid = grid_of(s, kTileRows, bh, slices);
+    if (!grid) return cudaErrorInvalidValue;
+    flash_bwd_dkdv_wide_f32_kernel<<<grid, L::kThreads, L::bytes, st>>>(
         km, vm, qm, dom, dotm, qtm, rm, static_cast<float*>(dk),
         static_cast<float*>(dv), s, d, scale_log2, scale);
   }
@@ -945,9 +1515,8 @@ template <int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* scratch, void* dq, int bh, int s, int d,
-                      bool use_bf16, cudaStream_t st) {
-  const float scale = (float)(1.0 / sqrt((double)d));
-  const float scale_log2 = (float)(kLog2e / sqrt((double)d));
+                      Scales sc, bool use_bf16, cudaStream_t st) {
+  const float scale = sc.scale, scale_log2 = sc.scale_log2;
   cudaError_t err;
   if (use_bf16) {
     CUtensorMap qm, km, vm, dom;
@@ -964,8 +1533,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
     static const cudaError_t pool =
         check_register_pool(flash_bwd_dq_bf16_kernel<DP>, L::kConsumers);
     if (pool != cudaSuccess) return pool;
-    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
-    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    const unsigned grid = grid_of(s, L::kConsumers * kTileRows, bh);
+    if (!grid) return cudaErrorInvalidValue;
     flash_bwd_dq_bf16_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
         qm, km, vm, dom, lse, delta, static_cast<bf16*>(dq), s, d,
         scale_log2, scale);
@@ -987,8 +1556,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
     static const cudaError_t pool =
         check_register_pool(flash_bwd_dq_f32_kernel<DP>, L::kConsumers);
     if (pool != cudaSuccess) return pool;
-    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
-    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+    const unsigned grid = grid_of(s, L::kConsumers * kTileRows, bh);
+    if (!grid) return cudaErrorInvalidValue;
     flash_bwd_dq_f32_kernel<DP><<<grid, L::kThreads, L::bytes, st>>>(
         qm, dom, km, vm, ktm, lse, delta, static_cast<float*>(dq), s, d,
         scale_log2, scale);
@@ -996,44 +1565,113 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-bool bad_shape(int bh, int s, int d) {
-  return bh <= 0 || bh > 65535 || s <= 0 || d < 8 || d > 128 || d % 8;
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* scratch, void* dq,
+                           int bh, int s, int d, Scales sc, bool use_bf16,
+                           cudaStream_t st) {
+  const float scale = sc.scale, scale_log2 = sc.scale_log2;
+  const int slices = (d + 127) / 128;
+  cudaError_t err;
+  if (use_bf16) {
+    using L = WideBwdSmem;
+    CUtensorMap qm, km, vm, dom;
+    if ((err = tile_map<128>(&qm, q, bh, s, d)) ||
+        (err = tile_map<128>(&km, k, bh, s, d)) ||
+        (err = tile_map<128>(&vm, v, bh, s, d)) ||
+        (err = tile_map<128>(&dom, dout, bh, s, d)))
+      return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dq_wide_bf16_kernel, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool =
+        check_register_pool(flash_bwd_dq_wide_bf16_kernel, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    const unsigned grid = grid_of(s, kTileRows, bh, slices);
+    if (!grid) return cudaErrorInvalidValue;
+    flash_bwd_dq_wide_bf16_kernel<<<grid, L::kThreads, L::bytes, st>>>(
+        qm, km, vm, dom, lse, delta, static_cast<bf16*>(dq), s, d,
+        scale_log2, scale);
+  } else {
+    using L = WideBwdSmemF32;
+    const int sp = round_up_tile(s);
+    const F32Planes f(scratch, bh, s, sp, d);
+    CUtensorMap qm, dom, km, vm, ktm;
+    if ((err = split_map(&qm, f.q(), bh, s, d, kTileRows)) ||
+        (err = split_map(&dom, f.dout(), bh, s, d, kTileRows)) ||
+        (err = split_map(&km, f.k(), bh, s, d, L::kBlk)) ||
+        (err = split_map(&vm, f.v(), bh, s, d, L::kBlk)) ||
+        (err = trans_map(&ktm, f.kt(), bh, d, sp, 128)))
+      return err;
+    static std::atomic<uint64_t> smem_set{0};
+    if ((err = set_smem_once(flash_bwd_dq_wide_f32_kernel, L::bytes,
+                             smem_set)))
+      return err;
+    static const cudaError_t pool =
+        check_register_pool(flash_bwd_dq_wide_f32_kernel, L::kConsumers);
+    if (pool != cudaSuccess) return pool;
+    const unsigned grid = grid_of(s, kTileRows, bh, slices);
+    if (!grid) return cudaErrorInvalidValue;
+    flash_bwd_dq_wide_f32_kernel<<<grid, L::kThreads, L::bytes, st>>>(
+        qm, dom, km, vm, ktm, lse, delta, static_cast<float*>(dq), s, d,
+        scale_log2, scale);
+  }
+  return cudaGetLastError();
+}
+
+bool bad_shape(int bh, int s, int d, int scale_d) {
+  return bh <= 0 || s <= 0 || d < 8 || d % 8 || scale_d <= 0;
 }
 
 }  // namespace
 
 // q, k, v, o, dout, dk, dv: contiguous (bh, s, d) device arrays of float32
 // (is_bf16 == 0) or bfloat16 (is_bf16 == 1), 16-byte aligned, d % 8 == 0 and
-// 8 <= d <= 128; lse (the forward's lse2) and delta: (bh, s) float32; rows:
-// a 16-byte aligned (bh, 2, sp) float32 scratch, sp = s rounded up to 64;
+// d >= 8; lse (the forward's lse2) and delta: (bh, s) float32; rows: a
+// 16-byte aligned (bh, 2, sp) float32 scratch, sp = s rounded up to 64;
 // scratch (float32 only, else unused): a 16-byte aligned float32 scratch of
-// 8 bh s d + 6 bh d sp elements. Launches the pre-pass (delta =
-// rowsum(dout * o), written for ddti_flash_bwd_dq, the padded rows, and in
-// float32 the split and transposed operand planes in `scratch`) and the
-// dK/dV kernel on `stream` without synchronising; returns the first
+// 8 bh s d + 6 bh d sp elements. The scores are scaled by scale_d^-1/2
+// (scale_d: d, or the true width of a head padded with zero columns to d).
+// Launches the pre-pass (delta = rowsum(dout * o), written for
+// ddti_flash_bwd_dq, the padded rows, and in float32 the split and
+// transposed operand planes in `scratch`) and the dK/dV kernel (d > 128:
+// the wide kernel) on `stream` without synchronising; returns the first
 // cudaError_t (0 = success).
 extern "C" int ddti_flash_bwd_dkdv(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
                                    void* delta, void* rows, void* scratch,
                                    void* dk, void* dv, int bh, int s, int d,
-                                   int is_bf16, int device, void* stream) {
+                                   int scale_d, int is_bf16, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bh, s, d, scale_d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   float* r = static_cast<float*>(rows);
+  const Scales sc(scale_d);
+  err = d <= 32   ? launch_rows<4>(q, k, v, o, dout, l, dl, r, scratch, bh, s,
+                                   d, bf, st)
+        : d <= 64 ? launch_rows<8>(q, k, v, o, dout, l, dl, r, scratch, bh,
+                                   s, d, bf, st)
+                  : launch_rows<16>(q, k, v, o, dout, l, dl, r, scratch, bh,
+                                    s, d, bf, st);
+  if (err != cudaSuccess) return (int)err;
   if (d <= 32)
-    return (int)launch_dkdv<32>(q, k, v, o, dout, l, dl, r, scratch, dk, dv,
-                                bh, s, d, bf, st);
+    return (int)launch_dkdv<32>(q, k, v, dout, r, scratch, dk, dv, bh, s, d,
+                                sc, bf, st);
   if (d <= 64)
-    return (int)launch_dkdv<64>(q, k, v, o, dout, l, dl, r, scratch, dk, dv,
-                                bh, s, d, bf, st);
-  return (int)launch_dkdv<128>(q, k, v, o, dout, l, dl, r, scratch, dk, dv,
-                               bh, s, d, bf, st);
+    return (int)launch_dkdv<64>(q, k, v, dout, r, scratch, dk, dv, bh, s, d,
+                                sc, bf, st);
+  if (d <= 128)
+    return (int)launch_dkdv<128>(q, k, v, dout, r, scratch, dk, dv, bh, s, d,
+                                 sc, bf, st);
+  return (int)launch_dkdv_wide(q, k, v, dout, r, scratch, dk, dv, bh, s, d,
+                               sc, bf, st);
 }
 
 // As ddti_flash_bwd_dkdv, for dq; delta (and in float32 scratch) must hold
@@ -1042,21 +1680,25 @@ extern "C" int ddti_flash_bwd_dkdv(const void* q, const void* k,
 extern "C" int ddti_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* scratch, void* dq,
-                                 int bh, int s, int d, int is_bf16,
-                                 int device, void* stream) {
+                                 int bh, int s, int d, int scale_d,
+                                 int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad_shape(bh, s, d)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bh, s, d, scale_d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  const Scales sc(scale_d);
   if (d <= 32)
-    return (int)launch_dq<32>(q, k, v, dout, l, dl, scratch, dq, bh, s, d, bf,
-                              st);
+    return (int)launch_dq<32>(q, k, v, dout, l, dl, scratch, dq, bh, s, d,
+                              sc, bf, st);
   if (d <= 64)
-    return (int)launch_dq<64>(q, k, v, dout, l, dl, scratch, dq, bh, s, d, bf,
-                              st);
-  return (int)launch_dq<128>(q, k, v, dout, l, dl, scratch, dq, bh, s, d, bf,
-                             st);
+    return (int)launch_dq<64>(q, k, v, dout, l, dl, scratch, dq, bh, s, d,
+                              sc, bf, st);
+  if (d <= 128)
+    return (int)launch_dq<128>(q, k, v, dout, l, dl, scratch, dq, bh, s, d,
+                               sc, bf, st);
+  return (int)launch_dq_wide(q, k, v, dout, l, dl, scratch, dq, bh, s, d,
+                             sc, bf, st);
 }

@@ -6,11 +6,15 @@
 // registers; here a head of any supported width is one (b*h) slice, so both
 // TPU forms collapse into this one kernel.
 //
-// Head widths: every D with D % 8 == 0 and 8 <= D <= 256, which covers the
-// JAX model's flash gate (blocks.py: hd % 8 == 0) up to 256. A kernel is
-// instantiated for the padded widths DP = 32, 64, 128, 256 and takes the
-// actual D at run time: columns D..DP-1 of the staged tiles are zeros, so
-// they add nothing to the scores, and they are not written back.
+// Head widths: every D with D % 8 == 0 (the wrapper pads any other D with
+// zero columns and passes the true width, scale_d, for the scale). bf16 up
+// to 256 and float32 up to 128 run kernels of one tile, instantiated for
+// the padded widths DP = 32, 64, 128 (256 in bf16) with the actual D at
+// run time: columns D..DP-1 of the staged tiles are zeros, so they add
+// nothing to the scores, and they are not written back. Wider heads run
+// the wide kernels below, whose blocks each own a slice of o's columns and
+// recompute the scores over the whole of D. B*H: any; blocks run over
+// (row block, slice) on gridDim.x alone.
 //
 // Computes, per (b*h) slice of contiguous (B, H, S, D) q/k/v:
 //   o    = softmax(q k^T * D^-1/2) v            (same dtype as q)
@@ -75,9 +79,21 @@
 //    zero, and summed over the whole sequence in one accumulator they
 //    would drift with S. Two consumers and 8 slots at DP = 32, two and 5
 //    at 64, one and 5 slots of 32-key tiles at 128.
-//    DP = 256 (D = 136..256) still runs the first version's FMA loops
-//    (flash_fwd_f32_fma_kernel): q's planes alone and one K part take 256
-//    KB there, more than a block may hold (ROADMAP.md Queue 2).
+//    D > 128 runs the first version's FMA loops (flash_fwd_f32_fma_kernel):
+//    q's planes alone and one K part take 256 KB at DP = 256, more than a
+//    block may hold. A block owns 256 of o's columns (a slice of
+//    ceil(D / 256)) and sums the scores over D in chunks of 256 staged one
+//    after another (q stays staged where D <= 256); every slice computes
+//    the same scores in the same order, so m and l agree bit for bit and
+//    slice 0 writes lse2. At D = 512 the scores' products run twice.
+//  - bf16, D > 256 (flash_fwd_wide_bf16_kernel): the bf16 kernel's shape
+//    with one consumer of 64 rows and nothing resident. A block owns 128 of
+//    o's columns (slice j); per key tile the producer streams the D-chunks
+//    (q_c, K_c) of 128 columns, a pair a slot, and the consumer sums
+//    S = sum_c q_c K_c^T in one accumulator (chunk_scores), then streams V's
+//    slice j for O += P V. As in float32, every slice computes bit-equal m
+//    and l and slice 0 writes lse2; each slice recomputes the scores, so
+//    the products are (n + 1) / 2 times one pass's with n = D / 128 slices.
 //  - Variants. Built with -DDDTI_POLY_EXP2=1 (ddti_tpu_torch/ops/_build.py),
 //    every exponential of every kernel here is sm90.cuh's order-6 polynomial
 //    on the FMA pipes (flash_exp2, flash_exp2f) instead of the exp2 unit,
@@ -147,8 +163,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + L::kStages;
   uint64_t* q_full = empty + L::kStages;
-  const int slice = blockIdx.y;
-  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  // blocks run over (query block, slice) on gridDim.x alone, so B*H has
+  // no 65535 bound
+  constexpr int kRows = L::kConsumers * kTileRows;
+  const int n_blocks = (S + kRows - 1) / kRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int q0 = (blockIdx.x % n_blocks) * kRows;
   const int n_tiles = (S + kBlockK - 1) / kBlockK;
   const int wg = threadIdx.x / 128;
   init_ring<L>(full);
@@ -301,7 +321,9 @@ flash_fwd_split_f32_kernel(const float* __restrict__ q,
                            float* __restrict__ trans, int bh, int s, int sp,
                            int D) {
   __shared__ float tile[kTileRows][kMaxSplitD + 1];
-  const int slice = blockIdx.y, r0 = blockIdx.x * kTileRows;
+  const int n_blocks = sp / kTileRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int r0 = blockIdx.x % n_blocks * kTileRows;
   const int D4 = D / 4;  // 16-byte chunks of a row
   const size_t plane = (size_t)s * D, tplane = (size_t)D * sp;
   for (int x = 0; x < 3; ++x) {
@@ -375,8 +397,10 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + L::kStages;
   uint64_t* q_full = empty + L::kStages;
-  const int slice = blockIdx.y;
-  const int q0 = blockIdx.x * L::kConsumers * kTileRows;
+  constexpr int kRows = L::kConsumers * kTileRows;
+  const int n_blocks = (S + kRows - 1) / kRows;
+  const int slice = blockIdx.x / n_blocks;
+  const int q0 = (blockIdx.x % n_blocks) * kRows;
   const int n_tiles = (S + B - 1) / B;
   const int wg = threadIdx.x / 128;
   init_ring<L>(full);
@@ -495,25 +519,43 @@ flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap q_map,
 // float32, D > 128: scalar FMAs
 
 constexpr int kFmaThreads = 256;  // 4 threads per query row
+constexpr int kFmaD = 256;        // the columns a block stages and outputs
 
-template <int DP>
 constexpr size_t fma_smem_bytes() {
-  // q, k, v tiles with row stride DP+1, and the probability tile with row
-  // stride kBlockK+1, all float32 (209 KiB of the 227 KiB a block may hold)
-  return sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (DP + 1) +
+  // q, k, v tiles with row stride kFmaD + 1, and the probability tile with
+  // row stride kBlockK + 1, all float32 (209 KiB of the 227 KiB a block may
+  // hold)
+  return sizeof(float) * ((size_t)(kBlockQ + 2 * kBlockK) * (kFmaD + 1) +
                           (size_t)kBlockQ * (kBlockK + 1));
 }
 
-// DP = 256: padded head width; D: actual head width, D % 8 == 0, D <= DP
-template <int DP>
+// rows [r0, r0 + 64) and columns [c0, c0 + kFmaD) of a (S, D) float32
+// slice into a tile of row stride kFmaD + 1, zeros past S and D
+__device__ __forceinline__ void fma_stage(float* dst, const float* src,
+                                          int r0, int c0, int S, int D) {
+  for (int i = threadIdx.x; i < kTileRows * kFmaD; i += kFmaThreads) {
+    const int r = i / kFmaD, c = i % kFmaD, gr = r0 + r, gc = c0 + c;
+    dst[r * (kFmaD + 1) + c] =
+        gr < S && gc < D ? src[(size_t)gr * D + gc] : 0.f;
+  }
+}
+
+// D: the actual head width, D % 8 == 0. A block takes 64 query rows and
+// the output columns [256 j, 256 j + 256) (slice j of ceil(D / 256)): the
+// scores q k^T run over the whole of D in chunks of 256 columns staged one
+// after another (q stays staged where D <= 256), then P V over its slice
+// of V. Every slice of a row computes the same scores in the same order,
+// so m and l agree bit for bit across slices; slice 0 writes lse2.
 __global__ void __launch_bounds__(kFmaThreads)
-flash_fwd_f32_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, int D, float scale_log2) {
-  constexpr int RS = DP + 1;       // q/k/v tile row stride (float32)
+flash_fwd_f32_fma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, int D,
+                         float scale_log2) {
+  constexpr int RS = kFmaD + 1;    // q/k/v tile row stride (float32)
   constexpr int BKP = kBlockK + 1;
   constexpr int kColsPerThread = kBlockK / 4;
-  constexpr int kDimsPerThread = DP / 4;
+  constexpr int kDimsPerThread = kFmaD / 4;
 
   extern __shared__ float smem[];
   float* qs = smem;                // [kBlockQ][RS]
@@ -524,52 +566,49 @@ flash_fwd_f32_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int tid = threadIdx.x;
   const int row = tid >> 2;   // query row inside the tile
   const int quad = tid & 3;   // this thread's lane in the row's quad
-  const int q0 = blockIdx.x * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * S * D;
+  const int n_blocks = (S + kBlockQ - 1) / kBlockQ;
+  const int n_chunks = (D + kFmaD - 1) / kFmaD;
+  const int rest = blockIdx.x / n_blocks;
+  const int q0 = blockIdx.x % n_blocks * kBlockQ;
+  const int j = rest % n_chunks, slice = rest / n_chunks;
+  const size_t base = (size_t)slice * S * D;
 
-  for (int i = tid; i < kBlockQ * DP; i += kFmaThreads) {
-    const int r = i / DP, c = i % DP;
-    const int gr = q0 + r;
-    qs[r * RS + c] = gr < S && c < D ? q[base + (size_t)gr * D + c] : 0.f;
-  }
+  if (n_chunks == 1) fma_stage(qs, q + base, q0, 0, S, D);
 
   float m = -INFINITY;
   float l = 0.f;
   float acc[kDimsPerThread];
 #pragma unroll
-  for (int j = 0; j < kDimsPerThread; ++j) acc[j] = 0.f;
+  for (int jj = 0; jj < kDimsPerThread; ++jj) acc[jj] = 0.f;
 
   for (int k0 = 0; k0 < S; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's ks/vs/ps are fully consumed
-    for (int i = tid; i < kBlockK * DP; i += kFmaThreads) {
-      const int r = i / DP, c = i % DP;
-      const int gr = k0 + r;
-      const size_t off = base + (size_t)gr * D + c;
-      const bool ok = gr < S && c < D;
-      ks[r * RS + c] = ok ? k[off] : 0.f;
-      vs[r * RS + c] = ok ? v[off] : 0.f;
-    }
-    __syncthreads();
-
-    // scores for columns quad, quad+4, ..., quad+60 of this tile
+    // scores for columns quad, quad+4, ..., quad+60 of this tile, summed
+    // chunk by chunk; V's slice is staged with the last chunk
     float s[kColsPerThread];
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) s[j] = 0.f;
-    const float* qrow = qs + row * RS;
+    for (int jj = 0; jj < kColsPerThread; ++jj) s[jj] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      __syncthreads();  // the previous chunk's or tile's tiles are consumed
+      if (n_chunks > 1) fma_stage(qs, q + base, q0, c * kFmaD, S, D);
+      fma_stage(ks, k + base, k0, c * kFmaD, S, D);
+      if (c == n_chunks - 1) fma_stage(vs, v + base, k0, j * kFmaD, S, D);
+      __syncthreads();
+      const float* qrow = qs + row * RS;
 #pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float qd = qrow[d];
+      for (int d = 0; d < kFmaD; ++d) {
+        const float qd = qrow[d];
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j)
-        s[j] = fmaf(qd, ks[(quad + 4 * j) * RS + d], s[j]);
+        for (int jj = 0; jj < kColsPerThread; ++jj)
+          s[jj] = fmaf(qd, ks[(quad + 4 * jj) * RS + d], s[jj]);
+      }
     }
 
     float tile_max = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int col = k0 + quad + 4 * j;
-      s[j] = col < S ? s[j] * scale_log2 : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
+    for (int jj = 0; jj < kColsPerThread; ++jj) {
+      const int col = k0 + quad + 4 * jj;
+      s[jj] = col < S ? s[jj] * scale_log2 : -INFINITY;
+      tile_max = fmaxf(tile_max, s[jj]);
     }
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
     tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
@@ -579,17 +618,17 @@ flash_fwd_f32_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
     float tile_sum = 0.f;
     float* prow = ps + row * BKP;
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const float p = flash_exp2f(s[j] - m_new);
+    for (int jj = 0; jj < kColsPerThread; ++jj) {
+      const float p = flash_exp2f(s[jj] - m_new);
       tile_sum += p;
-      prow[quad + 4 * j] = p;
+      prow[quad + 4 * jj] = p;
     }
     tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 1);
     tile_sum += __shfl_xor_sync(0xffffffffu, tile_sum, 2);
     l = l * alpha + tile_sum;
     m = m_new;
 #pragma unroll
-    for (int j = 0; j < kDimsPerThread; ++j) acc[j] *= alpha;
+    for (int jj = 0; jj < kDimsPerThread; ++jj) acc[jj] *= alpha;
     // a row's probabilities are written and read by the same quad, which
     // lies inside one warp
     __syncwarp();
@@ -599,30 +638,180 @@ flash_fwd_f32_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
       const float p = prow[c];
       const float* vrow = vs + c * RS;
 #pragma unroll
-      for (int j = 0; j < kDimsPerThread; ++j)
-        acc[j] = fmaf(p, vrow[quad + 4 * j], acc[j]);
+      for (int jj = 0; jj < kDimsPerThread; ++jj)
+        acc[jj] = fmaf(p, vrow[quad + 4 * jj], acc[jj]);
     }
   }
 
   const int gr = q0 + row;
   if (gr < S) {
     const float inv_l = 1.f / l;
-    float* orow = o + base + (size_t)gr * D;
+    float* orow = o + base + (size_t)gr * D + j * kFmaD;
 #pragma unroll
-    for (int j = 0; j < kDimsPerThread; ++j)
-      if (quad + 4 * j < D) orow[quad + 4 * j] = acc[j] * inv_l;
-    if (quad == 0) lse[(size_t)blockIdx.y * S + gr] = m + log2f(l);
+    for (int jj = 0; jj < kDimsPerThread; ++jj)
+      if (j * kFmaD + quad + 4 * jj < D) orow[quad + 4 * jj] = acc[jj] * inv_l;
+    if (quad == 0 && j == 0) lse[(size_t)slice * S + gr] = m + log2f(l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, D > 256: TMA + wgmma over D-chunks
+
+// A wide block: one consumer warpgroup of 64 query rows and the output
+// columns [128 j, 128 j + 128) (slice j of ceil(D / 128)), and a producer
+// warpgroup that streams, a key tile at a time, the D-chunks (q_c, K_c) of
+// 128 columns, two tiles a slot, then the slot of V's slice j. Nothing is
+// resident, so D has no bound but that of the grid.
+struct WideSmem {
+  using T = Tile<128>;
+  static constexpr int kConsumers = 1;
+  static constexpr int kThreads = 256;
+  static constexpr int kStages = 6;
+  static constexpr uint32_t kPart = 2 * T::kBytes;
+  static constexpr uint32_t stages = 0;
+  static constexpr uint32_t bars = kStages * kPart;
+  static constexpr size_t bytes = bars + 8 * (2 * kStages + 1) + 1024;
+};
+
+__global__ void __launch_bounds__(WideSmem::kThreads, 1)
+flash_fwd_wide_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           int S, int D, float scale_log2) {
+  using T = Tile<128>;
+  using L = WideSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + L::kStages;
+  const int n_blocks = (S + kTileRows - 1) / kTileRows;
+  const int n_chunks = (D + 127) / 128;
+  const int rest = blockIdx.x / n_blocks;
+  const int q0 = blockIdx.x % n_blocks * kTileRows;
+  const int j = rest % n_chunks, slice = rest / n_chunks;
+  const int n_tiles = (S + kBlockK - 1) / kBlockK;
+  const int parts = n_chunks + 1;  // ring slots a key tile
+  const int wg = threadIdx.x / 128;
+  init_ring<L>(full);
+
+  if (wg == 1) {  // the producer
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      for (int n = 0; n < n_tiles * parts; ++n) {
+        const int it = n / parts, c = n % parts, st = n % L::kStages;
+        mbar_wait(empty + st, ((n / L::kStages) & 1) ^ 1);
+        unsigned char* dst = smem + st * L::kPart;
+        if (c < n_chunks) {
+          mbar_expect_tx(full + st, 2 * T::kBytes);
+          tma_load_tile<128>(dst, &q_map, full + st, q0, slice, 128 * c);
+          tma_load_tile<128>(dst + T::kBytes, &k_map, full + st,
+                             it * kBlockK, slice, 128 * c);
+        } else {
+          mbar_expect_tx(full + st, T::kBytes);
+          tma_load_tile<128>(dst, &v_map, full + st, it * kBlockK, slice,
+                             128 * j);
+        }
+      }
+    }
+  } else {  // the consumer
+    regs_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    for (int it = 0; it < n_tiles; ++it) {
+      // raw scores q K^T over every chunk: element 4n + e is row
+      // g + 8 (e >> 1), key it * 64 + 8n + 2t + (e & 1)
+      float s[32];
+      chunk_scores<L>(s, full, smem, it * parts, n_chunks);
+
+      const int k0 = it * kBlockK;
+      if (k0 + kBlockK > S) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (k0 + (i / 4) * 8 + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
+      }
+      float alpha[2], bias[2], tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(s[2 * r], s[2 * r + 1]);
+#pragma unroll
+        for (int n = 1; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx * scale_log2);
+        alpha[r] = flash_exp2(m[r] - m_new);
+        m[r] = m_new;
+        bias[r] = -m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = flash_exp2(fmaf(s[i], scale_log2, bias[(i >> 1) & 1]));
+        tile_sum[(i >> 1) & 1] += s[i];
+      }
+      uint32_t pa[4][4];
+      to_a_fragments(s, pa);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 1);
+        tile_sum[r] += __shfl_xor_sync(0xffffffffu, tile_sum[r], 2);
+        l[r] = fmaf(l[r], alpha[r], tile_sum[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      const int n = it * parts + n_chunks;
+      const uint32_t va = wait_part<L>(full, smem, n);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        wgmma_rs_mn<128>(acc, pa[jj], desc_mn_major<128>(va, jj));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(empty + n % L::kStages);
+    }
+
+    const size_t base = (size_t)slice * S;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row >= S) continue;
+      const float inv_l = 1.f / l[r];
+      bf16* orow = o + (base + row) * D + 128 * j + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+        if (128 * j + n * 8 < D)
+          *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(
+              acc[4 * n + 2 * r] * inv_l, acc[4 * n + 2 * r + 1] * inv_l);
+      if (t == 0 && j == 0) lse[base + row] = m[r] + log2f(l[r]);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 
+// the scale of the scores, D^-1/2 log2(e), from the head width `d` whose
+// root scales them (the caller's own where it pads the head)
 float scale_log2_of(int d) { return (float)(kLog2e / sqrt((double)d)); }
+
+// a one-dimensional grid of `blocks` row blocks times `bh` slices times
+// `slices` output slices, or 0 where it exceeds gridDim.x's 2^31 - 1
+unsigned grid_of(int s, int rows, int bh, int slices = 1) {
+  const long long n = (long long)((s + rows - 1) / rows) * bh * slices;
+  return n <= 0x7fffffffll ? (unsigned)n : 0u;
+}
 
 template <int DP, bool kSkipRescale>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        void* lse, int bh, int s, int d,
+                        void* lse, int bh, int s, int d, float scale_log2,
                         cudaStream_t stream) {
   cudaError_t err;
   CUtensorMap qm, km, vm;
@@ -639,59 +828,85 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
         check_register_pool(kernel, FwdSmem<DP>::kConsumers);
     if (pool != cudaSuccess) return pool;
   }
-  constexpr int kRowsPerBlock = FwdSmem<DP>::kConsumers * kTileRows;
-  const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
+  const unsigned grid = grid_of(s, FwdSmem<DP>::kConsumers * kTileRows, bh);
+  if (!grid) return cudaErrorInvalidValue;
   flash_fwd_bf16_kernel<DP, kSkipRescale>
       <<<grid, FwdSmem<DP>::kThreads, smem, stream>>>(
           qm, km, vm, static_cast<bf16*>(o), static_cast<float*>(lse), s, d,
-          scale_log2_of(d));
+          scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wide_bf16(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int bh, int s, int d,
+                             float scale_log2, cudaStream_t stream) {
+  using L = WideSmem;
+  cudaError_t err;
+  CUtensorMap qm, km, vm;
+  if ((err = tile_map<128>(&qm, q, bh, s, d)) ||
+      (err = tile_map<128>(&km, k, bh, s, d)) ||
+      (err = tile_map<128>(&vm, v, bh, s, d)))
+    return err;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((err = set_smem_once(flash_fwd_wide_bf16_kernel, L::bytes, smem_set)))
+    return err;
+  static const cudaError_t pool =
+      check_register_pool(flash_fwd_wide_bf16_kernel, L::kConsumers);
+  if (pool != cudaSuccess) return pool;
+  const unsigned grid = grid_of(s, kTileRows, bh, (d + 127) / 128);
+  if (!grid) return cudaErrorInvalidValue;
+  flash_fwd_wide_bf16_kernel<<<grid, L::kThreads, L::bytes, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), static_cast<float*>(lse), s, d,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int s, int d, float scale_log2,
+                       cudaStream_t stream) {
+  constexpr size_t smem = fma_smem_bytes();
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err;
+  if ((err = set_smem_once(flash_fwd_f32_fma_kernel, smem, smem_set)))
+    return err;
+  const unsigned grid = grid_of(s, kBlockQ, bh, (d + kFmaD - 1) / kFmaD);
+  if (!grid) return cudaErrorInvalidValue;
+  flash_fwd_f32_fma_kernel<<<grid, kFmaThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), s, d, scale_log2);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, const float* scratch, int bh, int s, int d,
-                   bool use_bf16, cudaStream_t stream) {
-  const float scale_log2 = scale_log2_of(d);
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       void* lse, const float* scratch, int bh, int s, int d,
+                       float scale_log2, cudaStream_t stream) {
+  using L = FwdSmemF32<DP>;
+  const size_t plane = 2 * (size_t)bh * s * d;  // one operand's hi + lo
   cudaError_t err;
-  if (use_bf16) {
-    return launch_bf16<DP, false>(q, k, v, o, lse, bh, s, d, stream);
-  } else if constexpr (DP == 256) {
-    constexpr size_t smem = fma_smem_bytes<DP>();
-    static std::atomic<uint64_t> smem_set{0};
-    if ((err = set_smem_once(flash_fwd_f32_fma_kernel<DP>, smem, smem_set)))
-      return err;
-    const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-    flash_fwd_f32_fma_kernel<DP><<<grid, kFmaThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), s, d, scale_log2);
-  } else {
-    using L = FwdSmemF32<DP>;
-    const size_t plane = 2 * (size_t)bh * s * d;  // one operand's hi + lo
-    CUtensorMap qm, km, vtm;
-    if ((err = split_map(&qm, scratch, bh, s, d, kTileRows)) ||
-        (err = split_map(&km, scratch + plane, bh, s, d, L::kBlk)) ||
-        (err = trans_map(&vtm, scratch + 2 * plane, bh, d, round_up_tile(s),
-                         DP)))
-      return err;
-    static std::atomic<uint64_t> smem_set{0};
-    if ((err = set_smem_once(flash_fwd_f32_kernel<DP>, L::bytes, smem_set)))
-      return err;
-    static const cudaError_t pool =
-        check_register_pool(flash_fwd_f32_kernel<DP>, L::kConsumers);
-    if (pool != cudaSuccess) return pool;
-    constexpr int kRowsPerBlock = L::kConsumers * kTileRows;
-    const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
-    flash_fwd_f32_kernel<DP><<<grid, L::kThreads, L::bytes, stream>>>(
-        qm, km, vtm, static_cast<float*>(o), static_cast<float*>(lse), s, d,
-        scale_log2);
-  }
+  CUtensorMap qm, km, vtm;
+  if ((err = split_map(&qm, scratch, bh, s, d, kTileRows)) ||
+      (err = split_map(&km, scratch + plane, bh, s, d, L::kBlk)) ||
+      (err = trans_map(&vtm, scratch + 2 * plane, bh, d, round_up_tile(s),
+                       DP)))
+    return err;
+  static std::atomic<uint64_t> smem_set{0};
+  if ((err = set_smem_once(flash_fwd_f32_kernel<DP>, L::bytes, smem_set)))
+    return err;
+  static const cudaError_t pool =
+      check_register_pool(flash_fwd_f32_kernel<DP>, L::kConsumers);
+  if (pool != cudaSuccess) return pool;
+  const unsigned grid = grid_of(s, L::kConsumers * kTileRows, bh);
+  if (!grid) return cudaErrorInvalidValue;
+  flash_fwd_f32_kernel<DP><<<grid, L::kThreads, L::bytes, stream>>>(
+      qm, km, vtm, static_cast<float*>(o), static_cast<float*>(lse), s, d,
+      scale_log2);
   return cudaGetLastError();
 }
 
 bool bad_shape(int bh, int s, int d, int max_d) {
-  return bh <= 0 || bh > 65535 || s <= 0 || d < 8 || d > max_d || d % 8;
+  return bh <= 0 || s <= 0 || d < 8 || d > max_d || d % 8;
 }
 
 }  // namespace
@@ -711,8 +926,10 @@ extern "C" int ddti_flash_fwd_split_f32(const void* q, const void* k,
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(bh, s, d, kMaxSplitD)) return (int)cudaErrorInvalidValue;
   const int sp = round_up_tile(s);
+  const unsigned grid = grid_of(sp, kTileRows, bh);
+  if (!grid) return (int)cudaErrorInvalidValue;
   float* split = static_cast<float*>(scratch);
-  flash_fwd_split_f32_kernel<<<dim3(sp / kTileRows, bh), kSplitThreads, 0,
+  flash_fwd_split_f32_kernel<<<grid, kSplitThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), split, split + 4 * (size_t)bh * s * d, bh,
@@ -721,32 +938,49 @@ extern "C" int ddti_flash_fwd_split_f32(const void* q, const void* k,
 }
 
 // q, k, v, o: contiguous (bh, s, d) device arrays of float32 (is_bf16 == 0)
-// or bfloat16 (is_bf16 == 1), 16-byte aligned, d % 8 == 0 and 8 <= d <= 256;
-// lse: (bh, s) float32; scratch: in float32 with d <= 128, what
+// or bfloat16 (is_bf16 == 1), 16-byte aligned, d % 8 == 0 and d >= 8; lse:
+// (bh, s) float32; scratch: in float32 with d <= 128, what
 // ddti_flash_fwd_split_f32 wrote for the same q, k, v earlier on the same
-// stream, else unused.
+// stream, else unused. The scores are scaled by scale_d^-1/2: scale_d is d,
+// or the true width of a head the caller padded with zero columns to d.
+// Routes: bf16 d <= 256 and float32 d <= 128 on the kernels of one tile
+// of the padded width; bf16 d > 256 on the wide kernel (output slices of
+// 128 columns); float32 d > 128 on the FMA kernel (slices of 256).
 // Launches on `stream` without synchronising and returns the launch's
 // cudaError_t (0 = success).
 extern "C" int ddti_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, const void* scratch, int bh,
-                              int s, int d, int is_bf16, int device,
-                              void* stream) {
+                              int s, int d, int scale_d, int is_bf16,
+                              int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool bf = is_bf16 != 0;
-  if (bad_shape(bh, s, d, 256) || (!bf && d <= kMaxSplitD && !scratch))
+  if (bad_shape(bh, s, d, 1 << 30) || scale_d <= 0 ||
+      (!bf && d <= kMaxSplitD && !scratch))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float sl = scale_log2_of(scale_d);
   const float* sc = static_cast<const float*>(scratch);
-  if (d <= 32) return (int)launch<32>(q, k, v, o, lse, sc, bh, s, d, bf, st);
-  if (d <= 64) return (int)launch<64>(q, k, v, o, lse, sc, bh, s, d, bf, st);
-  if (d <= 128) return (int)launch<128>(q, k, v, o, lse, sc, bh, s, d, bf, st);
-  return (int)launch<256>(q, k, v, o, lse, sc, bh, s, d, bf, st);
+  cudaError_t e;
+  if (bf)
+    e = d <= 32    ? launch_bf16<32, false>(q, k, v, o, lse, bh, s, d, sl, st)
+        : d <= 64  ? launch_bf16<64, false>(q, k, v, o, lse, bh, s, d, sl, st)
+        : d <= 128 ? launch_bf16<128, false>(q, k, v, o, lse, bh, s, d, sl,
+                                             st)
+        : d <= 256 ? launch_bf16<256, false>(q, k, v, o, lse, bh, s, d, sl,
+                                             st)
+                   : launch_wide_bf16(q, k, v, o, lse, bh, s, d, sl, st);
+  else
+    e = d <= 32    ? launch_f32<32>(q, k, v, o, lse, sc, bh, s, d, sl, st)
+        : d <= 64  ? launch_f32<64>(q, k, v, o, lse, sc, bh, s, d, sl, st)
+        : d <= 128 ? launch_f32<128>(q, k, v, o, lse, sc, bh, s, d, sl, st)
+                   : launch_fma(q, k, v, o, lse, bh, s, d, sl, st);
+  return (int)e;
 }
 
 // As ddti_flash_fwd, through the m-skip variant of the bf16 kernel (the
-// port of benchmarks/flash_mskip_ab.py:fwd): bfloat16 only (is_bf16 == 0
-// returns cudaErrorInvalidValue); scratch is unused.
+// port of benchmarks/flash_mskip_ab.py:fwd): bfloat16 only, d <= 256
+// (is_bf16 == 0 returns cudaErrorInvalidValue); scratch is unused.
 extern "C" int ddti_flash_fwd_mskip(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
                                     const void* scratch, int bh, int s, int d,
@@ -756,9 +990,10 @@ extern "C" int ddti_flash_fwd_mskip(const void* q, const void* k,
   if (err != cudaSuccess) return (int)err;
   if (bad_shape(bh, s, d, 256) || !is_bf16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 32) return (int)launch_bf16<32, true>(q, k, v, o, lse, bh, s, d, st);
-  if (d <= 64) return (int)launch_bf16<64, true>(q, k, v, o, lse, bh, s, d, st);
-  if (d <= 128)
-    return (int)launch_bf16<128, true>(q, k, v, o, lse, bh, s, d, st);
-  return (int)launch_bf16<256, true>(q, k, v, o, lse, bh, s, d, st);
+  const float sl = scale_log2_of(d);
+  return (int)(
+      d <= 32    ? launch_bf16<32, true>(q, k, v, o, lse, bh, s, d, sl, st)
+      : d <= 64  ? launch_bf16<64, true>(q, k, v, o, lse, bh, s, d, sl, st)
+      : d <= 128 ? launch_bf16<128, true>(q, k, v, o, lse, bh, s, d, sl, st)
+                 : launch_bf16<256, true>(q, k, v, o, lse, bh, s, d, sl, st));
 }

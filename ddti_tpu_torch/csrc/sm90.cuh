@@ -281,16 +281,17 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [row, row + 64) of slice `slice` as a DP-wide tile at `dst`
+// rows [row, row + 64) of slice `slice`, columns [col, col + DP), as a
+// DP-wide tile at `dst`
 template <int DP>
 __device__ __forceinline__ void tma_load_tile(unsigned char* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int row,
-                                              int slice) {
+                                              int slice, int col = 0) {
 #pragma unroll
   for (int b = 0; b < Tile<DP>::kBoxes; ++b)
-    tma_load(dst + b * Tile<DP>::kBoxBytes, map, bar, b * Tile<DP>::kBoxCols,
-             row, slice);
+    tma_load(dst + b * Tile<DP>::kBoxBytes, map, bar,
+             col + b * Tile<DP>::kBoxCols, row, slice);
 }
 
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
@@ -815,34 +816,34 @@ __device__ __forceinline__ void acc_tile(float (&acc)[N / 2],
 // pre-pass writes to scratch: row-major (bh, 2, s, d), or transposed (bh,
 // 2, d, sp) with sp = s rounded up to 64 and zeros past s.
 
-// rows [row, row + R) of a (bh, 2, s, d) split plane pair, hi then lo, as
-// DP / 32 boxes each
+// rows [row, row + R), columns [col, col + DP) of a (bh, 2, s, d) split
+// plane pair, hi then lo, as DP / 32 boxes each
 template <int DP, int R>
 __device__ __forceinline__ void tma_load_split(unsigned char* dst,
                                                const CUtensorMap* map,
                                                uint64_t* bar, int row,
-                                               int slice) {
+                                               int slice, int col = 0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int b = 0; b < DP / 32; ++b)
-      tma_load(dst + h * R * DP * 4 + b * R * 128, map, bar, 32 * b, row,
-               2 * slice + h);
+      tma_load(dst + h * R * DP * 4 + b * R * 128, map, bar, col + 32 * b,
+               row, 2 * slice + h);
 }
 
 // columns [col, col + C) of a (bh, 2, d, sp) transposed plane pair, DP
-// rows, hi then lo, as C / 32 boxes each
+// rows from row d0, hi then lo, as C / 32 boxes each
 template <int DP, int C>
 __device__ __forceinline__ void tma_load_trans(unsigned char* dst,
                                                const CUtensorMap* map,
                                                uint64_t* bar, int col,
-                                               int slice) {
+                                               int slice, int d0 = 0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int b = 0; b < C / 32; ++b)
-      tma_load(dst + h * DP * C * 4 + b * DP * 128, map, bar, col + 32 * b, 0,
-               2 * slice + h);
+      tma_load(dst + h * DP * C * 4 + b * DP * 128, map, bar, col + 32 * b,
+               d0, 2 * slice + h);
 }
 
 // slot of ring position n of a block whose ring of L::kStages slots of
@@ -853,6 +854,30 @@ __device__ __forceinline__ uint32_t wait_part(uint64_t* full,
   const int st = n % L::kStages;
   mbar_wait(full + st, (n / L::kStages) & 1);
   return smem_addr(smem + L::stages + st * L::kPart);
+}
+
+// The wide kernels' scores (heads wider than one tile): d (64 x 64) = sum
+// over `chunks` D-chunks of A_c B_c^T, bf16, from ring positions n0 ..
+// n0 + chunks - 1, each slot A_c then B_c (64 x 128 tiles, both K-major),
+// one accumulator over every chunk; each slot is released once its
+// product is done.
+template <typename L>
+__device__ __forceinline__ void chunk_scores(float (&d)[32], uint64_t* full,
+                                             unsigned char* smem, int n0,
+                                             int chunks) {
+  for (int c = 0; c < chunks; ++c) {
+    const uint32_t a = wait_part<L>(full, smem, n0 + c);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_m64n64k16_ss(d, desc_k_major<128>(a, kk),
+                         desc_k_major<128>(a + Tile<128>::kBytes, kk),
+                         c > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(d);
+    mbar_arrive(full + L::kStages + (n0 + c) % L::kStages);
+  }
 }
 
 // A pre-pass block's 64 rows r0 .. r0 + 63 of one float32 operand, staged

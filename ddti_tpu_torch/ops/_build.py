@@ -97,9 +97,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # every kernel's C entry point: argument types; each returns a cudaError_t
 KERNELS = {
     "ddti_flash_fwd_split_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "ddti_flash_fwd": [_P] * 6 + [_I] * 5 + [_P],
-    "ddti_flash_bwd_dkdv": [_P] * 11 + [_I] * 5 + [_P],
-    "ddti_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
+    "ddti_flash_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    "ddti_flash_bwd_dkdv": [_P] * 11 + [_I] * 6 + [_P],
+    "ddti_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_P],
     "ddti_flash_fwd_mskip": [_P] * 6 + [_I] * 5 + [_P],
     "ddti_edt": [_P, _P, _LL, _I, _I, _P],
     "ddti_exp2_probe": [_P, _P, _LL, _I, _I, _P],

@@ -15,6 +15,16 @@ Layout: q, k, v are (B, H, S, D), the JAX package's layout. The forward
 also returns the base-2 logsumexp ``lse2`` (B, H, S) float32, the residual
 from which the backward recomputes the probabilities.
 
+Every shape the JAX package takes runs on the kernels: any B*H (the
+kernels run it on gridDim.x), any S, any head width D. Heads wider than
+one kernel tile (forward: bf16 D > 256, float32 D > 128; backward: D >
+128) run the wide kernels, which recompute the scores over the whole of D
+for each output slice of 128 (256) columns. A D that is not a multiple of
+8 is padded with zero columns to the next one (``_pad_head``): zero
+columns of q and k leave q k^T as it is, those of v add zero columns to o
+and the gradients, which are sliced off, and the kernels scale the scores
+by the true D (their ``scale_d``), so the result is the unpadded head's.
+
 ``DDTI_POLY_EXP2=1`` in the environment (``USE_POLY_EXP2``, read once as
 the JAX package reads it) swaps every exponential of the kernels and of
 their plain versions for the polynomial ``_exp2_poly``.
@@ -30,10 +40,6 @@ import torch
 from ._build import USE_POLY_EXP2
 
 LOG2E = 1.4426950408889634
-# the forward kernel takes every head width d with d % 8 == 0 up to this
-# bound, the backward kernels up to MAX_BWD_HEAD_DIM
-MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128
 # float32 forwards up to this width run on the tensor cores (3xTF32), fed
 # by a pre-pass that splits q, K and V^T into TF32 hi and lo planes; wider
 # heads on FMAs
@@ -145,6 +151,19 @@ def flash_forward_split_reference(q, k, v):
     return torch.cat([p.reshape(-1) for p in planes])
 
 
+def _pad_head(t, width):
+    """``t`` (B, H, S, D) with zero columns appended to ``width``, or ``t``
+    itself where D is ``width``."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
+def _padded_width(d):
+    """The head width the kernels run a head of width d at: d rounded up
+    to a multiple of 8."""
+    return -(-d // 8) * 8
+
+
 def _stream(index):
     """The current CUDA stream of device ``index`` as a raw pointer: the
     call PyTorch's own kernel launchers make, without building the Stream
@@ -155,8 +174,8 @@ def _stream(index):
 
 def check_forward_inputs(q, k, v):
     """Raise ValueError on q, k, v that the forward kernels do not take:
-    one (B, H, S, D) shape, float32 or bfloat16 alike, D % 8 == 0 up to
-    MAX_HEAD_DIM, contiguous and 16-byte aligned on one CUDA device."""
+    one (B, H, S, D) shape with B*H, S and D positive, float32 or bfloat16
+    alike, contiguous and 16-byte aligned on one CUDA device."""
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q, k, v must share one (B, H, S, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -166,10 +185,6 @@ def check_forward_inputs(q, k, v):
         raise ValueError(f"q, k, v must all be float32 or bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     b, h, s, d = q.shape
-    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 "
-                         f"up to {MAX_HEAD_DIM} (wider heads are a "
-                         f"ROADMAP.md Queue 2 item)")
     dev = q.device
     if not (q.is_cuda and k.device == dev and v.device == dev):
         raise ValueError("q, k, v must lie on one CUDA device")
@@ -178,19 +193,23 @@ def check_forward_inputs(q, k, v):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     if any(p % 16 for p in ptrs):
         raise ValueError("q, k, v must be 16-byte aligned")
-    if not 0 < b * h <= 65535 or s == 0:
-        raise ValueError(f"B*H = {b * h} must lie in [1, 65535] and S > 0")
+    if b * h == 0 or s == 0 or d == 0:
+        raise ValueError(f"B*H = {b * h}, S = {s} and D = {d} must be "
+                         f"positive")
 
 
 def flash_forward_cuda(q, k, v):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: returns (o, lse2). In
     float32 with d <= MAX_SPLIT_HEAD_DIM the pre-pass that splits q, K and
-    V^T into TF32 planes runs first. Raises on anything the kernel does not
+    V^T into TF32 planes runs first. A head width that is not a multiple of
+    8 runs padded (``_pad_head``). Raises on anything the kernel does not
     take. Adds one to ``flash_forward_cuda.launches`` per forward."""
     check_forward_inputs(q, k, v)
     from ._build import launch
 
-    b, h, s, d = q.shape
+    b, h, s, d_true = q.shape
+    d = _padded_width(d_true)
+    q, k, v = (_pad_head(t, d) for t in (q, k, v))
     dev, ptrs = q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr())
     o = torch.empty_like(q)
     lse = q.new_empty((b, h, s), dtype=torch.float32)
@@ -201,8 +220,10 @@ def flash_forward_cuda(q, k, v):
         launch("flash_fwd_split_f32", *ptrs, pscratch, b * h, s, d,
                dev.index, stream)
     launch("flash_fwd", *ptrs, o.data_ptr(), lse.data_ptr(), pscratch,
-           b * h, s, d, _KERNEL_DTYPES[q.dtype], dev.index, stream)
+           b * h, s, d, d_true, _KERNEL_DTYPES[q.dtype], dev.index, stream)
     flash_forward_cuda.launches += 1
+    if d != d_true:
+        o = o[..., :d_true].contiguous()
     return o, lse
 
 
@@ -231,8 +252,9 @@ def flash_backward_reference(q, k, v, o, lse2, do):
 
 def flash_backward_cuda(q, k, v, o, lse2, do):
     """Launch ``csrc/flash_bwd.cu`` on CUDA tensors: the delta pre-pass with
-    the dK/dV kernel, then the dQ kernel; returns (dq, dk, dv). Raises on
-    anything the kernels do not take. Adds one to
+    the dK/dV kernel, then the dQ kernel; returns (dq, dk, dv). A head
+    width that is not a multiple of 8 runs padded (``_pad_head``). Raises
+    on anything the kernels do not take. Adds one to
     ``flash_backward_cuda.launches_dkdv`` and to ``.launches_dq`` per launch
     of each kernel."""
     ts = (q, k, v, o, do)
@@ -242,11 +264,7 @@ def flash_backward_cuda(q, k, v, o, lse2, do):
     if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype for t in ts):
         raise ValueError(f"q, k, v, o, do must all be float32 or bfloat16; "
                          f"got {[t.dtype for t in ts]}")
-    b, h, s, d = q.shape
-    if d % 8 or not 8 <= d <= MAX_BWD_HEAD_DIM:
-        raise ValueError(f"head dim {d}: the backward kernels take multiples "
-                         f"of 8 up to {MAX_BWD_HEAD_DIM} (wider heads are a "
-                         f"ROADMAP.md Queue 2 item)")
+    b, h, s, d_true = q.shape
     if lse2.shape != (b, h, s) or lse2.dtype != torch.float32:
         raise ValueError(f"lse2 must be (B, H, S) float32; got "
                          f"{tuple(lse2.shape)} {lse2.dtype}")
@@ -259,9 +277,15 @@ def flash_backward_cuda(q, k, v, o, lse2, do):
     pq, pk, pv, po, pdo, plse = ptrs = [t.data_ptr() for t in ts]
     if any(p % 16 for p in ptrs):
         raise ValueError("q, k, v, o, lse2, do must be 16-byte aligned")
-    if not 0 < b * h <= 65535 or s == 0:
-        raise ValueError(f"B*H = {b * h} must lie in [1, 65535] and S > 0")
+    if b * h == 0 or s == 0 or d_true == 0:
+        raise ValueError(f"B*H = {b * h}, S = {s} and D = {d_true} must be "
+                         f"positive")
     from ._build import launch
+
+    d = _padded_width(d_true)
+    if d != d_true:
+        q, k, v, o, do = (_pad_head(t, d) for t in (q, k, v, o, do))
+        pq, pk, pv, po, pdo = (t.data_ptr() for t in (q, k, v, o, do))
 
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse2)
@@ -278,11 +302,13 @@ def flash_backward_cuda(q, k, v, o, lse2, do):
     stream = _stream(dev.index)
     launch("flash_bwd_dkdv", pq, pk, pv, po, pdo, plse, delta.data_ptr(),
            rows.data_ptr(), pscratch, dk.data_ptr(), dv.data_ptr(), b * h, s,
-           d, bf16, dev.index, stream)
+           d, d_true, bf16, dev.index, stream)
     flash_backward_cuda.launches_dkdv += 1
     launch("flash_bwd_dq", pq, pk, pv, pdo, plse, delta.data_ptr(), pscratch,
-           dq.data_ptr(), b * h, s, d, bf16, dev.index, stream)
+           dq.data_ptr(), b * h, s, d, d_true, bf16, dev.index, stream)
     flash_backward_cuda.launches_dq += 1
+    if d != d_true:
+        dq, dk, dv = (t[..., :d_true].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -333,17 +359,9 @@ def _flash_fwd_fake(q, k, v):
 def flash_attention(q, k, v):
     """Flash attention on (B, H, S, D) q/k/v; returns o. Where a backward
     may follow (grad enabled, an input requiring grad) it runs through
-    ``_FlashAttention``, and on a non-CPU device a head width the backward
-    kernels do not take raises here, before the forward runs, rather than
-    in the middle of ``backward()``; otherwise through the registered
-    forward ``flash_fwd``, which ``torch.export`` can trace."""
-    d = q.shape[-1]
+    ``_FlashAttention``; otherwise through the registered forward
+    ``flash_fwd``, which ``torch.export`` can trace."""
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return flash_fwd(q, k, v)[0]
-    if d > MAX_BWD_HEAD_DIM and q.device.type != "cpu":
-        raise ValueError(f"head dim {d}: the flash backward kernels take "
-                         f"multiples of 8 up to {MAX_BWD_HEAD_DIM} (wider "
-                         f"heads are a ROADMAP.md Queue 2 item); run it "
-                         f"under torch.no_grad() or with narrower heads")
     return _FlashAttention.apply(q, k, v)

@@ -14,16 +14,30 @@ zero) and a min-plus row pass, D^2[i, j] = min_k g^2[i, k] + (j - k)^2.
 ``csrc/edt.cu`` (it replaces the TPU kernel ``_minplus_kernel`` and the XLA
 column pass); on a CPU tensor it runs ``edt_reference``, the same function
 in plain PyTorch. There is no other route: a CUDA tensor the kernel does not
-take raises. Every value is an integer below 2^24 before the square root, so
-the kernel, the plain version, the JAX package and scipy agree bit for bit.
+take raises.
+
+Exactness. Every squared distance is an integer up to (h + w)^2, kept
+exact up to the square root: in float32 while h + w <= 4096 (below 2^24),
+in float64 (the kernel: int32) above. The root is then the correctly
+rounded float32 one, below 2^24 sqrtf's and above the float64 root rounded
+to float32, which is scipy's float64 EDT cast to float32. So the kernel and
+the plain version agree bit for bit at every size, and with scipy; the JAX
+package agrees bit for bit while h + w <= 4096, and above that its float32
+sums round (ddti_tpu/ops/edt.py computes in float32 throughout).
+The kernel takes h + w <= MAX_SUM (every d^2 below 2^31) and w <=
+MAX_WIDTH (a row's envelope stacks in one block's shared memory).
 """
 
 from __future__ import annotations
 
 import torch
 
-# the kernel's bound, and where the integer-exactness argument ends
-MAX_SIDE = 2048
+# the kernel's bounds: h + w (int32 squared distances) and w (a row's
+# stacks in shared memory)
+MAX_SUM = 46340
+MAX_WIDTH = 32768
+# h + w at most where every squared distance is exact in float32
+F32_EXACT_SUM = 4096
 # rows per block of the plain row pass: bounds its (block, W, W) intermediate
 _BLOCK_ELEMS = 1 << 24
 
@@ -47,11 +61,11 @@ def _column_pass(zero: torch.Tensor) -> torch.Tensor:
 
 
 def _minplus_reference(g2: torch.Tensor) -> torch.Tensor:
-    """Row pass: (R, W) -> D^2[r, j] = min_k g2[r, k] + (j - k)^2, in blocks
-    of rows so the (block, W, W) intermediate stays bounded (JAX
-    ``_minplus_reference``)."""
+    """Row pass: (R, W) -> D^2[r, j] = min_k g2[r, k] + (j - k)^2, in g2's
+    dtype, in blocks of rows so the (block, W, W) intermediate stays
+    bounded (JAX ``_minplus_reference``)."""
     r, w = g2.shape
-    k = torch.arange(w, dtype=torch.float32, device=g2.device)
+    k = torch.arange(w, dtype=g2.dtype, device=g2.device)
     d2 = (k[None, :] - k[:, None]) ** 2  # (j, k)
     block = max(1, _BLOCK_ELEMS // (w * w))
     out = torch.empty_like(g2)
@@ -64,7 +78,11 @@ def edt_reference(masks: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch EDT of (N, H, W) masks of any dtype (nonzero ->
     distance to the nearest zero) -> float32 (N, H, W)."""
     n, h, w = masks.shape
-    g = _column_pass(masks == 0)
+    # float32 holds every candidate at or below (h + w)^2 exactly while
+    # that is below 2^24 (a larger one rounds to no less than the clamp);
+    # float64 holds all of them at any size the kernel takes
+    exact = torch.float32 if h + w <= F32_EXACT_SUM else torch.float64
+    g = _column_pass(masks == 0).to(exact)
     d2 = _minplus_reference((g * g).reshape(n * h, w)).reshape(n, h, w)
     d2 = torch.clamp(d2, max=float((h + w) ** 2))
     # the correctly rounded float32 square root, as CUDA's sqrtf, XLA and
@@ -83,10 +101,10 @@ def edt_cuda(masks: torch.Tensor) -> torch.Tensor:
     n, h, w = masks.shape
     if not masks.is_cuda:
         raise ValueError("masks must lie on a CUDA device")
-    if not (0 < h <= MAX_SIDE and 0 < w <= MAX_SIDE):
-        raise ValueError(f"H = {h}, W = {w}: the kernel takes 1..{MAX_SIDE} "
-                         f"(the float32 integer-exactness bound, ROADMAP.md "
-                         f"Queue 2)")
+    if not (h > 0 and 0 < w <= MAX_WIDTH and h + w <= MAX_SUM):
+        raise ValueError(f"H = {h}, W = {w}: the kernel takes H + W <= "
+                         f"{MAX_SUM} (squared distances in int32) and W <= "
+                         f"{MAX_WIDTH} (a row in one block's shared memory)")
     out = torch.empty((n, h, w), device=masks.device, dtype=torch.float32)
     if n == 0:
         return out

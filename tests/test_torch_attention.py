@@ -59,7 +59,10 @@ HDG = [
     (2, 128, 1),  # full-width heads -> unpacked kernel
     (8, 16, 8),   # narrow heads -> packed kernel, G = 8
     (2, 24, 1),   # 128 % 24 != 0 -> unpacked kernel
-    (1, 256, 1),  # the widest head the Hopper forward kernel takes
+    # heads wider than one Hopper tile: the wide kernels' output slices
+    (1, 136, 1),  # a ragged second slice of 8 columns
+    (1, 256, 1),  # TransUNet's embed_dim 256 in one head
+    (1, 264, 1),  # three slices backward, two forward (bf16: past 256)
 ]
 # backward vs the Pallas backward, relative to each gradient's max |value|:
 # float32 differs by summation order; bf16 also by where the kernels round
@@ -80,8 +83,10 @@ def test_flash_reference_matches_pallas_interpret(h, d, G):
     np.testing.assert_allclose(lse.numpy(), lse_jax, atol=1e-5)
 
 
-def test_flash_reference_bf16_matches_pallas_interpret():
-    q, k, v = _qkv((2, 4, 64, 32), seed=1)
+@pytest.mark.parametrize("shape", [(2, 4, 64, 32), (1, 1, 128, 136),
+                                   (1, 1, 128, 256), (1, 1, 128, 264)])
+def test_flash_reference_bf16_matches_pallas_interpret(shape):
+    q, k, v = _qkv(shape, seed=1)
     jb = [jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v)]
     o_jax = np.asarray(jattn.flash_attention(*jb, 16, 16, True), np.float32)
     tb = [torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)]
@@ -176,28 +181,87 @@ def test_flash_attention_cpu_path_without_nvcc():
         bwd(*(t.detach() for t in (q, k, v, o)), lse, w)
 
 
-@pytest.mark.parametrize("d", [136, 256])
-def test_flash_attention_rejects_backward_head_dims_at_forward(d):
-    """A width the forward kernel takes but the backward kernels do not
-    raises before the forward runs when grad is enabled on a non-CPU tensor
-    (meta stands in for CUDA), and not under no_grad."""
+@pytest.mark.parametrize("d", [4, 12, 136, 256, 264, 512])
+def test_flash_wrappers_take_every_head_width(d):
+    """No head width is refused: on a non-CPU tensor (meta stands in for
+    CUDA) flash_attention with grad, the forward and the backward wrapper
+    all reach the device check, which raises before anything is padded,
+    built or launched."""
     q = torch.empty((1, 2, 64, d), device="meta", requires_grad=True)
-    with pytest.raises(ValueError, match=f"head dim {d}: the flash backward"):
+    lse = torch.empty((1, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="one CUDA device"):
         tattn.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match=f"head dim {d}: the backward"):
-        tattn.flash_backward_cuda(*(q.detach(),) * 4,
-                                  torch.empty((1, 2, 64), device="meta"),
-                                  q.detach())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tattn.flash_forward_cuda(*(q.detach(),) * 3)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tattn.flash_backward_cuda(*(q.detach(),) * 4, lse, q.detach())
 
 
-@pytest.mark.parametrize("d", [12, 264])
-def test_flash_forward_cuda_rejects_head_dims_before_launch(d):
-    """Head widths the kernel does not take raise on any non-CPU tensor
-    (meta tensors stand in for CUDA ones here), before the library is
-    built."""
-    q = torch.empty((1, 2, 64, d), device="meta")
-    with pytest.raises(ValueError, match=f"head dim {d}"):
-        tattn.flash_forward_cuda(q, q, q)
+@pytest.mark.parametrize("case", ["float64", "shapes", "dtypes"])
+def test_flash_wrappers_still_reject(case):
+    """What the kernels do not take still raises, before the device check:
+    float64, q, k, v of different shapes, or of different dtypes."""
+    q = torch.empty((1, 2, 64, 16), device="meta")
+    args, match = {
+        "float64": ((q.double(),) * 3, "float32 or bfloat16"),
+        "shapes": ((q, q[..., :8], q), "one .B, H, S, D. shape"),
+        "dtypes": ((q, q.bfloat16(), q), "float32 or bfloat16"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        tattn.flash_forward_cuda(*args)
+    lse = torch.empty((1, 2, 64), device="meta")
+    with pytest.raises(ValueError, match=match):
+        tattn.flash_backward_cuda(*args, args[0], lse, args[0])
+
+
+@pytest.mark.parametrize("d,width", [(4, 8), (12, 16), (130, 136),
+                                     (256, 256)])
+def test_pad_head_keeps_the_function(d, width):
+    """The CUDA wrappers' padding of a head width to a multiple of 8: zero
+    columns of q and k leave q k^T as it is, those of v add zero columns
+    to o and the gradients, and the scores scaled by the true width (what
+    the kernels take as scale_d; here, q scaled by sqrt(width / d) before
+    the plain version scales by width^-1/2) give the unpadded result."""
+    assert tattn._padded_width(d) == width
+    q, k, v = map(torch.from_numpy, _qkv((1, 2, 64, d), seed=8))
+    do = torch.from_numpy(_qkv((1, 2, 64, d), seed=9)[0])
+    o, lse = tattn.flash_forward_reference(q, k, v)
+    want = tattn.flash_backward_reference(q, k, v, o, lse, do)
+    qp, kp, vp, op, dop = (tattn._pad_head(t, width)
+                           for t in (q, k, v, o, do))
+    assert qp.shape[-1] == width and (qp[..., d:] == 0).all()
+    qs = qp * (width / d) ** 0.5
+    o2, lse2 = tattn.flash_forward_reference(qs, kp, vp)
+    np.testing.assert_allclose(o2[..., :d].numpy(), o.numpy(), atol=1e-5)
+    assert (o2[..., d:] == 0).all()
+    np.testing.assert_allclose(lse2.numpy(), lse.numpy(), atol=1e-5)
+    got = tattn.flash_backward_reference(qs, kp, vp, op, lse, dop)
+    # dq of the scaled q: the chain rule's factor back
+    got = (got[0] * (width / d) ** 0.5, got[1], got[2])
+    for a, b in zip(got, want):
+        assert (a[..., d:] == 0).all()
+    _assert_close_rel([t[..., :d].numpy() for t in got],
+                      [t.numpy() for t in want], BWD_RTOL["float32"])
+
+
+def test_flash_attention_unaligned_head_matches_jax_fallback():
+    """A head width that is not a multiple of 8 (D = 12): JAX's
+    flash_attention returns its exact plain attention there (_fallback);
+    the port's flash_attention, o and all three gradients, against it."""
+    q, k, v = _qkv((1, 2, 128, 12), seed=10)
+    w = np.random.default_rng(11).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(t) for t in (q, k, v))
+    assert jattn._fallback(jq, 64, 64, True)
+    o_jax = np.asarray(jattn.flash_attention(jq, jk, jv, 64, 64, True))
+    want = jax.grad(
+        lambda *t: jnp.sum(jattn.flash_attention(*t, 64, 64, True) * w),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    o = tattn.flash_attention(tq, tk, tv)
+    np.testing.assert_allclose(o.detach().numpy(), o_jax, atol=2e-5)
+    got = torch.autograd.grad((o * torch.from_numpy(w)).sum(),
+                              (tq, tk, tv))
+    _assert_close_rel([t.numpy() for t in got], want, BWD_RTOL["float32"])
 
 
 @pytest.mark.parametrize("needle", ["scaled_dot_product_attention",

@@ -962,3 +962,38 @@ def test_spatial_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
     grad = float(re.search(r"gradients normwise ([\d.e+-]+)", line)[1])
     assert grad == pytest.approx(r0["resunet"]["grad_normwise"], rel=1e-3)
     assert "phase wall time" in out
+
+
+def test_wide_flag_needs_the_card():
+    """``chip_smoke.py --wide`` without a card exits non-zero and prints no
+    result line."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "chip_smoke.py", "--wide"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"wide"' not in r.stdout and '"ok"' not in r.stdout
+
+
+def test_wide_masks_reach_past_2_to_the_24():
+    """The wide phase's EDT frames: all foreground (the cap h + w, squared
+    past 2^24 where h + w > 4096: the double root's range), then four
+    zeros in foreground (distances of thousands of pixels), then salt and
+    a disc."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.ops import edt as E
+
+    m = C.wide_masks(3, 4, 4200, seed=0)
+    assert m.dtype == torch.uint8 and m.shape == (3, 4, 4200)
+    assert bool(m[0].all())
+    assert int((m[1] == 0).sum()) in range(1, 5)
+    assert 0 < float(m[2].float().mean()) < 1
+    d = E.edt_reference(m)
+    assert (d[0] == 4204).all() and 4204 ** 2 > 2 ** 24
+    assert float(d[1].max()) > 1000
+    assert np.isfinite(d.numpy()).all()

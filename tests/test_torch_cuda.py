@@ -51,13 +51,21 @@ SHAPES = [
     (1, 8, 1024, 16),
     (2, 3, 300, 24),
     (1, 2, 257, 48),
-    (1, 2, 130, 256),   # the widest head
+    (1, 2, 130, 256),   # the widest head of one bf16 forward tile
+    # wide heads: bf16 forward slices past 256, float32 forward (FMA) and
+    # every backward past 128, ragged last slices
+    (1, 2, 130, 136),
+    (2, 1, 200, 264),
+    (1, 2, 129, 512),
+    # padded to a multiple of 8, scaled by the true D
+    (2, 2, 100, 12),
+    (1, 1, 70, 4),
 ]
-# the backward kernels take D <= 128: the forward's shapes but the widest,
-# and the widths between
-BWD_SHAPES = [s for s in SHAPES if s[3] <= 128] + [
+# the backward kernels: the forward's shapes and the widths between
+BWD_SHAPES = SHAPES + [
     (1, 2, 190, 40), (1, 2, 130, 56), (1, 2, 200, 72), (1, 2, 129, 80),
-    (1, 2, 64, 96), (2, 1, 300, 112), (2, 8, 4096, 32)]
+    (1, 2, 64, 96), (2, 1, 300, 112), (2, 8, 4096, 32), (1, 2, 100, 200),
+    (1, 1, 65, 384)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -81,11 +89,14 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         A.flash_forward_cuda(q.transpose(2, 3).contiguous().transpose(2, 3),
                              k, v)
-    for d in (12, 264):
-        with pytest.raises(ValueError, match="head dim"):
-            A.flash_forward_cuda(*_qkv((1, 2, 64, d), torch.float32, cuda))
+    with pytest.raises(ValueError, match="one .B, H, S, D. shape"):
+        A.flash_forward_cuda(q, k[..., :16].contiguous(), v)
+    with pytest.raises(ValueError, match="must be positive"):
+        A.flash_forward_cuda(*_qkv((1, 0, 64, 32), torch.float32, cuda))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         A.flash_forward_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        A.flash_forward_cuda(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="one CUDA device"):
         A.flash_forward_cuda(q, k.cpu(), v)
     shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
@@ -119,6 +130,7 @@ def test_flash_forward_split_kernel_bit_equal_to_plain(cuda, shape):
     ((1, 1, 70, 64), 66, 60),
     ((1, 1, 130, 128), 121, 127),
     ((1, 1, 100, 128), 14, 64),
+    ((1, 1, 100, 264), 45, 260),  # the FMA kernel's second slice
 ])
 def test_flash_forward_f32_fragment_layout(cuda, shape, key, col):
     """The float32 forward's TF32 fragment layout, held with V zero but for
@@ -228,9 +240,63 @@ def test_edt_kernel_bit_equal_at_its_tiling_edges(cuda, shape):
     assert torch.equal(got, E.edt_reference(m))
 
 
+# sides past 2048: the column pass's three-read form (H > 2048), one to
+# three row warps a block (W > 2048), squared distances past 2^24 kept in
+# int32 and rooted in double, the plain version in float64
+EDT_WIDE_SHAPES = [(2, 64, 4100), (2, 4100, 64), (2, 2049, 16),
+                   (2, 4, 4104), (2, 2100, 8), (3, 4100, 33),
+                   (2, 3, 16384), (2, 16384, 5), (2, 8193, 20),
+                   (2, 12, 20000)]
+
+
+@pytest.mark.parametrize("shape", EDT_WIDE_SHAPES)
+def test_edt_kernel_bit_equal_past_2048(cuda, shape):
+    m = _edt_masks(*shape, seed=sum(shape))
+    m[0] = True  # no zero at all: the cap h + w
+    got = E.edt_cuda(m.to(cuda))
+    torch.cuda.synchronize()
+    want = E.edt_reference(m.to(cuda))
+    assert torch.equal(got, want)
+    assert (want[0] == shape[1] + shape[2]).all()
+
+
+def test_edt_kernel_matches_scipy_at_4096(cuda):
+    """A 4096 x 4096 frame (squared distances up to 2^26) bit-equal to
+    scipy's float64 EDT cast to float32."""
+    from scipy import ndimage
+
+    m = _edt_masks(1, 4096, 4096, seed=5)
+    got = E.edt_cuda(m.to(cuda)).cpu().numpy()
+    want = ndimage.distance_transform_edt(m[0].numpy()).astype(np.float32)
+    assert np.array_equal(got[0], want)
+
+
+def test_edt_kernel_matches_scipy_at_16384_a_side(cuda):
+    """A 16384 x 16384 frame, foreground but for a few zeros and a small
+    disc of them in its top-left 4096 x 4096 (distances past 17000
+    pixels, squared past 2^28), bit-equal to scipy's float64 EDT cast to
+    float32."""
+    from scipy import ndimage
+
+    n = 16384
+    rng = np.random.default_rng(16)
+    m = np.ones((n, n), np.uint8)
+    m[rng.integers(0, 4096, 5), rng.integers(0, 4096, 5)] = 0
+    yy, xx = np.ogrid[0:n, 0:n]
+    m[(yy - 3000) ** 2 + (xx - 1000) ** 2 < 40 ** 2] = 0
+    got = E.edt_cuda(torch.from_numpy(m[None]).to(cuda))[0].cpu().numpy()
+    want = ndimage.distance_transform_edt(m).astype(np.float32)
+    assert float(want.max()) ** 2 > 2 ** 28
+    assert np.array_equal(got, want)
+
+
 def test_edt_kernel_rejects_what_it_does_not_take(cuda):
-    with pytest.raises(ValueError, match="H = 4096"):
-        E.edt_cuda(torch.zeros((1, 4096, 8), dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError, match="H = 46000, W = 400"):
+        E.edt_cuda(torch.zeros((1, 46000, 400), dtype=torch.uint8,
+                               device=cuda))
+    with pytest.raises(ValueError, match="W = 32776"):
+        E.edt_cuda(torch.zeros((1, 1, 32776), dtype=torch.uint8,
+                               device=cuda))
     with pytest.raises(ValueError, match=r"\(N, H, W\)"):
         E.edt_cuda(torch.zeros((8, 8), dtype=torch.uint8, device=cuda))
     before = E.edt_cuda.launches
@@ -277,8 +343,28 @@ def test_flash_backward_kernels_match_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 65600, 16, 8), (1, 65537, 70, 12)])
+def test_flash_kernels_take_bh_past_65535(cuda, shape, dtype):
+    """B*H past gridDim.y's 65535: the kernels run (row block, slice) on
+    gridDim.x, forward and backward, held against the plain versions."""
+    q, k, v, _, _, do = _bwd_inputs(shape, dtype, cuda)
+    o, lse = A.flash_forward_cuda(q, k, v)
+    o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert (o.float() - o_ref.float()).abs().max().item() <= O_TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    got = A.flash_backward_cuda(q, k, v, o_ref, lse_ref, do)
+    want = A.flash_backward_reference(q, k, v, o_ref, lse_ref, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= G_TOL[dtype] * scale + 1e-6, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 8, 1024, 32), (1, 2, 1000, 128),
-                                   (2, 2, 333, 64)])
+                                   (2, 2, 333, 64), (1, 2, 300, 264),
+                                   (1, 1, 200, 512)])
 def test_flash_kernels_are_deterministic(cuda, shape, dtype):
     """No atomics: two calls give bit-identical o, lse2, dq, dk and dv."""
     q, k, v, _, _, do = _bwd_inputs(shape, dtype, cuda)
@@ -297,6 +383,8 @@ def test_flash_kernels_are_deterministic(cuda, shape, dtype):
     ((1, 1, 100, 32), 90, 30, 1),
     ((1, 1, 70, 64), 63, 17, 60),
     ((1, 1, 100, 128), 42, 127, 64),
+    ((1, 1, 100, 256), 42, 200, 131),  # the wide kernels' second slice
+    ((1, 1, 70, 264), 69, 260, 3),     # a ragged third slice
 ])
 def test_flash_backward_f32_fragment_layout(cuda, shape, row, c_q, c_do):
     """The float32 kernels' TF32 fragment layout, held with one non-zero
@@ -344,9 +432,10 @@ def test_flash_backward_kernels_reject_what_they_do_not_take(cuda):
     bwd = A.flash_backward_cuda
     with pytest.raises(ValueError, match="contiguous"):
         bwd(q, k, v, o, lse, do.transpose(2, 3).contiguous().transpose(2, 3))
-    for d in (12, 136):
-        with pytest.raises(ValueError, match=f"head dim {d}"):
-            bwd(*_bwd_inputs((1, 2, 64, d), torch.float32, cuda))
+    with pytest.raises(ValueError, match="one .B, H, S, D. shape"):
+        bwd(q, k, v, o, lse, do[..., :16].contiguous())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bwd(*(t.double() for t in (q, k, v, o)), lse, do.double())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         bwd(q, k, v, o, lse, do.bfloat16())
     with pytest.raises(ValueError, match="lse2"):
@@ -356,14 +445,11 @@ def test_flash_backward_kernels_reject_what_they_do_not_take(cuda):
     shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         bwd(q, k, v, o, lse, shifted)
-    # a width the forward takes but the backward does not fails before the
-    # forward when a backward may follow, and passes under no_grad
+    # a head wider than 128 trains through flash_attention
     wide = [t.requires_grad_() for t in _qkv((1, 2, 64, 256), torch.float32,
                                              cuda)]
-    with pytest.raises(ValueError, match="head dim 256: the flash backward"):
-        A.flash_attention(*wide)
-    with torch.no_grad():
-        assert A.flash_attention(*wide).shape == wide[0].shape
+    A.flash_attention(*wide).sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in wide)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

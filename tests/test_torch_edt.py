@@ -1,10 +1,13 @@
 """The port's EDT (ddti_tpu_torch/ops/edt.py) against the JAX package's and
 scipy's, on the CPU, where the port runs its plain version.
 
-Every value before the square root is an integer below 2^24, so all of
-them must agree bit for bit: the port's plain version with the JAX Pallas
-kernel in interpret mode, with JAX's plain path (ragged W), and with
-scipy on frames that have a zero.
+While h + w <= 4096 every value before the square root is an integer below
+2^24, so all of them must agree bit for bit: the port's plain version with
+the JAX Pallas kernel in interpret mode, with JAX's plain path (ragged W),
+and with scipy on frames that have a zero. Past that the port keeps the
+squared distances exact (float64) and agrees bit for bit with scipy's
+float64 EDT as float32, while JAX's float32 sums round: it is held to
+JAX within two float32 ulps there.
 """
 
 import jax.numpy as jnp
@@ -107,6 +110,41 @@ def test_edt_batch_layouts():
     np.testing.assert_array_equal(four.numpy(), want)
     one = edt.distance_transform_edt(torch.from_numpy(m[1]))
     np.testing.assert_array_equal(one.numpy(), flat[1])
+
+
+def _far_masks(n, h, w, seed):
+    """Frames past 2048 a side: foreground but for a zero at one end (the
+    distances run the whole long side, squared past 2^24 where h + w >
+    4096), then blobs and salt."""
+    m = _masks(n, h, w, seed)
+    m[0] = 1
+    m[0, 0, 0] = 0
+    return m
+
+
+# JAX's float32 squared distances past 2^24 round to even: the root
+# within two float32 ulps of the exact one
+JAX_RTOL = 2 * 2.0 ** -23
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4104), (2, 2100, 8),
+                                   (2, 2049, 16)])
+def test_plain_past_2048_matches_scipy_and_jax(shape):
+    """Sides past 2048: bit-equal to scipy, and to JAX's plain path
+    within JAX_RTOL (bit-equal where h + w <= 4096)."""
+    m = _far_masks(*shape, seed=sum(shape))
+    got = _port(m)
+    h, w = shape[1:]
+    for i in range(len(m)):
+        want = ndimage.distance_transform_edt(m[i]).astype(np.float32)
+        np.testing.assert_array_equal(got[i], want)
+        jax_d = np.asarray(jedt.distance_transform_edt(
+            jnp.asarray(m[i]), use_pallas=False))
+        if h + w <= edt.F32_EXACT_SUM:
+            np.testing.assert_array_equal(got[i], jax_d)
+        else:
+            np.testing.assert_allclose(got[i], jax_d, rtol=JAX_RTOL, atol=0)
+    assert got[0].max() ** 2 > 2 ** 24 or h + w <= edt.F32_EXACT_SUM
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -298,6 +336,43 @@ def _column_model(zero):
     return g
 
 
+def _column_model_long(zero):
+    """The kernel's column pass past 2048 rows (edt_column_long_kernel):
+    the same 32 segments and scan, each segment's first and last zero from
+    a read of its rows, then g downward from the last zero above it and
+    upward, min'd, from the first zero below it."""
+    n, h, w = zero.shape
+    segs = 32
+    seg = -(-h // segs)
+    cap = h + w
+    first = np.full((segs, n, w), FAR)
+    last = np.full((segs, n, w), -FAR)
+    for sg in range(segs):
+        rows = zero[:, sg * seg:min(h, sg * seg + seg)]
+        if rows.shape[1]:
+            has = rows.any(1)
+            first[sg] = np.where(has, sg * seg + rows.argmax(1), FAR)
+            last[sg] = np.where(
+                has, sg * seg + rows.shape[1] - 1 - rows[:, ::-1].argmax(1),
+                -FAR)
+    above = np.full_like(last, -FAR)
+    below = np.full_like(first, FAR)
+    for k in range(1, segs):
+        above[k] = np.maximum(above[k - 1], last[k - 1])
+        below[segs - 1 - k] = np.minimum(below[segs - k], first[segs - k])
+    g = np.empty((n, h, w), np.int64)
+    for sg in range(segs):
+        r0, r1 = sg * seg, min(h, sg * seg + seg)
+        a, b = above[sg].copy(), below[sg].copy()
+        for r in range(r0, r1):
+            a = np.where(zero[:, r], r, a)
+            g[:, r] = np.minimum(r - a, cap)
+        for r in range(r1 - 1, r0 - 1, -1):
+            b = np.where(zero[:, r], r, b)
+            g[:, r] = np.minimum(g[:, r], np.minimum(b - r, cap))
+    return g
+
+
 def _kernel_model(masks):
     """The whole kernel in numpy: float32 (N, H, W)."""
     n, h, w = masks.shape
@@ -424,6 +499,53 @@ def test_column_model_matches_plain_column_pass(h):
     want = edt._column_pass(torch.from_numpy(m) == 0).numpy()
     np.testing.assert_array_equal(_column_model(m == 0).astype(np.float32),
                                   want)
+
+
+@pytest.mark.parametrize("h", [2049, 2100, 4100])
+def test_long_column_model_matches_plain_column_pass(h):
+    """The column pass past 2048 rows, where a segment outgrows a 64-bit
+    word: the three-read form bit-equal to ``_column_pass``, with zeros on
+    segments' first and last rows, columns with no zero, all-zero columns
+    and a zero on the first or last row only."""
+    w = 12
+    rng = np.random.default_rng(h)
+    m = (rng.random((2, h, w)) > 0.002).astype(np.uint8)
+    seg = -(-h // 32)
+    m[0, ::seg, 3] = 0
+    m[0, seg - 1::seg, 5] = 0
+    m[:, :, 7] = 1
+    m[:, :, 9] = 0
+    m[1, h - 1, 10] = 0
+    m[1, 0, 11] = 0
+    want = edt._column_pass(torch.from_numpy(m) == 0).numpy()
+    np.testing.assert_array_equal(
+        _column_model_long(m == 0).astype(np.float32), want)
+
+
+def test_row_model_int32_bounds_at_the_largest_frame():
+    """h + w = 46340 (the kernel's bound) at its widest row, w = 32768:
+    the row model against the exact minimum over the row's sites, and the
+    quantities the kernel keeps in int32 (the separators' numerators, the
+    parabolas' values, cap^2) below 2^31; their cross products need the
+    int64 hidden()."""
+    w = 32768
+    h = edt.MAX_SUM - w
+    cap = h + w
+    rng = np.random.default_rng(3)
+    g = np.full(w, cap, np.int64)
+    sites = np.sort(rng.choice(w, 40, replace=False))
+    g[sites] = rng.integers(0, h, 40)
+    g[sites[:2]] = h - 1, 0
+    k = np.arange(w)
+    want = np.minimum(((k[None] - sites[:, None]) ** 2
+                       + g[sites][:, None] ** 2).min(0), cap * cap)
+    STATS["largest_cross"] = 0
+    np.testing.assert_array_equal(_row_model(g[None], cap)[0], want)
+    # every numerator is a difference of two parabolas' values at 0
+    values = k[:, None] ** 2 + g[None, sites] ** 2
+    assert values.max() < 2 ** 31 and cap * cap < 2 ** 31
+    assert want.max() < 2 ** 31
+    assert STATS["largest_cross"] >= 2 ** 31
 
 
 @settings(max_examples=30, deadline=None)

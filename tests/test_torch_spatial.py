@@ -92,6 +92,12 @@ CASES = {  # name: (model type, kwargs, side, Config options)
         base_num_filters=4, dropout_rate=0.0), 32, {}),
 }
 KEYS = {name: 11 + i for i, name in enumerate(CASES)}
+OPTION_CASES = {
+    "UNet_grad_accum": dict(config={"grad_accum": 2}),
+    "UNet_host_augment": dict(host=True),
+    "UNet_distill": {},
+    "UNet_remat": dict(model_kw=dict(base_filters=4, depth=3, remat=True)),
+}
 HALOS = ((1, 1), (1, 0), (0, 1), (2, 3), (6, 6))
 
 
@@ -129,6 +135,18 @@ def setup(tmp_path_factory):
                            mix=mix)
         cases[f"{name}_f64"] = dict(cases[name], kind="grads64")
     cases["UNet_qat"] = dict(cases["UNet"], config={"qat": True})
+    # the options no other case runs on bands, each held against the
+    # single-device step: --grad_accum 2 (each microbatch's rows cut into
+    # bands), --host_augment's step, a distillation teacher (its soft
+    # targets from bands, kd_bce's band means), --remat (the halos
+    # exchanged again in the recomputation)
+    for name, extra in OPTION_CASES.items():
+        cases[name] = dict(cases["UNet"], **extra)
+    cases["UNet_distill"]["teacher"] = dict(
+        model_type="ResUNet", model_kw=CASES["ResUNet_mixup"][1],
+        weights=cases["ResUNet_mixup"]["weights"])
+    cases["export"] = dict(kind="export", size=32, model_kw=dict(
+        base_filters=4, depth=2), dir=str(tmp_path_factory.mktemp("export")))
     cases["units"] = dict(kind="units", halos=HALOS)
     cases["fused"] = dict(kind="fused", size=32, model_kw=dict(
         base_filters=4, depth=2), config={"use_mixup": True,
@@ -156,25 +174,26 @@ def ranks(setup, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def single(setup):
-    """The single-device step (or float64 gradients) of a case, run once."""
+    """The single-device step (or float64 gradients, or export run) of a
+    case, run once."""
     done = {}
+    run = {"grads64": S.run_grads64, "export": S.run_export}
 
-    def run(name):
+    def one(name):
         if name not in done:
             case = setup[1][name]
-            done[name] = (S.run_grads64 if case.get("kind") == "grads64"
-                          else S.run_step)(case)
+            done[name] = run.get(case.get("kind"), S.run_step)(case)
         return done[name]
 
-    return run
+    return one
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(OPTION_CASES))
 def test_spatial_step_matches_single_device(single, ranks, name):
     """The 4-rank step (two data groups, two bands each) equals the
     single-device step on the same global batch and draws: loss terms,
     counts, n, BatchNorm statistics and the SGD parameters; every rank
-    holds the same state."""
+    holds the same state. Also for each of OPTION_CASES' options."""
     one = single(name)
     sp = ranks[0][name]
     for a, b in zip(sp["terms"], one["terms"]):
@@ -269,6 +288,32 @@ def test_spatial_step_matches_jax_mesh_step(single, ranks, jax_mesh_steps,
         gap = (sp["state"][k] - want[k]).abs()
         own = (one["state"][k] - want[k]).abs()
         assert bool((gap <= 1e-6 + 2e-4 * want[k].abs() + own).all()), k
+
+
+def test_export_serving_after_a_model_axis_run(single, ranks):
+    """--export_serving after a Trainer epoch on data=2, model=2: the
+    writer's f32 bundle, a program of whole frames, gives on whole frames
+    the masks of the trained model's own serve function, and so does the
+    sharded bundle (data > 1); against the same run on one device, the
+    trained weights agree within 1e-5 normwise and the masks on at least
+    99.9% of pixels (a float32 band sum may flip a pixel at the
+    threshold)."""
+    one = single("export")
+    sp = ranks[0]["export"]
+    assert torch.equal(sp["bundle"], sp["model"])
+    assert torch.equal(sp["sharded"], sp["bundle"])
+    assert torch.equal(one["bundle"], one["model"])
+    assert "sharded" not in one
+    assert all("bundle" not in ranks[r]["export"] for r in range(1, 4))
+    for r in range(1, 4):
+        for k, v in sp["state"].items():
+            assert torch.equal(ranks[r]["export"]["state"][k], v), k
+    params = [k for k in one["state"] if "running_" not in k
+              and "num_batches" not in k]
+    assert _normwise(sp["state"], one["state"], params) < 1e-5
+    agree = (sp["bundle"] == one["bundle"]).float().mean().item()
+    assert agree >= 0.999, agree
+    assert 0 < sp["bundle"].float().mean().item() < 1
 
 
 def test_spatial_qat_ranges_are_global(single, ranks):

@@ -188,11 +188,12 @@ def test_attention_probability_dropout():
 
 
 def test_gated_layer_raises_on_head_dim_the_kernel_cannot_take():
-    """A width the gate sends to flash but the kernel does not take
-    raises on a non-CPU tensor (meta stands in for CUDA) rather than
-    running the plain attention."""
+    """A head the gate sends to flash goes to the kernel's wrapper on a
+    non-CPU tensor, whatever its width (264 runs a wide kernel), and never
+    to the plain attention: on meta, which stands in for CUDA here, the
+    wrapper's device check is what raises."""
     tl = blocks.TransformerEncoderLayer(264, 1).to("meta").eval()
-    with pytest.raises(ValueError, match="head dim 264"):
+    with pytest.raises(ValueError, match="one CUDA device"):
         tl(torch.empty((1, 1024, 264), device="meta"))
 
 

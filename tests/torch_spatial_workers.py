@@ -35,8 +35,13 @@ from ddti_tpu_torch.parallel.spatial import (
     halo,
     set_spatial_mesh,
 )
+from ddti_tpu_torch.train.distill import Teacher
 from ddti_tpu_torch.train.state import TrainState
-from ddti_tpu_torch.train.steps import _ds_aux_loss, make_train_step
+from ddti_tpu_torch.train.steps import (
+    _ds_aux_loss,
+    make_host_train_step,
+    make_train_step,
+)
 
 SGD_LR = 1e-2
 # the convs whose input is not a band: the token path's patchify takes the
@@ -71,14 +76,29 @@ def port_config(case: dict) -> Config:
 
 def _rows(case: dict, mesh):
     """The batch, the chain's and mixup's draws: the rank's share (its
-    data group's rows and partners) under a mesh."""
+    data group's rows and partners, each microbatch's piece under
+    --grad_accum) under a mesh."""
     images, masks = (torch.as_tensor(case[k]) for k in ("images", "masks"))
     draws, mix = case["draws"], case["mix"]
     if mesh is not None:
         keep, draws, mix = shard_draws(draws, mix, local_rows(
-            images.shape[0], mesh))
+            images.shape[0], mesh, case["config"].get("grad_accum", 1)))
         images, masks = images[keep], masks[keep]
     return images, masks, draws, mix
+
+
+def _teacher(case: dict, mesh):
+    """The case's distillation teacher (eval mode, frozen), on bands under
+    a mesh with a ``model`` axis, as the Trainer sets it; None without."""
+    spec = case.get("teacher")
+    if spec is None:
+        return None
+    m = create_model(spec["model_type"], **spec["model_kw"])
+    m.load_state_dict({k: torch.as_tensor(np.ascontiguousarray(v))
+                       for k, v in spec["weights"].items()}, strict=True)
+    teacher = Teacher([m], amp=False)
+    set_spatial_mesh(teacher, mesh)
+    return teacher
 
 
 def run_step(case: dict, mesh=None) -> dict:
@@ -103,8 +123,19 @@ def run_step(case: dict, mesh=None) -> dict:
              for name, m in model.named_modules()
              if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
     s = case["size"]
-    step = make_train_step(cfg, AugmentConfig(out_size=(s, s)), mesh=mesh)
-    m = step(state, *_rows(case, mesh))
+    aug = AugmentConfig(out_size=(s, s))
+    teacher = _teacher(case, mesh)
+    if case.get("host"):
+        # --host_augment: the step takes augmented float32 frames (here
+        # the device chain's, on the rank's rows) and bands them itself
+        step = make_host_train_step(cfg, teacher, mesh=mesh)
+        images, masks, draws, mix = _rows(case, mesh)
+        x, y = augment_batch(images.to(torch.float32) / 255.0,
+                             masks.to(torch.float32) / 255.0, draws, aug)
+        m = step(state, x, y, mix)
+    else:
+        step = make_train_step(cfg, aug, teacher=teacher, mesh=mesh)
+        m = step(state, *_rows(case, mesh))
     for h in hooks:
         h.remove()
     return {
@@ -219,10 +250,52 @@ def run_fused(case: dict, mesh) -> dict:
     return out
 
 
+def run_export(case: dict, mesh=None) -> dict:
+    """A Trainer's one-epoch run with --export_serving, under ``mesh`` or
+    on one device, then on the writer: its f32 serving bundle loaded back
+    and run on whole frames, beside the masks of the trained model's own
+    serve function, and under a mesh with data > 1 the sharded bundle's.
+    Every rank returns its trained weights."""
+    from ddti_tpu_torch.core.logging import create_logger
+    from ddti_tpu_torch.data.dataset import DeviceDataSource
+    from ddti_tpu_torch.data.synthetic import generate_ddti_like
+    from ddti_tpu_torch.train.engine import Trainer
+    from ddti_tpu_torch.train.export import load_serving_bundle, make_serve_fn
+    from ddti_tpu_torch.utils.weight_init import init_like_flax
+
+    s = case["size"]
+    src = DeviceDataSource(*generate_ddti_like(16, (s, s), 0), device="cpu")
+    rank = mesh.rank if mesh is not None else "single"
+    cfg = Config(epochs=1, batch_size=8, image_size=s, store_size=s,
+                 lr=1e-3, model_type="UNet", export_serving=True,
+                 base_dir=os.path.join(case["dir"], f"rank{rank}"))
+    cfg.make_dirs()
+    model = init_like_flax(create_model("UNet", **case["model_kw"]), 0)
+    tr = Trainer(cfg, (src, src, src),
+                 create_logger(os.path.join(cfg.log_dir, "log.log")),
+                 model, mesh=mesh)
+    tr.train()
+    out = {"state": {k: v.clone() for k, v in model.state_dict().items()}}
+    if not tr.is_writer:
+        return out
+    frames, _ = generate_ddti_like(8, (s, s), 5)
+    x = torch.as_tensor(frames).to(torch.float32) / 255.0
+    fn = load_serving_bundle(
+        os.path.join(cfg.model_dir, "UNet_serving_program.pt2"),
+        device="cpu")[0]
+    out["bundle"] = fn(x).clone()
+    out["model"] = make_serve_fn(tr._serving_model())(x).clone()
+    sharded = os.path.join(cfg.model_dir, "UNet_serving_sharded.pt2")
+    if os.path.exists(sharded):
+        out["sharded"] = load_serving_bundle(sharded, device="cpu")[0](x)
+    return out
+
+
 def spatial_worker(mesh, in_path: str, out_dir: str) -> int:
     """Every case of ``in_path`` on this rank; ``out_dir/rank<r>.pt``."""
     cases = torch.load(in_path, weights_only=False)
-    run = {"grads64": run_grads64, "units": run_units, "fused": run_fused}
+    run = {"grads64": run_grads64, "units": run_units, "fused": run_fused,
+           "export": run_export}
     out = {name: run.get(case.get("kind"), run_step)(case, mesh)
            for name, case in cases.items()}
     torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
