@@ -10,7 +10,10 @@ archive) with this one on the same card, in the order other, this, this,
 other: ``python3 chip_smoke.py --ab OTHER_TREE`` (see ``ab``; ``--ab
 OTHER_TREE probes`` for the probes and the EDT alone: conv3x3, gather,
 exp2_probe in every mode and the EDT's queued time and passes; ``--ab
-OTHER_TREE serve`` for the bf16 serving batch alone); ``python3
+OTHER_TREE serve`` for the bf16 serving batch alone; ``--ab OTHER_TREE
+deploy`` for the int8 conv at the flagship's five levels by route and
+input form and the flagship's bf16 and int8 serving batches, the int8 one
+traced by pass: ``ab_deploy``); ``python3
 chip_smoke.py --zoo`` runs the zoo phases alone and profiles every zoo
 model at both sizes; ``python3 chip_smoke.py --infer`` runs the infer phase
 alone (the AttentionUNet trained first, as the zoo phase trains it);
@@ -270,11 +273,15 @@ and a non-zero exit:
               its launches a step.
 20. deploy  — (run after the infer phase, on the flagship checkpoint that
               phase 7 wrote) the int8 conv (csrc/conv_s8.cu) bit for bit
-              against its plain version at every zoo geometry
-              (ops/conv_s8.py:ZOO_GEOMETRIES; s32 sums, float32 and bf16
-              outputs, two calls equal), timed at the flagship's 3x3 conv
-              (one call, queued) beside its bound and cuDNN's bf16
-              F.conv2d; at once, the serving TransUNet trained by the CLI
+              against its plain version at every zoo geometry through
+              each route that takes it, wgmma and mma
+              (ops/conv_s8.py:ZOO_GEOMETRIES, route_of; x as int8, bf16
+              and float32, quantized by the kernel as it loads it; s32
+              sums, float32 and bf16 outputs, two calls equal), timed at
+              the flagship's 3x3 conv by route and input form (one call,
+              queued) beside its bound and cuDNN's bf16 F.conv2d; the
+              layout copies the flagship's int8 program makes; at once,
+              the serving TransUNet trained by the CLI
               with --qat --export_serving --serving_dtype int8
               --serving_batches 1,16 (run_cli's checks, exact launches),
               cli/export (f32) and cli/quantize (--min_channels 128) on the
@@ -283,10 +290,12 @@ and a non-zero exit:
               of each of the four, and at the same time cli/infer on the
               QAT run's int8 batch-16 bundle (its launches); the int8
               (min_channels 0) batch traced by torch.profiler (conv_s8's
-              and the elementwise kernels' shares, busy); the daemon on
-              the QAT run's two-program
-              int8 set, masks against serve_body's int8 graph, the conv_s8
-              and flash launches of its requests. ``--deploy`` runs the
+              and the elementwise kernels' shares, busy, and every kernel
+              by the pass that launched it); the daemon on the QAT run's
+              two-program int8 set, masks against serve_body's int8
+              graph, the conv_s8 launches of its requests by route (every
+              tabled conv once a batch) and the flash launches.
+              ``--deploy`` runs the
               phase alone (training its own flagship first) with every
               flagship level's conv row.
 21. parallel — data parallelism (ddti_tpu_torch/parallel), after the
@@ -308,7 +317,7 @@ and a non-zero exit:
               forward's with the infer, legacy, hostdata and trainer
               phases' launches; the EDT's with the recipe, lifecycle,
               legacy, hostdata, trainer and parallel phases' launches and
-              numbers; conv_s8's with the deploy phase's),
+              numbers; one entry a conv_s8 route, with the deploy phase's),
               then the device
               line. Every busy share is the union of the device intervals
               of kernels, memcpys and memsets in a record_function window
@@ -318,6 +327,7 @@ and a non-zero exit:
 
 import atexit
 import concurrent.futures
+import contextlib
 import copy
 import http.client
 import io
@@ -3561,8 +3571,9 @@ def ab_side(tree, which=None):
 
     _build.build()
     _build.load_library()
-    if which in ("probes", "serve"):
-        got = ab_probes() if which == "probes" else ab_serve()
+    if which in ("probes", "serve", "deploy"):
+        got = {"probes": ab_probes, "serve": ab_serve,
+               "deploy": ab_deploy}[which]()
         print("[ab] " + json.dumps({"tree": tree, "source": _build.__file__,
                                     which: got}), flush=True)
         return
@@ -6187,16 +6198,23 @@ DEPLOY_POSTS = 12
 DEPLOY_MASK_AGREE = 0.999
 
 
-def conv_s8_bound(n, h, w, c, cout, k, stride, dil, pad, bf16):
-    """(bound_ms, bound_by) of one conv_s8 call: int8 x read once, the
-    int8 weights and the float32 scales and bias, the output written once,
-    against 2 * outputs * k^2 * C int8 operations at PEAK_INT8_OPS."""
+# the conv's input forms: x as the int8 activation, or in the float type
+# that the kernel quantizes as it loads it; the bytes of an element
+CONV_FORMS = {"int8": 1, "bf16": 2, "float32": 4}
+
+
+def conv_s8_bound(n, h, w, c, cout, k, stride, dil, pad, bf16, x_bytes=1):
+    """(bound_ms, bound_by) of one conv_s8 call: x read once in the type
+    the kernel reads (``x_bytes``: 1 for int8, 2 for bf16, 4 for float32),
+    the int8 weights and the float32 scales and bias, the output written
+    once, against 2 * outputs * k^2 * C int8 operations at PEAK_INT8_OPS
+    (the float forms' quantization is not counted as operations)."""
     from ddti_tpu_torch.ops.conv_s8 import conv_geometry
 
     _, _, oh, ow = conv_geometry(h, w, k, stride, dil, pad)
     taps = 1 if pad == "T" else k * k
     outs = n * oh * ow * cout
-    nbytes = (n * h * w * c + k * k * c * cout + 8 * cout + 4
+    nbytes = (n * h * w * c * x_bytes + k * k * c * cout + 8 * cout + 4
               + outs * (2 if bf16 else 4))
     ops_ms = 2 * outs * taps * c / PEAK_INT8_OPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -6204,92 +6222,128 @@ def conv_s8_bound(n, h, w, c, cout, k, stride, dil, pad, bf16):
                                    else "bytes")
 
 
-def _conv_s8_inputs(n, h, w, c, cout, k, seed):
+def _conv_s8_inputs(n, h, w, c, cout, k, seed, form="int8"):
+    """Seeded conv_s8 inputs on the card: x in ``form`` (int8 values, or a
+    float activation whose quantization reaches past +-127 sx), int8 HWIO
+    weights, the scales and a bias."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c),
-                                      dtype=np.int8)).cuda()
+    sx = np.float32(0.0137)
+    if form == "int8":
+        x = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c),
+                                          dtype=np.int8))
+    else:
+        x = torch.from_numpy((rng.normal(0.0, 45.0, (n, h, w, c)) * sx)
+                             .astype(np.float32))
+        x = x.to(torch.bfloat16 if form == "bf16" else torch.float32)
     wq = torch.from_numpy(rng.integers(-127, 128, (k, k, c, cout),
                                        dtype=np.int8)).cuda()
-    sx = torch.tensor(np.float32(0.0137)).cuda()
     sw = torch.from_numpy(rng.uniform(1e-4, 2e-2, cout).astype(
         np.float32)).cuda()
     bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32)).cuda()
-    return x, wq, sx, sw, bias
+    return x.cuda(), wq, torch.tensor(sx).cuda(), sw, bias
 
 
-def deploy_conv_row(n, h, w, c, cout, seed=SEED):
-    """The kernel at one flagship 3x3 shape (bf16 out, as a bf16 model's
-    convs): bit-equal to its plain version, the time of one call between
-    CUDA events and queued, the plain version's, the bound, and cuDNN's
-    bf16 F.conv2d at the same shape (channels_last) as the yardstick: no
-    PyTorch call computes an int8 convolution on CUDA."""
+def conv_row(C, shape, route, form, seed, plain=True, library=True):
+    """conv_s8 of the imported tree through ``route`` (None: the op's
+    choice) at one flagship 3x3 shape, x in ``form``, bf16 out (as a bf16
+    model's convs): bit-equal to its plain version, the time of one call
+    between CUDA events and queued, the plain version's (``plain``), the
+    bound, and (``library``) cuDNN's bf16 F.conv2d at the same shape
+    (channels_last) as the yardstick: no PyTorch call computes an int8
+    convolution on CUDA."""
     import torch
     import torch.nn.functional as F
 
-    from ddti_tpu_torch.ops import conv_s8 as C
-
-    x, wq, sx, sw, bias = _conv_s8_inputs(n, h, w, c, cout, 3, seed)
-    geo = (1, 1, 1, 1, h, w, False, True)
-    got = C.conv_s8(x, wq, sx, sw, bias, *geo)
-    want = C.conv_s8_reference(x, wq, sx, sw, bias, *geo)
+    n, h, w, c, cout = shape
+    x, wq, sx, sw, bias = _conv_s8_inputs(n, h, w, c, cout, 3, seed, form)
+    args = (wq, sx, sw, bias, 1, 1, 1, 1, h, w, False, True)
+    got = conv_call(C, route, x, *args)
+    want = C.conv_s8_reference(x, *args)
     torch.cuda.synchronize()
-    assert torch.equal(got, want), "conv_s8 differs from its plain version"
-    ms = median_ms(lambda: C.conv_s8(x, wq, sx, sw, bias, *geo), runs=5,
-                   warmup=1)
-    _, queue = queued_ms(lambda: C.conv_s8(x, wq, sx, sw, bias, *geo),
-                         calls=20)
-    plain_ms = median_ms(lambda: C.conv_s8_reference(x, wq, sx, sw, bias,
-                                                     *geo), runs=2, warmup=1)
-    xf = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    wf = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last)
-    _, lib = queued_ms(lambda: F.conv2d(xf, wf, None, 1, 1), calls=20)
-    b_ms, b_by = conv_s8_bound(n, h, w, c, cout, 3, 1, 1, 1, True)
-    row = dict(shape=[n, h, w, c, cout], k=3, ms=ms, queue_ms=queue,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib, max_abs_err=0.0)
-    phase("deploy", f"conv_s8 {n}x{h}x{w}x{c}->{cout} 3x3 bf16 out: "
-          f"{ms:.3f} ms a call, {queue:.3f} ms queued, plain {plain_ms:.3f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by}), cuDNN bf16 F.conv2d "
-          f"{lib:.3f} ms queued; bit-equal")
+    assert torch.equal(got, want), ("conv_s8 differs from its plain "
+                                    "version", route, form, shape)
+    del got, want
+    ms = median_ms(lambda: conv_call(C, route, x, *args), runs=5, warmup=1)
+    _, queue = queued_ms(lambda: conv_call(C, route, x, *args), calls=20)
+    plain_ms = (median_ms(lambda: C.conv_s8_reference(x, *args), runs=2,
+                          warmup=1) if plain else None)
+    lib = None
+    if library:
+        xf = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wf = wq.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        _, lib = queued_ms(lambda: F.conv2d(xf, wf, None, 1, 1), calls=20)
+        del xf, wf
+    b_ms, b_by = conv_s8_bound(n, h, w, c, cout, 3, 1, 1, 1, True,
+                               CONV_FORMS[form])
+    row = dict(shape=[n, h, w, c, cout], k=3, route=route, form=form, ms=ms,
+               queue_ms=queue, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib, max_abs_err=0.0)
+    phase("deploy", f"conv_s8 {route or 'op'} {form} x {n}x{h}x{w}x{c}->"
+          f"{cout} 3x3 bf16 out: {ms:.3f} ms a call, {queue:.4f} ms queued "
+          f"({b_ms / queue:.1%} of the bound {b_ms:.4f} ms, {b_by})"
+          + (f", plain {plain_ms:.3f} ms" if plain else "")
+          + (f", cuDNN bf16 F.conv2d {lib:.4f} ms queued" if library else "")
+          + "; bit-equal")
+    torch.cuda.empty_cache()
     return row
 
 
 def deploy_conv_s8(levels=False):
-    """conv_s8 against its plain version at every zoo geometry (float32 and
-    bf16 out, s32 sums by unit scales), two calls bit-equal; then the
-    flagship row (every level under --deploy)."""
+    """conv_s8 against its plain version at every zoo geometry through each
+    route that takes it (route "mma" every one, route "wgmma" where
+    ``route_of`` gives it the geometry), x as int8, bf16 and float32,
+    float32 and bf16 out: bit for bit, two calls bit-equal, the s32 sums
+    (unit scales) exact; then the flagship rows by route and input form
+    (every level under --deploy)."""
     import torch
 
     from ddti_tpu_torch.ops import conv_s8 as C
 
     n, h, w = DEPLOY_GEOMETRY_FRAME
+    taken = {r: 0 for r in C.ROUTES}
     for i, (name, k, s, d, pad, c, cout) in enumerate(C.ZOO_GEOMETRIES):
-        x, wq, sx, sw, bias = _conv_s8_inputs(n, h, w, c, cout, k, SEED + i)
         pt, pl, oh, ow = C.conv_geometry(h, w, k, s, d, pad)
-        for bf16 in (False, True):
-            geo = (s, d, pt, pl, oh, ow, pad == "T", bf16)
-            got = C.conv_s8(x, wq, sx, sw, bias, *geo)
-            again = C.conv_s8(x, wq, sx, sw, bias, *geo)
-            want = C.conv_s8_reference(x, wq, sx, sw, bias, *geo)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (name, bf16)
-            assert torch.equal(got, again), (name, bf16)
-        one = torch.ones((), device="cuda")
-        acc = C.conv_s8(x, wq, one, torch.ones(cout, device="cuda"), None,
-                        s, d, pt, pl, oh, ow, pad == "T", False)
-        assert torch.equal(acc, C.conv_s8_int32(
-            x, wq, s, d, pt, pl, oh, ow, pad == "T").float()), name
-    phase("deploy", f"conv_s8 = its plain version bit for bit (s32 sums, "
-          f"float32 and bf16 outputs, two calls equal) at all "
-          f"{len(C.ZOO_GEOMETRIES)} zoo geometries on {n}x{h}x{w}: "
+        for form in CONV_FORMS:
+            x, wq, sx, sw, bias = _conv_s8_inputs(n, h, w, c, cout, k,
+                                                  SEED + i, form)
+            xq = C.quantize_activation(x, sx)
+            for bf16 in (False, True):
+                geo = (s, d, pt, pl, oh, ow, pad == "T", bf16)
+                want = C.conv_s8_reference(x, wq, sx, sw, bias, *geo)
+                for route in C.ROUTES:
+                    if route != C.route_of(x, wq, s, d, pad == "T", bf16) \
+                            and route == "wgmma":
+                        continue
+                    got = C.conv_s8_cuda(x, wq, sx, sw, bias, *geo,
+                                         route=route)
+                    again = C.conv_s8_cuda(x, wq, sx, sw, bias, *geo,
+                                           route=route)
+                    one = torch.ones((), device="cuda")
+                    acc = C.conv_s8_cuda(xq, wq, one,
+                                         torch.ones(cout, device="cuda"),
+                                         None, *geo[:-1], False, route=route)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (name, form, bf16, route)
+                    assert torch.equal(got, again), (name, form, bf16, route)
+                    assert torch.equal(acc, C.conv_s8_int32(
+                        xq, wq, *geo[:-1]).float()), (name, form, route)
+                    taken[route] += 1
+    phase("deploy", f"conv_s8 = its plain version bit for bit (outputs and "
+          f"s32 sums, two calls equal) at all {len(C.ZOO_GEOMETRIES)} zoo "
+          f"geometries on {n}x{h}x{w}, x int8, bf16 and float32, float32 "
+          f"and bf16 out: route wgmma {taken['wgmma']} cases, route mma "
+          f"{taken['mma']}; geometries: "
           + ", ".join(g[0] for g in C.ZOO_GEOMETRIES))
-    rows = [deploy_conv_row(*shape) for shape in (
-        DEPLOY_CONV_LEVELS if levels else [DEPLOY_CONV])]
+    rows = []
+    for shape in DEPLOY_CONV_LEVELS if levels else [DEPLOY_CONV]:
+        for j, (route, form) in enumerate(conv_routes(C)):
+            rows.append(conv_row(C, shape, route, form, SEED,
+                                 library=j == 0))
     return rows
 
 
@@ -6427,13 +6481,148 @@ def bundle_trace(one):
                conv_s8_share=conv / total, elementwise_share=elem / total,
                busy=busy["union_us"] / max(busy["window_us"], 1),
                top=[[e.key[:80], e.self_device_time_total / total]
-                    for e in top])
+                    for e in top],
+               passes=trace_passes(prof, DEPLOY_TRACED))
     phase("deploy", f"int8 batch trace ({DEPLOY_TRACED} batches): device "
           f"kernels {out['kernel_ms']:.2f} ms a batch, conv_s8 "
           f"{out['conv_s8_share']:.1%}, elementwise kernels "
           f"{out['elementwise_share']:.1%}, {busy_text(busy)}; top: "
           + "; ".join(f"{k} {v:.1%}" for k, v in out["top"]))
+    phase("deploy", "int8 batch by pass (a batch: ms, launches, share, "
+          "elementwise share): " + "; ".join(
+              f"{p['name']} {p['ms']:.3f} ms x{p['launches']:g} "
+              f"{p['share']:.1%} ({p['elementwise_share']:.1%})"
+              for p in out["passes"]))
     return out
+
+
+def pass_of(event):
+    """The pass that launched a profiled op's kernels: the innermost
+    ``record_function`` range named ``quant_forward...`` around it, else
+    the outermost ``aten::`` or ``ddti::`` op around it (``aten::to``
+    rather than the ``aten::copy_`` inside it)."""
+    name, e = event.name, event
+    while e is not None:
+        if e.name.startswith("quant_forward"):
+            return e.name
+        if e.name.startswith(("aten::", "ddti::")):
+            name = e.name
+        e = e.cpu_parent
+    return name
+
+
+def trace_passes(prof, batches):
+    """Every device kernel of a torch.profiler trace of ``batches`` serving
+    batches, by the pass that launched it (``pass_of``): [{"pass", "ms"
+    (a batch), "launches" (a batch), "share", "elementwise_share" (of the
+    batch's kernels, the elementwise ones of this pass)}], by time."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    by, total = {}, 0.0
+    for e in prof.events():
+        if e.device_type == cuda or not e.kernels:
+            continue
+        d = by.setdefault(pass_of(e), [0.0, 0, 0.0])
+        for k in e.kernels:
+            d[0] += k.duration
+            d[1] += 1
+            if "elementwise" in k.name.lower():
+                d[2] += k.duration
+            total += k.duration
+    total = total or 1.0
+    return [dict(name=name, ms=us / 1e3 / batches, launches=n / batches,
+                 share=us / total, elementwise_share=el / total)
+            for name, (us, n, el) in sorted(by.items(),
+                                            key=lambda kv: -kv[1][0])]
+
+
+def conv_call(C, route, x, *args):
+    """One conv_s8 call through ``route`` of the tree that is imported, or
+    through the op (the route it picks) where ``route`` is None."""
+    if route is None:
+        return C.conv_s8(x, *args)
+    return C.conv_s8_cuda(x, *args, route=route)
+
+
+def conv_routes(C):
+    """The (route, form) pairs the imported tree's conv_s8 takes: every
+    route in every input form since the float forms came; before that one
+    route, int8 x."""
+    routes = getattr(C, "ROUTES", None)
+    if routes is None:
+        return [(None, "int8")]
+    return [(r, f) for r in routes for f in ("int8", "bf16")]
+
+
+def ab_deploy():
+    """The int8 serving conv and batch with the tree that is imported: the
+    queued time of conv_s8 at each flagship level by route and input form
+    (``conv_routes``), beside cuDNN's bf16 conv and the bound; then the
+    flagship ResUNet (random weights, seed SEED) exported in-process as a
+    bf16 bundle and as int8 bundles at min_channels 0 and 128 (calibrated
+    on 16 synthetic frames), one serving batch of 16 at 512^2 of each (CUDA
+    events, median of 5), the int8 (0) batch traced by pass."""
+    import numpy as np
+    import torch
+
+    from ddti_tpu_torch.ops import conv_s8 as C
+    from ddti_tpu_torch.train.export import (
+        PROGRAM_SUFFIX,
+        export_serving_program,
+        save_bundle,
+    )
+    from ddti_tpu_torch.train.quantize import export_serving_int8
+
+    rows = []
+    for i, shape in enumerate(DEPLOY_CONV_LEVELS):
+        for route, form in conv_routes(C):
+            rows.append(conv_row(C, shape, route, form, SEED + i,
+                                 plain=False, library=form == "int8"))
+    model = blank_model("ResUNet", base_filters=TRAIN["base_filters"],
+                        depth=TRAIN["depth"])
+    model.load_state_dict(random_state(model, SEED))
+    model = model.cuda().eval()
+    size = TRAIN["image_size"]
+    calib = torch.from_numpy(np.stack(make_frames(16, size, SEED + 9))[
+        ..., None]).cuda().float() / 255.0
+    batch_ms, trace, copies = {}, None, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mc in (("bf16", None), ("int8_mc0", 0), ("int8_mc128", 128)):
+            path = os.path.join(tmp, name + PROGRAM_SUFFIX)
+            if mc is None:
+                save_bundle(path, *export_serving_program(
+                    model, 16, size, input_dtype=torch.uint8, bf16=True,
+                    weights_dtype=torch.bfloat16))
+            else:
+                with layout_copies() as n_copies:
+                    save_bundle(path, *export_serving_int8(
+                        model, 16, size, calib_images=calib,
+                        input_dtype=torch.uint8, bf16=True, min_channels=mc,
+                        model_type="ResUNet"))
+                copies[name] = n_copies()
+            ms, _, traced = _bundle_batch_ms(path, trace=name == "int8_mc0")
+            batch_ms[name] = ms
+            trace = trace or traced
+            torch.cuda.empty_cache()
+    phase("ab", "flagship (random weights) one serving batch of 16 at "
+          f"{size}^2: " + ", ".join(f"{k} {v:.2f} ms"
+                                    for k, v in batch_ms.items())
+          + f"; quant_forward's layout copies in each int8 program: {copies}")
+    return dict(conv_rows=rows, batch_ms=batch_ms, int8_mc0_trace=trace,
+                layout_copies=copies)
+
+
+@contextlib.contextmanager
+def layout_copies():
+    """The layout copies ``quant_forward`` makes while the block traces a
+    program (``quant_forward.layout_copies``; None where the imported tree
+    has no such count): yields a function that reads them."""
+    from ddti_tpu_torch.train import quantize as Qm
+
+    start = getattr(Qm.quant_forward, "layout_copies", None)
+    yield lambda: (None if start is None
+                   else Qm.quant_forward.layout_copies - start)
 
 
 def deploy_exports(tmp, flagship):
@@ -6466,9 +6655,13 @@ def deploy_exports(tmp, flagship):
         weights_dtype=torch.bfloat16))
     calib = torch.from_numpy(np.stack(make_frames(16, size, SEED + 9))[
         ..., None]).cuda().float() / 255.0
-    save_bundle(paths["int8_mc0"], *export_serving_int8(
-        model, 16, size, calib_images=calib, input_dtype=torch.uint8,
-        bf16=True, min_channels=0, model_type="ResUNet"))
+    with layout_copies() as n_copies:
+        save_bundle(paths["int8_mc0"], *export_serving_int8(
+            model, 16, size, calib_images=calib, input_dtype=torch.uint8,
+            bf16=True, min_channels=0, model_type="ResUNet"))
+    phase("deploy", f"the flagship's int8 (min_channels 0) program makes "
+          f"{n_copies()} layout copies of its convs' inputs a batch "
+          f"(quant_forward: x not channels-last)")
     return paths
 
 
@@ -6510,7 +6703,7 @@ def deploy_daemon(models_dir):
         load_serving_bundle,
         serve_body,
     )
-    from ddti_tpu_torch.train.quantize import quantized_apply
+    from ddti_tpu_torch.train.quantize import quant_tables, quantized_apply
 
     paths = [os.path.join(models_dir, f"TransUNet_b{b}{PROGRAM_SUFFIX}")
              for b in DEPLOY_BATCHES]
@@ -6528,13 +6721,16 @@ def deploy_daemon(models_dir):
         buf = io.BytesIO()
         Image.fromarray(f, "L").save(buf, "PNG")
         bodies.append(buf.getvalue())
-    C.conv_s8_cuda.launches = A.flash_forward_cuda.launches = 0
+    C.reset_launches()
+    A.flash_forward_cuda.launches = 0
     try:
         results = [post(port, bodies[0])]
         with concurrent.futures.ThreadPoolExecutor(DEPLOY_POSTS) as pool:
             results += list(pool.map(lambda b: post(port, b), bodies[1:]))
         torch.cuda.synchronize()
-        launches = {"conv_s8": C.conv_s8_cuda.launches,
+        launches = {"conv_s8": C.launches(),
+                    "conv_s8_wgmma": C.conv_s8_wgmma.launches,
+                    "conv_s8_mma": C.conv_s8_mma.launches,
                     "flash_fwd": A.flash_forward_cuda.launches}
         stats = get_json(port, "/stats")
         health = get_json(port, "/healthz")
@@ -6562,13 +6758,18 @@ def deploy_daemon(models_dir):
           f"{health['program_batches']}): {len(results)} POSTs in "
           f"{stats['batches']} batches, by program {by_program}; masks agree "
           f"with serve_body's int8 graph on {agree:.6%} of pixels; launches "
-          f"conv_s8 {launches['conv_s8']}, flash_fwd {launches['flash_fwd']}")
+          f"conv_s8 {launches['conv_s8']} (route wgmma "
+          f"{launches['conv_s8_wgmma']}, route mma "
+          f"{launches['conv_s8_mma']}), flash_fwd {launches['flash_fwd']}")
     assert health["program_batches"] == list(DEPLOY_BATCHES)
     assert by_program["1"] >= 1 and sum(by_program.values()) \
         == stats["batches"]
     assert agree >= DEPLOY_MASK_AGREE
-    assert launches["conv_s8"] > 0 and launches["flash_fwd"] \
-        == N_LAYERS * stats["batches"]
+    # every tabled conv of the program once a batch, over both routes
+    assert launches["conv_s8"] == len(quant_tables(variables)) \
+        * stats["batches"]
+    assert launches["conv_s8_wgmma"] > 0 and launches["conv_s8_mma"] > 0
+    assert launches["flash_fwd"] == N_LAYERS * stats["batches"]
     return dict(launches=launches, batches_by_program=by_program,
                 mask_agree=agree)
 
@@ -7963,6 +8164,44 @@ def wide_only():
     return 0
 
 
+def conv_s8_kernel_entry(deploy, route):
+    """The kernels line's entry of one conv_s8 route: its launches in the
+    deploy daemon's requests (the main path's int8 batches), its flagship
+    row at level 1 with bf16 x (the form a bf16 model's convs take) and
+    cuDNN's bf16 conv beside it."""
+    rows = [r for r in deploy["conv_rows"]
+            if r["route"] == route and r["shape"] == list(DEPLOY_CONV)]
+    row = next(r for r in rows if r["form"] == "bf16")
+    lib = next(r["library_ms"] for r in deploy["conv_rows"]
+               if r["shape"] == list(DEPLOY_CONV) and r["library_ms"])
+    return {
+        "name": f"conv_s8_{route}",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/conv_s8.cu",
+        "entry_point": {"wgmma": "ddti_conv_s8_wgmma",
+                        "mma": "ddti_conv_s8"}[route],
+        "replaces": "ddti_tpu/train/quantize.py:267",
+        "also_replaces": "ddti_tpu/train/quantize.py:258-262",
+        "replaces_note": "JAX's int8 serving graph: the activation's "
+                         "quantization and XLA's s8 x s8 -> s32 convs "
+                         "(lax.conv_general_dilated, lax.conv_transpose); "
+                         "no Pallas kernel",
+        "launches": deploy["daemon"]["launches"][f"conv_s8_{route}"],
+        "max_abs_err": 0.0,  # bit for bit at every zoo geometry
+        "ms": row["ms"],
+        "queue_ms": row["queue_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": lib,
+        "library": "F.conv2d bf16 (cuDNN, channels_last), queued: no "
+                   "PyTorch call computes an int8 conv on CUDA",
+        "shape": row["shape"],
+        "form": row["form"],
+        "rows": rows,
+    }
+
+
 def main():
     import torch
 
@@ -8305,28 +8544,8 @@ def main():
         "builder": "A: flat take, (128, 256, 256) float32, shared index",
         "builders": cg["gather"],
         "edges": cg["gather_edges"],
-    }, {
-        "name": "conv_s8",
-        "route": "cuda",
-        "source": "ddti_tpu_torch/csrc/conv_s8.cu",
-        "replaces": "ddti_tpu/train/quantize.py:267",
-        "also_replaces": "ddti_tpu/train/quantize.py:262",
-        "replaces_note": "XLA's s8 x s8 -> s32 convs of the JAX int8 "
-                         "serving graph (lax.conv_general_dilated, "
-                         "lax.conv_transpose); no Pallas kernel",
-        "launches": deploy["daemon"]["launches"]["conv_s8"],
-        "max_abs_err": 0.0,  # bit for bit at every zoo geometry
-        "ms": deploy["conv_rows"][0]["ms"],
-        "queue_ms": deploy["conv_rows"][0]["queue_ms"],
-        "plain_ms": deploy["conv_rows"][0]["plain_ms"],
-        "bound_ms": deploy["conv_rows"][0]["bound_ms"],
-        "bound_by": deploy["conv_rows"][0]["bound_by"],
-        "library_ms": deploy["conv_rows"][0]["library_ms"],
-        "library": "F.conv2d bf16 (cuDNN, channels_last), queued: no "
-                   "PyTorch call computes an int8 conv on CUDA",
-        "shape": deploy["conv_rows"][0]["shape"],
-        "deploy": deploy,
-    }]}), flush=True)
+    }, dict(conv_s8_kernel_entry(deploy, "wgmma"), deploy=deploy),
+        conv_s8_kernel_entry(deploy, "mma")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -283,7 +283,7 @@ def _kernels_line() -> str:
     from ddti_tpu_torch.ops import attention, conv_s8
 
     return (f"[KERNELS] flash_fwd={attention.flash_forward_cuda.launches} "
-            f"conv_s8={conv_s8.conv_s8_cuda.launches}")
+            f"conv_s8={conv_s8.launches()}")
 
 
 def _infer_serving_bundle(args, device) -> int:

@@ -796,7 +796,7 @@ def _run(args, mesh) -> int:
         ("flash_fwd", attention.flash_forward_cuda.launches),
         ("flash_bwd_dkdv", bwd.launches_dkdv),
         ("flash_bwd_dq", bwd.launches_dq),
-        ("conv_s8", conv_s8.conv_s8_cuda.launches))}
+        ("conv_s8", conv_s8.launches()))}
     kernels = "[KERNELS] " + " ".join(f"{k}={v}" for k, v in counts.items())
     if writer:
         logger.info(kernels)

@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels (and of
-// the conv3x3 probe's), in inline PTX: TMA tile loads that complete on
-// mbarriers (and TMA stores), wgmma with shared-memory matrix
-// descriptors (bf16; tf32 for float32 as three TF32 products, see
-// "3xTF32" below), setmaxnreg, and the host-side encoding of the TMA
-// tensor maps (cuTensorMapEncodeTiled, looked up in libcuda at run time,
-// so the plain-C library links no -lcuda).
+// the conv3x3 probe's and the int8 conv's), in inline PTX: TMA tile loads
+// that complete on mbarriers (and TMA stores), wgmma with shared-memory
+// matrix descriptors (bf16; tf32 for float32 as three TF32 products, see
+// "3xTF32" below; s8 x s8 -> s32), setmaxnreg, and the host-side encoding
+// of the TMA tensor maps (cuTensorMapEncodeTiled, looked up in libcuda at
+// run time, so the plain-C library links no -lcuda).
 //
 // Tiles. An operand tile is 64 rows of a contiguous (bh, S, D) bf16 array,
 // padded to DP columns (D <= DP; TMA fills columns past D and rows past S
@@ -259,6 +259,17 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -557,6 +568,73 @@ __device__ __forceinline__ void wgmma_rs_mn<256>(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// int8 products (csrc/conv_s8.cu): s8 x s8 -> s32, exact. For 8-bit
+// operands wgmma reads A and B only K-major from shared memory (there is
+// no transpose bit); a k32 step is 32 bytes of each row, as a bf16 k16
+// step is, so the descriptors are the bf16 ones. The accumulator layout
+// is the float32 one, in int32 registers.
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 64, int32) {=, +=} A B over one k32 step, s8 x s8 -> s32:
+// A (64 x 32) and B (32 x 64) both K-major in shared memory (8-bit
+// operands take no other layout); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 128, int32) {=, +=} A B over one k32 step, s8 x s8 -> s32:
+// A (64 x 32) and B (32 x 128) both K-major in shared memory (8-bit
+// operands take no other layout); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64],
+                                                    uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // ---------------------------------------------------------------------------

@@ -105,7 +105,8 @@ KERNELS = {
     "ddti_exp2_probe": [_P, _P, _LL, _I, _I, _P],
     "ddti_gather_probe": [_P] * 4 + [_I] * 8 + [_P],
     "ddti_conv3x3_relu": [_P] * 4 + [_I] * 6 + [_P],
-    "ddti_conv_s8": [_P] * 6 + [_I] * 17 + [_P],
+    "ddti_conv_s8": [_P] * 6 + [_I] * 18 + [_P],
+    "ddti_conv_s8_wgmma": [_P] * 6 + [_I] * 16 + [_P],
 }
 
 

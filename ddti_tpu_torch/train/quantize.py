@@ -10,8 +10,9 @@ A trained model becomes an int8-conv serving graph:
   batch (max |x| at every conv input) or from QAT's learned ranges
   (``amax=``, ``train/qat.py``).
 - **Accumulation**: exact s32 in ``ops/conv_s8.py`` (the hand-written
-  kernel ``csrc/conv_s8.cu`` on the card), dequantized with JAX's
-  epilogue; BatchNorm, activations and everything else stay float.
+  kernels of ``csrc/conv_s8.cu`` on the card, which quantize the float
+  activation as they load it), dequantized with JAX's epilogue;
+  BatchNorm, activations and everything else stay float.
 
 JAX's flax method interceptor becomes a swap of ``forward`` on the
 model's plain convs (``nn.Conv2d`` / ``nn.ConvTranspose2d``, groups 1,
@@ -142,23 +143,34 @@ def _geometry(mod: nn.Module, h: int, w: int) -> tuple:
 
 
 def quant_forward(mod: nn.Module, wq, sw, sx):
-    """The int8 forward of one conv (JAX ``_quant_interceptor``): x ->
-    clip(round(x / sx)) int8, NHWC, ``ops.conv_s8`` with the module's bias
-    (the tensor in place under ``functional_call``), NCHW again. The
-    output is bf16 under bf16 autocast (a bf16 model's module dtype),
-    else x's dtype."""
+    """The int8 forward of one conv (JAX ``_quant_interceptor``): x as the
+    NHWC view ``x.permute(0, 2, 3, 1)``, copied only where x is not
+    channels-last (``quant_forward.layout_copies`` counts the copies), and
+    ``ops.conv_s8`` on it with ``sx``, which quantizes it, clip(rint(x /
+    sx)), as its kernel loads it, and the module's bias (the tensor in
+    place under ``functional_call``); NCHW again. x in another float type
+    than bf16 or float32 is cast to float32 first, as JAX casts it. The
+    output is bf16 under bf16 autocast (a bf16 model's module dtype), else
+    x's dtype."""
 
     def forward(x):
-        xq = torch.clamp(torch.round(x.to(torch.float32) / sx), -127, 127)
-        xq = xq.to(torch.int8).permute(0, 2, 3, 1).contiguous()
+        xf = x if x.dtype in (torch.bfloat16, torch.float32) \
+            else x.to(torch.float32)
+        xh = xf.permute(0, 2, 3, 1)
+        if not xh.is_contiguous():
+            xh = xh.contiguous()
+            quant_forward.layout_copies += 1
         bf16 = _autocast_bf16(x.device.type)
-        y = conv_s8(xq, wq, sx, sw, mod.bias,
+        y = conv_s8(xh, wq, sx, sw, mod.bias,
                     *_geometry(mod, x.shape[-2], x.shape[-1]),
                     bf16 or x.dtype == torch.bfloat16)
         y = y.permute(0, 3, 1, 2)
         return y if bf16 or y.dtype == x.dtype else y.to(x.dtype)
 
     return forward
+
+
+quant_forward.layout_copies = 0
 
 
 @contextlib.contextmanager

@@ -819,20 +819,30 @@ def test_deploy_and_profiles_flags_need_the_card(flag, key):
     assert key not in r.stdout and '"ok"' not in r.stdout
 
 
-@pytest.mark.parametrize("shape, k, pad, bf16, nbytes, ops", [
+@pytest.mark.parametrize("shape, k, pad, bf16, x_bytes, nbytes, ops", [
     # the flagship's first-level 3x3 conv: x (int8) in, y (bf16) out
-    ((16, 512, 512, 64, 64), 3, 1, True,
+    ((16, 512, 512, 64, 64), 3, 1, True, 1,
      16 * 512 * 512 * 64 * 3 + 9 * 64 * 64 + 8 * 64 + 4,
      2 * 16 * 512 * 512 * 64 * 9 * 64),
     # the decoders' transposed conv: one tap an output pixel
-    ((2, 16, 16, 64, 32), 2, "T", False,
+    ((2, 16, 16, 64, 32), 2, "T", False, 1,
      2 * 16 * 16 * 64 + 4 * 64 * 32 + 8 * 32 + 4 + 2 * 32 * 32 * 32 * 4,
      2 * 2 * 32 * 32 * 32 * 64),
+    # the float forms: x read once in its own type (bf16, float32), which
+    # the kernel quantizes as it loads it
+    ((16, 512, 512, 64, 64), 3, 1, True, 2,
+     16 * 512 * 512 * 64 * 2 + 9 * 64 * 64 + 8 * 64 + 4
+     + 16 * 512 * 512 * 64 * 2,
+     2 * 16 * 512 * 512 * 64 * 9 * 64),
+    ((16, 32, 32, 1024, 1024), 3, 1, False, 4,
+     16 * 32 * 32 * 1024 * 4 + 9 * 1024 * 1024 + 8 * 1024 + 4
+     + 16 * 32 * 32 * 1024 * 4,
+     2 * 16 * 32 * 32 * 1024 * 9 * 1024),
 ])
-def test_conv_s8_bound_counts(shape, k, pad, bf16, nbytes, ops):
+def test_conv_s8_bound_counts(shape, k, pad, bf16, x_bytes, nbytes, ops):
     n, h, w, c, cout = shape
     ms, by = C.conv_s8_bound(n, h, w, c, cout, k, 1 if pad != "T" else 2,
-                             1, pad, bf16)
+                             1, pad, bf16, x_bytes)
     want = max(ops / C.PEAK_INT8_OPS, nbytes / C.PEAK_BYTES) * 1e3
     assert ms == pytest.approx(want)
     assert by == ("operations" if ops / C.PEAK_INT8_OPS

@@ -1307,38 +1307,102 @@ def test_autobatch_probe_counts_the_fused_graph_pool(cuda):
 # ---------------------------------------------------------------------------
 
 
+CONV_FORMS = ("int8", "bf16", "float32")
+
+
+def _conv_inputs(n, h, w, c, cout, k, form, seed):
+    """Seeded conv_s8 inputs on the CPU: x in ``form`` (int8 values, or a
+    float activation reaching past +-127 sx with exact half-way ties
+    planted), int8 HWIO weights, the scales and a bias."""
+    rng = np.random.default_rng(seed)
+    # an odd seed takes sx = 1/4, where the planted x / sx are exact
+    # half-way ties (|q + 1/2| <= 127.5 holds in bf16's 8 bits); an even
+    # one 0.0137, where the division's rounding decides
+    sx = np.float32(0.25 if seed % 2 else 0.0137)
+    shape = (n, h, w, c)
+    if form == "int8":
+        x = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+    else:
+        xf = rng.normal(0.0, 45.0, shape) * sx
+        tie = rng.random(shape) < 0.1
+        xf[tie] = (rng.integers(-128, 128, tie.sum()) + 0.5) * sx
+        x = torch.from_numpy(xf.astype(np.float32)).to(
+            torch.bfloat16 if form == "bf16" else torch.float32)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, c, cout)
+                                       ).astype(np.int8))
+    sw = torch.from_numpy(rng.uniform(1e-4, 2e-2, cout).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32))
+    return x, wq, torch.tensor(sx), sw, bias
+
+
+def _check_route(cuda, Q, route, inputs, geo_args):
+    """conv_s8 through ``route`` bit-equal to its plain version, two calls
+    bit-equal, its launch counter moving, and its s32 sums (unit scales, no
+    bias, float32 out) equal to conv_s8_int32's."""
+    x, wq, sx, sw, bias = inputs
+    fn = {"wgmma": Q.conv_s8_wgmma, "mma": Q.conv_s8_mma}[route]
+    want = Q.conv_s8_reference(*inputs, *geo_args)
+    dev = [t.to(cuda) for t in inputs]
+    before = fn.launches
+    got = Q.conv_s8_cuda(*dev, *geo_args, route=route)
+    again = Q.conv_s8_cuda(*dev, *geo_args, route=route)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+    one = torch.ones((), device=cuda)
+    xq = Q.quantize_activation(x, sx)
+    s, d, pt, pl, oh, ow, tr, _ = geo_args
+    acc = Q.conv_s8_cuda(xq.to(cuda), dev[1], one,
+                         torch.ones(wq.shape[3], device=cuda), None, s, d,
+                         pt, pl, oh, ow, tr, False, route=route)
+    ref = Q.conv_s8_int32(xq, wq, s, d, pt, pl, oh, ow, tr)
+    assert torch.equal(acc.cpu(), ref.to(torch.float32))
+
+
 @pytest.mark.parametrize("geo", [g[0] for g in __import__(
     "ddti_tpu_torch.ops.conv_s8", fromlist=["x"]).ZOO_GEOMETRIES])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("hw", [(17, 16), (32, 32)])
-def test_conv_s8_kernel_is_its_plain_version(cuda, geo, bf16, hw):
-    """Every zoo geometry, odd and even sides: s32 sums and the dequantized
-    output bit for bit, two calls bit-equal."""
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("form", CONV_FORMS)
+def test_conv_s8_kernel_is_its_plain_version(cuda, geo, bf16, hw, route,
+                                             form):
+    """Every zoo geometry, odd and even sides, both routes, x as int8, bf16
+    or float32 (quantized by the kernel as it loads it), float32 and bf16
+    out: the output and the s32 sums bit for bit, two calls bit-equal, the
+    route's counter moving; a geometry route "wgmma" does not take
+    (``route_of``) is refused."""
     from ddti_tpu_torch.ops import conv_s8 as Q
 
     name, k, s, d, pad, c, cout = next(g for g in Q.ZOO_GEOMETRIES
                                        if g[0] == geo)
-    rng = np.random.default_rng(sum(map(ord, geo)))
     h, w = hw
-    x = torch.from_numpy(rng.integers(-127, 128, (2, h, w, c)
-                                      ).astype(np.int8))
-    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, c, cout)
-                                       ).astype(np.int8))
-    sx = torch.tensor(np.float32(0.0137))
-    sw = torch.from_numpy(rng.uniform(1e-4, 2e-2, cout).astype(np.float32))
-    bias = torch.from_numpy(rng.normal(size=cout).astype(np.float32))
+    inputs = _conv_inputs(2, h, w, c, cout, k, form, sum(map(ord, geo)))
     pt, pl, oh, ow = Q.conv_geometry(h, w, k, s, d, pad)
     geo_args = (s, d, pt, pl, oh, ow, pad == "T", bf16)
-    want = Q.conv_s8_reference(x, wq, sx, sw, bias, *geo_args)
-    dev = [t.to(cuda) for t in (x, wq, sx, sw, bias)]
-    got = Q.conv_s8(*dev, *geo_args)
-    again = Q.conv_s8(*dev, *geo_args)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
-    assert torch.equal(got, again)
-    # the exact sums: unit scales, no bias, float32 out
-    one = torch.ones((), device=cuda)
-    acc = Q.conv_s8(dev[0], dev[1], one, torch.ones(cout, device=cuda), None,
-                    s, d, pt, pl, oh, ow, pad == "T", False)
-    ref = Q.conv_s8_int32(x, wq, s, d, pt, pl, oh, ow, pad == "T")
-    assert torch.equal(acc.cpu(), ref.to(torch.float32))
+    if route == "wgmma" and Q.route_of(inputs[0], inputs[1], s, d,
+                                       pad == "T", bf16) != "wgmma":
+        with pytest.raises(ValueError, match="route wgmma"):
+            Q.conv_s8_cuda(*[t.to(cuda) for t in inputs], *geo_args,
+                           route="wgmma")
+        return
+    _check_route(cuda, Q, route, inputs, geo_args)
+
+
+@pytest.mark.parametrize("level", range(5))
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+@pytest.mark.parametrize("form", ["int8", "bf16"])
+def test_conv_s8_flagship_levels(cuda, level, route, form):
+    """The flagship ResUNet's five 3x3 levels (C = 64 << level), on frames
+    whose pixel tiles and channel tiles end ragged (sides 3 and 5 short of
+    the level's, Cout 8 short), bf16 out as a bf16 model's: both routes bit
+    for bit, two calls bit-equal, the s32 sums exact."""
+    from ddti_tpu_torch.ops import conv_s8 as Q
+
+    side, c = 512 >> level, 64 << level
+    h, w, cout = side - 3, side - 5, c - 8
+    inputs = _conv_inputs(2, h, w, c, cout, 3, form, 100 + level)
+    geo_args = (1, 1, 1, 1, h, w, False, True)
+    assert Q.route_of(inputs[0], inputs[1], 1, 1, False, True) == "wgmma"
+    _check_route(cuda, Q, route, inputs, geo_args)

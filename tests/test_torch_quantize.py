@@ -29,7 +29,11 @@ JAX's ``wq`` bit for bit. The conv's
 plain version is bit-equal to ``lax.conv_general_dilated`` /
 ``lax.conv_transpose`` with int32 accumulation at every zoo geometry, and
 a numpy model of ``csrc/conv_s8.cu``'s packed implicit GEMM (its gather of
-A, ``pack_weights``' B, the transposed conv's parity GEMMs) to both.
+A, ``pack_weights``' B at both routes' channel padding, the transposed
+conv's parity GEMMs) to both. The float-input form (x in bf16 or float32,
+quantized inside the conv) is bit-equal to JAX's quantize and XLA's s32
+conv on constructed half-way ties, and the exported int8 program
+quantizes inside its ``ddti.conv_s8`` calls.
 """
 
 import functools
@@ -305,15 +309,17 @@ def _xla_s32(x, wq, geo):
     return np.asarray(y)
 
 
-def kernel_model(x, wq, geo, pads):
-    """The s32 sums as csrc/conv_s8.cu computes them: channels padded to
-    4, ``pack_weights``' (taps, Cout, Kp) B, A gathered per (pixel, k) with
-    k = tap * C + ci and zero outside the frame, one GEMM (four, one per
-    output parity, for the transposed conv)."""
+def kernel_model(x, wq, geo, pads, c_align):
+    """The s32 sums as csrc/conv_s8.cu's routes compute them: channels
+    padded to ``c_align`` (route "mma": 4; route "wgmma": 64, its chunk,
+    which never straddles two taps), ``pack_weights``' (taps, Cout, Kp) B,
+    A gathered per (pixel, k) with k = tap * Cp + ci and zero outside the
+    frame, one GEMM (four, one per output parity, for the transposed
+    conv)."""
     _, k, s, d, pad, c, cout = geo
     pt, pl, oh, ow = pads
     n, h, w, _ = x.shape
-    cp = -(-c // 4) * 4
+    cp = -(-c // c_align) * c_align
     xp = np.zeros((n, h, w, cp), np.int64)
     xp[..., :c] = x
     packed, kp = C.pack_weights(torch.from_numpy(wq), cp, pad == "T")
@@ -350,7 +356,8 @@ def test_conv_s8_plain_is_xla_s32_conv(geo, hw):
     acc = C.conv_s8_int32(torch.from_numpy(x), torch.from_numpy(wq), s, d,
                           *pads, pad == "T").numpy()
     assert acc.shape == want.shape and np.array_equal(acc, want)
-    assert np.array_equal(kernel_model(x, wq, geo, pads), want)
+    for c_align in (4, 64):
+        assert np.array_equal(kernel_model(x, wq, geo, pads, c_align), want)
     rng = np.random.default_rng(1)
     cout = wq.shape[3]
     sx = np.float32(0.0137)
@@ -367,12 +374,78 @@ def test_conv_s8_plain_is_xla_s32_conv(geo, hw):
     assert np.array_equal(got16.float().numpy(), np.asarray(ref16))
 
 
+@pytest.mark.parametrize("form", ["bf16", "float32"])
+@pytest.mark.parametrize("geo", C.ZOO_GEOMETRIES, ids=lambda g: g[0])
+def test_conv_s8_float_input_is_jax_quantize_then_s32_conv(geo, form):
+    """The float-input form (x in bf16 or float32, quantized by sx inside
+    conv_s8) bit-equal to JAX's ``_quant_interceptor`` arithmetic:
+    ``jnp.clip(jnp.rint(x / sx), -127, 127)`` in int8, XLA's s32 conv, the
+    epilogue, float32 and bf16 out; at sx = 1/4 with x / sx planted on
+    exact half-way ties (rint rounds them to even) and at sx = 0.0137,
+    where the correctly rounded division decides; a tenth of x beyond
+    +-127 sx."""
+    name, k, s, d, pad, c, cout = geo
+    rng = np.random.default_rng(sum(map(ord, name)) + len(form))
+    x8, wq, pads = _case(geo, (9, 10), seed=len(name))
+    cout = wq.shape[3]
+    sw = rng.uniform(1e-4, 2e-2, cout).astype(np.float32)
+    bias = rng.normal(size=cout).astype(np.float32)
+    dt = torch.bfloat16 if form == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if form == "bf16" else jnp.float32
+    for sx in (np.float32(0.25), np.float32(0.0137)):
+        xf = rng.normal(0.0, 75.0, x8.shape) * sx
+        tie = rng.random(x8.shape) < 0.2
+        xf[tie] = (rng.integers(-128, 128, tie.sum()) + 0.5) * sx
+        x = torch.from_numpy(xf.astype(np.float32)).to(dt)
+        xn = x.float().numpy()
+        if sx == 0.25:  # the ties survive the cast to x's type
+            assert np.all(np.abs(xn[tie] / sx) % 1 == 0.5)
+        xq = np.asarray(jnp.clip(jnp.rint(
+            jnp.asarray(xn).astype(jdt).astype(jnp.float32) / sx),
+            -127, 127).astype(jnp.int8))
+        assert np.array_equal(C.quantize_activation(
+            x, torch.tensor(sx)).numpy(), xq)
+        acc = jnp.asarray(_xla_s32(xq, wq, geo)).astype(jnp.float32)
+        ref = acc * (jnp.float32(sx) * jnp.asarray(sw)) + jnp.asarray(bias)
+        args = (x, torch.from_numpy(wq), torch.tensor(sx),
+                torch.from_numpy(sw), torch.from_numpy(bias), s, d, *pads,
+                pad == "T")
+        assert np.array_equal(C.conv_s8(*args, False).numpy(),
+                              np.asarray(ref))
+        got16 = C.conv_s8(*args, True).float().numpy()
+        assert np.array_equal(got16, np.asarray(
+            ref.astype(jnp.bfloat16).astype(jnp.float32)))
+
+
+def test_int8_program_quantizes_inside_conv_s8():
+    """A small UNet's exported int8 program: one ``ddti.conv_s8`` node per
+    table, each fed the float activation (bf16 under bf16 compute), and no
+    rounding, clamping or int8 cast anywhere in the graph."""
+    m = create_model("UNet", **SMALL)
+    torch.manual_seed(0)
+    calib = torch.rand((2, SIZE, SIZE, 1))
+    program, v = Q.export_serving_int8(m, 2, SIZE, calib_images=calib,
+                                       input_dtype=torch.uint8, bf16=True,
+                                       model_type="UNet")
+    nodes = [n for _, g in program.graph_module.named_modules()
+             for n in g.graph.nodes if n.op == "call_function"]
+    convs = [n for n in nodes if str(n.target) == "ddti.conv_s8.default"]
+    assert len(convs) == len(Q.quant_tables(v)) > 0
+    assert all(n.args[0].meta["val"].dtype in (torch.bfloat16,
+                                               torch.float32)
+               for n in convs)
+    targets = {str(n.target) for n in nodes}
+    assert not targets & {"aten.round.default", "aten.clamp.default",
+                          "aten.clip.default"}
+    assert not [n for n in nodes if n.kwargs.get("dtype") == torch.int8]
+
+
 def test_conv_s8_refuses_what_it_does_not_take():
     x = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
     w = torch.zeros((3, 3, 8, 4), dtype=torch.int8)
     one, sw = torch.ones(()), torch.ones(4)
     with pytest.raises(ValueError, match="int8"):
-        C.conv_s8(x.float(), w, one, sw, None, 1, 1, 1, 1, 4, 4, False,
+        C.conv_s8(x.double(), w, one, sw, None, 1, 1, 1, 1, 4, 4, False,
                   False)
     with pytest.raises(ValueError, match="k = 2, s = 2"):
         C.conv_s8(x, w, one, sw, None, 1, 1, 0, 0, 8, 8, True, False)
