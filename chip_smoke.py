@@ -1093,9 +1093,9 @@ def kernel_report(lib, quiet=False):
     (wgmma), UTMALDG (TMA loads), SYNCS (mbarriers), HMMA (mma.sync),
     atomics, and the exp2 unit's MUFU.EX2 beside FRND and F2I (which issue
     at its rate). The bf16 flash kernels (the forward, dK/dV and dQ, and
-    the wide ones) and the float32 ones (the forward but its FMA loop for
-    heads above 128, dK/dV and dQ, and the wide ones) must run on wgmma and
-    TMA loads, and no flash kernel may use an atomic. Prints a line a kernel (none where ``quiet``) and every line in
+    the wide ones) and the float32 ones (the forward, dK/dV and dQ, and the
+    wide ones) must run on wgmma and TMA loads, and no flash kernel may use
+    an atomic. Prints a line a kernel (none where ``quiet``) and every line in
     which ptxas reports a performance loss. Returns ({kernel: registers,
     spills}, {kernel: opcode counts}); the m-skip forward is named
     ``flash_fwd_bf16_kernel<DP,mskip>``."""
@@ -1159,8 +1159,7 @@ def kernel_report(lib, quiet=False):
                             "flash_fwd_wide", "flash_bwd_dkdv_bf16",
                             "flash_bwd_dq_bf16", "flash_bwd_dkdv_f32",
                             "flash_bwd_dq_f32", "flash_bwd_dkdv_wide",
-                            "flash_bwd_dq_wide")) \
-                and not name.startswith("flash_fwd_f32_fma"):
+                            "flash_bwd_dq_wide")):
             assert o["HGMMA"] and o["UTMALDG"] and o["SYNCS"], \
                 f"{name} issues no wgmma or TMA load"
         if name.startswith("conv3x3_relu_kernel"):
@@ -3554,14 +3553,25 @@ def ab_serve():
     return dict(ms=ms, top=top)
 
 
+def ab_wide():
+    """The wide flash shapes and the main path's timed, forward and
+    backward pair (wide_flash_times, without the plain versions), and the
+    one-head float32 TransUNet train step (wide_step_ms),
+    with the tree that is imported: {"flash": rows, "step": {ms,
+    launches}}."""
+    return dict(flash=wide_flash_times(_wide_cases()), step=wide_step_ms())
+
+
 def ab_side(tree, which=None):
     """One side of a same-card comparison of two trees: kernel_phases() and
     the TransUNet train steps on the kernel path (float32, the training
     CLI's default, then bf16; S = 1024 at batch 16 and S = 4096 at batch 8)
     and the conv3x3 and gather probes (ab_probes); with ``which`` "probes"
-    the probes alone, with "serve" the serving batch alone (ab_serve); with
-    ``tree``'s ddti_tpu_torch and this file's measurements. Prints one line
-    "[ab] {json}"."""
+    the probes alone, with "serve" the serving batch alone (ab_serve), with
+    "deploy" the int8 conv and serving batches (ab_deploy), with "wide" the
+    wide flash shapes and the one-head step (ab_wide); with ``tree``'s
+    ddti_tpu_torch and this file's measurements. Prints one line "[ab]
+    {json}"."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -3571,9 +3581,9 @@ def ab_side(tree, which=None):
 
     _build.build()
     _build.load_library()
-    if which in ("probes", "serve", "deploy"):
-        got = {"probes": ab_probes, "serve": ab_serve,
-               "deploy": ab_deploy}[which]()
+    if which in ("probes", "serve", "deploy", "wide"):
+        got = {"probes": ab_probes, "serve": ab_serve, "deploy": ab_deploy,
+               "wide": ab_wide}[which]()
         print("[ab] " + json.dumps({"tree": tree, "source": _build.__file__,
                                     which: got}), flush=True)
         return
@@ -3595,7 +3605,9 @@ def ab(parent, *which):
     git archive) with this one on one card, in the order parent, this, this,
     parent, each side in its own process (ab_side); ``which`` = ("probes",)
     compares the probes and the EDT alone (ab_probes), ("serve",) the bf16
-    serving batch alone (ab_serve)."""
+    serving batch alone (ab_serve), ("deploy",) the int8 conv and serving
+    batches (ab_deploy), ("wide",) the wide flash shapes and the one-head
+    float32 step (ab_wide)."""
     for tree in (parent, ".", ".", parent):
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--ab-side", tree, *which], check=True)
@@ -4443,8 +4455,9 @@ def legacy_sweep(tmp):
               file=sys.stderr)
     assert res.returncode == 0, "a sweep job failed"
     assert "All jobs finished." in res.stdout
-    params = dict(l.split()[1].split(",") for l in res.stdout.splitlines()
-                  if l.startswith("[PARAMS]"))
+    # the jobs share the sweep's stdout, so one job's line may land between
+    # another's text and its newline: take each [PARAMS] where it stands
+    params = dict(re.findall(r"\[PARAMS\] (\w+),(\d+)", res.stdout))
     assert {m: int(n) for m, n in params.items()} == {
         m: LEGACY_JAX_PARAMS[m] for m in LEGACY}, params
     runs = {r.rsplit("_", 2)[0]: os.path.join(exp, r)
@@ -7836,6 +7849,10 @@ WIDE_EDT_SCIPY = (4096, 4096)
 # the TransUNet of configs/config.yaml:337-343 with one head a layer:
 # trained at D = 256 (dropout 0), and served with embed_dim 512 (D = 512)
 WIDE_TRAIN = dict(TSLICE, num_heads=1)
+# the attention shape of that training CLI, (batch, 1 head, tokens, 256):
+# the float32 wide forward's shape on the main path
+WIDE_MAIN = (TTRAIN["batch_size"], 1,
+             (TTRAIN["image_size"] >> TSLICE["depth"]) ** 2, 256)
 WIDE_SERVE = dict(in_channels=1, out_channels=1, base_filters=64, depth=4,
                   embed_dim=512, num_heads=1)
 WIDE_SERVE_FRAMES = 8
@@ -7863,80 +7880,145 @@ def wide_masks(n, h, w, seed):
     return torch.from_numpy(m)
 
 
+def _wide_inputs(shape, dt):
+    """q, k, v, dO of (B, H, S, D) ``shape`` in dtype ``dt``, on the card,
+    from the seed SEED + D."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + shape[3])
+    return [torch.randn(shape, generator=g, device="cuda")
+            .to(getattr(torch, dt)) for _ in range(4)]
+
+
+def _wide_cases():
+    """(shape, dtype) of every wide flash shape, then the main path's."""
+    return ([((*WIDE_BHS, d), dt) for d in WIDE_HEADS
+             for dt in ("bfloat16", "float32")]
+            + [(WIDE_MAIN, "float32")])
+
+
 def wide_flash():
-    """Every flash kernel at the wide head widths, in both dtypes, against
-    its plain version (o and lse2 to O_LIMIT and LSE_LIMIT, the gradients
-    to G_LIMIT of their max), then timed: the forward and the backward pair
-    queued, each backward entry point by CUDA events at its launch, the
-    plain versions, SDPA's queued forward and backward where a backend
-    takes the shape, and the bounds. Returns the rows."""
+    """Every flash kernel at the wide head widths, in both dtypes, and at
+    the main path's WIDE_MAIN in float32, against its plain version: o and
+    lse2 to O_LIMIT and LSE_LIMIT, the gradients to G_LIMIT of their max.
+    Untimed, so that it may run beside another process (wide_flash_times
+    takes the times). Returns the rows, in _wide_cases' order."""
     import torch
 
     from ddti_tpu_torch.ops import attention as A
 
-    b, h, s = WIDE_BHS
     rows = []
-    for d in WIDE_HEADS:
-        for dt in ("bfloat16", "float32"):
-            shape = (b, h, s, d)
-            g = torch.Generator(device="cuda").manual_seed(SEED + d)
-            q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
-                           .to(getattr(torch, dt)) for _ in range(4))
-            o, lse = A.flash_forward_cuda(q, k, v)
-            torch.cuda.synchronize()
-            o_ref, lse_ref = A.flash_forward_reference(q, k, v)
-            err_o = (o.float() - o_ref.float()).abs().max().item()
-            err_lse = (lse - lse_ref).abs().max().item()
-            assert torch.isfinite(o.float()).all(), "non-finite o"
-            assert err_o <= O_LIMIT[dt] and err_lse <= LSE_LIMIT, \
-                f"flash_fwd {shape} {dt} disagrees with its plain version"
-            args = (q, k, v, o, lse, do)
-            got = A.flash_backward_cuda(*args)
-            want = A.flash_backward_reference(*args)
-            rel = {}
-            for name, a, w in zip(("dq", "dk", "dv"), got, want):
-                assert torch.isfinite(a.float()).all(), f"non-finite {name}"
-                rel[name] = ((a.float() - w.float()).abs().max().item()
-                             / max(w.float().abs().max().item(), 1e-30))
-            assert max(rel.values()) <= G_LIMIT[dt], \
-                f"flash_bwd {shape} {dt} disagrees with its plain version"
-            del got, want
-            fwd_ms = queued_ms(lambda: A.flash_forward_cuda(q, k, v),
-                               WIDE_CALLS)[1]
-            pair_ms = queued_ms(lambda: A.flash_backward_cuda(*args),
-                                WIDE_CALLS)[1]
+    for shape, dt in _wide_cases():
+        q, k, v, do = _wide_inputs(shape, dt)
+        o, lse = A.flash_forward_cuda(q, k, v)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = A.flash_forward_reference(q, k, v)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        assert torch.isfinite(o.float()).all(), "non-finite o"
+        assert err_o <= O_LIMIT[dt] and err_lse <= LSE_LIMIT, \
+            f"flash_fwd {shape} {dt} disagrees with its plain version"
+        args = (q, k, v, o, lse, do)
+        got = A.flash_backward_cuda(*args)
+        want = A.flash_backward_reference(*args)
+        rel = {}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a.float()).all(), f"non-finite {name}"
+            rel[name] = ((a.float() - w.float()).abs().max().item()
+                         / max(w.float().abs().max().item(), 1e-30))
+        assert max(rel.values()) <= G_LIMIT[dt], \
+            f"flash_bwd {shape} {dt} disagrees with its plain version"
+        del got, want
+        rows.append(dict(shape=list(shape), dtype=dt, max_abs_err=err_o,
+                         max_abs_err_lse2=err_lse, rel_err=rel))
+        phase("wide", f"flash {shape} {dt}: max|do| {err_o:.3e} "
+              f"max|dlse2| {err_lse:.3e}, max|d|/max|g| "
+              + " ".join(f"{n} {e:.3e}" for n, e in rel.items()))
+    return rows
+
+
+def wide_flash_times(cases, pairs=True, plain=False):
+    """The flash shapes ``cases`` ((shape, dtype) pairs) timed on a quiet
+    card (nothing else may run on it meanwhile): the forward queued, each
+    entry point by CUDA events at its launch (the float32 forward's split
+    pre-pass and kernel apart), SDPA's fastest forward queued where a
+    backend takes the shape and the bound; with ``pairs`` the backward pair
+    likewise (dK/dV with its pre-pass, and dQ); with ``plain`` the plain
+    versions. Returns the rows, in ``cases``' order."""
+    from ddti_tpu_torch.ops import attention as A
+
+    rows = []
+    for shape, dt in cases:
+        q, k, v, do = _wide_inputs(shape, dt)
+        o, lse = A.flash_forward_cuda(q, k, v)
+        args = (q, k, v, o, lse, do)
+        fwd_ms = queued_ms(lambda: A.flash_forward_cuda(q, k, v),
+                           WIDE_CALLS)[1]
+        fsplit = launch_ms(lambda: A.flash_forward_cuda(q, k, v), WIDE_CALLS)
+        sdpa_fwd = sdpa_yardstick(q, k, v)
+        row = dict(shape=list(shape), dtype=dt, ms=fwd_ms,
+                   ms_fwd_kernel=fsplit["flash_fwd"],
+                   ms_fwd_prepass=fsplit.get("flash_fwd_split_f32"),
+                   bound_ms=bound("flash_fwd", shape, dt)[0],
+                   library_queue_ms=sdpa_fwd[2], library=sdpa_fwd[1])
+        prep = row["ms_fwd_prepass"]
+        text = (f"flash {shape} {dt} on a quiet card: forward queued "
+                f"{fwd_ms:.4f} ms (kernel {row['ms_fwd_kernel']:.4f}"
+                + (f", split pre-pass {prep:.4f}" if prep else ""))
+        if plain:
+            row["plain_ms"] = median_ms(
+                lambda: A.flash_forward_reference(q, k, v), runs=5)
+            text += f"; plain {row['plain_ms']:.4f}"
+        text += (f"; SDPA {sdpa_fwd[2]} {sdpa_fwd[1]}, bound "
+                 f"{row['bound_ms']:.4f})")
+        if pairs:
             split = launch_ms(lambda: A.flash_backward_cuda(*args),
                               WIDE_CALLS)
-            plain_fwd = median_ms(lambda: A.flash_forward_reference(q, k, v),
-                                  runs=5)
-            plain_bwd = median_ms(lambda: A.flash_backward_reference(*args),
-                                  runs=5)
-            sdpa_fwd = sdpa_yardstick(q, k, v)
             sdpa_bwd = sdpa_yardstick(q, k, v, do)
-            row = dict(
-                shape=list(shape), dtype=dt, max_abs_err=err_o,
-                max_abs_err_lse2=err_lse, rel_err=rel, ms=fwd_ms,
-                plain_ms=plain_fwd,
-                bound_ms=bound("flash_fwd", shape, dt)[0],
-                library_queue_ms=sdpa_fwd[2], library=sdpa_fwd[1],
-                pair_ms=pair_ms, ms_dkdv=split["flash_bwd_dkdv"],
-                ms_dq=split["flash_bwd_dq"], plain_pair_ms=plain_bwd,
+            row.update(
+                pair_ms=queued_ms(lambda: A.flash_backward_cuda(*args),
+                                  WIDE_CALLS)[1],
+                ms_dkdv=split["flash_bwd_dkdv"], ms_dq=split["flash_bwd_dq"],
                 pair_bound_ms=bound("flash_bwd", shape, dt)[0],
                 bound_ms_dkdv=bound("flash_bwd_dkdv", shape, dt)[0],
                 bound_ms_dq=bound("flash_bwd_dq", shape, dt)[0],
                 pair_library_queue_ms=sdpa_bwd[2], pair_library=sdpa_bwd[1])
-            rows.append(row)
-            phase("wide", f"flash {shape} {dt}: max|do| {err_o:.3e} "
-                  f"max|dlse2| {err_lse:.3e}, max|d|/max|g| "
-                  + " ".join(f"{n} {e:.3e}" for n, e in rel.items())
-                  + f"; forward queued {fwd_ms:.4f} ms (plain "
-                  f"{plain_fwd:.4f}, SDPA {sdpa_fwd[2]} {sdpa_fwd[1]}, bound "
-                  f"{row['bound_ms']:.4f}); backward pair queued "
-                  f"{pair_ms:.4f} ms (dK/dV {row['ms_dkdv']:.4f}, dQ "
-                  f"{row['ms_dq']:.4f}; plain {plain_bwd:.4f}, SDPA "
-                  f"{sdpa_bwd[2]} {sdpa_bwd[1]}, bound "
-                  f"{row['pair_bound_ms']:.4f})")
+            text += (f"; backward pair queued {row['pair_ms']:.4f} ms (dK/dV "
+                     f"{row['ms_dkdv']:.4f}, dQ {row['ms_dq']:.4f}; SDPA "
+                     f"{sdpa_bwd[2]} {sdpa_bwd[1]}, bound "
+                     f"{row['pair_bound_ms']:.4f})")
+        rows.append(row)
+        phase("wide", text)
+        del q, k, v, do, o, lse, args
     return rows
+
+
+def wide_step_ms():
+    """Device time of one float32 train step of the one-head (D = 256)
+    TransUNet at TTRAIN's 512^2 and batch 16, the step whose four forwards
+    the float32 wide kernel runs: CUDA events, median of STEP_RUNS, with
+    the flash launches of one step."""
+    import torch
+
+    size, batch = TTRAIN["image_size"], TTRAIN["batch_size"]
+    _, state, step, (images, masks, draws) = _train_setup(
+        size, batch, False, model_type="TransUNet",
+        model_kw=dict(WIDE_TRAIN, image_size=size))
+
+    def one():
+        step(state, images, masks, draws, None)
+
+    ms = median_ms(one, runs=STEP_RUNS, warmup=STEP_WARMUP)
+    before = _flash_counts()
+    one()
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(_flash_counts(), before)]
+    phase("wide", f"one-head (D = 256) TransUNet float32 train step "
+          f"{size}^2 batch {batch}: {ms:.3f} ms (CUDA events, median of "
+          f"{STEP_RUNS}); flash_fwd/dkdv/dq launches a step {launched}")
+    del state, step, images, masks, draws
+    torch.cuda.empty_cache()
+    return dict(ms=ms, launches=launched)
 
 
 def wide_many_heads():
@@ -7972,8 +8054,8 @@ def wide_many_heads():
 def wide_edt():
     """The EDT kernel past 2048 a side: bit-equal to its plain version on
     WIDE_EDT_SHAPES, and on a 4096 x 4096 frame whose squared distances
-    pass 2^24 to the plain version and to scipy's float64 EDT as float32;
-    queued device times beside the bound."""
+    pass 2^24 to the plain version and to scipy's float64 EDT as float32.
+    Untimed (wide_edt_times takes the times). Returns the rows."""
     import numpy as np
     import torch
     from scipy import ndimage
@@ -7994,7 +8076,6 @@ def wide_edt():
         row = dict(shape=list(shape), bit_equal=equal,
                    max_abs_err=(got - want).abs().max().item(),
                    max_d2=float(want.double().max() ** 2),
-                   queued_ms=queued_ms(lambda: E.edt_cuda(m), WIDE_CALLS)[1],
                    bound_ms=bound("edt", shape)[0])
         text = ""
         if i == len(frames) - 1:
@@ -8004,8 +8085,7 @@ def wide_edt():
             text = f", bit-equal to scipy {row['scipy_equal']}"
             assert row["scipy_equal"], "the EDT kernel disagrees with scipy"
         phase("wide", f"edt {shape}: bit-equal to plain {equal}{text}; "
-              f"largest d^2 {row['max_d2']:.0f}; queued "
-              f"{row['queued_ms']:.4f} ms (bound {row['bound_ms']:.5f})")
+              f"largest d^2 {row['max_d2']:.0f}")
         assert equal, "the EDT kernel disagrees with its plain version"
         rows.append(row)
     return rows
@@ -8119,18 +8199,46 @@ def wide_train(tmp):
     return launches
 
 
+def wide_edt_times(rows):
+    """The queued device time of each of wide_edt's frames, beside its
+    bound, on a quiet card; into ``rows``."""
+    from ddti_tpu_torch.ops import edt as E
+
+    frames = [wide_masks(*shape, SEED + i)
+              for i, shape in enumerate(WIDE_EDT_SHAPES)]
+    frames.append(wide_masks(2, *WIDE_EDT_SCIPY, SEED)[1:])
+    for row, m in zip(rows, frames):
+        m = m.to(DEVICE)
+        row["queued_ms"] = queued_ms(lambda: E.edt_cuda(m), WIDE_CALLS)[1]
+        phase("wide", f"edt {tuple(m.shape)} on a quiet card: queued "
+              f"{row['queued_ms']:.4f} ms (bound {row['bound_ms']:.5f})")
+    return rows
+
+
 def run_wide(tmp):
     """The wide phase: the D = 256 training CLI in its own process while
     this one holds every wide shape of the kernels against their plain
-    versions and serves the D = 512 model. Returns what the kernels line
-    reports."""
+    versions and serves the D = 512 model; then, once the CLI has returned
+    and the card is quiet, the timings the kernels line reads: the float32
+    forward past D = 128 (wide_flash_times; the main path's shape with its
+    plain version) and the EDT (wide_edt_times). ``--ab TREE wide`` times
+    the rest. Returns what the kernels line reports."""
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         trained = pool.submit(wide_train, tmp)
-        flash = wide_flash()
+        checked = wide_flash()
         many = wide_many_heads()
         edt = wide_edt()
         served = wide_serve(tmp)
         train = trained.result()
+    cases = _wide_cases()
+    timed = [(shape, dt) for shape, dt in cases[:-1]
+             if dt == "float32" and shape[3] > 128]
+    times = {tuple(r["shape"]): r
+             for r in wide_flash_times(timed, pairs=False)
+             + wide_flash_times(cases[-1:], pairs=False, plain=True)}
+    flash = [dict(c, **times.get((tuple(c["shape"])), {}))
+             if c["dtype"] == "float32" else c for c in checked]
+    edt = wide_edt_times(edt)
     return dict(flash=flash, many_heads=many, edt=edt, serve=served,
                 train=train)
 
@@ -8337,6 +8445,12 @@ def main():
     # the DDTI_POLY_EXP2=1 build's queued times at a and c, and the probe's
     # A/B (poly=0, then 1) at (8, 8, 4096, 32) bf16
     poly_fwd = {dt: r["fwd_queue_ms"] for dt, r in poly.items()}
+    # the float32 forward past D = 128 (flash_fwd_wide_f32_kernel) at the
+    # wide shapes and at the one-head CLI's WIDE_MAIN, which the row times
+    wide_f32 = [r for r in wide["flash"]
+                if r["dtype"] == "float32" and r["shape"][3] > 128]
+    wide_f32_main = next(r for r in wide_f32
+                         if r["shape"] == list(WIDE_MAIN))
     poly_pair = {dt: r["pair_queue_ms"] for dt, r in poly.items()}
     print(json.dumps({"kernels": [{
         "name": "flash_fwd",
@@ -8378,8 +8492,35 @@ def main():
         "wide_many_heads": wide["many_heads"],
         "wide_shapes": [{k: r[k] for k in (
             "shape", "dtype", "max_abs_err", "max_abs_err_lse2", "ms",
-            "plain_ms", "bound_ms", "library_queue_ms", "library")}
+            "plain_ms", "bound_ms", "library_queue_ms", "library") if k in r}
             for r in wide["flash"]],
+    }, {
+        # the float32 forward past D = 128: its own kernel behind the same
+        # entry point, timed on the quiet card at the one-head CLI's shape
+        "name": "flash_fwd_wide_f32",
+        "route": "cuda",
+        "source": "ddti_tpu_torch/csrc/flash_fwd.cu",
+        "entry_point": "ddti_flash_fwd (float32, D > 128)",
+        "replaces": "ddti_tpu/ops/attention.py:347",
+        "also_replaces": "ddti_tpu/ops/attention.py:104",
+        "launches": wide["train"]["flash_fwd"],
+        "launches_of": "the one-head (D = 256) float32 training CLI",
+        "max_abs_err": max(r["max_abs_err"] for r in wide_f32),
+        "ms": wide_f32_main["ms"],
+        "kernel_ms": wide_f32_main["ms_fwd_kernel"],
+        "prepass_ms": wide_f32_main["ms_fwd_prepass"],
+        "plain_ms": wide_f32_main["plain_ms"],
+        "bound_ms": wide_f32_main["bound_ms"],
+        "bound_by": bound("flash_fwd", tuple(wide_f32_main["shape"]),
+                          "float32")[1],
+        "library_ms": wide_f32_main["library_queue_ms"],
+        "library": f"scaled_dot_product_attention "
+                   f"({wide_f32_main['library']}), queued",
+        "shape": wide_f32_main["shape"],
+        "wide_shapes": [{k: r[k] for k in (
+            "shape", "max_abs_err", "max_abs_err_lse2", "ms",
+            "ms_fwd_kernel", "ms_fwd_prepass", "plain_ms", "bound_ms",
+            "library_queue_ms", "library") if k in r} for r in wide_f32],
     }, {
         "name": "flash_bwd_dkdv",
         "route": "cuda",
@@ -8415,11 +8556,8 @@ def main():
         "shapes": bwd_rows,
         "train_steps": ttrain_rows,
         "wide_train_launches": wide["train"]["flash_bwd_dkdv"],
-        "wide_shapes": [{k: r[k] for k in (
-            "shape", "dtype", "rel_err", "pair_ms", "ms_dkdv", "ms_dq",
-            "plain_pair_ms", "pair_bound_ms", "bound_ms_dkdv", "bound_ms_dq",
-            "pair_library_queue_ms", "pair_library")}
-            for r in wide["flash"]],
+        "wide_shapes": [{k: r[k] for k in ("shape", "dtype", "rel_err")}
+                        for r in wide["flash"]],
     }, {
         "name": "flash_bwd_dq",
         "route": "cuda",
@@ -8571,7 +8709,8 @@ def cache_bytecode():
 
 if __name__ == "__main__":
     cache_bytecode()
-    if sys.argv[1:2] == ["--ab"]:  # python3 chip_smoke.py --ab TREE [probes]
+    # python3 chip_smoke.py --ab TREE [probes|serve|deploy|wide]
+    if sys.argv[1:2] == ["--ab"]:
         sys.exit(ab(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--ab-side"]:
         sys.exit(ab_side(sys.argv[2], *sys.argv[3:4]))

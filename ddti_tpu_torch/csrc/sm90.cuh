@@ -187,8 +187,7 @@ __device__ __forceinline__ float exp2_poly(float x) {
 // The flash kernels' exponential: the exp2 unit, or where the library is
 // built with -DDDTI_POLY_EXP2=1 (ddti_tpu_torch/ops/_build.py) the order-6
 // polynomial on the FMA pipes, as the TPU kernels' DDTI_POLY_EXP2 switch
-// does. flash_exp2f is the same switch over exp2f, which the float32 FMA
-// loop calls.
+// does.
 #ifndef DDTI_POLY_EXP2
 #define DDTI_POLY_EXP2 0
 #endif
@@ -198,14 +197,6 @@ __device__ __forceinline__ float flash_exp2(float x) {
   return exp2_poly<6>(x);
 #else
   return exp2_ftz(x);
-#endif
-}
-
-__device__ __forceinline__ float flash_exp2f(float x) {
-#if DDTI_POLY_EXP2
-  return exp2_poly<6>(x);
-#else
-  return exp2f(x);
 #endif
 }
 
@@ -708,6 +699,32 @@ template <int N>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<8>(float (&d)[4], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<16>(float (&d)[8], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t a,

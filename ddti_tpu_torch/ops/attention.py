@@ -18,9 +18,13 @@ from which the backward recomputes the probabilities.
 Every shape the JAX package takes runs on the kernels: any B*H (the
 kernels run it on gridDim.x), any S, any head width D. Heads wider than
 one kernel tile (forward: bf16 D > 256, float32 D > 128; backward: D >
-128) run the wide kernels, which recompute the scores over the whole of D
-for each output slice of 128 (256) columns. A D that is not a multiple of
-8 is padded with zero columns to the next one (``_pad_head``): zero
+128) run the wide kernels, which stream D in chunks and own o's (or the
+gradients') columns in slices: bf16 and the backward recompute the scores
+for each slice of 128 columns; the float32 forward runs on the tensor
+cores (3xTF32 ``wgmma``) like every float32 width, its blocks holding two
+slices of at most 128 columns that share one pass of the scores. A
+D that is not a multiple of 8 is padded with zero columns to the next one
+(``_pad_head``): zero
 columns of q and k leave q k^T as it is, those of v add zero columns to o
 and the gradients, which are sliced off, and the kernels scale the scores
 by the true D (their ``scale_d``), so the result is the unpadded head's.
@@ -40,10 +44,6 @@ import torch
 from ._build import USE_POLY_EXP2
 
 LOG2E = 1.4426950408889634
-# float32 forwards up to this width run on the tensor cores (3xTF32), fed
-# by a pre-pass that splits q, K and V^T into TF32 hi and lo planes; wider
-# heads on FMAs
-MAX_SPLIT_HEAD_DIM = 128
 # the order in which the transposed TF32 planes store each group of 8 keys:
 # position i holds key KEY_ORDER[i], so that P, an accumulator, is a TF32 A
 # fragment as it stands (csrc/sm90.cuh)
@@ -200,9 +200,9 @@ def check_forward_inputs(q, k, v):
 
 def flash_forward_cuda(q, k, v):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: returns (o, lse2). In
-    float32 with d <= MAX_SPLIT_HEAD_DIM the pre-pass that splits q, K and
-    V^T into TF32 planes runs first. A head width that is not a multiple of
-    8 runs padded (``_pad_head``). Raises on anything the kernel does not
+    float32 the pre-pass that splits q, K and V^T into TF32 planes runs
+    first, at every head width. A head width that is not a multiple of 8
+    runs padded (``_pad_head``). Raises on anything the kernel does not
     take. Adds one to ``flash_forward_cuda.launches`` per forward."""
     check_forward_inputs(q, k, v)
     from ._build import launch
@@ -214,7 +214,7 @@ def flash_forward_cuda(q, k, v):
     o = torch.empty_like(q)
     lse = q.new_empty((b, h, s), dtype=torch.float32)
     stream, scratch, pscratch = _stream(dev.index), None, None
-    if q.dtype == torch.float32 and d <= MAX_SPLIT_HEAD_DIM:
+    if q.dtype == torch.float32:
         scratch = lse.new_empty(_split_scratch_size(b * h, s, d))
         pscratch = scratch.data_ptr()
         launch("flash_fwd_split_f32", *ptrs, pscratch, b * h, s, d,

@@ -347,34 +347,48 @@ def test_3xtf32_backward_keeps_float32_accuracy():
         assert (t.double() - e).abs().max().item() > 1e-4 * scale, name
 
 
-def _forward_with(q, k, v, matmul):
+def _forward_with(q, k, v, matmul, chunk=None):
     """flash_forward_reference's float32 function with both products taken
-    by ``matmul``: S = q K^T, and P V with the unnormalised float32 P."""
-    s = matmul(q, k.transpose(-1, -2)) * (tattn.LOG2E / np.sqrt(q.shape[-1]))
+    by ``matmul``: S = q K^T, and P V with the unnormalised float32 P. With
+    ``chunk``, S sums the products of q's and K's column chunks of that
+    width one after another, in float32, as the float32 kernel past D = 128
+    sums each 64 columns of D in a fresh accumulator."""
+    d = q.shape[-1]
+    width = chunk or d
+    s = matmul(q[..., :width], k[..., :width].transpose(-1, -2))
+    for c in range(width, d, width):
+        s = s + matmul(q[..., c:c + width],
+                       k[..., c:c + width].transpose(-1, -2))
+    s = s * (tattn.LOG2E / np.sqrt(d))
     m = s.amax(-1, keepdim=True)
     p = torch.exp2(s - m)
     l = p.sum(-1, keepdim=True)
     return matmul(p, v) / l, (m + torch.log2(l)).squeeze(-1)
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 130, 32), (1, 2, 200, 128)])
+@pytest.mark.parametrize("shape", [(2, 2, 130, 32), (1, 2, 200, 128),
+                                   (1, 1, 130, 264)])
 def test_3xtf32_forward_keeps_float32_accuracy(shape):
-    """The float32 forward kernel's arithmetic, modelled on the CPU: q K^T
+    """The float32 forward kernels' arithmetic, modelled on the CPU: q K^T
     and P V as three TF32 products each, P split into hi and lo as the
-    kernel splits it. Against a float64 forward of the same inputs and
-    against flash_forward_reference (float32 products), o stays within 4e-6
-    of max |o| (measured: 3.4e-7 / 8.0e-7 from float64, 5.7e-7 / 1.6e-6
-    from the reference at D = 32 / 128) and lse2 within 4e-6 (7.7e-7 /
-    8.7e-7): the card's limits of 1e-4 and 1e-3 keep a margin of ~25x and
-    more. One TF32 product alone misses it (o 3.5e-4 to 5.4e-4 off)."""
+    kernels split it, and past D = 128 the scores summed 64 columns of D at
+    a time, as the wide kernel sums them. Against a float64 forward of the
+    same inputs and against flash_forward_reference (float32 products), o
+    stays within 4e-6 of max |o| (measured: 3.4e-7 / 8.0e-7 / 6.2e-7 from
+    float64, 5.7e-7 / 1.6e-6 / 1.1e-6 from the reference at D = 32 / 128 /
+    264) and lse2 within 4e-6 (7.7e-7 / 8.7e-7 / 5.7e-7): the card's limits
+    of 1e-4 and 1e-3 keep a margin of ~25x and more. One TF32 product alone
+    misses it (o 3.5e-4 to 5.4e-4 off)."""
     rng = np.random.default_rng(8)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                for _ in range(3))
-    o3, lse3 = _forward_with(q, k, v, _matmul_3xtf32)
+    chunk = 64 if shape[-1] > 128 else None
+    o3, lse3 = _forward_with(q, k, v, _matmul_3xtf32, chunk)
     exact_o, exact_lse = _forward_with(q.double(), k.double(), v.double(),
                                        torch.matmul)
     ref_o, ref_lse = tattn.flash_forward_reference(q, k, v)
-    one_o, one_lse = _forward_with(q, k, v, lambda a, b: _tf32(a) @ _tf32(b))
+    one_o, one_lse = _forward_with(q, k, v, lambda a, b: _tf32(a) @ _tf32(b),
+                                   chunk)
     scale = exact_o.abs().max().item()
     assert (o3.double() - exact_o).abs().max().item() <= 4e-6 * scale
     assert (o3 - ref_o).abs().max().item() <= 4e-6 * scale
@@ -398,7 +412,8 @@ def test_tf32_rna_rounding(x, want):
 
 
 @pytest.mark.parametrize("shape", [(1, 2, 100, 32), (2, 1, 64, 8),
-                                   (1, 1, 1, 16), (1, 1, 130, 128)])
+                                   (1, 1, 1, 16), (1, 1, 130, 128),
+                                   (1, 1, 70, 136), (1, 1, 65, 264)])
 def test_forward_split_reference_layout(shape):
     """The plain version of the float32 forward's pre-pass, held against
     numpy: q's and K's TF32 hi and lo planes as they are; V^T's with

@@ -52,11 +52,18 @@ SHAPES = [
     (2, 3, 300, 24),
     (1, 2, 257, 48),
     (1, 2, 130, 256),   # the widest head of one bf16 forward tile
-    # wide heads: bf16 forward slices past 256, float32 forward (FMA) and
+    # wide heads: bf16 forward slices past 256, the float32 forward and
     # every backward past 128, ragged last slices
     (1, 2, 130, 136),
     (2, 1, 200, 264),
     (1, 2, 129, 512),
+    # the float32 wide forward's blocks of two slices sharing their scores,
+    # at 144 row blocks (more than an H100's 132 SMs): two slices of 128;
+    # three of 88 (a block whose second consumer owns no slice); and five
+    # of 128 at a small grid
+    (4, 2, 1100, 256),
+    (2, 4, 1100, 264),
+    (1, 1, 65, 640),
     # padded to a multiple of 8, scaled by the true D
     (2, 2, 100, 12),
     (1, 1, 70, 4),
@@ -106,7 +113,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("shape", [(1, 2, 100, 32), (2, 2, 333, 64),
                                    (1, 2, 130, 128), (2, 4, 200, 8),
-                                   (1, 1, 1, 16)])
+                                   (1, 1, 1, 16), (1, 2, 130, 136),
+                                   (2, 1, 200, 264), (1, 1, 129, 512)])
 def test_flash_forward_split_kernel_bit_equal_to_plain(cuda, shape):
     """The float32 forward's pre-pass writes, bit for bit, what its plain
     version builds: q's and K's TF32 hi and lo planes, V^T's in the key
@@ -130,15 +138,35 @@ def test_flash_forward_split_kernel_bit_equal_to_plain(cuda, shape):
     ((1, 1, 70, 64), 66, 60),
     ((1, 1, 130, 128), 121, 127),
     ((1, 1, 100, 128), 14, 64),
-    ((1, 1, 100, 264), 45, 260),  # the FMA kernel's second slice
+    # the wide kernel, each slice's first and last column (slices of at
+    # most 128 columns, two a block): D = 136 in two (72 | 64), at one and
+    # at 144 row blocks; D = 264 in three of 88; D = 512 in four of 128;
+    # D = 640 in five
+    ((1, 1, 100, 136), 45, 0), ((1, 1, 100, 136), 66, 71),
+    ((1, 1, 100, 136), 13, 72), ((1, 1, 100, 136), 98, 135),
+    ((2, 4, 1100, 136), 1029, 0), ((2, 4, 1100, 136), 540, 71),
+    ((2, 4, 1100, 136), 5, 72), ((2, 4, 1100, 136), 70, 135),
+    ((1, 1, 100, 264), 45, 0), ((1, 1, 100, 264), 3, 87),
+    ((1, 1, 100, 264), 62, 88), ((1, 1, 100, 264), 99, 175),
+    ((1, 1, 100, 264), 21, 176), ((1, 1, 100, 264), 77, 263),
+    ((2, 4, 1100, 264), 1093, 0), ((2, 4, 1100, 264), 33, 87),
+    ((2, 4, 1100, 264), 540, 176), ((2, 4, 1100, 264), 6, 263),
+    ((1, 1, 100, 512), 45, 0), ((1, 1, 100, 512), 70, 127),
+    ((1, 1, 100, 512), 21, 128), ((1, 1, 100, 512), 94, 255),
+    ((1, 1, 100, 512), 3, 256), ((1, 1, 100, 512), 38, 383),
+    ((1, 1, 100, 512), 59, 384), ((1, 1, 100, 512), 90, 511),
+    ((1, 1, 100, 640), 45, 0), ((1, 1, 100, 640), 77, 127),
+    ((1, 1, 100, 640), 6, 128), ((1, 1, 100, 640), 90, 511),
+    ((1, 1, 100, 640), 38, 512), ((1, 1, 100, 640), 67, 639),
 ])
 def test_flash_forward_f32_fragment_layout(cuda, shape, key, col):
     """The float32 forward's TF32 fragment layout, held with V zero but for
     one entry (key ``key``, column ``col``; key % 8 in 1..6, as 0 and 7 are
     where the order {0, 2, 4, 6, 1, 3, 5, 7} keeps a key in place): o's
     column col is then P's column key times that entry and every other
-    column is zero, so a key met in the wrong k position of a fragment
-    shows as a misplaced probability, not as noise."""
+    column is zero, so a key met in the wrong k position of a fragment (or
+    of the wide kernel's P planes) shows as a misplaced probability, not as
+    noise."""
     g = torch.Generator().manual_seed(11)
     q, k = (torch.randn(shape, generator=g) for _ in range(2))
     v = torch.zeros(shape)
@@ -157,7 +185,8 @@ def test_flash_forward_f32_fragment_layout(cuda, shape, key, col):
     assert (lse - lse_ref).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(1, 4, 4096, 32), (1, 2, 2048, 128)])
+@pytest.mark.parametrize("shape", [(1, 4, 4096, 32), (1, 2, 2048, 128),
+                                   (1, 2, 2048, 256), (1, 1, 4096, 512)])
 def test_flash_forward_f32_error_does_not_grow_with_s(cuda, shape):
     """The float32 forward sums each key tile's 3xTF32 P V product in a
     fresh wgmma accumulator and adds it to the output on the CUDA cores, as
@@ -582,7 +611,7 @@ from ddti_tpu_torch.ops import _build, attention as A
 assert _build.USE_POLY_EXP2 and A.USE_POLY_EXP2
 O_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 for shape in [(2, 8, 1024, 32), (1, 3, 100, 32), (1, 2, 1000, 128),
-              (2, 2, 333, 64), (1, 2, 130, 256)]:
+              (2, 2, 333, 64), (1, 2, 130, 256), (2, 1, 200, 264)]:
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator().manual_seed(0)
         q, k, v, do = (torch.randn(shape, generator=g).to("cuda", dtype)
